@@ -17,8 +17,14 @@ b. print the card (``nvidia-smi`` name and power limit), the versions
    and the host (name, CPU model, cores);
 c. hold each kernel against its plain PyTorch version on the card at
    the main path's shapes (B = 1024), with the inputs and bounds of
-   ``soundkit_tpu_torch.tools.kernel_check``, and time both with CUDA
-   events;
+   ``soundkit_tpu_torch.tools.kernel_check`` (K5 on every TNS layout
+   there; the ~900-line region is the timed one); time the kernel by
+   replaying a CUDA graph of 20 launches (device time, no host issue
+   gaps), the plain version with CUDA events around its calls, and, for
+   K1, ``torch.matmul`` on the same inputs as the library yardstick;
+   compute each kernel's bound (the larger of its bytes at 3.35 TB/s and
+   its operations at 495 TFLOP/s TF32 or 67 TFLOP/s float32) from the
+   case's shapes;
 d. decode 46 lockstep batches through the decoder, with every launch
    counter reset just before, and check that all batches took the v4
    wire and every kernel of the path launched; hold three batches'
@@ -40,7 +46,8 @@ g. telephony: per codec, every lane's stream through
    step, that the output is not silent and that every pushed code came
    out; one ``[telephony]`` line per codec (x realtime at the codec's
    rate, step times, the decoder's pack / h2d / step split);
-h. print the kernels' JSON line, then the result line.
+h. print the kernels' JSON line (all seven kernels, K2 with no launch:
+   it is not on a path), then the result line.
 
 Any failed phase exits non-zero before the result line. Without a
 CUDA device, or outside a checkout of the repository, it exits 1
@@ -56,6 +63,10 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, dense TF32 and float32 FLOP/s
+HBM_RATE = 3.35e12
+TF32_RATE = 495e12
+FP32_RATE = 67e12
 B = 1024
 C = 2
 RATE = 48000.0
@@ -79,7 +90,8 @@ def log(*parts) -> None:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    """Mean time of ``fn`` over ``reps`` calls, by CUDA events on the
+    stream (host issue gaps count)."""
     import torch
 
     for _ in range(warmup):
@@ -93,6 +105,51 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one ``fn`` call: a CUDA graph of ``reps`` calls,
+    replayed ``replays`` times between CUDA events."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / (reps * replays)
+
+
+def bound(nbytes: float, flops: float = 0.0, rate: float = FP32_RATE) -> dict:
+    """The least time the card could take: bytes at HBM_RATE against
+    operations at ``rate``, whichever is larger."""
+    t_bytes, t_ops = 1e3 * nbytes / HBM_RATE, 1e3 * flops / rate
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def measure(tag: str, name: str, kernel, plain, nbytes: float, flops: float = 0.0,
+            rate: float = FP32_RATE, plain_reps: int = 20, library=None) -> dict:
+    """Hold ``kernel`` to ``plain`` and time both (and ``library``)."""
+    from soundkit_tpu_torch.tools import kernel_check as kc
+
+    r = kc.compare(name, kernel, plain)
+    r["ms"] = graph_ms(kernel)
+    r["plain_ms"] = cuda_ms(plain, plain_reps)
+    r.update(bound(nbytes, flops, rate))
+    r["library_ms"] = None if library is None else graph_ms(library)
+    log(f"[kernels] {tag}: {r}")
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -163,30 +220,54 @@ def phase_kernels(wire0):
     from soundkit_tpu_torch.tools import kernel_check as kc
 
     dev = torch.device("cuda", 0)
-    cases = {
-        "spectral_decode": kc.spectral_case(torch.from_numpy(wire0).to(dev), B),
-        "tns_filter": kc.tns_case(B, C, dev, seed=5),
-        "imdct_window/long": kc.imdct_case(B * C, False, dev, seed=1),
-        "imdct_window/short": kc.imdct_case(B * C * 8, True, dev, seed=2),
-        "dequant_imdct_window": kc.dequant_imdct_case(B * C, dev, seed=3),
-    }
-    # the plain K4 and K5 are Python loops of ~1 s and ~0.2 s per call
-    plain_reps = {"spectral_decode": 2, "tns_filter": 2}
+    rows = B * C
+    wire = torch.from_numpy(wire0).to(dev)
+    f = 4  # bytes of a float32 or int32
     res = {}
-    for tag, (kernel, plain) in cases.items():
-        name = tag.split("/")[0]
-        r = kc.compare(name, kernel, plain)
-        r["ms"] = cuda_ms(kernel, 20)
-        r["plain_ms"] = cuda_ms(plain, plain_reps.get(name, 20))
-        log(f"[kernels] {tag}: {r}")
-        res[tag] = r
-    long, short = res.pop("imdct_window/long"), res.pop("imdct_window/short")
-    res["imdct_window"] = dict(
-        max_abs_err=max(long["max_abs_err"], short["max_abs_err"]),
-        rel_err=max(long["rel_err"], short["rel_err"]),
-        ms=long["ms"] + short["ms"], plain_ms=long["plain_ms"] + short["plain_ms"],
-        ms_long=long["ms"], ms_short=short["ms"],
-    )
+    # K4: AU bytes, bit offsets, run programs and counts (int32), the LUT; quant out
+    lut = 11 * (1 << 16) * 4
+    res["spectral_decode"] = measure(
+        "spectral_decode", "spectral_decode", *kc.spectral_case(wire, B),
+        nbytes=B * 1024 + 2 * B * 4 + 2 * B * 128 * 4 + 2 * B * 4 + lut + 2 * B * 1024 * 4,
+        plain_reps=2)
+    # K5: coef, perm, filt_id and out rows, the LPC taps; at most 40 FLOP a line
+    tns_bytes = rows * 1024 * 4 * 4 + rows * 8 * 20 * f
+    res["tns_filter"] = measure("tns_filter/long", "tns_filter", *kc.tns_case(B, C, dev, 5, kind="long"),
+                                nbytes=tns_bytes, flops=40 * rows * 1024, plain_reps=2)
+    cases = {}
+    for kind in kc.TNS_KINDS[1:]:
+        kernel, plain = kc.tns_case(B, C, dev, 6, kind=kind)
+        r = kc.compare("tns_filter", kernel, plain)
+        r["ms"] = graph_ms(kernel)
+        log(f"[kernels] tns_filter/{kind}: {r}")
+        cases[kind] = r
+    res["tns_filter"]["cases"] = cases
+    res["tns_filter"]["max_abs_err"] = max(r["max_abs_err"] for r in (res["tns_filter"], *cases.values()))
+    res["tns_filter"]["rel_err"] = max(r["rel_err"] for r in (res["tns_filter"], *cases.values()))
+
+    def synthesis(L, K, N):
+        # A, the K-major basis, the window bank and indices, out; 3xTF32 products
+        nbytes = L * K * f + N * K * f + (16 if N == 2048 else 32) * N * f + L * 4 + L * N * f
+        return dict(nbytes=nbytes, flops=3 * 2 * L * K * N, rate=TF32_RATE)
+
+    long = measure("imdct_window/long", "imdct_window", *kc.imdct_case(rows, False, dev, seed=1),
+                   library=kc.imdct_library(rows, False, dev, seed=1), **synthesis(rows, 1024, 2048))
+    short = measure("imdct_window/short", "imdct_window", *kc.imdct_case(rows * 8, True, dev, seed=2),
+                    library=kc.imdct_library(rows * 8, True, dev, seed=2),
+                    **synthesis(rows * 8, 128, 256))
+    res["imdct_window"] = {
+        "max_abs_err": max(long["max_abs_err"], short["max_abs_err"]),
+        "rel_err": max(long["rel_err"], short["rel_err"]),
+        **{k: long[k] + short[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": long["bound_by"], "long": long, "short": short,
+        # the same products on plain FFMA, for comparison
+        "bound_ms_ffma": sum(1e3 * 2 * L * K * N / FP32_RATE
+                             for L, K, N in ((rows, 1024, 2048), (rows * 8, 128, 256))),
+    }
+    dq = synthesis(rows, 1024, 2048)
+    dq["nbytes"] += rows * 1024 * 4  # quant and scale in place of coef
+    res["dequant_imdct_window"] = measure(
+        "dequant_imdct_window", "dequant_imdct_window", *kc.dequant_imdct_case(rows, dev, seed=3), **dq)
     return res
 
 
@@ -301,15 +382,19 @@ def phase_slice(clips):
 # ---------------------------------------------------------------------------
 
 def _merge_cases(res: dict, decode: list, encode: list) -> dict:
-    """One kernel row from its decode and encode cases: times summed per
-    direction (as the imdct row sums its two shapes), errors maxed."""
+    """One kernel row from its decode and encode cases: times and bounds
+    summed per direction (as the imdct row sums its two shapes), errors
+    maxed."""
     return dict(
         max_abs_err=max(res[t]["max_abs_err"] for t in decode + encode),
         rel_err=max(res[t]["rel_err"] for t in decode + encode),
         ms=sum(res[t]["ms"] for t in decode), plain_ms=sum(res[t]["plain_ms"] for t in decode),
+        bound_ms=sum(res[t]["bound_ms"] for t in decode), bound_by="bytes", library_ms=None,
         encode_ms=sum(res[t]["ms"] for t in encode),
         encode_plain_ms=sum(res[t]["plain_ms"] for t in encode),
-        cases={t.split("/")[1]: {k: res[t][k] for k in ("ms", "plain_ms")} for t in decode + encode},
+        encode_bound_ms=sum(res[t]["bound_ms"] for t in encode),
+        cases={t.split("/")[1]: {k: res[t][k] for k in ("ms", "plain_ms", "bound_ms")}
+               for t in decode + encode},
     )
 
 
@@ -323,12 +408,19 @@ def phase_tel_kernels():
     dev = torch.device("cuda", 0)
     N = TEL_CHUNK
     cases = {"g711_decode/decode": kc.g711_case(B, N, dev, seed=11)}
+    # bytes each case moves: codes (u8), PCM (int16), the per-step mask
+    # (bool), the state in and out (int32 rows of 24 / 70); K3 reads its
+    # law and count per lane
+    nbytes = {"g711_decode/decode": B * N + 2 * B * 4 + B * N * 2}
     for bits in (2, 3, 4, 5):
         for enc in (False, True):
             tag = f"g726_scan/{'encode' if enc else 'decode'}_{8 * bits}"
             cases[tag] = kc.g726_case(B, N, bits, enc, dev, seed=20 + 2 * bits + enc)
+            nbytes[tag] = B * N + B * N * 2 + B * N + 2 * B * 24 * 4
     for enc in (False, True):
-        cases[f"g722_scan/{'encode' if enc else 'decode'}"] = kc.g722_case(B, N, enc, dev, seed=30 + enc)
+        tag = f"g722_scan/{'encode' if enc else 'decode'}"
+        cases[tag] = kc.g722_case(B, N, enc, dev, seed=30 + enc)
+        nbytes[tag] = B * N + B * 2 * N * 2 + B * N + 2 * B * 70 * 4
     res = {}
     for tag, (kernel, plain) in cases.items():
         name = tag.split("/")[0]
@@ -348,14 +440,17 @@ def phase_tel_kernels():
 
             r = kc.compare(name, kernel, timed_plain)
             r["plain_ms"] = events[0].elapsed_time(events[1])
-        r["ms"] = cuda_ms(kernel, 20)
+        r["ms"] = graph_ms(kernel) if name == "g711_decode" else graph_ms(kernel, reps=5, replays=2)
+        r.update(bound(nbytes[tag]))
+        r["library_ms"] = None
         log(f"[tel-kernels] {tag}: {r}")
         res[tag] = r
     g726 = [t for t in res if t.startswith("g726_scan/")]
     g722 = [t for t in res if t.startswith("g722_scan/")]
     return {
         "g711_decode": {k: res["g711_decode/decode"][k]
-                        for k in ("max_abs_err", "rel_err", "ms", "plain_ms")},
+                        for k in ("max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms")},
         "g726_scan": _merge_cases(res, [t for t in g726 if "decode" in t],
                                   [t for t in g726 if "encode" in t]),
         "g722_scan": _merge_cases(res, ["g722_scan/decode"], ["g722_scan/encode"]),
@@ -507,7 +602,7 @@ def phase_telephony():
 
 
 def main() -> int:
-    if not (ROOT / "soundkit_tpu_torch").is_dir() or not (ROOT / "soundkit_tpu").is_dir():
+    if not (ROOT / "soundkit_tpu_torch").is_dir() or not (ROOT / "tests" / "data" / "torch_port").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     try:
@@ -557,15 +652,18 @@ def main() -> int:
         return 1
 
     src = "soundkit_tpu_torch/csrc/"
+    # (name, source, TPU function it replaces, on the AAC path)
     rows = [
-        ("spectral_decode", src + "aac_spectral.cu", "soundkit_tpu/ops/aac_entropy.py:156"),
-        ("tns_filter", src + "tns.cu", "soundkit_tpu/ops/aac_batch.py:218"),
-        ("imdct_window", src + "imdct_window.cu", "soundkit_tpu/ops/pallas_kernels.py:98"),
+        ("spectral_decode", "aac_spectral.cu", "soundkit_tpu/ops/aac_entropy.py:156", True),
+        ("tns_filter", "tns.cu", "soundkit_tpu/ops/aac_batch.py:218", True),
+        ("imdct_window", "imdct_window.cu", "soundkit_tpu/ops/pallas_kernels.py:98", True),
+        ("dequant_imdct_window", "imdct_window.cu", "soundkit_tpu/ops/pallas_kernels.py:138", False),
     ]
     kernels = [
-        dict(name=n, route="cuda", source=s, replaces=r,
-             launches=sres["launches"][n], **kres[n])
-        for n, s, r in rows
+        dict(name=n, route="cuda", source=src + s, replaces=r, on_path=on_path,
+             launches=sres["launches"][n], launches_per_step=sres["launches"][n] / N_BATCHES,
+             **kres[n])
+        for n, s, r, on_path in rows
     ]
     tel_rows = [
         ("g711_decode", "g711.cu", "soundkit_tpu/ops/pallas_kernels.py:62", ("g711_decode",)),
@@ -574,17 +672,17 @@ def main() -> int:
         ("g722_scan", "g722.cu", "soundkit_tpu/ops/g722.py:284",
          ("g722_decode_scan", "g722_encode_scan")),
     ]
+    # decoder steps of the kernel's codecs, and encoder steps where it encodes too
+    steps = {n: sum(r["steps"] + (r["enc_steps"] if n != "g711_decode" else 0)
+                    for codec, r in tres.items() if codec.startswith(n.split("_")[0]))
+             for n, *_ in tel_rows}
     kernels += [
-        dict(name=n, route="cuda", source=src + s, replaces=r,
+        dict(name=n, route="cuda", source=src + s, replaces=r, on_path=True,
              launches=sum(tlaunches[w] for w in ws),
+             launches_per_step=sum(tlaunches[w] for w in ws) / steps[n],
              launches_by_wrapper={w: tlaunches[w] for w in ws}, **tkres[n])
         for n, s, r, ws in tel_rows
     ]
-    off_path = dict(name="dequant_imdct_window", route="cuda", source=src + "imdct_window.cu",
-                    replaces="soundkit_tpu/ops/pallas_kernels.py:138",
-                    launches=sres["launches"]["dequant_imdct_window"],
-                    **kres["dequant_imdct_window"])
-    log(json.dumps({"off_path_kernels": [off_path]}))
     log(json.dumps({"slice": sres, "compare": cres, "telephony": tres,
                     "telephony_compare": tcres, "wall_s": time.perf_counter() - t_start}))
     log(card)

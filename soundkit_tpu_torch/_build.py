@@ -7,10 +7,11 @@ builds once and a source edit rebuilds:
 - the CUDA kernels, ``csrc/*.cu`` (and the headers ``csrc/*.cuh`` they
   share), compiled by ``nvcc`` for ``sm_90a`` into one library with a
   plain C interface, loaded with ``ctypes``;
-- the AAC-LC host syntax parser, the JAX package's unchanged
-  ``soundkit_tpu/native/src/aac_parse.cpp``, compiled alone by ``g++``
-  (bound in ``native.py``). It needs only the C++ standard library, so
-  the build links no FFmpeg and uses no ``-march=native``.
+- the AAC-LC host syntax parser, ``native_src/src/aac_parse.cpp`` with
+  its table header ``native_src/generated/aac_tables.h`` (verbatim
+  copies of the JAX package's), compiled alone by ``g++`` (bound in
+  ``native.py``). It needs only the C++ standard library, so the build
+  links no FFmpeg and uses no ``-march=native``.
 
 A failed build raises :class:`BuildError` with the compiler's output.
 Nothing here runs at import time.
@@ -30,7 +31,7 @@ from typing import Sequence
 PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR / "_build"
 CSRC_DIR = PKG_DIR / "csrc"
-NATIVE_DIR = PKG_DIR.parent / "soundkit_tpu" / "native"
+NATIVE_DIR = PKG_DIR / "native_src"
 PARSER_SOURCES = (NATIVE_DIR / "src" / "aac_parse.cpp",)
 PARSER_HEADERS = (NATIVE_DIR / "generated" / "aac_tables.h",)
 
@@ -104,7 +105,7 @@ def kernels() -> ctypes.CDLL:
     lib.skt_imdct_window.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.skt_dequant_imdct_window.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.skt_spectral_decode.argtypes = [p, i, p, p, i, p, p, p, i, p]
-    lib.skt_tns_filter.argtypes = [p, p, p, p, p, p, i, i, p]
+    lib.skt_tns_filter.argtypes = [p, p, p, p, p, i, i, p]
     lib.skt_g711_decode.argtypes = [p, p, p, p, i, i, p]
     lib.skt_g726_scan.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.skt_g722_scan.argtypes = [p, p, p, p, p, i, i, i, p]

@@ -22,8 +22,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from soundkit_tpu.codecs.aac_lc import SAMPLE_RATES, AdtsStream
-from soundkit_tpu.codecs.aac_lc_native import prepare_frame_batch_grouped
+from soundkit_tpu_torch.codecs.aac_lc import SAMPLE_RATES, AdtsStream
+from soundkit_tpu_torch.codecs.aac_lc_native import prepare_frame_batch_grouped
 from soundkit_tpu_torch.native import AacHostParser, parser_library
 from soundkit_tpu_torch.ops import aac_batch as ab
 from soundkit_tpu_torch.utils.device import resolve_device

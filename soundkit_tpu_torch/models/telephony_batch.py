@@ -26,7 +26,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from soundkit_tpu.codecs.g726 import G726Packing, G726Rate, pack_codes, unpack_codes
+from soundkit_tpu_torch.codecs.g726 import G726Packing, G726Rate, pack_codes, unpack_codes
 from soundkit_tpu_torch.ops import adpcm, companding
 from soundkit_tpu_torch.ops import g722 as g722_ops
 from soundkit_tpu_torch.utils.device import resolve_device

@@ -1,12 +1,11 @@
 """The AAC-LC host syntax parser, bound for the port.
 
-``AacHostParser`` stands in for the JAX package's ``NativeAacParser``:
-it exposes the same ``_lib`` and ``_h``, so the unchanged wire packers
-``soundkit_tpu.codecs.aac_lc_native.prepare_v4_batch_packed`` and
-``prepare_frame_batch_grouped`` take it as it is; :meth:`pack_v4`
-calls the first for callers of the port. Its library is
-``aac_parse.cpp`` built alone (see ``_build.py``), not the JAX
-package's FFmpeg-linked host library.
+``AacHostParser`` holds a parser handle ``_h`` of the library ``_lib``,
+which the wire packers of ``codecs/aac_lc_native.py``
+(``prepare_v4_batch_packed``, ``prepare_frame_batch_grouped``) call;
+:meth:`pack_v4` calls the first for callers of the port. The library
+is the port's copy of the parser source, ``native_src/src/aac_parse.cpp``,
+built alone (see ``_build.py``): no FFmpeg.
 """
 from __future__ import annotations
 
@@ -16,14 +15,14 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from soundkit_tpu.codecs.aac_lc_native import prepare_v4_batch_packed
 from soundkit_tpu_torch import _build
+from soundkit_tpu_torch.codecs.aac_lc_native import prepare_v4_batch_packed
 
 
 @functools.lru_cache(maxsize=1)
 def parser_library() -> ctypes.CDLL:
-    """The standalone AAC parser with the signatures the JAX package's
-    wire packers call (copied from ``soundkit_tpu/native/loader.py``)."""
+    """The standalone AAC parser with the signatures the wire packers
+    call."""
     from numpy.ctypeslib import ndpointer
 
     lib = ctypes.CDLL(str(_build.parser_library_path()))

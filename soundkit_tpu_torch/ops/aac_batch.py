@@ -1,7 +1,7 @@
 """Batched AAC-LC numeric decode in PyTorch (counterpart of
 ``soundkit_tpu/ops/aac_batch.py``).
 
-The v4 wire (``soundkit_tpu.codecs.aac_lc_native.prepare_v4_batch_packed``)
+The v4 wire (``soundkit_tpu_torch.codecs.aac_lc_native.prepare_v4_batch_packed``)
 arrives as one uint8 tensor on the device. :func:`decode_frame_v4_packed`
 unpacks it, decodes the spectra (K4, ``ops/aac_entropy.py``), draws
 the PNS signs, expands the run-length maps, builds the TNS LPC and
@@ -10,8 +10,9 @@ regions and hands the full set of per-line tensors to
 :func:`tns_filter`), the long and short IMDCT with the window bank
 (K1, ``ops/imdct.py``) and overlap-add with the carried state.
 
-Layouts, constants and the numpy builders of the tables are the JAX
-package's, imported, not copied.
+The wire layout, the constants and the numpy functions that build the window
+banks are copies of the JAX package's (:func:`v4_wire_layout`,
+:func:`window_bank`, :func:`short_window_bank`).
 """
 from __future__ import annotations
 
@@ -21,17 +22,16 @@ import math
 import numpy as np
 import torch
 
-from soundkit_tpu.codecs.aac_lc import EIGHT_SHORT_SEQUENCE
-from soundkit_tpu.ops.aac_batch import (
-    MAX_ORDER,
-    short_window_bank,
-    v4_wire_layout,
-    window_bank,
-)
-from soundkit_tpu.ops.aac_dsp import imdct_matrix
 from soundkit_tpu_torch import _build
+from soundkit_tpu_torch.codecs.aac_lc import (
+    EIGHT_SHORT_SEQUENCE,
+    LONG_START_SEQUENCE,
+    LONG_STOP_SEQUENCE,
+    ONLY_LONG_SEQUENCE,
+)
+from soundkit_tpu_torch.ops.aac_dsp import half_window, imdct_matrix
 from soundkit_tpu_torch.ops.aac_entropy import spectral_decode
-from soundkit_tpu_torch.ops.imdct import dequant, imdct_window
+from soundkit_tpu_torch.ops.imdct import dequant, imdct_basis, imdct_window
 from soundkit_tpu_torch.utils.device import check_cuda, launch_check
 
 N_LINES = 1024
@@ -50,10 +50,52 @@ _WIRE_DTYPES = {
 # constant banks
 # ---------------------------------------------------------------------------
 
+MAX_ORDER = 20
+MAX_FILTERS = 8  # >= filters per channel frame (8 short windows x 1)
+
+
+@functools.lru_cache(maxsize=1)
+def window_bank() -> np.ndarray:
+    """[4 seq, 2 prev_shape, 2 shape, 2048] long-path windows.
+
+    EIGHT_SHORT entries are zeros (short path windows separately)."""
+    bank = np.zeros((4, 2, 2, 2048), dtype=np.float32)
+    for prev in (0, 1):
+        for cur in (0, 1):
+            la_prev = half_window(prev, 1024)
+            ld = half_window(cur, 1024)[::-1]
+            sa_prev = half_window(prev, 128)
+            sd = half_window(cur, 128)[::-1]
+            bank[ONLY_LONG_SEQUENCE, prev, cur] = np.concatenate([la_prev, ld])
+            bank[LONG_START_SEQUENCE, prev, cur] = np.concatenate(
+                [la_prev, np.ones(448), sd, np.zeros(448)]
+            )
+            bank[LONG_STOP_SEQUENCE, prev, cur] = np.concatenate(
+                [np.zeros(448), sa_prev, np.ones(448), ld]
+            )
+    return bank
+
+
+@functools.lru_cache(maxsize=1)
+def short_window_bank() -> np.ndarray:
+    """[2 prev, 2 cur, 8 windows, 256] per-subwindow short windows."""
+    bank = np.zeros((2, 2, 8, 256), dtype=np.float32)
+    for prev in (0, 1):
+        for cur in (0, 1):
+            sa_prev = half_window(prev, 128)
+            sa = half_window(cur, 128)
+            sd = half_window(cur, 128)[::-1]
+            for i in range(8):
+                asc = sa_prev if i == 0 else sa
+                bank[prev, cur, i] = np.concatenate([asc, sd])
+    return bank
+
+
 @functools.lru_cache(maxsize=4)
 def synthesis_banks(device: torch.device):
-    """(long m_t [1024, 2048], long window bank [16, 2048], short m_t
-    [128, 256], short window bank [32, 256]) on ``device``.
+    """(long basis, long window bank [16, 2048], short basis, short
+    window bank [32, 256]) on ``device``; each basis is
+    :func:`ops.imdct.imdct_basis` of the IMDCT matrix (K = 1024 and 128).
 
     Long bank row ``seq * 4 + prev_shape * 2 + shape``; short bank row
     ``(prev_shape * 2 + shape) * 8 + subwindow``."""
@@ -61,9 +103,9 @@ def synthesis_banks(device: torch.device):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
 
     return (
-        dev(imdct_matrix(1024).T),
+        imdct_basis(dev(imdct_matrix(1024).T)),
         dev(window_bank().reshape(16, 2048)),
-        dev(imdct_matrix(128).T),
+        imdct_basis(dev(imdct_matrix(128).T)),
         dev(short_window_bank().reshape(32, 256)),
     )
 
@@ -71,6 +113,44 @@ def synthesis_banks(device: torch.device):
 # ---------------------------------------------------------------------------
 # v4 wire
 # ---------------------------------------------------------------------------
+
+V3_RUNS = 128
+V4_RUNS = 128
+V4_PNS = 16
+V4_AU_CAP = 1024
+
+
+def v4_wire_layout(B: int):
+    """(name, offset, dtype, shape) of every v4 field inside the packed
+    uint8 buffer + total size (4-byte aligned offsets)."""
+    fields = [
+        ("runs", np.uint32, (B, 2, V4_RUNS)),
+        ("pns", np.uint32, (B, 2, V4_PNS)),
+        ("regions", np.int16, (B, 2, MAX_FILTERS, 3)),
+        ("spec_bit", np.uint16, (B, 2)),
+        ("sf_len", np.uint8, (B, 2, V3_RUNS)),
+        ("sf_val", np.uint8, (B, 2, V3_RUNS)),
+        ("msis_len", np.uint8, (B, V3_RUNS)),
+        ("msis_ms", np.uint8, (B, V3_RUNS)),
+        ("msis_pos", np.int8, (B, V3_RUNS)),
+        ("msis_sign", np.int8, (B, V3_RUNS)),
+        ("refl", np.int8, (B, 2, MAX_FILTERS, MAX_ORDER)),
+        ("crb", np.uint8, (B, 2, MAX_FILTERS)),
+        ("order", np.uint8, (B, 2, MAX_FILTERS)),
+        ("n_runs", np.uint8, (B, 2)),
+        ("seq", np.uint8, (B, 2)),
+        ("shape", np.uint8, (B, 2)),
+        ("chan_valid", np.uint8, (B, 2)),
+        ("au", np.uint8, (B, V4_AU_CAP)),
+    ]
+    layout = []
+    off = 0
+    for name, dt, shp in fields:
+        size = int(np.prod(shp)) * np.dtype(dt).itemsize
+        layout.append((name, off, dt, shp))
+        off = (off + size + 3) & ~3
+    return layout, off
+
 
 def unpack_v4_wire(buf: torch.Tensor, B: int) -> dict:
     """Slice every v4 field out of the packed uint8 tensor and
@@ -194,17 +274,16 @@ def tns_filter(coef, perm, filt_id, lpc):
     B, C, N = coef.shape
     if N != N_LINES or perm.shape != coef.shape or filt_id.shape != coef.shape:
         raise ValueError(f"tns_filter: coef{tuple(coef.shape)} perm{tuple(perm.shape)}")
-    if lpc.shape[:2] != (B, C) or lpc.shape[3] != MAX_ORDER:
+    if lpc.shape[:2] != (B, C) or lpc.shape[3] != MAX_ORDER or lpc.shape[2] < 1:
         raise ValueError(f"tns_filter: lpc{tuple(lpc.shape)}")
     if coef.dtype != torch.float32 or lpc.dtype != torch.float32 \
             or perm.dtype != torch.int32 or filt_id.dtype != torch.int32:
         raise TypeError("tns_filter: coef / lpc float32, perm / filt_id int32")
-    scratch = torch.empty_like(coef)
     out = torch.empty_like(coef)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _build.kernels().skt_tns_filter(
         coef.data_ptr(), perm.data_ptr(), filt_id.data_ptr(), lpc.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), B * C, lpc.shape[2], stream,
+        out.data_ptr(), B * C, lpc.shape[2], stream,
     )
     launch_check("tns_filter", rc)
     tns_filter.launches += 1

@@ -9,22 +9,55 @@ the quantized spectrum [2B, 1024] int32.
 
 :func:`spectral_decode` (K4) launches ``csrc/aac_spectral.cu`` for CUDA
 tensors and takes :func:`spectral_decode_plain` for CPU tensors. The
-lookup table is the JAX package's ``build_spectral_lut``.
+lookup table's maker :func:`build_spectral_lut` is a copy of the JAX
+package's.
 """
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
-from soundkit_tpu.ops.aac_entropy import LUT_BITS, build_spectral_lut
 from soundkit_tpu_torch import _build
+from soundkit_tpu_torch.codecs.aac_lc import _CB_INFO, _unpack_index, raw_tables
 from soundkit_tpu_torch.utils.device import check_cuda, launch_check
 
 N_LINES = 1024
 # codebooks 1..11 at index cb - 1
 _CB_DIM = (4, 4, 4, 4, 2, 2, 2, 2, 2, 2, 2)
 _CB_SIGNED = (1, 1, 0, 0, 1, 1, 0, 0, 0, 0, 0)
+LUT_BITS = 16
+
+
+@functools.lru_cache(maxsize=1)
+def build_spectral_lut() -> np.ndarray:
+    """[11, 2^16] int32: entry = len(5 bits, 0 = invalid) |
+    (val0+16)<<5 | (val1+16)<<11 | (val2+16)<<17 | (val3+16)<<23.
+
+    For signed codebooks the values are final; for unsigned ones they
+    are magnitudes (signs stream after the codeword).  Codebook 11
+    magnitudes of 16 mark escapes.
+    """
+    t = raw_tables()
+    lut = np.zeros((11, 1 << LUT_BITS), dtype=np.int32)
+    for cb in range(1, 12):
+        codes = t[f"spectral_codes_{cb - 1}"]
+        bits = t[f"spectral_bits_{cb - 1}"]
+        dim, base, signed = _CB_INFO[cb]
+        for idx, (code, ln) in enumerate(zip(codes, bits)):
+            ln = int(ln)
+            if ln == 0:
+                continue
+            vals = _unpack_index(cb, idx)
+            packed = ln
+            for i in range(4):
+                v = vals[i] if i < dim else 0
+                packed |= (v + 16) << (5 + 6 * i)
+            lo = int(code) << (LUT_BITS - ln)
+            hi = lo + (1 << (LUT_BITS - ln))
+            lut[cb - 1, lo:hi] = packed
+    return lut
 
 
 @functools.lru_cache(maxsize=4)

@@ -11,18 +11,60 @@ a per-step validity mask freezes a lane's state and writes 0.
 - the plain scans are a Python loop over N of the vectorized steps
   (:func:`g726_decode_step`, :func:`g726_encode_step`).
 
-The per-rate tables are the JAX package's (numpy-only module level).
+The per-rate tables (:func:`g726_tables`) are copies of the JAX package's.
 Each wrapper takes its plain version for tensors on the CPU and
 launches the kernel for CUDA tensors; ``launches`` counts the launches.
 """
 from __future__ import annotations
 
 import functools
+from typing import Dict
 
+import numpy as np
 import torch
 
-from soundkit_tpu.ops.adpcm import POWER2, g726_tables
 from soundkit_tpu_torch.ops.scan_state import StateLayout, launch_scan
+
+POWER2 = np.array([1 << i for i in range(15)], dtype=np.int32)
+
+# Per-rate tables, keyed by code bits
+_G726_TABLES = {
+    2: dict(
+        q=[261],
+        dqln=[116, 365, 365, 116],
+        wi=[-22, 439, 439, -22],
+        fi=[0, 0xE00, 0xE00, 0],
+    ),
+    3: dict(
+        q=[8, 218, 331],
+        dqln=[-2048, 135, 273, 373, 373, 273, 135, -2048],
+        wi=[-4, 30, 137, 582, 582, 137, 30, -4],
+        fi=[0, 0x200, 0x400, 0xE00, 0xE00, 0x400, 0x200, 0],
+    ),
+    4: dict(
+        q=[-124, 80, 178, 246, 300, 349, 400],
+        dqln=[-2048, 4, 135, 213, 273, 323, 373, 425, 425, 373, 323, 273, 213, 135, 4, -2048],
+        wi=[-12, 18, 41, 64, 112, 198, 355, 1122, 1122, 355, 198, 112, 64, 41, 18, -12],
+        fi=[0, 0, 0, 0x200, 0x200, 0x200, 0x600, 0xE00,
+            0xE00, 0x600, 0x200, 0x200, 0x200, 0, 0, 0],
+    ),
+    5: dict(
+        q=[-122, -16, 68, 139, 198, 250, 298, 339, 378, 413, 445, 475, 502, 528, 553],
+        dqln=[-2048, -66, 28, 104, 169, 224, 274, 318, 358, 395, 429, 459, 488, 514, 539,
+              566, 566, 539, 514, 488, 459, 429, 395, 358, 318, 274, 224, 169, 104, 28,
+              -66, -2048],
+        wi=[14, 14, 24, 39, 40, 41, 58, 100, 141, 179, 219, 280, 358, 440, 529, 696,
+            696, 529, 440, 358, 280, 219, 179, 141, 100, 58, 41, 40, 39, 24, 14, 14],
+        fi=[0, 0, 0, 0, 0, 0x200, 0x200, 0x200, 0x200, 0x200, 0x400, 0x600, 0x800,
+            0xA00, 0xC00, 0xC00, 0xC00, 0xC00, 0xA00, 0x800, 0x600, 0x400, 0x200,
+            0x200, 0x200, 0x200, 0x200, 0, 0, 0, 0, 0],
+    ),
+}
+
+
+def g726_tables(bits: int) -> Dict[str, np.ndarray]:
+    t = _G726_TABLES[bits]
+    return {k: np.asarray(v, dtype=np.int32) for k, v in t.items()}
 
 G726_LAYOUT = StateLayout((
     ("yl", ()), ("yu", ()), ("dms", ()), ("dml", ()), ("ap", ()),

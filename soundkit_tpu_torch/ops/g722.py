@@ -13,7 +13,7 @@ A masked step freezes the lane's state and writes 0.
   steps with the state in registers;
 - the plain scans are a Python loop over N of the vectorized steps.
 
-The tables are the JAX package's (numpy-only module level). Each
+The tables are copies of the JAX package's. Each
 wrapper takes its plain version for tensors on the CPU and launches the
 kernel for CUDA tensors; ``launches`` counts the launches.
 """
@@ -21,10 +21,59 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
-from soundkit_tpu.ops import g722 as tables
 from soundkit_tpu_torch.ops.scan_state import StateLayout, launch_scan
+
+WL = np.array([-60, -30, 58, 172, 334, 538, 1198, 3042], dtype=np.int32)
+RL42 = np.array([0, 7, 6, 5, 4, 3, 2, 1, 7, 6, 5, 4, 3, 2, 1, 0], dtype=np.int32)
+ILB = np.array(
+    [2048, 2093, 2139, 2186, 2233, 2282, 2332, 2383, 2435, 2489, 2543, 2599,
+     2656, 2714, 2774, 2834, 2896, 2960, 3025, 3091, 3158, 3228, 3298, 3371,
+     3444, 3520, 3597, 3676, 3756, 3838, 3922, 4008],
+    dtype=np.int32,
+)
+WH = np.array([0, -214, 798], dtype=np.int32)
+RH2 = np.array([2, 1, 2, 1], dtype=np.int32)
+QM2 = np.array([-7408, -1616, 7408, 1616], dtype=np.int32)
+QM4 = np.array(
+    [0, -20456, -12896, -8968, -6288, -4240, -2584, -1200,
+     20456, 12896, 8968, 6288, 4240, 2584, 1200, 0],
+    dtype=np.int32,
+)
+QM6 = np.array(
+    [-136, -136, -136, -136, -24808, -21904, -19008, -16704, -14984, -13512,
+     -12280, -11192, -10232, -9360, -8576, -7856, -7192, -6576, -6000, -5456,
+     -4944, -4464, -4008, -3576, -3168, -2776, -2400, -2032, -1688, -1360,
+     -1040, -728, 24808, 21904, 19008, 16704, 14984, 13512, 12280, 11192,
+     10232, 9360, 8576, 7856, 7192, 6576, 6000, 5456, 4944, 4464, 4008, 3576,
+     3168, 2776, 2400, 2032, 1688, 1360, 1040, 728, 432, 136, -432, -136],
+    dtype=np.int32,
+)
+QMF_COEFFS = np.array(
+    [3, -11, 12, 32, -210, 951, 3876, -805, 362, -156, 53, -11], dtype=np.int32
+)
+
+# encoder tables
+Q6 = np.array(
+    [0, 35, 72, 110, 150, 190, 233, 276, 323, 370, 422, 473, 530, 587, 650,
+     714, 786, 858, 940, 1023, 1121, 1219, 1339, 1458, 1612, 1765, 1980, 2195,
+     2557, 2919, 0, 0],
+    dtype=np.int32,
+)
+ILN = np.array(
+    [0, 63, 62, 31, 30, 29, 28, 27, 26, 25, 24, 23, 22, 21, 20, 19, 18, 17,
+     16, 15, 14, 13, 12, 11, 10, 9, 8, 7, 6, 5, 4, 0],
+    dtype=np.int32,
+)
+ILP = np.array(
+    [0, 61, 60, 59, 58, 57, 56, 55, 54, 53, 52, 51, 50, 49, 48, 47, 46, 45,
+     44, 43, 42, 41, 40, 39, 38, 37, 36, 35, 34, 33, 32, 0],
+    dtype=np.int32,
+)
+IHN = np.array([0, 1, 0], dtype=np.int32)
+IHP = np.array([0, 3, 2], dtype=np.int32)
 
 G722_LAYOUT = StateLayout((
     ("x", (24,)), ("s", (2,)), ("sp", (2,)), ("sz", (2,)), ("r", (2, 2)), ("p", (2, 2)),
@@ -45,7 +94,7 @@ def g722_init_state(batch: int, device="cpu") -> torch.Tensor:
 
 @functools.lru_cache(maxsize=4)
 def _t(device: torch.device):
-    return {k: torch.from_numpy(getattr(tables, k)).to(device) for k in _TABLES}
+    return {k: torch.from_numpy(globals()[k]).to(device) for k in _TABLES}
 
 
 def _sat(v):

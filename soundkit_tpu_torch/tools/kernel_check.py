@@ -10,8 +10,8 @@ beyond the bound. The bounds are on ``max|kernel - plain| / max|plain|``:
 
 - K4 ``spectral_decode``: bit-exact;
 - K5 ``tns_filter``: 1e-4 (a 20-tap all-pole recursion over 1024 lines);
-- K1 ``imdct_window`` and K2 ``dequant_imdct_window``: 1e-5 (fp32 FMA;
-  a TF32 product would land near 1e-3);
+- K1 ``imdct_window`` and K2 ``dequant_imdct_window``: 1e-5 (3xTF32
+  with float32 sums; a plain TF32 product would land near 1e-3);
 - K3 ``g711_decode``, K6 ``g726_scan`` and K7 ``g722_scan``: bit-exact,
   the output and, for the scans, the final state (integer paths).
 
@@ -75,56 +75,126 @@ def spectral_case(wire: torch.Tensor, B: int):
     return (lambda: ae.spectral_decode(*args)), (lambda: ae.spectral_decode_plain(*args))
 
 
-def tns_case(B: int, C: int, device, seed: int, overlap: bool = False):
-    """K5 on three TNS regions per row with stable LPC of order 0..20.
-    The regions are disjoint, as the parser emits them; with ``overlap``
-    they may overlap, so that ``perm`` is not an involution."""
-    rng = np.random.default_rng(seed)
+# TNS layouts of :func:`tns_case`; the first is the timed one
+TNS_KINDS = ("long", "regions", "overlap", "short8", "adjacent", "regap", "order0", "tail")
+
+
+def _tns_regions(kind: str, B: int, C: int, rng) -> np.ndarray:
+    """(start, end, direction) per filter [B, C, 8, 3] for a TNS layout."""
     regions = np.zeros((B, C, 8, 3), np.int16)
-    for f in range(3):
-        start = rng.integers(0, 900, (B, C)) if overlap else f * 340 + rng.integers(0, 200, (B, C))
+
+    def put(f, start, end):
         regions[:, :, f, 0] = start
-        regions[:, :, f, 1] = start + rng.integers(1, 124, (B, C))
-        regions[:, :, f, 2] = rng.integers(0, 2, (B, C))
+        regions[:, :, f, 1] = end
+
+    if kind == "long":  # one long-window filter over ~900 lines
+        start = rng.integers(0, 124, (B, C))
+        put(0, start, start + rng.integers(880, 901, (B, C)))
+    elif kind in ("regions", "overlap", "order0"):  # three short regions
+        for f in range(3):
+            start = rng.integers(0, 900, (B, C)) if kind == "overlap" \
+                else f * 340 + rng.integers(0, 200, (B, C))
+            put(f, start, start + rng.integers(1, 124, (B, C)))
+    elif kind == "short8":  # eight short windows, one filter each
+        for f in range(8):
+            put(f, 128 * f, 128 * (f + 1))
+    elif kind == "adjacent":  # three filters back to back, no gap
+        end = rng.integers(0, 200, (B, C))
+        for f in range(3):
+            start, end = end, end + rng.integers(1, 275, (B, C))
+            put(f, start, end)
+    elif kind == "regap":  # filter 1 is relabelled 0 by tns_inputs
+        end0 = rng.integers(1, 500, (B, C))
+        put(0, end0 - rng.integers(1, 100, (B, C)).clip(max=end0), end0)
+        start1 = end0 + rng.integers(1, 40, (B, C))
+        put(1, start1, start1 + rng.integers(1, 400, (B, C)))
+    elif kind == "tail":  # a region ending at line 1023
+        put(0, 100, 100 + rng.integers(1, 200, (B, C)))
+        put(1, 1024 - rng.integers(1, 600, (B, C)), 1024)
+    else:
+        raise ValueError(f"unknown TNS layout {kind!r}")
+    regions[..., 2] = rng.integers(0, 2, (B, C, 8))
+    return regions
+
+
+def tns_inputs(B: int, C: int, device, seed: int, kind: str = "long"):
+    """(coef, perm, filt_id, lpc) of :func:`tns_case`."""
+    rng = np.random.default_rng(seed)
+    regions = _tns_regions(kind, B, C, rng)
     perm, filt = ab.perm_filt_from_regions(torch.from_numpy(regions).to(device))
+    if kind == "regap":
+        filt = torch.where(filt == 1, 0, filt)
+    # AAC-LC's order limits (12 long, 7 short windows), but for the three
+    # short regions, which keep the full 20 taps
+    top = {"order0": 0, "short8": 7, "regions": 20, "overlap": 20}.get(kind, 12)
+    order = rng.integers(0, top + 1, (B, C, 8))
     lpc = ab.tns_refl_to_lpc(
         torch.from_numpy(rng.integers(-4, 5, (B, C, 8, 20)).astype(np.int8)).to(device),
         torch.full((B, C, 8), 4, dtype=torch.uint8, device=device),
-        torch.from_numpy(rng.integers(0, 21, (B, C, 8)).astype(np.uint8)).to(device),
+        torch.from_numpy(order.astype(np.uint8)).to(device),
     ).contiguous()
     coef = torch.from_numpy((rng.standard_normal((B, C, 1024)) * 100).astype(np.float32)).to(device)
+    return coef, perm, filt, lpc
+
+
+def tns_case(B: int, C: int, device, seed: int, kind: str = "long"):
+    """K5 on a TNS layout of :data:`TNS_KINDS` with stable LPC: orders
+    up to AAC-LC's limits, 12 for long and 7 for short windows (0 for
+    ``order0``), and up to 20 for ``regions`` and ``overlap``. Random
+    20-tap filters over hundreds of lines amplify the rounding of any
+    change of summation order past the bound; LC streams carry none.
+    Layouts: ``long`` one ~900-line region;
+    ``regions`` three disjoint regions of 1-123 lines, as the parser
+    emits them; ``overlap`` three that may overlap, so that ``perm`` is
+    not an involution; ``short8`` eight 128-line windows; ``adjacent``
+    three filters back to back; ``regap`` one filter id again after a
+    gap of unfiltered lines; ``tail`` a region ending at line 1023."""
+    coef, perm, filt, lpc = tns_inputs(B, C, device, seed, kind)
     return ((lambda: ab.tns_filter(coef, perm, filt, lpc)),
             (lambda: ab.tns_filter_plain(coef, perm, filt, lpc)))
 
 
 def _synthesis(rows: int, short: bool, device, gen):
     m_long, bank_long, m_short, bank_short = ab.synthesis_banks(torch.device(device))
-    m_t, bank = (m_short, bank_short) if short else (m_long, bank_long)
+    basis, bank = (m_short, bank_short) if short else (m_long, bank_long)
     win = torch.randint(0, bank.shape[0], (rows,), generator=gen, dtype=torch.int32).to(device)
-    return m_t, bank, win
+    return basis, bank, win
+
+
+def _imdct_inputs(rows: int, short: bool, device, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    basis, bank, win = _synthesis(rows, short, device, gen)
+    coef = (torch.randn((rows, basis.m_t.shape[0]), generator=gen) * 1000.0).to(device)
+    return coef, basis, bank, win
 
 
 def imdct_case(rows: int, short: bool, device, seed: int):
     """K1 over ``rows`` rows of the long (K = 1024) or short (K = 128)
     synthesis, with the real IMDCT matrix and window bank."""
-    gen = torch.Generator().manual_seed(seed)
-    m_t, bank, win = _synthesis(rows, short, device, gen)
-    coef = (torch.randn((rows, m_t.shape[0]), generator=gen) * 1000.0).to(device)
-    return ((lambda: imdct.imdct_window(coef, m_t, bank, win)),
-            (lambda: imdct.imdct_window_plain(coef, m_t, bank, win)))
+    coef, basis, bank, win = _imdct_inputs(rows, short, device, seed)
+    return ((lambda: imdct.imdct_window(coef, basis, bank, win)),
+            (lambda: imdct.imdct_window_plain(coef, basis.m_t, bank, win)))
+
+
+def imdct_library(rows: int, short: bool, device, seed: int):
+    """The one library call that computes K1's product (without the
+    window) on :func:`imdct_case`'s inputs: ``torch.matmul``, a yardstick
+    only."""
+    coef, basis, _bank, _win = _imdct_inputs(rows, short, device, seed)
+    return lambda: torch.matmul(coef, basis.m_t)
 
 
 def dequant_imdct_case(rows: int, device, seed: int):
     """K2 over ``rows`` long rows: half the lines zero, |q| <= 64,
     scale factors 60..140 around the global gain 100."""
     gen = torch.Generator().manual_seed(seed)
-    m_t, bank, win = _synthesis(rows, False, device, gen)
+    basis, bank, win = _synthesis(rows, False, device, gen)
     q = torch.randint(-64, 65, (rows, 1024), generator=gen, dtype=torch.int32)
     q = torch.where(torch.rand((rows, 1024), generator=gen) < 0.5, 0, q).to(device)
     sf = torch.randint(60, 141, (rows, 1024), generator=gen).to(device)
     scale = torch.exp2(0.25 * (sf.to(torch.float32) - 100.0))
-    return ((lambda: imdct.dequant_imdct_window(q, scale, m_t, bank, win)),
-            (lambda: imdct.dequant_imdct_window_plain(q, scale, m_t, bank, win)))
+    return ((lambda: imdct.dequant_imdct_window(q, scale, basis, bank, win)),
+            (lambda: imdct.dequant_imdct_window_plain(q, scale, basis.m_t, bank, win)))
 
 
 # ---------------------------------------------------------------------------

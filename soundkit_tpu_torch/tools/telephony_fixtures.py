@@ -8,21 +8,19 @@ committed as raw wire bytes under
 ``tests/data/torch_port/telephony/<clip>.<codec>`` (G.726 packed
 MSB-first, as ffmpeg's ``g726``).
 
-Regenerate (needs JAX; runs on its CPU backend)::
+This module makes the PCM clips (:func:`pcm_clips`), reads the wire
+files and cuts both into lanes. The wire files are encoded on the test
+side (``tests/torch_port_helpers.py``; needs JAX, on its CPU backend),
+from the repository's root::
 
-    JAX_PLATFORMS=cpu python -m soundkit_tpu_torch.tools.telephony_fixtures
-
-Reading the fixtures, :func:`pcm_clips` and the lane helpers need
-neither JAX nor the card.
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py telephony
 """
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, List
+from typing import List
 
 import numpy as np
-
-from soundkit_tpu_torch.models.telephony_batch import CODECS
 
 CLIPS = ("formants", "sweep", "tones", "noise", "clipping", "near_silence")
 SECONDS = 2.0
@@ -165,29 +163,3 @@ def lane_pcm(codec: str, num_lanes: int) -> List[np.ndarray]:
         off, length = _lane_cut(i, len(clip) // UNIT)
         out.append(_rotate(clip, off * UNIT, length * UNIT))
     return out
-
-
-def generate(directory: Path = FIXTURE_DIR) -> Dict[str, List[bytes]]:
-    """Encode every clip for every codec with the JAX package's encoder
-    and write the wire files; returns them by codec."""
-    from soundkit_tpu.models.telephony_batch import BatchedTelephonyEncoder
-
-    directory.mkdir(parents=True, exist_ok=True)
-    out = {}
-    for codec in CODECS:
-        clips = pcm_clips(sample_rate(codec))
-        enc = BatchedTelephonyEncoder(codec, len(clips), 2048)
-        for i, pcm in enumerate(clips):
-            enc.push(i, pcm)
-        wires = [bytearray() for _ in clips]
-        for _ in range(-(-len(clips[0]) // 2048)):
-            for w, b in zip(wires, enc.encode_step()):
-                w.extend(b)
-        out[codec] = [bytes(w) for w in wires]
-        for name, w in zip(CLIPS, out[codec]):
-            (directory / f"{name}.{codec}").write_bytes(w)
-    return out
-
-
-if __name__ == "__main__":
-    generate()

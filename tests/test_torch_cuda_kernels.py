@@ -39,7 +39,14 @@ def test_spectral_decode_kernel_bit_exact(dev):
 
 
 def test_tns_filter_kernel(dev):
-    kc.compare("tns_filter", *kc.tns_case(40, 2, dev, seed=2, overlap=True))
+    kc.compare("tns_filter", *kc.tns_case(40, 2, dev, seed=2, kind="overlap"))
+
+
+@pytest.mark.parametrize("kind", kc.TNS_KINDS)
+def test_tns_filter_kernel_layouts(dev, kind):
+    """Every TNS layout, on a row count that leaves the last block part
+    empty (the kernel stages four rows per block)."""
+    kc.compare("tns_filter", *kc.tns_case(19, 2, dev, seed=3, kind=kind))
 
 
 def test_g711_decode_kernel_bit_exact(dev):

@@ -11,7 +11,7 @@ from soundkit_tpu.codecs.aac_lc_native import (
 from soundkit_tpu_torch.native import AacHostParser
 from soundkit_tpu_torch.tools.aac_fixtures import CLIPS, lane_streams, load_clips
 
-from torch_port_helpers import SR_INDEX_48K, clip_aus, host_parser, picked_aus
+from torch_port_helpers import SR_INDEX_48K, clip_aus, generate_aac_fixtures, host_parser, picked_aus
 
 
 def test_fixture_aus_are_v4_clean_and_cover_the_decode_paths():
@@ -53,6 +53,13 @@ def test_host_parser_matches_native_parser():
     for field in ("quant", "scale", "ms_mask", "int_factor", "perm", "filt_id", "lpc",
                   "seq", "shape", "chan_valid"):
         np.testing.assert_array_equal(getattr(fa, field), getattr(fb, field), err_msg=field)
+
+
+def test_fixtures_equal_a_regeneration(tmp_path):
+    """The generator (on the test side, with the JAX package's
+    libavcodec-backed encoder) makes the committed clips byte for byte."""
+    generate_aac_fixtures(tmp_path)
+    assert load_clips(tmp_path) == load_clips()
 
 
 def test_smoke_lanes_are_distinct_streams():

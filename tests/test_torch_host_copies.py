@@ -1,0 +1,159 @@
+"""The port's own copies of the JAX package's host pieces equal the
+originals: tables and the functions that make them, the G.726 code
+packing, the ADTS framer, the wire packers (byte for byte, each with
+its own package's parser) and the parser's C++ source."""
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from soundkit_tpu.codecs import aac_lc as jax_aac_lc
+from soundkit_tpu.codecs import g726 as jax_g726
+from soundkit_tpu.codecs.aac_lc_native import (
+    NativeAacParser,
+    _v4_views,
+    prepare_frame_batch_grouped,
+    prepare_v4_batch_packed,
+)
+from soundkit_tpu.ops import aac_batch as jax_aac_batch
+from soundkit_tpu.ops import aac_dsp as jax_aac_dsp
+from soundkit_tpu.ops import aac_entropy as jax_aac_entropy
+from soundkit_tpu.ops import adpcm as jax_adpcm
+from soundkit_tpu.ops import g722 as jax_g722
+from soundkit_tpu_torch.codecs import aac_lc, aac_lc_native, g726
+from soundkit_tpu_torch.native import AacHostParser
+from soundkit_tpu_torch.ops import aac_batch, aac_dsp, aac_entropy, adpcm, g722
+from soundkit_tpu_torch.tools import aac_fixtures
+
+from torch_port_helpers import SR_INDEX_48K, picked_aus
+
+REPO = Path(__file__).resolve().parent.parent
+
+G722_TABLES = ("WL", "RL42", "ILB", "WH", "RH2", "QM2", "QM4", "QM6", "QMF_COEFFS",
+               "Q6", "ILN", "ILP", "IHN", "IHP")
+
+
+@pytest.mark.parametrize("port,ref", [
+    ("soundkit_tpu_torch/native_src/src/aac_parse.cpp", "soundkit_tpu/native/src/aac_parse.cpp"),
+    ("soundkit_tpu_torch/native_src/generated/aac_tables.h",
+     "soundkit_tpu/native/generated/aac_tables.h"),
+    ("soundkit_tpu_torch/data/aac_tables.npz", "soundkit_tpu/native/generated/aac_tables.npz"),
+])
+def test_copied_files_are_identical(port, ref):
+    assert (REPO / port).read_bytes() == (REPO / ref).read_bytes()
+
+
+def test_aac_constants_and_codebooks():
+    assert aac_lc.SAMPLE_RATES == jax_aac_lc.SAMPLE_RATES
+    for name in ("ONLY_LONG_SEQUENCE", "LONG_START_SEQUENCE", "EIGHT_SHORT_SEQUENCE",
+                 "LONG_STOP_SEQUENCE"):
+        assert getattr(aac_lc, name) == getattr(jax_aac_lc, name), name
+    assert aac_lc._CB_INFO == jax_aac_lc._CB_INFO
+    for cb, (dim, base, _signed) in aac_lc._CB_INFO.items():
+        for idx in range(base**dim):
+            assert aac_lc._unpack_index(cb, idx) == jax_aac_lc._unpack_index(cb, idx)
+
+
+def test_spectral_lut():
+    assert aac_entropy.LUT_BITS == jax_aac_entropy.LUT_BITS
+    np.testing.assert_array_equal(aac_entropy.build_spectral_lut(),
+                                  jax_aac_entropy.build_spectral_lut())
+
+
+@pytest.mark.parametrize("n", [1024, 128])
+def test_imdct_matrix(n):
+    np.testing.assert_array_equal(aac_dsp.imdct_matrix(n), jax_aac_dsp.imdct_matrix(n))
+
+
+def test_window_banks():
+    np.testing.assert_array_equal(aac_batch.window_bank(), jax_aac_batch.window_bank())
+    np.testing.assert_array_equal(aac_batch.short_window_bank(), jax_aac_batch.short_window_bank())
+    assert (aac_batch.MAX_ORDER, aac_batch.MAX_FILTERS) == \
+        (jax_aac_batch.MAX_ORDER, jax_aac_batch.MAX_FILTERS)
+
+
+@pytest.mark.parametrize("B", [1, 3, 1024])
+def test_v4_wire_layout(B):
+    port, ref = aac_batch.v4_wire_layout(B), jax_aac_batch.v4_wire_layout(B)
+    assert port[1] == ref[1]
+    assert [(n, o, np.dtype(d), s) for n, o, d, s in port[0]] == \
+        [(n, o, np.dtype(d), s) for n, o, d, s in ref[0]]
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 5])
+def test_g726_tables(bits):
+    port, ref = adpcm.g726_tables(bits), jax_adpcm.g726_tables(bits)
+    assert port.keys() == ref.keys()
+    for k in port:
+        np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
+    np.testing.assert_array_equal(adpcm.POWER2, jax_adpcm.POWER2)
+
+
+def test_g722_tables():
+    for name in G722_TABLES:
+        np.testing.assert_array_equal(getattr(g722, name), getattr(jax_g722, name), err_msg=name)
+
+
+@pytest.mark.parametrize("packing", ["LEFT", "RIGHT"])
+@pytest.mark.parametrize("bits", [2, 3, 4, 5])
+def test_g726_packing(bits, packing):
+    rng = np.random.default_rng(bits)
+    codes = rng.integers(0, 1 << bits, 8 * 37).astype(np.uint8)  # whole groups
+    port_p, ref_p = g726.G726Packing[packing], jax_g726.G726Packing[packing]
+    wire = g726.pack_codes(codes, bits, port_p)
+    assert wire == jax_g726.pack_codes(codes, bits, ref_p)
+    np.testing.assert_array_equal(g726.unpack_codes(wire, bits, port_p), codes)
+    np.testing.assert_array_equal(g726.unpack_codes(wire, bits, port_p),
+                                  jax_g726.unpack_codes(wire, bits, ref_p))
+    for rate in g726.G726Rate:
+        ref_rate = jax_g726.G726Rate[rate.name]
+        assert (rate.value, rate.bit_rate, rate.samples_per_byte_group, rate.bytes_per_group) == \
+            (ref_rate.value, ref_rate.bit_rate, ref_rate.samples_per_byte_group,
+             ref_rate.bytes_per_group)
+
+
+@pytest.mark.parametrize("chunk", [None, 313, 1])
+def test_adts_stream_frames_like_the_jax_package(chunk):
+    """Every committed clip, whole or in odd-sized pushes (one byte at a
+    time for the first 3 KB), with a garbage prefix to resync over."""
+    for name in aac_fixtures.CLIPS:
+        data = b"\x00\xff\x12" + (aac_fixtures.FIXTURE_DIR / f"{name}.aac").read_bytes()
+        if chunk == 1:
+            data = data[:3000]
+        port, ref = aac_lc.AdtsStream(), jax_aac_lc.AdtsStream()
+        step = chunk or len(data)
+        got, want = [], []
+        for i in range(0, len(data), step):
+            got += port.push(data[i : i + step])
+            want += ref.push(data[i : i + step])
+        assert got == want and len(got) > 0, name
+        assert (port.sr_index, port.channel_config) == (ref.sr_index, ref.channel_config)
+
+
+def test_v4_packer_is_byte_identical():
+    """The port's packer over its parser against the JAX package's over
+    its own, on the same AUs with an idle lane; both parsers fresh."""
+    aus = picked_aus()
+    aus[5] = None
+    got, got_steps, got_over = aac_lc_native.prepare_v4_batch_packed(
+        AacHostParser(SR_INDEX_48K), aus)
+    want, want_steps, want_over = prepare_v4_batch_packed(NativeAacParser(SR_INDEX_48K), aus)
+    np.testing.assert_array_equal(got, want)
+    assert (got_steps, got_over) == (want_steps, want_over)
+    port_views, ref_views = aac_lc_native.v4_views(got, len(aus)), _v4_views(want, len(aus))
+    assert port_views.keys() == ref_views.keys()
+
+
+def test_full_wire_packer_is_byte_identical():
+    aus = picked_aus()
+    aus[3] = None
+    lane_sr = [SR_INDEX_48K] * len(aus)
+    got = aac_lc_native.prepare_frame_batch_grouped({SR_INDEX_48K: AacHostParser(SR_INDEX_48K)},
+                                                    lane_sr, aus)
+    want = prepare_frame_batch_grouped({SR_INDEX_48K: NativeAacParser(SR_INDEX_48K)}, lane_sr, aus)
+    fields = [f for f in vars(want)]
+    assert fields == list(vars(got))
+    for field in fields:
+        a, b = getattr(got, field), getattr(want, field)
+        assert a.dtype == b.dtype, field
+        np.testing.assert_array_equal(a, b, err_msg=field)

@@ -35,7 +35,7 @@ def test_imdct_window_plain_matches_pallas(K):
     coef = (rng.standard_normal((L, K)) * 100).astype(np.float32)
     ref = np.asarray(pk.imdct_window_pallas(jnp.asarray(coef), jnp.asarray(m_t), jnp.asarray(window)))
     # an [L, N] window is a bank whose row i serves output row i
-    got = imdct.imdct_window(torch.from_numpy(coef), torch.from_numpy(m_t),
+    got = imdct.imdct_window(torch.from_numpy(coef), imdct.imdct_basis(torch.from_numpy(m_t)),
                              torch.from_numpy(window), torch.arange(L, dtype=torch.int32))
     assert _rel(got.numpy(), ref) <= 1e-5
 
@@ -50,7 +50,8 @@ def test_dequant_imdct_window_plain_matches_pallas(K):
         jnp.asarray(q), jnp.asarray(scale), jnp.asarray(m_t), jnp.asarray(window),
         tile_l=8, tile_n=min(512, 2 * K)))
     got = imdct.dequant_imdct_window(torch.from_numpy(q), torch.from_numpy(scale),
-                                     torch.from_numpy(m_t), torch.from_numpy(window),
+                                     imdct.imdct_basis(torch.from_numpy(m_t)),
+                                     torch.from_numpy(window),
                                      torch.arange(L, dtype=torch.int32))
     assert _rel(got.numpy(), ref) <= 1e-5
 
@@ -63,6 +64,6 @@ def test_window_bank_rows_follow_win_idx():
     idx = rng.integers(0, 32, L).astype(np.int32)
     coef = rng.standard_normal((L, 128)).astype(np.float32)
     ref = np.asarray(pk.imdct_window_pallas(jnp.asarray(coef), jnp.asarray(m_t), jnp.asarray(bank[idx])))
-    got = imdct.imdct_window(torch.from_numpy(coef), torch.from_numpy(m_t),
+    got = imdct.imdct_window(torch.from_numpy(coef), imdct.imdct_basis(torch.from_numpy(m_t)),
                              torch.from_numpy(bank), torch.from_numpy(idx))
     assert _rel(got.numpy(), ref) <= 1e-5

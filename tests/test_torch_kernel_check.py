@@ -12,8 +12,10 @@ CPU = torch.device("cpu")
 
 @pytest.mark.parametrize("name,make", [
     ("spectral_decode", lambda: kc.spectral_case(torch.from_numpy(v4_wire(picked_aus())), 42)),
-    ("tns_filter", lambda: kc.tns_case(3, 2, CPU, seed=2)),
-    ("tns_filter", lambda: kc.tns_case(3, 2, CPU, seed=2, overlap=True)),
+    ("tns_filter", lambda: kc.tns_case(3, 2, CPU, seed=2, kind="regions")),
+    ("tns_filter", lambda: kc.tns_case(3, 2, CPU, seed=2, kind="overlap")),
+    *[("tns_filter", lambda kind=kind: kc.tns_case(2, 2, CPU, seed=4, kind=kind))
+      for kind in ("long", "short8", "adjacent", "regap", "order0", "tail")],
     ("imdct_window", lambda: kc.imdct_case(6, False, CPU, seed=1)),
     ("imdct_window", lambda: kc.imdct_case(24, True, CPU, seed=2)),
     ("dequant_imdct_window", lambda: kc.dequant_imdct_case(6, CPU, seed=3)),

@@ -1,5 +1,6 @@
-"""The port stands without JAX, picks no device for the caller, and
-routes CPU tensors (only those) to the plain versions."""
+"""The port stands without JAX and without the JAX package, picks no
+device for the caller, and routes CPU tensors (only those) to the plain
+versions."""
 import re
 import shutil
 import subprocess
@@ -22,8 +23,8 @@ _NO_JAX_DECODE = r"""
 import importlib.abc, sys
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
-            raise ImportError("jax is blocked")
+        if name in ("jax", "soundkit_tpu") or name.startswith(("jax.", "jaxlib", "soundkit_tpu.")):
+            raise ImportError(f"{name} is blocked")
 sys.meta_path.insert(0, _Block())
 import numpy as np
 from soundkit_tpu_torch.models.aac_lc_batch import BatchedAacLcDecoder
@@ -34,7 +35,7 @@ for i, s in enumerate(lane_streams(load_clips(), 2, 2)):
 pcm = m.decode_batches(2)
 assert pcm.shape == (2, 2, 2, 1024) and np.isfinite(pcm).all() and np.abs(pcm).max() > 0
 assert m.v4_batches == 2
-assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
+assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
 print("decoded without jax")
 """
 
@@ -53,7 +54,7 @@ for codec in ("g711_alaw", "g722", "g726_24"):
     for i, p in enumerate(lane_pcm(codec, 3)):
         e.push(i, p)
     assert all(len(b) > 0 for b in e.encode_step())
-assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
+assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
 print("telephony without jax")
 """
 
@@ -68,16 +69,20 @@ def test_port_runs_on_cpu_with_jax_blocked(script, said):
 
 
 def test_no_port_source_imports_jax():
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    """Neither JAX nor the JAX package, anywhere in the port, and the
+    build reads no file of the JAX package's tree."""
+    pat = re.compile(r"^\s*(import jax|from jax|(import|from) soundkit_tpu\b(?!_))", re.M)
     offenders = [str(p) for p in PORT.rglob("*.py") if pat.search(p.read_text())]
     assert not offenders
+    build = (PORT / "_build.py").read_text()
+    assert not re.search(r"soundkit_tpu/|\"soundkit_tpu\"", build)
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tests/test_torch_cuda_kernels.py",
                                   "soundkit_tpu_torch/tools/profile_step.py"])
 def test_gpu_entry_points_import_only_the_port(path):
-    """What runs on the card imports neither JAX nor the JAX package
-    itself; the port reaches the JAX package's host modules for it."""
+    """What runs on the card imports neither JAX nor the JAX package:
+    the port carries its own copies of the host modules it needs."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|soundkit_tpu)\b", re.M)
     assert not pat.findall((REPO / path).read_text())
 
@@ -109,7 +114,8 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     launch a kernel or raise."""
     meta = torch.empty((16, 128), device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
-        imdct.imdct_window(meta, meta, meta, torch.empty(16, dtype=torch.int32, device="meta"))
+        imdct.imdct_window(meta, imdct.ImdctBasis(meta, meta), meta,
+                           torch.empty(16, dtype=torch.int32, device="meta"))
     counts = (imdct.imdct_window.launches, aac_entropy.spectral_decode.launches,
               aac_batch.tns_filter.launches)
     coef = torch.randn((1, 2, 1024))

@@ -9,6 +9,7 @@ import torch
 from soundkit_tpu.models import telephony_batch as jax_tel
 from soundkit_tpu_torch.models import telephony_batch as tel
 from soundkit_tpu_torch.tools import telephony_fixtures as fx
+from torch_port_helpers import generate_telephony_fixtures
 
 B = 8
 CHUNK = 256
@@ -115,8 +116,8 @@ def test_encoder_matches_jax(codec):
 
 
 def test_fixtures_equal_a_regeneration(tmp_path):
-    fresh = fx.generate(tmp_path)
-    for codec in fx.CODECS:
+    fresh = generate_telephony_fixtures(tmp_path)
+    for codec in CODECS:
         assert fx.load_clips(codec) == fresh[codec], codec
 
 

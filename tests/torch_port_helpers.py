@@ -1,16 +1,25 @@
-"""Shared inputs for the port's parity tests (tests/test_torch_*.py).
+"""Shared inputs for the port's parity tests (tests/test_torch_*.py),
+and the generators of the committed fixtures.
 
 Real v4 wires come from the committed 48 kHz fixtures
 (tests/data/torch_port) through the port's standalone host parser.
+The fixtures are made by the JAX package's encoders, so their
+generators live here, on the test side; regenerate from the repository's root with
+
+    PYTHONPATH=. python tests/torch_port_helpers.py aac
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py telephony
 """
 from __future__ import annotations
 
 import functools
-from typing import List
+import sys
+from pathlib import Path
+from typing import Dict, List
 
 import numpy as np
 
-from soundkit_tpu_torch.tools import aac_fixtures
+from soundkit_tpu_torch.models.telephony_batch import CODECS
+from soundkit_tpu_torch.tools import aac_fixtures, telephony_fixtures
 
 SR_INDEX_48K = 3
 # AUs per clip that cover long, short (EIGHT_SHORT) and TNS frames
@@ -61,3 +70,161 @@ def lane_snrs(got, ref, lane_axis: int) -> np.ndarray:
         else:
             out.append(snr_db(g, r))
     return np.array(out)
+
+
+# ---------------------------------------------------------------------------
+# AAC fixture synthesis (seeded numpy; stereo float in [-1, 1])
+# ---------------------------------------------------------------------------
+
+RATE = 48000
+SECONDS = 4.0
+BIT_RATE = 96000
+
+
+def _env_bursts(n, onsets, decay_s, rng):
+    env = np.zeros(n)
+    t = np.arange(n) / RATE
+    for o in onsets:
+        m = t >= o
+        env[m] += np.exp(-(t[m] - o) / decay_s) * rng.uniform(0.5, 1.0)
+    return env
+
+
+def _noise_pad(n, rng):
+    t = np.arange(n) / RATE
+    common = np.cumsum(rng.standard_normal(n)) * 0.002
+    common -= np.convolve(common, np.ones(64) / 64, mode="same")
+    l = rng.standard_normal(n) * 0.15 + common
+    r = 0.6 * l + rng.standard_normal(n) * 0.1
+    tone = 0.1 * np.sin(2 * np.pi * 330 * t)
+    return np.stack([l + tone, r + tone])
+
+
+def _castanets(n, rng):
+    t = np.arange(n) / RATE
+    onsets = np.cumsum(rng.uniform(0.09, 0.25, size=40))
+    onsets = onsets[onsets < SECONDS - 0.05]
+    env = _env_bursts(n, onsets, 0.004, rng)
+    click = rng.standard_normal(n) * env * 0.8
+    bed = 0.05 * np.sin(2 * np.pi * 220 * t)
+    return np.stack([click + bed, 0.8 * click + bed])
+
+
+def _chords(n, rng):
+    t = np.arange(n) / RATE
+    roots = (220.0, 174.6, 261.6, 196.0)
+    x = np.zeros(n)
+    seg = n // len(roots)
+    for i, f0 in enumerate(roots):
+        s = slice(i * seg, (i + 1) * seg if i < len(roots) - 1 else n)
+        tt = t[s]
+        vib = 1 + 0.003 * np.sin(2 * np.pi * 5 * tt)
+        for ratio in (1.0, 1.26, 1.5, 2.0):
+            for h in range(1, 6):
+                x[s] += np.sin(2 * np.pi * f0 * ratio * h * vib * tt) * 0.05 / h
+    return np.stack([x, 0.97 * x + rng.standard_normal(n) * 0.004])
+
+
+def _speech_like(n, rng):
+    t = np.arange(n) / RATE
+    f0 = 120 + 40 * np.sin(2 * np.pi * 0.7 * t)
+    phase = np.cumsum(f0 / RATE)
+    pulses = (np.diff(np.floor(phase), prepend=0) > 0).astype(float)
+    x = np.zeros(n)
+    for fc, bw in ((700, 90), (1200, 110), (2600, 160)):
+        r = np.exp(-np.pi * bw / RATE)
+        a1, a2 = -2 * r * np.cos(2 * np.pi * fc / RATE), r * r
+        y = np.zeros(n)
+        for i in range(2, n):
+            y[i] = pulses[i] - a1 * y[i - 1] - a2 * y[i - 2]
+        x += y
+    syl = (np.sin(2 * np.pi * 3.1 * t) > -0.2).astype(float)
+    syl = np.convolve(syl, np.ones(480) / 480, mode="same")
+    x = x / np.max(np.abs(x)) * 0.7 * syl
+    fric = rng.standard_normal(n) * 0.03 * (1 - syl)
+    return np.stack([x + fric, x + fric])
+
+
+def _drums(n, rng):
+    t = np.arange(n) / RATE
+    x = np.zeros(n)
+    beat = 0.25
+    for k in range(int(SECONDS / beat)):
+        o = k * beat
+        m = t >= o
+        dt = t[m] - o
+        if k % 2 == 0:
+            x[m] += np.sin(2 * np.pi * (50 + 100 * np.exp(-dt * 30)) * dt) * np.exp(-dt * 12) * 0.6
+        else:
+            x[m] += rng.standard_normal(m.sum()) * np.exp(-dt * 25) * 0.4
+        hh = t >= o + beat / 2
+        dt2 = t[hh] - o - beat / 2
+        x[hh] += np.diff(rng.standard_normal(hh.sum() + 1)) * np.exp(-dt2 * 80) * 0.15
+    bass = 0.2 * np.sin(2 * np.pi * 55 * t)
+    return np.stack([x + bass, 0.9 * x + bass])
+
+
+def _sweep_pan(n, rng):
+    t = np.arange(n) / RATE
+    f = 50 * (16000 / 50) ** (t / SECONDS)
+    s = np.sin(2 * np.pi * np.cumsum(f) / RATE) * 0.3
+    pan = 0.5 + 0.5 * np.sin(2 * np.pi * 0.5 * t)
+    bursts = rng.standard_normal(n) * _env_bursts(n, np.arange(0.3, SECONDS, 0.7), 0.05, rng) * 0.3
+    return np.stack([s * pan + bursts, s * (1 - pan) + 0.5 * bursts])
+
+
+_SYNTH = {
+    "noise_pad": _noise_pad,
+    "castanets": _castanets,
+    "chords": _chords,
+    "speech_like": _speech_like,
+    "drums": _drums,
+    "sweep_pan": _sweep_pan,
+}
+
+
+def generate_aac_fixtures(directory: Path = aac_fixtures.FIXTURE_DIR) -> None:
+    """Synthesize, encode with the JAX package's ``AacEncoder`` and
+    write every clip of ``aac_fixtures.CLIPS`` (needs libavcodec)."""
+    from soundkit_tpu.codecs.encoders import AacEncoder
+
+    directory.mkdir(parents=True, exist_ok=True)
+    n = int(RATE * SECONDS)
+    for seed, name in enumerate(aac_fixtures.CLIPS):
+        rng = np.random.default_rng(1000 + seed)
+        x = _SYNTH[name](n, rng)
+        x = x / max(np.max(np.abs(x)), 1e-9) * 0.85
+        pcm = (x.T.reshape(-1) * 32767).astype(np.int16)
+        enc = AacEncoder(RATE, 2, BIT_RATE)
+        (directory / f"{name}.aac").write_bytes(enc.encode_i16(pcm) + enc.flush())
+
+
+# ---------------------------------------------------------------------------
+# telephony fixtures
+# ---------------------------------------------------------------------------
+
+def generate_telephony_fixtures(directory: Path = telephony_fixtures.FIXTURE_DIR) -> Dict[str, List[bytes]]:
+    """Encode every clip of ``telephony_fixtures.pcm_clips`` for every
+    codec with the JAX package's encoder and write the wire files;
+    returns them by codec."""
+    from soundkit_tpu.models.telephony_batch import BatchedTelephonyEncoder
+
+    directory.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for codec in CODECS:
+        clips = telephony_fixtures.pcm_clips(telephony_fixtures.sample_rate(codec))
+        enc = BatchedTelephonyEncoder(codec, len(clips), 2048)
+        for i, pcm in enumerate(clips):
+            enc.push(i, pcm)
+        wires = [bytearray() for _ in clips]
+        for _ in range(-(-len(clips[0]) // 2048)):
+            for w, b in zip(wires, enc.encode_step()):
+                w.extend(b)
+        out[codec] = [bytes(w) for w in wires]
+        for name, w in zip(telephony_fixtures.CLIPS, out[codec]):
+            (directory / f"{name}.{codec}").write_bytes(w)
+    return out
+
+
+if __name__ == "__main__":
+    {"aac": generate_aac_fixtures, "telephony": generate_telephony_fixtures}[sys.argv[1]]()
