@@ -13,14 +13,17 @@ kbit/s; 1024 distinct lanes per codec from the committed fixtures in
 ``soundkit_tpu_torch.models.telephony_batch``. Phases:
 
 a. build the CUDA kernels and the host parser from the checkout;
-b. print the card (``nvidia-smi`` name and power limit), the versions
-   and the host (name, CPU model, cores);
+b. print the card (``nvidia-smi`` name and power limit), the kernels'
+   launch shapes (K4's lanes a block and a warp, K6's threads a lane,
+   from their sources), the versions and the host (name, CPU model,
+   cores);
 c. hold each kernel against its plain PyTorch version on the card at
    the main path's shapes (B = 1024), with the inputs and bounds of
-   ``soundkit_tpu_torch.tools.kernel_check`` (K5 on every TNS layout
-   there; the ~900-line region is the timed one); time the kernel by
-   replaying a CUDA graph of 20 launches (device time, no host issue
-   gaps), the plain version with CUDA events around its calls, and, for
+   ``soundkit_tpu_torch.tools.kernel_check`` (K4 also on seeded random
+   inputs at B = 1001; K5 on every TNS layout there; the ~900-line
+   region is the timed one); time the kernel by replaying a CUDA graph
+   of 20 launches (device time, no host issue gaps), the plain version
+   with CUDA events around its calls, and, for
    K1, ``torch.matmul`` on the same inputs as the library yardstick;
    compute each kernel's bound (the larger of its bytes at 3.35 TB/s and
    its operations at 495 TFLOP/s TF32 or 67 TFLOP/s float32) from the
@@ -33,9 +36,10 @@ d. decode 46 lockstep batches through the decoder, with every launch
    parse + h2d + device step per batch, synchronized per batch) and
    the per-layer split the decoder times (parse, h2d, device step);
 e. telephony kernels: K3 (G.711 decode, mixed laws, ragged counts), K6
-   (G.726 decode and encode at each rate) and K7 (G.722 decode and
-   encode) against their plain versions on the card at the path's
-   shapes (B = 1024, 2048 codes), bit-exact, timed with CUDA events;
+   (G.726 decode and encode at each rate, from the initial state and
+   from a carried one) and K7 (G.722 decode and encode) against their
+   plain versions on the card at the path's
+   shapes (B = 1024, 2048 codes), bit-exact, timed by graph replay;
 f. telephony compare: per codec, two full-width decoder steps and one
    encoder step on the card against the port's plain path on the CPU,
    from the same pushes: PCM, lengths, bytes and carried state equal;
@@ -191,6 +195,16 @@ def host_cpu() -> str:
     return ", ".join(f"{k} {info[k]}" for k in keys if k in info) or "unknown"
 
 
+def cu_constant(source: str, name: str) -> int:
+    """The value of ``constexpr int <name>`` in ``csrc/<source>``."""
+    import re
+
+    m = re.search(rf"constexpr int {name} = (\d+);",
+                  (ROOT / "soundkit_tpu_torch" / "csrc" / source).read_text())
+    check(m is not None, f"csrc/{source} defines no {name}")
+    return int(m.group(1))
+
+
 def phase_card() -> str:
     import os
     import socket
@@ -204,6 +218,9 @@ def phase_card() -> str:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip()
     log(card)
+    log(f"[config] K4 lanes per block {cu_constant('aac_spectral.cu', 'LANES_PER_BLOCK')}, "
+        f"lanes per warp {cu_constant('aac_spectral.cu', 'LANES_PER_WARP')}; "
+        f"K6 threads per lane {cu_constant('g726.cu', 'G')}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}; host {socket.gethostname()} "
@@ -224,12 +241,7 @@ def phase_kernels(wire0):
     wire = torch.from_numpy(wire0).to(dev)
     f = 4  # bytes of a float32 or int32
     res = {}
-    # K4: AU bytes, bit offsets, run programs and counts (int32), the LUT; quant out
-    lut = 11 * (1 << 16) * 4
-    res["spectral_decode"] = measure(
-        "spectral_decode", "spectral_decode", *kc.spectral_case(wire, B),
-        nbytes=B * 1024 + 2 * B * 4 + 2 * B * 128 * 4 + 2 * B * 4 + lut + 2 * B * 1024 * 4,
-        plain_reps=2)
+    res["spectral_decode"] = phase_spectral(wire)
     # K5: coef, perm, filt_id and out rows, the LPC taps; at most 40 FLOP a line
     tns_bytes = rows * 1024 * 4 * 4 + rows * 8 * 20 * f
     res["tns_filter"] = measure("tns_filter/long", "tns_filter", *kc.tns_case(B, C, dev, 5, kind="long"),
@@ -269,6 +281,37 @@ def phase_kernels(wire0):
     res["dequant_imdct_window"] = measure(
         "dequant_imdct_window", "dequant_imdct_window", *kc.dequant_imdct_case(rows, dev, seed=3), **dq)
     return res
+
+
+def phase_spectral(wire):
+    """K4 on the fixture wire (the timed case) and on random inputs at
+    B = 1001 (2002 lanes, no multiple of a block's lanes); both
+    bit-exact."""
+    import torch
+
+    from soundkit_tpu_torch.ops import aac_batch as ab
+    from soundkit_tpu_torch.ops import aac_entropy as ae
+    from soundkit_tpu_torch.tools import kernel_check as kc
+
+    dev = torch.device("cuda", 0)
+    # AU bytes, bit offsets, run programs and counts (int32), the two-level table; quant out
+    table = ae.build_spectral_lut2().nbytes
+    kernel, plain = kc.spectral_case(wire, B)
+    r = measure("spectral_decode", "spectral_decode", kernel, plain,
+                nbytes=B * 1024 + 2 * B * 4 + 2 * B * 128 * 4 + 2 * B * 4 + table + 2 * B * 1024 * 4,
+                plain_reps=2)
+    f = ab.unpack_v4_wire(wire, B)
+    r["longest_lane_codewords"] = int(kc.spectral_codewords(
+        f["runs"].reshape(2 * B, -1), f["n_runs"].reshape(-1)).max())
+    rand_B = 1001
+    rand_args = kc.spectral_random_inputs(rand_B, seed=7)
+    r["random_longest_lane_codewords"] = int(kc.spectral_codewords(rand_args[2], rand_args[3]).max())
+    rk, rp = kc.spectral_random_case(rand_B, dev, seed=7)
+    r["max_abs_err"] = max(r["max_abs_err"], kc.compare("spectral_decode", rk, rp)["max_abs_err"])
+    r["random_ms"] = graph_ms(rk)
+    log(f"[kernels] spectral_decode/random: B = {rand_B} {r['random_ms']} ms, bit-exact; longest "
+        f"lane {r['longest_lane_codewords']} codewords (random {r['random_longest_lane_codewords']})")
+    return r
 
 
 def phase_compare(wires):
@@ -414,9 +457,11 @@ def phase_tel_kernels():
     nbytes = {"g711_decode/decode": B * N + 2 * B * 4 + B * N * 2}
     for bits in (2, 3, 4, 5):
         for enc in (False, True):
-            tag = f"g726_scan/{'encode' if enc else 'decode'}_{8 * bits}"
-            cases[tag] = kc.g726_case(B, N, bits, enc, dev, seed=20 + 2 * bits + enc)
-            nbytes[tag] = B * N + B * N * 2 + B * N + 2 * B * 24 * 4
+            for carried in (False, True):
+                tag = f"g726_scan/{'encode' if enc else 'decode'}_{8 * bits}{'_carried' * carried}"
+                cases[tag] = kc.g726_case(B, N, bits, enc, dev, seed=20 + 2 * bits + enc,
+                                          carried=carried)
+                nbytes[tag] = B * N + B * N * 2 + B * N + 2 * B * 24 * 4
     for enc in (False, True):
         tag = f"g722_scan/{'encode' if enc else 'decode'}"
         cases[tag] = kc.g722_case(B, N, enc, dev, seed=30 + enc)
@@ -445,14 +490,17 @@ def phase_tel_kernels():
         r["library_ms"] = None
         log(f"[tel-kernels] {tag}: {r}")
         res[tag] = r
-    g726 = [t for t in res if t.startswith("g726_scan/")]
+    g726 = [t for t in res if t.startswith("g726_scan/") and not t.endswith("_carried")]
     g722 = [t for t in res if t.startswith("g722_scan/")]
     return {
         "g711_decode": {k: res["g711_decode/decode"][k]
                         for k in ("max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")},
-        "g726_scan": _merge_cases(res, [t for t in g726 if "decode" in t],
-                                  [t for t in g726 if "encode" in t]),
+        "g726_scan": {
+            **_merge_cases(res, [t for t in g726 if "decode" in t], [t for t in g726 if "encode" in t]),
+            "carried": {t.split("/")[1]: res[t]["max_abs_err"] for t in res
+                        if t.startswith("g726_scan/") and t.endswith("_carried")},
+        },
         "g722_scan": _merge_cases(res, ["g722_scan/decode"], ["g722_scan/encode"]),
     }
 

@@ -104,7 +104,7 @@ def kernels() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.skt_imdct_window.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.skt_dequant_imdct_window.argtypes = [p, p, p, p, p, p, i, i, i, p]
-    lib.skt_spectral_decode.argtypes = [p, i, p, p, i, p, p, p, i, p]
+    lib.skt_spectral_decode.argtypes = [p, i, p, p, i, p, p, i, p, i, p]
     lib.skt_tns_filter.argtypes = [p, p, p, p, p, i, i, p]
     lib.skt_g711_decode.argtypes = [p, p, p, p, i, i, p]
     lib.skt_g726_scan.argtypes = [p, p, p, p, p, i, i, i, i, p]

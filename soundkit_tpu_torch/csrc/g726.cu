@@ -19,15 +19,36 @@
 // the products of state values wrap through uint32 as XLA's do.
 //
 // What bounds it: the per-step dependency chain. Each code depends on
-// the state that the previous code left, so a lane is N dependent steps
-// of ~200 integer operations; the bytes (one code in, one sample out)
-// are small. Design: one thread per lane with the whole state in
-// registers, the rate and direction as template parameters, the
-// per-rate tables in __constant__ memory (the index differs across a
-// warp, so those reads serialize; shared memory would not), and blocks
-// of 32 threads so that B = 1024 lanes spread over 32 SMs. A thread
-// reads its own [B, N] row, so a warp's loads stride by N; the rows are
-// short enough to stay in L1/L2 between steps.
+// the state that the previous code left, so a lane is N dependent steps;
+// the bytes (one code in, one sample out) are small. The chain of a step
+// runs through one fmult (the pole taps read sr and a, which the step
+// before computed last), the predictor's sum, the reconstruction, the
+// pole update and the history shift. The first design (one thread per
+// lane, 32-thread blocks, the code/mask/output read and written in place
+// with a warp's accesses strided by N, the per-rate tables in __constant__
+// memory indexed by each lane's own code) took 0.9-1.35 us a step. This
+// one:
+//
+// - stages a block's [lanes x TILE] codes (or samples) and mask bytes into
+//   shared memory, and its outputs back, with coalesced accesses (cp.async
+//   in 4-byte pieces where rows are 4-byte aligned, bytes otherwise), so
+//   no global access is on the chain;
+// - puts each rate's dqln / wi / fi in one packed shared-memory word per
+//   code; for decode the lookup depends only on the code, so it is off the
+//   chain;
+// - spreads a lane over a group of G = 8 threads, one predictor tap
+//   each: threads 0-5 hold b[k] and dq[k], threads 6-7 sr[k - 6] (a[] is
+//   replicated), each computes one fmult, the group sums them with
+//   __shfl_xor_sync (sez from the six zero taps, se from all eight;
+//   wrapping int32 sums, so every order gives the same bits), every
+//   thread computes the scalar state (yl yu dms dml ap a pk td)
+//   redundantly, each b[k] updates on its own thread, and the history
+//   moves one tap up with __shfl_up_sync. On an H100 one thread a lane
+//   (all eight taps) and four (two taps each) were slower.
+//
+// A tile is staged, then stepped: its 256 steps take far longer than its
+// load, so the tiles are not double-buffered. A block is one warp: four
+// lanes.
 
 #include <cuda_runtime.h>
 
@@ -38,6 +59,9 @@
 namespace {
 
 constexpr int THREADS = 32;
+constexpr int G = 8;                // threads a lane, one predictor tap each
+constexpr int LANES = THREADS / G;  // lanes a block
+constexpr int TILE = 256;  // steps staged per tile
 constexpr int WIDTH = 24;
 
 // per-rate tables, row = bits - 2 (soundkit_tpu/ops/adpcm.py::_G726_TABLES)
@@ -69,58 +93,92 @@ __constant__ int kFi[4][32] = {
      0xC00, 0xC00, 0xA00, 0x800, 0x600, 0x400, 0x200, 0x200, 0x200, 0x200, 0x200, 0, 0, 0, 0, 0},
 };
 
-// count of 2^i <= v over i in 0..14
-__device__ __forceinline__ int quan_p2(int v) { return v > 0 ? min(32 - __clz(v), 15) : 0; }
+// A code's table row in one word: dqln + 2048 (12 bits), wi + 32 (11
+// bits), fi >> 9 (3 bits).
+__device__ __forceinline__ int pack_code(int r, int i) {
+    return (kDqln[r][i] + 2048) | ((kWi[r][i] + 32) << 12) | ((kFi[r][i] >> 9) << 23);
+}
 
+// count of 2^i <= v over i in 0..14 (__clz(0) is 32)
+__device__ __forceinline__ int quan_p2(int v) { return min(32 - __clz(max(v, 0)), 15); }
+
+// The state a thread holds: the scalars (replicated over a lane's group)
+// and its tap g of the eight: g < 6 a zero tap (b[g], dq[g]), g = 6, 7 a
+// pole tap (a[g - 6] is a0 / a1, the history sr[g - 6]; b unused, kept 0).
 struct State {
-    int yl, yu, dms, dml, ap, a[2], b[6], pk[2], dq[6], sr[2], td;
+    int yl, yu, dms, dml, ap, a0, a1, pk0, pk1, td;
+    int b, h;
 };
 
-__device__ __forceinline__ void load_state(const int32_t* p, State& s) {
+__device__ __forceinline__ void load_state(const int32_t* p, int g, State& s) {
     s.yl = p[0]; s.yu = p[1]; s.dms = p[2]; s.dml = p[3]; s.ap = p[4];
-#pragma unroll
-    for (int k = 0; k < 2; ++k) { s.a[k] = p[5 + k]; s.pk[k] = p[13 + k]; s.sr[k] = p[21 + k]; }
-#pragma unroll
-    for (int k = 0; k < 6; ++k) { s.b[k] = p[7 + k]; s.dq[k] = p[15 + k]; }
-    s.td = p[23];
+    s.a0 = p[5]; s.a1 = p[6]; s.pk0 = p[13]; s.pk1 = p[14]; s.td = p[23];
+    s.b = g < 6 ? p[7 + g] : 0;
+    s.h = g < 6 ? p[15 + g] : p[21 + g - 6];
 }
 
-__device__ __forceinline__ void store_state(int32_t* p, const State& s) {
-    p[0] = s.yl; p[1] = s.yu; p[2] = s.dms; p[3] = s.dml; p[4] = s.ap;
-#pragma unroll
-    for (int k = 0; k < 2; ++k) { p[5 + k] = s.a[k]; p[13 + k] = s.pk[k]; p[21 + k] = s.sr[k]; }
-#pragma unroll
-    for (int k = 0; k < 6; ++k) { p[7 + k] = s.b[k]; p[15 + k] = s.dq[k]; }
-    p[23] = s.td;
+__device__ __forceinline__ void store_state(int32_t* p, int g, const State& s) {
+    if (g == 0) {
+        p[0] = s.yl; p[1] = s.yu; p[2] = s.dms; p[3] = s.dml; p[4] = s.ap;
+        p[5] = s.a0; p[6] = s.a1; p[13] = s.pk0; p[14] = s.pk1; p[23] = s.td;
+    }
+    if (g < 6) {
+        p[7 + g] = s.b;
+        p[15 + g] = s.h;
+    } else {
+        p[21 + g - 6] = s.h;
+    }
 }
 
-// float-format multiply
+// The step's helpers compute every branch of the JAX code and select, so
+// that the lanes of a warp never diverge: a divergent branch costs far
+// more than the few instructions of its other side.
+
+// s = on ? next : s, field by field with selects
+__device__ __forceinline__ void keep(bool on, const State& next, State& s) {
+    s.yl = on ? next.yl : s.yl;
+    s.yu = on ? next.yu : s.yu;
+    s.dms = on ? next.dms : s.dms;
+    s.dml = on ? next.dml : s.dml;
+    s.ap = on ? next.ap : s.ap;
+    s.a0 = on ? next.a0 : s.a0;
+    s.a1 = on ? next.a1 : s.a1;
+    s.pk0 = on ? next.pk0 : s.pk0;
+    s.pk1 = on ? next.pk1 : s.pk1;
+    s.td = on ? next.td : s.td;
+    s.b = on ? next.b : s.b;
+    s.h = on ? next.h : s.h;
+}
+
+// float-format multiply; anexp is in [-6, 8], so both shifts are in range
 __device__ __forceinline__ int fmult(int an, int srn) {
     const int anmag = an > 0 ? an : (wneg(an) & 0x1FFF);
     const int anexp = quan_p2(anmag) - 6;
-    const int anmant = anmag == 0 ? 32 : (anexp >= 0 ? sar(anmag, anexp) : shl(anmag, -anexp));
+    const int scaled = anexp >= 0 ? anmag >> max(anexp, 0) : anmag << max(-anexp, 0);
+    const int anmant = anmag == 0 ? 32 : scaled;
     const int wanexp = anexp + ((srn >> 6) & 0x0F) - 13;
     const int wanmant = (wmul(anmant, srn & 0x3F) + 0x30) >> 4;
-    const int retval = wanexp >= 0 ? (shl(wanmant, wanexp) & 0x7FFF) : sar(wanmant, -wanexp);
+    const int up = shl(wanmant, wanexp) & 0x7FFF;
+    const int down = sar(wanmant, -wanexp);
+    const int retval = wanexp >= 0 ? up : down;
     return (an ^ srn) < 0 ? -retval : retval;
 }
 
 __device__ __forceinline__ int step_size(const State& s) {
-    if (s.ap >= 256) return s.yu;
     const int y = s.yl >> 6;
     const int dif = s.yu - y;
-    const int al = s.ap >> 2;
-    if (dif > 0) return y + (wmul(dif, al) >> 6);
-    if (dif < 0) return y + ((wmul(dif, al) + 0x3F) >> 6);
-    return y;
+    // dif > 0: y + (dif * al >> 6); dif < 0: the same, rounded up; dif == 0: y
+    const int mixed = y + ((wmul(dif, s.ap >> 2) + (dif < 0 ? 0x3F : 0)) >> 6);
+    return s.ap >= 256 ? s.yu : mixed;
 }
 
 __device__ __forceinline__ int reconstruct(bool sign, int dqln, int y) {
     const int dql = dqln + (y >> 2);
-    if (dql < 0) return sign ? -0x8000 : 0;
     const int dex = (dql >> 7) & 15;
     const int dq_pos = sar((128 + (dql & 127)) << 7, 14 - dex);
-    return sign ? dq_pos - 0x8000 : dq_pos;
+    const int pos = sign ? dq_pos - 0x8000 : dq_pos;
+    const int neg = sign ? -0x8000 : 0;
+    return dql < 0 ? neg : pos;
 }
 
 __device__ __forceinline__ int float_format(int v) {
@@ -128,8 +186,19 @@ __device__ __forceinline__ int float_format(int v) {
     return (e << 6) + sar(shl(v, 6), e);
 }
 
+// how many of the first n entries of an ascending table t are <= v: a
+// sum of the compares in a tree
+template <int N>
+__device__ __forceinline__ int count_le(const int* t, int v) {
+    if constexpr (N == 1) {
+        return v >= t[0];
+    } else {
+        return count_le<N / 2>(t, v) + count_le<N - N / 2>(t + N / 2, v);
+    }
+}
+
 template <int DECAY>
-__device__ __forceinline__ void update(State& s, int y, int wi, int fi, int dq, int sr,
+__device__ __forceinline__ void update(State& s, int g, int y, int wi, int fi, int dq, int sr,
                                        int dqsez) {
     const int pk0 = dqsez < 0;
     const int mag = dq & 0x7FFF;
@@ -144,40 +213,35 @@ __device__ __forceinline__ void update(State& s, int y, int wi, int fi, int dq, 
     const int yl = s.yl + yu + (wneg(s.yl) >> 6);
 
     // pole/zero adaptation (the tr == 0 branch), then zeroed where tr
-    const int pks1 = pk0 ^ s.pk[0];
-    const int a2p = s.a[1] - (s.a[1] >> 7);
-    const int fa1 = pks1 != 0 ? s.a[0] : wneg(s.a[0]);
+    const int pks1 = pk0 ^ s.pk0;
+    const int a2p = s.a1 - (s.a1 >> 7);
+    const int fa1 = pks1 != 0 ? s.a0 : wneg(s.a0);
     const int a2p_adj = fa1 < -8191 ? a2p - 0x100 : (fa1 > 8191 ? a2p + 0xFF : a2p + (fa1 >> 5));
-    int a2p_cl;
-    if ((pk0 ^ s.pk[1]) != 0)
-        a2p_cl = a2p_adj <= -12160 ? -12288 : (a2p_adj >= 12416 ? 12288 : a2p_adj - 0x80);
-    else
-        a2p_cl = a2p_adj <= -12416 ? -12288 : (a2p_adj >= 12160 ? 12288 : a2p_adj + 0x80);
+    const int a2p_flip = a2p_adj <= -12160 ? -12288 : (a2p_adj >= 12416 ? 12288 : a2p_adj - 0x80);
+    const int a2p_same = a2p_adj <= -12416 ? -12288 : (a2p_adj >= 12160 ? 12288 : a2p_adj + 0x80);
+    const int a2p_cl = (pk0 ^ s.pk1) != 0 ? a2p_flip : a2p_same;
     const int a2p_new = dqsez != 0 ? a2p_cl : a2p;
 
-    int a1 = s.a[0] - (s.a[0] >> 8);
-    if (dqsez != 0) a1 = pks1 == 0 ? a1 + 192 : a1 - 192;
+    const int a1_decayed = s.a0 - (s.a0 >> 8);
+    const int a1_moved = pks1 == 0 ? a1_decayed + 192 : a1_decayed - 192;
     const int a1ul = 15360 - a2p_new;
-    a1 = min(max(a1, -a1ul), a1ul);
+    const int a1 = clampi(dqsez != 0 ? a1_moved : a1_decayed, -a1ul, a1ul);
 
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-        int bd = s.b[k] - (s.b[k] >> DECAY);
-        if (mag != 0) bd = (dq ^ s.dq[k]) >= 0 ? bd + 128 : bd - 128;
-        s.b[k] = tr ? 0 : bd;
-    }
+    // the zero tap this thread holds (before the history moves)
+    const int bd = s.b - (s.b >> DECAY);
+    const int moved = (dq ^ s.h) >= 0 ? bd + 128 : bd - 128;
+    s.b = tr || g >= 6 ? 0 : (mag != 0 ? moved : bd);
     const int a2p_eff = tr ? 0 : a2p_new;
 
-    // dq history push (float format)
+    // the history's new entries (float format): dq into tap 0, sr into tap 6
     const int e = quan_p2(mag);
     const int val = (e << 6) + sar(shl(mag, 6), e);
     const int dq0 = mag == 0 ? (dq >= 0 ? 0x20 : -0x3E0) : (dq >= 0 ? val : val - 0x400);
-    // sr history push
-    int sr0;
-    if (sr == 0) sr0 = 0x20;
-    else if (sr > 0) sr0 = float_format(sr);
-    else if (sr > -32768) sr0 = float_format(-sr) - 0x400;
-    else sr0 = -0x3E0;
+    const int sr_ff = float_format(sr < 0 ? wneg(sr) : sr);
+    const int sr0 = sr == 0 ? 0x20 : (sr > 0 ? sr_ff : (sr > -32768 ? sr_ff - 0x400 : -0x3E0));
+    // every tap moves up one: dq[k] <- dq[k - 1], sr[1] <- sr[0]
+    const int from_prev = __shfl_up_sync(0xFFFFFFFFu, s.h, 1, G);
+    s.h = g == 0 ? dq0 : (g == 6 ? sr0 : from_prev);
 
     const int td = tr ? 0 : (a2p_eff < -11776);
     const int dms = s.dms + ((fi - s.dms) >> 5);
@@ -192,83 +256,163 @@ __device__ __forceinline__ void update(State& s, int y, int wi, int fi, int dq, 
     s.dms = dms;
     s.dml = dml;
     s.ap = tr ? 256 : (fast ? ap_up : ap_down);
-    s.a[0] = tr ? 0 : a1;
-    s.a[1] = a2p_eff;
-    s.pk[1] = s.pk[0];
-    s.pk[0] = pk0;
-#pragma unroll
-    for (int k = 5; k > 0; --k) s.dq[k] = s.dq[k - 1];
-    s.dq[0] = dq0;
-    s.sr[1] = s.sr[0];
-    s.sr[0] = sr0;
+    s.a0 = tr ? 0 : a1;
+    s.a1 = a2p_eff;
+    s.pk1 = s.pk0;
+    s.pk0 = pk0;
     s.td = td;
 }
 
-// one code: x is the code (decode) or the sample (encode); returns the
-// sample (decode) or the code (encode)
+// One code: x is the code (decode) or the sample (encode); tab holds the
+// rate's packed code rows. Returns the sample (decode) or the code
+// (encode). Every thread of the warp calls it (the shuffles take the
+// whole warp).
 template <int BITS, bool ENCODE>
-__device__ __forceinline__ int step(State& s, int x) {
+__device__ __forceinline__ int step(State& s, int g, int x, const int* __restrict__ tab) {
     constexpr int R = BITS - 2;
     constexpr int CODE_MASK = (1 << BITS) - 1;
     constexpr int SIGN_BIT = 1 << (BITS - 1);
     constexpr int NQ = (1 << (BITS - 1)) - 1;
     constexpr int DQ_MASK = BITS == 5 ? 0x7FFF : 0x3FFF;
 
-    int sezi = 0;
+    int i = x & CODE_MASK;
+    int row = ENCODE ? 0 : tab[i];  // decode: the code's row, off the chain
+
+    // predictor: this thread's tap, then the group's sums
+    const int p = fmult((g < 6 ? s.b : (g == 6 ? s.a0 : s.a1)) >> 2, s.h);
+    int pz = g < 6 ? p : 0;
+    int pp = g < 6 ? 0 : p;
 #pragma unroll
-    for (int k = 0; k < 6; ++k) sezi += fmult(s.b[k] >> 2, s.dq[k]);
-    const int sez = sezi >> 1;
-    const int se = (sezi + fmult(s.a[1] >> 2, s.sr[1]) + fmult(s.a[0] >> 2, s.sr[0])) >> 1;
+    for (int o = 1; o < G; o <<= 1) {
+        pz += __shfl_xor_sync(0xFFFFFFFFu, pz, o);
+        pp += __shfl_xor_sync(0xFFFFFFFFu, pp, o);
+    }
+    const int sez = pz >> 1;
+    const int se = (pz + pp) >> 1;
     const int y = step_size(s);
 
-    int i;
     if (ENCODE) {
         const int d = (x >> 2) - se;
         const int dqm = d < 0 ? wneg(d) : d;
         const int e = quan_p2(dqm >> 1);
         const int mant = sar(shl(dqm, 7), e) & 0x7F;
         const int dln = (e << 7) + mant - (y >> 2);
-        int qi = 0;
-#pragma unroll
-        for (int k = 0; k < NQ; ++k) qi += dln >= kQ[R][k];
+        const int qi = count_le<NQ>(kQ[R], dln);
         i = d < 0 ? CODE_MASK - qi : (qi == 0 ? CODE_MASK : qi);
-    } else {
-        i = x & CODE_MASK;
+        row = tab[i];
     }
-    const int dq = reconstruct((i & SIGN_BIT) != 0, kDqln[R][i], y);
+    const int dqln = (row & 0xFFF) - 2048;
+    const int wi = ((row >> 12) & 0x7FF) - 32;
+    const int fi = ((row >> 23) & 7) << 9;
+    const int dq = reconstruct((i & SIGN_BIT) != 0, dqln, y);
     const int sr = dq < 0 ? se - (dq & DQ_MASK) : se + dq;
     const int dqsez = sr - se + sez;
-    update<BITS == 5 ? 9 : 8>(s, y, kWi[R][i] << 5, kFi[R][i], dq, sr, dqsez);
+    update<BITS == 5 ? 9 : 8>(s, g, y, wi * 32, fi, dq, sr, dqsez);
     return ENCODE ? (i & CODE_MASK) : clampi(shl(sr, 2), -32768, 32767);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst)),
+                 "l"(src));
+}
+
+// rows x n bytes from global (row stride gs) into shared memory (row
+// stride ds, a multiple of 4): cp.async by 4 bytes when the rows allow,
+// else byte copies
+__device__ __forceinline__ void load_rows(uint8_t* dst, int ds, const uint8_t* src, long gs,
+                                          int rows, int n) {
+    if ((((uintptr_t)src | (uintptr_t)gs | (uintptr_t)n) & 3) == 0) {
+        for (int r = 0; r < rows; ++r)
+            for (int c = 4 * threadIdx.x; c < n; c += 4 * THREADS)
+                cp_async4(dst + r * ds + c, src + r * gs + c);
+    } else {
+        for (int r = 0; r < rows; ++r)
+            for (int c = threadIdx.x; c < n; c += THREADS) dst[r * ds + c] = src[r * gs + c];
+    }
+}
+
+// the reverse, plain stores
+__device__ __forceinline__ void store_rows(uint8_t* dst, long gs, const uint8_t* src, int ds,
+                                           int rows, int n) {
+    if ((((uintptr_t)dst | (uintptr_t)gs | (uintptr_t)n) & 3) == 0) {
+        for (int r = 0; r < rows; ++r)
+            for (int c = 4 * threadIdx.x; c < n; c += 4 * THREADS)
+                *reinterpret_cast<uint32_t*>(dst + r * gs + c) =
+                    *reinterpret_cast<const uint32_t*>(src + r * ds + c);
+    } else {
+        for (int r = 0; r < rows; ++r)
+            for (int c = threadIdx.x; c < n; c += THREADS) dst[r * gs + c] = src[r * ds + c];
+    }
 }
 
 template <int BITS, bool ENCODE>
 __global__ void __launch_bounds__(THREADS) g726_scan_kernel(
-    const void* __restrict__ xs, const uint8_t* __restrict__ valid,
-    const int32_t* __restrict__ st_in, int32_t* __restrict__ st_out, void* __restrict__ out,
+    const uint8_t* __restrict__ xs, const uint8_t* __restrict__ valid,
+    const int32_t* __restrict__ st_in, int32_t* __restrict__ st_out, uint8_t* __restrict__ out,
     int B, int N) {
-    const int lane = blockIdx.x * THREADS + threadIdx.x;
-    if (lane >= B) return;
-    State s;
-    load_state(st_in + (long)lane * WIDTH, s);
-    const long row = (long)lane * N;
-    for (int n = 0; n < N; ++n) {
-        const int x = ENCODE ? (int)static_cast<const int16_t*>(xs)[row + n]
-                             : (int)static_cast<const uint8_t*>(xs)[row + n];
-        int y = 0;
-        if (valid == nullptr || valid[row + n] != 0) y = step<BITS, ENCODE>(s, x);
-        if (ENCODE)
-            static_cast<uint8_t*>(out)[row + n] = (uint8_t)y;
-        else
-            static_cast<int16_t*>(out)[row + n] = (int16_t)y;
+    constexpr int XB = ENCODE ? 2 : 1;  // bytes of an input (sample / code)
+    constexpr int OB = ENCODE ? 1 : 2;  // bytes of an output
+    // rows padded by a word, so that the lanes' accesses to one step fall
+    // in distinct banks
+    __shared__ __align__(16) uint8_t x_s[LANES][TILE * XB + 4];
+    __shared__ __align__(16) uint8_t v_s[LANES][TILE + 4];
+    __shared__ __align__(16) uint8_t o_s[LANES][TILE * OB + 4];
+    __shared__ int tab_s[32];
+
+    const int g = threadIdx.x % G;
+    const int ll = threadIdx.x / G;
+    const int lane0 = blockIdx.x * LANES;
+    const int rows = min(LANES, B - lane0);
+    const bool live = ll < rows;  // the last block's extra threads step along on a dead state
+
+    if (threadIdx.x < (1 << BITS)) tab_s[threadIdx.x] = pack_code(BITS - 2, threadIdx.x);
+    State s{};
+    if (live) load_state(st_in + (long)(lane0 + ll) * WIDTH, g, s);
+    const uint8_t* x_row = x_s[ll];
+    const uint8_t* v_row = v_s[ll];
+    uint8_t* o_row = o_s[ll];
+
+    for (int t0 = 0; t0 < N; t0 += TILE) {
+        const int nt = min(TILE, N - t0);
+        load_rows(&x_s[0][0], TILE * XB + 4, xs + ((long)lane0 * N + t0) * XB, (long)N * XB,
+                  rows, nt * XB);
+        if (valid) load_rows(&v_s[0][0], TILE + 4, valid + (long)lane0 * N + t0, N, rows, nt);
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncthreads();
+        // Every thread runs every step, so the warp never diverges; a
+        // masked step's result is dropped. Each step's input and mask are
+        // read one step ahead, off the chain.
+        auto input = [&](int t) {
+            return ENCODE ? (int)reinterpret_cast<const int16_t*>(x_row)[t] : (int)x_row[t];
+        };
+        auto on = [&](int t) { return live && (valid == nullptr || v_row[t] != 0); };
+        int x_next = input(0);
+        bool on_next = on(0);
+        for (int t = 0; t < nt; ++t) {
+            const int x = x_next;
+            const bool step_on = on_next;
+            x_next = input(min(t + 1, nt - 1));
+            on_next = on(min(t + 1, nt - 1));
+            State next = s;
+            const int y = step<BITS, ENCODE>(next, g, x, tab_s);
+            keep(step_on, next, s);
+            if (ENCODE)
+                o_row[t] = (uint8_t)(step_on ? y : 0);
+            else
+                reinterpret_cast<int16_t*>(o_row)[t] = (int16_t)(step_on ? y : 0);
+        }
+        __syncthreads();
+        store_rows(out + ((long)lane0 * N + t0) * OB, (long)N * OB, &o_s[0][0], TILE * OB + 4,
+                   rows, nt * OB);
     }
-    store_state(st_out + (long)lane * WIDTH, s);
+    if (live) store_state(st_out + (long)(lane0 + ll) * WIDTH, g, s);
 }
 
 template <bool ENCODE>
-cudaError_t launch(int bits, const void* xs, const uint8_t* valid, const int32_t* st_in,
-                   int32_t* st_out, void* out, int B, int N, cudaStream_t stream) {
-    const int blocks = (B + THREADS - 1) / THREADS;
+cudaError_t launch(int bits, const uint8_t* xs, const uint8_t* valid, const int32_t* st_in,
+                   int32_t* st_out, uint8_t* out, int B, int N, cudaStream_t stream) {
+    const int blocks = (B + LANES - 1) / LANES;
     switch (bits) {
         case 2: g726_scan_kernel<2, ENCODE><<<blocks, THREADS, 0, stream>>>(xs, valid, st_in, st_out, out, B, N); break;
         case 3: g726_scan_kernel<3, ENCODE><<<blocks, THREADS, 0, stream>>>(xs, valid, st_in, st_out, out, B, N); break;
@@ -289,6 +433,8 @@ extern "C" int skt_g726_scan(const void* xs, const uint8_t* valid, const int32_t
                              void* stream) {
     if (B == 0) return 0;
     const cudaStream_t s = (cudaStream_t)stream;
-    return (int)(encode ? launch<true>(bits, xs, valid, st_in, st_out, out, B, N, s)
-                        : launch<false>(bits, xs, valid, st_in, st_out, out, B, N, s));
+    const uint8_t* x = static_cast<const uint8_t*>(xs);
+    uint8_t* o = static_cast<uint8_t*>(out);
+    return (int)(encode ? launch<true>(bits, x, valid, st_in, st_out, o, B, N, s)
+                        : launch<false>(bits, x, valid, st_in, st_out, o, B, N, s));
 }

@@ -41,9 +41,9 @@ def state_from_jax(saved, prev_shape, device):
 
 class BatchedAacLcDecoder:
     """Decode ``num_streams`` parallel ADTS streams in lockstep batches
-    on ``device`` ('cpu' or 'cuda')."""
+    on ``device`` ('cuda', the default, or 'cpu')."""
 
-    def __init__(self, num_streams: int, channels: int = 2, *, device, timed: bool = False):
+    def __init__(self, num_streams: int, channels: int = 2, *, device="cuda", timed: bool = False):
         self.device = resolve_device(device)
         if timed and self.device.type != "cuda":
             raise ValueError("timed=True needs a CUDA device (the step is timed by CUDA events)")

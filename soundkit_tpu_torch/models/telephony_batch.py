@@ -72,9 +72,10 @@ def state_from_jax(st, device) -> torch.Tensor:
 
 class BatchedTelephonyDecoder:
     """Decode ``num_streams`` ragged telephony byte streams of one codec
-    on ``device`` ('cpu' or 'cuda'), ``chunk_codes`` codes per step."""
+    on ``device`` ('cuda', the default, or 'cpu'), ``chunk_codes`` codes
+    per step."""
 
-    def __init__(self, codec: str, num_streams: int, chunk_codes: int = 2048, *, device,
+    def __init__(self, codec: str, num_streams: int, chunk_codes: int = 2048, *, device="cuda",
                  timed: bool = False):
         _check_codec(codec)
         self.device = resolve_device(device)
@@ -213,7 +214,7 @@ class TelephonyLaneGroup:
     and ``decode_batches`` stacks ``n`` steps into one [n, B, 1, S]
     int16 batch."""
 
-    def __init__(self, codec: str, capacity: int, chunk_codes: int = 2048, *, device):
+    def __init__(self, codec: str, capacity: int, chunk_codes: int = 2048, *, device="cuda"):
         self.codec = codec
         self.B = capacity
         self._dec = BatchedTelephonyDecoder(codec, capacity, chunk_codes, device=device)
@@ -259,10 +260,12 @@ class TelephonyLaneGroup:
 
 class BatchedTelephonyEncoder:
     """Encode ``num_streams`` ragged int16 PCM streams into G.711 / G.722
-    / G.726 wire bytes on ``device``, ``chunk_samples`` samples per step;
-    G.726 bit packing happens on the host."""
+    / G.726 wire bytes on ``device`` ('cuda', the default, or 'cpu'),
+    ``chunk_samples`` samples per step; G.726 bit packing happens on the
+    host."""
 
-    def __init__(self, codec: str, num_streams: int, chunk_samples: int = 2048, *, device):
+    def __init__(self, codec: str, num_streams: int, chunk_samples: int = 2048, *,
+                 device="cuda"):
         _check_codec(codec)
         if codec == "g722" and chunk_samples % 2:
             raise ValueError("g722 needs an even chunk (2 samples/code)")

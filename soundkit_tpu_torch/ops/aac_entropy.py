@@ -9,8 +9,10 @@ the quantized spectrum [2B, 1024] int32.
 
 :func:`spectral_decode` (K4) launches ``csrc/aac_spectral.cu`` for CUDA
 tensors and takes :func:`spectral_decode_plain` for CPU tensors. The
-lookup table's maker :func:`build_spectral_lut` is a copy of the JAX
-package's.
+flat lookup table's maker :func:`build_spectral_lut` is a copy of the
+JAX package's; the kernel reads it as the two-level table of
+:func:`build_spectral_lut2`, which gives the same entry for every
+16-bit prefix.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ N_LINES = 1024
 _CB_DIM = (4, 4, 4, 4, 2, 2, 2, 2, 2, 2, 2)
 _CB_SIGNED = (1, 1, 0, 0, 1, 1, 0, 0, 0, 0, 0)
 LUT_BITS = 16
+LUT1_BITS = 8  # first level of K4's two-level table
 
 
 @functools.lru_cache(maxsize=1)
@@ -60,10 +63,52 @@ def build_spectral_lut() -> np.ndarray:
     return lut
 
 
+def two_level_table(flat: np.ndarray, first_bits: int = LUT1_BITS) -> np.ndarray:
+    """The flat ``[11, 2^16]`` table as K4's two-level table, one int32
+    array: ``11 * 2^first_bits`` first-level entries (codebook-major,
+    indexed by the window's top ``first_bits`` bits), then the
+    subtables. A first-level entry whose prefix block of the flat table
+    is constant holds that entry (final, bit 31 clear; 0 stays 0).
+    Otherwise it is ``1 << 31 | k << 16 | offset``: the subtable at
+    ``offset`` is indexed by the next ``k`` bits, the fewest after which
+    the block is constant. So every 16-bit prefix looks up exactly its
+    flat entry."""
+    n_cb, size = flat.shape
+    rest = LUT_BITS - first_bits
+    first = np.zeros((n_cb, 1 << first_bits), np.uint32)
+    subs = []
+    off = first.size
+    for cb in range(n_cb):
+        for i, blk in enumerate(flat[cb].reshape(1 << first_bits, 1 << rest)):
+            if (blk == blk[0]).all():
+                first[cb, i] = np.uint32(blk[0])
+                continue
+            k = next(k for k in range(1, rest + 1)
+                     if (blk.reshape(1 << k, -1) == blk.reshape(1 << k, -1)[:, :1]).all())
+            subs.append(blk.reshape(1 << k, -1)[:, 0].astype(np.uint32))
+            first[cb, i] = (1 << 31) | (k << 16) | off
+            off += 1 << k
+    if off >= 1 << 16:
+        raise ValueError(f"two-level table of {off} entries: offsets need 16 bits")
+    return np.concatenate([first.reshape(-1), *subs]).view(np.int32)
+
+
+@functools.lru_cache(maxsize=1)
+def build_spectral_lut2() -> np.ndarray:
+    """K4's two-level table of :func:`build_spectral_lut` (3,958 entries)."""
+    return two_level_table(build_spectral_lut())
+
+
 @functools.lru_cache(maxsize=4)
 def spectral_lut(device: torch.device) -> torch.Tensor:
     """[11 * 65536] int32 LUT on ``device`` (built once per device)."""
     return torch.from_numpy(build_spectral_lut()).reshape(-1).to(device)
+
+
+@functools.lru_cache(maxsize=4)
+def spectral_lut2(device: torch.device) -> torch.Tensor:
+    """K4's two-level table on ``device`` (built once per device)."""
+    return torch.from_numpy(build_spectral_lut2()).to(device)
 
 
 def _au_words(au: torch.Tensor) -> torch.Tensor:
@@ -107,6 +152,7 @@ def spectral_decode_plain(au, bitpos, runs, n_runs):
             break
         r = runs.gather(1, run_i.clamp(max=R - 1)[:, None])[:, 0]
         cb = (r & 15).clamp(1, 11)
+        esc_cb = (r & 15) == 11  # 12-15 read codebook 11's table, but never escape
         ncw = (r >> 4) & 63
         base = (r >> 10) & 4095
         dim = dim_v[cb - 1]
@@ -126,7 +172,7 @@ def spectral_decode_plain(au, bitpos, runs, n_runs):
 
         for i in range(2):
             v = vals[:, i]
-            esc = (v.abs() == 16) & (cb == 11) & active
+            esc = (v.abs() == 16) & esc_cb & active
             ewin = window32(bitpos)
             n1 = ((ewin[:, None] & top_masks) == top_masks).sum(1)
             n = 4 + n1
@@ -163,12 +209,12 @@ def spectral_decode(au, bitpos, runs, n_runs):
         raise ValueError(f"spectral_decode: {B} AUs need {2 * B} lanes, got runs{tuple(runs.shape)}")
     if not all(t.dtype == torch.int32 for t in (bitpos, runs, n_runs)):
         raise TypeError("spectral_decode: bitpos, runs and n_runs must be int32")
-    quant = torch.zeros((lanes, N_LINES), dtype=torch.int32, device=dev)
+    quant = torch.empty((lanes, N_LINES), dtype=torch.int32, device=dev)  # the kernel zero-fills
+    table = spectral_lut2(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _build.kernels().skt_spectral_decode(
-        au.data_ptr(), cap, bitpos.data_ptr(), runs.data_ptr(), R,
-        n_runs.data_ptr(), spectral_lut(dev).data_ptr(), quant.data_ptr(),
-        lanes, stream,
+        au.data_ptr(), cap, bitpos.data_ptr(), runs.data_ptr(), R, n_runs.data_ptr(),
+        table.data_ptr(), table.numel(), quant.data_ptr(), lanes, stream,
     )
     launch_check("spectral_decode", rc)
     spectral_decode.launches += 1

@@ -6,8 +6,9 @@ advances every lane by one code with elementwise integer arithmetic;
 a per-step validity mask freezes a lane's state and writes 0.
 
 - :func:`g726_decode_scan` and :func:`g726_encode_scan` (K6) run
-  ``csrc/g726.cu`` for CUDA tensors: one thread per lane walks all N
-  steps with the state in registers;
+  ``csrc/g726.cu`` for CUDA tensors: a group of eight threads per lane
+  walks all N steps with the state in registers, codes and outputs
+  staged through shared-memory tiles;
 - the plain scans are a Python loop over N of the vectorized steps
   (:func:`g726_decode_step`, :func:`g726_encode_step`).
 
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from soundkit_tpu_torch.ops.scan_state import StateLayout, launch_scan
+from soundkit_tpu_torch.utils.device import tensor_device
 
 POWER2 = np.array([1 << i for i in range(15)], dtype=np.int32)
 
@@ -74,15 +76,15 @@ G726_LAYOUT = StateLayout((
 I32 = torch.int32
 
 
-def g726_init_state(batch: int, device="cpu") -> torch.Tensor:
-    """Default-reset state ``[batch, 24]``."""
+def g726_init_state(batch: int, device="cuda") -> torch.Tensor:
+    """Default-reset state ``[batch, 24]`` on ``device``."""
     row = torch.zeros(G726_LAYOUT.width, dtype=I32)
     st = G726_LAYOUT.views(row[None])
     st.yl[:] = 34816
     st.yu[:] = 544
     st.dq[:] = 32
     st.sr[:] = 32
-    return row.expand(batch, -1).contiguous().to(device)
+    return row.expand(batch, -1).contiguous().to(tensor_device(device))
 
 
 @functools.lru_cache(maxsize=16)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from soundkit_tpu_torch.ops.scan_state import StateLayout, launch_scan
+from soundkit_tpu_torch.utils.device import tensor_device
 
 WL = np.array([-60, -30, 58, 172, 334, 538, 1198, 3042], dtype=np.int32)
 RL42 = np.array([0, 7, 6, 5, 4, 3, 2, 1, 7, 6, 5, 4, 3, 2, 1, 0], dtype=np.int32)
@@ -85,11 +86,12 @@ _TABLES = ("WL", "RL42", "ILB", "WH", "RH2", "QM2", "QM4", "QM6", "QMF_COEFFS",
            "Q6", "ILN", "ILP", "IHN", "IHP")
 
 
-def g722_init_state(batch: int, device="cpu") -> torch.Tensor:
-    """Initial state ``[batch, 70]``: low-band det 0, high-band det 8."""
+def g722_init_state(batch: int, device="cuda") -> torch.Tensor:
+    """Initial state ``[batch, 70]`` on ``device``: low-band det 0,
+    high-band det 8."""
     row = torch.zeros(G722_LAYOUT.width, dtype=I32)
     G722_LAYOUT.views(row[None]).det[0, 1] = 8
-    return row.expand(batch, -1).contiguous().to(device)
+    return row.expand(batch, -1).contiguous().to(tensor_device(device))
 
 
 @functools.lru_cache(maxsize=4)

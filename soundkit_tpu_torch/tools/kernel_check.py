@@ -66,13 +66,71 @@ def compare(name: str, kernel, plain) -> dict:
     return {"max_abs_err": err, "rel_err": rel}
 
 
+def _spectral_pair(args):
+    """K4's (kernel, plain) on ``args``."""
+    return (lambda: ae.spectral_decode(*args)), (lambda: ae.spectral_decode_plain(*args))
+
+
+def spectral_codewords(runs: torch.Tensor, n_runs: torch.Tensor) -> torch.Tensor:
+    """Codewords each K4 lane decodes: a run of ``ncw`` codewords takes
+    ``max(ncw, 1)`` steps (the reference decodes one even when ncw is 0)."""
+    used = torch.arange(runs.shape[1], device=runs.device)[None] < n_runs[:, None]
+    return torch.where(used, ((runs >> 4) & 63).clamp(min=1), 0).sum(1)
+
+
 def spectral_case(wire: torch.Tensor, B: int):
     """K4 on the spectra of a packed v4 wire of ``B`` AUs (2B channel lanes)."""
     f = ab.unpack_v4_wire(wire, B)
     args = (f["au"], f["spec_bit"].reshape(-1).to(torch.int32),
             f["runs"].reshape(2 * B, -1).to(torch.int32),
             f["n_runs"].reshape(-1).to(torch.int32))
-    return (lambda: ae.spectral_decode(*args)), (lambda: ae.spectral_decode_plain(*args))
+    return _spectral_pair(args)
+
+
+def spectral_random_inputs(B: int, seed: int, run_cols: int = ab.V4_RUNS):
+    """Seeded K4 inputs on the CPU: (au u8 [B, 1024], bitpos, runs,
+    n_runs int32) for 2B lanes, far from any encoder's output: random AU
+    bytes with stretches of 0xFF (long escape prefixes, up to the
+    24-ones cap), bit offsets anywhere in the row (windows wrap past its
+    end), and random run programs of at most ~400 codewords a lane:
+    codebooks 0..15 (0 and 12-15 clamped; codebook 11 weighted up for
+    its escapes), codeword counts 0..63, output bases mostly in order
+    but some past line 1023, garbage in the unused run columns, and a
+    lane with no run. Every 16-bit prefix of the 11 codebooks is valid
+    (the codes are complete), so no lookup meets a zero entry."""
+    rng = np.random.default_rng(seed)
+    lanes = 2 * B
+    au = rng.integers(0, 256, (B, ab.V4_AU_CAP), dtype=np.uint8)
+    for b in range(0, B, 3):
+        start = rng.integers(0, ab.V4_AU_CAP - 8)
+        au[b, start:start + rng.integers(1, 8)] = 0xFF
+    bitpos = rng.integers(0, ab.V4_AU_CAP * 8, lanes).astype(np.int32)
+    runs = rng.integers(0, 1 << 31, (lanes, run_cols), dtype=np.int64)
+    n_runs = np.zeros(lanes, np.int32)
+    cb_weights = np.array([1, *[3] * 10, 8, 1, 1, 1, 1], float)
+    for lane in range(lanes):
+        budget = rng.integers(1, 401)
+        base = 0
+        r = 0
+        while budget > 0 and r < run_cols:
+            cb = rng.choice(16, p=cb_weights / cb_weights.sum())
+            ncw = int(min(rng.integers(0, 64) if rng.random() < 0.2 else rng.integers(0, 12), budget))
+            out = rng.integers(0, 4096) if rng.random() < 0.05 else base
+            runs[lane, r] = cb | ncw << 4 | out << 10
+            base = min(out + max(ncw, 1) * (4 if 1 <= cb <= 4 else 2), 4095)
+            budget -= max(ncw, 1)
+            r += 1
+        n_runs[lane] = r
+    n_runs[lanes // 3] = 0
+    bitpos[0] = ab.V4_AU_CAP * 8 - 5  # the first window wraps
+    return (torch.from_numpy(au), torch.from_numpy(bitpos),
+            torch.from_numpy(runs.astype(np.int32)), torch.from_numpy(n_runs))
+
+
+def spectral_random_case(B: int, device, seed: int):
+    """K4 on :func:`spectral_random_inputs`."""
+    args = tuple(t.to(device) for t in spectral_random_inputs(B, seed))
+    return _spectral_pair(args)
 
 
 # TNS layouts of :func:`tns_case`; the first is the timed one
@@ -239,19 +297,31 @@ def g711_case(B: int, N: int, device, seed: int):
             (lambda: companding.g711_decode_plain(codes, law, counts)))
 
 
-def g726_case(B: int, N: int, bits: int, encode: bool, device, seed: int):
+# steps of the first scan whose final state a carried K6 case starts from
+CARRY_STEPS = 160
+
+
+def _g726_inputs(B: int, N: int, bits: int, encode: bool, rng) -> torch.Tensor:
+    if encode:
+        return _synthetic_pcm(B, N, rng)
+    return torch.from_numpy(rng.integers(0, 1 << bits, (B, N)).astype(np.uint8))
+
+
+def g726_case(B: int, N: int, bits: int, encode: bool, device, seed: int,
+              carried: bool = False):
     """K6 at ``bits`` per code: decode of random codes or encode of
-    :func:`_synthetic_pcm`, from the initial state, ragged mask."""
+    :func:`_synthetic_pcm`, ragged mask, from the initial state or, if
+    ``carried``, from the state that a first scan (the plain version,
+    :data:`CARRY_STEPS` steps, no mask) left."""
     rng = np.random.default_rng(seed)
     valid = _ragged_valid(B, N, rng).to(device)
     state = adpcm.g726_init_state(B, device)
-    if encode:
-        xs = _synthetic_pcm(B, N, rng).to(device)
-        return ((lambda: adpcm.g726_encode_scan(xs, state, bits, valid)),
-                (lambda: adpcm.g726_encode_scan_plain(xs, state, bits, valid)))
-    xs = torch.from_numpy(rng.integers(0, 1 << bits, (B, N)).astype(np.uint8)).to(device)
-    return ((lambda: adpcm.g726_decode_scan(xs, state, bits, valid)),
-            (lambda: adpcm.g726_decode_scan_plain(xs, state, bits, valid)))
+    xs = _g726_inputs(B, N, bits, encode, rng).to(device)
+    kernel, plain = ((adpcm.g726_encode_scan, adpcm.g726_encode_scan_plain) if encode
+                     else (adpcm.g726_decode_scan, adpcm.g726_decode_scan_plain))
+    if carried:
+        state = plain(_g726_inputs(B, CARRY_STEPS, bits, encode, rng).to(device), state, bits)[1]
+    return (lambda: kernel(xs, state, bits, valid)), (lambda: plain(xs, state, bits, valid))
 
 
 def g722_case(B: int, N: int, encode: bool, device, seed: int):

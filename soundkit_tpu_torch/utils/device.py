@@ -1,7 +1,7 @@
 """Device selection for the port (counterpart of ``soundkit_tpu/utils/backend.py``).
 
-The caller names the device. A CUDA device that is not there raises:
-nothing falls back to the CPU.
+Entry points run on the card unless the caller names the CPU. A CUDA
+device that is not there raises: nothing falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -16,6 +16,13 @@ def resolve_device(name) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {name!r}: use 'cpu' or 'cuda'")
     return dev
+
+
+def tensor_device(name) -> torch.device:
+    """``name`` as the device of a new tensor: a CUDA device must be
+    there (as :func:`resolve_device` checks); others pass through."""
+    dev = torch.device(name)
+    return resolve_device(dev) if dev.type == "cuda" else dev
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

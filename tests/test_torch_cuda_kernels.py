@@ -38,6 +38,13 @@ def test_spectral_decode_kernel_bit_exact(dev):
     kc.compare("spectral_decode", *kc.spectral_case(torch.from_numpy(buf).to(dev), B))
 
 
+@pytest.mark.parametrize("seed", [1, 2])
+def test_spectral_decode_kernel_random_inputs(dev, seed):
+    """Random AU bytes, offsets and run programs on 74 lanes, not a
+    multiple of the block's lanes."""
+    kc.compare("spectral_decode", *kc.spectral_random_case(37, dev, seed=seed))
+
+
 def test_tns_filter_kernel(dev):
     kc.compare("tns_filter", *kc.tns_case(40, 2, dev, seed=2, kind="overlap"))
 
@@ -57,6 +64,16 @@ def test_g711_decode_kernel_bit_exact(dev):
 @pytest.mark.parametrize("bits", [2, 3, 4, 5])
 def test_g726_scan_kernel_bit_exact(dev, bits, encode):
     kc.compare("g726_scan", *kc.g726_case(70, 257, bits, encode, dev, seed=bits))
+
+
+@pytest.mark.parametrize("N", [257, 264])
+@pytest.mark.parametrize("encode", [False, True])
+@pytest.mark.parametrize("bits", [2, 3, 4, 5])
+def test_g726_scan_kernel_from_a_carried_state(dev, bits, encode, N):
+    """From the state a first scan left; B = 70 leaves a ragged last
+    block and N a ragged last tile, with rows that are not 4-byte
+    aligned (257: staged by bytes) or are (264: cp.async)."""
+    kc.compare("g726_scan", *kc.g726_case(70, N, bits, encode, dev, seed=bits, carried=True))
 
 
 @pytest.mark.parametrize("encode", [False, True])

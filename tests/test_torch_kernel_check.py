@@ -12,6 +12,7 @@ CPU = torch.device("cpu")
 
 @pytest.mark.parametrize("name,make", [
     ("spectral_decode", lambda: kc.spectral_case(torch.from_numpy(v4_wire(picked_aus())), 42)),
+    ("spectral_decode", lambda: kc.spectral_random_case(5, CPU, seed=3)),
     ("tns_filter", lambda: kc.tns_case(3, 2, CPU, seed=2, kind="regions")),
     ("tns_filter", lambda: kc.tns_case(3, 2, CPU, seed=2, kind="overlap")),
     *[("tns_filter", lambda kind=kind: kc.tns_case(2, 2, CPU, seed=4, kind=kind))
@@ -22,6 +23,8 @@ CPU = torch.device("cpu")
     ("g711_decode", lambda: kc.g711_case(9, 64, CPU, seed=4)),
     ("g726_scan", lambda: kc.g726_case(9, 40, 3, False, CPU, seed=5)),
     ("g726_scan", lambda: kc.g726_case(9, 40, 5, True, CPU, seed=6)),
+    ("g726_scan", lambda: kc.g726_case(9, 40, 2, False, CPU, seed=5, carried=True)),
+    ("g726_scan", lambda: kc.g726_case(9, 40, 4, True, CPU, seed=6, carried=True)),
     ("g722_scan", lambda: kc.g722_case(9, 40, False, CPU, seed=7)),
     ("g722_scan", lambda: kc.g722_case(9, 40, True, CPU, seed=8)),
 ])
@@ -31,6 +34,18 @@ def test_cases_agree_on_cpu(name, make):
     assert res == {"max_abs_err": 0.0, "rel_err": 0.0}
     out = plain()
     assert torch.count_nonzero(out[0] if isinstance(out, tuple) else out) > 0
+
+
+def test_carried_g726_case_starts_from_a_scanned_state():
+    """A carried K6 case starts from the state a first scan left, not the
+    initial one: predictor taps and step sizes have moved."""
+    for encode in (False, True):
+        _, plain = kc.g726_case(4, 8, 4, encode, CPU, seed=1, carried=True)
+        state = next(c.cell_contents for n, c in zip(plain.__code__.co_freevars, plain.__closure__)
+                     if n == "state")
+        init = kc.adpcm.g726_init_state(4, "cpu")
+        views = kc.adpcm.G726_LAYOUT.views(state)
+        assert (views.b != 0).any() and (views.yl != init[:, 0]).all()
 
 
 @pytest.mark.parametrize("name,bump", [

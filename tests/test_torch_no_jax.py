@@ -172,6 +172,30 @@ def test_build_rebuilds_when_a_header_changes(tmp_path, monkeypatch):
     assert (ctypes.CDLL(str(first)).skt_a(), ctypes.CDLL(str(second)).skt_a()) == (3, 4)
 
 
+def test_entry_points_default_to_cuda():
+    """Each model class and each ``*_init_state`` helper runs on the card
+    unless the caller names the CPU: called without a device it asks for
+    CUDA, and raises where there is none, never building on the CPU."""
+    import inspect
+
+    from soundkit_tpu_torch.models.telephony_batch import TelephonyLaneGroup
+
+    calls = {
+        BatchedAacLcDecoder: lambda: BatchedAacLcDecoder(2, 2),
+        BatchedTelephonyDecoder: lambda: BatchedTelephonyDecoder("g726_32", 2),
+        TelephonyLaneGroup: lambda: TelephonyLaneGroup("g722", 2),
+        BatchedTelephonyEncoder: lambda: BatchedTelephonyEncoder("g711_mulaw", 2),
+        adpcm.g726_init_state: lambda: adpcm.g726_init_state(2),
+        g722.g722_init_state: lambda: g722.g722_init_state(2),
+    }
+    for fn, call in calls.items():
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+    assert adpcm.g726_init_state(2, "cpu").device.type == "cpu"
+
+
 def test_kernel_build_raises_without_nvcc():
     if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").is_file():
         pytest.skip("nvcc is installed")

@@ -81,8 +81,8 @@ def test_quan_power2_closed_form():
 
 def test_initial_states_match_jax():
     assert adpcm.G726_LAYOUT.width == 24 and g722.G722_LAYOUT.width == 70
-    assert torch.equal(adpcm.g726_init_state(B), _port_state(jax_adpcm.g726_init_state(B)))
-    assert torch.equal(g722.g722_init_state(B), _port_state(jax_g722.g722_init_state(B)))
+    assert torch.equal(adpcm.g726_init_state(B, "cpu"), _port_state(jax_adpcm.g726_init_state(B)))
+    assert torch.equal(g722.g722_init_state(B, "cpu"), _port_state(jax_g722.g722_init_state(B)))
 
 
 @pytest.mark.parametrize("direction", ["decode", "encode"])
@@ -94,13 +94,13 @@ def test_g726_scan_matches_jax(bits, direction):
         xs = np.random.default_rng(bits).integers(0, 1 << bits, (B, N)).astype(np.uint8)
         ref, ref_st = jax_adpcm.g726_decode_scan(
             jnp.asarray(xs, jnp.int32), jax_adpcm.g726_init_state(B, jnp), bits, jnp.asarray(valid))
-        got, st = adpcm.g726_decode_scan(torch.from_numpy(xs), adpcm.g726_init_state(B), bits,
+        got, st = adpcm.g726_decode_scan(torch.from_numpy(xs), adpcm.g726_init_state(B, "cpu"), bits,
                                          torch.from_numpy(valid))
     else:
         xs = _pcm(N, seed=bits)
         ref, ref_st = jax_adpcm.g726_encode_scan(
             jnp.asarray(xs, jnp.int32), jax_adpcm.g726_init_state(B, jnp), bits, jnp.asarray(valid))
-        got, st = adpcm.g726_encode_scan(torch.from_numpy(xs), adpcm.g726_init_state(B), bits,
+        got, st = adpcm.g726_encode_scan(torch.from_numpy(xs), adpcm.g726_init_state(B, "cpu"), bits,
                                          torch.from_numpy(valid))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert torch.equal(st, _port_state(ref_st))
@@ -114,13 +114,13 @@ def test_g722_scan_matches_jax(direction):
         xs = np.random.default_rng(7).integers(0, 256, (B, N)).astype(np.uint8)
         ref, ref_st = jax_g722.g722_decode_scan(
             jnp.asarray(xs, jnp.int32), jax_g722.g722_init_state(B, jnp), jnp.asarray(valid))
-        got, st = g722.g722_decode_scan(torch.from_numpy(xs), g722.g722_init_state(B),
+        got, st = g722.g722_decode_scan(torch.from_numpy(xs), g722.g722_init_state(B, "cpu"),
                                         torch.from_numpy(valid))
     else:
         xs = _pcm(2 * N, seed=7)
         ref, ref_st = jax_g722.g722_encode_scan(
             jnp.asarray(xs, jnp.int32), jax_g722.g722_init_state(B, jnp), jnp.asarray(valid))
-        got, st = g722.g722_encode_scan(torch.from_numpy(xs), g722.g722_init_state(B),
+        got, st = g722.g722_encode_scan(torch.from_numpy(xs), g722.g722_init_state(B, "cpu"),
                                         torch.from_numpy(valid))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert torch.equal(st, _port_state(ref_st))
