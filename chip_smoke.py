@@ -15,8 +15,9 @@ kbit/s; 1024 distinct lanes per codec from the committed fixtures in
 a. build the CUDA kernels and the host parser from the checkout;
 b. print the card (``nvidia-smi`` name and power limit), the kernels'
    launch shapes (K4's lanes a block and a warp, K6's threads a lane,
-   from their sources), the versions and the host (name, CPU model,
-   cores);
+   K7's threads a band and steps a tile, K3's codes a thread and threads
+   a block, from their sources), the versions and the host (name, CPU
+   model, cores);
 c. hold each kernel against its plain PyTorch version on the card at
    the main path's shapes (B = 1024), with the inputs and bounds of
    ``soundkit_tpu_torch.tools.kernel_check`` (K4 also on seeded random
@@ -36,10 +37,13 @@ d. decode 46 lockstep batches through the decoder, with every launch
    parse + h2d + device step per batch, synchronized per batch) and
    the per-layer split the decoder times (parse, h2d, device step);
 e. telephony kernels: K3 (G.711 decode, mixed laws, ragged counts), K6
-   (G.726 decode and encode at each rate, from the initial state and
-   from a carried one) and K7 (G.722 decode and encode) against their
-   plain versions on the card at the path's
+   (G.726 decode and encode at each rate) and K7 (G.722 decode and
+   encode) against their plain versions on the card at the path's
    shapes (B = 1024, 2048 codes), bit-exact, timed by graph replay;
+   each scan also from a carried state (512 codes: the plain scans are
+   Python loops, most of this phase's time); beside K3,
+   an empty kernel on K3's grid (``launch_floor_ms``: what the launch
+   alone costs);
 f. telephony compare: per codec, two full-width decoder steps and one
    encoder step on the card against the port's plain path on the CPU,
    from the same pushes: PCM, lengths, bytes and carried state equal;
@@ -220,7 +224,10 @@ def phase_card() -> str:
     log(card)
     log(f"[config] K4 lanes per block {cu_constant('aac_spectral.cu', 'LANES_PER_BLOCK')}, "
         f"lanes per warp {cu_constant('aac_spectral.cu', 'LANES_PER_WARP')}; "
-        f"K6 threads per lane {cu_constant('g726.cu', 'G')}")
+        f"K6 threads per lane {cu_constant('g726.cu', 'G')}; "
+        f"K7 threads per band {cu_constant('g722.cu', 'G')}, steps per tile "
+        f"{cu_constant('g722.cu', 'TILE')}; K3 codes per thread {cu_constant('g711.cu', 'VEC')}, "
+        f"threads per block {cu_constant('g711.cu', 'THREADS')}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}; host {socket.gethostname()} "
@@ -455,17 +462,18 @@ def phase_tel_kernels():
     # (bool), the state in and out (int32 rows of 24 / 70); K3 reads its
     # law and count per lane
     nbytes = {"g711_decode/decode": B * N + 2 * B * 4 + B * N * 2}
-    for bits in (2, 3, 4, 5):
-        for enc in (False, True):
-            for carried in (False, True):
-                tag = f"g726_scan/{'encode' if enc else 'decode'}_{8 * bits}{'_carried' * carried}"
-                cases[tag] = kc.g726_case(B, N, bits, enc, dev, seed=20 + 2 * bits + enc,
-                                          carried=carried)
-                nbytes[tag] = B * N + B * N * 2 + B * N + 2 * B * 24 * 4
     for enc in (False, True):
-        tag = f"g722_scan/{'encode' if enc else 'decode'}"
-        cases[tag] = kc.g722_case(B, N, enc, dev, seed=30 + enc)
-        nbytes[tag] = B * N + B * 2 * N * 2 + B * N + 2 * B * 70 * 4
+        for carried in (False, True):
+            n = N // 4 if carried else N
+            suffix = ("encode" if enc else "decode", "_carried" * carried)
+            for bits in (2, 3, 4, 5):
+                tag = f"g726_scan/{suffix[0]}_{8 * bits}{suffix[1]}"
+                cases[tag] = kc.g726_case(B, n, bits, enc, dev, seed=20 + 2 * bits + enc,
+                                          carried=carried)
+                nbytes[tag] = B * n + B * n * 2 + B * n + 2 * B * 24 * 4
+            tag = f"g722_scan/{suffix[0]}{suffix[1]}"
+            cases[tag] = kc.g722_case(B, n, enc, dev, seed=30 + enc, carried=carried)
+            nbytes[tag] = B * n + B * 2 * n * 2 + B * n + 2 * B * 70 * 4
     res = {}
     for tag, (kernel, plain) in cases.items():
         name = tag.split("/")[0]
@@ -488,20 +496,26 @@ def phase_tel_kernels():
         r["ms"] = graph_ms(kernel) if name == "g711_decode" else graph_ms(kernel, reps=5, replays=2)
         r.update(bound(nbytes[tag]))
         r["library_ms"] = None
+        if name == "g711_decode":
+            r["launch_floor_ms"] = graph_ms(kc.g711_launch_floor(B, N, dev))
         log(f"[tel-kernels] {tag}: {r}")
         res[tag] = r
-    g726 = [t for t in res if t.startswith("g726_scan/") and not t.endswith("_carried")]
-    g722 = [t for t in res if t.startswith("g722_scan/")]
+
+    def scan_row(name: str) -> dict:
+        # times from the initial-state cases; the carried cases give their errors
+        first = [t for t in res if t.startswith(name + "/") and not t.endswith("_carried")]
+        return {
+            **_merge_cases(res, [t for t in first if "decode" in t], [t for t in first if "encode" in t]),
+            "carried": {t.split("/")[1]: res[t]["max_abs_err"] for t in res
+                        if t.startswith(name + "/") and t.endswith("_carried")},
+        }
+
     return {
         "g711_decode": {k: res["g711_decode/decode"][k]
                         for k in ("max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
-                                  "bound_by", "library_ms")},
-        "g726_scan": {
-            **_merge_cases(res, [t for t in g726 if "decode" in t], [t for t in g726 if "encode" in t]),
-            "carried": {t.split("/")[1]: res[t]["max_abs_err"] for t in res
-                        if t.startswith("g726_scan/") and t.endswith("_carried")},
-        },
-        "g722_scan": _merge_cases(res, ["g722_scan/decode"], ["g722_scan/encode"]),
+                                  "bound_by", "library_ms", "launch_floor_ms")},
+        "g726_scan": scan_row("g726_scan"),
+        "g722_scan": scan_row("g722_scan"),
     }
 
 

@@ -107,10 +107,11 @@ def kernels() -> ctypes.CDLL:
     lib.skt_spectral_decode.argtypes = [p, i, p, p, i, p, p, i, p, i, p]
     lib.skt_tns_filter.argtypes = [p, p, p, p, p, i, i, p]
     lib.skt_g711_decode.argtypes = [p, p, p, p, i, i, p]
+    lib.skt_g711_launch_floor.argtypes = [i, i, p]
     lib.skt_g726_scan.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.skt_g722_scan.argtypes = [p, p, p, p, p, i, i, i, p]
     for fn in (lib.skt_imdct_window, lib.skt_dequant_imdct_window,
                lib.skt_spectral_decode, lib.skt_tns_filter, lib.skt_g711_decode,
-               lib.skt_g726_scan, lib.skt_g722_scan):
+               lib.skt_g711_launch_floor, lib.skt_g726_scan, lib.skt_g722_scan):
         fn.restype = ctypes.c_int
     return lib

@@ -54,6 +54,7 @@
 
 #include <cstdint>
 
+#include "tile_rows.cuh"
 #include "xla_int.cuh"
 
 namespace {
@@ -311,41 +312,6 @@ __device__ __forceinline__ int step(State& s, int g, int x, const int* __restric
     return ENCODE ? (i & CODE_MASK) : clampi(shl(sr, 2), -32768, 32767);
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     (uint32_t)__cvta_generic_to_shared(dst)),
-                 "l"(src));
-}
-
-// rows x n bytes from global (row stride gs) into shared memory (row
-// stride ds, a multiple of 4): cp.async by 4 bytes when the rows allow,
-// else byte copies
-__device__ __forceinline__ void load_rows(uint8_t* dst, int ds, const uint8_t* src, long gs,
-                                          int rows, int n) {
-    if ((((uintptr_t)src | (uintptr_t)gs | (uintptr_t)n) & 3) == 0) {
-        for (int r = 0; r < rows; ++r)
-            for (int c = 4 * threadIdx.x; c < n; c += 4 * THREADS)
-                cp_async4(dst + r * ds + c, src + r * gs + c);
-    } else {
-        for (int r = 0; r < rows; ++r)
-            for (int c = threadIdx.x; c < n; c += THREADS) dst[r * ds + c] = src[r * gs + c];
-    }
-}
-
-// the reverse, plain stores
-__device__ __forceinline__ void store_rows(uint8_t* dst, long gs, const uint8_t* src, int ds,
-                                           int rows, int n) {
-    if ((((uintptr_t)dst | (uintptr_t)gs | (uintptr_t)n) & 3) == 0) {
-        for (int r = 0; r < rows; ++r)
-            for (int c = 4 * threadIdx.x; c < n; c += 4 * THREADS)
-                *reinterpret_cast<uint32_t*>(dst + r * gs + c) =
-                    *reinterpret_cast<const uint32_t*>(src + r * ds + c);
-    } else {
-        for (int r = 0; r < rows; ++r)
-            for (int c = threadIdx.x; c < n; c += THREADS) dst[r * gs + c] = src[r * ds + c];
-    }
-}
-
 template <int BITS, bool ENCODE>
 __global__ void __launch_bounds__(THREADS) g726_scan_kernel(
     const uint8_t* __restrict__ xs, const uint8_t* __restrict__ valid,
@@ -375,10 +341,10 @@ __global__ void __launch_bounds__(THREADS) g726_scan_kernel(
 
     for (int t0 = 0; t0 < N; t0 += TILE) {
         const int nt = min(TILE, N - t0);
-        load_rows(&x_s[0][0], TILE * XB + 4, xs + ((long)lane0 * N + t0) * XB, (long)N * XB,
+        load_rows<THREADS>(&x_s[0][0], TILE * XB + 4, xs + ((long)lane0 * N + t0) * XB, (long)N * XB,
                   rows, nt * XB);
-        if (valid) load_rows(&v_s[0][0], TILE + 4, valid + (long)lane0 * N + t0, N, rows, nt);
-        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        if (valid) load_rows<THREADS>(&v_s[0][0], TILE + 4, valid + (long)lane0 * N + t0, N, rows, nt);
+        cp_async_wait();
         __syncthreads();
         // Every thread runs every step, so the warp never diverges; a
         // masked step's result is dropped. Each step's input and mask are
@@ -403,7 +369,7 @@ __global__ void __launch_bounds__(THREADS) g726_scan_kernel(
                 reinterpret_cast<int16_t*>(o_row)[t] = (int16_t)(step_on ? y : 0);
         }
         __syncthreads();
-        store_rows(out + ((long)lane0 * N + t0) * OB, (long)N * OB, &o_s[0][0], TILE * OB + 4,
+        store_rows<THREADS>(out + ((long)lane0 * N + t0) * OB, (long)N * OB, &o_s[0][0], TILE * OB + 4,
                    rows, nt * OB);
     }
     if (live) store_state(st_out + (long)(lane0 + ll) * WIDTH, g, s);

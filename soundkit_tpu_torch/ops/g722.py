@@ -9,8 +9,10 @@ low, 1 = high). A decode step turns one code into two 16 kHz samples
 A masked step freezes the lane's state and writes 0.
 
 - :func:`g722_decode_scan` and :func:`g722_encode_scan` (K7) run
-  ``csrc/g722.cu`` for CUDA tensors: one thread per lane walks all N
-  steps with the state in registers;
+  ``csrc/g722.cu`` for CUDA tensors: a lane is two groups of eight
+  threads, a band each and a predictor tap a thread; tiles of steps go
+  through shared memory and the QMF is a FIR over the tile, off the
+  recurrence;
 - the plain scans are a Python loop over N of the vectorized steps.
 
 The tables are copies of the JAX package's. Each

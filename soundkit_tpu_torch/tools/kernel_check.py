@@ -23,9 +23,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from soundkit_tpu_torch import _build
 from soundkit_tpu_torch.ops import aac_batch as ab
 from soundkit_tpu_torch.ops import aac_entropy as ae
 from soundkit_tpu_torch.ops import adpcm, companding, g722, imdct
+from soundkit_tpu_torch.utils.device import launch_check
 
 REL_BOUND = {
     "spectral_decode": 0.0,
@@ -283,21 +285,36 @@ def _synthetic_pcm(B: int, n: int, rng) -> torch.Tensor:
     return torch.from_numpy(np.clip(x, -32768, 32767).astype(np.int16))
 
 
-def g711_case(B: int, N: int, device, seed: int):
-    """K3 over random codes, a random law per lane and ragged counts
-    (0, N and values between)."""
+def g711_case(B: int, N: int, device, seed: int, offset: int = 0, ragged: bool = True):
+    """K3 over random codes, a random law per lane and, if ``ragged``,
+    counts per lane (0, N and values between), else none. The codes are a
+    view ``offset`` bytes into a larger buffer, as the telephony wire
+    hands them over: read in place, rows wherever they fall."""
     rng = np.random.default_rng(seed)
-    codes = torch.from_numpy(rng.integers(0, 256, (B, N)).astype(np.uint8)).to(device)
+    buf = torch.from_numpy(rng.integers(0, 256, offset + B * N).astype(np.uint8)).to(device)
+    codes = buf[offset:].view(B, N)
     law = torch.from_numpy(rng.integers(0, 2, B).astype(np.int32)).to(device)
-    counts = rng.integers(0, N + 1, B).astype(np.int32)
-    counts[::5] = N
-    counts[1::7] = 0
-    counts = torch.from_numpy(counts).to(device)
+    counts = None
+    if ragged:
+        counts = rng.integers(0, N + 1, B).astype(np.int32)
+        counts[::5] = N
+        counts[1::7] = 0
+        counts = torch.from_numpy(counts).to(device)
     return ((lambda: companding.g711_decode(codes, law, counts)),
             (lambda: companding.g711_decode_plain(codes, law, counts)))
 
 
-# steps of the first scan whose final state a carried K6 case starts from
+def g711_launch_floor(B: int, N: int, device):
+    """A callable that launches an empty kernel on the grid K3 takes for
+    ``[B, N]`` codes: timed beside K3, it says how much of K3's time is
+    the launch."""
+    def launch():
+        stream = torch.cuda.current_stream(device).cuda_stream
+        launch_check("g711_launch_floor", _build.kernels().skt_g711_launch_floor(B, N, stream))
+    return launch
+
+
+# steps of the first scan whose final state a carried K6 or K7 case starts from
 CARRY_STEPS = 160
 
 
@@ -324,16 +341,23 @@ def g726_case(B: int, N: int, bits: int, encode: bool, device, seed: int,
     return (lambda: kernel(xs, state, bits, valid)), (lambda: plain(xs, state, bits, valid))
 
 
-def g722_case(B: int, N: int, encode: bool, device, seed: int):
+def _g722_inputs(B: int, N: int, encode: bool, rng) -> torch.Tensor:
+    if encode:
+        return _synthetic_pcm(B, 2 * N, rng)
+    return torch.from_numpy(rng.integers(0, 256, (B, N)).astype(np.uint8))
+
+
+def g722_case(B: int, N: int, encode: bool, device, seed: int, carried: bool = False):
     """K7 over N codes: decode of random codes or encode of 2N samples
-    of :func:`_synthetic_pcm`, from the initial state, ragged mask."""
+    of :func:`_synthetic_pcm`, ragged mask, from the initial state or, if
+    ``carried``, from the state that a first scan (the plain version,
+    :data:`CARRY_STEPS` steps, no mask) left."""
     rng = np.random.default_rng(seed)
     valid = _ragged_valid(B, N, rng).to(device)
     state = g722.g722_init_state(B, device)
-    if encode:
-        xs = _synthetic_pcm(B, 2 * N, rng).to(device)
-        return ((lambda: g722.g722_encode_scan(xs, state, valid)),
-                (lambda: g722.g722_encode_scan_plain(xs, state, valid)))
-    xs = torch.from_numpy(rng.integers(0, 256, (B, N)).astype(np.uint8)).to(device)
-    return ((lambda: g722.g722_decode_scan(xs, state, valid)),
-            (lambda: g722.g722_decode_scan_plain(xs, state, valid)))
+    xs = _g722_inputs(B, N, encode, rng).to(device)
+    kernel, plain = ((g722.g722_encode_scan, g722.g722_encode_scan_plain) if encode
+                     else (g722.g722_decode_scan, g722.g722_decode_scan_plain))
+    if carried:
+        state = plain(_g722_inputs(B, CARRY_STEPS, encode, rng).to(device), state)[1]
+    return (lambda: kernel(xs, state, valid)), (lambda: plain(xs, state, valid))

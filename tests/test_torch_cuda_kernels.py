@@ -60,6 +60,17 @@ def test_g711_decode_kernel_bit_exact(dev):
     kc.compare("g711_decode", *kc.g711_case(50, 333, dev, seed=1))
 
 
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("N", [1, 15, 16, 17, 257, 2048])
+@pytest.mark.parametrize("offset", [1, 4, 16])
+def test_g711_decode_kernel_on_a_view(dev, offset, N, ragged):
+    """Codes read in place from a larger buffer at a byte offset: rows
+    that start off a 16-byte boundary and whose length is no multiple of
+    16 take the kernel's one-by-one head and tail."""
+    kc.compare("g711_decode", *kc.g711_case(9, N, dev, seed=N + offset, offset=offset,
+                                            ragged=ragged))
+
+
 @pytest.mark.parametrize("encode", [False, True])
 @pytest.mark.parametrize("bits", [2, 3, 4, 5])
 def test_g726_scan_kernel_bit_exact(dev, bits, encode):
@@ -76,6 +87,11 @@ def test_g726_scan_kernel_from_a_carried_state(dev, bits, encode, N):
     kc.compare("g726_scan", *kc.g726_case(70, N, bits, encode, dev, seed=bits, carried=True))
 
 
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("N", [257, 264])
 @pytest.mark.parametrize("encode", [False, True])
-def test_g722_scan_kernel_bit_exact(dev, encode):
-    kc.compare("g722_scan", *kc.g722_case(70, 257, encode, dev, seed=9))
+def test_g722_scan_kernel_bit_exact(dev, encode, N, carried):
+    """From the initial state and from the one a first scan left; B = 70
+    leaves a ragged last block and N a partial last tile, with rows
+    staged by bytes (257) or by cp.async (264); the mask has holes."""
+    kc.compare("g722_scan", *kc.g722_case(70, N, encode, dev, seed=9, carried=carried))

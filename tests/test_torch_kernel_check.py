@@ -27,6 +27,8 @@ CPU = torch.device("cpu")
     ("g726_scan", lambda: kc.g726_case(9, 40, 4, True, CPU, seed=6, carried=True)),
     ("g722_scan", lambda: kc.g722_case(9, 40, False, CPU, seed=7)),
     ("g722_scan", lambda: kc.g722_case(9, 40, True, CPU, seed=8)),
+    ("g722_scan", lambda: kc.g722_case(9, 40, False, CPU, seed=7, carried=True)),
+    ("g722_scan", lambda: kc.g722_case(9, 40, True, CPU, seed=8, carried=True)),
 ])
 def test_cases_agree_on_cpu(name, make):
     kernel, plain = make()
@@ -46,6 +48,19 @@ def test_carried_g726_case_starts_from_a_scanned_state():
         init = kc.adpcm.g726_init_state(4, "cpu")
         views = kc.adpcm.G726_LAYOUT.views(state)
         assert (views.b != 0).any() and (views.yl != init[:, 0]).all()
+
+
+@pytest.mark.parametrize("encode", [False, True])
+def test_carried_g722_case_starts_from_a_scanned_state(encode):
+    """A carried K7 case starts from the state a first scan left: the QMF
+    line is filled, both bands' zero taps and step sizes have moved."""
+    _, plain = kc.g722_case(4, 8, encode, CPU, seed=1, carried=True)
+    state = next(c.cell_contents for n, c in zip(plain.__code__.co_freevars, plain.__closure__)
+                 if n == "state")
+    init = kc.g722.G722_LAYOUT.views(kc.g722.g722_init_state(4, "cpu"))
+    views = kc.g722.G722_LAYOUT.views(state)
+    assert (views.x != 0).any(dim=1).all() and (views.b != 0).any()
+    assert (views.det != init.det).all() and (views.nb != 0).all()
 
 
 @pytest.mark.parametrize("name,bump", [
