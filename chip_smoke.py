@@ -3,16 +3,22 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on ``cuda``: the AAC-LC flagship (v4
+Drives the port's paths on ``cuda``: the AAC-LC flagship (v4
 wire, 1024 distinct stereo 48 kHz streams from the committed fixtures
 in ``tests/data/torch_port``) through
-``soundkit_tpu_torch.models.aac_lc_batch.BatchedAacLcDecoder``, and the
+``soundkit_tpu_torch.models.aac_lc_batch.BatchedAacLcDecoder``, the
 batched telephony codecs (G.711 mu/A-law, G.722, G.726 at 16/24/32/40
 kbit/s; 1024 distinct lanes per codec from the committed fixtures in
 ``tests/data/torch_port/telephony``, chunk 2048) through
-``soundkit_tpu_torch.models.telephony_batch``. Phases:
+``soundkit_tpu_torch.models.telephony_batch``, the batched FLAC decoder
+(1024 ragged lanes of the fixtures in ``tests/data/torch_port/flac``,
+16- and 24-bit, mono and stereo, stride 4608) through
+``soundkit_tpu_torch.models.flac_batch.BatchedFlacDecoder``, and the
+serving runtime ``soundkit_tpu_torch.models.fleet.StreamFleet`` over
+all three (1024 lanes a group). Phases:
 
-a. build the CUDA kernels and the host parser from the checkout;
+a. build the CUDA kernels, the host parser and the FLAC walk from the
+   checkout;
 b. print the card (``nvidia-smi`` name and power limit), the kernels'
    launch shapes (K4's lanes a block and a warp, K6's threads a lane,
    K7's threads a band and steps a tile, K3's codes a thread and threads
@@ -31,7 +37,7 @@ c. hold each kernel against its plain PyTorch version on the card at
    case's shapes;
 d. decode 46 lockstep batches through the decoder, with every launch
    counter reset just before, and check that all batches took the v4
-   wire and every kernel of the path launched; hold three batches'
+   wire and every kernel of the path launched; hold two batches'
    PCM and carried state against the port's plain path on the CPU
    (same wire buffers); report aggregate x realtime at 48 kHz (host
    parse + h2d + device step per batch, synchronized per batch) and
@@ -54,7 +60,36 @@ g. telephony: per codec, every lane's stream through
    step, that the output is not silent and that every pushed code came
    out; one ``[telephony]`` line per codec (x realtime at the codec's
    rate, step times, the decoder's pack / h2d / step split);
-h. print the kernels' JSON line (all seven kernels, K2 with no launch:
+h. FLAC kernels: K8 (Rice plane) and K9 (LPC, wasted bits,
+   decorrelation) against their plain versions on the card, bit-exact,
+   on the wire of the FLAC phase's first decode (its first push to 1024
+   fixture lanes, every ready round folded into the lane axis: the
+   shape the path launches them at; phase j checks that its first
+   decode had that many rounds), timed by graph replay; also on the wire
+   of one round and on seeded random inputs, with and without the
+   parameters no walk emits; the bound is the bytes moved (the frame
+   bytes, segment table, warm-up and plane for K8; each valid lane's
+   block of residuals in and the samples out for K9);
+i. FLAC compare: two ``decode_batches`` calls of a 1024-lane decoder on
+   the card against the port's plain path on the CPU, samples and
+   ``metas`` identical;
+j. FLAC: 1024 ragged lanes pushed in three rounds with a decode after
+   each until every lane drains, launch counters reset just before; one
+   ``[flac]`` line (x realtime at each lane's own rate, the decoder's
+   walk / export / h2d / step medians);
+k. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
+   lanes (detected from ADTS), 1024 FLAC lanes (detected from ``fLaC``)
+   and 1024 G.722 lanes (explicit kind), pushed raggedly in four rounds
+   with a ``collect(device_out=True)`` after each, a quarter of the
+   streams ended after the second round and their lanes taken by new
+   streams; every stream's fetched PCM is held against the bare model's
+   output for the same bytes (FLAC and G.722 bit-exact, AAC >= 100 dB),
+   a refused kind must raise ``FleetUnsupported``, and every kernel of
+   the three groups must have launched; then an ``out_bits=16`` collect
+   against the quantized bare output, and per group a fleet serving
+   that group alone, its x realtime beside the bare model's on the same
+   bytes; one ``[fleet]`` line;
+l. print the kernels' JSON line (all nine kernels, K2 with no launch:
    it is not on a path), then the result line.
 
 Any failed phase exits non-zero before the result line. Without a
@@ -79,9 +114,16 @@ B = 1024
 C = 2
 RATE = 48000.0
 N_BATCHES = 46
-N_COMPARE = 3
+N_COMPARE = 2
 TEL_CHUNK = 2048
 TEL_COMPARE_STEPS = 2
+FLAC_STRIDE = 4608
+FLAC_ROUNDS = 3       # pushes of the [flac] phase, a decode after each
+FLEET_ROUNDS = 4
+FLEET_AAC_FRAMES = 64  # AAC frames a fleet stream carries: its first push passes MIN_DETECT
+FLEET_FLAC_FRAMES = 6
+FLEET_TEL_BYTES = 6000
+FLEET_TEL_KIND = "g722"
 
 
 class SmokeFailure(RuntimeError):
@@ -172,9 +214,12 @@ def phase_build():
     t1 = time.perf_counter()
     ppath = _build.parser_library_path()
     t2 = time.perf_counter()
+    fpath = _build.flac_library_path()
+    t3 = time.perf_counter()
     _build.kernels()
     log(f"[build] kernels {kpath.relative_to(ROOT)} in {t1 - t0:.3f} s; "
-        f"parser {ppath.relative_to(ROOT)} in {t2 - t1:.3f} s")
+        f"parser {ppath.relative_to(ROOT)} in {t2 - t1:.3f} s; "
+        f"FLAC walk {fpath.relative_to(ROOT)} in {t3 - t2:.3f} s")
     blog = kpath.with_suffix(".log")
     if blog.exists():
         for line in blog.read_text().splitlines():
@@ -663,6 +708,470 @@ def phase_telephony():
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# FLAC and fleet phases
+# ---------------------------------------------------------------------------
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def flac_round_pushes(streams, r: int):
+    """What the FLAC phase pushes to each lane in round ``r``."""
+    return [s[len(s) * r // FLAC_ROUNDS: len(s) * (r + 1) // FLAC_ROUNDS] for s in streams]
+
+
+def flac_path_wire(dev):
+    """The wire of the FLAC phase's first decode, as tensors on ``dev``,
+    and its rounds: round 0's pushes, then every ready round exported."""
+    from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
+    from soundkit_tpu_torch.tools import flac_fixtures as ff
+
+    model = BatchedFlacDecoder(B, FLAC_STRIDE, device=dev)
+    for i, data in enumerate(flac_round_pushes(ff.lane_streams(ff.load_clips(), B), 0)):
+        model.push(i, data)
+    n = max(model.lane_ready(i) for i in range(B))
+    wire = model.export_wire(n)
+    check(len(wire.parts[0]) == 0, "a fixture frame left the segment wire")
+    return n, tuple(model._to_device(wire.segs))
+
+
+def phase_flac_kernels():
+    """K8 and K9 against their plain versions on the card, bit-exact: on
+    the wire of the FLAC phase's first decode (the timed cases), on the
+    wire of one round, and on seeded random inputs."""
+    import torch
+
+    from soundkit_tpu_torch.tools import kernel_check as kc
+
+    dev = torch.device("cuda", 0)
+    rounds, wire = flac_path_wire(dev)
+    words, block_size, valid = wire[0], wire[14], wire[15]
+    rows = words.shape[0]
+    check(rows == rounds * B, f"flac wire: {rows} rows for {rounds} rounds")
+    plane_bytes = rows * 2 * FLAC_STRIDE * 4
+    # a row's frame bytes: up to its last non-zero word (a frame ends in its CRC-16)
+    cols = torch.arange(1, words.shape[1] + 1, device=dev)
+    frame_bytes = 4 * int(((words != 0) * cols).amax(1).sum())
+    res = {}
+    # K8 reads the frame bytes, the segment table, warm-up and constants, and writes the plane
+    res["flac_rice_plane"] = measure(
+        "flac_rice_plane", "flac_rice_plane", *kc.flac_rice_case(wire, FLAC_STRIDE),
+        nbytes=frame_bytes + nbytes_of(*wire[1:9]) + plane_bytes, plain_reps=1)
+    res["flac_rice_plane"].update(
+        rounds=rounds, rows=rows, segments=int((wire[4] > 0).sum()), codes=int(wire[4].sum()),
+        words_per_row=int(words.shape[1]), frame_bytes=frame_bytes)
+    # K9 reads each valid lane's block of both channels and the per-row LPC
+    # fields, and writes the samples
+    resid_bytes = 2 * 4 * int(block_size[valid].sum())
+    res["flac_frame"] = measure(
+        "flac_frame", "flac_frame", *kc.flac_lpc_case(wire, FLAC_STRIDE),
+        nbytes=resid_bytes + nbytes_of(*wire[9:]) + plane_bytes, plain_reps=1)
+    res["flac_frame"].update(rounds=rounds, rows=rows, valid_rows=int(valid.sum()),
+                             residual_bytes=resid_bytes)
+    one = kc.flac_fixture_wire(B, 1, dev, FLAC_STRIDE)
+    pairs = [(kc.flac_rice_case(one, FLAC_STRIDE), kc.flac_lpc_case(one, FLAC_STRIDE))]
+    for seed in (1, 2):
+        for wild in (False, True):
+            pairs.append((
+                kc.flac_rice_random_case(dev, seed=seed, rows=64, n_segs=2000, stride=1280,
+                                         wild=wild),
+                kc.flac_lpc_random_case(dev, seed=seed, lanes=1001, T=257, wild=wild)))
+    for rice_pair, lpc_pair in pairs:
+        for name, pair in (("flac_rice_plane", rice_pair), ("flac_frame", lpc_pair)):
+            r = kc.compare(name, *pair)
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], r["max_abs_err"])
+    log("[flac-kernels] one round of fixture lanes and random inputs (2 seeds, with and "
+        "without the parameters no walk emits): bit-exact")
+    return res
+
+
+def flac_compare_run(device: str):
+    """Two ``decode_batches`` calls (one round, then two) of a B-lane
+    decoder on ``device`` over the smoke lanes, as numpy."""
+    from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
+    from soundkit_tpu_torch.tools import flac_fixtures as ff
+
+    model = BatchedFlacDecoder(B, FLAC_STRIDE, device=device)
+    for i, data in enumerate(ff.lane_streams(ff.load_clips(), B, 3)):
+        model.push(i, data)
+    return [model.decode_batches(n) for n in (1, 2)]
+
+
+def phase_flac_compare():
+    import numpy as np
+
+    t0 = time.perf_counter()
+    card = flac_compare_run("cuda")
+    t1 = time.perf_counter()
+    cpu = flac_compare_run("cpu")
+    t2 = time.perf_counter()
+    for call, ((g_s, g_m), (c_s, c_m)) in enumerate(zip(card, cpu)):
+        check(g_s.dtype == np.int32 and g_s.shape == c_s.shape, f"flac call {call}: shapes differ")
+        check(np.array_equal(g_s, c_s), f"flac call {call}: card vs CPU samples differ")
+        check(len(g_m) == len(c_m) and all(np.array_equal(a, b) for a, b in zip(g_m, c_m)),
+              f"flac call {call}: card vs CPU metas differ")
+        check(np.count_nonzero(g_s) > 0, f"flac call {call}: silent")
+    log(f"[flac-compare] 2 calls (1 and 2 rounds) x {B} lanes identical (samples, metas); "
+        f"card {t1 - t0:.3f} s, CPU plain {t2 - t1:.3f} s")
+    return dict(card_s=t1 - t0, cpu_s=t2 - t1)
+
+
+def flac_wrappers():
+    from soundkit_tpu_torch.ops import flac_lpc, flac_rice
+
+    return {"flac_rice_plane": flac_rice.flac_rice_plane, "flac_frame": flac_lpc.flac_frame}
+
+
+def phase_flac(checked_rounds: int):
+    """B ragged lanes of the FLAC fixtures through the decoder until
+    they drain: FLAC_ROUNDS pushes, a decode after each. The first
+    decode must fold ``checked_rounds`` rounds: the shape at which K8 and
+    K9 were held against their plain versions."""
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
+    from soundkit_tpu_torch.tools import flac_fixtures as ff
+
+    clips = ff.load_clips()
+    streams = ff.lane_streams(clips, B)
+    audio_s = sum(ff.lane_seconds(clips, B))
+    model = BatchedFlacDecoder(B, FLAC_STRIDE, device="cuda", timed=True)
+    wrappers = flac_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    push_s = decode_s = 0.0
+    frames = samples = 0
+    rounds = []
+    peak = torch.zeros((), dtype=torch.int32, device="cuda")
+    for r in range(FLAC_ROUNDS):
+        t0 = time.perf_counter()
+        for i, data in enumerate(flac_round_pushes(streams, r)):
+            model.push(i, data)
+        t1 = time.perf_counter()
+        n = max(model.lane_ready(i) for i in range(B))
+        out, metas = model.decode_batches(n, device_out=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        push_s += t1 - t0
+        decode_s += t2 - t1
+        rounds.append(n)
+        blocks = np.stack(metas)[:, :, 0]
+        frames += int((blocks > 0).sum())
+        samples += int(blocks.sum())
+        peak = torch.maximum(peak, out.abs().max())
+        check(tuple(out.shape) == (n, B, 2, FLAC_STRIDE) and out.dtype == torch.int32,
+              f"flac samples {tuple(out.shape)} {out.dtype}")
+    launches = {n: w.launches for n, w in wrappers.items()}
+    want_frames = sum(len(ff.lane_frames(clips, i)[1]) for i in range(B))
+    check(frames == want_frames, f"flac: decoded {frames} frames of {want_frames}")
+    check(all(model.lane_ready(i) == 0 for i in range(B)), "flac: lanes not drained")
+    check(rounds[0] == checked_rounds,
+          f"flac: the first decode folded {rounds[0]} rounds, the kernels were checked at "
+          f"{checked_rounds}")
+    check(int(peak) > (1 << 20), f"flac: peak {int(peak)} (the 24-bit lanes are missing)")
+    for n, c in launches.items():
+        check(c == FLAC_ROUNDS, f"{n} launched {c} times in {FLAC_ROUNDS} decodes")
+    stages = model.stage_ms()
+    res = dict(lanes=B, stride=FLAC_STRIDE, rounds=rounds, frames=frames, samples=samples,
+               audio_s=audio_s, xrealtime=audio_s / (push_s + decode_s), push_s=push_s,
+               decode_s=decode_s, xrealtime_decode_only=audio_s / decode_s,
+               walk_ms_median_per_push=stages["walk"], export_ms_median=stages["export"],
+               h2d_ms_median=stages["h2d"], device_step_ms_median=stages["step"],
+               launches=launches)
+    log(f"[flac] {json.dumps(res)}")
+    return res
+
+
+class FleetStreams:
+    """The streams of the fleet phase: per group, B first-wave streams
+    and, for every fourth lane, a second-wave stream that takes the lane
+    the first one left. ``data[sid]`` is a stream's bytes, ``kind[sid]``
+    its explicit kind (None: detected), ``audio[sid]`` its seconds."""
+
+    def __init__(self, lanes: int):
+        from soundkit_tpu_torch.tools import aac_fixtures as af
+        from soundkit_tpu_torch.tools import flac_fixtures as ff
+        from soundkit_tpu_torch.tools import telephony_fixtures as tf
+
+        self.lanes = lanes
+        n2 = lanes // 4
+        aac = af.lane_streams(af.load_clips(), lanes + n2, FLEET_AAC_FRAMES)
+        clips = ff.load_clips()
+        flac = ff.lane_streams(clips, lanes + n2, FLEET_FLAC_FRAMES)
+        flac_s = ff.lane_seconds(clips, lanes + n2, FLEET_FLAC_FRAMES)
+        tel = [s[:FLEET_TEL_BYTES] for s in tf.lane_streams(FLEET_TEL_KIND, lanes + n2)]
+        tel_rate = tf.sample_rate(FLEET_TEL_KIND) / tf.samples_per_byte(FLEET_TEL_KIND)
+        self.data, self.kind, self.audio, self.group = {}, {}, {}, {}
+        self.flac_bits = {f"flac-{j}": ff.lane_frames(clips, j)[0].bits for j in range(lanes + n2)}
+        for j in range(lanes + n2):
+            for g, data, kind, secs in (("aac", aac[j], None, FLEET_AAC_FRAMES * 1024 / RATE),
+                                        ("flac", flac[j], None, flac_s[j]),
+                                        (FLEET_TEL_KIND, tel[j], FLEET_TEL_KIND, len(tel[j]) / tel_rate)):
+                sid = f"{g}-{j}"
+                self.data[sid], self.kind[sid], self.audio[sid], self.group[sid] = data, kind, secs, g
+
+    def wave(self, group: str, second: bool):
+        lo, hi = (self.lanes, self.lanes + self.lanes // 4) if second else (0, self.lanes)
+        return [f"{group}-{j}" for j in range(lo, hi)]
+
+    def ends_early(self, sid: str) -> bool:
+        """First-wave streams of every fourth lane end after round 1,
+        all their bytes pushed by then."""
+        j = int(sid.rsplit("-", 1)[1])
+        return j < self.lanes and j % 4 == 1
+
+
+def fleet_schedule(fs: "FleetStreams", sid: str, k: int):
+    """[(round, share of the stream pushed by the end of that round)]:
+    a first-wave stream arrives over all four rounds, one that ends
+    early over rounds 0-1, a second-wave stream over rounds 2-3; every
+    fifth (stream, round) is a slow producer with half its share, unless
+    the round is the stream's last. The stream ends after its last push.
+    The first share carries a detected stream past ``MIN_DETECT`` bytes,
+    a slow first push does not."""
+    j = int(sid.rsplit("-", 1)[1])
+    if j >= fs.lanes:
+        plan = [(2, 0.6), (3, 1.0)]
+    elif fs.ends_early(sid):
+        plan = [(0, 0.6), (1, 1.0)]
+    else:
+        plan = [(0, 0.55), (1, 0.7), (2, 0.85), (3, 1.0)]
+    return [(r, share * (0.5 if (k + r) % 5 == 0 and share < 1.0 else 1.0)) for r, share in plan]
+
+
+def drive_fleet(fleet, fs: "FleetStreams", sids, collect):
+    """Push ``sids`` by :func:`fleet_schedule` over FLEET_ROUNDS rounds,
+    ``collect`` after each and once more at the end. Returns (push
+    seconds, collect seconds, synchronized)."""
+    import torch
+
+    plans = {sid: dict(fleet_schedule(fs, sid, k)) for k, sid in enumerate(sids)}
+    pos = dict.fromkeys(sids, 0)
+    push_s = collect_s = 0.0
+    for r in range(FLEET_ROUNDS + 1):
+        t0 = time.perf_counter()
+        for sid in sids:
+            share = plans[sid].get(r)
+            if share is None:
+                continue
+            data = fs.data[sid]
+            end = len(data) if share == 1.0 else max(int(len(data) * share), pos[sid])
+            fleet.push(sid, data[pos[sid]: end], kind=fs.kind[sid] if pos[sid] == 0 else None)
+            pos[sid] = end
+            if share == 1.0:
+                fleet.end_stream(sid)
+        t1 = time.perf_counter()
+        collect()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        push_s += t1 - t0
+        collect_s += t2 - t1
+    check(all(pos[sid] == len(fs.data[sid]) for sid in sids), "fleet: a stream was not pushed whole")
+    return push_s, collect_s
+
+
+def bare_outputs(fs: "FleetStreams", seats, group: str, rounds=None):
+    """The streams of ``seats`` ({lane: sid}; AAC's PNS signs depend on
+    the lane) through the group's bare model of B lanes on the card:
+    {sid: PCM [C, samples]} as the model returns it (f32 for AAC, int32
+    for FLAC, int16 for telephony), and the seconds it took (building the
+    model, the pushes, one decode of every round, synchronized).
+
+    ``rounds`` (AAC only) replays a fleet's lockstep rounds: per collect
+    (batches decoded, {sid: frames the stream had ready}). The AAC step
+    takes an idle lane's previous window shape for 0, as the JAX
+    package's does, so a lane that idles in mid-stream windows its next
+    frame otherwise than one fed without a gap; the fleet is held to the
+    bare model under the same gaps."""
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.models.aac_lc_batch import BatchedAacLcDecoder
+    from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
+    from soundkit_tpu_torch.models.telephony_batch import TelephonyLaneGroup
+
+    t0 = time.perf_counter()
+    if group == "aac":
+        model = BatchedAacLcDecoder(B, C, device="cuda")
+    elif group == "flac":
+        model = BatchedFlacDecoder(B, FLAC_STRIDE, device="cuda")
+    else:
+        model = TelephonyLaneGroup(group, B, TEL_CHUNK, device="cuda")
+    if rounds is not None:
+        from soundkit_tpu_torch.tools import aac_fixtures as af
+
+        frames = {sid: af.split_adts(fs.data[sid]) for sid in seats.values()}
+        parts = {sid: [] for sid in seats.values()}
+        for n, ready in rounds:
+            for lane, sid in seats.items():
+                k = ready.get(sid, 0)
+                model.push(lane, b"".join(frames[sid][:k]))
+                del frames[sid][:k]
+            arr = model.decode_batches(n)
+            for lane, sid in seats.items():
+                k = ready.get(sid, 0)
+                parts[sid].append(np.transpose(arr[:k, lane], (1, 0, 2)).reshape(C, -1))
+        check(not any(frames.values()), "fleet: an AAC stream's frames were not all collected")
+        return {sid: np.concatenate(p, axis=1) for sid, p in parts.items()}, time.perf_counter() - t0
+    for lane, sid in seats.items():
+        model.push(lane, fs.data[sid])
+    ready = {lane: model.lane_ready(lane) for lane in seats}
+    got = model.decode_batches(max(ready.values()), device_out=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = {}
+    if group == "aac":
+        arr = got.cpu().numpy()
+        for i, sid in seats.items():
+            out[sid] = np.transpose(arr[: ready[i], i], (1, 0, 2)).reshape(C, -1)
+    elif group == "flac":
+        arr, metas = got[0].cpu().numpy(), got[1]
+        for i, sid in seats.items():
+            parts = [arr[f, i, : max(int(metas[f][i][1]), 1), : metas[f][i][0]] for f in range(ready[i])]
+            out[sid] = np.concatenate(parts, axis=1)
+    else:
+        arr, lens = got[0].cpu().numpy(), got[1]
+        for i, sid in seats.items():
+            out[sid] = np.concatenate([arr[r, i, :, : int(lens[r][i])] for r in range(ready[i])], axis=1)
+    return out, seconds
+
+
+def phase_fleet():
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.models.fleet import FleetUnsupported, StreamFleet
+    from soundkit_tpu_torch.ops import aac_batch as ab
+    from soundkit_tpu_torch.ops import aac_entropy as ae
+    from soundkit_tpu_torch.ops import g722, imdct
+
+    fs = FleetStreams(B)
+    groups = ("aac", "flac", FLEET_TEL_KIND)
+    first = [sid for g in groups for sid in fs.wave(g, False)]
+    second = [sid for g in groups for sid in fs.wave(g, True)]
+    wrappers = {"spectral_decode": ae.spectral_decode, "tns_filter": ab.tns_filter,
+                "imdct_window": imdct.imdct_window, "g722_scan": g722.g722_decode_scan,
+                **flac_wrappers()}
+
+    # mixed: all three groups in one fleet, lanes recycled, every stream checked
+    fleet = StreamFleet(capacity_per_group=B, device="cuda")
+    got, lane_of = {}, {}
+    aac_rounds = []  # per collect with AAC output: (batches decoded, {sid: frames ready})
+
+    def collect_and_fetch():
+        recs = fleet.collect(device_out=True)
+        ready = {sid: rec.frames for sid, rec in recs.items() if rec.kind == "aac"}
+        if ready:
+            aac_rounds.append((int(next(recs[sid] for sid in ready).device.shape[0]), ready))
+        for sid, rec in recs.items():
+            check(rec.rate == fleet.sample_rate(sid) and rec.rate is not None, f"{sid}: rate {rec.rate}")
+            pcm = rec.fetch()
+            check(pcm.shape[-1] == rec.samples, f"{sid}: {pcm.shape} for {rec.samples} samples")
+            check(lane_of.setdefault(sid, rec.lane) == rec.lane, f"{sid}: changed lanes")
+            got.setdefault(sid, []).append(pcm)
+
+    for w in wrappers.values():
+        w.launches = 0
+    push_s, collect_s = drive_fleet(fleet, fs, first + second, collect_and_fetch)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    for n, c in launches.items():
+        check(c > 0, f"{n} was not launched by the fleet")
+    check(not fleet._lanes and not fleet._detect and not fleet._ended,
+          "fleet: streams left over after every stream ended and drained")
+    for g in groups:
+        used = fleet._groups[g]._used
+        check(len(used) == B, f"fleet: group {g} used {len(used)} lanes for {B + B // 4} streams")
+    try:
+        fleet.push("refused", b"ID3" + bytes(9000))
+        check(False, "fleet: an MP3 stream was not refused")
+    except FleetUnsupported as e:
+        check("mp3" in str(e), f"fleet: refusal does not name the kind: {e}")
+    try:
+        fleet.push("refused", b"\x00" * 64, kind="gsm")
+        check(False, "fleet: a GSM stream was not refused")
+    except FleetUnsupported:
+        pass
+
+    worst_snr = float("inf")
+    for g in groups:
+        # a lane serves several streams in turn (the early enders' lanes go to late
+        # arrivals): each bare model seats at most one stream a lane, in its fleet lane
+        seatings = []
+        for sid in fs.wave(g, False) + fs.wave(g, True):
+            check(sid in got, f"fleet returned nothing for {sid}")
+            seats = next((s for s in seatings if lane_of[sid] not in s), None)
+            if seats is None:
+                seatings.append(seats := {})
+            seats[lane_of[sid]] = sid
+        check(len(seatings) >= 2, f"fleet: no {g} lane was reused")
+        for seats in seatings:
+            want, _ = bare_outputs(fs, seats, g, aac_rounds if g == "aac" else None)
+            for sid in seats.values():
+                pcm = np.concatenate(got[sid], axis=1)
+                ref = want[sid]
+                check(pcm.shape == ref.shape, f"{sid}: fleet {pcm.shape}, bare model {ref.shape}")
+                if g == "aac":
+                    err = float(((pcm.astype(np.float64) - ref) ** 2).sum())
+                    sig = float((ref.astype(np.float64) ** 2).sum())
+                    check(sig > 0, f"{sid}: silent")
+                    worst_snr = min(worst_snr, 10 * np.log10(sig / max(err, 1e-300)))
+                else:
+                    check(np.array_equal(pcm, ref.astype(np.float32) / 32768.0),
+                          f"{sid}: fleet PCM differs from the bare model's")
+                    check(np.any(ref), f"{sid}: silent")
+    check(worst_snr >= 100.0, f"fleet: AAC stream at {worst_snr:.2f} dB against the bare model")
+    audio = sum(fs.audio.values())
+    mixed = dict(streams=len(first) + len(second), rounds=FLEET_ROUNDS, audio_s=audio,
+                 push_s=push_s, collect_and_fetch_s=collect_s,
+                 xrealtime=audio / (push_s + collect_s), min_aac_snr_db=worst_snr,
+                 launches=launches)
+    log(f"[fleet] mixed: {json.dumps(mixed)}")
+
+    # out_bits=16: one collect, against the bare outputs quantized on the host
+    f16 = StreamFleet(capacity_per_group=B, out_bits=16, device="cuda")
+    sids16 = fs.wave("aac", False) + fs.wave("flac", False)
+    for sid in sids16:
+        f16.push(sid, fs.data[sid], kind=fs.kind[sid])
+        f16.end_stream(sid)
+    out16 = f16.collect(device_out=True)
+    for g in ("aac", "flac"):
+        want, _ = bare_outputs(fs, {out16[sid].lane: sid for sid in fs.wave(g, False)}, g)
+        for sid in fs.wave(g, False):
+            pcm, ref = out16[sid].fetch(), want[sid]
+            check(pcm.dtype == np.int16 and pcm.shape == ref.shape, f"{sid}: {pcm.dtype} {pcm.shape}")
+            if g == "aac":
+                q = np.clip(np.round(ref * np.float32(32767.0)), -32768, 32767)
+                check(np.abs(pcm - q).max() <= 1, f"{sid}: int16 PCM off by more than 1")
+            else:
+                shift = fs.flac_bits[sid] - 16
+                check(np.array_equal(pcm, np.clip(ref >> shift, -32768, 32767)),
+                      f"{sid}: int16 FLAC differs")
+    log(f"[fleet] out_bits=16: {len(sids16)} streams, AAC within 1 LSB, FLAC exact (24-bit lanes >> 8)")
+
+    # per group: a fleet serving that group alone, beside the bare model on the same bytes
+    by_group = {}
+    for g in groups:
+        sids, sids2 = fs.wave(g, False), fs.wave(g, True)
+        solo = StreamFleet(capacity_per_group=B, device="cuda")
+        n_out = [0]
+
+        def collect_only():
+            n_out[0] += len(solo.collect(device_out=True))
+
+        p_s, c_s = drive_fleet(solo, fs, sids + sids2, collect_only)
+        g_audio = sum(fs.audio[sid] for sid in (*sids, *sids2))
+        _, bare_s = bare_outputs(fs, dict(enumerate(sids)), g)
+        _, bare2_s = bare_outputs(fs, dict(enumerate(sids2)), g)
+        by_group[g] = dict(streams=len(sids) + len(sids2), audio_s=g_audio, push_s=p_s, collect_s=c_s,
+                           fleet_xrealtime=g_audio / (p_s + c_s),
+                           bare_s=bare_s + bare2_s, bare_xrealtime=g_audio / (bare_s + bare2_s),
+                           outputs=n_out[0])
+        log(f"[fleet] {g} alone: {json.dumps(by_group[g])}")
+    return dict(mixed=mixed, by_group=by_group)
+
+
 def main() -> int:
     if not (ROOT / "soundkit_tpu_torch").is_dir() or not (ROOT / "tests" / "data" / "torch_port").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -708,6 +1217,14 @@ def main() -> int:
         tcres = phase_tel_compare()
         phase = "telephony"
         tres, tlaunches = phase_telephony()
+        phase = "flac-kernels"
+        fkres = phase_flac_kernels()
+        phase = "flac-compare"
+        fcres = phase_flac_compare()
+        phase = "flac"
+        fres = phase_flac(fkres["flac_frame"]["rounds"])
+        phase = "fleet"
+        flres = phase_fleet()
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
@@ -745,8 +1262,21 @@ def main() -> int:
              launches_by_wrapper={w: tlaunches[w] for w in ws}, **tkres[n])
         for n, s, r, ws in tel_rows
     ]
+    flac_rows = [
+        ("flac_rice_plane", "flac_rice.cu", "soundkit_tpu/ops/flac_rice.py:127"),
+        ("flac_frame", "flac_lpc.cu", "soundkit_tpu/ops/flac_lpc.py:36"),
+    ]
+    kernels += [
+        dict(name=n, route="cuda", source=src + s, replaces=r, on_path=True,
+             launches=fres["launches"][n], launches_per_step=fres["launches"][n] / FLAC_ROUNDS,
+             **fkres[n])
+        for n, s, r in flac_rows
+    ]
+    for k in kernels:
+        k["fleet_launches"] = flres["mixed"]["launches"].get(k["name"], 0)
     log(json.dumps({"slice": sres, "compare": cres, "telephony": tres,
-                    "telephony_compare": tcres, "wall_s": time.perf_counter() - t_start}))
+                    "telephony_compare": tcres, "flac": fres, "flac_compare": fcres,
+                    "fleet": flres, "wall_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

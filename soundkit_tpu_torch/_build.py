@@ -1,6 +1,6 @@
 """Build and load the port's native code at first use.
 
-Two shared libraries, each built into ``soundkit_tpu_torch/_build/``
+Three shared libraries, each built into ``soundkit_tpu_torch/_build/``
 under a name keyed by a hash of its sources and flags, so a checkout
 builds once and a source edit rebuilds:
 
@@ -11,7 +11,10 @@ builds once and a source edit rebuilds:
   its table header ``native_src/generated/aac_tables.h`` (verbatim
   copies of the JAX package's), compiled alone by ``g++`` (bound in
   ``native.py``). It needs only the C++ standard library, so the build
-  links no FFmpeg and uses no ``-march=native``.
+  links no FFmpeg and uses no ``-march=native``;
+- the FLAC host walk, ``native_src/src/flac.cpp`` (a verbatim copy too;
+  frame and subframe headers, the coding-span table and the export of a
+  collect's wire), compiled alone by ``g++`` with the same flags.
 
 A failed build raises :class:`BuildError` with the compiler's output.
 Nothing here runs at import time.
@@ -34,6 +37,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 NATIVE_DIR = PKG_DIR / "native_src"
 PARSER_SOURCES = (NATIVE_DIR / "src" / "aac_parse.cpp",)
 PARSER_HEADERS = (NATIVE_DIR / "generated" / "aac_tables.h",)
+FLAC_SOURCES = (NATIVE_DIR / "src" / "flac.cpp",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -93,6 +97,12 @@ def parser_library_path() -> Path:
 
 
 @functools.lru_cache(maxsize=1)
+def flac_library_path() -> Path:
+    gxx = _compiler("g++", "/usr/bin/g++")
+    return _build("flac_walk", gxx, GXX_FLAGS, FLAC_SOURCES, ())
+
+
+@functools.lru_cache(maxsize=1)
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library with every entry point's C signature.
 
@@ -110,8 +120,11 @@ def kernels() -> ctypes.CDLL:
     lib.skt_g711_launch_floor.argtypes = [i, i, p]
     lib.skt_g726_scan.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.skt_g722_scan.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.skt_flac_rice_plane.argtypes = [p, i, i, p, p, p, p, p, i, p, p, p, p, i, p]
+    lib.skt_flac_lpc.argtypes = [p, p, p, p, p, p, p, p, p, i, i, p]
     for fn in (lib.skt_imdct_window, lib.skt_dequant_imdct_window,
                lib.skt_spectral_decode, lib.skt_tns_filter, lib.skt_g711_decode,
-               lib.skt_g711_launch_floor, lib.skt_g726_scan, lib.skt_g722_scan):
+               lib.skt_g711_launch_floor, lib.skt_g726_scan, lib.skt_g722_scan,
+               lib.skt_flac_rice_plane, lib.skt_flac_lpc):
         fn.restype = ctypes.c_int
     return lib

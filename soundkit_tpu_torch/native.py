@@ -1,4 +1,5 @@
-"""The AAC-LC host syntax parser, bound for the port.
+"""The host libraries of the port, bound with ``ctypes``: the AAC-LC
+syntax parser and the FLAC walk.
 
 ``AacHostParser`` holds a parser handle ``_h`` of the library ``_lib``,
 which the wire packers of ``codecs/aac_lc_native.py``
@@ -6,6 +7,12 @@ which the wire packers of ``codecs/aac_lc_native.py``
 :meth:`pack_v4` calls the first for callers of the port. The library
 is the port's copy of the parser source, ``native_src/src/aac_parse.cpp``,
 built alone (see ``_build.py``): no FFmpeg.
+
+:func:`flac_library` is the port's copy of ``native_src/src/flac.cpp``
+with the signatures ``models/flac_batch.py`` calls: a handle per stream
+(``skt_flac_new`` / ``free``), ``feed`` and ``drain`` at push time,
+``queued``, ``info`` and ``error``, and ``queue_stats`` /
+``export_rounds``, which size and scatter a whole collect's wire.
 """
 from __future__ import annotations
 
@@ -65,6 +72,48 @@ def parser_library() -> ctypes.CDLL:
         arr(np.uint8),   # au bytes
         arr(np.int32),   # max_cw
         arr(np.int32),   # overflow
+    ]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def flac_library() -> ctypes.CDLL:
+    """The standalone FLAC walk with the signatures the batched decoder
+    calls (every pointer typed: a missing argtype cuts it to 32 bits)."""
+    from numpy.ctypeslib import ndpointer
+
+    lib = ctypes.CDLL(str(_build.flac_library_path()))
+
+    def arr(dt):
+        return ndpointer(dt, flags="C_CONTIGUOUS")
+
+    vp, c_long = ctypes.c_void_p, ctypes.c_long
+    handles = ctypes.POINTER(vp)
+    i32 = arr(np.int32)
+    lib.skt_flac_new.restype = vp
+    lib.skt_flac_new.argtypes = []
+    lib.skt_flac_free.restype = None
+    lib.skt_flac_free.argtypes = [vp]
+    lib.skt_flac_feed.restype = ctypes.c_int
+    lib.skt_flac_feed.argtypes = [vp, ctypes.c_char_p, c_long]
+    lib.skt_flac_drain.restype = c_long
+    lib.skt_flac_drain.argtypes = [vp, c_long, c_long, c_long]
+    lib.skt_flac_queued.restype = c_long
+    lib.skt_flac_queued.argtypes = [vp]
+    lib.skt_flac_info.restype = ctypes.c_int
+    lib.skt_flac_info.argtypes = [vp, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                                  ctypes.POINTER(c_long), ctypes.POINTER(ctypes.c_longlong)]
+    lib.skt_flac_error.restype = ctypes.c_char_p
+    lib.skt_flac_error.argtypes = [vp]
+    lib.skt_flac_queue_stats.restype = None
+    lib.skt_flac_queue_stats.argtypes = [handles, ctypes.c_int, c_long, arr(np.int64)]
+    lib.skt_flac_export_rounds.restype = c_long
+    lib.skt_flac_export_rounds.argtypes = [
+        handles, ctypes.c_int, c_long, c_long, c_long, arr(np.uint32),
+        i32, i32, i32, i32, i32,                 # seg lane, bitoff, k, n, dest
+        i32, i32, i32, i32, i32, i32, i32,       # warm, cflag, cval, coef, order, shift, wasted
+        i32, i32, arr(np.uint8), i32,            # assign, block size, valid, meta
+        i32, i32, i32, i32,                      # parts slot, meta, resw, coef
     ]
     return lib
 

@@ -13,7 +13,8 @@ beyond the bound. The bounds are on ``max|kernel - plain| / max|plain|``:
 - K1 ``imdct_window`` and K2 ``dequant_imdct_window``: 1e-5 (3xTF32
   with float32 sums; a plain TF32 product would land near 1e-3);
 - K3 ``g711_decode``, K6 ``g726_scan`` and K7 ``g722_scan``: bit-exact,
-  the output and, for the scans, the final state (integer paths).
+  the output and, for the scans, the final state (integer paths);
+- K8 ``flac_rice_plane`` and K9 ``flac_frame``: bit-exact (lossless).
 
 A case may return a tuple of tensors (a scan's output and its state);
 every element is held to the bound.
@@ -26,7 +27,7 @@ import torch
 from soundkit_tpu_torch import _build
 from soundkit_tpu_torch.ops import aac_batch as ab
 from soundkit_tpu_torch.ops import aac_entropy as ae
-from soundkit_tpu_torch.ops import adpcm, companding, g722, imdct
+from soundkit_tpu_torch.ops import adpcm, companding, flac_lpc, flac_rice, g722, imdct
 from soundkit_tpu_torch.utils.device import launch_check
 
 REL_BOUND = {
@@ -37,6 +38,8 @@ REL_BOUND = {
     "g711_decode": 0.0,
     "g726_scan": 0.0,
     "g722_scan": 0.0,
+    "flac_rice_plane": 0.0,
+    "flac_frame": 0.0,
 }
 
 
@@ -361,3 +364,133 @@ def g722_case(B: int, N: int, encode: bool, device, seed: int, carried: bool = F
     if carried:
         state = plain(_g722_inputs(B, CARRY_STEPS, encode, rng).to(device), state)[1]
     return (lambda: kernel(xs, state, valid)), (lambda: plain(xs, state, valid))
+
+
+# ---------------------------------------------------------------------------
+# FLAC (K8, K9)
+# ---------------------------------------------------------------------------
+
+# positions of a FLAC wire's tensors (``FlacWire.segs``): K8 reads the
+# first nine, K9 the plane K8 wrote and the rest
+_RICE_ARGS = slice(0, 9)
+_LPC_ARGS = slice(9, 16)
+
+
+def flac_fixture_wire(num_lanes: int, rounds: int, device, stride: int = 4608):
+    """The wire of ``rounds`` lockstep rounds over ``num_lanes`` ragged
+    lanes of the FLAC fixtures, as the batched decoder exports it, as
+    tensors on ``device`` (the arguments of ``flac_frames_segs`` up to
+    ``lane_valid``)."""
+    from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
+    from soundkit_tpu_torch.tools import flac_fixtures as ff
+
+    model = BatchedFlacDecoder(num_lanes, stride, device=device)
+    for i, data in enumerate(ff.lane_streams(ff.load_clips(), num_lanes, rounds)):
+        model.push(i, data)
+    wire = model.export_wire(rounds)
+    if len(wire.parts[0]):
+        raise ValueError("a fixture frame left the segment wire")
+    return tuple(model._to_device(wire.segs))
+
+
+def flac_rice_case(wire, stride: int = 4608):
+    """K8 on a FLAC wire (``flac_fixture_wire`` or ``flac_rice_random_inputs``)."""
+    args = (*wire[_RICE_ARGS], stride)
+    return ((lambda: flac_rice.flac_rice_plane(*args)),
+            (lambda: flac_rice.flac_rice_plane_plain(*args)))
+
+
+def flac_lpc_case(wire, stride: int = 4608):
+    """K9 on the residual plane of a FLAC wire (the plain K8's) and the
+    wire's LPC fields."""
+    plane = flac_rice.flac_rice_plane_plain(*wire[_RICE_ARGS], stride)
+    args = (plane, *wire[_LPC_ARGS])
+    return (lambda: flac_lpc.flac_frame(*args)), (lambda: flac_lpc.flac_frame_plain(*args))
+
+
+def flac_rice_random_inputs(seed: int, rows: int = 5, n_words: int = 96, n_segs: int = 70,
+                            stride: int = 320, wild: bool = False):
+    """Seeded K8 inputs on the CPU, far from any encoder's output, as the
+    first nine arguments of ``flac_rice_plane``:
+    random frame words with stretches of zeros (quotients past 24 and 48
+    zeros) and, on some rows, a zero tail (quotients that never end);
+    segments in disjoint ranges of the plane, the last ones past its end;
+    Rice parameters 0..31 and fixed widths 0..32; counts 0..144; bit
+    offsets anywhere in the row, so that windows run past its end. With
+    ``wild``, also what no walk emits and the reference leaves open: Rice
+    parameters 32..40 and negative bit offsets."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, (rows, n_words), dtype=np.uint64).astype(np.uint32)
+    for r in range(rows):
+        for _ in range(4):
+            a = rng.integers(0, n_words - 3)
+            words[r, a:a + rng.integers(1, 4)] = 0
+            words[r, a] &= np.uint32(rng.integers(0, 1 << 16))
+    words[::2, -2:] = 0
+    total = rows * 2 * stride
+    lane = rng.integers(0, rows, n_segs)
+    bitoff = rng.integers(0, n_words * 32, n_segs)
+    bitoff[::9] = 32 * rng.integers(0, n_words, len(bitoff[::9]))  # on a word boundary
+    k = rng.choice(32, n_segs, p=np.r_[[6] * 8, [2] * 23, [1]] / 95)
+    fixed = rng.random(n_segs) < 0.3
+    k[fixed] = -rng.integers(0, 33, int(fixed.sum())) - 1
+    n = np.minimum(rng.integers(0, 145, n_segs), rng.integers(0, 145, n_segs))
+    n[::11] = 0
+    dest = np.cumsum(n + rng.integers(1, 6, n_segs)) - n  # disjoint, in order
+    # stretched until the last tenth falls past the plane's end
+    dest = np.floor(dest * max(1.0, 1.1 * total / (dest[-1] + n[-1]))).astype(np.int64)
+    warm = rng.integers(-1 << 20, 1 << 20, (rows, 2, 32))
+    cflag = (rng.random((rows, 2)) < 0.25).astype(np.int32)
+    cval = rng.integers(-1 << 15, 1 << 15, (rows, 2))
+    if wild:
+        k[5::13] = rng.integers(32, 41, len(k[5::13]))
+        bitoff[7::13] = -rng.integers(1, 100, len(bitoff[7::13]))
+    arrays = (words.view(np.int32), lane, bitoff, k, n, dest, warm, cflag, cval)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)) for a in arrays)
+
+
+def flac_lpc_random_inputs(seed: int, lanes: int = 37, T: int = 96, wild: bool = False):
+    """Seeded K9 inputs on the CPU, the arguments of ``flac_frame``:
+    residuals over the whole int32 range on some rows and 16-bit-sized on
+    others, orders 0..32 with coefficients of up to 15 bits (a few rows
+    with taps past their order), shifts 0..31, wasted bits 0..8 and 31,
+    every assignment, block sizes from 0 to past ``T``, invalid lanes.
+    With ``wild``, also what no walk emits and the reference leaves open:
+    shifts and wasted bits of 64 and more."""
+    rng = np.random.default_rng(seed)
+    resw = rng.integers(-1 << 31, 1 << 31, (lanes, 2, T))
+    small = rng.random((lanes, 2)) < 0.6
+    resw[small] = rng.integers(-1 << 15, 1 << 15, (int(small.sum()), T))
+    order = rng.integers(0, 33, (lanes, 2))
+    order[::7] = 32
+    order[3::7] = 0
+    coef = rng.integers(-1 << 14, 1 << 14, (lanes, 2, 32))
+    past = np.arange(32)[None, None] >= order[..., None]
+    past[::5] = False  # these rows keep taps past their order
+    coef[past] = 0
+    shift = rng.integers(0, 32, (lanes, 2))
+    wasted = rng.integers(0, 9, (lanes, 2))
+    wasted[::6, 1] = 31
+    if wild:
+        shift[2::9] += 64
+        wasted[4::9, 0] += 64
+    assign = rng.choice([0, 1, 8, 9, 10, 5], lanes)
+    bs = rng.integers(0, T + 20, lanes)
+    bs[::4] = T
+    valid = rng.random(lanes) < 0.85
+    ints = (resw, coef, order, shift, wasted, assign, bs)
+    return (*(torch.from_numpy(a.astype(np.int32)) for a in ints), torch.from_numpy(valid))
+
+
+def flac_rice_random_case(device, seed: int, stride: int = 320, **shape):
+    """K8 on :func:`flac_rice_random_inputs`."""
+    args = [t.to(device) for t in flac_rice_random_inputs(seed, stride=stride, **shape)]
+    args += [stride]
+    return ((lambda: flac_rice.flac_rice_plane(*args)),
+            (lambda: flac_rice.flac_rice_plane_plain(*args)))
+
+
+def flac_lpc_random_case(device, seed: int, **shape):
+    """K9 on :func:`flac_lpc_random_inputs`."""
+    args = [t.to(device) for t in flac_lpc_random_inputs(seed, **shape)]
+    return (lambda: flac_lpc.flac_frame(*args)), (lambda: flac_lpc.flac_frame_plain(*args))

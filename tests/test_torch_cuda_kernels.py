@@ -95,3 +95,31 @@ def test_g722_scan_kernel_bit_exact(dev, encode, N, carried):
     leaves a ragged last block and N a partial last tile, with rows
     staged by bytes (257) or by cp.async (264); the mask has holes."""
     kc.compare("g722_scan", *kc.g722_case(70, N, encode, dev, seed=9, carried=carried))
+
+
+@pytest.mark.parametrize("lanes,rounds", [(9, 1), (37, 2)])
+def test_flac_kernels_on_the_fixture_wire(dev, lanes, rounds):
+    """K8 and K9 on the wire of ragged fixture lanes: 37 lanes leave the
+    last warp of K9 and the last block of K8 part empty."""
+    wire = kc.flac_fixture_wire(lanes, rounds, dev)
+    kc.compare("flac_rice_plane", *kc.flac_rice_case(wire))
+    kc.compare("flac_frame", *kc.flac_lpc_case(wire))
+
+
+@pytest.mark.parametrize("wild", [False, True])
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_flac_rice_kernel_random_inputs(dev, seed, wild):
+    """Quotients past 24 and 48 zeros and ones that never end, fixed
+    widths 0..32, values past the plane's end, windows past a row's end;
+    ``wild``: Rice parameters past 31 and negative bit offsets."""
+    kc.compare("flac_rice_plane", *kc.flac_rice_random_case(dev, seed=seed, wild=wild))
+
+
+@pytest.mark.parametrize("wild", [False, True])
+@pytest.mark.parametrize("lanes,T", [(37, 96), (16, 40), (1, 33), (70, 257)])
+def test_flac_lpc_kernel_random_inputs(dev, lanes, T, wild):
+    """Whole-range int32 residuals (64-bit wrap), orders 0..32, every
+    assignment, short blocks and invalid lanes; lane counts that fill a
+    warp, leave one part empty, or hold a single lane."""
+    kc.compare("flac_frame",
+               *kc.flac_lpc_random_case(dev, seed=lanes, lanes=lanes, T=T, wild=wild))

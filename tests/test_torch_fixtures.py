@@ -1,5 +1,5 @@
-"""The committed AAC fixtures (tests/data/torch_port) and the port's
-standalone host parser."""
+"""The committed AAC and FLAC fixtures (tests/data/torch_port) and the
+port's standalone host parser."""
 import numpy as np
 
 from soundkit_tpu.codecs.aac_lc_native import (
@@ -11,7 +11,15 @@ from soundkit_tpu.codecs.aac_lc_native import (
 from soundkit_tpu_torch.native import AacHostParser
 from soundkit_tpu_torch.tools.aac_fixtures import CLIPS, lane_streams, load_clips
 
-from torch_port_helpers import SR_INDEX_48K, clip_aus, generate_aac_fixtures, host_parser, picked_aus
+from soundkit_tpu_torch.tools import flac_fixtures
+from torch_port_helpers import (
+    SR_INDEX_48K,
+    clip_aus,
+    generate_aac_fixtures,
+    generate_flac_fixtures,
+    host_parser,
+    picked_aus,
+)
 
 
 def test_fixture_aus_are_v4_clean_and_cover_the_decode_paths():
@@ -65,3 +73,12 @@ def test_fixtures_equal_a_regeneration(tmp_path):
 def test_smoke_lanes_are_distinct_streams():
     lanes = lane_streams(load_clips(), 1024, 2)
     assert len(set(lanes)) == 1024
+
+
+def test_flac_fixtures_equal_a_regeneration(tmp_path):
+    """The generator (on the test side, with the JAX package's owned FLAC
+    encoder) makes the committed streams and their frame index byte for
+    byte."""
+    generate_flac_fixtures(tmp_path)
+    for name in (*(f"{c}.flac" for c in flac_fixtures.CLIPS), "index.json"):
+        assert (tmp_path / name).read_bytes() == (flac_fixtures.FIXTURE_DIR / name).read_bytes(), name

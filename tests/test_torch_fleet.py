@@ -1,0 +1,452 @@
+"""Port parity of the serving runtime: soundkit_tpu_torch's StreamFleet
+against the JAX package's on the CPU, driven by the same pushes over the
+committed AAC, FLAC and telephony fixtures. Collect by collect: the same
+key sets, dtypes, shapes and sample rates; FLAC and telephony PCM
+bit-exact; AAC PCM at 100 dB or better per collect as f32 (the bar of
+``test_torch_aac_lc_model.py``) and within 1 LSB as int16. The streams
+the JAX fleet hands to its host fallback raise ``FleetUnsupported``
+here, one test per case."""
+import numpy as np
+import pytest
+import torch
+
+from soundkit_tpu.models import telephony_batch as jax_tel
+from soundkit_tpu.models.fleet import StreamFleet as JaxFleet
+from soundkit_tpu_torch.models import fleet as fleet_mod
+from soundkit_tpu_torch.models import telephony_batch as port_tel
+from soundkit_tpu_torch.models.fleet import (
+    HOST_KINDS,
+    MIN_DETECT,
+    TELEPHONY_KINDS,
+    FleetLaneOutput,
+    FleetUnsupported,
+    StreamFleet,
+)
+from soundkit_tpu_torch.tools import aac_fixtures, flac_fixtures, telephony_fixtures
+from torch_port_helpers import flac_clip_pcm, snr_db
+
+
+CHUNK = 256  # codes a telephony round, in both fleets (they build their groups at 2048)
+CAP = 4      # lanes a group wherever a test does not need another number: one set of JAX programs
+
+
+@pytest.fixture(autouse=True)
+def small_telephony_rounds(monkeypatch):
+    """Both fleets build ``TelephonyLaneGroup(kind, capacity)`` with the
+    default chunk of 2048 codes; here the default is ``CHUNK``, which
+    keeps the scans of a collect short."""
+    for mod in (jax_tel, port_tel):
+        init = mod.TelephonyLaneGroup.__init__
+        monkeypatch.setattr(
+            mod.TelephonyLaneGroup, "__init__",
+            lambda self, codec, capacity, chunk_codes=CHUNK, _init=init, **kw:
+                _init(self, codec, capacity, chunk_codes, **kw))
+
+
+def aac_stream(clip: int, start: int, n: int) -> bytes:
+    return b"".join(aac_fixtures.load_clips()[clip][start: start + n])
+
+
+def flac_stream(clip: int, frames=None) -> bytes:
+    c = flac_fixtures.load_clips()[clip]
+    return c.header + b"".join(c.frames[:frames])
+
+
+def tel_stream(kind: str, lane: int, n: int) -> bytes:
+    return telephony_fixtures.lane_streams(kind, lane + 1)[lane][:n]
+
+
+class Pair:
+    """The port's fleet and the JAX package's, driven together. Stream
+    ids start with their group's letter: a (AAC), f (FLAC), t (telephony)."""
+
+    def __init__(self, capacity=CAP, out_bits=32):
+        self.port = StreamFleet(capacity, out_bits=out_bits, device="cpu")
+        self.ref = JaxFleet(capacity, out_bits=out_bits)
+        self.out_bits = out_bits
+
+    def push(self, sid, data, kind=None):
+        for f in (self.port, self.ref):
+            f.push(sid, data, kind=kind)
+
+    def end(self, *sids):
+        for sid in sids:
+            for f in (self.port, self.ref):
+                f.end_stream(sid)
+
+    def rates(self, *sids):
+        got = [self.port.sample_rate(s) for s in sids]
+        assert got == [self.ref.sample_rate(s) for s in sids]
+        return got
+
+    def collect(self, device_out=False):
+        """One collect of both fleets, compared; returns the port's PCM
+        by stream (fetched, in ``device_out`` mode)."""
+        got = self.port.collect(device_out=device_out)
+        want = self.ref.collect(device_out=device_out)
+        assert sorted(got) == sorted(want)
+        out = {}
+        for sid in got:
+            g, w = got[sid], want[sid]
+            if device_out:
+                assert isinstance(g, FleetLaneOutput)
+                assert (g.kind, g.samples, g.rate, g.lane, g.frames, g.out_bits) == \
+                    (w.kind, w.samples, w.rate, w.lane, w.frames, w.out_bits), sid
+                assert isinstance(g.device, torch.Tensor)
+                g, w = g.fetch(), w.fetch()
+                assert g.shape[-1] == got[sid].samples
+            w = np.asarray(w)
+            assert g.dtype == w.dtype and g.shape == w.shape, (sid, g.dtype, w.dtype, g.shape, w.shape)
+            if not sid.startswith("a"):
+                np.testing.assert_array_equal(g, w, err_msg=sid)
+            elif g.dtype == np.int16:
+                assert np.abs(g.astype(np.int32) - w).max() <= 1, sid
+            elif np.any(w):
+                assert snr_db(g, w) >= 100, sid
+            else:
+                assert not np.any(g), sid
+            out[sid] = g
+        return out
+
+
+STREAMS = {
+    # sid: (bytes, explicit kind, rate)
+    "a0": (aac_stream(1, 8, 9), None, 48000),
+    "a1": (aac_stream(4, 30, 5), None, 48000),
+    "f0": (flac_stream(0, 3), None, 44100),
+    "f1": (flac_stream(1, 2), None, 48000),
+    "f2": (flac_stream(2, 4), None, 16000),
+    "f3": (flac_stream(3, 3), "flac", 44100),
+    # the ADPCM streams are short: their plain scans are Python loops over the codes
+    "t0": (tel_stream("g722", 0, 700), "g722", 16000),
+    "t1": (tel_stream("g722", 1, 150), "g722", 16000),
+    "t2": (tel_stream("g726_32", 2, 300), "g726_32", 8000),
+    "t3": (tel_stream("g711_alaw", 3, 3000), "g711_alaw", 8000),
+}
+
+
+@pytest.mark.parametrize("out_bits,device_out", [(32, False), (16, True), (32, True), (16, False)])
+def test_mixed_ragged_routing_matches_jax(out_bits, device_out):
+    """Ten streams over five groups, pushed in three ragged rounds with a
+    collect after each; autodetected and explicit kinds; some streams
+    end early, all end at last."""
+    pair = Pair(CAP, out_bits)
+    pos = {sid: 0 for sid in STREAMS}
+    shares = {"a0": (0.2, 0.7, 1), "a1": (1, 1, 1), "f0": (0.5, 0.5, 1), "f1": (0.1, 1, 1),
+              "f2": (0.3, 0.6, 1), "f3": (0.6, 1, 1), "t0": (0.3, 0.8, 1), "t1": (1, 1, 1),
+              "t2": (0.01, 0.5, 1), "t3": (0.5, 0.5, 1)}
+    seen = {sid: 0 for sid in STREAMS}
+    dtypes = set()
+    for rnd in range(3):
+        for sid, (data, kind, _) in STREAMS.items():
+            end = int(len(data) * shares[sid][rnd])
+            if end > pos[sid] or rnd == 0:
+                pair.push(sid, data[pos[sid]: end], kind=kind if pos[sid] == 0 and rnd == 0 else None)
+            pos[sid] = max(pos[sid], end)
+        if rnd == 1:
+            pair.end("a1", "t1", "f3")
+        if rnd == 2:
+            pair.end(*STREAMS)
+        for sid, pcm in pair.collect(device_out).items():
+            seen[sid] += pcm.shape[-1]
+            dtypes.add((sid[0], pcm.dtype))
+            assert pair.rates(sid) == [STREAMS[sid][2]]
+    pair.collect(device_out)  # drains what the last round left, then recycles
+    assert all(n > 0 for n in seen.values()), seen
+    assert seen["a0"] == 9 * 1024 and seen["f1"] == 2 * 4096 and seen["t0"] == 2 * 700
+    want = np.dtype(np.int16 if out_bits == 16 else np.float32)
+    assert dtypes == {("a", want), ("f", want), ("t", want)}
+    for f in (pair.port, pair.ref):
+        assert not f._lanes and not f._detect and not f._ended
+
+
+@pytest.mark.parametrize("out_bits", [32, 16])
+def test_device_out_is_bit_identical_to_the_fetching_mode(out_bits):
+    """Two fleets of the port, the same pushes: the same key set, and
+    ``fetch()`` gives the arrays that the fetching mode returns; the
+    lanes of a group share one fetch."""
+    fleets = [StreamFleet(CAP, out_bits=out_bits, device="cpu") for _ in range(2)]
+    for f in fleets:
+        for sid, (data, kind, _) in STREAMS.items():
+            f.push(sid, data[: len(data) // 2], kind=kind or ("aac" if sid[0] == "a" else None))
+        f.push("t9", b"", kind="g722")  # a telephony lane with nothing to say
+    fetched = fleets[0].collect()
+    resident = fleets[1].collect(device_out=True)
+    assert sorted(fetched) == sorted(resident) and "t9" not in fetched
+    for sid, rec in resident.items():
+        pcm = rec.fetch()
+        assert pcm.dtype == fetched[sid].dtype
+        np.testing.assert_array_equal(pcm, fetched[sid])
+        assert rec.samples == pcm.shape[-1] and rec.rate == STREAMS[sid][2]
+    caches = {id(rec._cache) for rec in resident.values()}
+    assert len(caches) == 5  # aac, flac, g722, g726_32, g711_alaw
+    assert resident["f0"]._cache is resident["f2"]._cache and "arr" in resident["f0"]._cache
+
+
+def test_fleet_lane_recycling_resets_state():
+    """A second AAC stream takes the lane the first one left (the free
+    list hands out the lane released last), and decodes as in a fresh
+    fleet: the overlap state was cleared."""
+    pair = Pair()
+    pair.push("a0", aac_stream(0, 10, 9))
+    pair.end("a0")
+    first = pair.collect()["a0"]
+    assert first.shape == (2, 9 * 1024) and not pair.port._lanes
+    pair.push("a1", aac_stream(3, 40, 9))
+    pair.end("a1")
+    assert pair.port._lanes["a1"].index == pair.ref._lanes["a1"].index == CAP - 1
+    again = pair.collect()["a1"]
+    fresh = StreamFleet(CAP, device="cpu")
+    fresh.push("x", aac_stream(3, 40, 9))
+    fresh.end_stream("x")
+    np.testing.assert_array_equal(again, fresh.collect()["x"])
+    assert pair.port._groups["aac"]._model.v4_batches == 18
+
+
+def test_fleet_telephony_lanes_recycle_and_state_reset():
+    """The same for a G.726 lane: the ADPCM state row goes back to the
+    initial state when the lane takes its next stream."""
+    pair = Pair()
+    pair.push("t0", tel_stream("g726_32", 0, 300), kind="g726_32")
+    pair.end("t0")
+    assert pair.collect()["t0"].shape == (1, 600)
+    second = tel_stream("g726_32", 4, 300)
+    pair.push("t1", second, kind="g726_32")
+    assert pair.port._lanes["t1"].index == pair.ref._lanes["t1"].index == CAP - 1
+    pair.end("t1")
+    again = pair.collect()["t1"]
+    fresh = StreamFleet(CAP, device="cpu")
+    fresh.push("x", second, kind="g726_32")
+    np.testing.assert_array_equal(again, fresh.collect()["x"])
+    # and it would differ from a lane that kept its state
+    kept = StreamFleet(CAP, device="cpu")
+    kept.push("x", tel_stream("g726_32", 0, 300) + second, kind="g726_32")
+    assert not np.array_equal(again, kept.collect()["x"][:, 600:])
+
+
+def test_sample_rates_per_stream_and_their_one_collect_retention():
+    pair = Pair()
+    assert pair.rates("f0", "nobody") == [None, None]
+    pair.push("f0", flac_stream(1, 1)[:20])      # the marker, not yet STREAMINFO: no lane yet
+    pair.push("f1", flac_stream(2, 1), kind="flac")
+    pair.push("a0", aac_stream(2, 0, 3))         # under MIN_DETECT: not routed yet
+    pair.push("t0", tel_stream("g722", 0, 100), kind="g722")
+    assert pair.rates("f0", "f1", "a0", "t0") == [None, 16000, None, 16000]
+    pair.end("f0", "f1", "a0", "t0")             # f0 and a0 are detected and seated now
+    assert pair.rates("f0", "a0") == [None, 48000]
+    assert sorted(pair.collect()) == ["a0", "f1", "t0"]  # f0 had no whole frame; all four retire
+    assert pair.rates("f0", "f1", "a0", "t0") == [None, 16000, 48000, 16000], \
+        "kept for the collect that returned the PCM"
+    assert pair.collect() == {}
+    assert pair.rates("f0", "f1", "a0", "t0") == [None] * 4
+    for f in (pair.port, pair.ref):
+        assert not f._rates and not f._retired and not f._lanes and not f._ended
+
+
+def test_out_bits_16_downshifts_24_bit_flac():
+    """A 24-bit lane scales by an arithmetic >> 8 and does not saturate;
+    a 16-bit lane beside it stays exact."""
+    pair = Pair(out_bits=16)
+    pair.push("f24", flac_stream(1))
+    pair.push("f16", flac_stream(0, 2))
+    pair.end("f24", "f16")
+    out = pair.collect()
+    pcm24 = flac_clip_pcm("stereo24")
+    assert np.abs(pcm24).max() > (1 << 20)
+    assert out["f24"].dtype == np.int16 and out["f24"].shape == pcm24.shape
+    np.testing.assert_array_equal(out["f24"], np.clip(pcm24 >> 8, -32768, 32767))
+    np.testing.assert_array_equal(out["f16"], flac_clip_pcm("stereo16")[:, : 2 * 4096])
+    # the f32 mode scales every lane by 1 / 32768
+    pair32 = Pair()
+    pair32.push("f24", flac_stream(1, 1))
+    pair32.end("f24")
+    np.testing.assert_array_equal(pair32.collect()["f24"],
+                                  pcm24[:, :4096].astype(np.float32) / 32768.0)
+
+
+def test_mono_flac_lane_returns_one_channel():
+    pair = Pair()
+    pair.push("f0", flac_stream(2, 2))
+    pair.end("f0")
+    out = pair.collect()["f0"]
+    assert out.shape == (1, 2 * 4096) and out.dtype == np.float32
+    np.testing.assert_array_equal(out, flac_clip_pcm("mono16")[:, : 2 * 4096].astype(np.float32) / 32768)
+
+
+def test_bounded_bookkeeping_after_a_churn_of_streams():
+    """Thirty streams through two lanes a group: afterwards the fleet
+    remembers none of them."""
+    port = StreamFleet(2, device="cpu")
+    produced = 0
+    for i in range(10):
+        port.push(f"a{i}", aac_stream(i % 6, i, 2))
+        port.push(f"f{i}", flac_stream(i % 4, 1))
+        port.push(f"t{i}", tel_stream("g711_mulaw", i, 500), kind="g711_mulaw")
+        for sid in (f"a{i}", f"f{i}", f"t{i}"):
+            port.end_stream(sid)
+        if i % 2:
+            produced += len(port.collect())
+    port.end_stream("never pushed")
+    port.collect()
+    assert produced == 30
+    assert not (port._lanes or port._detect or port._ended or port._rates or port._retired)
+    for kind in ("aac", "flac", "g711_mulaw"):
+        g = port._groups[kind]
+        assert sorted(g._free) == [0, 1] and g._used == {0, 1}
+
+
+def test_autodetect_waits_for_min_detect_bytes_or_the_end():
+    port = StreamFleet(2, device="cpu")
+    data = flac_stream(0, 2)
+    assert len(data) > MIN_DETECT
+    port.push("f0", data[: MIN_DETECT - 1])
+    assert "f0" in port._detect and not port._lanes
+    port.push("f0", data[MIN_DETECT - 1: MIN_DETECT])
+    assert port._lanes["f0"].group == "flac" and "f0" not in port._detect
+    port.push("a0", aac_stream(0, 0, 2))
+    assert "a0" in port._detect
+    port.end_stream("a0")
+    assert port._lanes["a0"].group == "aac"
+    port.push("f0", data[MIN_DETECT:])
+    out = port.collect()
+    assert out["f0"].shape == (2, 2 * 4096) and out["a0"].shape == (2, 2 * 1024)
+
+
+def test_explicit_kind_skips_detection_and_joins_buffered_bytes():
+    pair = Pair()
+    data = aac_stream(5, 3, 4)
+    pair.push("a0", data[:50])                 # buffered for detection
+    pair.push("a0", data[50:], kind="aac")     # routed now, with the buffered bytes
+    for f in (pair.port, pair.ref):
+        assert f._lanes["a0"].group == "aac" and not f._detect
+    assert pair.collect()["a0"].shape == (2, 4 * 1024)
+
+
+def test_collect_issues_every_group_before_it_fetches(monkeypatch):
+    port = StreamFleet(2, device="cpu")
+    events = []
+    for sid, (data, kind, _) in STREAMS.items():
+        if sid in ("a0", "f0", "t0", "t2"):
+            port.push(sid, data, kind=kind or ("aac" if sid == "a0" else None))
+    real_decode, real_fetch = fleet_mod._BatchedGroup.decode, fleet_mod._fetch
+    monkeypatch.setattr(fleet_mod._BatchedGroup, "decode",
+                        lambda self, n: events.append(("decode", self.kind)) or real_decode(self, n))
+    monkeypatch.setattr(fleet_mod, "_fetch", lambda dev: events.append(("fetch",)) or real_fetch(dev))
+    assert len(port.collect()) == 4
+    assert [e[0] for e in events] == ["decode"] * 4 + ["fetch"] * 4
+    assert {e[1] for e in events[:4]} == {"aac", "flac", "g722", "g726_32"}
+
+
+def test_quantizers_round_half_to_even_then_clip():
+    x = torch.tensor([0.5 / 32767, 1.5 / 32767, -0.5 / 32767, 2.0, -2.0, 2.5 / 32767])
+    assert fleet_mod._quantize_f32(x).tolist() == [0, 2, 0, 32767, -32768, 2]
+    s = torch.tensor([[[[-1, 70000 * 256, -70000 * 256, 255, -256]]]], dtype=torch.int32)
+    assert fleet_mod._quantize_i32(s, torch.tensor([[8]], dtype=torch.int32)).tolist() == \
+        [[[[-1, 32767, -32768, 0, -1]]]]
+    assert fleet_mod._quantize_i32(s, torch.tensor([[0]], dtype=torch.int32)).tolist() == \
+        [[[[-1, 32767, -32768, 255, -256]]]]
+
+
+def test_unknown_explicit_kind_is_a_plain_value_error():
+    pair = Pair()
+    for f in (pair.port, pair.ref):
+        with pytest.raises(ValueError, match="unknown explicit kind 'pcm'") as e:
+            f.push("s", b"abc", kind="pcm")
+        assert not isinstance(e.value, FleetUnsupported)
+    assert not pair.port._ended and not pair.port._lanes
+    with pytest.raises(ValueError, match="out_bits"):
+        StreamFleet(1, out_bits=24, device="cpu")
+
+
+def test_kind_tables_equal_the_jax_package():
+    from soundkit_tpu.models import fleet as jax_fleet
+
+    assert TELEPHONY_KINDS == jax_fleet.TELEPHONY_KINDS
+    assert HOST_KINDS == jax_fleet.HOST_KINDS
+    assert MIN_DETECT == jax_fleet.MIN_DETECT
+
+
+def test_default_device_is_the_card():
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            StreamFleet(2)
+
+
+# ---------------------------------------------------------------------------
+# what the reference sends to its host fallback
+# ---------------------------------------------------------------------------
+
+def _ogg_first_page(payload: bytes) -> bytes:
+    return b"OggS" + bytes(22) + b"\x01" + bytes([len(payload)]) + payload
+
+
+DETECTED_WITHOUT_A_GROUP = {
+    "mp3": b"ID3" + bytes(61),
+    "ogg_vorbis": _ogg_first_page(b"\x01vorbis" + bytes(20)),
+    "ogg_opus": _ogg_first_page(b"OpusHead" + bytes(11)),
+    "wav": b"RIFF" + bytes(4) + b"WAVEfmt " + bytes(40),
+    "m4a": bytes(4) + b"ftypM4A " + bytes(20),
+    "unknown": bytes(range(1, 64)),
+}
+
+
+def assert_forgotten(fleet, sid):
+    assert sid not in fleet._lanes and sid not in fleet._detect and sid not in fleet._ended
+    assert fleet.sample_rate(sid) is None and sid not in fleet.collect()
+
+
+@pytest.mark.parametrize("name", DETECTED_WITHOUT_A_GROUP)
+def test_refuses_a_detected_format_without_a_group_at_end_stream(name):
+    port = StreamFleet(2, device="cpu")
+    port.push("s", DETECTED_WITHOUT_A_GROUP[name])
+    with pytest.raises(FleetUnsupported, match=f"'s'.*detected format '{name}'.*no batched group"):
+        port.end_stream("s")
+    assert_forgotten(port, "s")
+
+
+@pytest.mark.parametrize("name", ["mp3", "wav"])
+def test_refuses_a_detected_format_without_a_group_at_the_routing_push(name):
+    port = StreamFleet(2, device="cpu")
+    data = DETECTED_WITHOUT_A_GROUP[name] + bytes(MIN_DETECT)
+    port.push("s", data[:MIN_DETECT - 1])
+    with pytest.raises(FleetUnsupported, match=f"detected format '{name}'"):
+        port.push("s", data[MIN_DETECT - 1:])
+    assert_forgotten(port, "s")
+
+
+@pytest.mark.parametrize("kind", HOST_KINDS + ("mp3", "vorbis", "opus"))
+def test_refuses_an_explicit_kind_without_a_group(kind):
+    port = StreamFleet(2, device="cpu")
+    port.push("s", b"early bytes")
+    with pytest.raises(FleetUnsupported, match=f"kind '{kind}'.*no batched group"):
+        port.push("s", b"\x00" * 33, kind=kind)
+    assert_forgotten(port, "s")
+
+
+@pytest.mark.parametrize("kind", ["aac", "flac", "g722"])
+def test_refuses_a_stream_whose_group_is_full(kind):
+    """Explicit and detected alike; the seated stream is not disturbed,
+    and the lane serves the next stream once it is free."""
+    data = {"aac": aac_stream(0, 0, 3), "flac": flac_stream(2, 2),
+            "g722": tel_stream("g722", 0, 600)}[kind]
+    port = StreamFleet(1, device="cpu")
+    port.push("first", data, kind=kind)
+    with pytest.raises(FleetUnsupported, match=f"'second'.*kind '{kind}'.*group is full \\(1 lanes\\)"):
+        port.push("second", data, kind=kind)
+    if kind != "g722":  # detected from its bytes: at MIN_DETECT bytes, or at the end
+        with pytest.raises(FleetUnsupported, match="'third'.*group is full"):
+            port.push("third", data)
+            port.end_stream("third")
+    port.end_stream("first")
+    out = port.collect()
+    assert sorted(out) == ["first"]
+    assert_forgotten(port, "second")
+    assert_forgotten(port, "third")
+    port.push("fourth", data, kind=kind)
+    np.testing.assert_array_equal(port.collect()["fourth"], out["first"])
+
+
+def test_refused_streams_never_reach_the_jax_pipeline():
+    """The port's fleet module names no host decoder at all."""
+    src = open(fleet_mod.__file__).read()
+    assert "StreamDecoder" not in src and "decode_pipeline" not in src

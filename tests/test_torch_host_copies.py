@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's host pieces equal the
 originals: tables and the functions that make them, the G.726 code
 packing, the ADTS framer, the wire packers (byte for byte, each with
-its own package's parser) and the parser's C++ source."""
+its own package's parser), the C++ sources of the AAC parser and the
+FLAC walk, format detection and the FLAC segment-table packer."""
 from pathlib import Path
 
 import numpy as np
@@ -38,6 +39,8 @@ G722_TABLES = ("WL", "RL42", "ILB", "WH", "RH2", "QM2", "QM4", "QM6", "QMF_COEFF
     ("soundkit_tpu_torch/native_src/generated/aac_tables.h",
      "soundkit_tpu/native/generated/aac_tables.h"),
     ("soundkit_tpu_torch/data/aac_tables.npz", "soundkit_tpu/native/generated/aac_tables.npz"),
+    ("soundkit_tpu_torch/native_src/src/flac.cpp", "soundkit_tpu/native/src/flac.cpp"),
+    ("soundkit_tpu_torch/demux/detect.py", "soundkit_tpu/demux/detect.py"),
 ])
 def test_copied_files_are_identical(port, ref):
     assert (REPO / port).read_bytes() == (REPO / ref).read_bytes()
@@ -157,3 +160,45 @@ def test_full_wire_packer_is_byte_identical():
         a, b = getattr(got, field), getattr(want, field)
         assert a.dtype == b.dtype, field
         np.testing.assert_array_equal(a, b, err_msg=field)
+
+
+def _function_source(module, name: str) -> str:
+    import inspect
+
+    return inspect.getsource(getattr(module, name))
+
+
+def test_flac_seg_wire_is_a_verbatim_copy_and_packs_alike():
+    from soundkit_tpu.ops import flac_rice as jax_flac_rice
+    from soundkit_tpu_torch.ops import flac_rice
+
+    assert _function_source(flac_rice, "seg_wire") == _function_source(jax_flac_rice, "seg_wire")
+    rng = np.random.default_rng(5)
+    tables = [rng.integers(0, 4000, (n, 4)).astype(np.int32) for n in (3, 0, 70, 1)]
+    for frame_segs in (tables, [tables[1]], tables[:1]):
+        for got, want in zip(flac_rice.seg_wire(frame_segs, 4608),
+                             jax_flac_rice.seg_wire(frame_segs, 4608)):
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+
+
+def test_flac_walk_library_exports_the_wire_of_the_jax_package():
+    """The port's ``flac.cpp`` build and the JAX package's library give
+    the same wire for the same pushes (``skt_flac_export_rounds``)."""
+    from soundkit_tpu.models.flac_batch import BatchedFlacDecoder as JaxDecoder
+    from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
+    from soundkit_tpu_torch.tools import flac_fixtures
+
+    streams = flac_fixtures.lane_streams(flac_fixtures.load_clips(), 4, 2)
+    port, probe = BatchedFlacDecoder(4, device="cpu"), BatchedFlacDecoder(4, device="cpu")
+    probe._lib = JaxDecoder(1)._lib  # the same calls through the other library
+    probe._h = [probe._lib.skt_flac_new() for _ in range(4)]
+    import ctypes
+    probe._handles = (ctypes.c_void_p * 4)(*probe._h)
+    for m in (port, probe):
+        for i, s in enumerate(streams):
+            m.push(i, s)
+    a, b = port.export_wire(2), probe.export_wire(2)
+    for x, y in zip((*a.segs, *a.metas, *a.parts), (*b.segs, *b.metas, *b.parts)):
+        np.testing.assert_array_equal(x, y)
+    assert int(a.segs[4].sum()) > 20000  # codes on the wire

@@ -29,6 +29,10 @@ CPU = torch.device("cpu")
     ("g722_scan", lambda: kc.g722_case(9, 40, True, CPU, seed=8)),
     ("g722_scan", lambda: kc.g722_case(9, 40, False, CPU, seed=7, carried=True)),
     ("g722_scan", lambda: kc.g722_case(9, 40, True, CPU, seed=8, carried=True)),
+    ("flac_rice_plane", lambda: kc.flac_rice_case(kc.flac_fixture_wire(5, 2, CPU))),
+    ("flac_rice_plane", lambda: kc.flac_rice_random_case(CPU, seed=3)),
+    ("flac_frame", lambda: kc.flac_lpc_case(kc.flac_fixture_wire(5, 1, CPU))),
+    ("flac_frame", lambda: kc.flac_lpc_random_case(CPU, seed=4)),
 ])
 def test_cases_agree_on_cpu(name, make):
     kernel, plain = make()
@@ -74,6 +78,41 @@ def test_compare_refuses_a_result_beyond_its_bound(name, bump):
     bad[3] += bump
     with pytest.raises(kc.KernelMismatch, match=name):
         kc.compare(name, lambda: bad, lambda: ref)
+
+
+def test_flac_fixture_wire_feeds_both_flac_cases():
+    """The wire has the sixteen tensors of ``flac_frames_segs`` in order,
+    K8's case reads the first nine and K9's the rest over K8's plane."""
+    wire = kc.flac_fixture_wire(6, 2, CPU)
+    assert len(wire) == 16 and wire[0].shape[0] == 12 and wire[15].dtype == torch.bool
+    assert wire[15].sum() == 12 and int(wire[4].max()) == 144
+    plane = kc.flac_rice_case(wire)[1]()
+    assert plane.shape == (12, 2, 4608)
+    out = kc.flac_lpc_case(wire)[1]()
+    assert out.shape == plane.shape and not torch.equal(out, plane)
+
+
+def test_flac_wild_inputs_differ_only_in_what_no_walk_emits():
+    """``wild`` adds Rice parameters past 31 and negative bit offsets (K8),
+    shifts and wasted bits past 63 (K9), and changes no other field."""
+    tame, wild = kc.flac_rice_random_inputs(4), kc.flac_rice_random_inputs(4, wild=True)
+    assert int(tame[3].max()) <= 31 and int(tame[2].min()) >= 0
+    assert int(wild[3].max()) >= 32 and int(wild[2].min()) < 0
+    assert all(torch.equal(a, b) for i, (a, b) in enumerate(zip(tame, wild)) if i not in (2, 3))
+    tame, wild = kc.flac_lpc_random_inputs(4), kc.flac_lpc_random_inputs(4, wild=True)
+    assert max(int(tame[3].max()), int(tame[4].max())) <= 31
+    assert int(wild[3].max()) >= 64 and int(wild[4].max()) >= 64
+    assert all(torch.equal(a, b) for i, (a, b) in enumerate(zip(tame, wild)) if i not in (3, 4))
+
+
+@pytest.mark.parametrize("name", ["flac_rice_plane", "flac_frame"])
+def test_compare_refuses_an_off_by_one_in_a_flac_result(name):
+    ref = torch.arange(-8, 8, dtype=torch.int32).reshape(2, 2, 4)
+    bad = ref.clone()
+    bad[1, 0, 2] += 1
+    with pytest.raises(kc.KernelMismatch, match=name):
+        kc.compare(name, lambda: bad, lambda: ref)
+    assert kc.compare(name, lambda: ref, lambda: ref)["max_abs_err"] == 0.0
 
 
 @pytest.mark.parametrize("name,element", [

@@ -59,8 +59,32 @@ print("telephony without jax")
 """
 
 
+_NO_JAX_FLEET = _NO_JAX_DECODE.split("import numpy as np")[0] + r"""
+import numpy as np
+from soundkit_tpu_torch.models.fleet import FleetUnsupported, StreamFleet
+from soundkit_tpu_torch.tools import aac_fixtures, flac_fixtures, telephony_fixtures
+fleet = StreamFleet(2, device="cpu")
+fleet.push("a", aac_fixtures.lane_streams(aac_fixtures.load_clips(), 1, 2)[0])
+fleet.push("f", flac_fixtures.lane_streams(flac_fixtures.load_clips(), 2, 1)[1])
+fleet.push("t", telephony_fixtures.lane_streams("g711_mulaw", 1)[0][:500], kind="g711_mulaw")
+for sid in "aft":
+    fleet.end_stream(sid)
+out = fleet.collect()
+assert out["a"].shape == (2, 2048) and out["f"].shape == (2, 4096) and out["t"].shape == (1, 500)
+assert all(np.isfinite(v).all() and np.abs(v).max() > 0 for v in out.values())
+try:
+    fleet.push("m", b"ID3" + bytes(100), kind="mp3")
+    raise SystemExit("an mp3 stream was not refused")
+except FleetUnsupported:
+    pass
+assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
+print("fleet without jax")
+"""
+
+
 @pytest.mark.parametrize("script,said", [(_NO_JAX_DECODE, "decoded without jax"),
-                                         (_NO_JAX_TELEPHONY, "telephony without jax")])
+                                         (_NO_JAX_TELEPHONY, "telephony without jax"),
+                                         (_NO_JAX_FLEET, "fleet without jax")])
 def test_port_runs_on_cpu_with_jax_blocked(script, said):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -180,7 +204,12 @@ def test_entry_points_default_to_cuda():
 
     from soundkit_tpu_torch.models.telephony_batch import TelephonyLaneGroup
 
+    from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
+    from soundkit_tpu_torch.models.fleet import StreamFleet
+
     calls = {
+        BatchedFlacDecoder: lambda: BatchedFlacDecoder(2),
+        StreamFleet: lambda: StreamFleet(2),
         BatchedAacLcDecoder: lambda: BatchedAacLcDecoder(2, 2),
         BatchedTelephonyDecoder: lambda: BatchedTelephonyDecoder("g726_32", 2),
         TelephonyLaneGroup: lambda: TelephonyLaneGroup("g722", 2),

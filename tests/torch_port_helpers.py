@@ -8,10 +8,12 @@ generators live here, on the test side; regenerate from the repository's root wi
 
     PYTHONPATH=. python tests/torch_port_helpers.py aac
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py telephony
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py flac
 """
 from __future__ import annotations
 
 import functools
+import json
 import sys
 from pathlib import Path
 from typing import Dict, List
@@ -19,7 +21,7 @@ from typing import Dict, List
 import numpy as np
 
 from soundkit_tpu_torch.models.telephony_batch import CODECS
-from soundkit_tpu_torch.tools import aac_fixtures, telephony_fixtures
+from soundkit_tpu_torch.tools import aac_fixtures, flac_fixtures, telephony_fixtures
 
 SR_INDEX_48K = 3
 # AUs per clip that cover long, short (EIGHT_SHORT) and TNS frames
@@ -226,5 +228,111 @@ def generate_telephony_fixtures(directory: Path = telephony_fixtures.FIXTURE_DIR
     return out
 
 
+# ---------------------------------------------------------------------------
+# FLAC fixtures
+# ---------------------------------------------------------------------------
+
+FLAC_WASTED_BITS = 2
+
+
+def _flac_pcm(name: str, rng):
+    """(rate, bits, samples [C, n] int64) of a FLAC fixture clip."""
+    if name == "stereo16":  # correlated channels: mid/side frames, real LPC orders
+        rate, bits, n = 44100, 16, 2 * 44100
+        t = np.arange(n) / rate
+        l = np.sin(2 * np.pi * 440 * t) * 0.6 + 0.2 * np.sin(2 * np.pi * 1870 * t) \
+            + rng.standard_normal(n) * 0.004
+        r = 0.9 * l + rng.standard_normal(n) * 0.002
+        # second half: a sum and a difference of two sources, which mid/side codes best
+        # (a smooth one and a noisy one)
+        a = np.sin(2 * np.pi * 330 * t) * 0.5 + rng.standard_normal(n) * 0.0003
+        b = np.sin(2 * np.pi * 1210 * t) * 0.1 + rng.standard_normal(n) * 0.008
+        half = t >= 1.0
+        l[half], r[half] = (a + b)[half], (a - b)[half]
+        x = (np.stack([l, r]) * 20000).clip(-32768, 32767)
+    elif name == "stereo24":  # past the 16-bit range
+        rate, bits, n = 48000, 24, 48000
+        t = np.arange(n)
+        x = np.stack([6_000_000 * np.sin(0.003 * t) + rng.integers(-999, 999, n),
+                      4_000_000 * np.sin(0.004 * t + 1)])
+    elif name == "mono16":
+        rate, bits, n = 16000, 16, 2 * 16000
+        t = np.arange(n) / rate
+        x = (8000 * np.sin(2 * np.pi * (200 + 300 * t) * t) + rng.standard_normal(n) * 60)[None]
+    elif name == "const_wasted":  # left constant per frame, right with wasted bits
+        rate, bits, n = 44100, 16, 44100
+        t = np.arange(n) / rate
+        left = np.repeat(rng.integers(-3000, 3000, -(-n // flac_fixtures.BLOCK_SIZE)),
+                         flac_fixtures.BLOCK_SIZE)[:n]
+        right = (9000 * np.sin(2 * np.pi * 330 * t) + rng.standard_normal(n) * 40).astype(np.int64)
+        x = np.stack([left, right >> FLAC_WASTED_BITS << FLAC_WASTED_BITS])
+    else:
+        raise ValueError(name)
+    return rate, bits, x.astype(np.int64)
+
+
+def _wasted_frame_encoder(rate: int, bits: int, wasted: int):
+    """A stereo ``FlacFrameEncoder`` that codes channels independently
+    and declares ``wasted`` wasted bits on the right one (whose samples
+    must be multiples of ``1 << wasted``); the JAX package's encoder
+    never emits wasted bits on its own."""
+    from soundkit_tpu.codecs import flac_encode as fe
+
+    class WastedFrameEncoder(fe.FlacFrameEncoder):
+        def encode_frame(self, samples):
+            x = np.asarray(samples, np.int64)
+            n = x.shape[1]
+            assert not (x[1] & ((1 << wasted) - 1)).any()
+            w = fe.BitWriter()
+            # frame header (CRC-8 included) from the package's writer
+            for b in self.write_frame_py(n, 1, [])[:-2]:
+                w.write(b, 8)
+            fe._write_subframe(w, fe._plan_subframe(x[0], self.bits, self.profile), n)
+            sub = fe.BitWriter()
+            fe._write_subframe(sub, fe._plan_subframe(x[1] >> wasted, self.bits - wasted,
+                                                      self.profile), n)
+            sub_bits = np.concatenate(sub._chunks)
+            w.write_bits_array(sub_bits[:7])  # pad bit and subframe type
+            w.write(1, 1)                     # wasted-bits flag
+            w.write(1, wasted)                # unary: wasted - 1 zeros, then a one
+            w.write_bits_array(sub_bits[8:])
+            w.align()
+            body = w.bytes()
+            return body + fe._crc16(body).to_bytes(2, "big")
+
+    return WastedFrameEncoder(rate, 2, bits)
+
+
+def generate_flac_fixtures(directory: Path = flac_fixtures.FIXTURE_DIR) -> None:
+    """Synthesize and encode every clip of ``flac_fixtures.CLIPS`` with
+    the JAX package's ``FlacStreamEncoder`` and write the streams and
+    their frame index."""
+    from soundkit_tpu.codecs.flac_encode import FlacStreamEncoder
+
+    directory.mkdir(parents=True, exist_ok=True)
+    index = {}
+    for seed, name in enumerate(flac_fixtures.CLIPS):
+        rate, bits, x = _flac_pcm(name, np.random.default_rng(3000 + seed))
+        enc = FlacStreamEncoder(rate, x.shape[0], bits, block_size=flac_fixtures.BLOCK_SIZE)
+        if name == "const_wasted":
+            enc._enc = _wasted_frame_encoder(rate, bits, FLAC_WASTED_BITS)
+        enc.add(x)
+        stream = enc.finish()
+        frames = [len(f) for f in enc._frames]
+        blocks = [flac_fixtures.BLOCK_SIZE] * (x.shape[1] // flac_fixtures.BLOCK_SIZE)
+        if x.shape[1] % flac_fixtures.BLOCK_SIZE:
+            blocks.append(max(x.shape[1] % flac_fixtures.BLOCK_SIZE, 16))
+        index[name] = dict(rate=rate, channels=int(x.shape[0]), bits=bits,
+                           header=len(stream) - sum(frames), frames=frames, blocks=blocks)
+        (directory / f"{name}.flac").write_bytes(stream)
+    (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
+
+
+def flac_clip_pcm(name: str) -> np.ndarray:
+    """The samples [C, n] that ``generate_flac_fixtures`` encoded for ``name``."""
+    return _flac_pcm(name, np.random.default_rng(3000 + flac_fixtures.CLIPS.index(name)))[2]
+
+
 if __name__ == "__main__":
-    {"aac": generate_aac_fixtures, "telephony": generate_telephony_fixtures}[sys.argv[1]]()
+    {"aac": generate_aac_fixtures, "telephony": generate_telephony_fixtures,
+     "flac": generate_flac_fixtures}[sys.argv[1]]()
