@@ -22,8 +22,9 @@ a. build the CUDA kernels, the host parser and the FLAC walk from the
 b. print the card (``nvidia-smi`` name and power limit), the kernels'
    launch shapes (K4's lanes a block and a warp, K6's threads a lane,
    K7's threads a band and steps a tile, K3's codes a thread and threads
-   a block, from their sources), the versions and the host (name, CPU
-   model, cores);
+   a block, K8's warps a block and values a chunk, K9's lanes a block,
+   samples a tile and mover threads, from their sources), the versions
+   and the host (name, CPU model, cores);
 c. hold each kernel against its plain PyTorch version on the card at
    the main path's shapes (B = 1024), with the inputs and bounds of
    ``soundkit_tpu_torch.tools.kernel_check`` (K4 also on seeded random
@@ -69,7 +70,11 @@ h. FLAC kernels: K8 (Rice plane) and K9 (LPC, wasted bits,
    of one round and on seeded random inputs, with and without the
    parameters no walk emits; the bound is the bytes moved (the frame
    bytes, segment table, warm-up and plane for K8; each valid lane's
-   block of residuals in and the samples out for K9);
+   block of residuals in and the samples out for K9), and beside it, on
+   the log line only, each kernel's chain floor, estimated from the code (the longest serial
+   chain of the case: a segment's codes, a row's samples, at an
+   estimated count of dependent cycles a step and 1.98 GHz); K8's fill
+   alone (``fill_ms``: the same wire with an empty segment table);
 i. FLAC compare: two ``decode_batches`` calls of a 1024-lane decoder on
    the card against the port's plain path on the CPU, samples and
    ``metas`` identical;
@@ -118,6 +123,9 @@ N_COMPARE = 2
 TEL_CHUNK = 2048
 TEL_COMPARE_STEPS = 2
 FLAC_STRIDE = 4608
+SM_CLOCK = 1.98e9     # H100 SXM boost clock, Hz: chain floors are estimated at it
+K8_CHAIN_CYCLES = 30  # dependent cycles a Rice code (clz, window shift and refill, remainder)
+K9_CHAIN_CYCLES = 14  # dependent cycles a sample (IMAD.WIDE, 64-bit >> and +)
 FLAC_ROUNDS = 3       # pushes of the [flac] phase, a decode after each
 FLEET_ROUNDS = 4
 FLEET_AAC_FRAMES = 64  # AAC frames a fleet stream carries: its first push passes MIN_DETECT
@@ -272,7 +280,12 @@ def phase_card() -> str:
         f"K6 threads per lane {cu_constant('g726.cu', 'G')}; "
         f"K7 threads per band {cu_constant('g722.cu', 'G')}, steps per tile "
         f"{cu_constant('g722.cu', 'TILE')}; K3 codes per thread {cu_constant('g711.cu', 'VEC')}, "
-        f"threads per block {cu_constant('g711.cu', 'THREADS')}")
+        f"threads per block {cu_constant('g711.cu', 'THREADS')}; "
+        f"K8 warps per block {cu_constant('flac_rice.cu', 'SEG_WARPS')}, values per chunk "
+        f"{cu_constant('flac_rice.cu', 'CHUNK')}, fill threads "
+        f"{cu_constant('flac_rice.cu', 'FILL_THREADS')}; K9 lanes per block "
+        f"{cu_constant('flac_lpc.cu', 'LANES')}, samples per tile {cu_constant('flac_lpc.cu', 'TILE')}, "
+        f"mover threads {cu_constant('flac_lpc.cu', 'MOVERS')}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}; host {socket.gethostname()} "
@@ -758,17 +771,30 @@ def phase_flac_kernels():
     res["flac_rice_plane"] = measure(
         "flac_rice_plane", "flac_rice_plane", *kc.flac_rice_case(wire, FLAC_STRIDE),
         nbytes=frame_bytes + nbytes_of(*wire[1:9]) + plane_bytes, plain_reps=1)
+    empty = wire[1][:0]
+    no_segs = (words, empty, empty, empty, empty, empty, *wire[6:9])
+    fill, fill_plain = kc.flac_rice_case(no_segs, FLAC_STRIDE)
+    kc.compare("flac_rice_plane", fill, fill_plain)
     res["flac_rice_plane"].update(
         rounds=rounds, rows=rows, segments=int((wire[4] > 0).sum()), codes=int(wire[4].sum()),
-        words_per_row=int(words.shape[1]), frame_bytes=frame_bytes)
+        words_per_row=int(words.shape[1]), frame_bytes=frame_bytes, fill_ms=graph_ms(fill))
     # K9 reads each valid lane's block of both channels and the per-row LPC
     # fields, and writes the samples
     resid_bytes = 2 * 4 * int(block_size[valid].sum())
     res["flac_frame"] = measure(
         "flac_frame", "flac_frame", *kc.flac_lpc_case(wire, FLAC_STRIDE),
         nbytes=resid_bytes + nbytes_of(*wire[9:]) + plane_bytes, plain_reps=1)
-    res["flac_frame"].update(rounds=rounds, rows=rows, valid_rows=int(valid.sum()),
-                             residual_bytes=resid_bytes)
+    res["flac_frame"].update(
+        rounds=rounds, rows=rows, valid_rows=int(valid.sum()), residual_bytes=resid_bytes)
+    # each kernel's chain floor, estimated from the code (not measured): the
+    # longest segment's codes or the longest block's samples, one after another
+    floors = {"flac_rice_plane": int(wire[4].max()) * K8_CHAIN_CYCLES,
+              "flac_frame": int(block_size[valid].max()) * K9_CHAIN_CYCLES}
+    for name in ("flac_rice_plane", "flac_frame"):
+        r = res[name]
+        log(f"[flac-kernels] {name}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), chain floor {1e3 * floors[name] / SM_CLOCK:.4f} ms (estimated)"
+            + (f", fill alone {r['fill_ms']:.4f} ms" if "fill_ms" in r else ""))
     one = kc.flac_fixture_wire(B, 1, dev, FLAC_STRIDE)
     pairs = [(kc.flac_rice_case(one, FLAC_STRIDE), kc.flac_lpc_case(one, FLAC_STRIDE))]
     for seed in (1, 2):

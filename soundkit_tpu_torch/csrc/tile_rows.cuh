@@ -1,5 +1,5 @@
 // Staging of a block's rows between global and shared memory, for the
-// scans that step through tiles (g726.cu, g722.cu).
+// scans that step through tiles (g726.cu, g722.cu, flac_lpc.cu).
 //
 // A block owns a few lanes; a lane's codes, samples or mask bytes are one
 // row of the [B, N] input. The step loop of a scan must not touch global
@@ -16,6 +16,12 @@ namespace {
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst)),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                      (uint32_t)__cvta_generic_to_shared(dst)),
                  "l"(src));
 }

@@ -20,7 +20,10 @@ runs over a 32-deep history in 64-bit arithmetic, then the wasted-bit
 shift and the stereo decorrelation (left/side 8, right/side 9, mid/side
 10), also in 64 bits; samples past ``block_size`` and invalid lanes are
 zero, and the result is cut to int32 last. The host walk emits shifts
-and wasted bits in 0..31; kernel and plain version take both modulo 64.
+and wasted bits in 0..31. Outside that, kernel and plain version take
+them as XLA's int64 shifts do, the amount read as unsigned: a shift of
+64 or more (or a negative one) leaves the prediction's sign, 0 or -1;
+wasted bits of 64 or more (or negative) leave 0.
 
 :func:`flac_frame` (K9) launches ``csrc/flac_lpc.cu`` for CUDA tensors
 and takes :func:`flac_frame_plain` for CPU tensors. FLAC frames carry
@@ -44,7 +47,8 @@ def flac_frame_plain(resw, coef, order, shift, wasted, chan_assign, block_size, 
     r_tm = resw.to(torch.int64).reshape(rows, T).t().contiguous()  # [T, rows]
     coef_l = coef.to(torch.int64).reshape(rows, MAX_ORDER)
     order_l = order.to(torch.int64).reshape(rows)
-    shift_l = shift.to(torch.int64).reshape(rows) & 63
+    shift_l = shift.to(torch.int64).reshape(rows)
+    shift_l = torch.where((shift_l >= 0) & (shift_l < 64), shift_l, 63)  # >> 63: the sign
 
     hist = torch.zeros((rows, MAX_ORDER), dtype=torch.int64, device=resw.device)
     out_tm = torch.empty_like(r_tm)
@@ -55,7 +59,8 @@ def flac_frame_plain(resw, coef, order, shift, wasted, chan_assign, block_size, 
         out_tm[n] = s
     s = out_tm.t().reshape(L, C, T)
 
-    s = s << (wasted.to(torch.int64) & 63)[..., None]
+    ws = wasted.to(torch.int64)[..., None]
+    s = torch.where((ws >= 0) & (ws < 64), s << ws.clamp(0, 63), 0)
 
     a = chan_assign.to(torch.int64)[:, None]
     c0, c1 = s[:, 0], s[:, 1]

@@ -27,11 +27,15 @@ warm-up and the constant fill. A value whose index falls outside the
 plane is dropped. A segment whose window stays zero past the end of its
 row (a quotient that never ends) emits nothing more.
 
-The host walk emits ``k`` in 0..31 and bit offsets >= 0, where kernel,
-plain version and reference agree. Outside that the kernel and the plain
-version agree with each other: a Rice parameter above 31 reads 31
-remainder bits (and advances by its own value), a negative bit offset
-starts at bit 0.
+The host walk emits ``k`` in 0..31 and bit offsets >= 0. Outside that,
+kernel and plain version compute what the reference computes, whose
+32-bit shifts by 32 or more give 0: a Rice parameter of 32 takes the
+32-bit remainder window as ``zz`` (``q << 32`` is 0, ``rwin >> 0`` the
+window), one above 32 gives ``zz = 0``; either advances by ``lead + 1 +
+k``. A negative bit offset reads the words as the reference's
+``jnp.take(flat_words, lane * W + min(i, W - 1))`` does: a flat index in
+``[-NL * W, 0)`` counts from the end of all rows, one below that reads
+``0xFFFFFFFF`` (the fill of an unsigned take).
 
 :func:`flac_rice_plane` (K8) launches ``csrc/flac_rice.cu`` for CUDA
 tensors and takes :func:`flac_rice_plane_plain` for CPU tensors;
@@ -107,15 +111,22 @@ def flac_rice_plane_plain(words, seg_lane, seg_bitoff, seg_k, seg_n, seg_dest, w
     width = torch.where(is_fixed, -seg_k - 1, 0)
     wide = width > 32  # no such code: reads as 0
     inv = (32 - width).clamp(0, 32)
-    k = seg_k.clamp(0, 31)
+    k = seg_k.clamp(min=0)
+    n_flat = flat_words.shape[0]
+
+    def word(wi):
+        """The reference's ``jnp.take`` of a row's word ``wi`` (clamped
+        to the row's last): negative flat indices count from the end, and
+        below ``-n_flat`` the take's fill."""
+        f = lane_base + wi.clamp(max=W - 1)
+        inside = (f >= -n_flat) & (f < n_flat)
+        return torch.where(inside, flat_words[torch.where(inside, f % max(n_flat, 1), 0)], _M32)
 
     def window32(bitpos):
         """Next 32 bits MSB-first at each segment's bitpos."""
         wi = bitpos >> 5
         sh = bitpos & 31
-        w0 = flat_words[lane_base + wi.clamp(max=W - 1)]
-        w1 = flat_words[lane_base + (wi + 1).clamp(max=W - 1)]
-        return ((w0 << sh) & _M32) | (w1 >> (32 - sh))
+        return ((word(wi) << sh) & _M32) | (word(wi + 1) >> (32 - sh))
 
     total = NL * 2 * stride
     plane = torch.zeros((NL, 2, stride), dtype=torch.int32, device=dev)
@@ -123,7 +134,7 @@ def flac_rice_plane_plain(words, seg_lane, seg_bitoff, seg_k, seg_n, seg_dest, w
     plane = torch.where((const_flag == 1)[:, :, None], const_val[:, :, None], plane)
     flat = plane.reshape(-1)
 
-    bitpos = seg_bitoff.to(torch.int64).clamp(min=0)
+    bitpos = seg_bitoff.to(torch.int64)
     qacc = torch.zeros_like(bitpos)
     si = torch.zeros_like(bitpos)
     dead = torch.zeros_like(is_fixed)
@@ -144,8 +155,9 @@ def flac_rice_plane_plain(words, seg_lane, seg_bitoff, seg_k, seg_n, seg_dest, w
         long_skip = ~is_fixed & (lead >= 24)
         q = (qacc + lead) & _M32
         rwin = window32(bitpos + lead + 1)
-        rem = torch.where(k == 0, 0, rwin >> (32 - k))
-        zz = ((q << k) & _M32) | rem
+        # XLA's 32-bit shifts by 32 or more give 0
+        rem = torch.where((k == 0) | (k > 32), 0, rwin >> (32 - k).clamp(min=0))
+        zz = torch.where(k >= 32, 0, (q << k.clamp(max=31)) & _M32) | rem
         v_r = torch.where((zz & 1) == 1, -(zz >> 1) - 1, zz >> 1)
 
         # the row's words are spent and zero: this quotient never ends

@@ -417,7 +417,7 @@ def flac_rice_random_inputs(seed: int, rows: int = 5, n_words: int = 96, n_segs:
     segments in disjoint ranges of the plane, the last ones past its end;
     Rice parameters 0..31 and fixed widths 0..32; counts 0..144; bit
     offsets anywhere in the row, so that windows run past its end. With
-    ``wild``, also what no walk emits and the reference leaves open: Rice
+    ``wild``, also what no walk emits, as the reference computes it: Rice
     parameters 32..40 and negative bit offsets."""
     rng = np.random.default_rng(seed)
     words = rng.integers(0, 1 << 32, (rows, n_words), dtype=np.uint64).astype(np.uint32)
@@ -455,7 +455,7 @@ def flac_lpc_random_inputs(seed: int, lanes: int = 37, T: int = 96, wild: bool =
     others, orders 0..32 with coefficients of up to 15 bits (a few rows
     with taps past their order), shifts 0..31, wasted bits 0..8 and 31,
     every assignment, block sizes from 0 to past ``T``, invalid lanes.
-    With ``wild``, also what no walk emits and the reference leaves open:
+    With ``wild``, also what no walk emits, as the reference computes it:
     shifts and wasted bits of 64 and more."""
     rng = np.random.default_rng(seed)
     resw = rng.integers(-1 << 31, 1 << 31, (lanes, 2, T))
@@ -480,6 +480,51 @@ def flac_lpc_random_inputs(seed: int, lanes: int = 37, T: int = 96, wild: bool =
     valid = rng.random(lanes) < 0.85
     ints = (resw, coef, order, shift, wasted, assign, bs)
     return (*(torch.from_numpy(a.astype(np.int32)) for a in ints), torch.from_numpy(valid))
+
+
+def flac_rice_long_inputs(seed: int, stride: int = 1280):
+    """:func:`flac_rice_random_inputs` on 8 rows of 256 words with every
+    third segment 600 codes long (longer than a walk's segments, so that
+    a decoder that works in chunks takes several), the segments laid out
+    again disjoint and in order, the last ones past the plane's end."""
+    args = list(flac_rice_random_inputs(seed, rows=8, n_words=256, n_segs=40, stride=stride))
+    n = args[4].numpy().astype(np.int64)
+    n[::3] = 600
+    dest = np.cumsum(n + 3) - n
+    total = 8 * 2 * stride
+    dest = np.floor(dest * max(1.0, 1.05 * total / (dest[-1] + n[-1]))).astype(np.int64)
+    args[4] = torch.from_numpy(n.astype(np.int32))
+    args[5] = torch.from_numpy(dest.astype(np.int32))
+    return tuple(args)
+
+
+def flac_lpc_switch_inputs(lanes: int = 40, T: int = 96):
+    """K9 inputs whose samples leave int32 in mid-block, each row at
+    another sample: from a start near +-2**20, a prediction that grows
+    the row's value by a factor ``coef[0] / 256`` a sample (shift 8)
+    drawn so that row i crosses 2**31 near sample ``max(i % T, 2)``; the
+    rest of the row goes on in 64 bits. Half the rows carry one more tap
+    of 1 at a random depth up to 15 (every ring that stays in registers:
+    4, 8 and 16 taps). Every lane valid, every
+    channel assignment (0, 1, 8, 9, 10), block size ``T``."""
+    rng = np.random.default_rng(lanes * 1000 + T)
+    rows = lanes * 2
+    cross = np.maximum(np.arange(rows) % T, 2)
+    start = rng.integers(1 << 20, 1 << 21, rows) * rng.choice([-1, 1], rows)
+    resw = rng.integers(-8, 8, (rows, T))
+    resw[:, 0] = start
+    coef = np.zeros((rows, 32), np.int64)
+    coef[:, 0] = np.ceil(256 * 2.0 ** (11 / cross)) + 1
+    extra = rng.random(rows) < 0.5
+    coef[extra, rng.integers(1, 16, int(extra.sum()))] = 1
+    order = np.ones(rows, np.int64)
+    shift = np.full(rows, 8)
+    wasted = rng.integers(0, 3, rows)
+    assign = rng.choice([0, 1, 8, 9, 10], lanes)
+    ints = (resw.reshape(lanes, 2, T), coef.reshape(lanes, 2, 32), order.reshape(lanes, 2),
+            shift.reshape(lanes, 2), wasted.reshape(lanes, 2), assign, np.full(lanes, T))
+    return (*(torch.from_numpy(a.astype(np.int32)) for a in ints),
+            torch.ones(lanes, dtype=torch.bool))
 
 
 def flac_rice_random_case(device, seed: int, stride: int = 320, **shape):

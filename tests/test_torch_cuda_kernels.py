@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from soundkit_tpu_torch.native import AacHostParser
+from soundkit_tpu_torch.ops import flac_lpc
 from soundkit_tpu_torch.tools import aac_fixtures as fx
 from soundkit_tpu_torch.tools import kernel_check as kc
 
@@ -123,3 +124,40 @@ def test_flac_lpc_kernel_random_inputs(dev, lanes, T, wild):
     warp, leave one part empty, or hold a single lane."""
     kc.compare("flac_frame",
                *kc.flac_lpc_random_case(dev, seed=lanes, lanes=lanes, T=T, wild=wild))
+
+
+@pytest.mark.parametrize("wild", [False, True])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_flac_rice_kernel_stride_not_a_multiple_of_4(dev, seed, wild):
+    """Plane rows of 321 values: the fill takes one word a store."""
+    kc.compare("flac_rice_plane",
+               *kc.flac_rice_random_case(dev, seed=seed, stride=321, wild=wild))
+
+
+@pytest.mark.parametrize("stride", [1280, 1281])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_flac_rice_kernel_segments_longer_than_a_chunk(dev, seed, stride):
+    """Segments of 600 codes: several rounds of the chunked writer."""
+    wire = tuple(t.to(dev) for t in kc.flac_rice_long_inputs(seed, stride))
+    kc.compare("flac_rice_plane", *kc.flac_rice_case(wire, stride))
+
+
+@pytest.mark.parametrize("stride", [320, 321])
+def test_flac_rice_kernel_empty_segment_table(dev, stride):
+    """No segment: the plane is the fill."""
+    args = [t.to(dev) for t in kc.flac_rice_random_inputs(4, stride=stride)]
+    empty = args[1][:0]
+    wire = (args[0], empty, empty, empty, empty, empty, *args[6:])
+    kc.compare("flac_rice_plane", *kc.flac_rice_case(wire, stride))
+
+
+@pytest.mark.parametrize("T", [33, 96, 257, 4608])
+@pytest.mark.parametrize("lanes", [1, 37, 1001])
+def test_flac_lpc_kernel_switch_to_64_bits_in_mid_block(dev, lanes, T):
+    """Rows whose samples leave int32 at every sample position: the
+    int32 path hands over to the 64-bit one in mid-block, across tile
+    boundaries too; T = 96 and 4608 (the path's stride) take the 16-byte
+    loads and stores, T = 33 and 257 the scalar ones."""
+    args = [t.to(dev) for t in kc.flac_lpc_switch_inputs(lanes, T)]
+    kc.compare("flac_frame", lambda: flac_lpc.flac_frame(*args),
+               lambda: flac_lpc.flac_frame_plain(*args))

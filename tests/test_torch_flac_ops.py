@@ -56,9 +56,10 @@ def test_lpc_matches_jax_on_the_fixture_wire():
     assert np.count_nonzero(got.numpy()) > 100000
 
 
+@pytest.mark.parametrize("wild", [False, True])
 @pytest.mark.parametrize("seed", range(6))
-def test_lpc_matches_jax_on_random_inputs(seed):
-    args = kc.flac_lpc_random_inputs(seed)
+def test_lpc_matches_jax_on_random_inputs(seed, wild):
+    args = kc.flac_lpc_random_inputs(seed, wild=wild)
     got = flac_lpc.flac_frame(*args).numpy()
     np.testing.assert_array_equal(got, jax_lpc(args))
     assert np.count_nonzero(got) > 0
@@ -128,16 +129,22 @@ def test_lpc_wraps_in_64_bits_not_32():
     assert got[0, 0, 0] == np.int64((mid + side) >> 1).astype(np.int32)
 
 
-def test_lpc_shifts_past_63_are_taken_modulo_64():
-    """No walk emits such shifts and the reference leaves them open; the
-    plain version takes them as the kernel does."""
+def test_lpc_shifts_past_63_follow_xla():
+    """No walk emits such shifts; the reference's int64 shifts read the
+    amount as unsigned: a prediction shifted by 64 or more (or by a
+    negative amount) keeps its sign, 0 or -1, and wasted bits of 64 or
+    more (or negative) leave 0. The plain version computes the same."""
     args = list(_lpc_args(5, lanes=9, valid=True, bs=48))
-    want = flac_lpc.flac_frame(*args)
-    args[3], args[4] = args[3] + 64, args[4] + 128
-    assert torch.equal(flac_lpc.flac_frame(*args), want)
+    args[3] = args[3] + torch.tensor([64, 0, 100, -1, 2**31 - 1, 63, 0, 65, -64],
+                                     dtype=torch.int32)[:, None]
+    args[4] = args[4] + torch.tensor([[128, 0], [0, 64], [0, 0], [-3, 0], [0, 0], [0, 70],
+                                      [0, 0], [0, 0], [0, 0]], dtype=torch.int32)
+    got = flac_lpc.flac_frame(*args).numpy()
+    np.testing.assert_array_equal(got, jax_lpc(args))
+    assert not got[0, 0].any() and not got[1, 1].any(), "wasted bits past 63 leave 0"
     wild = kc.flac_lpc_random_inputs(5, wild=True)
     assert int(wild[3].max()) >= 64 and int(wild[4].max()) >= 64
-    assert flac_lpc.flac_frame(*wild).any()
+    np.testing.assert_array_equal(flac_lpc.flac_frame(*wild).numpy(), jax_lpc(wild))
 
 
 # ---------------------------------------------------------------------------
@@ -155,28 +162,32 @@ def test_rice_matches_jax_on_the_fixture_segments():
     assert int(wire[7].sum()) >= 4, "constant channels on the wire"
 
 
-def test_rice_parameters_no_walk_emits():
-    """A Rice parameter above 31 reads 31 remainder bits and a negative
-    bit offset starts at bit 0: the reference leaves both open, the plain
-    version takes them as the kernel does."""
-    args, stride, _ = crafted_wire([(31, [5]), (31, [-7]), (3, [1, -2, 3])])
-    want = flac_rice.flac_rice_plane(*args, stride)
+def test_rice_parameters_no_walk_emits_follow_xla():
+    """Rice parameters of 32 and more, and negative bit offsets, as the
+    reference computes them: its 32-bit shifts by 32 or more give 0, so
+    k = 32 takes the remainder window as the value's zigzag and k > 32
+    gives 0, each advancing by lead + 1 + k; a negative offset reads
+    through ``jnp.take``, counting flat indices below 0 from the end of
+    all rows and reading the take's fill below that."""
+    args, stride, _ = crafted_wire([(31, [5]), (31, [-7]), (3, [1, -2, 3]), (3, [4, 5])])
     args = list(args)
-    args[3] = torch.tensor([35, 40, 3], dtype=torch.int32)
-    assert torch.equal(flac_rice.flac_rice_plane(*args, stride), want)
-    args, stride, _ = crafted_wire([(3, [1, -2, 3])])
-    want = flac_rice.flac_rice_plane(*args, stride)
-    args = list(args)
-    args[2] = torch.tensor([-40], dtype=torch.int32)
-    assert torch.equal(flac_rice.flac_rice_plane(*args, stride), want)
+    args[3] = torch.tensor([32, 35, 40, 3], dtype=torch.int32)
+    n_bits = 32 * args[0].numel()
+    args[2] = torch.tensor([0, 40, -45, -n_bits - 70], dtype=torch.int32)
+    got = flac_rice.flac_rice_plane(*args, stride).numpy()
+    np.testing.assert_array_equal(got, jax_rice_plane(args, stride))
+    flat = got.reshape(-1)
+    assert flat[40] != 0 and flat[190] == 0, "k = 32 keeps the window, k = 35 gives 0"
     wild = kc.flac_rice_random_inputs(3, wild=True)
     assert int(wild[3].max()) >= 32 and int(wild[2].min()) < 0
-    assert flac_rice.flac_rice_plane(*wild, 320).any()
+    np.testing.assert_array_equal(flac_rice.flac_rice_plane(*wild, 320).numpy(),
+                                  jax_rice_plane(wild, 320))
 
 
+@pytest.mark.parametrize("wild", [False, True])
 @pytest.mark.parametrize("seed", range(6))
-def test_rice_matches_jax_on_random_inputs(seed):
-    args = kc.flac_rice_random_inputs(seed)
+def test_rice_matches_jax_on_random_inputs(seed, wild):
+    args = kc.flac_rice_random_inputs(seed, wild=wild)
     got = flac_rice.flac_rice_plane(*args, 320).numpy()
     np.testing.assert_array_equal(got, jax_rice_plane(args, 320))
     assert int(args[5].max()) > got.size, "segments past the plane's end"
