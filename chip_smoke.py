@@ -13,18 +13,22 @@ kbit/s; 1024 distinct lanes per codec from the committed fixtures in
 ``soundkit_tpu_torch.models.telephony_batch``, the batched FLAC decoder
 (1024 ragged lanes of the fixtures in ``tests/data/torch_port/flac``,
 16- and 24-bit, mono and stereo, stride 4608) through
-``soundkit_tpu_torch.models.flac_batch.BatchedFlacDecoder``, and the
-serving runtime ``soundkit_tpu_torch.models.fleet.StreamFleet`` over
-all three (1024 lanes a group). Phases:
+``soundkit_tpu_torch.models.flac_batch.BatchedFlacDecoder``, the batched
+MP3 decoder (1024 ragged stereo lanes of the fixtures in
+``tests/data/torch_port/mp3``: MPEG-1, -2 and -2.5, mono and stereo)
+through ``soundkit_tpu_torch.models.mp3_batch_model.BatchedMp3Decoder``,
+and the serving runtime ``soundkit_tpu_torch.models.fleet.StreamFleet``
+over all four (1024 lanes a group). Phases:
 
-a. build the CUDA kernels, the host parser and the FLAC walk from the
-   checkout;
+a. build the CUDA kernels, the host parser, the FLAC walk and the MP3
+   parser from the checkout;
 b. print the card (``nvidia-smi`` name and power limit), the kernels'
    launch shapes (K4's lanes a block and a warp, K6's threads a lane,
    K7's threads a band and steps a tile, K3's codes a thread and threads
    a block, K8's warps a block and values a chunk, K9's lanes a block,
-   samples a tile and mover threads, from their sources), the versions
-   and the host (name, CPU model, cores);
+   samples a tile and mover threads, K10's threads a lane and rounds a
+   matrixing thread sums, from their sources), the versions and the host
+   (name, CPU model, cores);
 c. hold each kernel against its plain PyTorch version on the card at
    the main path's shapes (B = 1024), with the inputs and bounds of
    ``soundkit_tpu_torch.tools.kernel_check`` (K4 also on seeded random
@@ -82,19 +86,38 @@ j. FLAC: 1024 ragged lanes pushed in three rounds with a decode after
    each until every lane drains, launch counters reset just before; one
    ``[flac]`` line (x realtime at each lane's own rate, the decoder's
    walk / export / h2d / step medians);
-k. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
-   lanes (detected from ADTS), 1024 FLAC lanes (detected from ``fLaC``)
+k. MP3 kernel: K10 (IMDCT, overlap-add and polyphase synthesis) against
+   its plain version on the card on the path's next granule (1024 ragged
+   fixture lanes, C = 2, after three decoded granules, with the
+   decoder's carried state; the timed case), and on seeded random inputs
+   at 2048 lanes chained over four granules (every block type, mixed
+   and invalid lanes, a non-zero starting state); bound 1e-5 of the
+   largest plain value on the PCM and both states; the bound time from
+   the bytes and the operations of the path each subband takes;
+l. MP3 compare: two ``decode_batches`` calls of a 1024-lane decoder on
+   the card against the port's plain path on the CPU: PCM >= 100 dB per
+   lane, the carried overlap and FIFO within K10's bound;
+m. MP3: 1024 ragged lanes pushed in three rounds with a decode of every
+   ready granule after each until every lane drains, launch counters
+   reset just before; K10 must launch once a granule step and every
+   granule of the streams must come out; one ``[mp3]`` line (x realtime
+   at each lane's own rate, the decoder's parse / pop / h2d / step
+   medians, and the device kernels a granule step launches, counted by
+   ``torch.profiler``);
+n. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
+   lanes (detected from ADTS), 1024 MP3 lanes (detected from their frame
+   headers), 1024 FLAC lanes (detected from ``fLaC``)
    and 1024 G.722 lanes (explicit kind), pushed raggedly in four rounds
    with a ``collect(device_out=True)`` after each, a quarter of the
    streams ended after the second round and their lanes taken by new
    streams; every stream's fetched PCM is held against the bare model's
-   output for the same bytes (FLAC and G.722 bit-exact, AAC >= 100 dB),
-   a refused kind must raise ``FleetUnsupported``, and every kernel of
-   the three groups must have launched; then an ``out_bits=16`` collect
-   against the quantized bare output, and per group a fleet serving
-   that group alone, its x realtime beside the bare model's on the same
-   bytes; one ``[fleet]`` line;
-l. print the kernels' JSON line (all nine kernels, K2 with no launch:
+   output for the same bytes (MP3, FLAC and G.722 bit-exact, AAC >= 100
+   dB), a refused kind (Ogg Vorbis) must raise ``FleetUnsupported``, and
+   every kernel of the four groups must have launched; then an
+   ``out_bits=16`` collect against the quantized bare output, and per
+   group a fleet serving that group alone, its x realtime beside the
+   bare model's on the same bytes; one ``[fleet]`` line;
+o. print the kernels' JSON line (all ten kernels, K2 with no launch:
    it is not on a path), then the result line.
 
 Any failed phase exits non-zero before the result line. Without a
@@ -132,6 +155,9 @@ FLEET_AAC_FRAMES = 64  # AAC frames a fleet stream carries: its first push passe
 FLEET_FLAC_FRAMES = 6
 FLEET_TEL_BYTES = 6000
 FLEET_TEL_KIND = "g722"
+FLEET_MP3_FRAMES = 24  # MP3 frames a fleet stream carries (48 granules of MPEG-1, 24 of LSF)
+MP3_ROUNDS = 3         # pushes of the [mp3] phase, a decode after each
+MP3_WARM = 3           # granules the [mp3-kernels] path case decodes before its round
 
 
 class SmokeFailure(RuntimeError):
@@ -224,10 +250,13 @@ def phase_build():
     t2 = time.perf_counter()
     fpath = _build.flac_library_path()
     t3 = time.perf_counter()
+    mpath = _build.mp3_library_path()
+    t4 = time.perf_counter()
     _build.kernels()
     log(f"[build] kernels {kpath.relative_to(ROOT)} in {t1 - t0:.3f} s; "
         f"parser {ppath.relative_to(ROOT)} in {t2 - t1:.3f} s; "
-        f"FLAC walk {fpath.relative_to(ROOT)} in {t3 - t2:.3f} s")
+        f"FLAC walk {fpath.relative_to(ROOT)} in {t3 - t2:.3f} s; "
+        f"MP3 parser {mpath.relative_to(ROOT)} in {t4 - t3:.3f} s")
     blog = kpath.with_suffix(".log")
     if blog.exists():
         for line in blog.read_text().splitlines():
@@ -285,7 +314,9 @@ def phase_card() -> str:
         f"{cu_constant('flac_rice.cu', 'CHUNK')}, fill threads "
         f"{cu_constant('flac_rice.cu', 'FILL_THREADS')}; K9 lanes per block "
         f"{cu_constant('flac_lpc.cu', 'LANES')}, samples per tile {cu_constant('flac_lpc.cu', 'TILE')}, "
-        f"mover threads {cu_constant('flac_lpc.cu', 'MOVERS')}")
+        f"mover threads {cu_constant('flac_lpc.cu', 'MOVERS')}; K10 threads per lane "
+        f"{cu_constant('mp3_synth.cu', 'THREADS')}, rounds a matrixing thread sums "
+        f"{cu_constant('mp3_synth.cu', 'RB')}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}; host {socket.gethostname()} "
@@ -910,6 +941,186 @@ def phase_flac(checked_rounds: int):
     return res
 
 
+# ---------------------------------------------------------------------------
+# MP3 phases
+# ---------------------------------------------------------------------------
+
+def mp3_round_pushes(streams, r: int):
+    """What the MP3 phase pushes to each lane in round ``r``."""
+    return [s[len(s) * r // MP3_ROUNDS: len(s) * (r + 1) // MP3_ROUNDS] for s in streams]
+
+
+def phase_mp3_kernels():
+    """K10 against its plain version on the card: on the MP3 path's next
+    granule after MP3_WARM (B = 1024 ragged fixture lanes, C = 2, the
+    decoder's carried state; the timed case), and on seeded random
+    inputs at 2048 lanes chained over four granules (every block type,
+    mixed lanes, invalid lanes, a non-zero starting state)."""
+    import torch
+
+    from soundkit_tpu_torch.tools import kernel_check as kc
+
+    dev = torch.device("cuda", 0)
+    granules, overlap, fifo = kc.mp3_fixture_inputs(B, dev, warm=MP3_WARM)
+    nbytes, flops = kc.mp3_synth_work(granules)
+    r = measure("mp3_synth", "mp3_synth", *kc.mp3_synth_pair(granules, overlap, fifo),
+                nbytes=nbytes, flops=flops, plain_reps=3)
+    valid = granules[0][3]
+    r.update(lanes=int(valid.numel()), valid_lanes=int(valid.sum()),
+             short_lanes=int((granules[0][1] == 2)[valid.bool()].sum()), path_flops=flops)
+    rand = kc.mp3_synth_random_case(dev, seed=10, lanes=B * C, granules=4)
+    rr = kc.compare("mp3_synth", *rand)
+    r.update(path_rel_err=r["rel_err"], random_rel_err=rr["rel_err"],
+             max_abs_err=max(r["max_abs_err"], rr["max_abs_err"]),
+             rel_err=max(r["rel_err"], rr["rel_err"]))
+    log(f"[mp3-kernels] mp3_synth: path {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms), bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {nbytes} bytes, {flops} FLOP), "
+        f"{r['valid_lanes']} of {r['lanes']} lanes valid; max rel err: path "
+        f"{r['path_rel_err']:.2e}, random 4 chained granules x {B * C} lanes "
+        f"{rr['rel_err']:.2e} (bound {kc.REL_BOUND['mp3_synth']})")
+    return {"mp3_synth": r}
+
+
+def mp3_compare_run(device: str):
+    """Two ``decode_batches`` calls (two granules, then three) of a B-lane
+    decoder on ``device`` over the smoke lanes: PCM and the carried
+    state, as numpy."""
+    from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+    from soundkit_tpu_torch.tools import mp3_fixtures as mf
+
+    model = BatchedMp3Decoder(B, C, device=device)
+    for i, data in enumerate(mf.lane_streams(mf.load_clips(), B, 4)):
+        model.push(i, data)
+    pcm = [model.decode_batches(n) for n in (2, 3)]
+    return pcm, model._overlap.cpu().numpy(), model._fifo.cpu().numpy()
+
+
+def phase_mp3_compare():
+    """The card's MP3 decoder against the port's plain path on the CPU,
+    from the same pushes: PCM >= 100 dB per lane, the carried overlap
+    and FIFO within K10's bound of their largest value."""
+    import numpy as np
+
+    from soundkit_tpu_torch.tools import kernel_check as kc
+
+    t0 = time.perf_counter()
+    g_pcm, g_ov, g_ff = mp3_compare_run("cuda")
+    t1 = time.perf_counter()
+    c_pcm, c_ov, c_ff = mp3_compare_run("cpu")
+    t2 = time.perf_counter()
+    worst, live = float("inf"), 0
+    for call, (g, c) in enumerate(zip(g_pcm, c_pcm)):
+        check(g.shape == c.shape == (g.shape[0], B, C, 576), f"mp3 call {call}: shapes differ")
+        check(np.isfinite(g).all(), f"mp3 call {call}: non-finite PCM")
+    got = np.concatenate(g_pcm).astype(np.float64)
+    ref = np.concatenate(c_pcm).astype(np.float64)
+    for b in range(B):
+        sig, err = (ref[:, b] ** 2).sum(), ((got[:, b] - ref[:, b]) ** 2).sum()
+        if sig == 0:
+            check(err == 0, f"mp3 lane {b}: output on a silent lane")
+            continue
+        live += 1
+        worst = min(worst, 10 * np.log10(sig / max(err, 1e-300)))
+    state_rel = max(np.abs(g_ov - c_ov).max() / np.abs(c_ov).max(),
+                    np.abs(g_ff - c_ff).max() / np.abs(c_ff).max())
+    log(f"[mp3-compare] 2 calls (2 and 3 granules) x {B} lanes: min lane PCM SNR {worst:.2f} dB "
+        f"over {live} lanes; carried state max rel err {state_rel:.2e}; card {t1 - t0:.3f} s, "
+        f"CPU plain {t2 - t1:.3f} s")
+    check(live > B // 2, f"mp3 compare: only {live} lanes carried sound")
+    check(worst >= 100.0, f"mp3 card vs CPU: a lane at {worst:.2f} dB")
+    check(state_rel <= kc.REL_BOUND["mp3_synth"], f"mp3 card vs CPU: state off by {state_rel:.2e}")
+    return dict(min_pcm_snr_db=worst, lanes=live, state_rel_err=float(state_rel),
+                card_s=t1 - t0, cpu_s=t2 - t1)
+
+
+def mp3_wrappers():
+    from soundkit_tpu_torch.ops import mp3_synth
+
+    return {"mp3_synth": mp3_synth.mp3_synth}
+
+
+def mp3_kernels_per_granule() -> float:
+    """Device kernels one granule step launches at B = 1024 (the glue and
+    K10), counted by ``torch.profiler`` over one 4-granule decode."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+    from soundkit_tpu_torch.tools import mp3_fixtures as mf
+
+    model = BatchedMp3Decoder(B, C, device="cuda")
+    for i, data in enumerate(mf.lane_streams(mf.load_clips(), B, 4)):
+        model.push(i, data)
+    model.decode_batches(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.decode_batches(4)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kernels) / 4
+
+
+def phase_mp3():
+    """B ragged lanes of the MP3 fixtures through the decoder until they
+    drain: MP3_ROUNDS pushes, a decode of every ready granule after
+    each; launch counters reset just before."""
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.codecs.mp3_native import NativeMp3Parser
+    from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+    from soundkit_tpu_torch.tools import mp3_fixtures as mf
+
+    clips = mf.load_clips()
+    streams = mf.lane_streams(clips, B)
+    rates = np.array(mf.lane_rates(clips, B), np.float64)
+    model = BatchedMp3Decoder(B, C, device="cuda", timed=True)
+    wrappers = mp3_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    push_s = decode_s = 0.0
+    granules = np.zeros(B, np.int64)
+    steps = 0
+    peak = torch.zeros((), device="cuda")
+    for r in range(MP3_ROUNDS):
+        t0 = time.perf_counter()
+        for i, data in enumerate(mp3_round_pushes(streams, r)):
+            model.push(i, data)
+        t1 = time.perf_counter()
+        ready = np.array([model.lane_ready(i) for i in range(B)])
+        n = int(ready.max())
+        pcm = model.decode_batches(n, device_out=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        push_s += t1 - t0
+        decode_s += t2 - t1
+        granules += ready
+        steps += n
+        check(tuple(pcm.shape) == (n, B, C, 576), f"mp3 pcm {tuple(pcm.shape)}")
+        check(bool(torch.isfinite(pcm).all()), "mp3: non-finite PCM")
+        peak = torch.maximum(peak, pcm.abs().max())
+    launches = {n: w.launches for n, w in wrappers.items()}
+    check(all(model.lane_ready(i) == 0 for i in range(B)), "mp3: lanes not drained")
+    check(launches["mp3_synth"] == steps,
+          f"mp3_synth launched {launches['mp3_synth']} times in {steps} granule steps")
+    check(float(peak) > 0.1, f"mp3: peak {float(peak)} (silent)")
+    # every granule a lane's whole stream gives a fresh parser came out
+    want = [NativeMp3Parser().push(s) for s in streams]
+    check(granules.tolist() == want, f"mp3: decoded {granules.sum()} granules, the streams "
+          f"carry {sum(want)}")
+    audio_s = float((granules * 576 / rates).sum())
+    stages = model.stage_ms()
+    res = dict(lanes=B, channels=C, rounds=MP3_ROUNDS, granule_steps=steps,
+               granules=int(granules.sum()), granules_in_streams=int(sum(want)), audio_s=audio_s,
+               xrealtime=audio_s / (push_s + decode_s), push_s=push_s, decode_s=decode_s,
+               xrealtime_decode_only=audio_s / decode_s, parse_ms_median_per_push=stages["parse"],
+               pop_ms_median=stages["pop"], h2d_ms_median=stages["h2d"],
+               device_step_ms_median=stages["step"], launches=launches,
+               device_kernels_per_granule=mp3_kernels_per_granule())
+    log(f"[mp3] {json.dumps(res)}")
+    return res
+
+
 class FleetStreams:
     """The streams of the fleet phase: per group, B first-wave streams
     and, for every fourth lane, a second-wave stream that takes the lane
@@ -917,8 +1128,10 @@ class FleetStreams:
     its explicit kind (None: detected), ``audio[sid]`` its seconds."""
 
     def __init__(self, lanes: int):
+        from soundkit_tpu_torch.codecs.mp3_native import NativeMp3Parser
         from soundkit_tpu_torch.tools import aac_fixtures as af
         from soundkit_tpu_torch.tools import flac_fixtures as ff
+        from soundkit_tpu_torch.tools import mp3_fixtures as mf
         from soundkit_tpu_torch.tools import telephony_fixtures as tf
 
         self.lanes = lanes
@@ -929,10 +1142,16 @@ class FleetStreams:
         flac_s = ff.lane_seconds(clips, lanes + n2, FLEET_FLAC_FRAMES)
         tel = [s[:FLEET_TEL_BYTES] for s in tf.lane_streams(FLEET_TEL_KIND, lanes + n2)]
         tel_rate = tf.sample_rate(FLEET_TEL_KIND) / tf.samples_per_byte(FLEET_TEL_KIND)
+        mclips = mf.load_clips()
+        mp3 = mf.lane_streams(mclips, lanes + n2, FLEET_MP3_FRAMES)
+        # a lane's audio: the granules its parser gives, at the lane's rate
+        mp3_s = [NativeMp3Parser().push(s) * 576 / r
+                 for s, r in zip(mp3, mf.lane_rates(mclips, lanes + n2))]
         self.data, self.kind, self.audio, self.group = {}, {}, {}, {}
         self.flac_bits = {f"flac-{j}": ff.lane_frames(clips, j)[0].bits for j in range(lanes + n2)}
         for j in range(lanes + n2):
             for g, data, kind, secs in (("aac", aac[j], None, FLEET_AAC_FRAMES * 1024 / RATE),
+                                        ("mp3", mp3[j], None, mp3_s[j]),
                                         ("flac", flac[j], None, flac_s[j]),
                                         (FLEET_TEL_KIND, tel[j], FLEET_TEL_KIND, len(tel[j]) / tel_rate)):
                 sid = f"{g}-{j}"
@@ -1016,11 +1235,14 @@ def bare_outputs(fs: "FleetStreams", seats, group: str, rounds=None):
 
     from soundkit_tpu_torch.models.aac_lc_batch import BatchedAacLcDecoder
     from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
+    from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
     from soundkit_tpu_torch.models.telephony_batch import TelephonyLaneGroup
 
     t0 = time.perf_counter()
     if group == "aac":
         model = BatchedAacLcDecoder(B, C, device="cuda")
+    elif group == "mp3":
+        model = BatchedMp3Decoder(B, C, device="cuda")
     elif group == "flac":
         model = BatchedFlacDecoder(B, FLAC_STRIDE, device="cuda")
     else:
@@ -1048,7 +1270,7 @@ def bare_outputs(fs: "FleetStreams", seats, group: str, rounds=None):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     out = {}
-    if group == "aac":
+    if group in ("aac", "mp3"):
         arr = got.cpu().numpy()
         for i, sid in seats.items():
             out[sid] = np.transpose(arr[: ready[i], i], (1, 0, 2)).reshape(C, -1)
@@ -1074,12 +1296,12 @@ def phase_fleet():
     from soundkit_tpu_torch.ops import g722, imdct
 
     fs = FleetStreams(B)
-    groups = ("aac", "flac", FLEET_TEL_KIND)
+    groups = ("aac", "mp3", "flac", FLEET_TEL_KIND)
     first = [sid for g in groups for sid in fs.wave(g, False)]
     second = [sid for g in groups for sid in fs.wave(g, True)]
     wrappers = {"spectral_decode": ae.spectral_decode, "tns_filter": ab.tns_filter,
                 "imdct_window": imdct.imdct_window, "g722_scan": g722.g722_decode_scan,
-                **flac_wrappers()}
+                **flac_wrappers(), **mp3_wrappers()}
 
     # mixed: all three groups in one fleet, lanes recycled, every stream checked
     fleet = StreamFleet(capacity_per_group=B, device="cuda")
@@ -1109,11 +1331,12 @@ def phase_fleet():
     for g in groups:
         used = fleet._groups[g]._used
         check(len(used) == B, f"fleet: group {g} used {len(used)} lanes for {B + B // 4} streams")
+    vorbis_page = b"OggS" + bytes(22) + b"\x01\x1e" + b"\x01vorbis" + bytes(9000)
     try:
-        fleet.push("refused", b"ID3" + bytes(9000))
-        check(False, "fleet: an MP3 stream was not refused")
+        fleet.push("refused", vorbis_page)
+        check(False, "fleet: an Ogg Vorbis stream was not refused")
     except FleetUnsupported as e:
-        check("mp3" in str(e), f"fleet: refusal does not name the kind: {e}")
+        check("ogg_vorbis" in str(e), f"fleet: refusal does not name the kind: {e}")
     try:
         fleet.push("refused", b"\x00" * 64, kind="gsm")
         check(False, "fleet: a GSM stream was not refused")
@@ -1143,6 +1366,12 @@ def phase_fleet():
                     sig = float((ref.astype(np.float64) ** 2).sum())
                     check(sig > 0, f"{sid}: silent")
                     worst_snr = min(worst_snr, 10 * np.log10(sig / max(err, 1e-300)))
+                elif g == "mp3":
+                    # an idle MP3 lane keeps its state as it was (no window shape to
+                    # lose), so a stream fed in rounds decodes as one fed whole
+                    check(np.array_equal(pcm, ref), f"{sid}: fleet MP3 PCM differs from the "
+                          f"bare model's")
+                    check(np.any(ref), f"{sid}: silent")
                 else:
                     check(np.array_equal(pcm, ref.astype(np.float32) / 32768.0),
                           f"{sid}: fleet PCM differs from the bare model's")
@@ -1157,24 +1386,25 @@ def phase_fleet():
 
     # out_bits=16: one collect, against the bare outputs quantized on the host
     f16 = StreamFleet(capacity_per_group=B, out_bits=16, device="cuda")
-    sids16 = fs.wave("aac", False) + fs.wave("flac", False)
+    sids16 = fs.wave("aac", False) + fs.wave("mp3", False) + fs.wave("flac", False)
     for sid in sids16:
         f16.push(sid, fs.data[sid], kind=fs.kind[sid])
         f16.end_stream(sid)
     out16 = f16.collect(device_out=True)
-    for g in ("aac", "flac"):
+    for g in ("aac", "mp3", "flac"):
         want, _ = bare_outputs(fs, {out16[sid].lane: sid for sid in fs.wave(g, False)}, g)
         for sid in fs.wave(g, False):
             pcm, ref = out16[sid].fetch(), want[sid]
             check(pcm.dtype == np.int16 and pcm.shape == ref.shape, f"{sid}: {pcm.dtype} {pcm.shape}")
-            if g == "aac":
+            if g in ("aac", "mp3"):
                 q = np.clip(np.round(ref * np.float32(32767.0)), -32768, 32767)
                 check(np.abs(pcm - q).max() <= 1, f"{sid}: int16 PCM off by more than 1")
             else:
                 shift = fs.flac_bits[sid] - 16
                 check(np.array_equal(pcm, np.clip(ref >> shift, -32768, 32767)),
                       f"{sid}: int16 FLAC differs")
-    log(f"[fleet] out_bits=16: {len(sids16)} streams, AAC within 1 LSB, FLAC exact (24-bit lanes >> 8)")
+    log(f"[fleet] out_bits=16: {len(sids16)} streams, AAC and MP3 within 1 LSB, FLAC exact "
+        f"(24-bit lanes >> 8)")
 
     # per group: a fleet serving that group alone, beside the bare model on the same bytes
     by_group = {}
@@ -1249,6 +1479,12 @@ def main() -> int:
         fcres = phase_flac_compare()
         phase = "flac"
         fres = phase_flac(fkres["flac_frame"]["rounds"])
+        phase = "mp3-kernels"
+        mkres = phase_mp3_kernels()
+        phase = "mp3-compare"
+        mcres = phase_mp3_compare()
+        phase = "mp3"
+        mres = phase_mp3()
         phase = "fleet"
         flres = phase_fleet()
     except Exception:
@@ -1298,11 +1534,18 @@ def main() -> int:
              **fkres[n])
         for n, s, r in flac_rows
     ]
+    kernels.append(dict(
+        name="mp3_synth", route="cuda", source=src + "mp3_synth.cu",
+        replaces="soundkit_tpu/ops/mp3_batch.py:133", on_path=True,
+        launches=mres["launches"]["mp3_synth"],
+        launches_per_step=mres["launches"]["mp3_synth"] / mres["granule_steps"],
+        **mkres["mp3_synth"]))
     for k in kernels:
         k["fleet_launches"] = flres["mixed"]["launches"].get(k["name"], 0)
     log(json.dumps({"slice": sres, "compare": cres, "telephony": tres,
                     "telephony_compare": tcres, "flac": fres, "flac_compare": fcres,
-                    "fleet": flres, "wall_s": time.perf_counter() - t_start}))
+                    "mp3": mres, "mp3_compare": mcres, "fleet": flres,
+                    "wall_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Build and load the port's native code at first use.
 
-Three shared libraries, each built into ``soundkit_tpu_torch/_build/``
+Four shared libraries, each built into ``soundkit_tpu_torch/_build/``
 under a name keyed by a hash of its sources and flags, so a checkout
 builds once and a source edit rebuilds:
 
@@ -14,7 +14,11 @@ builds once and a source edit rebuilds:
   links no FFmpeg and uses no ``-march=native``;
 - the FLAC host walk, ``native_src/src/flac.cpp`` (a verbatim copy too;
   frame and subframe headers, the coding-span table and the export of a
-  collect's wire), compiled alone by ``g++`` with the same flags.
+  collect's wire), compiled alone by ``g++`` with the same flags;
+- the MP3 host syntax parser, ``native_src/src/mp3_parse.cpp`` with its
+  table header ``native_src/generated/mp3_tables.h`` (verbatim copies;
+  frame sync, side info, bit reservoir, Huffman spectra and the compact
+  granule wire), compiled alone by ``g++`` with the same flags.
 
 A failed build raises :class:`BuildError` with the compiler's output.
 Nothing here runs at import time.
@@ -38,6 +42,8 @@ NATIVE_DIR = PKG_DIR / "native_src"
 PARSER_SOURCES = (NATIVE_DIR / "src" / "aac_parse.cpp",)
 PARSER_HEADERS = (NATIVE_DIR / "generated" / "aac_tables.h",)
 FLAC_SOURCES = (NATIVE_DIR / "src" / "flac.cpp",)
+MP3_SOURCES = (NATIVE_DIR / "src" / "mp3_parse.cpp",)
+MP3_HEADERS = (NATIVE_DIR / "generated" / "mp3_tables.h",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -103,6 +109,12 @@ def flac_library_path() -> Path:
 
 
 @functools.lru_cache(maxsize=1)
+def mp3_library_path() -> Path:
+    gxx = _compiler("g++", "/usr/bin/g++")
+    return _build("mp3_parse", gxx, GXX_FLAGS, MP3_SOURCES, MP3_HEADERS)
+
+
+@functools.lru_cache(maxsize=1)
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library with every entry point's C signature.
 
@@ -122,9 +134,10 @@ def kernels() -> ctypes.CDLL:
     lib.skt_g722_scan.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.skt_flac_rice_plane.argtypes = [p, i, i, p, p, p, p, p, i, p, p, p, p, i, p]
     lib.skt_flac_lpc.argtypes = [p, p, p, p, p, p, p, p, p, i, i, p]
+    lib.skt_mp3_synth.argtypes = [p, p, p, p, p, p, p, p, p, p, i, p]
     for fn in (lib.skt_imdct_window, lib.skt_dequant_imdct_window,
                lib.skt_spectral_decode, lib.skt_tns_filter, lib.skt_g711_decode,
                lib.skt_g711_launch_floor, lib.skt_g726_scan, lib.skt_g722_scan,
-               lib.skt_flac_rice_plane, lib.skt_flac_lpc):
+               lib.skt_flac_rice_plane, lib.skt_flac_lpc, lib.skt_mp3_synth):
         fn.restype = ctypes.c_int
     return lib

@@ -3,7 +3,7 @@
 
 Each arriving byte stream is routed, after format detection or by its
 explicit kind, into a fixed-capacity batched lane group for its codec:
-AAC-LC, FLAC, or one of the seven telephony kinds. All groups decode in
+AAC-LC, MP3, FLAC, or one of the seven telephony kinds. All groups decode in
 lockstep device batches, and the fleet returns per-stream PCM. Lanes are
 recycled when a stream ends, so a long-running fleet serves an unbounded
 sequence of streams with bounded device state.
@@ -18,11 +18,11 @@ per-stream host pipeline; the port has no pipeline yet, so such a
 stream raises :class:`FleetUnsupported` at the ``push`` or
 ``end_stream`` that routes it, and the fleet forgets it:
 
-- a detected format without a batched group here: MP3, Ogg Vorbis, Ogg
+- a detected format without a batched group here: Ogg Vorbis, Ogg
   Opus, and everything else detection names or fails to name (WAV, M4A,
   WebM, unknown bytes);
 - an explicit kind of :data:`HOST_KINDS` (gsm, amr_nb, g729, opus_raw),
-  or the explicit kinds ``mp3``, ``vorbis`` and ``opus``;
+  or the explicit kinds ``vorbis`` and ``opus``;
 - any stream whose group is full.
 
 An explicit kind that is none of these names raises a plain
@@ -53,9 +53,9 @@ TELEPHONY_KINDS = (
 HOST_KINDS = ("gsm", "amr_nb", "g729", "opus_raw")
 
 #: groups with a batched model in the port, beside the telephony kinds
-BATCHED_KINDS = ("aac", "flac")
+BATCHED_KINDS = ("aac", "mp3", "flac")
 #: group names of the JAX package whose models are not ported yet
-UNPORTED_KINDS = ("mp3", "vorbis", "opus")
+UNPORTED_KINDS = ("vorbis", "opus")
 
 _DETECTED = {
     AudioType.AAC: "aac",
@@ -166,6 +166,10 @@ class _BatchedGroup:
             from soundkit_tpu_torch.models.aac_lc_batch import BatchedAacLcDecoder
 
             self._model = BatchedAacLcDecoder(self.capacity, self.channels, device=self.device)
+        elif self.kind == "mp3":
+            from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+
+            self._model = BatchedMp3Decoder(self.capacity, self.channels, device=self.device)
         elif self.kind == "flac":
             from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
 
@@ -270,7 +274,7 @@ class StreamFleet:
         """Feed stream bytes.  ``kind`` is the explicit-kind ingest for
         headerless formats autodetect cannot route: one of
         :data:`TELEPHONY_KINDS` (G.726 kinds assume left-justified
-        packing), or a batched group name ("aac", "flac") to skip
+        packing), or a batched group name ("aac", "mp3", "flac") to skip
         detection.  Only the first push of a stream may carry
         ``kind``."""
         self._ended.setdefault(stream_id, False)
@@ -394,7 +398,7 @@ class StreamFleet:
                         samples, torch.from_numpy(shf.astype(np.int32)).to(samples.device))
                 staged.append((kind, active, ready_before, n, samples, metas))
             else:
-                pcm = group.decode(n)  # [n, B, C, S] f32
+                pcm = group.decode(n)  # [n, B, C, S] f32 (AAC, MP3)
                 if pcm.shape[0] == 0:
                     continue
                 if self.out_bits == 16:

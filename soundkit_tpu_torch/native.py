@@ -1,5 +1,5 @@
 """The host libraries of the port, bound with ``ctypes``: the AAC-LC
-syntax parser and the FLAC walk.
+syntax parser, the FLAC walk and the MP3 syntax parser.
 
 ``AacHostParser`` holds a parser handle ``_h`` of the library ``_lib``,
 which the wire packers of ``codecs/aac_lc_native.py``
@@ -13,6 +13,12 @@ with the signatures ``models/flac_batch.py`` calls: a handle per stream
 (``skt_flac_new`` / ``free``), ``feed`` and ``drain`` at push time,
 ``queued``, ``info`` and ``error``, and ``queue_stats`` /
 ``export_rounds``, which size and scatter a whole collect's wire.
+
+:func:`mp3_library` is the port's copy of ``native_src/src/mp3_parse.cpp``
+with the signatures ``codecs/mp3_native.py`` and
+``models/mp3_batch_model.py`` call: a handle per stream (``skt_mp3_new``
+/ ``free``), ``push``, and the three pops (one granule, one granule a
+lane, up to ``G`` granules a lane into a collect's packed wire).
 """
 from __future__ import annotations
 
@@ -114,6 +120,44 @@ def flac_library() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32, i32,       # warm, cflag, cval, coef, order, shift, wasted
         i32, i32, arr(np.uint8), i32,            # assign, block size, valid, meta
         i32, i32, i32, i32,                      # parts slot, meta, resw, coef
+    ]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def mp3_library() -> ctypes.CDLL:
+    """The standalone MP3 parser with the signatures the batched decoder
+    calls (every pointer typed: a missing argtype cuts it to 32 bits)."""
+    from numpy.ctypeslib import ndpointer
+
+    lib = ctypes.CDLL(str(_build.mp3_library_path()))
+
+    def arr(dt):
+        return ndpointer(dt, flags="C_CONTIGUOUS")
+
+    vp, c_int, c_long = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    handles = ctypes.POINTER(vp)
+    i16, i32, u8 = arr(np.int16), arr(np.int32), arr(np.uint8)
+    lib.skt_mp3_new.restype = vp
+    lib.skt_mp3_new.argtypes = []
+    lib.skt_mp3_free.restype = None
+    lib.skt_mp3_free.argtypes = [vp]
+    lib.skt_mp3_push.restype = c_long
+    lib.skt_mp3_push.argtypes = [vp, ctypes.c_char_p, c_long]
+    lib.skt_mp3_pop.restype = c_int
+    lib.skt_mp3_pop.argtypes = [vp, i16, i16, i32]
+    lib.skt_mp3_pop_batch.restype = c_int
+    lib.skt_mp3_pop_batch.argtypes = [
+        handles, c_int, i16, i16,   # quant, expq
+        i32, u8, i32,               # block type, mixed, n_alias
+        u8, u8, i32,                # ms, valid, rate
+    ]
+    lib.skt_mp3_pop_rounds.restype = None
+    lib.skt_mp3_pop_rounds.argtypes = [
+        handles, c_int, c_int, u8,  # wire [G, stride]
+        c_long,                     # stride
+        c_long, c_long, c_long, c_long, c_long, c_long, c_long,  # field offsets
+        i32, i32,                   # rate [B], popped [B]
     ]
     return lib
 

@@ -14,7 +14,10 @@ beyond the bound. The bounds are on ``max|kernel - plain| / max|plain|``:
   with float32 sums; a plain TF32 product would land near 1e-3);
 - K3 ``g711_decode``, K6 ``g726_scan`` and K7 ``g722_scan``: bit-exact,
   the output and, for the scans, the final state (integer paths);
-- K8 ``flac_rice_plane`` and K9 ``flac_frame``: bit-exact (lossless).
+- K8 ``flac_rice_plane`` and K9 ``flac_frame``: bit-exact (lossless);
+- K10 ``mp3_synth``: 1e-5, on the PCM of every chained granule and on
+  the final overlap and FIFO (float32 FMAs in another order than the
+  plain version's products and sums).
 
 A case may return a tuple of tensors (a scan's output and its state);
 every element is held to the bound.
@@ -27,7 +30,7 @@ import torch
 from soundkit_tpu_torch import _build
 from soundkit_tpu_torch.ops import aac_batch as ab
 from soundkit_tpu_torch.ops import aac_entropy as ae
-from soundkit_tpu_torch.ops import adpcm, companding, flac_lpc, flac_rice, g722, imdct
+from soundkit_tpu_torch.ops import adpcm, companding, flac_lpc, flac_rice, g722, imdct, mp3_synth
 from soundkit_tpu_torch.utils.device import launch_check
 
 REL_BOUND = {
@@ -40,6 +43,7 @@ REL_BOUND = {
     "g722_scan": 0.0,
     "flac_rice_plane": 0.0,
     "flac_frame": 0.0,
+    "mp3_synth": 1e-5,
 }
 
 
@@ -539,3 +543,108 @@ def flac_lpc_random_case(device, seed: int, **shape):
     """K9 on :func:`flac_lpc_random_inputs`."""
     args = [t.to(device) for t in flac_lpc_random_inputs(seed, **shape)]
     return (lambda: flac_lpc.flac_frame(*args)), (lambda: flac_lpc.flac_frame_plain(*args))
+
+
+# ---------------------------------------------------------------------------
+# MP3 (K10)
+# ---------------------------------------------------------------------------
+
+def mp3_synth_pair(granules, overlap, fifo):
+    """K10 and its plain version over chained granules: ``granules`` is a
+    list of (xr, block_type, mixed, lane_valid), and each side carries
+    its own overlap and FIFO from ``overlap``, ``fifo``. Each callable
+    returns (pcm [G, L, 576], the last overlap, the last FIFO)."""
+    def chain(step):
+        def run():
+            ov, ff, pcms = overlap, fifo, []
+            for xr, bt, mixed, valid in granules:
+                pcm, ov, ff = step(xr, bt, mixed, valid, ov, ff)
+                pcms.append(pcm)
+            # one granule (the path case, which is timed) as a view, so
+            # that the callable launches K10 alone
+            pcm = pcms[0].unsqueeze(0) if len(pcms) == 1 else torch.stack(pcms)
+            return pcm, ov, ff
+        return run
+
+    return chain(mp3_synth.mp3_synth), chain(mp3_synth.mp3_synth_plain)
+
+
+def mp3_synth_random_inputs(seed: int, lanes: int = 37, granules: int = 4):
+    """Seeded K10 inputs on the CPU: ``granules`` rounds of (xr,
+    block_type, mixed, lane_valid) over ``lanes`` lanes and a non-zero
+    starting overlap and FIFO. Lines of per-lane scales from 1e-3 to 3
+    with silent stretches; block types 0-3, the mixed flag on about a
+    third of the lanes (LAME never sets it) and every fourth round a few
+    block types outside 0..3; about a fifth of the lanes invalid a
+    round."""
+    rng = np.random.default_rng(seed)
+    rounds = []
+    for g in range(granules):
+        xr = rng.standard_normal((lanes, 576)) * 10.0 ** rng.uniform(-3, 0.5, (lanes, 1))
+        xr[:, rng.integers(200, 576):] = 0
+        bt = rng.integers(0, 4, lanes)
+        if g % 4 == 3:
+            bt[::7] = rng.integers(-6, 10, len(bt[::7]))
+        rounds.append((torch.from_numpy(xr.astype(np.float32)),
+                       torch.from_numpy(bt.astype(np.int32)),
+                       torch.from_numpy((rng.random(lanes) < 0.35).astype(np.uint8)),
+                       torch.from_numpy((rng.random(lanes) < 0.8).astype(np.uint8))))
+    overlap = torch.from_numpy((rng.standard_normal((lanes, 576)) * 0.2).astype(np.float32))
+    fifo = torch.from_numpy((rng.standard_normal((lanes, 1024)) * 0.2).astype(np.float32))
+    return rounds, overlap, fifo
+
+
+def mp3_synth_random_case(device, seed: int, **shape):
+    """K10 on :func:`mp3_synth_random_inputs`, chained."""
+    rounds, overlap, fifo = mp3_synth_random_inputs(seed, **shape)
+    rounds = [tuple(t.to(device) for t in r) for r in rounds]
+    return mp3_synth_pair(rounds, overlap.to(device), fifo.to(device))
+
+
+def mp3_fixture_inputs(num_lanes: int, device, warm: int = 3, channels: int = 2):
+    """K10's inputs on the MP3 path: ``num_lanes`` ragged lanes of the
+    MP3 fixtures through a batched decoder on ``device`` for ``warm``
+    granules, then the next round's wire through the glue (requantize,
+    M/S, alias reduction), with the decoder's carried state. Returns
+    ([(xr, block_type, mixed, lane_valid)], overlap, fifo) for
+    :func:`mp3_synth_pair`."""
+    from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+    from soundkit_tpu_torch.ops import mp3_batch
+    from soundkit_tpu_torch.tools import mp3_fixtures
+
+    model = BatchedMp3Decoder(num_lanes, channels, device=device)
+    for i, data in enumerate(mp3_fixtures.lane_streams(mp3_fixtures.load_clips(), num_lanes)):
+        model.push(i, data)
+    model.decode_batches(warm)
+    f = mp3_batch.unpack_mp3_wire(torch.from_numpy(model._pop_rounds(1)[0]).to(device), num_lanes)
+    C = channels
+    xr = mp3_batch.granule_lines(f["quant"][:, :C].to(torch.int32),
+                                 mp3_batch.expq_scale(f["expq"][:, :C]), f["ms"] != 0,
+                                 f["nal"][:, :C])
+    L = num_lanes * C
+    granule = (xr.reshape(L, 576).contiguous(), f["bt"][:, :C].reshape(L).contiguous(),
+               f["mixed"][:, :C].reshape(L).contiguous(), f["valid"][:, :C].reshape(L).contiguous())
+    return [granule], model._overlap.reshape(L, 576), model._fifo.reshape(L, 1024)
+
+
+def mp3_synth_work(granules) -> tuple:
+    """(bytes, float32 operations) that K10's function needs for
+    ``granules`` (the list of :func:`mp3_synth_pair`): every lane reads
+    and writes its overlap and FIFO and writes its PCM, a valid lane also
+    reads its lines; each operation is counted once, for the path each
+    subband takes (a long subband 36 x 18 products and sums and 36
+    window products, a short one 3 x 12 x 6 and 36 + 24 window products
+    and sums), then the overlap-add, the matrixing (18 x 64 x 32) and
+    the windowed sums (576 x 16), on valid lanes only."""
+    nbytes = flops = 0
+    for xr, bt, mixed, valid in granules:
+        L = xr.shape[0]
+        v = valid.bool()
+        nbytes += L * (576 * 4 + 2 * (576 + 1024) * 4 + 4 + 1 + 1) + int(v.sum()) * 576 * 4
+        short_lane = (bt == 2)[v].long()
+        low_long = (mixed.bool() & (bt == 2))[v].long()  # subbands 0-1 of a mixed short lane
+        n_short = (32 * short_lane - 2 * low_long).sum().item()
+        n_long = 32 * int(v.sum()) - n_short
+        flops += n_long * (2 * 36 * 18 + 36) + n_short * (2 * 3 * 12 * 6 + 36 + 24)
+        flops += int(v.sum()) * (576 + 2 * 18 * 64 * 32 + 2 * 576 * 16)
+    return nbytes + mp3_synth.kernel_tables(torch.device("cpu")).numel() * 4, flops

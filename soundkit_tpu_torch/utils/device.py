@@ -5,6 +5,8 @@ device that is not there raises: nothing falls back to the CPU.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -43,3 +45,20 @@ def launch_check(name: str, rc: int) -> None:
     """Raise on a non-zero ``cudaError_t`` from a kernel's C entry point."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """Float32 matrix products in IEEE float32 inside the block, never
+    TF32, whatever the caller set (``allow_tf32``,
+    ``set_float32_matmul_precision``); the caller's settings come back
+    on exit. The reference pins float32 for the same products
+    (``jax.default_matmul_precision("float32")``)."""
+    precision = torch.get_float32_matmul_precision()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(precision)
+        torch.backends.cuda.matmul.allow_tf32 = tf32

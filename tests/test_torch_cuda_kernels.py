@@ -161,3 +161,35 @@ def test_flac_lpc_kernel_switch_to_64_bits_in_mid_block(dev, lanes, T):
     args = [t.to(dev) for t in kc.flac_lpc_switch_inputs(lanes, T)]
     kc.compare("flac_frame", lambda: flac_lpc.flac_frame(*args),
                lambda: flac_lpc.flac_frame_plain(*args))
+
+
+@pytest.mark.parametrize("lanes,granules", [(1, 2), (37, 4), (300, 5)])
+def test_mp3_synth_kernel_random_inputs(dev, lanes, granules):
+    """Every block type (and a few outside 0..3), mixed lanes, invalid
+    lanes and a non-zero starting state, chained over several granules."""
+    kc.compare("mp3_synth", *kc.mp3_synth_random_case(dev, seed=lanes, lanes=lanes,
+                                                      granules=granules))
+
+
+@pytest.mark.parametrize("channels", [2, 1])
+def test_mp3_synth_kernel_on_the_fixture_path(dev, channels):
+    """The decoder's next granule over 40 ragged fixture lanes, mono
+    lanes in the stereo decoder among them, with its carried state."""
+    kc.compare("mp3_synth", *kc.mp3_synth_pair(*kc.mp3_fixture_inputs(40, dev,
+                                                                      channels=channels)))
+
+
+def test_mp3_synth_holds_its_bound_with_tf32_on(dev):
+    """A caller that turns TF32 on does not move the plain version off
+    IEEE float32 (its products run under ``ieee_fp32``): K10 and the
+    plain version still agree within the bound, and the caller's
+    settings are back afterwards."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        kc.compare("mp3_synth", *kc.mp3_synth_random_case(dev, seed=9, lanes=200, granules=3))
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False

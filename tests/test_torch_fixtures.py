@@ -11,12 +11,13 @@ from soundkit_tpu.codecs.aac_lc_native import (
 from soundkit_tpu_torch.native import AacHostParser
 from soundkit_tpu_torch.tools.aac_fixtures import CLIPS, lane_streams, load_clips
 
-from soundkit_tpu_torch.tools import flac_fixtures
+from soundkit_tpu_torch.tools import flac_fixtures, mp3_fixtures
 from torch_port_helpers import (
     SR_INDEX_48K,
     clip_aus,
     generate_aac_fixtures,
     generate_flac_fixtures,
+    generate_mp3_fixtures,
     host_parser,
     picked_aus,
 )
@@ -82,3 +83,34 @@ def test_flac_fixtures_equal_a_regeneration(tmp_path):
     generate_flac_fixtures(tmp_path)
     for name in (*(f"{c}.flac" for c in flac_fixtures.CLIPS), "index.json"):
         assert (tmp_path / name).read_bytes() == (flac_fixtures.FIXTURE_DIR / name).read_bytes(), name
+
+
+def test_mp3_fixtures_equal_a_regeneration(tmp_path):
+    """The generator (on the test side, with the JAX package's
+    libmp3lame-backed encoder) makes the committed streams and their
+    frame index byte for byte."""
+    generate_mp3_fixtures(tmp_path)
+    for name in (*(f"{c}.mp3" for c in mp3_fixtures.CLIPS), "index.json"):
+        assert (tmp_path / name).read_bytes() == (mp3_fixtures.FIXTURE_DIR / name).read_bytes(), name
+
+
+def test_mp3_fixtures_cover_the_decode_paths():
+    """Parsed by the JAX package's pure-Python decoder: MPEG-1, MPEG-2
+    and MPEG-2.5 headers, mono and stereo, M/S and L/R frames of joint
+    stereo, and block types 0-3 (LAME sets no mixed blocks)."""
+    from soundkit_tpu.codecs.mp3_native import Mp3NativeDecoder
+
+    versions, modes, types, mixed = set(), set(), set(), set()
+    for clip in mp3_fixtures.load_clips():
+        frames = Mp3NativeDecoder().push(clip.stream())
+        assert len(frames) == len(clip.frames) == len(clip.granules), clip.name
+        for f in frames:
+            assert f.header.sample_rate == clip.rate and f.header.nb_channels == clip.channels
+            assert len(f.granules) == clip.granules[0]
+            versions.add(f.header.version)
+            modes.add((f.header.mode, f.header.mode_ext))
+            for gr in f.granules:
+                types |= {g.block_type for g in gr}
+                mixed |= {bool(g.switch_point) for g in gr}
+    assert versions == {3, 2, 0} and types == {0, 1, 2, 3} and mixed == {False}
+    assert {(1, 2), (1, 0), (3, 0)} <= modes

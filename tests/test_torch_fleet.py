@@ -1,9 +1,9 @@
 """Port parity of the serving runtime: soundkit_tpu_torch's StreamFleet
 against the JAX package's on the CPU, driven by the same pushes over the
-committed AAC, FLAC and telephony fixtures. Collect by collect: the same
-key sets, dtypes, shapes and sample rates; FLAC and telephony PCM
-bit-exact; AAC PCM at 100 dB or better per collect as f32 (the bar of
-``test_torch_aac_lc_model.py``) and within 1 LSB as int16. The streams
+committed AAC, MP3, FLAC and telephony fixtures. Collect by collect: the
+same key sets, dtypes, shapes and sample rates; FLAC and telephony PCM
+bit-exact; AAC and MP3 PCM at 100 dB or better per collect as f32 (the
+bar of ``test_torch_aac_lc_model.py``) and within 1 LSB as int16. The streams
 the JAX fleet hands to its host fallback raise ``FleetUnsupported``
 here, one test per case."""
 import numpy as np
@@ -22,7 +22,7 @@ from soundkit_tpu_torch.models.fleet import (
     FleetUnsupported,
     StreamFleet,
 )
-from soundkit_tpu_torch.tools import aac_fixtures, flac_fixtures, telephony_fixtures
+from soundkit_tpu_torch.tools import aac_fixtures, flac_fixtures, mp3_fixtures, telephony_fixtures
 from torch_port_helpers import flac_clip_pcm, snr_db
 
 
@@ -52,13 +52,19 @@ def flac_stream(clip: int, frames=None) -> bytes:
     return c.header + b"".join(c.frames[:frames])
 
 
+def mp3_stream(clip: int, start: int = 0, n=None) -> bytes:
+    frames = mp3_fixtures.load_clips()[clip].frames
+    return b"".join(frames[start: None if n is None else start + n])
+
+
 def tel_stream(kind: str, lane: int, n: int) -> bytes:
     return telephony_fixtures.lane_streams(kind, lane + 1)[lane][:n]
 
 
 class Pair:
     """The port's fleet and the JAX package's, driven together. Stream
-    ids start with their group's letter: a (AAC), f (FLAC), t (telephony)."""
+    ids start with their group's letter: a (AAC), m (MP3), f (FLAC), t
+    (telephony)."""
 
     def __init__(self, capacity=CAP, out_bits=32):
         self.port = StreamFleet(capacity, out_bits=out_bits, device="cpu")
@@ -97,7 +103,7 @@ class Pair:
                 assert g.shape[-1] == got[sid].samples
             w = np.asarray(w)
             assert g.dtype == w.dtype and g.shape == w.shape, (sid, g.dtype, w.dtype, g.shape, w.shape)
-            if not sid.startswith("a"):
+            if not sid.startswith(("a", "m")):
                 np.testing.assert_array_equal(g, w, err_msg=sid)
             elif g.dtype == np.int16:
                 assert np.abs(g.astype(np.int32) - w).max() <= 1, sid
@@ -113,6 +119,8 @@ STREAMS = {
     # sid: (bytes, explicit kind, rate)
     "a0": (aac_stream(1, 8, 9), None, 48000),
     "a1": (aac_stream(4, 30, 5), None, 48000),
+    "m0": (mp3_stream(0, 0, 60), None, 44100),
+    "m1": (mp3_stream(3), "mp3", 16000),
     "f0": (flac_stream(0, 3), None, 44100),
     "f1": (flac_stream(1, 2), None, 48000),
     "f2": (flac_stream(2, 4), None, 16000),
@@ -127,12 +135,13 @@ STREAMS = {
 
 @pytest.mark.parametrize("out_bits,device_out", [(32, False), (16, True), (32, True), (16, False)])
 def test_mixed_ragged_routing_matches_jax(out_bits, device_out):
-    """Ten streams over five groups, pushed in three ragged rounds with a
+    """Twelve streams over six groups, pushed in three ragged rounds with a
     collect after each; autodetected and explicit kinds; some streams
     end early, all end at last."""
     pair = Pair(CAP, out_bits)
     pos = {sid: 0 for sid in STREAMS}
-    shares = {"a0": (0.2, 0.7, 1), "a1": (1, 1, 1), "f0": (0.5, 0.5, 1), "f1": (0.1, 1, 1),
+    shares = {"a0": (0.2, 0.7, 1), "a1": (1, 1, 1), "m0": (0.4, 0.8, 1), "m1": (0.5, 0.5, 1),
+              "f0": (0.5, 0.5, 1), "f1": (0.1, 1, 1),
               "f2": (0.3, 0.6, 1), "f3": (0.6, 1, 1), "t0": (0.3, 0.8, 1), "t1": (1, 1, 1),
               "t2": (0.01, 0.5, 1), "t3": (0.5, 0.5, 1)}
     seen = {sid: 0 for sid in STREAMS}
@@ -154,8 +163,9 @@ def test_mixed_ragged_routing_matches_jax(out_bits, device_out):
     pair.collect(device_out)  # drains what the last round left, then recycles
     assert all(n > 0 for n in seen.values()), seen
     assert seen["a0"] == 9 * 1024 and seen["f1"] == 2 * 4096 and seen["t0"] == 2 * 700
+    assert seen["m0"] == 60 * 2 * 576 and seen["m1"] == 58 * 576
     want = np.dtype(np.int16 if out_bits == 16 else np.float32)
-    assert dtypes == {("a", want), ("f", want), ("t", want)}
+    assert dtypes == {("a", want), ("m", want), ("f", want), ("t", want)}
     for f in (pair.port, pair.ref):
         assert not f._lanes and not f._detect and not f._ended
 
@@ -179,7 +189,7 @@ def test_device_out_is_bit_identical_to_the_fetching_mode(out_bits):
         np.testing.assert_array_equal(pcm, fetched[sid])
         assert rec.samples == pcm.shape[-1] and rec.rate == STREAMS[sid][2]
     caches = {id(rec._cache) for rec in resident.values()}
-    assert len(caches) == 5  # aac, flac, g722, g726_32, g711_alaw
+    assert len(caches) == 6  # aac, mp3, flac, g722, g726_32, g711_alaw
     assert resident["f0"]._cache is resident["f2"]._cache and "arr" in resident["f0"]._cache
 
 
@@ -271,6 +281,53 @@ def test_mono_flac_lane_returns_one_channel():
     out = pair.collect()["f0"]
     assert out.shape == (1, 2 * 4096) and out.dtype == np.float32
     np.testing.assert_array_equal(out, flac_clip_pcm("mono16")[:, : 2 * 4096].astype(np.float32) / 32768)
+
+
+def test_mono_mp3_lane_returns_a_silent_second_channel():
+    """A mono stream in the stereo MP3 group: its second channel is
+    invalid on the wire, so it decodes as zeros, in both fleets."""
+    pair = Pair()
+    pair.push("m0", mp3_stream(4))  # 8 kHz mono, MPEG-2.5
+    pair.end("m0")
+    out = pair.collect()["m0"]
+    assert out.shape == (2, 30 * 576) and out.dtype == np.float32
+    assert np.abs(out[0]).max() > 0.01 and not out[1].any()
+    assert pair.rates("m0") == [8000]  # retired, its rate kept for one collect
+
+
+def test_mp3_lane_recycling_resets_state():
+    """A second MP3 stream takes the lane the first one left and decodes
+    as in a fresh fleet: the parser, overlap and FIFO were cleared."""
+    pair = Pair()
+    pair.push("m0", mp3_stream(2, 0, 12), kind="mp3")
+    pair.end("m0")
+    assert pair.collect()["m0"].shape == (2, 12 * 576) and not pair.port._lanes
+    second = mp3_stream(1, 0, 10)
+    pair.push("m1", second, kind="mp3")
+    pair.end("m1")
+    assert pair.port._lanes["m1"].index == pair.ref._lanes["m1"].index == CAP - 1
+    again = pair.collect()["m1"]
+    fresh = StreamFleet(CAP, device="cpu")
+    fresh.push("x", second, kind="mp3")
+    np.testing.assert_array_equal(again, fresh.collect()["x"])
+    assert again.shape == (2, 20 * 576)
+    # and it would differ from a lane that kept its FIFO and overlap
+    kept = fleet_mod.StreamFleet(CAP, device="cpu")
+    kept.push("x", mp3_stream(2, 0, 12) + second, kind="mp3")
+    assert not np.array_equal(again, kept.collect()["x"][:, 12 * 576:])
+
+
+def test_explicit_mp3_kind_joins_the_mp3_group():
+    """The explicit kind ``mp3`` (refused before the group was ported)
+    seats the stream with its buffered bytes, as detection would."""
+    pair = Pair()
+    data = mp3_stream(1, 0, 6)
+    pair.push("m0", data[:100])               # buffered for detection
+    pair.push("m0", data[100:], kind="mp3")   # routed now, with the buffered bytes
+    for f in (pair.port, pair.ref):
+        assert f._lanes["m0"].group == "mp3" and not f._detect
+    assert pair.collect()["m0"].shape == (2, 12 * 576)
+    assert pair.rates("m0") == [48000]
 
 
 def test_bounded_bookkeeping_after_a_churn_of_streams():
@@ -381,7 +438,7 @@ def _ogg_first_page(payload: bytes) -> bytes:
 
 
 DETECTED_WITHOUT_A_GROUP = {
-    "mp3": b"ID3" + bytes(61),
+    "webm": b"\x1a\x45\xdf\xa3" + bytes(60),
     "ogg_vorbis": _ogg_first_page(b"\x01vorbis" + bytes(20)),
     "ogg_opus": _ogg_first_page(b"OpusHead" + bytes(11)),
     "wav": b"RIFF" + bytes(4) + b"WAVEfmt " + bytes(40),
@@ -404,7 +461,7 @@ def test_refuses_a_detected_format_without_a_group_at_end_stream(name):
     assert_forgotten(port, "s")
 
 
-@pytest.mark.parametrize("name", ["mp3", "wav"])
+@pytest.mark.parametrize("name", ["ogg_vorbis", "wav"])
 def test_refuses_a_detected_format_without_a_group_at_the_routing_push(name):
     port = StreamFleet(2, device="cpu")
     data = DETECTED_WITHOUT_A_GROUP[name] + bytes(MIN_DETECT)
@@ -414,7 +471,7 @@ def test_refuses_a_detected_format_without_a_group_at_the_routing_push(name):
     assert_forgotten(port, "s")
 
 
-@pytest.mark.parametrize("kind", HOST_KINDS + ("mp3", "vorbis", "opus"))
+@pytest.mark.parametrize("kind", HOST_KINDS + ("vorbis", "opus"))
 def test_refuses_an_explicit_kind_without_a_group(kind):
     port = StreamFleet(2, device="cpu")
     port.push("s", b"early bytes")

@@ -1,8 +1,9 @@
 """The port's own copies of the JAX package's host pieces equal the
 originals: tables and the functions that make them, the G.726 code
 packing, the ADTS framer, the wire packers (byte for byte, each with
-its own package's parser), the C++ sources of the AAC parser and the
-FLAC walk, format detection and the FLAC segment-table packer."""
+its own package's parser), the C++ sources of the AAC parser, the FLAC
+walk and the MP3 parser, the MP3 synthesis tables, format detection and
+the FLAC segment-table packer."""
 from pathlib import Path
 
 import numpy as np
@@ -40,6 +41,10 @@ G722_TABLES = ("WL", "RL42", "ILB", "WH", "RH2", "QM2", "QM4", "QM6", "QMF_COEFF
      "soundkit_tpu/native/generated/aac_tables.h"),
     ("soundkit_tpu_torch/data/aac_tables.npz", "soundkit_tpu/native/generated/aac_tables.npz"),
     ("soundkit_tpu_torch/native_src/src/flac.cpp", "soundkit_tpu/native/src/flac.cpp"),
+    ("soundkit_tpu_torch/native_src/src/mp3_parse.cpp", "soundkit_tpu/native/src/mp3_parse.cpp"),
+    ("soundkit_tpu_torch/native_src/generated/mp3_tables.h",
+     "soundkit_tpu/native/generated/mp3_tables.h"),
+    ("soundkit_tpu_torch/data/mp3_tables.npz", "soundkit_tpu/native/generated/mp3_tables.npz"),
     ("soundkit_tpu_torch/demux/detect.py", "soundkit_tpu/demux/detect.py"),
 ])
 def test_copied_files_are_identical(port, ref):
@@ -202,3 +207,62 @@ def test_flac_walk_library_exports_the_wire_of_the_jax_package():
     for x, y in zip((*a.segs, *a.metas, *a.parts), (*b.segs, *b.metas, *b.parts)):
         np.testing.assert_array_equal(x, y)
     assert int(a.segs[4].sum()) > 20000  # codes on the wire
+
+
+MP3_BUILDERS = ("imdct_matrix", "imdct_windows", "short_window", "synth_matrix", "synth_window")
+
+
+@pytest.mark.parametrize("name", MP3_BUILDERS)
+def test_mp3_table_builders_are_verbatim_copies(name):
+    """Each builder of the port's ``ops/mp3_dsp.py`` is the JAX package's
+    function, source and values (the D window's mirror exception at 64,
+    128 and 192 included), over the port's copy of the table file."""
+    from soundkit_tpu.ops import mp3_dsp as jax_mp3_dsp
+    from soundkit_tpu_torch.ops import mp3_dsp
+
+    assert _function_source(mp3_dsp, name) == _function_source(jax_mp3_dsp, name)
+    args = (36, 12) if name == "imdct_matrix" else (None,)
+    for a in args:
+        got = getattr(mp3_dsp, name)(*([a] if a else []))
+        want = getattr(jax_mp3_dsp, name)(*([a] if a else []))
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_mp3_alias_coefficients_and_gather_tables():
+    from soundkit_tpu.ops import mp3_batch as jax_mp3_batch
+    from soundkit_tpu.ops import mp3_dsp as jax_mp3_dsp
+    from soundkit_tpu_torch.ops import mp3_batch, mp3_dsp, mp3_synth
+
+    np.testing.assert_array_equal(mp3_dsp.CS, jax_mp3_dsp.CS)
+    np.testing.assert_array_equal(mp3_dsp.CA, jax_mp3_dsp.CA)
+    for got, want in zip(mp3_batch._alias_idx(), jax_mp3_batch._alias_idx()):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(mp3_synth.u_indices(), jax_mp3_batch._u_indices())
+
+
+def test_mp3_parser_library_pops_the_wire_of_the_jax_package():
+    """The port's ``mp3_parse.cpp`` build and the JAX package's library
+    give the same packed wire for the same pushes (``skt_mp3_pop_rounds``),
+    and the same single pops."""
+    from soundkit_tpu.codecs.mp3_native import NativeMp3Parser as JaxParser
+    from soundkit_tpu.models.mp3_batch_model import BatchedMp3Decoder as JaxDecoder
+    from soundkit_tpu_torch.codecs.mp3_native import NativeMp3Parser
+    from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+    from soundkit_tpu_torch.tools import mp3_fixtures
+
+    streams = mp3_fixtures.lane_streams(mp3_fixtures.load_clips(), 5, 12)
+    port, ref = BatchedMp3Decoder(5, device="cpu"), JaxDecoder(5)
+    for m in (port, ref):
+        for i, s in enumerate(streams):
+            m.push(i, s)
+    np.testing.assert_array_equal(port._pop_rounds(30), ref._pop_rounds(30))
+    assert port._counts == ref._counts and (port._rates == ref._rates).all()
+    a, b = NativeMp3Parser(), JaxParser()
+    assert a.push(streams[1]) == b.push(streams[1]) > 0
+    for _ in range(3):
+        (qa, ea, ma), (qb, eb, mb_) = a.pop(), b.pop()
+        np.testing.assert_array_equal(qa, qb)
+        np.testing.assert_array_equal(ea, eb)
+        assert ma == mb_

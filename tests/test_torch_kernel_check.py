@@ -33,6 +33,8 @@ CPU = torch.device("cpu")
     ("flac_rice_plane", lambda: kc.flac_rice_random_case(CPU, seed=3)),
     ("flac_frame", lambda: kc.flac_lpc_case(kc.flac_fixture_wire(5, 1, CPU))),
     ("flac_frame", lambda: kc.flac_lpc_random_case(CPU, seed=4)),
+    ("mp3_synth", lambda: kc.mp3_synth_random_case(CPU, seed=5)),
+    ("mp3_synth", lambda: kc.mp3_synth_pair(*kc.mp3_fixture_inputs(6, CPU))),
 ])
 def test_cases_agree_on_cpu(name, make):
     kernel, plain = make()
@@ -132,3 +134,34 @@ def test_compare_refuses_an_off_by_one_in_a_telephony_result(name, element):
     with pytest.raises(kc.KernelMismatch, match=name):
         kc.compare(name, lambda: bad, lambda: ref)
     assert kc.compare(name, lambda: ref, lambda: ref)["max_abs_err"] == 0.0
+
+
+def test_mp3_fixture_inputs_are_the_decoders_next_granule():
+    """K10's path case is what the decoder's next step computes: the
+    plain K10 on it gives the decoder's PCM and state for that round."""
+    from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+    from soundkit_tpu_torch.tools import mp3_fixtures
+
+    granules, overlap, fifo = kc.mp3_fixture_inputs(7, CPU, warm=2)
+    _, plain = kc.mp3_synth_pair(granules, overlap, fifo)
+    pcm, ov, ff = plain()
+    model = BatchedMp3Decoder(7, device="cpu")
+    for i, data in enumerate(mp3_fixtures.lane_streams(mp3_fixtures.load_clips(), 7)):
+        model.push(i, data)
+    want = model.decode_batches(3)[2]
+    assert torch.equal(pcm[0].reshape(7, 2, 576), torch.from_numpy(want))
+    assert torch.equal(ov.reshape(7, 2, 32, 18), model._overlap)
+    assert torch.equal(ff.reshape(7, 2, 1024), model._fifo)
+
+
+def test_mp3_synth_work_counts_the_path_each_subband_takes():
+    lanes = 4
+    xr = torch.zeros((lanes, 576))
+    bt = torch.tensor([0, 2, 2, 1], dtype=torch.int32)
+    mixed = torch.tensor([0, 0, 1, 0], dtype=torch.uint8)
+    valid = torch.tensor([1, 1, 1, 0], dtype=torch.uint8)
+    nbytes, flops = kc.mp3_synth_work([(xr, bt, mixed, valid)])
+    long_sb, short_sb = 32 + 2, 32 + 30
+    per_lane = 576 + 2 * 18 * 64 * 32 + 2 * 576 * 16
+    assert flops == long_sb * (2 * 36 * 18 + 36) + short_sb * (2 * 3 * 12 * 6 + 60) + 3 * per_lane
+    assert nbytes == lanes * (576 * 4 + 2 * 1600 * 4 + 6) + 3 * 576 * 4 + 3436 * 4

@@ -73,8 +73,8 @@ out = fleet.collect()
 assert out["a"].shape == (2, 2048) and out["f"].shape == (2, 4096) and out["t"].shape == (1, 500)
 assert all(np.isfinite(v).all() and np.abs(v).max() > 0 for v in out.values())
 try:
-    fleet.push("m", b"ID3" + bytes(100), kind="mp3")
-    raise SystemExit("an mp3 stream was not refused")
+    fleet.push("v", b"OggS" + bytes(100), kind="vorbis")
+    raise SystemExit("a vorbis stream was not refused")
 except FleetUnsupported:
     pass
 assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
@@ -82,9 +82,32 @@ print("fleet without jax")
 """
 
 
+_NO_JAX_MP3 = _NO_JAX_DECODE.split("import numpy as np")[0] + r"""
+import numpy as np
+from soundkit_tpu_torch.models.fleet import StreamFleet
+from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+from soundkit_tpu_torch.tools import mp3_fixtures
+clips = mp3_fixtures.load_clips()
+m = BatchedMp3Decoder(3, device="cpu")
+for i, s in enumerate(mp3_fixtures.lane_streams(clips, 3, 8)):
+    m.push(i, s)
+pcm = m.decode_batches(max(m.lane_ready(i) for i in range(3)))
+assert pcm.shape == (16, 3, 2, 576) and np.isfinite(pcm).all() and np.abs(pcm).max() > 0.01
+assert [m.lane_sample_rate(i) for i in range(3)] == [44100, 48000, 22050]
+fleet = StreamFleet(2, device="cpu")
+fleet.push("m", clips[4].stream())
+fleet.end_stream("m")
+out = fleet.collect()["m"]
+assert out.shape == (2, 30 * 576) and np.abs(out[0]).max() > 0.01 and not out[1].any()
+assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
+print("mp3 without jax")
+"""
+
+
 @pytest.mark.parametrize("script,said", [(_NO_JAX_DECODE, "decoded without jax"),
                                          (_NO_JAX_TELEPHONY, "telephony without jax"),
-                                         (_NO_JAX_FLEET, "fleet without jax")])
+                                         (_NO_JAX_FLEET, "fleet without jax"),
+                                         (_NO_JAX_MP3, "mp3 without jax")])
 def test_port_runs_on_cpu_with_jax_blocked(script, said):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -176,6 +199,20 @@ def test_telephony_wrappers_refuse_meta_tensors():
     assert counts() == before
 
 
+def test_mp3_synth_refuses_meta_tensors():
+    """K10's wrapper raises for tensors neither on the CPU nor on a CUDA
+    device, and counts no launch."""
+    from soundkit_tpu_torch.ops import mp3_synth
+
+    before = mp3_synth.mp3_synth.launches
+    f32 = torch.empty((4, 576), device="meta")
+    u8 = torch.empty(4, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        mp3_synth.mp3_synth(f32, torch.empty(4, dtype=torch.int32, device="meta"), u8, u8, f32,
+                            torch.empty((4, 1024), device="meta"))
+    assert mp3_synth.mp3_synth.launches == before
+
+
 def test_build_rebuilds_when_a_header_changes(tmp_path, monkeypatch):
     """A library is keyed by its sources and the headers passed as
     ``deps`` (the kernel library passes ``csrc/*.cuh``): the same inputs
@@ -206,9 +243,13 @@ def test_entry_points_default_to_cuda():
 
     from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
     from soundkit_tpu_torch.models.fleet import StreamFleet
+    from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+    from soundkit_tpu_torch.ops import mp3_batch
 
     calls = {
         BatchedFlacDecoder: lambda: BatchedFlacDecoder(2),
+        BatchedMp3Decoder: lambda: BatchedMp3Decoder(2),
+        mp3_batch.init_state: lambda: mp3_batch.init_state(2),
         StreamFleet: lambda: StreamFleet(2),
         BatchedAacLcDecoder: lambda: BatchedAacLcDecoder(2, 2),
         BatchedTelephonyDecoder: lambda: BatchedTelephonyDecoder("g726_32", 2),

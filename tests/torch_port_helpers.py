@@ -9,6 +9,7 @@ generators live here, on the test side; regenerate from the repository's root wi
     PYTHONPATH=. python tests/torch_port_helpers.py aac
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py telephony
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py flac
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py mp3
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Dict, List
 import numpy as np
 
 from soundkit_tpu_torch.models.telephony_batch import CODECS
-from soundkit_tpu_torch.tools import aac_fixtures, flac_fixtures, telephony_fixtures
+from soundkit_tpu_torch.tools import aac_fixtures, flac_fixtures, mp3_fixtures, telephony_fixtures
 
 SR_INDEX_48K = 3
 # AUs per clip that cover long, short (EIGHT_SHORT) and TNS frames
@@ -333,6 +334,73 @@ def flac_clip_pcm(name: str) -> np.ndarray:
     return _flac_pcm(name, np.random.default_rng(3000 + flac_fixtures.CLIPS.index(name)))[2]
 
 
+# ---------------------------------------------------------------------------
+# MP3 fixtures
+# ---------------------------------------------------------------------------
+
+# clip: (rate, channels, bit rate, seconds)
+MP3_CLIPS = {
+    "stereo44": (44100, 2, 128000, 3.0),
+    "stereo48": (48000, 2, 128000, 2.0),
+    "lsf22": (22050, 2, 64000, 2.0),
+    "mono16": (16000, 1, 32000, 2.0),
+    "mono8": (8000, 1, 16000, 2.0),
+}
+
+
+def mp3_clip_pcm(name: str) -> np.ndarray:
+    """The interleaved int16 samples ``generate_mp3_fixtures`` encodes
+    for ``name``: a tone with vibrato under noise, clicks and noise
+    bursts (block switching); for ``stereo44`` a correlated first half
+    (M/S frames) and two independent channels after it."""
+    rate, ch, _, seconds = MP3_CLIPS[name]
+    rng = np.random.default_rng(4000 + mp3_fixtures.CLIPS.index(name))
+    n = int(rate * seconds)
+    t = np.arange(n) / rate
+    tone = 0.3 * np.sin(2 * np.pi * (330 + 4 * np.sin(2 * np.pi * 5 * t)) * t)
+    onsets = np.cumsum(rng.uniform(0.15, 0.4, size=int(seconds * 8)))
+    env = np.zeros(n)
+    for o in onsets[onsets < seconds - 0.05]:
+        m = t >= o
+        env[m] += np.exp(-(t[m] - o) / 0.006)
+    x = tone + rng.standard_normal(n) * (0.02 + 0.7 * env)
+    if ch == 1:
+        pcm = x[:, None]
+    else:
+        pcm = np.stack([x, 0.85 * x + rng.standard_normal(n) * 0.01], axis=1)
+        if name == "stereo44":
+            half = t >= seconds / 2
+            pcm[half, 1] = 0.4 * np.sin(2 * np.pi * 1230 * t[half]) + rng.standard_normal(
+                int(half.sum())) * 0.05
+    return (np.clip(pcm, -1, 1) * 26000).astype(np.int16).reshape(-1)
+
+
+def generate_mp3_fixtures(directory: Path = mp3_fixtures.FIXTURE_DIR) -> None:
+    """Encode every clip of ``mp3_fixtures.CLIPS`` with the JAX package's
+    ``Mp3Encoder`` (libmp3lame) and write the streams and their frame
+    index (frame lengths from the headers)."""
+    from soundkit_tpu.codecs.encoders import Mp3Encoder
+    from soundkit_tpu.codecs.mp3_native import parse_header
+
+    directory.mkdir(parents=True, exist_ok=True)
+    index = {}
+    for name in mp3_fixtures.CLIPS:
+        rate, ch, bit_rate, _ = MP3_CLIPS[name]
+        enc = Mp3Encoder(rate, ch, bit_rate)
+        data = enc.encode_i16(mp3_clip_pcm(name)) + enc.flush()
+        frames, granules, pos = [], [], 0
+        while pos < len(data):
+            hdr = parse_header(data, pos)
+            frames.append(hdr.frame_size)
+            granules.append(1 if hdr.lsf else 2)
+            pos += hdr.frame_size
+        assert pos == len(data), name
+        index[name] = dict(rate=rate, channels=ch, bit_rate=bit_rate, frames=frames,
+                           granules=granules)
+        (directory / f"{name}.mp3").write_bytes(data)
+    (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
+
+
 if __name__ == "__main__":
     {"aac": generate_aac_fixtures, "telephony": generate_telephony_fixtures,
-     "flac": generate_flac_fixtures}[sys.argv[1]]()
+     "flac": generate_flac_fixtures, "mp3": generate_mp3_fixtures}[sys.argv[1]]()
