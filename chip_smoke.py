@@ -26,7 +26,7 @@ b. print the card (``nvidia-smi`` name and power limit), the kernels'
    launch shapes (K4's lanes a block and a warp, K6's threads a lane,
    K7's threads a band and steps a tile, K3's codes a thread and threads
    a block, K8's warps a block and values a chunk, K9's lanes a block,
-   samples a tile and mover threads, K10's threads a lane and rounds a
+   samples a tile and mover threads, K10's threads a channel and rounds a
    matrixing thread sums, from their sources), the versions and the host
    (name, CPU model, cores);
 c. hold each kernel against its plain PyTorch version on the card at
@@ -86,24 +86,28 @@ j. FLAC: 1024 ragged lanes pushed in three rounds with a decode after
    each until every lane drains, launch counters reset just before; one
    ``[flac]`` line (x realtime at each lane's own rate, the decoder's
    walk / export / h2d / step medians);
-k. MP3 kernel: K10 (IMDCT, overlap-add and polyphase synthesis) against
-   its plain version on the card on the path's next granule (1024 ragged
-   fixture lanes, C = 2, after three decoded granules, with the
-   decoder's carried state; the timed case), and on seeded random inputs
-   at 2048 lanes chained over four granules (every block type, mixed
-   and invalid lanes, a non-zero starting state); bound 1e-5 of the
-   largest plain value on the PCM and both states; the bound time from
-   the bytes and the operations of the path each subband takes;
+k. MP3 kernel: K10 (one granule of every stream from its packed wire
+   row: requantize, M/S, alias butterflies, IMDCT, overlap-add and
+   polyphase synthesis) against its plain version on the card on the
+   path's next wire row (1024 ragged fixture streams, C = 2, after three
+   decoded granules, with the decoder's carried state; the timed case),
+   and on seeded random wires of 1024 streams chained over four granules
+   at C = 2 and C = 1 (block types -7..8, mixed and invalid lanes, M/S
+   with an invalid partner, alias boundaries outside 0..31, a non-zero
+   starting state); bound 1e-5 of the largest plain value on the PCM and
+   both states; the bound time from the wire's bytes and the operations
+   of the prologue and of the path each subband takes;
 l. MP3 compare: two ``decode_batches`` calls of a 1024-lane decoder on
    the card against the port's plain path on the CPU: PCM >= 100 dB per
    lane, the carried overlap and FIFO within K10's bound;
 m. MP3: 1024 ragged lanes pushed in three rounds with a decode of every
    ready granule after each until every lane drains, launch counters
-   reset just before; K10 must launch once a granule step and every
-   granule of the streams must come out; one ``[mp3]`` line (x realtime
-   at each lane's own rate, the decoder's parse / pop / h2d / step
-   medians, and the device kernels a granule step launches, counted by
-   ``torch.profiler``);
+   reset just before; K10 must launch once a granule step, every
+   granule of the streams must come out, and a granule step must run at
+   most two device kernels (``torch.profiler``); one ``[mp3]`` line (x
+   realtime at each lane's own rate, the decoder's parse / pop / h2d /
+   step medians, and the device kernels and device time of a granule
+   step);
 n. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    lanes (detected from ADTS), 1024 MP3 lanes (detected from their frame
    headers), 1024 FLAC lanes (detected from ``fLaC``)
@@ -314,7 +318,7 @@ def phase_card() -> str:
         f"{cu_constant('flac_rice.cu', 'CHUNK')}, fill threads "
         f"{cu_constant('flac_rice.cu', 'FILL_THREADS')}; K9 lanes per block "
         f"{cu_constant('flac_lpc.cu', 'LANES')}, samples per tile {cu_constant('flac_lpc.cu', 'TILE')}, "
-        f"mover threads {cu_constant('flac_lpc.cu', 'MOVERS')}; K10 threads per lane "
+        f"mover threads {cu_constant('flac_lpc.cu', 'MOVERS')}; K10 threads per channel "
         f"{cu_constant('mp3_synth.cu', 'THREADS')}, rounds a matrixing thread sums "
         f"{cu_constant('mp3_synth.cu', 'RB')}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -952,32 +956,38 @@ def mp3_round_pushes(streams, r: int):
 
 def phase_mp3_kernels():
     """K10 against its plain version on the card: on the MP3 path's next
-    granule after MP3_WARM (B = 1024 ragged fixture lanes, C = 2, the
-    decoder's carried state; the timed case), and on seeded random
-    inputs at 2048 lanes chained over four granules (every block type,
-    mixed lanes, invalid lanes, a non-zero starting state)."""
+    wire row after MP3_WARM (B = 1024 ragged fixture streams, C = 2, the
+    decoder's carried state; the timed case), and on seeded random wires
+    of B streams chained over four granules at C = 2 and C = 1 (block
+    types -7..8, mixed lanes, invalid lanes and partners, alias
+    boundaries outside 0..31, a non-zero starting state)."""
     import torch
 
+    from soundkit_tpu_torch.ops import mp3_synth
     from soundkit_tpu_torch.tools import kernel_check as kc
 
     dev = torch.device("cuda", 0)
-    granules, overlap, fifo = kc.mp3_fixture_inputs(B, dev, warm=MP3_WARM)
-    nbytes, flops = kc.mp3_synth_work(granules)
-    r = measure("mp3_synth", "mp3_synth", *kc.mp3_synth_pair(granules, overlap, fifo),
+    rows, overlap, fifo = kc.mp3_fixture_inputs(B, dev, warm=MP3_WARM)
+    nbytes, flops = kc.mp3_synth_work(rows, overlap)
+    r = measure("mp3_synth", "mp3_synth", *kc.mp3_synth_pair(rows, overlap, fifo),
                 nbytes=nbytes, flops=flops, plain_reps=3)
-    valid = granules[0][3]
+    f = mp3_synth.unpack_mp3_wire(rows[0], B)
+    valid = f["valid"][:, :C] != 0
     r.update(lanes=int(valid.numel()), valid_lanes=int(valid.sum()),
-             short_lanes=int((granules[0][1] == 2)[valid.bool()].sum()), path_flops=flops)
-    rand = kc.mp3_synth_random_case(dev, seed=10, lanes=B * C, granules=4)
-    rr = kc.compare("mp3_synth", *rand)
-    r.update(path_rel_err=r["rel_err"], random_rel_err=rr["rel_err"],
-             max_abs_err=max(r["max_abs_err"], rr["max_abs_err"]),
-             rel_err=max(r["rel_err"], rr["rel_err"]))
+             short_lanes=int((f["bt"][:, :C] == 2)[valid].sum()),
+             ms_streams=int((f["ms"] != 0).sum()), path_flops=flops)
+    rand = {c: kc.compare("mp3_synth", *kc.mp3_synth_random_case(dev, seed=10 + c, streams=B,
+                                                                 channels=c, granules=4))
+            for c in (2, 1)}
+    r.update(path_rel_err=r["rel_err"], random_rel_err=max(x["rel_err"] for x in rand.values()),
+             max_abs_err=max(r["max_abs_err"], *(x["max_abs_err"] for x in rand.values())),
+             rel_err=max(r["rel_err"], *(x["rel_err"] for x in rand.values())))
     log(f"[mp3-kernels] mp3_synth: path {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms), bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {nbytes} bytes, {flops} FLOP), "
         f"{r['valid_lanes']} of {r['lanes']} lanes valid; max rel err: path "
-        f"{r['path_rel_err']:.2e}, random 4 chained granules x {B * C} lanes "
-        f"{rr['rel_err']:.2e} (bound {kc.REL_BOUND['mp3_synth']})")
+        f"{r['path_rel_err']:.2e}, random 4 chained granules x {B} streams C = 2 "
+        f"{rand[2]['rel_err']:.2e}, C = 1 {rand[1]['rel_err']:.2e} "
+        f"(bound {kc.REL_BOUND['mp3_synth']})")
     return {"mp3_synth": r}
 
 
@@ -1036,12 +1046,14 @@ def phase_mp3_compare():
 def mp3_wrappers():
     from soundkit_tpu_torch.ops import mp3_synth
 
-    return {"mp3_synth": mp3_synth.mp3_synth}
+    return {"mp3_synth": mp3_synth.mp3_granule_packed}
 
 
-def mp3_kernels_per_granule() -> float:
-    """Device kernels one granule step launches at B = 1024 (the glue and
-    K10), counted by ``torch.profiler`` over one 4-granule decode."""
+def mp3_step_profile() -> dict:
+    """Device operations a granule step runs at B = 1024 (kernels, and
+    the collect's copies spread over its granules), and the device time
+    a step of the kernels and of the copies in ms, by ``torch.profiler``
+    over one 4-granule decode."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1056,8 +1068,14 @@ def mp3_kernels_per_granule() -> float:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         model.decode_batches(4)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return len(kernels) / 4
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in ops if e.name.startswith(("Memcpy", "Memset"))]
+
+    def ms(events):
+        return sum(e.time_range.elapsed_us() for e in events) / 1e3 / 4
+
+    return dict(kernels_per_granule=len(ops) / 4, kernel_ms_per_granule=ms(ops) - ms(copies),
+                copy_ms_per_granule=ms(copies))
 
 
 def phase_mp3():
@@ -1115,9 +1133,14 @@ def phase_mp3():
                xrealtime=audio_s / (push_s + decode_s), push_s=push_s, decode_s=decode_s,
                xrealtime_decode_only=audio_s / decode_s, parse_ms_median_per_push=stages["parse"],
                pop_ms_median=stages["pop"], h2d_ms_median=stages["h2d"],
-               device_step_ms_median=stages["step"], launches=launches,
-               device_kernels_per_granule=mp3_kernels_per_granule())
+               device_step_ms_median=stages["step"], launches=launches)
+    prof = mp3_step_profile()
+    res.update(device_kernels_per_granule=prof["kernels_per_granule"],
+               device_kernel_ms_per_granule=prof["kernel_ms_per_granule"],
+               device_copy_ms_per_granule=prof["copy_ms_per_granule"])
     log(f"[mp3] {json.dumps(res)}")
+    check(prof["kernels_per_granule"] <= 2,
+          f"mp3: {prof['kernels_per_granule']} device kernels a granule step (at most 2)")
     return res
 
 
@@ -1536,7 +1559,7 @@ def main() -> int:
     ]
     kernels.append(dict(
         name="mp3_synth", route="cuda", source=src + "mp3_synth.cu",
-        replaces="soundkit_tpu/ops/mp3_batch.py:133", on_path=True,
+        replaces="soundkit_tpu/ops/mp3_batch.py:320", on_path=True,
         launches=mres["launches"]["mp3_synth"],
         launches_per_step=mres["launches"]["mp3_synth"] / mres["granule_steps"],
         **mkres["mp3_synth"]))

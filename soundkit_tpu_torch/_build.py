@@ -134,10 +134,10 @@ def kernels() -> ctypes.CDLL:
     lib.skt_g722_scan.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.skt_flac_rice_plane.argtypes = [p, i, i, p, p, p, p, p, i, p, p, p, p, i, p]
     lib.skt_flac_lpc.argtypes = [p, p, p, p, p, p, p, p, p, i, i, p]
-    lib.skt_mp3_synth.argtypes = [p, p, p, p, p, p, p, p, p, p, i, p]
+    lib.skt_mp3_granule.argtypes = [p, *[i] * 7, p, p, p, p, p, p, i, i, p]
     for fn in (lib.skt_imdct_window, lib.skt_dequant_imdct_window,
                lib.skt_spectral_decode, lib.skt_tns_filter, lib.skt_g711_decode,
                lib.skt_g711_launch_floor, lib.skt_g726_scan, lib.skt_g722_scan,
-               lib.skt_flac_rice_plane, lib.skt_flac_lpc, lib.skt_mp3_synth):
+               lib.skt_flac_rice_plane, lib.skt_flac_lpc, lib.skt_mp3_granule):
         fn.restype = ctypes.c_int
     return lib

@@ -5,13 +5,15 @@ N concurrent MP3 byte streams are parsed by the C++ host layer (one
 ``native_src/src/mp3_parse.cpp`` parser a stream, each with its own bit
 reservoir) into compact granule lanes (int16 quant and
 quarter-exponents), and decoded in lockstep granule batches on the
-device: the requantize, M/S and alias glue in plain torch, then K10
-(``ops.mp3_synth``) for the IMDCT and the polyphase synthesis, with the
-overlap and FIFO carried per lane on the device.
+device: one launch of K10 (``ops.mp3_synth.mp3_granule_packed``) a
+granule takes a row of the packed wire through requantize, M/S, alias
+reduction, the IMDCT and the polyphase synthesis, with the overlap and
+FIFO carried per lane on the device.
 
 :meth:`BatchedMp3Decoder.decode_batches` pops a collect's granules with
 one C call into a ``[G, stride]`` packed wire, copies it to the device
-once, and steps its rows in order. A decoder made with ``timed=True``
+once, and steps its rows in order, each writing its PCM into its slice
+of the collect's output. A decoder made with ``timed=True``
 (CUDA only) times the stages: each push's parse, each collect's pop and
 host-to-device copy on the host clock, each step with CUDA events;
 :meth:`stage_ms` reads them.
@@ -130,20 +132,18 @@ class BatchedMp3Decoder:
         d_wire = torch.from_numpy(wire).to(self.device)
         t2 = time.perf_counter()
         events = []
-        outs = []
+        out = torch.empty((n, self.B, self.C, 576), dtype=torch.float32, device=self.device)
         for g in range(n):
             if self.timed:
                 start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
-            pcm, self._overlap, self._fifo = mb.mp3_granule_device_compact_packed(
-                d_wire[g], self._overlap, self._fifo)
+            _, self._overlap, self._fifo = mb.mp3_granule_device_compact_packed(
+                d_wire[g], self._overlap, self._fifo, pcm_out=out[g])
             if self.timed:
                 stop.record()
                 events.append((start, stop))
-            outs.append(pcm)
         if self.timed:
             self._stage_times.append((t1 - t0, t2 - t1, events))
-        out = torch.stack(outs)
         return out if device_out else out.cpu().numpy()
 
     def decode_multi(self, n: int, device_out: bool = False):

@@ -15,9 +15,10 @@ beyond the bound. The bounds are on ``max|kernel - plain| / max|plain|``:
 - K3 ``g711_decode``, K6 ``g726_scan`` and K7 ``g722_scan``: bit-exact,
   the output and, for the scans, the final state (integer paths);
 - K8 ``flac_rice_plane`` and K9 ``flac_frame``: bit-exact (lossless);
-- K10 ``mp3_synth``: 1e-5, on the PCM of every chained granule and on
-  the final overlap and FIFO (float32 FMAs in another order than the
-  plain version's products and sums).
+- K10 ``mp3_synth`` (``mp3_granule_packed``): 1e-5, on the PCM of every
+  chained granule and on the final overlap and FIFO (float32 FMAs in
+  another order than the plain version's products and sums, ``powf``
+  and ``exp2f`` against torch's ``pow`` and ``exp2``).
 
 A case may return a tuple of tensors (a scan's output and its state);
 every element is held to the bound.
@@ -549,16 +550,17 @@ def flac_lpc_random_case(device, seed: int, **shape):
 # MP3 (K10)
 # ---------------------------------------------------------------------------
 
-def mp3_synth_pair(granules, overlap, fifo):
-    """K10 and its plain version over chained granules: ``granules`` is a
-    list of (xr, block_type, mixed, lane_valid), and each side carries
-    its own overlap and FIFO from ``overlap``, ``fifo``. Each callable
-    returns (pcm [G, L, 576], the last overlap, the last FIFO)."""
+def mp3_synth_pair(rows, overlap, fifo):
+    """K10 and its plain version over chained granules: ``rows`` is a
+    sequence of packed wire rows (uint8 [stride] each), and each side
+    carries its own overlap [B, C, 32, 18] and FIFO [B, C, 1024] from
+    ``overlap``, ``fifo``. Each callable returns (pcm [G, B, C, 576], the
+    last overlap, the last FIFO)."""
     def chain(step):
         def run():
             ov, ff, pcms = overlap, fifo, []
-            for xr, bt, mixed, valid in granules:
-                pcm, ov, ff = step(xr, bt, mixed, valid, ov, ff)
+            for row in rows:
+                pcm, ov, ff = step(row, ov, ff)
                 pcms.append(pcm)
             # one granule (the path case, which is timed) as a view, so
             # that the callable launches K10 alone
@@ -566,85 +568,129 @@ def mp3_synth_pair(granules, overlap, fifo):
             return pcm, ov, ff
         return run
 
-    return chain(mp3_synth.mp3_synth), chain(mp3_synth.mp3_synth_plain)
+    return chain(mp3_synth.mp3_granule_packed), chain(mp3_synth.mp3_granule_packed_plain)
 
 
-def mp3_synth_random_inputs(seed: int, lanes: int = 37, granules: int = 4):
-    """Seeded K10 inputs on the CPU: ``granules`` rounds of (xr,
-    block_type, mixed, lane_valid) over ``lanes`` lanes and a non-zero
-    starting overlap and FIFO. Lines of per-lane scales from 1e-3 to 3
-    with silent stretches; block types 0-3, the mixed flag on about a
-    third of the lanes (LAME never sets it) and every fourth round a few
-    block types outside 0..3; about a fifth of the lanes invalid a
-    round."""
+MP3_WILD_NAL = (-3, 0, 1, 17, 31, 40)
+
+
+def mp3_wire_rows(fields) -> np.ndarray:
+    """Packed wire rows [G, stride] (uint8) of ``fields``, one dict of
+    numpy arrays a row under the names and shapes of
+    :func:`ops.mp3_synth.mp3_wire_layout`."""
+    B = fields[0]["ms"].shape[0]
+    layout, stride = mp3_synth.mp3_wire_layout(B)
+    wire = np.zeros((len(fields), stride), np.uint8)
+    for row, vals in zip(wire, fields):
+        for name, off, dt, shp in layout:
+            raw = np.ascontiguousarray(np.asarray(vals[name]).astype(dt).reshape(shp))
+            row[off: off + raw.nbytes] = raw.view(np.uint8).reshape(-1)
+    return wire
+
+
+def mp3_random_fields(rng, B: int) -> dict:
+    """One granule's wire fields for ``B`` streams x 2 channels, drawn
+    wider than a parser emits: int16 quant (mostly small, 1 % up to
+    +-8206, the largest with linbits 13, the tail of each lane silent),
+    quarter-exponents from a lane gain in -70..-31 down by up to 4 x 7
+    (inside the parser's range, and close enough from lane to lane that
+    a bound on the largest value holds every lane) with the sentinel
+    -32768 on ~15 % of the lines,
+    block types 0-3 and on a quarter of the lanes -7..8, the mixed flag
+    on ~35 %, alias boundaries by the parser's rule (0 pure short, 1
+    mixed short, else 31) and on a third of the lanes from
+    ``MP3_WILD_NAL``, M/S on half the streams, ~a fifth of the lanes
+    invalid, and every fifth stream a valid M/S channel 0 whose partner
+    is invalid."""
+    quant = rng.integers(-12, 13, (B, 2, 576)) * (rng.random((B, 2, 576)) < 0.6)
+    big = rng.random((B, 2, 576)) < 0.01
+    quant[big] = rng.integers(-8206, 8207, int(big.sum()))
+    quant[np.arange(576) >= rng.integers(200, 577, (B, 2, 1))] = 0
+    expq = rng.integers(-70, -30, (B, 2, 1)) - 4 * rng.integers(0, 8, (B, 2, 576))
+    expq[rng.random((B, 2, 576)) < 0.15] = -32768
+    bt = rng.integers(0, 4, (B, 2))
+    wild = rng.random((B, 2)) < 0.25
+    bt[wild] = rng.integers(-7, 9, int(wild.sum()))
+    mixed = rng.random((B, 2)) < 0.35
+    nal = np.where((bt == 2) & ~mixed, 0, np.where(bt == 2, 1, 31))
+    drawn = rng.random((B, 2)) < 1 / 3
+    nal[drawn] = rng.choice(MP3_WILD_NAL, int(drawn.sum()))
+    ms = rng.random(B) < 0.5
+    valid = rng.random((B, 2)) < 0.8
+    ms[::5] = True
+    valid[::5] = (True, False)
+    return dict(bt=bt, nal=nal, quant=quant, expq=expq, mixed=mixed, ms=ms, valid=valid)
+
+
+def mp3_synth_random_inputs(seed: int, streams: int = 37, channels: int = 2, granules: int = 4):
+    """Seeded K10 inputs on the CPU: ``granules`` packed wire rows of
+    :func:`mp3_random_fields` over ``streams`` streams (uint8 [granules,
+    stride]) and a non-zero starting overlap and FIFO for ``channels``
+    channels."""
     rng = np.random.default_rng(seed)
-    rounds = []
-    for g in range(granules):
-        xr = rng.standard_normal((lanes, 576)) * 10.0 ** rng.uniform(-3, 0.5, (lanes, 1))
-        xr[:, rng.integers(200, 576):] = 0
-        bt = rng.integers(0, 4, lanes)
-        if g % 4 == 3:
-            bt[::7] = rng.integers(-6, 10, len(bt[::7]))
-        rounds.append((torch.from_numpy(xr.astype(np.float32)),
-                       torch.from_numpy(bt.astype(np.int32)),
-                       torch.from_numpy((rng.random(lanes) < 0.35).astype(np.uint8)),
-                       torch.from_numpy((rng.random(lanes) < 0.8).astype(np.uint8))))
-    overlap = torch.from_numpy((rng.standard_normal((lanes, 576)) * 0.2).astype(np.float32))
-    fifo = torch.from_numpy((rng.standard_normal((lanes, 1024)) * 0.2).astype(np.float32))
-    return rounds, overlap, fifo
+    wire = mp3_wire_rows([mp3_random_fields(rng, streams) for _ in range(granules)])
+    shape = (streams, channels)
+    overlap = torch.from_numpy((rng.standard_normal((*shape, 32, 18)) * 0.2).astype(np.float32))
+    fifo = torch.from_numpy((rng.standard_normal((*shape, 1024)) * 0.2).astype(np.float32))
+    return torch.from_numpy(wire), overlap, fifo
 
 
 def mp3_synth_random_case(device, seed: int, **shape):
     """K10 on :func:`mp3_synth_random_inputs`, chained."""
-    rounds, overlap, fifo = mp3_synth_random_inputs(seed, **shape)
-    rounds = [tuple(t.to(device) for t in r) for r in rounds]
-    return mp3_synth_pair(rounds, overlap.to(device), fifo.to(device))
+    rows, overlap, fifo = mp3_synth_random_inputs(seed, **shape)
+    return mp3_synth_pair(rows.to(device), overlap.to(device), fifo.to(device))
 
 
 def mp3_fixture_inputs(num_lanes: int, device, warm: int = 3, channels: int = 2):
     """K10's inputs on the MP3 path: ``num_lanes`` ragged lanes of the
     MP3 fixtures through a batched decoder on ``device`` for ``warm``
-    granules, then the next round's wire through the glue (requantize,
-    M/S, alias reduction), with the decoder's carried state. Returns
-    ([(xr, block_type, mixed, lane_valid)], overlap, fifo) for
+    granules, then the next round's packed wire row, with the decoder's
+    carried state. Returns ([row], overlap, fifo) for
     :func:`mp3_synth_pair`."""
     from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
-    from soundkit_tpu_torch.ops import mp3_batch
     from soundkit_tpu_torch.tools import mp3_fixtures
 
     model = BatchedMp3Decoder(num_lanes, channels, device=device)
     for i, data in enumerate(mp3_fixtures.lane_streams(mp3_fixtures.load_clips(), num_lanes)):
         model.push(i, data)
     model.decode_batches(warm)
-    f = mp3_batch.unpack_mp3_wire(torch.from_numpy(model._pop_rounds(1)[0]).to(device), num_lanes)
-    C = channels
-    xr = mp3_batch.granule_lines(f["quant"][:, :C].to(torch.int32),
-                                 mp3_batch.expq_scale(f["expq"][:, :C]), f["ms"] != 0,
-                                 f["nal"][:, :C])
-    L = num_lanes * C
-    granule = (xr.reshape(L, 576).contiguous(), f["bt"][:, :C].reshape(L).contiguous(),
-               f["mixed"][:, :C].reshape(L).contiguous(), f["valid"][:, :C].reshape(L).contiguous())
-    return [granule], model._overlap.reshape(L, 576), model._fifo.reshape(L, 1024)
+    row = torch.from_numpy(model._pop_rounds(1)[0]).to(device)
+    return [row], model._overlap, model._fifo
 
 
-def mp3_synth_work(granules) -> tuple:
-    """(bytes, float32 operations) that K10's function needs for
-    ``granules`` (the list of :func:`mp3_synth_pair`): every lane reads
-    and writes its overlap and FIFO and writes its PCM, a valid lane also
-    reads its lines; each operation is counted once, for the path each
-    subband takes (a long subband 36 x 18 products and sums and 36
-    window products, a short one 3 x 12 x 6 and 36 + 24 window products
-    and sums), then the overlap-add, the matrixing (18 x 64 x 32) and
-    the windowed sums (576 x 16), on valid lanes only."""
+def mp3_synth_work(rows, overlap) -> tuple:
+    """(bytes, float32 operations) that K10's function needs for the
+    wire ``rows`` (of :func:`mp3_synth_pair`) at the state shape of
+    ``overlap``. Bytes: every stream reads its M/S and validity flags,
+    every lane reads and writes its overlap and FIFO and writes its PCM;
+    a valid lane reads its block type, alias boundaries and mixed flag,
+    and a lane's int16 quant and quarter-exponents are read where its
+    own synthesis or, under M/S, its valid partner's takes them; and the
+    table once. Operations, each counted once, for what the lanes need:
+    4 a line read (the scale's exp2, the power, two products), 2 a line
+    under M/S (a sum and a product), 6 an active alias butterfly; then,
+    on valid lanes, the path each subband takes (a long subband 36 x 18
+    products and sums and 36 window products, a short one 3 x 12 x 6 and
+    36 + 24 window products and sums), the overlap-add, the matrixing (18
+    x 64 x 32) and the windowed sums (576 x 16)."""
+    B, C = overlap.shape[0], overlap.shape[1]
     nbytes = flops = 0
-    for xr, bt, mixed, valid in granules:
-        L = xr.shape[0]
-        v = valid.bool()
-        nbytes += L * (576 * 4 + 2 * (576 + 1024) * 4 + 4 + 1 + 1) + int(v.sum()) * 576 * 4
-        short_lane = (bt == 2)[v].long()
-        low_long = (mixed.bool() & (bt == 2))[v].long()  # subbands 0-1 of a mixed short lane
+    for row in rows:
+        f = mp3_synth.unpack_mp3_wire(row.cpu(), B)
+        v = f["valid"][:, :C] != 0
+        ms = (f["ms"] != 0) & (C == 2)
+        lines = v | (ms[:, None] & v.flip(1)) if C == 2 else v
+        n_valid, n_lines = int(v.sum()), int(lines.sum())
+        nbytes += B * (1 + C) + B * C * (576 * 4 + 2 * (576 + 1024) * 4) + n_valid * 9 \
+            + n_lines * 576 * 4
+        n_ms = int((lines & ms[:, None]).sum()) if C == 2 else 0
+        nal = f["nal"][:, :C].long().clamp(0, 31)[v]
+        flops += n_lines * 576 * 4 + n_ms * 576 * 2 + int(nal.sum()) * 8 * 6
+        bt, mixed = f["bt"][:, :C][v], f["mixed"][:, :C][v] != 0
+        short_lane = (bt == 2).long()
+        low_long = (mixed & (bt == 2)).long()  # subbands 0-1 of a mixed short lane
         n_short = (32 * short_lane - 2 * low_long).sum().item()
-        n_long = 32 * int(v.sum()) - n_short
+        n_long = 32 * n_valid - n_short
         flops += n_long * (2 * 36 * 18 + 36) + n_short * (2 * 3 * 12 * 6 + 36 + 24)
-        flops += int(v.sum()) * (576 + 2 * 18 * 64 * 32 + 2 * 576 * 16)
+        flops += n_valid * (576 + 2 * 18 * 64 * 32 + 2 * 576 * 16)
     return nbytes + mp3_synth.kernel_tables(torch.device("cpu")).numel() * 4, flops

@@ -163,18 +163,22 @@ def test_flac_lpc_kernel_switch_to_64_bits_in_mid_block(dev, lanes, T):
                lambda: flac_lpc.flac_frame_plain(*args))
 
 
-@pytest.mark.parametrize("lanes,granules", [(1, 2), (37, 4), (300, 5)])
-def test_mp3_synth_kernel_random_inputs(dev, lanes, granules):
-    """Every block type (and a few outside 0..3), mixed lanes, invalid
-    lanes and a non-zero starting state, chained over several granules."""
-    kc.compare("mp3_synth", *kc.mp3_synth_random_case(dev, seed=lanes, lanes=lanes,
-                                                      granules=granules))
+@pytest.mark.parametrize("channels", [2, 1])
+@pytest.mark.parametrize("streams,granules", [(1, 2), (37, 4), (300, 5)])
+def test_mp3_synth_kernel_random_inputs(dev, streams, granules, channels):
+    """Random packed wires chained over several granules: block types
+    -7..8, mixed lanes, invalid lanes, M/S with an invalid partner,
+    alias boundaries outside 0..31 and a non-zero starting state; 37
+    streams give rows on 16-byte boundaries, 1 and 300 rows that are not
+    (the kernel's 4-byte loads)."""
+    kc.compare("mp3_synth", *kc.mp3_synth_random_case(dev, seed=streams, streams=streams,
+                                                      channels=channels, granules=granules))
 
 
 @pytest.mark.parametrize("channels", [2, 1])
 def test_mp3_synth_kernel_on_the_fixture_path(dev, channels):
-    """The decoder's next granule over 40 ragged fixture lanes, mono
-    lanes in the stereo decoder among them, with its carried state."""
+    """The decoder's next wire row over 40 ragged fixture streams, mono
+    streams in the stereo decoder among them, with its carried state."""
     kc.compare("mp3_synth", *kc.mp3_synth_pair(*kc.mp3_fixture_inputs(40, dev,
                                                                       channels=channels)))
 
@@ -187,9 +191,28 @@ def test_mp3_synth_holds_its_bound_with_tf32_on(dev):
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.set_float32_matmul_precision("high")
-        kc.compare("mp3_synth", *kc.mp3_synth_random_case(dev, seed=9, lanes=200, granules=3))
+        kc.compare("mp3_synth", *kc.mp3_synth_random_case(dev, seed=9, streams=200, granules=3))
         assert torch.backends.cuda.matmul.allow_tf32
         assert torch.get_float32_matmul_precision() == "high"
     finally:
         torch.set_float32_matmul_precision("highest")
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_mp3_decoder_writes_the_collect_in_place(dev):
+    """The decoder's granule steps on the card write their PCM into one
+    collect tensor: one K10 launch a granule, and the collect equals
+    the CPU plain path's within K10's bound."""
+    from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+    from soundkit_tpu_torch.ops import mp3_synth
+    from soundkit_tpu_torch.tools import mp3_fixtures
+
+    outs = []
+    for device in ("cuda", "cpu"):
+        model = BatchedMp3Decoder(12, device=device)
+        for i, data in enumerate(mp3_fixtures.lane_streams(mp3_fixtures.load_clips(), 12, 3)):
+            model.push(i, data)
+        before = mp3_synth.mp3_granule_packed.launches
+        outs.append(model.decode_batches(5, device_out=True).cpu())
+        assert mp3_synth.mp3_granule_packed.launches - before == (5 if device == "cuda" else 0)
+    kc.compare("mp3_synth", lambda: outs[0], lambda: outs[1])

@@ -232,11 +232,11 @@ def test_mp3_table_builders_are_verbatim_copies(name):
 def test_mp3_alias_coefficients_and_gather_tables():
     from soundkit_tpu.ops import mp3_batch as jax_mp3_batch
     from soundkit_tpu.ops import mp3_dsp as jax_mp3_dsp
-    from soundkit_tpu_torch.ops import mp3_batch, mp3_dsp, mp3_synth
+    from soundkit_tpu_torch.ops import mp3_dsp, mp3_synth
 
     np.testing.assert_array_equal(mp3_dsp.CS, jax_mp3_dsp.CS)
     np.testing.assert_array_equal(mp3_dsp.CA, jax_mp3_dsp.CA)
-    for got, want in zip(mp3_batch._alias_idx(), jax_mp3_batch._alias_idx()):
+    for got, want in zip(mp3_synth._alias_idx(), jax_mp3_batch._alias_idx()):
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(mp3_synth.u_indices(), jax_mp3_batch._u_indices())

@@ -34,6 +34,7 @@ CPU = torch.device("cpu")
     ("flac_frame", lambda: kc.flac_lpc_case(kc.flac_fixture_wire(5, 1, CPU))),
     ("flac_frame", lambda: kc.flac_lpc_random_case(CPU, seed=4)),
     ("mp3_synth", lambda: kc.mp3_synth_random_case(CPU, seed=5)),
+    ("mp3_synth", lambda: kc.mp3_synth_random_case(CPU, seed=6, streams=5, channels=1)),
     ("mp3_synth", lambda: kc.mp3_synth_pair(*kc.mp3_fixture_inputs(6, CPU))),
 ])
 def test_cases_agree_on_cpu(name, make):
@@ -137,8 +138,8 @@ def test_compare_refuses_an_off_by_one_in_a_telephony_result(name, element):
 
 
 def test_mp3_fixture_inputs_are_the_decoders_next_granule():
-    """K10's path case is what the decoder's next step computes: the
-    plain K10 on it gives the decoder's PCM and state for that round."""
+    """K10's path case is the decoder's next wire row: the plain K10 on
+    it gives the decoder's PCM and state for that round."""
     from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
     from soundkit_tpu_torch.tools import mp3_fixtures
 
@@ -155,13 +156,22 @@ def test_mp3_fixture_inputs_are_the_decoders_next_granule():
 
 
 def test_mp3_synth_work_counts_the_path_each_subband_takes():
-    lanes = 4
-    xr = torch.zeros((lanes, 576))
-    bt = torch.tensor([0, 2, 2, 1], dtype=torch.int32)
-    mixed = torch.tensor([0, 0, 1, 0], dtype=torch.uint8)
-    valid = torch.tensor([1, 1, 1, 0], dtype=torch.uint8)
-    nbytes, flops = kc.mp3_synth_work([(xr, bt, mixed, valid)])
-    long_sb, short_sb = 32 + 2, 32 + 30
+    """Wire bytes (a lane's lines where it or, under M/S, its valid
+    partner takes them), the prologue's operations (requantize, M/S,
+    active butterflies with the boundaries clamped to 0..31) and the
+    synthesis of the path each subband takes, on valid lanes."""
+    import numpy as np
+
+    zeros = np.zeros((3, 2, 576), np.int16)
+    fields = dict(quant=zeros, expq=zeros, ms=np.array([1, 1, 0]),
+                  valid=np.array([[1, 1], [1, 0], [0, 1]]), bt=np.array([[0, 2], [2, 0], [1, 3]]),
+                  mixed=np.array([[0, 0], [1, 0], [0, 0]]), nal=np.array([[31, 0], [1, 31], [5, 40]]))
+    rows = torch.from_numpy(kc.mp3_wire_rows([fields]))
+    nbytes, flops = kc.mp3_synth_work(rows, torch.zeros((3, 2, 32, 18)))
+    valid_lanes, line_lanes, ms_lanes = 4, 5, 4
+    assert nbytes == 3 * 3 + 6 * (576 * 4 + 2 * 1600 * 4) + valid_lanes * 9 + line_lanes * 2304 \
+        + 3452 * 4
+    long_sb, short_sb = 32 + 2 + 32, 32 + 30
     per_lane = 576 + 2 * 18 * 64 * 32 + 2 * 576 * 16
-    assert flops == long_sb * (2 * 36 * 18 + 36) + short_sb * (2 * 3 * 12 * 6 + 60) + 3 * per_lane
-    assert nbytes == lanes * (576 * 4 + 2 * 1600 * 4 + 6) + 3 * 576 * 4 + 3436 * 4
+    assert flops == line_lanes * 576 * 4 + ms_lanes * 576 * 2 + (31 + 0 + 1 + 31) * 48 \
+        + long_sb * (2 * 36 * 18 + 36) + short_sb * (2 * 3 * 12 * 6 + 60) + valid_lanes * per_lane

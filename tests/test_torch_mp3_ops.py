@@ -4,7 +4,10 @@ CPU) against the JAX package's ``ops.mp3_batch`` on the CPU, on seeded
 numpy inputs: every block type, mixed blocks on and off, 0 / 1 / 31
 alias boundaries, M/S on and off, ragged validity and a non-zero carried
 state chained over several granules; the compact, packed and multi-round
-variants; the wire layout and its unpacking field for field.
+variants; the packed step (K10's plain version, which K10 is held to on
+the card) on wild wires: M/S with an invalid partner, one channel with
+M/S set, alias boundaries outside 0..31, block types -7..8; the wire
+layout and its unpacking field for field.
 
 Tolerance: ``max|port - jax| <= 1e-5 * max|jax|`` on the PCM and on both
 carried states (float32 sums in another order; measured ~1e-7).
@@ -18,6 +21,7 @@ import torch
 from soundkit_tpu.ops import mp3_batch as jax_mb
 from soundkit_tpu_torch.ops import mp3_batch as mb
 from soundkit_tpu_torch.ops import mp3_synth
+from soundkit_tpu_torch.tools import kernel_check as kc
 
 REL = 1e-5
 
@@ -117,18 +121,12 @@ def test_mixed_blocks_against_jax():
 
 def packed_wire(rng, B, G=1):
     """``G`` rows of the packed wire with random fields, and the fields."""
-    layout, stride = mb.mp3_wire_layout(B)
-    wire = np.zeros((G, stride), np.uint8)
     fields = []
     for g in range(G):
         q16, expq, ms, bt, mixed, nal, valid = granule_inputs(rng, B, 2)
-        vals = dict(bt=bt, nal=nal, quant=q16, expq=expq, mixed=mixed.astype(np.uint8),
-                    ms=ms.astype(np.uint8), valid=valid.astype(np.uint8))
-        for name, off, dt, shp in layout:
-            raw = np.ascontiguousarray(vals[name].astype(dt)).view(np.uint8).reshape(-1)
-            wire[g, off: off + raw.size] = raw
-        fields.append(vals)
-    return wire, fields
+        fields.append(dict(bt=bt, nal=nal, quant=q16, expq=expq, mixed=mixed.astype(np.uint8),
+                           ms=ms.astype(np.uint8), valid=valid.astype(np.uint8)))
+    return kc.mp3_wire_rows(fields), fields
 
 
 @pytest.mark.parametrize("B", [1, 3, 1024])
@@ -213,13 +211,13 @@ def test_alias_network_cases():
             cap["xr"] = xr.clone()
             return real(xr, *rest)
 
-        mb.mp3_synth, saved = spy, mb.mp3_synth
+        mb.mp3_synth_plain, saved = spy, mb.mp3_synth_plain
         try:
             mb.mp3_granule_device(q, scale, torch.zeros(3, dtype=torch.bool),
                                   torch.zeros((3, 1), dtype=torch.int32), ~ones,
                                   torch.full((3, 1), n, dtype=torch.int32), ones, *state)
         finally:
-            mb.mp3_synth = saved
+            mb.mp3_synth_plain = saved
         outs[n] = cap["xr"]
     base = torch.sign(q.float()) * q.float().abs() ** (4 / 3) * scale
     assert torch.equal(outs[0], base.reshape(3, 576))
@@ -241,11 +239,11 @@ def test_plain_synthesis_runs_its_products_in_ieee_float32(monkeypatch):
 
     monkeypatch.setattr(torch, "einsum", lambda *a: note() or real_einsum(*a))
     monkeypatch.setattr(torch.Tensor, "__matmul__", lambda x, y: note() or real_matmul(x, y))
-    rounds, ov, ff = mp3_synth_inputs()
+    rows, ov, ff = mp3_synth_inputs()
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.set_float32_matmul_precision("high")
-        mp3_synth.mp3_synth_plain(*rounds[0], ov, ff)
+        mp3_synth.mp3_granule_packed(rows[0], ov, ff)
         assert torch.get_float32_matmul_precision() == "high"
         assert torch.backends.cuda.matmul.allow_tf32
     finally:
@@ -254,6 +252,71 @@ def test_plain_synthesis_runs_its_products_in_ieee_float32(monkeypatch):
 
 
 def mp3_synth_inputs():
-    from soundkit_tpu_torch.tools import kernel_check as kc
+    return kc.mp3_synth_random_inputs(3, streams=5, granules=1)
 
-    return kc.mp3_synth_random_inputs(3, lanes=5, granules=1)
+
+WILD_CASES = ("ms_invalid_partner", "mono_with_ms", "nal_out_of_range", "block_types_wild")
+
+
+def wild_fields(rng, B, case):
+    """One granule's wire fields of ``kernel_check.mp3_random_fields``,
+    pushed to ``case``: every stream M/S with channel 0 valid and
+    channel 1 invalid on half of them; M/S on every stream (for a
+    one-channel decoder); every lane's alias boundaries from -3, 40, -100
+    and 1000; every lane's block type from -7..8 with the mixed flag on
+    half of them."""
+    f = kc.mp3_random_fields(rng, B)
+    if case == "ms_invalid_partner":
+        f["ms"][:] = True
+        f["valid"][:] = True
+        f["valid"][::2] = (True, False)
+    elif case == "mono_with_ms":
+        f["ms"][:] = True
+    elif case == "nal_out_of_range":
+        f["nal"] = rng.choice(np.array([-3, 40, -100, 1000]), (B, 2))
+    else:
+        f["bt"] = rng.integers(-7, 9, (B, 2))
+        f["mixed"] = rng.random((B, 2)) < 0.5
+    return f
+
+
+@pytest.mark.parametrize("case", WILD_CASES)
+def test_packed_step_matches_jax_on_wild_wires(case):
+    """K10's plain version (``mp3_granule_packed`` on the CPU) against
+    the JAX package's packed step over three chained wild rows, from a
+    random state."""
+    rng = np.random.default_rng(40 + WILD_CASES.index(case))
+    B, C = 11, 1 if case == "mono_with_ms" else 2
+    wire = kc.mp3_wire_rows([wild_fields(rng, B, case) for _ in range(3)])
+    ov, ff = random_state(rng, B, C)
+    j_state = (jnp.asarray(ov), jnp.asarray(ff))
+    p_state = (torch.from_numpy(ov), torch.from_numpy(ff))
+    step = jax.jit(jax_mb.mp3_granule_device_compact_packed)
+    for g in range(len(wire)):
+        pcm_j, *j_state = step(jnp.asarray(wire[g]), *j_state)
+        pcm_p, *p_state = mp3_synth.mp3_granule_packed(torch.from_numpy(wire[g]), *p_state)
+        for what, got, want in zip(("pcm", "overlap", "fifo"), (pcm_p, *p_state),
+                                   (pcm_j, *j_state)):
+            assert_close(got.numpy(), want, f"{case} granule {g} {what}")
+        assert np.abs(np.asarray(pcm_j)).max() > 0
+
+
+@pytest.mark.parametrize("C", [2, 1])
+def test_packed_step_on_the_cpu_is_the_chain_it_replaced(C):
+    """On the CPU, ``mp3_granule_packed`` (with and without ``pcm_out``)
+    gives, bit for bit, what the compact step gives on the unpacked
+    fields: the views, ``expq_scale``, ``granule_lines``, then the plain
+    synthesis."""
+    rows, ov, ff = kc.mp3_synth_random_inputs(50 + C, streams=7, channels=C, granules=2)
+    for row in rows:
+        f = mb.unpack_mp3_wire(row, 7)
+        want = mb.mp3_granule_device_compact(
+            f["quant"][:, :C], f["expq"][:, :C], f["ms"] != 0, f["bt"][:, :C],
+            f["mixed"][:, :C] != 0, f["nal"][:, :C], f["valid"][:, :C] != 0, ov, ff)
+        got = mp3_synth.mp3_granule_packed(row, ov, ff)
+        out = torch.full((7, C, 576), float("nan"))
+        into = mb.mp3_granule_device_compact_packed(row, ov, ff, pcm_out=out)
+        assert into[0] is out
+        for g, i, w in zip(got, into, want):
+            assert torch.equal(g, w) and torch.equal(i, w)
+        ov, ff = want[1], want[2]

@@ -204,13 +204,12 @@ def test_mp3_synth_refuses_meta_tensors():
     device, and counts no launch."""
     from soundkit_tpu_torch.ops import mp3_synth
 
-    before = mp3_synth.mp3_synth.launches
-    f32 = torch.empty((4, 576), device="meta")
-    u8 = torch.empty(4, dtype=torch.uint8, device="meta")
+    before = mp3_synth.mp3_granule_packed.launches
+    wire = torch.empty(mp3_synth.mp3_wire_layout(4)[1], dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
-        mp3_synth.mp3_synth(f32, torch.empty(4, dtype=torch.int32, device="meta"), u8, u8, f32,
-                            torch.empty((4, 1024), device="meta"))
-    assert mp3_synth.mp3_synth.launches == before
+        mp3_synth.mp3_granule_packed(wire, torch.empty((4, 2, 32, 18), device="meta"),
+                                     torch.empty((4, 2, 1024), device="meta"))
+    assert mp3_synth.mp3_granule_packed.launches == before
 
 
 def test_build_rebuilds_when_a_header_changes(tmp_path, monkeypatch):
