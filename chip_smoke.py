@@ -17,11 +17,15 @@ kbit/s; 1024 distinct lanes per codec from the committed fixtures in
 MP3 decoder (1024 ragged stereo lanes of the fixtures in
 ``tests/data/torch_port/mp3``: MPEG-1, -2 and -2.5, mono and stereo)
 through ``soundkit_tpu_torch.models.mp3_batch_model.BatchedMp3Decoder``,
+the batched Opus CELT decoder (1024 ragged stereo lanes of the fixtures
+in ``tests/data/torch_port/opus``: libopus clips with the comb postfilter
+and transient frames, a mono clip, an owned-encoder clip, an OpusHead
+gain) through ``soundkit_tpu_torch.models.opus_batch.BatchedCeltDecoder``,
 and the serving runtime ``soundkit_tpu_torch.models.fleet.StreamFleet``
-over all four (1024 lanes a group). Phases:
+over all five (1024 lanes a group). Phases:
 
-a. build the CUDA kernels, the host parser, the FLAC walk and the MP3
-   parser from the checkout;
+a. build the CUDA kernels, the host parser, the FLAC walk, the MP3
+   parser and the CELT parse from the checkout;
 b. print the card (``nvidia-smi`` name and power limit), the kernels'
    launch shapes (K4's lanes a block and a warp, K6's threads a lane,
    K7's threads a band and steps a tile, K3's codes a thread and threads
@@ -108,20 +112,44 @@ m. MP3: 1024 ragged lanes pushed in three rounds with a decode of every
    realtime at each lane's own rate, the decoder's parse / pop / h2d /
    step medians, and the device kernels and device time of a granule
    step);
-n. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
+n. CELT kernel: K11 (``celt_postfilter``: overlap-add, comb postfilter
+   and de-emphasis of a 20 ms frame, one launch a round) against its
+   plain version on the card on the CELT path's next round (1024 ragged
+   fixture lanes, C = 2, after three decoded rounds, with the decoder's
+   carried state; the timed case), and on seeded random frames of 1024
+   streams at C = 2 and C = 1 (periods 15..1022 and the edge periods,
+   all three tapsets, zero and non-zero gains, invalid streams); bound
+   1e-5 of the largest plain value on the PCM and each state, invalid
+   streams bit-equal; beside the bound, on the log line only, the chain
+   floor estimated from the code;
+o. CELT compare: two decodes of a 1024-lane ``BatchedCeltDecoder`` on
+   the card against the port's plain path on the CPU, on the f32 and on
+   the i16 wire: PCM >= 100 dB per lane, lengths identical, the carried
+   state within K11's bound;
+p. CELT: 1024 ragged stereo lanes (lane i: clip i mod 4 from packet
+   7·(i // 4), every fourth lane of a clip shorter) pushed in three
+   rounds with a decode of every ready round after each, launch counters
+   reset just before; K11 must launch once a round and every sample of
+   the streams come out; one ``[celt]`` line (x realtime at 48 kHz, the
+   decoder's parse / h2d / step medians, the device operations and their
+   device time a round by ``torch.profiler``);
+q. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    lanes (detected from ADTS), 1024 MP3 lanes (detected from their frame
-   headers), 1024 FLAC lanes (detected from ``fLaC``)
-   and 1024 G.722 lanes (explicit kind), pushed raggedly in four rounds
-   with a ``collect(device_out=True)`` after each, a quarter of the
-   streams ended after the second round and their lanes taken by new
-   streams; every stream's fetched PCM is held against the bare model's
-   output for the same bytes (MP3, FLAC and G.722 bit-exact, AAC >= 100
-   dB), a refused kind (Ogg Vorbis) must raise ``FleetUnsupported``, and
-   every kernel of the four groups must have launched; then an
-   ``out_bits=16`` collect against the quantized bare output, and per
-   group a fleet serving that group alone, its x realtime beside the
-   bare model's on the same bytes; one ``[fleet]`` line;
-o. print the kernels' JSON line (all ten kernels, K2 with no launch:
+   headers), 1024 FLAC lanes (detected from ``fLaC``), 1024 Ogg Opus
+   lanes (detected from ``OggS`` and ``OpusHead``) and 1024 G.722 lanes
+   (explicit kind), pushed raggedly in four rounds with a
+   ``collect(device_out=True)`` after each, a quarter of the streams
+   ended after the second round and their lanes taken by new streams;
+   every stream's fetched PCM is held against the bare model's output
+   for the same bytes (MP3, FLAC and G.722 bit-exact, AAC and Opus >=
+   100 dB under the same rounds), refused streams (Ogg Vorbis, GSM, an
+   Ogg Opus stream whose first packet is SILK) must raise
+   ``FleetUnsupported``, and every kernel of the five groups must have
+   launched; then an ``out_bits=16`` collect against the quantized bare
+   output (Opus on the i16 spectral wire), and per group a fleet serving
+   that group alone, its x realtime beside the bare model's on the same
+   bytes; one ``[fleet]`` line;
+r. print the kernels' JSON line (all eleven kernels, K2 with no launch:
    it is not on a path), then the result line.
 
 Any failed phase exits non-zero before the result line. Without a
@@ -162,6 +190,12 @@ FLEET_TEL_KIND = "g722"
 FLEET_MP3_FRAMES = 24  # MP3 frames a fleet stream carries (48 granules of MPEG-1, 24 of LSF)
 MP3_ROUNDS = 3         # pushes of the [mp3] phase, a decode after each
 MP3_WARM = 3           # granules the [mp3-kernels] path case decodes before its round
+CELT_ROUNDS = 3        # pushes of the [celt] phase, a decode after each
+CELT_WARM = 3          # rounds the [celt-kernels] path case decodes before its round
+CELT_COMPARE_PACKETS = 8
+K11_STEP_CYCLES = 60   # dependent cycles a comb step (five shared loads, the tap sums, a store)
+K11_EM_CYCLES = 8      # dependent cycles a block of the de-emphasis memory (a multiply, an add)
+FLEET_OPUS_PACKETS = 60  # packets an Ogg Opus fleet stream carries (1.2 s)
 
 
 class SmokeFailure(RuntimeError):
@@ -256,11 +290,14 @@ def phase_build():
     t3 = time.perf_counter()
     mpath = _build.mp3_library_path()
     t4 = time.perf_counter()
+    cpath = _build.celt_library_path()
+    t5 = time.perf_counter()
     _build.kernels()
     log(f"[build] kernels {kpath.relative_to(ROOT)} in {t1 - t0:.3f} s; "
         f"parser {ppath.relative_to(ROOT)} in {t2 - t1:.3f} s; "
         f"FLAC walk {fpath.relative_to(ROOT)} in {t3 - t2:.3f} s; "
-        f"MP3 parser {mpath.relative_to(ROOT)} in {t4 - t3:.3f} s")
+        f"MP3 parser {mpath.relative_to(ROOT)} in {t4 - t3:.3f} s; "
+        f"CELT parse {cpath.relative_to(ROOT)} in {t5 - t4:.3f} s")
     blog = kpath.with_suffix(".log")
     if blog.exists():
         for line in blog.read_text().splitlines():
@@ -1144,6 +1181,222 @@ def phase_mp3():
     return res
 
 
+# ---------------------------------------------------------------------------
+# Opus CELT phases
+# ---------------------------------------------------------------------------
+
+def celt_wrappers():
+    from soundkit_tpu_torch.ops import celt_postfilter
+
+    return {"celt_postfilter": celt_postfilter.celt_postfilter}
+
+
+def k11_chain_floor_ms(comb, valid) -> float:
+    """K11's chain floor, estimated from the code: the comb steps of the
+    slowest valid stream (``min(32, Tmin - 2)`` samples a step) at
+    K11_STEP_CYCLES, then the 120 blocks of the de-emphasis memory at
+    K11_EM_CYCLES, at SM_CLOCK."""
+    import torch
+
+    periods = comb[:, [0, 1, 8, 9]].cpu().to(torch.int32).clamp(15, 1024)
+    step = (periods.min(dim=1).values - 2).clamp(max=32)[valid.cpu()]
+    steps = int((-(-960 // step)).max()) if step.numel() else 0
+    return 1e3 * (steps * K11_STEP_CYCLES + 120 * K11_EM_CYCLES) / SM_CLOCK
+
+
+def phase_celt_kernels():
+    """K11 against its plain version on the card: on the [celt] path's
+    round after CELT_WARM decoded rounds (B = 1024 ragged fixture lanes,
+    C = 2, the decoder's carried state; the timed case), and on seeded
+    random frames of B streams at C = 2 and C = 1 (periods 15..1022 and
+    the edge periods, all three tapsets, zero and non-zero gains, a mix
+    of valid and invalid streams). Bound 1e-5 of the largest plain value
+    on the PCM and each state; invalid streams bit-equal."""
+    import torch
+
+    from soundkit_tpu_torch.tools import kernel_check as kc
+
+    dev = torch.device("cuda", 0)
+    inputs = kc.celt_fixture_inputs(B, dev, warm=CELT_WARM)
+    nbytes, flops = kc.celt_postfilter_work(inputs)
+    kernel, plain = kc.celt_postfilter_pair(inputs)
+    r = measure("celt_postfilter", "celt_postfilter", kernel, plain, nbytes=nbytes, flops=flops,
+                plain_reps=3)
+    got, ref = kernel(), plain()
+    kc.celt_invalid_passthrough(got, inputs)
+    hist_exact = bool(torch.equal(got[2], ref[2]))
+    full, comb, valid = inputs[:3]
+    chain_ms = k11_chain_floor_ms(comb, valid)
+    rand = {}
+    for c in (2, 1):
+        rin = tuple(t.to(dev) for t in kc.celt_postfilter_random_inputs(20 + c, streams=B, channels=c))
+        k, p = kc.celt_postfilter_pair(rin)
+        rand[c] = kc.compare("celt_postfilter", k, p)
+        kc.celt_invalid_passthrough(k(), rin)
+    postfilter = int(((comb[:, 2:8] != 0).any(1) | (comb[:, 10:16] != 0).any(1))[valid].sum())
+    r.update(streams=B, valid_streams=int(valid.sum()), postfilter_streams=postfilter,
+             path_rel_err=r["rel_err"], random_rel_err=max(x["rel_err"] for x in rand.values()),
+             max_abs_err=max(r["max_abs_err"], *(x["max_abs_err"] for x in rand.values())),
+             rel_err=max(r["rel_err"], *(x["rel_err"] for x in rand.values())))
+    log(f"[celt-kernels] celt_postfilter: path {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms), "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {nbytes} bytes, {flops} FLOP), chain "
+        f"floor ~{chain_ms:.4f} ms (estimated); {r['valid_streams']} of {B} streams valid, "
+        f"{postfilter} with the postfilter on; max rel err: path {r['path_rel_err']:.2e} (comb "
+        f"and history bit-exact: {hist_exact}), random {B} streams C = 2 {rand[2]['rel_err']:.2e}, "
+        f"C = 1 {rand[1]['rel_err']:.2e} (bound {kc.REL_BOUND['celt_postfilter']}); invalid "
+        f"streams passed through bit-equal")
+    return {"celt_postfilter": r}
+
+
+def celt_compare_run(device: str, wire: str):
+    """Two decodes (CELT_WARM rounds, then the rest) of a B-lane CELT
+    decoder on ``device`` over CELT_COMPARE_PACKETS packets of the smoke
+    lanes: (PCM, lengths) of each, and the carried state, as numpy."""
+    from soundkit_tpu_torch.models.opus_batch import BatchedCeltDecoder
+    from soundkit_tpu_torch.tools import opus_fixtures as of
+
+    model = BatchedCeltDecoder(B, C, wire=wire, device=device)
+    for i, data in enumerate(of.lane_raw(of.load_clips(), B, CELT_COMPARE_PACKETS)):
+        model.push(i, data)
+    out = [model.decode_ready(max_packets=n, device_out=True) for n in (CELT_WARM, None)]
+    return ([(p.cpu().numpy(), lens) for p, lens in out],
+            [t.cpu().numpy() for t in (model._ola, model._hist, model._emph)])
+
+
+def phase_celt_compare():
+    """The card's CELT decoder against the port's plain path on the CPU,
+    from the same pushes, on the f32 and the i16 wire: PCM >= 100 dB per
+    lane, lengths identical, the carried state within K11's bound."""
+    import numpy as np
+
+    from soundkit_tpu_torch.tools import kernel_check as kc
+
+    res = {}
+    for wire in ("f32", "i16"):
+        t0 = time.perf_counter()
+        g_out, g_state = celt_compare_run("cuda", wire)
+        t1 = time.perf_counter()
+        c_out, c_state = celt_compare_run("cpu", wire)
+        t2 = time.perf_counter()
+        for (g, gl), (c, cl) in zip(g_out, c_out):
+            check(g.shape == c.shape and g.shape[1:] == (B, C, 960), f"celt {wire}: shapes differ")
+            check(np.array_equal(gl, cl), f"celt {wire}: lengths differ")
+            check(np.isfinite(g).all(), f"celt {wire}: non-finite PCM")
+        got = np.concatenate([g for g, _ in g_out]).astype(np.float64)
+        ref = np.concatenate([c for c, _ in c_out]).astype(np.float64)
+        worst, live = float("inf"), 0
+        for b in range(B):
+            sig, err = (ref[:, b] ** 2).sum(), ((got[:, b] - ref[:, b]) ** 2).sum()
+            if sig == 0:
+                check(err == 0, f"celt {wire} lane {b}: output on a silent lane")
+                continue
+            live += 1
+            worst = min(worst, 10 * np.log10(sig / max(err, 1e-300)))
+        state_rel = max(float(np.abs(g - c).max() / np.abs(c).max()) for g, c in zip(g_state, c_state))
+        log(f"[celt-compare] {wire} wire: 2 decodes ({CELT_WARM} and "
+            f"{CELT_COMPARE_PACKETS - CELT_WARM} rounds) x {B} lanes: min lane PCM SNR "
+            f"{worst:.2f} dB over {live} lanes; lengths identical; carried state max rel err "
+            f"{state_rel:.2e}; card {t1 - t0:.3f} s, CPU plain {t2 - t1:.3f} s")
+        check(live == B, f"celt compare: only {live} lanes carried sound")
+        check(worst >= 100.0, f"celt {wire} card vs CPU: a lane at {worst:.2f} dB")
+        check(state_rel <= kc.REL_BOUND["celt_postfilter"],
+              f"celt {wire} card vs CPU: state off by {state_rel:.2e}")
+        res[wire] = dict(min_pcm_snr_db=worst, lanes=live, state_rel_err=state_rel,
+                         card_s=t1 - t0, cpu_s=t2 - t1)
+    return res
+
+
+def celt_step_profile() -> dict:
+    """Device operations a round runs at B = 1024 (the step's kernels,
+    and the collect's copies spread over its rounds) and their device
+    time a round in ms, by ``torch.profiler`` over one 4-round decode."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from soundkit_tpu_torch.models.opus_batch import BatchedCeltDecoder
+    from soundkit_tpu_torch.tools import opus_fixtures as of
+
+    model = BatchedCeltDecoder(B, C, device="cuda")
+    for i, data in enumerate(of.lane_raw(of.load_clips(), B, 5)):
+        model.push(i, data)
+    model.decode_ready(max_packets=1, device_out=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.decode_ready(max_packets=4, device_out=True)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in ops if e.name.startswith(("Memcpy", "Memset"))]
+
+    def ms(events):
+        return sum(e.time_range.elapsed_us() for e in events) / 1e3 / 4
+
+    return dict(ops_per_round=len(ops) / 4, kernel_ms_per_round=ms(ops) - ms(copies),
+                copy_ms_per_round=ms(copies), kernel_names=sorted({e.name[:60] for e in ops}))
+
+
+def phase_celt():
+    """B ragged stereo lanes of the Opus fixtures through the CELT decoder
+    until they drain: CELT_ROUNDS pushes of the raw-Opus wire, a decode
+    of every ready round after each; launch counters reset just before."""
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.models.opus_batch import BatchedCeltDecoder
+    from soundkit_tpu_torch.tools import opus_fixtures as of
+
+    clips = of.load_clips()
+    streams = of.lane_raw(clips, B)
+    packets = np.array([len(of.lane_packets(clips, i)[1]) for i in range(B)])
+    pre_skip = np.array([clips[i % len(clips)].pre_skip for i in range(B)])
+    model = BatchedCeltDecoder(B, C, device="cuda", timed=True)
+    wrappers = celt_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    push_s = decode_s = 0.0
+    samples = np.zeros(B, np.int64)
+    rounds = 0
+    peak = torch.zeros((), device="cuda")
+    for r in range(CELT_ROUNDS):
+        t0 = time.perf_counter()
+        for i, data in enumerate(streams):
+            model.push(i, data[len(data) * r // CELT_ROUNDS: len(data) * (r + 1) // CELT_ROUNDS])
+        t1 = time.perf_counter()
+        n = max(model.queued(i) for i in range(B))
+        pcm, lens = model.decode_ready(device_out=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        push_s += t1 - t0
+        decode_s += t2 - t1
+        rounds += n
+        samples += lens.sum(axis=0)
+        check(tuple(pcm.shape) == (n, B, C, 960), f"celt pcm {tuple(pcm.shape)}")
+        check(bool(torch.isfinite(pcm).all()), "celt: non-finite PCM")
+        peak = torch.maximum(peak, pcm.abs().max())
+    launches = {n: w.launches for n, w in wrappers.items()}
+    check(all(model.queued(i) == 0 for i in range(B)), "celt: lanes not drained")
+    check(launches["celt_postfilter"] == rounds,
+          f"celt_postfilter launched {launches['celt_postfilter']} times in {rounds} rounds")
+    check(float(peak) > 0.1, f"celt: peak {float(peak)} (silent)")
+    want = np.maximum(packets * 960 - pre_skip, 0)
+    check(samples.tolist() == want.tolist(), f"celt: {samples.sum()} samples out, the streams "
+          f"carry {want.sum()}")
+    audio_s = float(samples.sum()) / RATE
+    stages = model.stage_ms()
+    res = dict(lanes=B, channels=C, pushes=CELT_ROUNDS, rounds=rounds, packets=int(packets.sum()),
+               audio_s=audio_s, xrealtime=audio_s / (push_s + decode_s), push_s=push_s,
+               decode_s=decode_s, xrealtime_decode_only=audio_s / decode_s,
+               parse_ms_median_per_collect=stages["parse"], h2d_ms_median=stages["h2d"],
+               device_step_ms_median=stages["step"], launches=launches,
+               k11_launches_per_round=launches["celt_postfilter"] / rounds)
+    prof = celt_step_profile()
+    res.update(device_ops_per_round=prof["ops_per_round"],
+               device_kernel_ms_per_round=prof["kernel_ms_per_round"],
+               device_copy_ms_per_round=prof["copy_ms_per_round"])
+    log(f"[celt] {json.dumps(res)}")
+    log(f"[celt] device operations of a round: {prof['kernel_names']}")
+    return res
+
+
 class FleetStreams:
     """The streams of the fleet phase: per group, B first-wave streams
     and, for every fourth lane, a second-wave stream that takes the lane
@@ -1155,6 +1408,7 @@ class FleetStreams:
         from soundkit_tpu_torch.tools import aac_fixtures as af
         from soundkit_tpu_torch.tools import flac_fixtures as ff
         from soundkit_tpu_torch.tools import mp3_fixtures as mf
+        from soundkit_tpu_torch.tools import opus_fixtures as of
         from soundkit_tpu_torch.tools import telephony_fixtures as tf
 
         self.lanes = lanes
@@ -1170,12 +1424,22 @@ class FleetStreams:
         # a lane's audio: the granules its parser gives, at the lane's rate
         mp3_s = [NativeMp3Parser().push(s) * 576 / r
                  for s, r in zip(mp3, mf.lane_rates(mclips, lanes + n2))]
+        oclips = of.load_clips()
         self.data, self.kind, self.audio, self.group = {}, {}, {}, {}
         self.flac_bits = {f"flac-{j}": ff.lane_frames(clips, j)[0].bits for j in range(lanes + n2)}
+        # an Ogg Opus stream as its pieces: the header pages, then a page a packet
+        self.opus_pages = {}
+        for j in range(lanes + n2):
+            clip, idx = of.lane_packets(oclips, j, FLEET_OPUS_PACKETS)
+            self.opus_pages[f"opus-{j}"] = [clip.header] + [clip.pages[t] for t in idx]
+        opus_s = [max(len(of.lane_packets(oclips, j, FLEET_OPUS_PACKETS)[1]) * 960
+                      - oclips[j % len(oclips)].pre_skip, 0) / RATE for j in range(lanes + n2)]
         for j in range(lanes + n2):
             for g, data, kind, secs in (("aac", aac[j], None, FLEET_AAC_FRAMES * 1024 / RATE),
                                         ("mp3", mp3[j], None, mp3_s[j]),
                                         ("flac", flac[j], None, flac_s[j]),
+                                        ("opus", b"".join(self.opus_pages[f"opus-{j}"]), None,
+                                         opus_s[j]),
                                         (FLEET_TEL_KIND, tel[j], FLEET_TEL_KIND, len(tel[j]) / tel_rate)):
                 sid = f"{g}-{j}"
                 self.data[sid], self.kind[sid], self.audio[sid], self.group[sid] = data, kind, secs, g
@@ -1240,25 +1504,28 @@ def drive_fleet(fleet, fs: "FleetStreams", sids, collect):
     return push_s, collect_s
 
 
-def bare_outputs(fs: "FleetStreams", seats, group: str, rounds=None):
+def bare_outputs(fs: "FleetStreams", seats, group: str, rounds=None, wire: str = "f32"):
     """The streams of ``seats`` ({lane: sid}; AAC's PNS signs depend on
     the lane) through the group's bare model of B lanes on the card:
-    {sid: PCM [C, samples]} as the model returns it (f32 for AAC, int32
-    for FLAC, int16 for telephony), and the seconds it took (building the
-    model, the pushes, one decode of every round, synchronized).
+    {sid: PCM [C, samples]} as the model returns it (f32 for AAC, MP3 and
+    Opus, int32 for FLAC, int16 for telephony), and the seconds it took
+    (building the model, the pushes, one decode of every round,
+    synchronized). ``wire`` is the Opus model's spectral wire.
 
-    ``rounds`` (AAC only) replays a fleet's lockstep rounds: per collect
-    (batches decoded, {sid: frames the stream had ready}). The AAC step
-    takes an idle lane's previous window shape for 0, as the JAX
+    ``rounds`` (AAC and Opus) replays a fleet's lockstep rounds: per
+    collect (batches decoded, {sid: frames the stream had ready}). The
+    AAC step takes an idle lane's previous window shape for 0, as the JAX
     package's does, so a lane that idles in mid-stream windows its next
     frame otherwise than one fed without a gap; the fleet is held to the
-    bare model under the same gaps."""
+    bare model under the same gaps. The Opus model replays the same
+    rounds of Ogg pages."""
     import numpy as np
     import torch
 
     from soundkit_tpu_torch.models.aac_lc_batch import BatchedAacLcDecoder
     from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
     from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+    from soundkit_tpu_torch.models.opus_fleet_model import BatchedOggOpusDecoder
     from soundkit_tpu_torch.models.telephony_batch import TelephonyLaneGroup
 
     t0 = time.perf_counter()
@@ -1268,8 +1535,28 @@ def bare_outputs(fs: "FleetStreams", seats, group: str, rounds=None):
         model = BatchedMp3Decoder(B, C, device="cuda")
     elif group == "flac":
         model = BatchedFlacDecoder(B, FLAC_STRIDE, device="cuda")
+    elif group == "opus":
+        model = BatchedOggOpusDecoder(B, C, celt_wire=wire, device="cuda")
     else:
         model = TelephonyLaneGroup(group, B, TEL_CHUNK, device="cuda")
+    if rounds is not None and group == "opus":
+        pages = {sid: list(fs.opus_pages[sid]) for sid in seats.values()}
+        parts = {sid: [] for sid in seats.values()}
+        for n, ready in rounds:
+            for lane, sid in seats.items():
+                k = ready.get(sid, 0)
+                if k:
+                    first = len(pages[sid]) == len(fs.opus_pages[sid])
+                    model.push(lane, b"".join(pages[sid][: k + first]))
+                    del pages[sid][: k + first]
+            pcm, lens = model.decode_batches(n, device_out=True)
+            arr = pcm.cpu().numpy()
+            for lane, sid in seats.items():
+                parts[sid] += [arr[r, lane, :, 960 - lens[r, lane]:]
+                               for r in range(ready.get(sid, 0)) if lens[r, lane]]
+        check(all(len(p) == 0 for p in pages.values()), "fleet: an Opus stream's pages were not "
+              "all collected")
+        return {sid: np.concatenate(p, axis=1) for sid, p in parts.items()}, time.perf_counter() - t0
     if rounds is not None:
         from soundkit_tpu_torch.tools import aac_fixtures as af
 
@@ -1297,6 +1584,11 @@ def bare_outputs(fs: "FleetStreams", seats, group: str, rounds=None):
         arr = got.cpu().numpy()
         for i, sid in seats.items():
             out[sid] = np.transpose(arr[: ready[i], i], (1, 0, 2)).reshape(C, -1)
+    elif group == "opus":
+        arr, lens = got[0].cpu().numpy(), got[1]
+        for i, sid in seats.items():
+            out[sid] = np.concatenate([arr[r, i, :, 960 - lens[r, i]:] for r in range(ready[i])],
+                                      axis=1)
     elif group == "flac":
         arr, metas = got[0].cpu().numpy(), got[1]
         for i, sid in seats.items():
@@ -1319,23 +1611,25 @@ def phase_fleet():
     from soundkit_tpu_torch.ops import g722, imdct
 
     fs = FleetStreams(B)
-    groups = ("aac", "mp3", "flac", FLEET_TEL_KIND)
+    groups = ("aac", "mp3", "flac", "opus", FLEET_TEL_KIND)
     first = [sid for g in groups for sid in fs.wave(g, False)]
     second = [sid for g in groups for sid in fs.wave(g, True)]
     wrappers = {"spectral_decode": ae.spectral_decode, "tns_filter": ab.tns_filter,
                 "imdct_window": imdct.imdct_window, "g722_scan": g722.g722_decode_scan,
-                **flac_wrappers(), **mp3_wrappers()}
+                **flac_wrappers(), **mp3_wrappers(), **celt_wrappers()}
 
     # mixed: all three groups in one fleet, lanes recycled, every stream checked
     fleet = StreamFleet(capacity_per_group=B, device="cuda")
     got, lane_of = {}, {}
-    aac_rounds = []  # per collect with AAC output: (batches decoded, {sid: frames ready})
+    # per collect with AAC or Opus output: (batches decoded, {sid: frames ready})
+    replays = {"aac": [], "opus": []}
 
     def collect_and_fetch():
         recs = fleet.collect(device_out=True)
-        ready = {sid: rec.frames for sid, rec in recs.items() if rec.kind == "aac"}
-        if ready:
-            aac_rounds.append((int(next(recs[sid] for sid in ready).device.shape[0]), ready))
+        for kind, kind_rounds in replays.items():
+            ready = {sid: rec.frames for sid, rec in recs.items() if rec.kind == kind}
+            if ready:
+                kind_rounds.append((int(next(recs[sid] for sid in ready).device.shape[0]), ready))
         for sid, rec in recs.items():
             check(rec.rate == fleet.sample_rate(sid) and rec.rate is not None, f"{sid}: rate {rec.rate}")
             pcm = rec.fetch()
@@ -1365,8 +1659,19 @@ def phase_fleet():
         check(False, "fleet: a GSM stream was not refused")
     except FleetUnsupported:
         pass
+    # an Ogg Opus stream whose first packet is SILK (a SILK WB 20 ms TOC)
+    silk = bytes([9 << 3]) + bytes(40)
+    try:
+        fleet.push("refused", fs.opus_pages["opus-0"][0] + b"OggS" + bytes(22)
+                   + bytes([1, len(silk)]) + silk)
+        fleet.end_stream("refused")
+        check(False, "fleet: an Ogg Opus SILK stream was not refused")
+    except FleetUnsupported as e:
+        check("kind 'opus'" in str(e) and "silk" in str(e), f"fleet: refusal does not name it: {e}")
+    check(not fleet._lanes and not fleet._detect and not fleet._ended,
+          "fleet: the refused stream was not forgotten")
 
-    worst_snr = float("inf")
+    worst_snr = {"aac": float("inf"), "opus": float("inf")}
     for g in groups:
         # a lane serves several streams in turn (the early enders' lanes go to late
         # arrivals): each bare model seats at most one stream a lane, in its fleet lane
@@ -1379,16 +1684,17 @@ def phase_fleet():
             seats[lane_of[sid]] = sid
         check(len(seatings) >= 2, f"fleet: no {g} lane was reused")
         for seats in seatings:
-            want, _ = bare_outputs(fs, seats, g, aac_rounds if g == "aac" else None)
+            want, _ = bare_outputs(fs, seats, g, replays.get(g))
             for sid in seats.values():
                 pcm = np.concatenate(got[sid], axis=1)
                 ref = want[sid]
                 check(pcm.shape == ref.shape, f"{sid}: fleet {pcm.shape}, bare model {ref.shape}")
-                if g == "aac":
+                if g in ("aac", "opus"):
                     err = float(((pcm.astype(np.float64) - ref) ** 2).sum())
                     sig = float((ref.astype(np.float64) ** 2).sum())
                     check(sig > 0, f"{sid}: silent")
-                    worst_snr = min(worst_snr, 10 * np.log10(sig / max(err, 1e-300)))
+                    snr = 10 * np.log10(sig / max(err, 1e-300))
+                    worst_snr[g] = min(worst_snr[g], snr)
                 elif g == "mp3":
                     # an idle MP3 lane keeps its state as it was (no window shape to
                     # lose), so a stream fed in rounds decodes as one fed whole
@@ -1399,35 +1705,37 @@ def phase_fleet():
                     check(np.array_equal(pcm, ref.astype(np.float32) / 32768.0),
                           f"{sid}: fleet PCM differs from the bare model's")
                     check(np.any(ref), f"{sid}: silent")
-    check(worst_snr >= 100.0, f"fleet: AAC stream at {worst_snr:.2f} dB against the bare model")
+    for g, snr in worst_snr.items():
+        check(snr >= 100.0, f"fleet: {g} stream at {snr:.2f} dB against the bare model")
     audio = sum(fs.audio.values())
     mixed = dict(streams=len(first) + len(second), rounds=FLEET_ROUNDS, audio_s=audio,
                  push_s=push_s, collect_and_fetch_s=collect_s,
-                 xrealtime=audio / (push_s + collect_s), min_aac_snr_db=worst_snr,
-                 launches=launches)
+                 xrealtime=audio / (push_s + collect_s), min_aac_snr_db=worst_snr["aac"],
+                 min_opus_snr_db=worst_snr["opus"], launches=launches)
     log(f"[fleet] mixed: {json.dumps(mixed)}")
 
     # out_bits=16: one collect, against the bare outputs quantized on the host
     f16 = StreamFleet(capacity_per_group=B, out_bits=16, device="cuda")
-    sids16 = fs.wave("aac", False) + fs.wave("mp3", False) + fs.wave("flac", False)
+    sids16 = [sid for g in ("aac", "mp3", "flac", "opus") for sid in fs.wave(g, False)]
     for sid in sids16:
         f16.push(sid, fs.data[sid], kind=fs.kind[sid])
         f16.end_stream(sid)
     out16 = f16.collect(device_out=True)
-    for g in ("aac", "mp3", "flac"):
-        want, _ = bare_outputs(fs, {out16[sid].lane: sid for sid in fs.wave(g, False)}, g)
+    for g in ("aac", "mp3", "flac", "opus"):
+        want, _ = bare_outputs(fs, {out16[sid].lane: sid for sid in fs.wave(g, False)}, g,
+                               wire="i16")
         for sid in fs.wave(g, False):
             pcm, ref = out16[sid].fetch(), want[sid]
             check(pcm.dtype == np.int16 and pcm.shape == ref.shape, f"{sid}: {pcm.dtype} {pcm.shape}")
-            if g in ("aac", "mp3"):
+            if g in ("aac", "mp3", "opus"):
                 q = np.clip(np.round(ref * np.float32(32767.0)), -32768, 32767)
                 check(np.abs(pcm - q).max() <= 1, f"{sid}: int16 PCM off by more than 1")
             else:
                 shift = fs.flac_bits[sid] - 16
                 check(np.array_equal(pcm, np.clip(ref >> shift, -32768, 32767)),
                       f"{sid}: int16 FLAC differs")
-    log(f"[fleet] out_bits=16: {len(sids16)} streams, AAC and MP3 within 1 LSB, FLAC exact "
-        f"(24-bit lanes >> 8)")
+    log(f"[fleet] out_bits=16: {len(sids16)} streams, AAC, MP3 and Opus (the i16 spectral wire) "
+        f"within 1 LSB, FLAC exact (24-bit lanes >> 8)")
 
     # per group: a fleet serving that group alone, beside the bare model on the same bytes
     by_group = {}
@@ -1508,6 +1816,12 @@ def main() -> int:
         mcres = phase_mp3_compare()
         phase = "mp3"
         mres = phase_mp3()
+        phase = "celt-kernels"
+        ckres = phase_celt_kernels()
+        phase = "celt-compare"
+        ccres = phase_celt_compare()
+        phase = "celt"
+        celtres = phase_celt()
         phase = "fleet"
         flres = phase_fleet()
     except Exception:
@@ -1563,11 +1877,17 @@ def main() -> int:
         launches=mres["launches"]["mp3_synth"],
         launches_per_step=mres["launches"]["mp3_synth"] / mres["granule_steps"],
         **mkres["mp3_synth"]))
+    kernels.append(dict(
+        name="celt_postfilter", route="cuda", source=src + "celt_postfilter.cu",
+        replaces="soundkit_tpu/ops/celt_batch.py:108", on_path=True,
+        launches=celtres["launches"]["celt_postfilter"],
+        launches_per_step=celtres["k11_launches_per_round"], **ckres["celt_postfilter"]))
     for k in kernels:
         k["fleet_launches"] = flres["mixed"]["launches"].get(k["name"], 0)
     log(json.dumps({"slice": sres, "compare": cres, "telephony": tres,
                     "telephony_compare": tcres, "flac": fres, "flac_compare": fcres,
-                    "mp3": mres, "mp3_compare": mcres, "fleet": flres,
+                    "mp3": mres, "mp3_compare": mcres, "celt": celtres, "celt_compare": ccres,
+                    "fleet": flres,
                     "wall_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 """Build and load the port's native code at first use.
 
-Four shared libraries, each built into ``soundkit_tpu_torch/_build/``
+Five shared libraries, each built into ``soundkit_tpu_torch/_build/``
 under a name keyed by a hash of its sources and flags, so a checkout
 builds once and a source edit rebuilds:
 
@@ -18,7 +18,12 @@ builds once and a source edit rebuilds:
 - the MP3 host syntax parser, ``native_src/src/mp3_parse.cpp`` with its
   table header ``native_src/generated/mp3_tables.h`` (verbatim copies;
   frame sync, side info, bit reservoir, Huffman spectra and the compact
-  granule wire), compiled alone by ``g++`` with the same flags.
+  granule wire), compiled alone by ``g++`` with the same flags;
+- the Opus CELT host parse, ``native_src/src/celt_parse.cpp`` (a
+  verbatim copy; range decode, allocation, PVQ, anti-collapse and
+  denormalization, writing a collect's spectral wire), compiled alone by
+  ``g++`` with the same flags. Its tables are pushed at load time
+  (``codecs/celt_native.py``).
 
 A failed build raises :class:`BuildError` with the compiler's output.
 Nothing here runs at import time.
@@ -44,6 +49,7 @@ PARSER_HEADERS = (NATIVE_DIR / "generated" / "aac_tables.h",)
 FLAC_SOURCES = (NATIVE_DIR / "src" / "flac.cpp",)
 MP3_SOURCES = (NATIVE_DIR / "src" / "mp3_parse.cpp",)
 MP3_HEADERS = (NATIVE_DIR / "generated" / "mp3_tables.h",)
+CELT_SOURCES = (NATIVE_DIR / "src" / "celt_parse.cpp",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -115,6 +121,12 @@ def mp3_library_path() -> Path:
 
 
 @functools.lru_cache(maxsize=1)
+def celt_library_path() -> Path:
+    gxx = _compiler("g++", "/usr/bin/g++")
+    return _build("celt_parse", gxx, GXX_FLAGS, CELT_SOURCES, ())
+
+
+@functools.lru_cache(maxsize=1)
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library with every entry point's C signature.
 
@@ -135,9 +147,11 @@ def kernels() -> ctypes.CDLL:
     lib.skt_flac_rice_plane.argtypes = [p, i, i, p, p, p, p, p, i, p, p, p, p, i, p]
     lib.skt_flac_lpc.argtypes = [p, p, p, p, p, p, p, p, p, i, i, p]
     lib.skt_mp3_granule.argtypes = [p, *[i] * 7, p, p, p, p, p, p, i, i, p]
+    lib.skt_celt_postfilter.argtypes = [*[p] * 11, i, i, p]
     for fn in (lib.skt_imdct_window, lib.skt_dequant_imdct_window,
                lib.skt_spectral_decode, lib.skt_tns_filter, lib.skt_g711_decode,
                lib.skt_g711_launch_floor, lib.skt_g726_scan, lib.skt_g722_scan,
-               lib.skt_flac_rice_plane, lib.skt_flac_lpc, lib.skt_mp3_granule):
+               lib.skt_flac_rice_plane, lib.skt_flac_lpc, lib.skt_mp3_granule,
+               lib.skt_celt_postfilter):
         fn.restype = ctypes.c_int
     return lib

@@ -1,1 +1,2 @@
-"""Container and codec detection (host side, no torch)."""
+"""Container and codec detection, and the Ogg page and packet layer
+(host side, no torch)."""

@@ -3,8 +3,9 @@
 
 Each arriving byte stream is routed, after format detection or by its
 explicit kind, into a fixed-capacity batched lane group for its codec:
-AAC-LC, MP3, FLAC, or one of the seven telephony kinds. All groups decode in
-lockstep device batches, and the fleet returns per-stream PCM. Lanes are
+AAC-LC, MP3, FLAC, Ogg Opus (CELT), or one of the seven telephony kinds.
+All groups decode in lockstep device batches, and the fleet returns
+per-stream PCM. Lanes are
 recycled when a stream ends, so a long-running fleet serves an unbounded
 sequence of streams with bounded device state.
 
@@ -18,11 +19,17 @@ per-stream host pipeline; the port has no pipeline yet, so such a
 stream raises :class:`FleetUnsupported` at the ``push`` or
 ``end_stream`` that routes it, and the fleet forgets it:
 
-- a detected format without a batched group here: Ogg Vorbis, Ogg
-  Opus, and everything else detection names or fails to name (WAV, M4A,
-  WebM, unknown bytes);
+- a detected format without a batched group here: Ogg Vorbis, and
+  everything else detection names or fails to name (WAV, M4A, WebM,
+  unknown bytes);
 - an explicit kind of :data:`HOST_KINDS` (gsm, amr_nb, g729, opus_raw),
-  or the explicit kinds ``vorbis`` and ``opus``;
+  or the explicit kind ``vorbis``;
+- an Ogg Opus stream that the JAX package's group reroutes to its host
+  decoder (``models/opus_fleet_model.OpusLaneUnsupported``: an OpusHead
+  of more channels than the group or of a mapping family other than 0,
+  a packet that is not a single 20 ms frame, a SILK or hybrid first
+  packet, a mid-stream mode switch), at the push that brings it; its
+  lane is reset and freed;
 - any stream whose group is full.
 
 An explicit kind that is none of these names raises a plain
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from soundkit_tpu_torch.demux.detect import AudioType, detect_audio
+from soundkit_tpu_torch.models.opus_fleet_model import OpusLaneUnsupported
 from soundkit_tpu_torch.utils.device import resolve_device
 
 MIN_DETECT = 8192
@@ -53,9 +61,9 @@ TELEPHONY_KINDS = (
 HOST_KINDS = ("gsm", "amr_nb", "g729", "opus_raw")
 
 #: groups with a batched model in the port, beside the telephony kinds
-BATCHED_KINDS = ("aac", "mp3", "flac")
+BATCHED_KINDS = ("aac", "mp3", "flac", "opus")
 #: group names of the JAX package whose models are not ported yet
-UNPORTED_KINDS = ("vorbis", "opus")
+UNPORTED_KINDS = ("vorbis",)
 
 _DETECTED = {
     AudioType.AAC: "aac",
@@ -82,10 +90,17 @@ def _slice_lane_host(kind, arr, lane, k, meta, out_bits):
     """Slice one lane's valid PCM out of a fetched group batch.
 
     ``arr`` is the host copy of the staged [n, B, ...] group output;
-    returns [C, samples] (or None when a telephony lane produced
-    nothing). Shared by the fetching ``collect()`` and the
+    returns [C, samples] (or None when an opus or telephony lane
+    produced nothing). Shared by the fetching ``collect()`` and the
     device-resident ``FleetLaneOutput.fetch()`` so both modes are
     bit-identical."""
+    if kind == "opus":
+        parts = []
+        for r in range(k):
+            m = int(meta[r][lane])
+            if m > 0:
+                parts.append(arr[r, lane, :, arr.shape[-1] - m:])  # valid at the END
+        return np.concatenate(parts, axis=1) if parts else None
     if kind == "flac":
         parts = []
         for f in range(k):
@@ -150,11 +165,12 @@ class FleetLaneOutput:
 class _BatchedGroup:
     """Wraps one batched model with lane allocation/recycling."""
 
-    def __init__(self, kind: str, capacity: int, channels: int, device):
+    def __init__(self, kind: str, capacity: int, channels: int, device, out_bits: int = 32):
         self.kind = kind
         self.capacity = capacity
         self.channels = channels
         self.device = device
+        self.out_bits = out_bits
         self._free = list(range(capacity))
         self._used: set = set()  # lanes that have hosted a stream
         self._model = None  # built lazily
@@ -174,6 +190,13 @@ class _BatchedGroup:
             from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
 
             self._model = BatchedFlacDecoder(self.capacity, device=self.device)
+        elif self.kind == "opus":
+            from soundkit_tpu_torch.models.opus_fleet_model import BatchedOggOpusDecoder
+
+            # 16-bit output rides the int16 CELT wire; f32 output the exact f32 wire
+            self._model = BatchedOggOpusDecoder(
+                self.capacity, self.channels, device=self.device,
+                celt_wire="i16" if self.out_bits == 16 else "f32")
         elif self.kind in TELEPHONY_KINDS:
             from soundkit_tpu_torch.models.telephony_batch import TelephonyLaneGroup
 
@@ -195,6 +218,12 @@ class _BatchedGroup:
 
     def release(self, lane: int) -> None:
         self._free.append(lane)
+
+    def drop(self, lane: int) -> None:
+        """Reset the lane now and free it (a refused stream's lane)."""
+        self._model.reset_lane(lane)
+        self._used.discard(lane)
+        self.release(lane)
 
     def push(self, lane: int, data: bytes) -> None:
         self._ensure().push(lane, data)
@@ -247,7 +276,9 @@ class StreamFleet:
         the fetch (half the bytes): f32 groups by the *32767 out-scale,
         FLAC by a per-lane downshift to 16 bits (16-bit lanes are
         bit-exact). ``out_bits=32`` returns f32 planes (the default).
-        Telephony groups are int16 on the device in both modes."""
+        Telephony groups are int16 on the device in both modes. The Opus
+        group rides the int16 spectral wire (per-band scales) under
+        ``out_bits=16`` and the exact float32 wire otherwise."""
         if out_bits not in (16, 32):
             raise ValueError("out_bits must be 16 or 32")
         self.device = resolve_device(device)
@@ -256,7 +287,7 @@ class StreamFleet:
         self._cap = capacity_per_group
         # telephony groups are added at their first stream
         self._groups: Dict[str, _BatchedGroup] = {
-            k: _BatchedGroup(k, capacity_per_group, channels, self.device)
+            k: _BatchedGroup(k, capacity_per_group, channels, self.device, out_bits)
             for k in BATCHED_KINDS
         }
         self._lanes: Dict[str, _Lane] = {}
@@ -274,13 +305,12 @@ class StreamFleet:
         """Feed stream bytes.  ``kind`` is the explicit-kind ingest for
         headerless formats autodetect cannot route: one of
         :data:`TELEPHONY_KINDS` (G.726 kinds assume left-justified
-        packing), or a batched group name ("aac", "mp3", "flac") to skip
-        detection.  Only the first push of a stream may carry
+        packing), or a batched group name ("aac", "mp3", "flac", "opus")
+        to skip detection.  Only the first push of a stream may carry
         ``kind``."""
         self._ended.setdefault(stream_id, False)
         if stream_id in self._lanes:
-            ln = self._lanes[stream_id]
-            self._groups[ln.group].push(ln.index, data)
+            self._push_lane(stream_id, data)
             return
         if kind is not None:
             buf = bytes(self._detect.pop(stream_id, b"")) + data
@@ -307,7 +337,7 @@ class StreamFleet:
         """Give the stream a lane of its group and feed it ``buf``."""
         group = self._groups.get(kind)
         if group is None:
-            group = _BatchedGroup(kind, self._cap, self.channels, self.device)
+            group = _BatchedGroup(kind, self._cap, self.channels, self.device, self.out_bits)
             self._groups[kind] = group
         lane_idx = group.alloc()
         if lane_idx is None:
@@ -315,7 +345,20 @@ class StreamFleet:
                          f"its group is full ({self._cap} lanes)")
         self._lanes[stream_id] = _Lane(kind, lane_idx)
         if buf:
-            group.push(lane_idx, buf)
+            self._push_lane(stream_id, buf)
+
+    def _push_lane(self, stream_id: str, data: bytes) -> None:
+        """Feed a seated stream; a lane the JAX package would reroute to
+        its host decoder is reset and freed, and the stream refused."""
+        ln = self._lanes[stream_id]
+        group = self._groups[ln.group]
+        try:
+            group.push(ln.index, data)
+        except OpusLaneUnsupported as e:
+            group.drop(ln.index)
+            del self._lanes[stream_id]
+            self._refuse(stream_id, f"kind {ln.group!r}",
+                         f"{e} (the JAX package reroutes such a lane to its host decoder)")
 
     def _route(self, stream_id: str) -> None:
         buf = bytes(self._detect.pop(stream_id, b""))
@@ -387,6 +430,14 @@ class StreamFleet:
                 if pcm.shape[0] == 0:
                     continue
                 staged.append((kind, active, ready_before, n, pcm, lengths))
+            elif kind == "opus":
+                # [n, B, C, 960] f32, valid samples at the END of a slot
+                pcm, lengths = group.decode(n)
+                if pcm.shape[0] == 0:
+                    continue
+                if self.out_bits == 16:
+                    pcm = _quantize_f32(pcm)
+                staged.append((kind, active, ready_before, n, pcm, lengths))
             elif kind == "flac":
                 samples, metas = group.decode(n)
                 if self.out_bits == 16:
@@ -412,7 +463,7 @@ class StreamFleet:
                     k = min(ready_before[sid], n)
                     if k == 0:
                         continue
-                    if kind in TELEPHONY_KINDS:
+                    if kind == "opus" or kind in TELEPHONY_KINDS:
                         cnt = sum(int(metas[r][ln.index]) for r in range(k))
                     elif kind == "flac":
                         cnt = sum(
@@ -425,11 +476,11 @@ class StreamFleet:
                         device=dev, lane=ln.index, frames=k, meta=metas,
                         out_bits=self.out_bits, _cache=cache,
                     )
-                    # match plain collect()'s key set: telephony lanes
-                    # that produced nothing are skipped there (slice
+                    # match plain collect()'s key set: opus and telephony
+                    # lanes that produced nothing are skipped there (slice
                     # returns None), every other kind emits (flac can
                     # emit a zero-length array)
-                    if cnt > 0 or kind not in TELEPHONY_KINDS:
+                    if cnt > 0 or (kind != "opus" and kind not in TELEPHONY_KINDS):
                         out[sid] = rec
                     ln.produced += k
                 continue

@@ -1,5 +1,6 @@
 """The host libraries of the port, bound with ``ctypes``: the AAC-LC
-syntax parser, the FLAC walk and the MP3 syntax parser.
+syntax parser, the FLAC walk, the MP3 syntax parser and the Opus CELT
+parse.
 
 ``AacHostParser`` holds a parser handle ``_h`` of the library ``_lib``,
 which the wire packers of ``codecs/aac_lc_native.py``
@@ -19,6 +20,12 @@ with the signatures ``codecs/mp3_native.py`` and
 ``models/mp3_batch_model.py`` call: a handle per stream (``skt_mp3_new``
 / ``free``), ``push``, and the three pops (one granule, one granule a
 lane, up to ``G`` granules a lane into a collect's packed wire).
+
+:func:`celt_library` is the port's copy of ``native_src/src/celt_parse.cpp``
+with the signatures ``codecs/celt_native.py`` calls: the table pushes, a
+handle per stream (``skt_celt_new`` / ``free`` / ``reset``) and the
+serving walk over a collect's rounds on the float32 and the int16 wire
+(``skt_celt_parse_rounds`` / ``_q``).
 """
 from __future__ import annotations
 
@@ -159,6 +166,42 @@ def mp3_library() -> ctypes.CDLL:
         c_long, c_long, c_long, c_long, c_long, c_long, c_long,  # field offsets
         i32, i32,                   # rate [B], popped [B]
     ]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def celt_library() -> ctypes.CDLL:
+    """The standalone CELT parse with the signatures the batched decoder
+    calls (every pointer typed: a missing argtype cuts it to 32 bits).
+    Its tables are not pushed here (``codecs/celt_native.py`` does)."""
+    from numpy.ctypeslib import ndpointer
+
+    lib = ctypes.CDLL(str(_build.celt_library_path()))
+
+    def arr(dt):
+        return ndpointer(dt, flags="C_CONTIGUOUS")
+
+    vp, c_int, c_long = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    handles = ctypes.POINTER(vp)
+    i32, f32 = arr(np.int32), arr(np.float32)
+    lib.skt_celt_table_i.restype = c_int
+    lib.skt_celt_table_i.argtypes = [ctypes.c_char_p, arr(np.int64), c_long]
+    lib.skt_celt_table_f.restype = c_int
+    lib.skt_celt_table_f.argtypes = [ctypes.c_char_p, arr(np.float64), c_long]
+    lib.skt_celt_tables_done.restype = c_int
+    lib.skt_celt_tables_done.argtypes = []
+    lib.skt_celt_new.restype = vp
+    lib.skt_celt_new.argtypes = [c_int]
+    lib.skt_celt_free.restype = None
+    lib.skt_celt_free.argtypes = [vp]
+    lib.skt_celt_reset.restype = None
+    lib.skt_celt_reset.argtypes = [vp]
+    walk = [handles, c_int, c_int, ctypes.c_char_p, arr(np.int64),  # handles, B, R, buf, base
+            i32, i32, i32, c_int, c_int, c_int]                     # lens, ends, coded, n, C, W
+    lib.skt_celt_parse_rounds.restype = c_int
+    lib.skt_celt_parse_rounds.argtypes = [*walk, f32, f32, i32, i32]  # freq, comb, sflag, ok
+    lib.skt_celt_parse_rounds_q.restype = c_int
+    lib.skt_celt_parse_rounds_q.argtypes = [*walk, arr(np.int16), f32, f32, i32, i32]  # + scales
     return lib
 
 

@@ -18,7 +18,12 @@ beyond the bound. The bounds are on ``max|kernel - plain| / max|plain|``:
 - K10 ``mp3_synth`` (``mp3_granule_packed``): 1e-5, on the PCM of every
   chained granule and on the final overlap and FIFO (float32 FMAs in
   another order than the plain version's products and sums, ``powf``
-  and ``exp2f`` against torch's ``pow`` and ``exp2``).
+  and ``exp2f`` against torch's ``pow`` and ``exp2``);
+- K11 ``celt_postfilter``: 1e-5, on the PCM and on each carried state
+  (the comb's products and sums round one by one in the plain version's
+  order; the de-emphasis sums in another order than its [8, 8] product),
+  and a stream with ``valid`` 0 passes its state through bit for bit
+  (:func:`celt_invalid_passthrough`).
 
 A case may return a tuple of tensors (a scan's output and its state);
 every element is held to the bound.
@@ -31,7 +36,8 @@ import torch
 from soundkit_tpu_torch import _build
 from soundkit_tpu_torch.ops import aac_batch as ab
 from soundkit_tpu_torch.ops import aac_entropy as ae
-from soundkit_tpu_torch.ops import adpcm, companding, flac_lpc, flac_rice, g722, imdct, mp3_synth
+from soundkit_tpu_torch.ops import (adpcm, celt_postfilter, companding, flac_lpc, flac_rice, g722,
+                                    imdct, mp3_synth)
 from soundkit_tpu_torch.utils.device import launch_check
 
 REL_BOUND = {
@@ -45,6 +51,7 @@ REL_BOUND = {
     "flac_rice_plane": 0.0,
     "flac_frame": 0.0,
     "mp3_synth": 1e-5,
+    "celt_postfilter": 1e-5,
 }
 
 
@@ -694,3 +701,131 @@ def mp3_synth_work(rows, overlap) -> tuple:
         flops += n_long * (2 * 36 * 18 + 36) + n_short * (2 * 3 * 12 * 6 + 36 + 24)
         flops += n_valid * (576 + 2 * 18 * 64 * 32 + 2 * 576 * 16)
     return nbytes + mp3_synth.kernel_tables(torch.device("cpu")).numel() * 4, flops
+
+
+# ---------------------------------------------------------------------------
+# CELT (K11)
+# ---------------------------------------------------------------------------
+
+def celt_postfilter_pair(inputs):
+    """K11 and its plain version on ``inputs`` = (full, comb, valid, ola,
+    hist, emph), each returning (pcm, new_ola, new_hist, new_emph)."""
+    return (lambda: celt_postfilter.celt_postfilter(*inputs),
+            lambda: celt_postfilter.celt_postfilter_plain(*inputs))
+
+
+def celt_invalid_passthrough(result, inputs) -> None:
+    """Raise :class:`KernelMismatch` unless every stream with ``valid`` 0
+    has zero PCM and its ``ola``, ``hist`` and ``emph`` bit for bit in
+    ``result`` (K11's (pcm, new_ola, new_hist, new_emph) on ``inputs``)."""
+    _, _, valid, ola, hist, emph = inputs
+    pcm, new_ola, new_hist, new_emph = result
+    off = ~valid
+    if not (torch.equal(pcm[off], torch.zeros_like(pcm[off])) and torch.equal(new_ola[off], ola[off])
+            and torch.equal(new_hist[off], hist[off]) and torch.equal(new_emph[off], emph[off])):
+        raise KernelMismatch("celt_postfilter: an invalid stream's PCM or state changed")
+
+
+CELT_EDGE_PERIODS = (15, 16, 17, 33, 34, 35, 1022, 1023, 1024)
+
+
+def celt_postfilter_random_inputs(seed: int, streams: int = 37, channels: int = 2):
+    """Seeded K11 inputs on the CPU: IMDCT output and a carried state of
+    the size a CELT stream's signal has (celt_sig units, up to ~3e4);
+    periods drawn from 15..1022 with every third stream's four periods
+    from ``CELT_EDGE_PERIODS`` (both ends of the range, and where a step
+    of the kernel widens from 13 to 32 samples); per stage, gains of 0 to
+    0.75 times one of the three tapsets (``pack_comb_params``' premultiplied
+    form), zero on a quarter of the stages; ~a fifth of the streams
+    invalid."""
+    from soundkit_tpu_torch.codecs.opus_tables import tables
+
+    rng = np.random.default_rng(seed)
+    B, C = streams, channels
+    taps = tables()["celt_postfilter_taps"].astype(np.float64)
+    comb = np.zeros((B, 16), np.float32)
+    comb[:, [0, 1, 8, 9]] = rng.integers(15, 1023, (B, 4))
+    edge = np.arange(B) % 3 == 0
+    comb[np.ix_(edge, [0, 1, 8, 9])] = rng.choice(CELT_EDGE_PERIODS, (int(edge.sum()), 4))
+    for col in (2, 5, 10, 13):
+        g = rng.uniform(0, 0.75, B) * (rng.random(B) >= 0.25)
+        comb[:, col: col + 3] = g[:, None] * taps[rng.integers(0, 3, B)]
+    valid = rng.random(B) >= 0.2
+
+    def f32(*shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+    return (f32(B, C, 1080, scale=3000.0), torch.from_numpy(comb), torch.from_numpy(valid),
+            f32(B, C, 120, scale=3000.0), f32(B, C, 1200, scale=3000.0), f32(B, C, scale=3000.0))
+
+
+def celt_postfilter_random_case(device, seed: int, **shape):
+    """K11 on :func:`celt_postfilter_random_inputs`."""
+    inputs = tuple(t.to(device) for t in celt_postfilter_random_inputs(seed, **shape))
+    return celt_postfilter_pair(inputs)
+
+
+def celt_fixture_inputs(num_lanes: int, device, warm: int = 3, channels: int = 2,
+                        wire: str = "f32"):
+    """K11's inputs on the CELT path: ``num_lanes`` ragged lanes of the
+    Opus fixtures (at ``channels`` 1, of the mono clip only) through a
+    batched decoder on ``device`` for ``warm``
+    rounds, then the next round's IMDCT output, comb parameters and
+    validity, with the decoder's carried state: (full, comb, valid, ola,
+    hist, emph) for :func:`celt_postfilter_pair`."""
+    from soundkit_tpu_torch.models.opus_batch import BatchedCeltDecoder, _band_of_bin
+    from soundkit_tpu_torch.ops import celt_batch as cb
+    from soundkit_tpu_torch.tools import opus_fixtures
+
+    clips = opus_fixtures.load_clips()
+    # lanes whose clip fits the channel count (at C = 1, the mono clip's)
+    lanes = [data for i, data in enumerate(opus_fixtures.lane_raw(clips, 4 * num_lanes))
+             if clips[i % len(clips)].channels <= channels][:num_lanes]
+    model = BatchedCeltDecoder(num_lanes, channels, wire=wire, device=device)
+    for i, data in enumerate(lanes):
+        model.push(i, data)
+    model.decode_ready(max_packets=warm)
+    freq, scales, comb, sflag, valid, W = model._walk(1)
+    f = torch.from_numpy(freq[0]).to(device)
+    if scales is not None:
+        bidx = torch.from_numpy(_band_of_bin(W).astype(np.int64)).to(device)
+        f = cb.dequant_wire(f, torch.from_numpy(scales[0]).to(device), bidx)
+    full = cb.celt_imdct(cb.pad_wire(f), torch.from_numpy(sflag[0]).to(device))
+    return (full, torch.from_numpy(comb[0]).to(device), torch.from_numpy(valid[0]).to(device),
+            model._ola, model._hist, model._emph)
+
+
+def celt_postfilter_work(inputs) -> tuple:
+    """(bytes, float32 operations) that K11's function needs on
+    ``inputs`` (of :func:`celt_postfilter_pair`). Bytes: every stream
+    reads its validity flag; a valid stream reads its comb parameters,
+    and each of its channels reads its IMDCT output (1080), overlap (120),
+    de-emphasis memory and the part of its history that the comb taps or
+    the new history reach, and writes its PCM (960), new overlap, new
+    history (1200) and memory; an invalid stream's channels read their
+    overlap, history and memory and write them and zero PCM. The history
+    read is the last max(240, Ta + 2, Tb + 2 - 120) samples, with Ta and
+    Tb the larger clamped period of stage A (from sample 0) and of stage B
+    (from sample 120): the comb's first sample of a stage reads T + 2 back,
+    and the new history keeps the old one's last 240.
+    Operations on a valid channel: 120 for the overlap-add; for each
+    sample, each of its two comb taps whose gains are not all zero takes
+    7 (the 5-tap sum) and 2 (its crossfade weight and the add), plus 1
+    for ``1 - f`` where the first tap is active; the de-emphasis as the
+    one-pole recurrence, 2 a sample, and the scale to PCM, 1 a sample."""
+    full, comb, valid, _, _, _ = (t.cpu() for t in inputs)
+    B, C = full.shape[0], full.shape[1]
+    v = valid.bool()
+    n_valid, n_invalid = int(v.sum()), B - int(v.sum())
+    periods = comb[:, [0, 1, 8, 9]].to(torch.int32).clamp(celt_postfilter.T_MIN,
+                                                          celt_postfilter.T_MAX).long()
+    reach = torch.maximum(periods[:, :2].amax(1) + 2, periods[:, 2:].amax(1) + 2 - 120)
+    hist_read = int(reach[v].clamp(240, 1200).sum())
+    state = (120 + 1200 + 1) * 4
+    nbytes = B + n_valid * 64 + n_valid * C * (1080 * 4 + (120 + 1) * 4 + 960 * 4 + state) \
+        + C * hist_read * 4 + n_invalid * C * (state + 960 * 4 + state)
+    on = [(comb[:, s: s + 3] != 0).any(1) for s in (2, 5, 10, 13)]  # ga, gb, gc, gd active
+    per_lane = (120 * ((on[0].long() * 10) + on[1].long() * 9)
+                + 840 * ((on[2].long() * 10) + on[3].long() * 9) + 120 + celt_postfilter.N * 3)
+    flops = int((per_lane[v] * C).sum())
+    return nbytes, flops

@@ -30,14 +30,14 @@ def tensor_device(name) -> torch.device:
 def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     """Device of ``tensors`` for a kernel launch; raises unless they
     are all contiguous and on one CUDA device."""
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: non-contiguous input")
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors on {dev}; the kernel needs a CUDA device")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: non-contiguous input")
     return dev
 
 

@@ -216,3 +216,92 @@ def test_mp3_decoder_writes_the_collect_in_place(dev):
         outs.append(model.decode_batches(5, device_out=True).cpu())
         assert mp3_synth.mp3_granule_packed.launches - before == (5 if device == "cuda" else 0)
     kc.compare("mp3_synth", lambda: outs[0], lambda: outs[1])
+
+
+def _celt_check(inputs):
+    kernel, plain = kc.celt_postfilter_pair(inputs)
+    kc.compare("celt_postfilter", kernel, plain)
+    kc.celt_invalid_passthrough(kernel(), inputs)
+
+
+@pytest.mark.parametrize("channels", [2, 1])
+@pytest.mark.parametrize("streams", [1, 37, 300])
+def test_celt_postfilter_kernel_random_inputs(dev, streams, channels):
+    """Seeded frames: periods 15..1022 and the edge periods (15, 1022,
+    1024, and 33-35 where a comb step widens), all three tapsets, zero and
+    non-zero gains, a mix of valid and invalid streams; invalid streams
+    pass their state through bit for bit."""
+    _celt_check(tuple(t.to(dev) for t in kc.celt_postfilter_random_inputs(
+        streams, streams=streams, channels=channels)))
+
+
+@pytest.mark.parametrize("wire", ["f32", "i16"])
+@pytest.mark.parametrize("channels", [2, 1])
+def test_celt_postfilter_kernel_on_the_fixture_path(dev, wire, channels):
+    """The decoder's next round over 40 ragged fixture lanes (postfilter
+    and transient frames, a mono clip in stereo lanes), with its carried
+    state after three rounds."""
+    _celt_check(kc.celt_fixture_inputs(40, dev, channels=channels, wire=wire))
+
+
+def test_celt_step_holds_its_bound_with_tf32_on(dev):
+    """A caller that turns TF32 on does not move the step's IMDCT
+    products off IEEE float32 (they run under ``ieee_fp32``): the step on
+    the card (the products, then K11) holds K11's bound against the plain
+    step on the CPU, and the caller's settings are back afterwards."""
+    import numpy as np
+
+    from soundkit_tpu_torch.ops import celt_batch as cb
+
+    rng = np.random.default_rng(3)
+    B, C = 64, 2
+    full, comb, valid, ola, hist, emph = kc.celt_postfilter_random_inputs(4, streams=B, channels=C)
+    freq = torch.from_numpy((rng.standard_normal((B, C, 960)) * 400).astype(np.float32))
+    sflag = torch.from_numpy((rng.random(B) < 0.3).astype(np.int32))
+    args = (freq, sflag, comb, valid, ola, hist, emph)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        got = cb.celt_synth_step(*(t.to(dev) for t in args))
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    kc.compare("celt_postfilter", lambda: tuple(t.cpu() for t in got),
+               lambda: cb.celt_synth_step_plain(*args))
+
+
+def test_celt_decoder_launches_k11_once_a_round(dev):
+    """The CELT decoder on the card writes its rounds into one collect
+    tensor with one K11 launch a round, and its collect and carried state
+    equal the CPU plain path's within K11's bound."""
+    from soundkit_tpu_torch.models.opus_batch import BatchedCeltDecoder
+    from soundkit_tpu_torch.ops import celt_postfilter
+    from soundkit_tpu_torch.tools import opus_fixtures
+
+    outs = []
+    for device in ("cuda", "cpu"):
+        model = BatchedCeltDecoder(12, 2, device=device)
+        for i, data in enumerate(opus_fixtures.lane_raw(opus_fixtures.load_clips(), 12, 9)):
+            model.push(i, data)
+        before = celt_postfilter.celt_postfilter.launches
+        pcm, _ = model.decode_ready(device_out=True)
+        assert celt_postfilter.celt_postfilter.launches - before == (9 if device == "cuda" else 0)
+        outs.append((pcm.cpu(), model._ola.cpu(), model._hist.cpu(), model._emph.cpu()))
+    kc.compare("celt_postfilter", lambda: outs[0], lambda: outs[1])
+
+
+def test_celt_postfilter_refuses_a_strided_input_on_the_card(dev):
+    """A non-contiguous view of the right shape and an aligned base is
+    refused on the card, with no launch counted."""
+    from soundkit_tpu_torch.ops import celt_postfilter
+
+    inputs = [t.to(dev) for t in kc.celt_postfilter_random_inputs(2, streams=4, channels=2)]
+    hist = inputs[4]
+    inputs[4] = torch.cat([hist, hist[..., :4]], dim=-1)[..., :hist.shape[-1]]
+    assert inputs[4].data_ptr() % 16 == 0 and not inputs[4].is_contiguous()
+    before = celt_postfilter.celt_postfilter.launches
+    with pytest.raises(ValueError, match="non-contiguous"):
+        celt_postfilter.celt_postfilter(*inputs)
+    assert celt_postfilter.celt_postfilter.launches == before

@@ -1,5 +1,5 @@
-"""The committed AAC and FLAC fixtures (tests/data/torch_port) and the
-port's standalone host parser."""
+"""The committed AAC, FLAC, MP3 and Ogg Opus fixtures (tests/data/torch_port)
+and the port's standalone host parser."""
 import numpy as np
 
 from soundkit_tpu.codecs.aac_lc_native import (
@@ -11,13 +11,14 @@ from soundkit_tpu.codecs.aac_lc_native import (
 from soundkit_tpu_torch.native import AacHostParser
 from soundkit_tpu_torch.tools.aac_fixtures import CLIPS, lane_streams, load_clips
 
-from soundkit_tpu_torch.tools import flac_fixtures, mp3_fixtures
+from soundkit_tpu_torch.tools import flac_fixtures, mp3_fixtures, opus_fixtures
 from torch_port_helpers import (
     SR_INDEX_48K,
     clip_aus,
     generate_aac_fixtures,
     generate_flac_fixtures,
     generate_mp3_fixtures,
+    generate_opus_fixtures,
     host_parser,
     picked_aus,
 )
@@ -114,3 +115,48 @@ def test_mp3_fixtures_cover_the_decode_paths():
                 mixed |= {bool(g.switch_point) for g in gr}
     assert versions == {3, 2, 0} and types == {0, 1, 2, 3} and mixed == {False}
     assert {(1, 2), (1, 0), (3, 0)} <= modes
+
+
+def test_opus_fixtures_equal_a_regeneration(tmp_path):
+    """The generator (on the test side, with the JAX package's libopus-
+    and owned-encoder-backed ``OpusEncoder`` and its Ogg writer) makes
+    the committed streams and their index byte for byte; it also checks
+    that every packet is single-frame 20 ms CELT and which clips carry
+    postfilter and transient frames."""
+    generate_opus_fixtures(tmp_path)
+    for name in (*(f"{c}.opus" for c in opus_fixtures.CLIPS), "index.json"):
+        assert (tmp_path / name).read_bytes() == (opus_fixtures.FIXTURE_DIR / name).read_bytes(), name
+
+
+def test_opus_fixtures_cover_the_decode_paths():
+    """By the JAX package's CELT parse of every packet: libopus clips
+    with the comb postfilter on most frames and transient frames, the
+    owned encoder's with neither postfilter nor pre-skip; mono and
+    stereo; an OpusHead output gain; every lane of the smoke cut a whole
+    Ogg stream the JAX demuxer reads back."""
+    from soundkit_tpu.codecs.celt_native import NativeCeltParser
+    from soundkit_tpu.codecs.opus import OggOpusDemuxer
+    from soundkit_tpu.codecs.opus_core import TOC_ATTRS
+    from soundkit_tpu.codecs.opus_tables import tables
+
+    band_end = tables()["celt_band_end"].astype(int)
+    seen = {}
+    for clip in opus_fixtures.load_clips():
+        parser, pf, short = NativeCeltParser(clip.channels), 0, 0
+        for pkt in clip.packets:
+            mode, dur, stereo, bw, code = TOC_ATTRS[pkt[0]]
+            assert (mode, dur, code, 2 if stereo else 1) == ("celt", 20, 0, clip.channels)
+            _, comb, sflag = parser.parse(pkt[1:], band_end[bw], clip.channels)
+            pf += bool(comb[2:8].any() or comb[10:16].any())
+            short += sflag
+        seen[clip.name] = (pf, short, clip.pre_skip, clip.output_gain, clip.channels)
+    assert seen["owned"][:3] == (0, seen["owned"][1], 0) and seen["owned"][1] > 0
+    for name in ("stereo96", "mono64", "gain"):
+        pf, short, pre_skip, _, _ = seen[name]
+        assert pf > 90 and short >= 10 and pre_skip == 312, (name, seen[name])
+    assert seen["gain"][3] == -1200 and seen["mono64"][4] == 1
+    clips = opus_fixtures.load_clips()
+    for i, data in enumerate(opus_fixtures.lane_streams(clips, 16)):
+        dm = OggOpusDemuxer()
+        clip, idx = opus_fixtures.lane_packets(clips, i)
+        assert dm.push(data) == [clip.packets[t] for t in idx] and dm.head.raw == clip.head

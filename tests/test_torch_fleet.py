@@ -1,11 +1,11 @@
 """Port parity of the serving runtime: soundkit_tpu_torch's StreamFleet
 against the JAX package's on the CPU, driven by the same pushes over the
-committed AAC, MP3, FLAC and telephony fixtures. Collect by collect: the
-same key sets, dtypes, shapes and sample rates; FLAC and telephony PCM
-bit-exact; AAC and MP3 PCM at 100 dB or better per collect as f32 (the
-bar of ``test_torch_aac_lc_model.py``) and within 1 LSB as int16. The streams
-the JAX fleet hands to its host fallback raise ``FleetUnsupported``
-here, one test per case."""
+committed AAC, MP3, FLAC, Ogg Opus and telephony fixtures. Collect by
+collect: the same key sets, dtypes, shapes and sample rates; FLAC and
+telephony PCM bit-exact; AAC, MP3 and Opus PCM at 100 dB or better per
+collect as f32 (the bar of ``test_torch_aac_lc_model.py``) and within 1
+LSB as int16. The streams the JAX fleet hands to its host fallback raise
+``FleetUnsupported`` here, one test per case."""
 import numpy as np
 import pytest
 import torch
@@ -22,8 +22,9 @@ from soundkit_tpu_torch.models.fleet import (
     FleetUnsupported,
     StreamFleet,
 )
-from soundkit_tpu_torch.tools import aac_fixtures, flac_fixtures, mp3_fixtures, telephony_fixtures
-from torch_port_helpers import flac_clip_pcm, snr_db
+from soundkit_tpu_torch.tools import (aac_fixtures, flac_fixtures, mp3_fixtures, opus_fixtures,
+                                      telephony_fixtures)
+from torch_port_helpers import REROUTE_CASES, flac_clip_pcm, ogg_opus, opus_reroute_case, snr_db
 
 
 CHUNK = 256  # codes a telephony round, in both fleets (they build their groups at 2048)
@@ -61,10 +62,16 @@ def tel_stream(kind: str, lane: int, n: int) -> bytes:
     return telephony_fixtures.lane_streams(kind, lane + 1)[lane][:n]
 
 
+def opus_stream(lane: int, n: int) -> bytes:
+    """Smoke lane ``lane`` of the Ogg Opus fixtures (clip ``lane mod 4``),
+    ``n`` packets."""
+    return opus_fixtures.lane_streams(opus_fixtures.load_clips(), lane + 1, n)[lane]
+
+
 class Pair:
     """The port's fleet and the JAX package's, driven together. Stream
-    ids start with their group's letter: a (AAC), m (MP3), f (FLAC), t
-    (telephony)."""
+    ids start with their group's letter: a (AAC), m (MP3), f (FLAC), o
+    (Ogg Opus), t (telephony)."""
 
     def __init__(self, capacity=CAP, out_bits=32):
         self.port = StreamFleet(capacity, out_bits=out_bits, device="cpu")
@@ -103,7 +110,7 @@ class Pair:
                 assert g.shape[-1] == got[sid].samples
             w = np.asarray(w)
             assert g.dtype == w.dtype and g.shape == w.shape, (sid, g.dtype, w.dtype, g.shape, w.shape)
-            if not sid.startswith(("a", "m")):
+            if not sid.startswith(("a", "m", "o")):
                 np.testing.assert_array_equal(g, w, err_msg=sid)
             elif g.dtype == np.int16:
                 assert np.abs(g.astype(np.int32) - w).max() <= 1, sid
@@ -125,6 +132,9 @@ STREAMS = {
     "f1": (flac_stream(1, 2), None, 48000),
     "f2": (flac_stream(2, 4), None, 16000),
     "f3": (flac_stream(3, 3), "flac", 44100),
+    "o0": (opus_stream(0, 30), None, 48000),     # stereo, libopus, pre-skip 312
+    "o1": (opus_stream(5, 24), "opus", 48000),   # mono in a stereo lane
+    "o2": (opus_stream(3, 20), None, 48000),     # an OpusHead output gain
     # the ADPCM streams are short: their plain scans are Python loops over the codes
     "t0": (tel_stream("g722", 0, 700), "g722", 16000),
     "t1": (tel_stream("g722", 1, 150), "g722", 16000),
@@ -135,15 +145,16 @@ STREAMS = {
 
 @pytest.mark.parametrize("out_bits,device_out", [(32, False), (16, True), (32, True), (16, False)])
 def test_mixed_ragged_routing_matches_jax(out_bits, device_out):
-    """Twelve streams over six groups, pushed in three ragged rounds with a
-    collect after each; autodetected and explicit kinds; some streams
-    end early, all end at last."""
+    """Fifteen streams over seven groups, pushed in three ragged rounds
+    with a collect after each; autodetected and explicit kinds; some
+    streams end early, all end at last."""
     pair = Pair(CAP, out_bits)
     pos = {sid: 0 for sid in STREAMS}
     shares = {"a0": (0.2, 0.7, 1), "a1": (1, 1, 1), "m0": (0.4, 0.8, 1), "m1": (0.5, 0.5, 1),
               "f0": (0.5, 0.5, 1), "f1": (0.1, 1, 1),
               "f2": (0.3, 0.6, 1), "f3": (0.6, 1, 1), "t0": (0.3, 0.8, 1), "t1": (1, 1, 1),
-              "t2": (0.01, 0.5, 1), "t3": (0.5, 0.5, 1)}
+              "t2": (0.01, 0.5, 1), "t3": (0.5, 0.5, 1), "o0": (0.3, 0.95, 1),
+              "o1": (0.5, 0.5, 1), "o2": (1, 1, 1)}
     seen = {sid: 0 for sid in STREAMS}
     dtypes = set()
     for rnd in range(3):
@@ -153,7 +164,7 @@ def test_mixed_ragged_routing_matches_jax(out_bits, device_out):
                 pair.push(sid, data[pos[sid]: end], kind=kind if pos[sid] == 0 and rnd == 0 else None)
             pos[sid] = max(pos[sid], end)
         if rnd == 1:
-            pair.end("a1", "t1", "f3")
+            pair.end("a1", "t1", "f3", "o2")
         if rnd == 2:
             pair.end(*STREAMS)
         for sid, pcm in pair.collect(device_out).items():
@@ -164,8 +175,9 @@ def test_mixed_ragged_routing_matches_jax(out_bits, device_out):
     assert all(n > 0 for n in seen.values()), seen
     assert seen["a0"] == 9 * 1024 and seen["f1"] == 2 * 4096 and seen["t0"] == 2 * 700
     assert seen["m0"] == 60 * 2 * 576 and seen["m1"] == 58 * 576
+    assert seen["o0"] == 30 * 960 - 312 and seen["o1"] == 24 * 960 - 312
     want = np.dtype(np.int16 if out_bits == 16 else np.float32)
-    assert dtypes == {("a", want), ("m", want), ("f", want), ("t", want)}
+    assert dtypes == {("a", want), ("m", want), ("f", want), ("t", want), ("o", want)}
     for f in (pair.port, pair.ref):
         assert not f._lanes and not f._detect and not f._ended
 
@@ -178,7 +190,8 @@ def test_device_out_is_bit_identical_to_the_fetching_mode(out_bits):
     fleets = [StreamFleet(CAP, out_bits=out_bits, device="cpu") for _ in range(2)]
     for f in fleets:
         for sid, (data, kind, _) in STREAMS.items():
-            f.push(sid, data[: len(data) // 2], kind=kind or ("aac" if sid[0] == "a" else None))
+            f.push(sid, data[: len(data) // 2],
+                   kind=kind or {"a": "aac", "o": "opus"}.get(sid[0]))
         f.push("t9", b"", kind="g722")  # a telephony lane with nothing to say
     fetched = fleets[0].collect()
     resident = fleets[1].collect(device_out=True)
@@ -189,8 +202,9 @@ def test_device_out_is_bit_identical_to_the_fetching_mode(out_bits):
         np.testing.assert_array_equal(pcm, fetched[sid])
         assert rec.samples == pcm.shape[-1] and rec.rate == STREAMS[sid][2]
     caches = {id(rec._cache) for rec in resident.values()}
-    assert len(caches) == 6  # aac, mp3, flac, g722, g726_32, g711_alaw
+    assert len(caches) == 7  # aac, mp3, flac, opus, g722, g726_32, g711_alaw
     assert resident["f0"]._cache is resident["f2"]._cache and "arr" in resident["f0"]._cache
+    assert resident["o0"]._cache is resident["o1"]._cache
 
 
 def test_fleet_lane_recycling_resets_state():
@@ -330,6 +344,42 @@ def test_explicit_mp3_kind_joins_the_mp3_group():
     assert pair.rates("m0") == [48000]
 
 
+def test_opus_lane_recycling_resets_state():
+    """A second Ogg Opus stream takes the lane the first one left and
+    decodes as in a fresh fleet: the demuxer, the parse state, the
+    overlap, comb history and de-emphasis memory were cleared."""
+    pair = Pair()
+    pair.push("o0", opus_stream(0, 14))
+    pair.end("o0")
+    assert pair.collect()["o0"].shape == (2, 14 * 960 - 312) and not pair.port._lanes
+    second = opus_stream(6, 12)  # the owned encoder's clip: pre-skip 0
+    pair.push("o1", second)
+    pair.end("o1")
+    assert pair.port._lanes["o1"].index == pair.ref._lanes["o1"].index == CAP - 1
+    again = pair.collect()["o1"]
+    fresh = StreamFleet(CAP, device="cpu")
+    fresh.push("x", second)
+    fresh.end_stream("x")
+    np.testing.assert_array_equal(again, fresh.collect()["x"])
+    assert again.shape == (2, 12 * 960)
+    # and it would differ from a lane that kept its state
+    model = pair.port._groups["opus"]._model
+    assert model._celt.queued(CAP - 1) == 0 and model.lane_sample_rate(CAP - 1) == 48000
+
+
+def test_explicit_opus_kind_joins_the_opus_group():
+    """The explicit kind ``opus`` (refused before the group was ported)
+    seats an Ogg Opus stream with its buffered bytes, as detection would."""
+    pair = Pair()
+    data = opus_stream(1, 10)
+    pair.push("o0", data[:100])                # buffered for detection
+    pair.push("o0", data[100:], kind="opus")   # routed now, with the buffered bytes
+    for f in (pair.port, pair.ref):
+        assert f._lanes["o0"].group == "opus" and not f._detect
+    assert pair.collect()["o0"].shape == (2, 10 * 960 - 312)
+    assert pair.rates("o0") == [48000]
+
+
 def test_bounded_bookkeeping_after_a_churn_of_streams():
     """Thirty streams through two lanes a group: afterwards the fleet
     remembers none of them."""
@@ -440,7 +490,6 @@ def _ogg_first_page(payload: bytes) -> bytes:
 DETECTED_WITHOUT_A_GROUP = {
     "webm": b"\x1a\x45\xdf\xa3" + bytes(60),
     "ogg_vorbis": _ogg_first_page(b"\x01vorbis" + bytes(20)),
-    "ogg_opus": _ogg_first_page(b"OpusHead" + bytes(11)),
     "wav": b"RIFF" + bytes(4) + b"WAVEfmt " + bytes(40),
     "m4a": bytes(4) + b"ftypM4A " + bytes(20),
     "unknown": bytes(range(1, 64)),
@@ -471,7 +520,7 @@ def test_refuses_a_detected_format_without_a_group_at_the_routing_push(name):
     assert_forgotten(port, "s")
 
 
-@pytest.mark.parametrize("kind", HOST_KINDS + ("vorbis", "opus"))
+@pytest.mark.parametrize("kind", HOST_KINDS + ("vorbis",))
 def test_refuses_an_explicit_kind_without_a_group(kind):
     port = StreamFleet(2, device="cpu")
     port.push("s", b"early bytes")
@@ -501,6 +550,32 @@ def test_refuses_a_stream_whose_group_is_full(kind):
     assert_forgotten(port, "third")
     port.push("fourth", data, kind=kind)
     np.testing.assert_array_equal(port.collect()["fourth"], out["first"])
+
+
+@pytest.mark.parametrize("case", REROUTE_CASES)
+def test_refuses_an_opus_lane_the_reference_reroutes(case):
+    """An Ogg Opus stream that the JAX package's group hands to its host
+    decoder (a SILK first packet, a 10 ms CELT packet, a code-3
+    multi-frame packet, mapping family 1, three channels, a mid-stream
+    mode switch) raises at the push that brings the head or the packet;
+    its lane is reset and freed, the stream forgotten, and the next Opus
+    stream takes the lane and decodes. A stream of less than a page seats
+    a lane at its end."""
+    head, packets, msg = opus_reroute_case(opus_fixtures.load_clips(), case)
+    data = ogg_opus(head, packets)
+    port = StreamFleet(2, device="cpu")
+    port.push("ok", opus_stream(2, 12))
+    port.push("s", data[:40])  # most of the OpusHead page: seated at the end, no head yet
+    port.end_stream("s")
+    lane = port._lanes["s"].index
+    with pytest.raises(FleetUnsupported, match=f"'s'.*kind 'opus'.*{msg}.*reroutes"):
+        port.push("s", data[40:])
+    assert_forgotten(port, "s")
+    group = port._groups["opus"]
+    assert lane in group._free and lane not in group._used
+    assert group._model.lane_ready(lane) == 0 and group._model.lane_sample_rate(lane) is None
+    port.end_stream("ok")
+    assert port.collect()["ok"].shape == (2, 12 * 960)
 
 
 def test_refused_streams_never_reach_the_jax_pipeline():

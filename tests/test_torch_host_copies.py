@@ -2,8 +2,11 @@
 originals: tables and the functions that make them, the G.726 code
 packing, the ADTS framer, the wire packers (byte for byte, each with
 its own package's parser), the C++ sources of the AAC parser, the FLAC
-walk and the MP3 parser, the MP3 synthesis tables, format detection and
-the FLAC segment-table packer."""
+walk, the MP3 parser and the CELT parse, the MP3 synthesis tables,
+format detection, the FLAC segment-table packer, and the Opus host
+layer: the RFC 6716 tables, the TOC parse, the Ogg packetizer, the
+OpusHead and Ogg Opus demuxer, the CELT IMDCT basis and comb packing,
+and the CELT parse's serving walk on both wires."""
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +49,8 @@ G722_TABLES = ("WL", "RL42", "ILB", "WH", "RH2", "QM2", "QM4", "QM6", "QMF_COEFF
      "soundkit_tpu/native/generated/mp3_tables.h"),
     ("soundkit_tpu_torch/data/mp3_tables.npz", "soundkit_tpu/native/generated/mp3_tables.npz"),
     ("soundkit_tpu_torch/demux/detect.py", "soundkit_tpu/demux/detect.py"),
+    ("soundkit_tpu_torch/native_src/src/celt_parse.cpp", "soundkit_tpu/native/src/celt_parse.cpp"),
+    ("soundkit_tpu_torch/data/opus_tables.npz", "soundkit_tpu/native/generated/opus_tables.npz"),
 ])
 def test_copied_files_are_identical(port, ref):
     assert (REPO / port).read_bytes() == (REPO / ref).read_bytes()
@@ -266,3 +271,152 @@ def test_mp3_parser_library_pops_the_wire_of_the_jax_package():
         np.testing.assert_array_equal(qa, qb)
         np.testing.assert_array_equal(ea, eb)
         assert ma == mb_
+
+
+# ---------------------------------------------------------------------------
+# Opus
+# ---------------------------------------------------------------------------
+
+def test_opus_tables_module_is_a_copy_but_for_its_table_path():
+    """``codecs/opus_tables.py`` differs from the original in the path of
+    its table file alone, and reads the same tables."""
+    from soundkit_tpu.codecs import opus_tables as jax_tables
+    from soundkit_tpu_torch.codecs import opus_tables
+
+    port = (REPO / "soundkit_tpu_torch/codecs/opus_tables.py").read_text().splitlines()
+    ref = (REPO / "soundkit_tpu/codecs/opus_tables.py").read_text().splitlines()
+    diff = [(a, b) for a, b in zip(port, ref) if a != b]
+    assert len(port) == len(ref) and len(diff) == 1 and diff[0][0].startswith("_NPZ = ")
+    got, want = opus_tables.tables(), jax_tables.tables()
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert opus_tables.PVQ_U_ROW_OFFSETS == jax_tables.PVQ_U_ROW_OFFSETS
+
+
+OPUS_COPIES = [
+    ("codecs.opus_celt", "_imdct_matrix"),
+    ("codecs.opus_core", "OpusUnsupported"),
+    ("codecs.opus_core", "Toc"),
+    ("codecs.opus_core", "parse_packet"),
+    ("demux.ogg", "OggPage"),
+    ("demux.ogg", "OggPageParser"),
+    ("demux.ogg", "OggPacketizer"),
+    ("codecs.opus", "OpusHead"),
+    ("codecs.opus", "OggOpusDemuxer"),
+    ("ops.celt_batch", "_bases"),
+    ("ops.celt_batch", "_win2"),
+    ("ops.celt_batch", "pack_comb_params"),
+]
+
+
+@pytest.mark.parametrize("module,name", OPUS_COPIES)
+def test_opus_host_pieces_are_verbatim_copies(module, name):
+    import importlib
+
+    port = importlib.import_module(f"soundkit_tpu_torch.{module}")
+    ref = importlib.import_module(f"soundkit_tpu.{module}")
+    assert _function_source(port, name) == _function_source(ref, name)
+
+
+def test_opus_constants_and_toc_tables():
+    from soundkit_tpu.codecs import opus_celt as jax_celt
+    from soundkit_tpu.codecs import opus_core as jax_core
+    from soundkit_tpu_torch.codecs import opus_celt, opus_core
+
+    for name in ("OVERLAP", "CELT_EMPH_COEFF"):
+        assert getattr(opus_celt, name) == getattr(jax_celt, name), name
+    assert opus_core.TOC_ATTRS == jax_core.TOC_ATTRS
+    assert [(t.config, t.stereo, t.code) for t in opus_core._TOC_CACHE] == \
+        [(t.config, t.stereo, t.code) for t in jax_core._TOC_CACHE]
+    for nb in (960, 120):
+        np.testing.assert_array_equal(opus_celt._imdct_matrix(nb), jax_celt._imdct_matrix(nb))
+
+
+def test_ogg_opus_demux_splits_like_the_jax_package():
+    """Every committed Ogg Opus clip, whole and in odd-sized pushes: the
+    same OpusHead and packets; and the TOC parse of code 0-3 packets."""
+    from soundkit_tpu.codecs.opus import OggOpusDemuxer as JaxDemuxer
+    from soundkit_tpu.codecs.opus_core import parse_packet as jax_parse
+    from soundkit_tpu_torch.codecs.opus import OggOpusDemuxer
+    from soundkit_tpu_torch.codecs.opus_core import OpusUnsupported, parse_packet
+    from soundkit_tpu_torch.tools import opus_fixtures
+
+    for clip in opus_fixtures.load_clips():
+        data = clip.stream()
+        for step in (len(data), 997, 61):
+            port, ref = OggOpusDemuxer(), JaxDemuxer()
+            got, want = [], []
+            for i in range(0, len(data), step):
+                got += port.push(data[i: i + step])
+                want += ref.push(data[i: i + step])
+            assert got == want == clip.packets
+            assert port.head.raw == ref.head.raw == clip.head
+    pkt = opus_fixtures.load_clips()[0].packets[5]
+    body = pkt[1:]
+    cases = [pkt, bytes([pkt[0] | 1]) + body[:40] + body[:40],
+             bytes([pkt[0] | 2, 30]) + body[:70], bytes([pkt[0] | 3, 0x83, 20, 11]) + body[:50],
+             bytes([pkt[0] | 3, 0x42, 3]) + body[:40] + bytes(3), bytes([pkt[0] | 3, 0])]
+    for c in cases:
+        try:
+            want = jax_parse(c)
+        except ValueError as e:
+            with pytest.raises(OpusUnsupported, match=str(e)):
+                parse_packet(c)
+            continue
+        toc, frames = parse_packet(c)
+        assert (toc.config, toc.stereo, toc.code, frames) == \
+            (want[0].config, want[0].stereo, want[0].code, want[1])
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_celt_parse_library_walks_the_wire_of_the_jax_package(quantized):
+    """The port's ``celt_parse.cpp`` build and the JAX package's library
+    give the same serving wire (``skt_celt_parse_rounds`` / ``_q``) for
+    the same rounds of the Opus fixtures, ragged lanes and a mono clip in
+    stereo lanes among them: the comb parameters, transient flags, parse
+    results and band scales equal, the spectra up to the compilers'
+    rounding."""
+    from soundkit_tpu.codecs.celt_native import NativeCeltBatch as JaxBatch
+    from soundkit_tpu.models.opus_batch import BatchedCeltDecoder as JaxDecoder
+    from soundkit_tpu_torch.codecs.celt_native import NativeCeltBatch
+    from soundkit_tpu_torch.models.opus_batch import BatchedCeltDecoder
+    from soundkit_tpu_torch.tools import opus_fixtures
+
+    B, R = 6, 9
+    raws = [opus_fixtures.lane_raw(opus_fixtures.load_clips(), B, R - i)[i] for i in range(B)]
+    lanes = BatchedCeltDecoder(B, 2, device="cpu")
+    for i, r in enumerate(raws):
+        lanes.push(i, r)
+    lens, ends, coded = (np.zeros((B, R), np.int32) for _ in range(3))
+    base, parts, pos = np.zeros(B, np.int64), [], 0
+    for b, q in enumerate(lanes._packets):
+        lens[b, :len(q)] = [len(t[0]) for t in q]
+        ends[b, :len(q)] = [t[1] for t in q]
+        coded[b, :len(q)] = [t[2] for t in q]
+        base[b] = pos
+        parts += [t[0] for t in q]
+        pos += sum(len(t[0]) for t in q)
+    buf = b"".join(parts)
+    assert JaxDecoder(1)._native is not None
+    got = NativeCeltBatch(B, 2).parse_rounds(buf, base, lens, ends, coded, R, 800, quantized)
+    want = JaxBatch(B, 2).parse_rounds(buf, base, lens, ends, coded, R, 800, quantized)
+    for g, w in zip(got[1:], want[1:]):  # scales, comb, sflag, ok: equal
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    # the spectra: the JAX package builds its library with -march=native, so
+    # the compiler fuses products into FMAs that the port's portable build
+    # rounds apart; spectra differ by float rounding near zero (~1e-17 of
+    # the largest value), the int16 wire by 1 on a few of its 86,400 values
+    g, w = got[0].astype(np.float64), want[0].astype(np.float64)
+    assert got[0].dtype == want[0].dtype
+    if quantized:
+        assert np.abs(g - w).max() <= 1 and (g != w).mean() < 1e-3
+    else:
+        assert np.abs(g - w).max() <= 1e-12 * np.abs(w).max()
+    assert (got[4][lens.T > 0] == 0).all() and (got[4][lens.T == 0] == -100).all()
+    assert np.abs(got[0]).max() > 0

@@ -36,6 +36,10 @@ CPU = torch.device("cpu")
     ("mp3_synth", lambda: kc.mp3_synth_random_case(CPU, seed=5)),
     ("mp3_synth", lambda: kc.mp3_synth_random_case(CPU, seed=6, streams=5, channels=1)),
     ("mp3_synth", lambda: kc.mp3_synth_pair(*kc.mp3_fixture_inputs(6, CPU))),
+    ("celt_postfilter", lambda: kc.celt_postfilter_random_case(CPU, seed=5)),
+    ("celt_postfilter", lambda: kc.celt_postfilter_random_case(CPU, seed=6, streams=5, channels=1)),
+    ("celt_postfilter", lambda: kc.celt_postfilter_pair(kc.celt_fixture_inputs(6, CPU))),
+    ("celt_postfilter", lambda: kc.celt_postfilter_pair(kc.celt_fixture_inputs(5, CPU, wire="i16"))),
 ])
 def test_cases_agree_on_cpu(name, make):
     kernel, plain = make()
@@ -74,6 +78,7 @@ def test_carried_g722_case_starts_from_a_scanned_state(encode):
     ("spectral_decode", 1),
     ("imdct_window", 1e-3),
     ("tns_filter", float("nan")),
+    ("celt_postfilter", 1e-3),
 ])
 def test_compare_refuses_a_result_beyond_its_bound(name, bump):
     ref = torch.arange(1, 9, dtype=torch.int32 if name == "spectral_decode" else torch.float32)
@@ -175,3 +180,63 @@ def test_mp3_synth_work_counts_the_path_each_subband_takes():
     per_lane = 576 + 2 * 18 * 64 * 32 + 2 * 576 * 16
     assert flops == line_lanes * 576 * 4 + ms_lanes * 576 * 2 + (31 + 0 + 1 + 31) * 48 \
         + long_sb * (2 * 36 * 18 + 36) + short_sb * (2 * 3 * 12 * 6 + 60) + valid_lanes * per_lane
+
+
+def test_celt_fixture_inputs_are_the_decoders_next_round():
+    """K11's path case is the decoder's next round: the plain K11 on its
+    IMDCT output gives the decoder's PCM and state for that round."""
+    from soundkit_tpu_torch.models.opus_batch import BatchedCeltDecoder
+    from soundkit_tpu_torch.tools import opus_fixtures
+
+    inputs = kc.celt_fixture_inputs(6, CPU, warm=2)
+    pcm, ola, hist, emph = kc.celt_postfilter_pair(inputs)[1]()
+    model = BatchedCeltDecoder(6, 2, device="cpu")
+    for i, data in enumerate(opus_fixtures.lane_raw(opus_fixtures.load_clips(), 6)):
+        model.push(i, data)
+    want, _ = model.decode_ready(max_packets=3, device_out=True)
+    assert torch.equal(pcm, want[2])
+    for got, state in ((ola, model._ola), (hist, model._hist), (emph, model._emph)):
+        assert torch.equal(got, state)
+
+
+def test_celt_random_inputs_cover_the_edges():
+    """Every third stream's periods come from the edge set (15, 1022,
+    1024 and the widths where a comb step changes), the gains carry all
+    three tapsets and zero stages, and some streams are invalid."""
+    from soundkit_tpu_torch.codecs.opus_tables import tables
+
+    full, comb, valid, ola, hist, emph = kc.celt_postfilter_random_inputs(2, streams=60)
+    periods = comb[:, [0, 1, 8, 9]]
+    assert set(periods[::3].flatten().tolist()) <= set(kc.CELT_EDGE_PERIODS)
+    assert {15.0, 1024.0} <= set(periods.flatten().tolist())
+    assert int(periods.min()) >= 15 and int(periods.max()) <= 1024
+    taps = torch.from_numpy(tables()["celt_postfilter_taps"].astype("float32"))
+    stages = comb[:, [2, 5, 10, 13]].reshape(-1)
+    ratios = (comb[:, [3, 6, 11, 14]].reshape(-1) / stages)[stages != 0]
+    assert {round(float(r), 4) for r in ratios} == {round(float(t[1] / t[0]), 4) for t in taps}
+    assert (stages == 0).any() and 0 < int(valid.sum()) < 60
+
+
+def test_celt_work_counts_bytes_and_active_taps():
+    """Bytes: the flag, a valid stream's comb row, each channel's line in
+    and out, of its history only the part the comb taps or the new
+    history reach; an invalid stream's state in and out and its zero PCM.
+    Operations: the active taps of each stage, the overlap-add, the
+    de-emphasis and the scale."""
+    B, C = 3, 2
+    full = torch.zeros((B, C, 1080))
+    comb = torch.zeros((B, 16))
+    comb[:, [0, 1, 8, 9]] = 100.0    # stream 0: the new history's 240 samples reach further
+    comb[1, 0] = 700.0               # stream 1: stage A reaches 702 back,
+    comb[1, 9] = 1500.0              # stage B (clamped to 1024) 1026 from sample 120
+    comb[0, 2] = comb[0, 13] = 0.5   # stream 0: stage A's first tap and stage B's second
+    comb[1, 5:8] = 0.1               # stream 1: stage A's second tap
+    valid = torch.tensor([True, True, False])
+    state = (torch.zeros((B, C, 120)), torch.zeros((B, C, 1200)), torch.zeros((B, C)))
+    nbytes, flops = kc.celt_postfilter_work((full, comb, valid, *state))
+    line = (120 + 1200 + 1) * 4
+    valid_line = 1080 * 4 + (120 + 1) * 4 + 960 * 4 + line
+    assert nbytes == B + 2 * 64 + C * (2 * valid_line + (240 + 906) * 4) \
+        + C * (2 * line + 960 * 4)
+    base = 120 + 960 * 3
+    assert flops == C * ((120 * 10 + 840 * 9 + base) + (120 * 9 + base))

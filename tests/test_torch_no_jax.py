@@ -104,10 +104,44 @@ print("mp3 without jax")
 """
 
 
+_NO_JAX_OPUS = _NO_JAX_DECODE.split("import numpy as np")[0] + r"""
+import numpy as np
+from soundkit_tpu_torch.models.fleet import FleetUnsupported, StreamFleet
+from soundkit_tpu_torch.models.opus_batch import BatchedCeltDecoder
+from soundkit_tpu_torch.tools import opus_fixtures
+clips = opus_fixtures.load_clips()
+m = BatchedCeltDecoder(2, 2, wire="i16", device="cpu")
+for i, s in enumerate(opus_fixtures.lane_raw(clips, 2, 6)):
+    m.push(i, s)
+pcm, lens = m.decode_ready()
+assert pcm.shape == (6, 2, 2, 960) and np.isfinite(pcm).all() and np.abs(pcm).max() > 0.01
+assert lens[0].tolist() == [648, 648] and (lens[1:] == 960).all()
+fleet = StreamFleet(2, device="cpu")
+for i, s in enumerate(opus_fixtures.lane_streams(clips, 3, 8)[1:]):
+    fleet.push(f"o{i}", s)
+    fleet.end_stream(f"o{i}")
+out = fleet.collect()
+assert out["o0"].shape == (2, 8 * 960 - 312) and out["o1"].shape == (2, 8 * 960)
+assert all(np.isfinite(v).all() and np.abs(v).max() > 0.01 for v in out.values())
+silk = bytes([(9 << 3)]) + bytes(30)  # a SILK WB 20 ms TOC
+head = clips[0].header
+fleet.push("s", head[:40])
+fleet.end_stream("s")
+try:
+    fleet.push("s", head[40:] + b"OggS" + bytes(22) + bytes([1, len(silk)]) + silk)
+    raise SystemExit("a SILK lane was not refused")
+except FleetUnsupported:
+    pass
+assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
+print("opus without jax")
+"""
+
+
 @pytest.mark.parametrize("script,said", [(_NO_JAX_DECODE, "decoded without jax"),
                                          (_NO_JAX_TELEPHONY, "telephony without jax"),
                                          (_NO_JAX_FLEET, "fleet without jax"),
-                                         (_NO_JAX_MP3, "mp3 without jax")])
+                                         (_NO_JAX_MP3, "mp3 without jax"),
+                                         (_NO_JAX_OPUS, "opus without jax")])
 def test_port_runs_on_cpu_with_jax_blocked(script, said):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -139,6 +173,10 @@ def test_timed_decoder_needs_cuda():
         BatchedAacLcDecoder(2, 2, device="cpu", timed=True)
     with pytest.raises(ValueError, match="CUDA"):
         BatchedTelephonyDecoder("g722", 2, device="cpu", timed=True)
+    from soundkit_tpu_torch.models.opus_batch import BatchedCeltDecoder
+
+    with pytest.raises(ValueError, match="CUDA"):
+        BatchedCeltDecoder(2, 2, device="cpu", timed=True)
 
 
 def test_cuda_device_raises_without_cuda():
@@ -212,6 +250,48 @@ def test_mp3_synth_refuses_meta_tensors():
     assert mp3_synth.mp3_granule_packed.launches == before
 
 
+def test_celt_postfilter_refuses_meta_tensors():
+    """K11's wrapper raises for tensors neither on the CPU nor on a CUDA
+    device, and counts no launch."""
+    from soundkit_tpu_torch.ops import celt_postfilter
+
+    before = celt_postfilter.celt_postfilter.launches
+    meta = [torch.empty(s, device="meta") for s in ((4, 2, 1080), (4, 16))]
+    valid = torch.empty(4, dtype=torch.bool, device="meta")
+    state = [torch.empty(s, device="meta") for s in ((4, 2, 120), (4, 2, 1200), (4, 2))]
+    with pytest.raises(ValueError, match="CUDA device"):
+        celt_postfilter.celt_postfilter(*meta, valid, *state)
+    assert celt_postfilter.celt_postfilter.launches == before
+
+
+CELT_INPUTS = ("full", "comb", "valid", "ola", "hist", "emph", "pcm_out")
+
+
+@pytest.mark.parametrize("strided", CELT_INPUTS)
+def test_celt_postfilter_refuses_a_strided_input(strided):
+    """K11 indexes its rows as if packed: a view of the right shape but
+    not contiguous (every other element of a wider tensor) is
+    refused before any launch, whichever input it is."""
+    from soundkit_tpu_torch.ops import celt_postfilter
+
+    B, C = 4, 2
+    shapes = dict(full=(B, C, 1080), comb=(B, 16), valid=(B,), ola=(B, C, 120),
+                  hist=(B, C, 1200), emph=(B, C), pcm_out=(B, C, 960))
+    args = {}
+    for name, shape in shapes.items():
+        dtype = torch.bool if name == "valid" else torch.float32
+        if name == strided:
+            args[name] = torch.empty((*shape, 2), dtype=dtype, device="meta")[..., 0]
+            assert args[name].shape == shape and not args[name].is_contiguous()
+        else:
+            args[name] = torch.empty(shape, dtype=dtype, device="meta")
+    before = celt_postfilter.celt_postfilter.launches
+    with pytest.raises(ValueError, match="non-contiguous"):
+        celt_postfilter.celt_postfilter(*(args[k] for k in CELT_INPUTS[:-1]),
+                                        pcm_out=args["pcm_out"])
+    assert celt_postfilter.celt_postfilter.launches == before
+
+
 def test_build_rebuilds_when_a_header_changes(tmp_path, monkeypatch):
     """A library is keyed by its sources and the headers passed as
     ``deps`` (the kernel library passes ``csrc/*.cuh``): the same inputs
@@ -243,9 +323,13 @@ def test_entry_points_default_to_cuda():
     from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
     from soundkit_tpu_torch.models.fleet import StreamFleet
     from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+    from soundkit_tpu_torch.models.opus_batch import BatchedCeltDecoder
+    from soundkit_tpu_torch.models.opus_fleet_model import BatchedOggOpusDecoder
     from soundkit_tpu_torch.ops import mp3_batch
 
     calls = {
+        BatchedCeltDecoder: lambda: BatchedCeltDecoder(2, 2),
+        BatchedOggOpusDecoder: lambda: BatchedOggOpusDecoder(2),
         BatchedFlacDecoder: lambda: BatchedFlacDecoder(2),
         BatchedMp3Decoder: lambda: BatchedMp3Decoder(2),
         mp3_batch.init_state: lambda: mp3_batch.init_state(2),

@@ -10,11 +10,13 @@ generators live here, on the test side; regenerate from the repository's root wi
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py telephony
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py flac
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py mp3
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py opus
 """
 from __future__ import annotations
 
 import functools
 import json
+import struct
 import sys
 from pathlib import Path
 from typing import Dict, List
@@ -22,7 +24,8 @@ from typing import Dict, List
 import numpy as np
 
 from soundkit_tpu_torch.models.telephony_batch import CODECS
-from soundkit_tpu_torch.tools import aac_fixtures, flac_fixtures, mp3_fixtures, telephony_fixtures
+from soundkit_tpu_torch.tools import (aac_fixtures, flac_fixtures, mp3_fixtures, opus_fixtures,
+                                      telephony_fixtures)
 
 SR_INDEX_48K = 3
 # AUs per clip that cover long, short (EIGHT_SHORT) and TNS frames
@@ -401,6 +404,141 @@ def generate_mp3_fixtures(directory: Path = mp3_fixtures.FIXTURE_DIR) -> None:
     (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
 
 
+# ---------------------------------------------------------------------------
+# Ogg Opus (CELT) fixtures
+# ---------------------------------------------------------------------------
+
+# clip: (channels, bit rate, encoder backend, seconds, OpusHead output gain in Q7.8 dB)
+OPUS_CLIPS = {
+    "stereo96": (2, 96000, "libopus", 2.5, 0),
+    "mono64": (1, 64000, "libopus", 2.5, 0),
+    "owned": (2, 96000, "owned", 2.0, 0),
+    "gain": (2, 64000, "libopus", 2.0, -1200),
+}
+
+
+def opus_clip_pcm(name: str) -> np.ndarray:
+    """The interleaved int16 samples ``generate_opus_fixtures`` encodes
+    for ``name`` at 48 kHz: a pitched tone (eleven harmonics of 196 Hz
+    with vibrato; libopus turns its comb postfilter on for it) under
+    noise, with decaying noise attacks (transient frames); the second
+    channel a scaled copy with a 523 Hz tone."""
+    ch, _, _, seconds, _ = OPUS_CLIPS[name]
+    rng = np.random.default_rng(5000 + opus_fixtures.CLIPS.index(name))
+    n = int(48000 * seconds)
+    t = np.arange(n) / 48000
+    f0 = 196 * (1 + 0.01 * np.sin(2 * np.pi * 4 * t))
+    phase = 2 * np.pi * np.cumsum(f0) / 48000
+    x = sum(np.sin(h * phase) / h for h in range(1, 12)) * 0.25
+    onsets = np.cumsum(rng.uniform(0.2, 0.5, int(seconds * 5)))
+    env = np.zeros(n)
+    for o in onsets[onsets < seconds - 0.05]:
+        m = t >= o
+        env[m] += np.exp(-(t[m] - o) / 0.01)
+    x = x + rng.standard_normal(n) * (0.01 + 0.6 * env)
+    pcm = x[:, None] if ch == 1 else np.stack([x, 0.8 * x + 0.05 * np.sin(2 * np.pi * 523 * t)], 1)
+    return (np.clip(pcm, -1, 1) * 26000).astype(np.int16).reshape(-1)
+
+
+def generate_opus_fixtures(directory: Path = opus_fixtures.FIXTURE_DIR) -> None:
+    """Encode every clip of ``opus_fixtures.CLIPS`` with the JAX
+    package's ``OpusEncoder`` (libopus, or the owned CELT encoder), mux
+    it with its ``OggOpusWriter`` (one packet a page) and write the
+    streams and their index (header bytes, packet lengths, pre-skip and
+    output gain). Every packet must be a single-frame 20 ms CELT packet;
+    each libopus clip must carry comb-postfilter frames and transient
+    frames (checked with the JAX package's CELT parse), and the owned
+    encoder's clip none of the first."""
+    from soundkit_tpu.codecs.celt_native import NativeCeltParser
+    from soundkit_tpu.codecs.encoders import OpusEncoder
+    from soundkit_tpu.codecs.opus_core import TOC_ATTRS
+    from soundkit_tpu.codecs.opus_tables import tables
+    from soundkit_tpu.demux.ogg import OggOpusWriter
+
+    band_end = tables()["celt_band_end"].astype(int)
+    directory.mkdir(parents=True, exist_ok=True)
+    index = {}
+    for name in opus_fixtures.CLIPS:
+        ch, bit_rate, backend, _, gain = OPUS_CLIPS[name]
+        enc = OpusEncoder(48000, ch, bit_rate, backend=backend)
+        packets = enc.encode_i16_packets(opus_clip_pcm(name)) + enc.flush_packets()
+        parser, postfilter, transient = NativeCeltParser(ch), 0, 0
+        for pkt in packets:
+            mode, dur, stereo, bw, code = TOC_ATTRS[pkt[0]]
+            assert (mode, dur, code, stereo) == ("celt", 20, 0, ch == 2), (name, TOC_ATTRS[pkt[0]])
+            _, comb, short = parser.parse(pkt[1:], band_end[bw], ch)
+            postfilter += bool(np.any(comb[2:8]) or np.any(comb[10:16]))
+            transient += short
+        if backend == "libopus":
+            assert postfilter >= len(packets) // 2 and transient >= 4, (name, postfilter, transient)
+        else:
+            assert postfilter == 0 and transient >= 1, (name, postfilter, transient)
+        writer = OggOpusWriter(ch, pre_skip=enc.pre_skip, output_gain=gain)
+        header = writer.take()
+        for pkt in packets:
+            writer.write_packet(pkt)
+        stream = header + writer.close()  # the last packet's page carries EOS
+        index[name] = dict(channels=ch, bit_rate=bit_rate, encoder=backend,
+                           pre_skip=enc.pre_skip, output_gain=gain, header=len(header),
+                           packets=[len(p) for p in packets], postfilter_frames=postfilter,
+                           transient_frames=int(transient))
+        (directory / f"{name}.opus").write_bytes(stream)
+    (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
+
+
+def ogg_opus(head: bytes, packets) -> bytes:
+    """An Ogg Opus stream of ``head`` (an OpusHead), an OpusTags page and
+    one page a packet, by the JAX package's page writer."""
+    from soundkit_tpu.demux.ogg import build_ogg_page
+
+    tags = b"OpusTags" + struct.pack("<I", 2) + b"sk" + struct.pack("<I", 0)
+    pages = [build_ogg_page([head], 7, 0, 0, header_type=2), build_ogg_page([tags], 7, 1, 0)]
+    for i, p in enumerate(packets):
+        pages.append(build_ogg_page([p], 7, 2 + i, 960 * (i + 1)))
+    return b"".join(pages)
+
+
+def silk_packets(n: int):
+    """Single-frame 20 ms SILK packets from the JAX package's owned voice
+    encoder (mono, wideband)."""
+    from soundkit_tpu.codecs.encoders import OpusEncoder
+
+    t = np.arange(960 * n) / 48000
+    pcm = (8000 * np.sin(2 * np.pi * 220 * t) * (1 + 0.3 * np.sin(2 * np.pi * 3 * t)))
+    enc = OpusEncoder(48000, 1, 24000, mode="voice")
+    return (enc.encode_i16_packets(pcm.astype(np.int16)) + enc.flush_packets())[:n]
+
+
+REROUTE_CASES = ("silk_first", "ten_ms_celt", "code3_multiframe", "mapping_family_1",
+                 "three_channels", "mode_switch")
+
+
+def opus_reroute_case(clips, case: str):
+    """(OpusHead, packets, the refusal's message) of an Ogg Opus lane that
+    the JAX package's group reroutes to its host decoder: a SILK first
+    packet, a 10 ms CELT packet, a code-3 packet of two frames, an
+    OpusHead of mapping family 1 or of three channels, a switch from CELT
+    to SILK in mid-stream."""
+    clip = clips[0]
+    celt = clip.packets[:6]
+    head2 = clip.head
+    ten_ms = bytes([(30 << 3) | (celt[2][0] & 7)]) + celt[2][1:]  # CELT FB 10 ms
+    frame = celt[3][1:]
+    multi = bytes([celt[3][0] | 3, 2]) + frame + frame  # code 3, two CBR frames
+    family1 = head2[:18] + b"\x01"
+    three = head2[:9] + b"\x03" + head2[10:]
+    silk = silk_packets(3)
+    return {
+        "silk_first": (head2, silk, "no batched silk engine"),
+        "ten_ms_celt": (head2, celt[:2] + [ten_ms], "non-20ms/multiframe"),
+        "code3_multiframe": (head2, celt[:3] + [multi], "non-20ms/multiframe"),
+        "mapping_family_1": (family1, celt, "unsupported OpusHead"),
+        "three_channels": (three, celt, "unsupported OpusHead"),
+        "mode_switch": (head2, celt[:4] + silk[:1], "mid-stream mode switch"),
+    }[case]
+
+
 if __name__ == "__main__":
     {"aac": generate_aac_fixtures, "telephony": generate_telephony_fixtures,
-     "flac": generate_flac_fixtures, "mp3": generate_mp3_fixtures}[sys.argv[1]]()
+     "flac": generate_flac_fixtures, "mp3": generate_mp3_fixtures,
+     "opus": generate_opus_fixtures}[sys.argv[1]]()
