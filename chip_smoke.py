@@ -21,11 +21,15 @@ the batched Opus CELT decoder (1024 ragged stereo lanes of the fixtures
 in ``tests/data/torch_port/opus``: libopus clips with the comb postfilter
 and transient frames, a mono clip, an owned-encoder clip, an OpusHead
 gain) through ``soundkit_tpu_torch.models.opus_batch.BatchedCeltDecoder``,
-and the serving runtime ``soundkit_tpu_torch.models.fleet.StreamFleet``
-over all five (1024 lanes a group). Phases:
+the batched Opus SILK and hybrid decoders (1024 ragged voice lanes of the
+libopus voice fixtures in the same directory: SILK NB / MB / WB, a
+quarter stereo; hybrid SWB mono and FB stereo) through
+``BatchedSilkDeviceDecoder`` and ``BatchedHybridDecoder``, and the
+serving runtime ``soundkit_tpu_torch.models.fleet.StreamFleet`` over all
+five (1024 lanes a group). Phases:
 
 a. build the CUDA kernels, the host parser, the FLAC walk, the MP3
-   parser and the CELT parse from the checkout;
+   parser and the Opus parse (CELT, SILK, hybrid glue) from the checkout;
 b. print the card (``nvidia-smi`` name and power limit), the kernels'
    launch shapes (K4's lanes a block and a warp, K6's threads a lane,
    K7's threads a band and steps a tile, K3's codes a thread and threads
@@ -133,23 +137,49 @@ p. CELT: 1024 ragged stereo lanes (lane i: clip i mod 4 from packet
    the streams come out; one ``[celt]`` line (x realtime at 48 kHz, the
    decoder's parse / h2d / step medians, the device operations and their
    device time a round by ``torch.profiler``);
-q. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
+q. SILK kernel: K12 (``silk_synth``: the LTP/LPC synthesis of a 20 ms
+   frame of every (lane, channel) row, one launch a bandwidth group a
+   round) against its plain version on the card, bit-exact: on the
+   [silk] path's WB round after three decoded rounds (1024 lanes of the
+   [silk] mix x 2 rows, with the decoder's carried state; the timed
+   case), and on seeded random rounds of 1024 streams at NB, MB and WB,
+   C = 2 and 1 (lags at both ends of the range, voiced and unvoiced rows,
+   lead-in, invalid and all-zero lanes); beside the bound, the chain
+   floor and the issue floor of the LPC recursion, estimated;
+r. SILK and hybrid compare: two decodes of a 1024-lane
+   ``BatchedSilkDeviceDecoder`` (the [silk] mix) and of a
+   ``BatchedHybridDecoder`` (the [hybrid] mix) on the card against the
+   port's plain path on the CPU: PCM >= 100 dB per lane, lengths
+   identical, the carried state within 1e-5 of its largest value;
+s. SILK: 1024 ragged voice lanes (lane i: clip i mod 8 of four WB mono,
+   an NB, an MB and two WB stereo, each from its OpusHead's pre-skip and
+   gain), three pushes of their packets and a decode of every ready
+   round after each, launch counters reset just before; K12 once a
+   bandwidth group a round (at most 3), every valid sample out; one
+   ``[silk]`` line (x realtime at 48 kHz, the walk a round, the h2d and
+   the step, the device operations and their device time a round by
+   ``torch.profiler``);
+t. hybrid: 1024 ragged lanes of the SWB and FB clips the same way, K12
+   and K11 once a round of every chunk of 8; one ``[hybrid]`` line with
+   the same figures a chunk;
+u. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    lanes (detected from ADTS), 1024 MP3 lanes (detected from their frame
    headers), 1024 FLAC lanes (detected from ``fLaC``), 1024 Ogg Opus
-   lanes (detected from ``OggS`` and ``OpusHead``) and 1024 G.722 lanes
-   (explicit kind), pushed raggedly in four rounds with a
+   lanes (detected from ``OggS`` and ``OpusHead``: CELT, SILK and hybrid
+   streams, clip i mod 10 of the four CELT and six voice clips) and 1024
+   G.722 lanes (explicit kind), pushed raggedly in four rounds with a
    ``collect(device_out=True)`` after each, a quarter of the streams
    ended after the second round and their lanes taken by new streams;
    every stream's fetched PCM is held against the bare model's output
    for the same bytes (MP3, FLAC and G.722 bit-exact, AAC and Opus >=
    100 dB under the same rounds), refused streams (Ogg Vorbis, GSM, an
-   Ogg Opus stream whose first packet is SILK) must raise
+   Ogg Opus SILK stream that switches from NB to WB) must raise
    ``FleetUnsupported``, and every kernel of the five groups must have
    launched; then an ``out_bits=16`` collect against the quantized bare
-   output (Opus on the i16 spectral wire), and per group a fleet serving
-   that group alone, its x realtime beside the bare model's on the same
-   bytes; one ``[fleet]`` line;
-r. print the kernels' JSON line (all eleven kernels, K2 with no launch:
+   output (Opus CELT on the i16 spectral wire), and per group a fleet
+   serving that group alone, its x realtime beside the bare model's on
+   the same bytes; one ``[fleet]`` line;
+v. print the kernels' JSON line (all twelve kernels, K2 with no launch:
    it is not on a path), then the result line.
 
 Any failed phase exits non-zero before the result line. Without a
@@ -196,6 +226,15 @@ CELT_COMPARE_PACKETS = 8
 K11_STEP_CYCLES = 60   # dependent cycles a comb step (five shared loads, the tap sums, a store)
 K11_EM_CYCLES = 8      # dependent cycles a block of the de-emphasis memory (a multiply, an add)
 FLEET_OPUS_PACKETS = 60  # packets an Ogg Opus fleet stream carries (1.2 s)
+SILK_ROUNDS = 3        # pushes of the [silk] phase, a decode after each
+SILK_WARM = 3          # rounds the [silk-kernels] path case decodes before its round
+SILK_COMPARE_PACKETS = 8
+HYBRID_ROUNDS = 3      # pushes of the [hybrid] phase, a decode after each
+HYBRID_COMPARE_PACKETS = 16
+K12_SAMPLE_CYCLES = 8  # dependent cycles an LPC sample (the coeff[0] product and the add)
+# the [silk] lanes: lane i plays clip SILK_MIX[i mod 8] (mostly WB, a quarter stereo)
+SILK_MIX = ("silk_wb",) * 4 + ("silk_nb", "silk_mb") + ("silk_wb_stereo",) * 2
+HYBRID_MIX = ("hybrid_swb", "hybrid_fb")
 
 
 class SmokeFailure(RuntimeError):
@@ -290,14 +329,14 @@ def phase_build():
     t3 = time.perf_counter()
     mpath = _build.mp3_library_path()
     t4 = time.perf_counter()
-    cpath = _build.celt_library_path()
+    cpath = _build.opus_library_path()
     t5 = time.perf_counter()
     _build.kernels()
     log(f"[build] kernels {kpath.relative_to(ROOT)} in {t1 - t0:.3f} s; "
         f"parser {ppath.relative_to(ROOT)} in {t2 - t1:.3f} s; "
         f"FLAC walk {fpath.relative_to(ROOT)} in {t3 - t2:.3f} s; "
         f"MP3 parser {mpath.relative_to(ROOT)} in {t4 - t3:.3f} s; "
-        f"CELT parse {cpath.relative_to(ROOT)} in {t5 - t4:.3f} s")
+        f"Opus parse {cpath.relative_to(ROOT)} in {t5 - t4:.3f} s")
     blog = kpath.with_suffix(".log")
     if blog.exists():
         for line in blog.read_text().splitlines():
@@ -1397,6 +1436,267 @@ def phase_celt():
     return res
 
 
+# ---------------------------------------------------------------------------
+# Opus SILK and hybrid phases
+# ---------------------------------------------------------------------------
+
+def voice_wrappers():
+    from soundkit_tpu_torch.ops import celt_postfilter, silk_synth
+
+    return {"silk_synth": silk_synth.silk_synth, "celt_postfilter": celt_postfilter.celt_postfilter}
+
+
+def voice_clips(kind: str):
+    """The clips of the ``kind`` ('silk' or 'hybrid') phases' lane mix."""
+    from soundkit_tpu_torch.tools import opus_fixtures as of
+
+    by_name = {c.name: c for c in of.load_clips(names=of.VOICE_CLIPS)}
+    return [by_name[n] for n in (SILK_MIX if kind == "silk" else HYBRID_MIX)]
+
+
+def voice_model(kind: str, device: str, timed: bool = False, n_packets=None):
+    """A B-lane decoder of ``kind`` on ``device`` with the smoke lanes of
+    its mix pushed, each configured from its OpusHead (pre-skip, gain),
+    and the lanes' packet counts."""
+    from soundkit_tpu_torch.models.opus_batch import BatchedHybridDecoder, BatchedSilkDeviceDecoder
+    from soundkit_tpu_torch.tools import opus_fixtures as of
+
+    clips = voice_clips(kind)
+    cls = BatchedSilkDeviceDecoder if kind == "silk" else BatchedHybridDecoder
+    model = cls(B, C, device=device, timed=timed)
+    frames = [of.lane_frames(clips, i, n_packets) for i in range(B)]
+    for i in range(B):
+        clip = clips[i % len(clips)]
+        model.configure_lane(i, clip.pre_skip, clip.output_gain)
+    return model, frames
+
+
+def k12_floors_ms(bw: int) -> tuple:
+    """K12's chain floor and issue floor, estimated from the code, in ms at
+    SM_CLOCK: a row's 4 sfl LPC samples at K12_SAMPLE_CYCLES (one product
+    and one add from a sample to the next), and at the instructions the
+    LPC thread issues a sample (2 order + 6: the products and adds, the
+    residual load, the clip and the store)."""
+    from soundkit_tpu_torch.ops import silk_synth as ss
+
+    n = 4 * ss.SFL[bw]
+    return (1e3 * n * K12_SAMPLE_CYCLES / SM_CLOCK, 1e3 * n * (2 * ss.ORDER[bw] + 6) / SM_CLOCK)
+
+
+def phase_silk_kernels():
+    """K12 against its plain version on the card, bit-exact: on the
+    [silk] path's WB round after SILK_WARM decoded rounds (B = 1024
+    lanes of the [silk] mix x 2 rows: the WB launch runs over every lane;
+    the timed case), and on seeded random rounds of B streams at each
+    bandwidth, C = 2 and 1 (lags at both ends, voiced and unvoiced rows,
+    lead-in, invalid and all-zero lanes)."""
+    import torch
+
+    from soundkit_tpu_torch.tools import kernel_check as kc
+
+    dev = torch.device("cuda", 0)
+    inputs = kc.silk_fixture_inputs(B, dev, warm=SILK_WARM, bw=2, names=SILK_MIX)
+    nbytes, flops = kc.silk_synth_work(2, inputs)
+    kernel, plain = kc.silk_synth_pair(2, inputs)
+    r = measure("silk_synth", "silk_synth", kernel, plain, nbytes=nbytes, flops=flops, plain_reps=2)
+    chain_ms, issue_ms = k12_floors_ms(2)
+    rand = {}
+    for bw in (0, 1, 2):
+        for c in (2, 1):
+            k, p = kc.silk_synth_random_case(dev, 30 + bw, bw, streams=B, channels=c)
+            rand[f"bw{bw}_c{c}"] = kc.compare("silk_synth", k, p)
+        k, _ = kc.silk_synth_random_case(dev, 30 + bw, bw, streams=B, channels=2)
+        rand[f"bw{bw}_ms"] = graph_ms(k)
+    voiced = int((inputs[4] != 0).sum())
+    r.update(streams=B, rows=2 * B, voiced_rows=voiced, chain_floor_ms=chain_ms,
+             issue_floor_ms=issue_ms, random_nb_ms=rand["bw0_ms"], random_mb_ms=rand["bw1_ms"],
+             random_wb_ms=rand["bw2_ms"],
+             max_abs_err=max(r["max_abs_err"], *(x["max_abs_err"] for k_, x in rand.items()
+                                                 if not k_.endswith("_ms"))))
+    log(f"[silk-kernels] silk_synth: path (WB, {B} streams x 2 rows, {voiced} voiced) "
+        f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms), bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}; {nbytes} bytes, {flops} FLOP), chain floor ~{chain_ms:.4f} ms, issue "
+        f"floor ~{issue_ms:.4f} ms (estimated); random rounds NB {rand['bw0_ms']:.4f}, MB "
+        f"{rand['bw1_ms']:.4f}, WB {rand['bw2_ms']:.4f} ms; bit-exact on the path and on random "
+        f"rounds at every bandwidth, C = 2 and 1")
+    return {"silk_synth": r}
+
+
+def voice_compare_run(kind: str, device: str, packets: int, first: int):
+    """Two decodes (``first`` rounds, then the rest) of a B-lane decoder of
+    ``kind`` on ``device`` over ``packets`` packets of the smoke lanes:
+    (PCM, lengths) of each, and the carried state, as numpy."""
+    model, frames = voice_model(kind, device, n_packets=packets)
+    for i, fr in enumerate(frames):
+        for frame, bw, coded in fr:
+            model.push_packet(i, frame, bw, coded)
+    out = [model.decode_ready(max_packets=n, device_out=True) for n in (first, None)]
+    if kind == "silk":
+        state = [t for bw in sorted(model._state) for t in model._state[bw]]
+    else:
+        state = [*model._silk_state, *model._celt_state]
+    return [(p.cpu().numpy(), lens) for p, lens in out], [t.cpu().numpy() for t in state]
+
+
+def phase_voice_compare(kind: str):
+    """The card's SILK (or hybrid) decoder against the port's plain path on
+    the CPU, from the same pushes over two decodes: PCM >= 100 dB per lane,
+    lengths identical, the carried state within 1e-5 of its largest value
+    (K12 is bit-exact; the resample and IMDCT products sum in cuBLAS's
+    order, K11 holds 1e-5)."""
+    import numpy as np
+
+    packets, first = ((SILK_COMPARE_PACKETS, SILK_WARM) if kind == "silk"
+                      else (HYBRID_COMPARE_PACKETS, 8))
+    t0 = time.perf_counter()
+    g_out, g_state = voice_compare_run(kind, "cuda", packets, first)
+    t1 = time.perf_counter()
+    c_out, c_state = voice_compare_run(kind, "cpu", packets, first)
+    t2 = time.perf_counter()
+    for (g, gl), (c, cl) in zip(g_out, c_out):
+        check(g.shape == c.shape and g.shape[1:] == (B, C, 960), f"{kind}: shapes differ")
+        check(np.array_equal(gl, cl), f"{kind}: lengths differ")
+        check(np.isfinite(g).all(), f"{kind}: non-finite PCM")
+    got = np.concatenate([g for g, _ in g_out]).astype(np.float64)
+    ref = np.concatenate([c for c, _ in c_out]).astype(np.float64)
+    worst, live = float("inf"), 0
+    for b in range(B):
+        sig, err = (ref[:, b] ** 2).sum(), ((got[:, b] - ref[:, b]) ** 2).sum()
+        if sig == 0:
+            check(err == 0, f"{kind} lane {b}: output on a silent lane")
+            continue
+        live += 1
+        worst = min(worst, 10 * np.log10(sig / max(err, 1e-300)))
+    state_rel = max(float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-30))
+                    for g, c in zip(g_state, c_state))
+    log(f"[{kind}-compare] 2 decodes ({first} and {packets - first} rounds) x {B} lanes: min lane "
+        f"PCM SNR {worst:.2f} dB over {live} lanes; lengths identical; carried state max rel err "
+        f"{state_rel:.2e}; card {t1 - t0:.3f} s, CPU plain {t2 - t1:.3f} s")
+    check(live == B, f"{kind} compare: only {live} lanes carried sound")
+    check(worst >= 100.0, f"{kind} card vs CPU: a lane at {worst:.2f} dB")
+    check(state_rel <= 1e-5, f"{kind} card vs CPU: state off by {state_rel:.2e}")
+    return dict(min_pcm_snr_db=worst, lanes=live, state_rel_err=state_rel, card_s=t1 - t0,
+                cpu_s=t2 - t1)
+
+
+def voice_step_profile(kind: str) -> dict:
+    """Device operations and their device time, by ``torch.profiler``,
+    a round of the SILK decoder (over 4 rounds of the [silk] mix: up to
+    three bandwidth groups a round) or a chunk of the hybrid decoder (8
+    rounds), at B = 1024."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    model, frames = voice_model(kind, "cuda", n_packets=12 if kind == "silk" else 24)
+    for i, fr in enumerate(frames):
+        for frame, bw, coded in fr:
+            model.push_packet(i, frame, bw, coded)
+    model.decode_ready(max_packets=1 if kind == "silk" else 8, device_out=True)
+    torch.cuda.synchronize()
+    steps = 4 if kind == "silk" else 1
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.decode_ready(max_packets=4 if kind == "silk" else 8, device_out=True)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in ops if e.name.startswith(("Memcpy", "Memset"))]
+
+    def ms(events):
+        return sum(e.time_range.elapsed_us() for e in events) / 1e3 / steps
+
+    return dict(ops_per_step=len(ops) / steps, kernel_ms_per_step=ms(ops) - ms(copies),
+                copy_ms_per_step=ms(copies), kernel_names=sorted({e.name[:60] for e in ops}))
+
+
+def phase_voice(kind: str):
+    """B ragged lanes of the SILK mix (NB / MB / WB, a quarter stereo) or
+    of the hybrid mix (SWB mono, FB stereo) through the decoder until they
+    drain: SILK_ROUNDS (HYBRID_ROUNDS) pushes of every lane's packets, a
+    decode of every ready round after each; launch counters reset just
+    before. SILK: K12 once a bandwidth group a round (at most 3). Hybrid:
+    K12 and K11 once a round of every chunk of 8. Every valid sample
+    out."""
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.ops import silk_batch as sb
+
+    clips = voice_clips(kind)
+    model, frames = voice_model(kind, "cuda", timed=True)
+    wrappers = voice_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    pushes = SILK_ROUNDS if kind == "silk" else HYBRID_ROUNDS
+    push_s = decode_s = 0.0
+    samples = np.zeros(B, np.int64)
+    rounds = padded = groups = 0
+    peak = torch.zeros((), device="cuda")
+    for r in range(pushes):
+        t0 = time.perf_counter()
+        for i, fr in enumerate(frames):
+            for frame, bw, coded in fr[len(fr) * r // pushes: len(fr) * (r + 1) // pushes]:
+                model.push_packet(i, frame, bw, coded)
+        t1 = time.perf_counter()
+        n = max(model.lane_ready(i) for i in range(B))
+        if kind == "silk":
+            # bandwidth groups of each round of this decode (a lane's bandwidth is fixed)
+            ready = np.array([model.lane_ready(i) for i in range(B)])
+            bws = np.array([model.bw[i] for i in range(B)])
+            groups += sum(len(set(bws[ready > k].tolist())) for k in range(n))
+        pcm, lens = model.decode_ready(device_out=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        push_s += t1 - t0
+        decode_s += t2 - t1
+        rounds += n
+        padded += -(-n // 8) * 8
+        samples += lens.sum(axis=0)
+        check(tuple(pcm.shape) == (n, B, C, 960), f"{kind} pcm {tuple(pcm.shape)}")
+        check(bool(torch.isfinite(pcm).all()), f"{kind}: non-finite PCM")
+        peak = torch.maximum(peak, pcm.abs().max())
+    launches = {n: w.launches for n, w in wrappers.items()}
+    check(all(model.lane_ready(i) == 0 for i in range(B)), f"{kind}: lanes not drained")
+    if kind == "silk":
+        check(launches["silk_synth"] == groups and launches["silk_synth"] <= 3 * rounds,
+              f"silk_synth launched {launches['silk_synth']} times for {groups} bandwidth groups "
+              f"in {rounds} rounds")
+        check(launches["celt_postfilter"] == 0, "celt_postfilter launched on SILK lanes")
+        lead = np.array([sb.lead_invalid(fr[0][1]) for fr in frames])
+        skip = np.array([clips[i % len(clips)].pre_skip for i in range(B)])
+    else:
+        check(launches["silk_synth"] == padded and launches["celt_postfilter"] == padded,
+              f"hybrid: {launches} for {padded} rounds (chunks of 8)")
+        lead = np.zeros(B, np.int64)
+        skip = np.array([clips[i % len(clips)].pre_skip for i in range(B)])
+    check(float(peak) > 0.05, f"{kind}: peak {float(peak)} (silent)")
+    packets = np.array([len(fr) for fr in frames])
+    want = np.maximum(packets * 960 - lead - skip, 0)
+    check(samples.tolist() == want.tolist(), f"{kind}: {samples.sum()} samples out, the streams "
+          f"carry {want.sum()}")
+    audio_s = float(samples.sum()) / RATE
+    stages = model.stage_ms()
+    res = dict(lanes=B, channels=C, pushes=pushes, rounds=rounds, packets=int(packets.sum()),
+               audio_s=audio_s, xrealtime=audio_s / (push_s + decode_s), push_s=push_s,
+               decode_s=decode_s, xrealtime_decode_only=audio_s / decode_s,
+               walk_ms_median_per_collect=stages["parse"],
+               walk_ms_per_round=stages["parse"] * pushes / rounds,
+               h2d_ms_median_per_collect=stages["h2d"], launches=launches)
+    if kind == "silk":
+        res.update(device_step_ms_median_per_round=stages["step"], bandwidth_groups=groups,
+                   k12_launches_per_round=launches["silk_synth"] / rounds)
+    else:
+        res.update(device_step_ms_median_per_chunk=stages["step"], padded_rounds=padded,
+                   k12_launches_per_round=launches["silk_synth"] / padded,
+                   k11_launches_per_round=launches["celt_postfilter"] / padded)
+    prof = voice_step_profile(kind)
+    unit = "round" if kind == "silk" else "chunk"
+    res.update({f"device_ops_per_{unit}": prof["ops_per_step"],
+                f"device_kernel_ms_per_{unit}": prof["kernel_ms_per_step"],
+                f"device_copy_ms_per_{unit}": prof["copy_ms_per_step"]})
+    log(f"[{kind}] {json.dumps(res)}")
+    log(f"[{kind}] device operations of a {unit}: {prof['kernel_names']}")
+    return res
+
+
 class FleetStreams:
     """The streams of the fleet phase: per group, B first-wave streams
     and, for every fourth lane, a second-wave stream that takes the lane
@@ -1424,7 +1724,8 @@ class FleetStreams:
         # a lane's audio: the granules its parser gives, at the lane's rate
         mp3_s = [NativeMp3Parser().push(s) * 576 / r
                  for s, r in zip(mp3, mf.lane_rates(mclips, lanes + n2))]
-        oclips = of.load_clips()
+        # CELT clips and the voice clips (SILK NB / MB / WB / WB stereo, hybrid SWB / FB)
+        oclips = of.load_clips() + of.load_clips(names=of.VOICE_CLIPS)
         self.data, self.kind, self.audio, self.group = {}, {}, {}, {}
         self.flac_bits = {f"flac-{j}": ff.lane_frames(clips, j)[0].bits for j in range(lanes + n2)}
         # an Ogg Opus stream as its pieces: the header pages, then a page a packet
@@ -1432,8 +1733,14 @@ class FleetStreams:
         for j in range(lanes + n2):
             clip, idx = of.lane_packets(oclips, j, FLEET_OPUS_PACKETS)
             self.opus_pages[f"opus-{j}"] = [clip.header] + [clip.pages[t] for t in idx]
-        opus_s = [max(len(of.lane_packets(oclips, j, FLEET_OPUS_PACKETS)[1]) * 960
-                      - oclips[j % len(oclips)].pre_skip, 0) / RATE for j in range(lanes + n2)]
+        # a lane's audio: its packets' samples less the pre-skip (a hybrid lane keeps it, as the
+        # reference's does) and the SILK resampler's lead (NB 23)
+        opus_s = []
+        for j in range(lanes + n2):
+            clip, idx = of.lane_packets(oclips, j, FLEET_OPUS_PACKETS)
+            cut = {"silk_nb": clip.pre_skip + 23, "hybrid_swb": 0, "hybrid_fb": 0}.get(
+                clip.name, clip.pre_skip)
+            opus_s.append(max(len(idx) * 960 - cut, 0) / RATE)
         for j in range(lanes + n2):
             for g, data, kind, secs in (("aac", aac[j], None, FLEET_AAC_FRAMES * 1024 / RATE),
                                         ("mp3", mp3[j], None, mp3_s[j]),
@@ -1607,6 +1914,7 @@ def phase_fleet():
 
     from soundkit_tpu_torch.models.fleet import FleetUnsupported, StreamFleet
     from soundkit_tpu_torch.ops import aac_batch as ab
+    from soundkit_tpu_torch.tools import opus_fixtures as of
     from soundkit_tpu_torch.ops import aac_entropy as ae
     from soundkit_tpu_torch.ops import g722, imdct
 
@@ -1616,7 +1924,7 @@ def phase_fleet():
     second = [sid for g in groups for sid in fs.wave(g, True)]
     wrappers = {"spectral_decode": ae.spectral_decode, "tns_filter": ab.tns_filter,
                 "imdct_window": imdct.imdct_window, "g722_scan": g722.g722_decode_scan,
-                **flac_wrappers(), **mp3_wrappers(), **celt_wrappers()}
+                **flac_wrappers(), **mp3_wrappers(), **voice_wrappers()}
 
     # mixed: all three groups in one fleet, lanes recycled, every stream checked
     fleet = StreamFleet(capacity_per_group=B, device="cuda")
@@ -1659,15 +1967,18 @@ def phase_fleet():
         check(False, "fleet: a GSM stream was not refused")
     except FleetUnsupported:
         pass
-    # an Ogg Opus stream whose first packet is SILK (a SILK WB 20 ms TOC)
-    silk = bytes([9 << 3]) + bytes(40)
+    # an Ogg Opus SILK stream that switches from NB to WB in mid-stream (the reference
+    # reroutes it to its host decoder)
+    voice = {c.name: c for c in of.load_clips(names=of.VOICE_CLIPS)}
+    switch = voice["silk_nb"].packets[:4] + voice["silk_wb"].packets[4:6]
     try:
-        fleet.push("refused", fs.opus_pages["opus-0"][0] + b"OggS" + bytes(22)
-                   + bytes([1, len(silk)]) + silk)
+        fleet.push("refused", voice["silk_nb"].header + b"".join(
+            b"OggS" + bytes(22) + bytes([1, len(pkt)]) + pkt for pkt in switch))
         fleet.end_stream("refused")
-        check(False, "fleet: an Ogg Opus SILK stream was not refused")
+        check(False, "fleet: an Ogg Opus SILK bandwidth switch was not refused")
     except FleetUnsupported as e:
-        check("kind 'opus'" in str(e) and "silk" in str(e), f"fleet: refusal does not name it: {e}")
+        check("kind 'opus'" in str(e) and "silk bandwidth switch" in str(e),
+              f"fleet: refusal does not name it: {e}")
     check(not fleet._lanes and not fleet._detect and not fleet._ended,
           "fleet: the refused stream was not forgotten")
 
@@ -1822,6 +2133,16 @@ def main() -> int:
         ccres = phase_celt_compare()
         phase = "celt"
         celtres = phase_celt()
+        phase = "silk-kernels"
+        skres = phase_silk_kernels()
+        phase = "silk-compare"
+        scres = phase_voice_compare("silk")
+        phase = "hybrid-compare"
+        hcres = phase_voice_compare("hybrid")
+        phase = "silk"
+        silkres = phase_voice("silk")
+        phase = "hybrid"
+        hybres = phase_voice("hybrid")
         phase = "fleet"
         flres = phase_fleet()
     except Exception:
@@ -1881,13 +2202,22 @@ def main() -> int:
         name="celt_postfilter", route="cuda", source=src + "celt_postfilter.cu",
         replaces="soundkit_tpu/ops/celt_batch.py:108", on_path=True,
         launches=celtres["launches"]["celt_postfilter"],
-        launches_per_step=celtres["k11_launches_per_round"], **ckres["celt_postfilter"]))
+        launches_per_step=celtres["k11_launches_per_round"],
+        hybrid_launches=hybres["launches"]["celt_postfilter"], **ckres["celt_postfilter"]))
+    kernels.append(dict(
+        name="silk_synth", route="cuda", source=src + "silk_synth.cu",
+        replaces="soundkit_tpu/ops/silk_batch.py:141", on_path=True,
+        launches=silkres["launches"]["silk_synth"] + hybres["launches"]["silk_synth"],
+        launches_by_phase={"silk": silkres["launches"]["silk_synth"],
+                           "hybrid": hybres["launches"]["silk_synth"]},
+        launches_per_step=silkres["k12_launches_per_round"], **skres["silk_synth"]))
     for k in kernels:
         k["fleet_launches"] = flres["mixed"]["launches"].get(k["name"], 0)
     log(json.dumps({"slice": sres, "compare": cres, "telephony": tres,
                     "telephony_compare": tcres, "flac": fres, "flac_compare": fcres,
                     "mp3": mres, "mp3_compare": mcres, "celt": celtres, "celt_compare": ccres,
-                    "fleet": flres,
+                    "silk": silkres, "silk_compare": scres, "hybrid": hybres,
+                    "hybrid_compare": hcres, "fleet": flres,
                     "wall_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

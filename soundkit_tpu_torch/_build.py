@@ -19,11 +19,16 @@ builds once and a source edit rebuilds:
   table header ``native_src/generated/mp3_tables.h`` (verbatim copies;
   frame sync, side info, bit reservoir, Huffman spectra and the compact
   granule wire), compiled alone by ``g++`` with the same flags;
-- the Opus CELT host parse, ``native_src/src/celt_parse.cpp`` (a
-  verbatim copy; range decode, allocation, PVQ, anti-collapse and
-  denormalization, writing a collect's spectral wire), compiled alone by
-  ``g++`` with the same flags. Its tables are pushed at load time
-  (``codecs/celt_native.py``).
+- the Opus host parse, ``opus_parse``: ``native_src/src/celt_parse.cpp``
+  (range decode, allocation, PVQ, anti-collapse and denormalization,
+  writing a collect's spectral wire), ``silk_parse.cpp`` (the SILK walk
+  that exports the synthesis inputs) and ``hybrid_glue.cpp`` (the hybrid
+  walk, which chains the SILK export and the CELT continuation over the
+  parse states of both), verbatim copies compiled together by ``g++``
+  with the same flags. They are one library because the glue calls both
+  walks directly and each source keeps its spec tables in a
+  library-global, pushed at load time (``codecs/celt_native.py``,
+  ``codecs/silk_native.py``).
 
 A failed build raises :class:`BuildError` with the compiler's output.
 Nothing here runs at import time.
@@ -49,7 +54,8 @@ PARSER_HEADERS = (NATIVE_DIR / "generated" / "aac_tables.h",)
 FLAC_SOURCES = (NATIVE_DIR / "src" / "flac.cpp",)
 MP3_SOURCES = (NATIVE_DIR / "src" / "mp3_parse.cpp",)
 MP3_HEADERS = (NATIVE_DIR / "generated" / "mp3_tables.h",)
-CELT_SOURCES = (NATIVE_DIR / "src" / "celt_parse.cpp",)
+OPUS_SOURCES = tuple(NATIVE_DIR / "src" / f for f in ("celt_parse.cpp", "silk_parse.cpp",
+                                                      "hybrid_glue.cpp"))
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -121,9 +127,9 @@ def mp3_library_path() -> Path:
 
 
 @functools.lru_cache(maxsize=1)
-def celt_library_path() -> Path:
+def opus_library_path() -> Path:
     gxx = _compiler("g++", "/usr/bin/g++")
-    return _build("celt_parse", gxx, GXX_FLAGS, CELT_SOURCES, ())
+    return _build("opus_parse", gxx, GXX_FLAGS, OPUS_SOURCES, ())
 
 
 @functools.lru_cache(maxsize=1)
@@ -148,10 +154,11 @@ def kernels() -> ctypes.CDLL:
     lib.skt_flac_lpc.argtypes = [p, p, p, p, p, p, p, p, p, i, i, p]
     lib.skt_mp3_granule.argtypes = [p, *[i] * 7, p, p, p, p, p, p, i, i, p]
     lib.skt_celt_postfilter.argtypes = [*[p] * 11, i, i, p]
+    lib.skt_silk_synth.argtypes = [*[p] * 12, i, i, p]
     for fn in (lib.skt_imdct_window, lib.skt_dequant_imdct_window,
                lib.skt_spectral_decode, lib.skt_tns_filter, lib.skt_g711_decode,
                lib.skt_g711_launch_floor, lib.skt_g726_scan, lib.skt_g722_scan,
                lib.skt_flac_rice_plane, lib.skt_flac_lpc, lib.skt_mp3_granule,
-               lib.skt_celt_postfilter):
+               lib.skt_celt_postfilter, lib.skt_silk_synth):
         fn.restype = ctypes.c_int
     return lib

@@ -1,7 +1,7 @@
 """Opus CELT host parse of the port (counterpart of
 ``soundkit_tpu/codecs/celt_native.py``): range decode, allocation, PVQ,
 anti-collapse and denormalization in the port's build of
-``native_src/src/celt_parse.cpp`` (``native.celt_library``), emitting the
+``native_src/src/celt_parse.cpp`` (``native.opus_library``), emitting the
 spectra and packed postfilter parameters that the batched synthesis
 (``ops/celt_batch.py``) consumes.
 
@@ -21,7 +21,7 @@ import functools
 import numpy as np
 
 from soundkit_tpu_torch.codecs.opus_tables import tables, PVQ_U_ROW_OFFSETS
-from soundkit_tpu_torch.native import celt_library
+from soundkit_tpu_torch.native import opus_library
 
 FRAME = 960
 
@@ -32,7 +32,7 @@ class CeltNativeError(RuntimeError):
 
 @functools.lru_cache(maxsize=1)
 def _lib():
-    lib = celt_library()
+    lib = opus_library()
     t = tables()
 
     def push_i(name, arr):

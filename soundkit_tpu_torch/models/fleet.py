@@ -3,7 +3,8 @@
 
 Each arriving byte stream is routed, after format detection or by its
 explicit kind, into a fixed-capacity batched lane group for its codec:
-AAC-LC, MP3, FLAC, Ogg Opus (CELT), or one of the seven telephony kinds.
+AAC-LC, MP3, FLAC, Ogg Opus (CELT, SILK and hybrid lanes), or one of the
+seven telephony kinds.
 All groups decode in lockstep device batches, and the fleet returns
 per-stream PCM. Lanes are
 recycled when a stream ends, so a long-running fleet serves an unbounded
@@ -27,9 +28,10 @@ stream raises :class:`FleetUnsupported` at the ``push`` or
 - an Ogg Opus stream that the JAX package's group reroutes to its host
   decoder (``models/opus_fleet_model.OpusLaneUnsupported``: an OpusHead
   of more channels than the group or of a mapping family other than 0,
-  a packet that is not a single 20 ms frame, a SILK or hybrid first
-  packet, a mid-stream mode switch), at the push that brings it; its
-  lane is reset and freed;
+  a packet that is not a single 20 ms frame, a mid-stream mode switch or
+  SILK bandwidth switch, a hybrid lane frozen by its walk: a stream that
+  starts on a transition-redundancy packet), at the push that brings it;
+  its lane is reset and freed;
 - any stream whose group is full.
 
 An explicit kind that is none of these names raises a plain

@@ -1,6 +1,6 @@
 """The host libraries of the port, bound with ``ctypes``: the AAC-LC
-syntax parser, the FLAC walk, the MP3 syntax parser and the Opus CELT
-parse.
+syntax parser, the FLAC walk, the MP3 syntax parser and the Opus parse
+(CELT, SILK and the hybrid glue).
 
 ``AacHostParser`` holds a parser handle ``_h`` of the library ``_lib``,
 which the wire packers of ``codecs/aac_lc_native.py``
@@ -21,11 +21,16 @@ with the signatures ``codecs/mp3_native.py`` and
 / ``free``), ``push``, and the three pops (one granule, one granule a
 lane, up to ``G`` granules a lane into a collect's packed wire).
 
-:func:`celt_library` is the port's copy of ``native_src/src/celt_parse.cpp``
-with the signatures ``codecs/celt_native.py`` calls: the table pushes, a
-handle per stream (``skt_celt_new`` / ``free`` / ``reset``) and the
-serving walk over a collect's rounds on the float32 and the int16 wire
-(``skt_celt_parse_rounds`` / ``_q``).
+:func:`opus_library` is the port's build of ``native_src/src/celt_parse.cpp``,
+``silk_parse.cpp`` and ``hybrid_glue.cpp`` as one library, with the
+signatures ``codecs/celt_native.py`` and ``codecs/silk_native.py`` call:
+the table pushes of both codecs, a handle per stream and codec
+(``skt_celt_new`` / ``free`` / ``reset``, ``skt_silk_new`` / ``free`` /
+``reset``), the CELT serving walk over a collect's rounds on the float32
+and the int16 wire (``skt_celt_parse_rounds`` / ``_q``), the SILK
+parse-export of one round (``skt_silk_parse_many``) and the hybrid walk
+of a chunk of rounds into its packed wire
+(``skt_hybrid_parse_rounds_packed``).
 """
 from __future__ import annotations
 
@@ -170,24 +175,25 @@ def mp3_library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=1)
-def celt_library() -> ctypes.CDLL:
-    """The standalone CELT parse with the signatures the batched decoder
-    calls (every pointer typed: a missing argtype cuts it to 32 bits).
-    Its tables are not pushed here (``codecs/celt_native.py`` does)."""
+def opus_library() -> ctypes.CDLL:
+    """The Opus parse library (CELT, SILK, hybrid glue) with the
+    signatures the batched decoders call (every pointer typed: a missing
+    argtype cuts it to 32 bits). Its tables are not pushed here
+    (``codecs/celt_native.py`` and ``codecs/silk_native.py`` do)."""
     from numpy.ctypeslib import ndpointer
 
-    lib = ctypes.CDLL(str(_build.celt_library_path()))
+    lib = ctypes.CDLL(str(_build.opus_library_path()))
 
     def arr(dt):
         return ndpointer(dt, flags="C_CONTIGUOUS")
 
     vp, c_int, c_long = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     handles = ctypes.POINTER(vp)
-    i32, f32 = arr(np.int32), arr(np.float32)
+    i32, i64, f32, f64 = arr(np.int32), arr(np.int64), arr(np.float32), arr(np.float64)
     lib.skt_celt_table_i.restype = c_int
-    lib.skt_celt_table_i.argtypes = [ctypes.c_char_p, arr(np.int64), c_long]
+    lib.skt_celt_table_i.argtypes = [ctypes.c_char_p, i64, c_long]
     lib.skt_celt_table_f.restype = c_int
-    lib.skt_celt_table_f.argtypes = [ctypes.c_char_p, arr(np.float64), c_long]
+    lib.skt_celt_table_f.argtypes = [ctypes.c_char_p, f64, c_long]
     lib.skt_celt_tables_done.restype = c_int
     lib.skt_celt_tables_done.argtypes = []
     lib.skt_celt_new.restype = vp
@@ -196,12 +202,40 @@ def celt_library() -> ctypes.CDLL:
     lib.skt_celt_free.argtypes = [vp]
     lib.skt_celt_reset.restype = None
     lib.skt_celt_reset.argtypes = [vp]
-    walk = [handles, c_int, c_int, ctypes.c_char_p, arr(np.int64),  # handles, B, R, buf, base
-            i32, i32, i32, c_int, c_int, c_int]                     # lens, ends, coded, n, C, W
+    walk = [handles, c_int, c_int, ctypes.c_char_p, i64,  # handles, B, R, buf, base
+            i32, i32, i32, c_int, c_int, c_int]           # lens, ends, coded, n, C, W
     lib.skt_celt_parse_rounds.restype = c_int
     lib.skt_celt_parse_rounds.argtypes = [*walk, f32, f32, i32, i32]  # freq, comb, sflag, ok
     lib.skt_celt_parse_rounds_q.restype = c_int
     lib.skt_celt_parse_rounds_q.argtypes = [*walk, arr(np.int16), f32, f32, i32, i32]  # + scales
+    # the SILK and hybrid entries take ctypes pointers (``a.ctypes.data_as``),
+    # as the JAX package's ``codecs/silk_native.py`` passes them
+    P = ctypes.POINTER
+    dp, ip, lp = P(ctypes.c_double), P(c_int), P(c_long)
+    lib.skt_silk_table.restype = None
+    lib.skt_silk_table.argtypes = [ctypes.c_char_p, P(ctypes.c_int64), c_long]
+    lib.skt_silk_tables_done.restype = c_int
+    lib.skt_silk_tables_done.argtypes = []
+    lib.skt_silk_new.restype = vp
+    lib.skt_silk_new.argtypes = []
+    lib.skt_silk_free.restype = None
+    lib.skt_silk_free.argtypes = [vp]
+    lib.skt_silk_reset.restype = None
+    lib.skt_silk_reset.argtypes = [vp]
+    lib.skt_silk_parse_many.restype = c_int
+    lib.skt_silk_parse_many.argtypes = [
+        handles, c_int, ctypes.c_char_p, lp, lp,  # handles, B, buf, offs, lens
+        ip, ip, ip, P(ctypes.c_ubyte),            # bws, coded, duration ms, valid
+        dp, dp, dp, dp, dp, dp,                   # exc, gains, coef, ltp, ltpscale, stereo_w
+        ip, ip, lp, lp,                           # lags, flags, n, info
+    ]
+    lib.skt_hybrid_parse_rounds_packed.restype = c_int
+    lib.skt_hybrid_parse_rounds_packed.argtypes = [
+        handles, handles, c_int, c_int, ctypes.c_char_p,  # silk, celt handles, B, R, buf
+        lp, ip, ip, ip,                                   # base, lens, ends, coded
+        c_int, c_int, c_int, c_int,                       # frame size, C, bin lo, bin len
+        P(ctypes.c_ubyte), lp, lp, ip, ip, dp,            # wire, offsets, n, ok, red, exc f64
+    ]
     return lib
 
 

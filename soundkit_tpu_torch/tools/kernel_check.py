@@ -23,7 +23,12 @@ beyond the bound. The bounds are on ``max|kernel - plain| / max|plain|``:
   (the comb's products and sums round one by one in the plain version's
   order; the de-emphasis sums in another order than its [8, 8] product),
   and a stream with ``valid`` 0 passes its state through bit for bit
-  (:func:`celt_invalid_passthrough`).
+  (:func:`celt_invalid_passthrough`);
+- K12 ``silk_synth``: bit-exact, the output line and the new LPC tail
+  (every product and sum rounded alone in the plain version's order);
+  the SILK round around it (``silk_round``: K12, the unmix and the
+  resample products) 1e-5, the products summed by cuBLAS in another
+  order than the CPU's.
 
 A case may return a tuple of tensors (a scan's output and its state);
 every element is held to the bound.
@@ -37,7 +42,7 @@ from soundkit_tpu_torch import _build
 from soundkit_tpu_torch.ops import aac_batch as ab
 from soundkit_tpu_torch.ops import aac_entropy as ae
 from soundkit_tpu_torch.ops import (adpcm, celt_postfilter, companding, flac_lpc, flac_rice, g722,
-                                    imdct, mp3_synth)
+                                    imdct, mp3_synth, silk_synth)
 from soundkit_tpu_torch.utils.device import launch_check
 
 REL_BOUND = {
@@ -52,6 +57,8 @@ REL_BOUND = {
     "flac_frame": 0.0,
     "mp3_synth": 1e-5,
     "celt_postfilter": 1e-5,
+    "silk_synth": 0.0,
+    "silk_round": 1e-5,
 }
 
 
@@ -829,3 +836,154 @@ def celt_postfilter_work(inputs) -> tuple:
                 + 840 * ((on[2].long() * 10) + on[3].long() * 9) + 120 + celt_postfilter.N * 3)
     flops = int((per_lane[v] * C).sum())
     return nbytes, flops
+
+
+# ---------------------------------------------------------------------------
+# SILK (K12)
+# ---------------------------------------------------------------------------
+
+SILK_ARGS = ("exc", "gains", "coef", "hl", "vo", "lags", "ltp", "ltpscale")
+
+
+def silk_synth_pair(bw: int, inputs):
+    """K12 and its plain version at bandwidth ``bw`` on ``inputs`` = (exc,
+    gains, coef, has_leadin, voiced, lags, ltp, ltpscale, out_hist,
+    lpch_tail), each returning (dst, new lpch_tail)."""
+    return (lambda: silk_synth.silk_synth(bw, *inputs),
+            lambda: silk_synth.silk_synth_plain(bw, *inputs))
+
+
+def silk_synth_random_inputs(seed: int, bw: int, streams: int = 37, channels: int = 2):
+    """Seeded K12 inputs on the CPU for ``streams`` lanes x 2 rows, the
+    sizes the SILK walk exports: excitation ~3e-4 in Q23 steps, gains
+    2-40, stable LPC (pole radii 0.3-0.9), LTP taps of a voiced
+    row (their magnitudes summing to at most 0.9), lags over the bandwidth's whole range with its two ends, voiced
+    and unvoiced rows, with and without lead-in, history in [-1, 1].
+    ``channels`` 1: every second row zero (a mono lane's uncoded side
+    channel); ~a fifth of the lanes invalid (their rows all zero, as the
+    walk leaves them), and lane 0 all zero."""
+    rng = np.random.default_rng(seed)
+    B = streams
+    sfl, order = silk_synth.SFL[bw], silk_synth.ORDER[bw]
+    exc = np.round(rng.standard_normal((B, 2, 320)) * 3e-4 * 2 ** 23) / 2 ** 23
+    gains = rng.uniform(2, 40, (B, 2, 4))
+    # LPC of a stable all-pole filter: a product of second-order sections,
+    # drawn again until the float32 coefficients keep every pole inside 0.95
+    coef = np.zeros((B, 2, 2, 16))
+    for b in range(B):
+        for c in range(2):
+            for s in range(2):
+                while True:
+                    poly = np.array([1.0])
+                    for _ in range(order // 2):
+                        r, th = rng.uniform(0.3, 0.9), rng.uniform(0.05, np.pi - 0.05)
+                        poly = np.convolve(poly, [1.0, -2 * r * np.cos(th), r * r])
+                    a = (-poly[1:]).astype(np.float32)
+                    if np.abs(np.roots(np.concatenate([[1.0], -a.astype(np.float64)]))).max() < 0.95:
+                        break
+                coef[b, c, s, :order] = a
+    lo, hi = (16, 24, 32)[bw], (144, 216, 288)[bw]
+    lags = rng.integers(lo, hi + 1, (B, 2, 4))
+    lags[1::5] = lo
+    lags[2::5] = hi
+    ltp = rng.uniform(-0.1, 0.4, (B, 2, 4, 5))
+    # a stable long-term predictor, as SILK's codebooks give: taps of total magnitude < 1
+    ltp *= 0.9 / np.maximum(np.abs(ltp).sum(-1, keepdims=True), 0.9)
+    ltpscale = rng.uniform(0.25, 1.0, (B, 2))
+    hl = rng.integers(0, 2, (B, 2))
+    vo = rng.integers(0, 2, (B, 2))
+    hist = np.clip(rng.standard_normal((B, 2, 322)) * 0.3, -1, 1)
+    tail = rng.standard_normal((B, 2, 16)) * 0.3
+    planes = [exc, gains, coef, hl, vo, lags, ltp, ltpscale, hist, tail]
+    off = rng.random(B) < 0.2
+    off[0] = True
+    for a in planes:
+        a[off] = 0
+        if channels == 1:
+            a[:, 1] = 0
+    dts = (np.float32, np.float32, np.float32, np.int32, np.int32, np.int32, np.float32,
+           np.float32, np.float32, np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, dt)) for a, dt in zip(planes, dts))
+
+
+def silk_synth_random_case(device, seed: int, bw: int, **shape):
+    """K12 on :func:`silk_synth_random_inputs`."""
+    inputs = tuple(t.to(device) for t in silk_synth_random_inputs(seed, bw, **shape))
+    return silk_synth_pair(bw, inputs)
+
+
+def silk_fixture_inputs(num_lanes: int, device, warm: int = 3, bw: int = 2, names=None):
+    """K12's inputs on the SILK path: ``num_lanes`` ragged lanes of the
+    SILK voice fixtures ``names`` (by default those of bandwidth ``bw``;
+    at WB the mono and the stereo clip) through a batched decoder on
+    ``device`` for ``warm`` rounds, then the next round's walk export for
+    every lane, with the decoder's carried state of bandwidth ``bw`` (as
+    the path's launch at ``bw`` takes them)."""
+    from soundkit_tpu_torch.models.opus_batch import BatchedSilkDeviceDecoder
+    from soundkit_tpu_torch.tools import opus_fixtures
+
+    names = names or {0: ("silk_nb",), 1: ("silk_mb",), 2: ("silk_wb", "silk_wb_stereo")}[bw]
+    by_name = {c.name: c for c in opus_fixtures.load_clips(names=opus_fixtures.VOICE_CLIPS)}
+    clips = [by_name[n] for n in names]
+    model = BatchedSilkDeviceDecoder(num_lanes, 2, device=device)
+    for b in range(num_lanes):
+        for frame, fbw, coded in opus_fixtures.lane_frames(clips, b):
+            model.push_packet(b, frame, fbw, coded)
+    model.decode_ready(max_packets=warm)
+    p, ok, bws = model._walk_round()
+    d = model._to_device(p, ok, bws)
+    out_hist, lpch_tail, _ = model._group_state(bw)
+    return tuple(d[k] for k in SILK_ARGS) + (out_hist, lpch_tail)
+
+
+def silk_synth_work(bw: int, inputs) -> tuple:
+    """(bytes, float32 operations) that K12's function needs on
+    ``inputs``. Bytes, a row: its frame's excitation (4 sfl samples), the
+    gains, both coefficient sets, the flags, lags, LTP taps and scale, the
+    history (322) and the LPC tail (16) read; the output line (322 + 4 sfl)
+    and the new tail written. Operations, a row: the LPC, 2 order + 1 a
+    sample; on a voiced row the LTP, 10 a sample and the add, and for
+    each subframe the re-whitened span (its lag + 2 + its out_end
+    positions: 2 order + 2 each, and the two divisions) and the positions
+    the gain ratio scales (1 each)."""
+    sfl, order = silk_synth.SFL[bw], silk_synth.ORDER[bw]
+    flen = 4 * sfl
+    _, _, _, hl, vo, lags, _, _, _, _ = (t.cpu() for t in inputs)
+    rows = vo.numel()
+    nbytes = rows * (flen * 4 + 16 + 128 + 8 + 16 + 80 + 4 + 322 * 4 + 64
+                     + (322 + flen) * 4 + 64)
+    flops = rows * flen * (2 * order + 1)
+    voiced = vo.bool()
+    lag = lags.long().clamp(silk_synth.LAG_MIN, silk_synth.LAG_MAX)
+    lead = hl.bool()
+    n_voiced = int(voiced.sum())
+    flops += n_voiced * flen * 11
+    for i in range(4):
+        end = -i * sfl if i < 2 else torch.where(lead, -(i - 2) * sfl, -i * sfl)
+        span = (lag[..., i] + 2 + end).clamp(min=0)
+        flops += int(span[voiced].sum()) * (2 * order + 2) + 2 * n_voiced
+        if i:
+            flops += int((-torch.as_tensor(end).expand_as(span))[voiced].sum())
+    return nbytes, flops
+
+
+def silk_round_random_args(seed: int, bw: int, B: int = 37):
+    """``silk_round``'s arguments on the CPU for a stereo group of B lanes:
+    :func:`silk_synth_random_inputs`' frame (every lane valid, both
+    channels coded, every lane unmixed, the first four fresh), stereo
+    weights, a gain and a carried state."""
+    rng = np.random.default_rng(seed)
+    exc, gains, coef, hl, vo, lags, ltp, ltpscale, hist, tail = silk_synth_random_inputs(
+        seed, bw, streams=B)
+    from soundkit_tpu_torch.ops import silk_batch
+
+    T = silk_batch._resample_plan(bw)[2]
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))  # noqa: E731
+    fresh = np.zeros(B, np.float32)
+    fresh[:4] = 1
+    return (exc, gains, coef, hl, vo, lags, ltp, ltpscale,
+            torch.ones((B, 2), dtype=torch.int32), torch.ones(B, dtype=torch.int32),
+            torch.from_numpy((rng.random(B) < 0.1).astype(np.int32)),
+            f32(rng.uniform(-0.5, 0.5, (B, 4))), f32(rng.uniform(0.5, 1.5, B)),
+            torch.ones(B, dtype=torch.bool), f32(fresh), hist, tail,
+            f32(rng.standard_normal((B, 2, T)) * 0.2))

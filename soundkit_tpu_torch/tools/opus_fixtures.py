@@ -1,9 +1,8 @@
-"""In-repo Ogg Opus (CELT) fixtures for the port's tests and
-``chip_smoke.py``.
+"""In-repo Ogg Opus fixtures for the port's tests and ``chip_smoke.py``.
 
-Four seeded synthetic 48 kHz clips, encoded to single-frame 20 ms CELT
-packets and muxed one packet a page, committed under
-``tests/data/torch_port/opus/``:
+Ten seeded synthetic 48 kHz clips, encoded to single-frame 20 ms packets
+and muxed one packet a page, committed under
+``tests/data/torch_port/opus/``. Four CELT clips (``CLIPS``):
 
 - ``stereo96``: stereo, 96 kbit/s, libopus, 2.5 s: a pitched tone with
   attacks, so that most frames carry the comb postfilter and some are
@@ -15,11 +14,24 @@ packets and muxed one packet a page, committed under
 - ``gain``: stereo, 64 kbit/s, libopus, 2 s, with an OpusHead output gain
   of -1200 (Q7.8 dB).
 
+and six voice clips (``VOICE_CLIPS``), 3 s of a synthetic voice (a gliding
+harmonic source under moving resonances, pauses of noise, a 9 kHz
+component) by libopus in its VoIP application, each forced to one mode and
+one bandwidth, pre-skip 312:
+
+- ``silk_nb``, ``silk_mb``, ``silk_wb``: SILK mono at 12, 16 and 20
+  kbit/s (``silk_mb`` with an OpusHead output gain of -600);
+- ``silk_wb_stereo``: SILK WB stereo at 24 kbit/s, its coding switched
+  between mono and stereo every half second, with mid-only frames;
+- ``hybrid_swb``: hybrid SWB mono at 24 kbit/s;
+- ``hybrid_fb``: hybrid FB stereo at 32 kbit/s.
+
 ``index.json`` beside them holds each clip's channels, bit rate,
 encoder, pre-skip, output gain, the length of its two header pages and
-of every packet, and its counts of postfilter and transient frames. This
-module reads the fixtures and cuts lanes: lane ``i`` takes clip ``i mod
-4`` from packet ``7 (i // 4)``, wrapping, and every fourth lane of a clip
+of every packet, and its counts of postfilter and transient frames (CELT)
+or of stereo and mid-only frames (voice). This module reads the fixtures
+and cuts lanes: lane ``i`` of a list of ``n`` clips takes clip ``i mod
+n`` from packet ``7 (i // n)``, wrapping, and every fourth lane of a clip
 plays a shorter stream (:func:`lane_packets`); its Ogg stream is the
 clip's header pages and the pages of its packets, as a receiver joining
 a broadcast sees them. The clips are made on the test side
@@ -36,6 +48,7 @@ from pathlib import Path
 from typing import List, NamedTuple
 
 CLIPS = ("stereo96", "mono64", "owned", "gain")
+VOICE_CLIPS = ("silk_nb", "silk_mb", "silk_wb", "silk_wb_stereo", "hybrid_swb", "hybrid_fb")
 FIXTURE_DIR = Path(__file__).resolve().parents[2] / "tests" / "data" / "torch_port" / "opus"
 
 
@@ -72,12 +85,12 @@ def _pages(data: bytes) -> List[bytes]:
     return pages
 
 
-def load_clips(directory: Path = FIXTURE_DIR) -> List[OpusClip]:
-    """Every committed clip, in ``CLIPS`` order, cut into its pages and
-    packets."""
+def load_clips(directory: Path = FIXTURE_DIR, names=CLIPS) -> List[OpusClip]:
+    """The committed clips ``names`` (the CELT clips by default), in that
+    order, cut into their pages and packets."""
     index = json.loads((directory / "index.json").read_text())
     clips = []
-    for name in CLIPS:
+    for name in names:
         data = (directory / f"{name}.opus").read_bytes()
         e = index[name]
         header, pages = data[: e["header"]], _pages(data[e["header"]:])
@@ -89,11 +102,12 @@ def load_clips(directory: Path = FIXTURE_DIR) -> List[OpusClip]:
     return clips
 
 
-def _lane_cut(i: int, n_packets: int):
+def _lane_cut(i: int, n_packets: int, n_clips: int = len(CLIPS)):
     """(first packet, packet count) of lane ``i`` of a clip of
-    ``n_packets``: lane i starts at packet ``7 * (i // 4) mod n_packets``,
-    wrapping; every fourth lane of a clip plays 1/8 to 7/8 of it."""
-    r = i // len(CLIPS)
+    ``n_packets`` among ``n_clips``: lane i starts at packet
+    ``7 * (i // n_clips) mod n_packets``, wrapping; every fourth lane of a
+    clip plays 1/8 to 7/8 of it."""
+    r = i // n_clips
     start = (7 * r) % n_packets
     count = n_packets if r % 4 != 3 else max(1, n_packets * (1 + (r // 4) % 7) // 8)
     return start, count
@@ -101,10 +115,10 @@ def _lane_cut(i: int, n_packets: int):
 
 def lane_packets(clips: List[OpusClip], lane: int, n_packets: int = None):
     """(clip, indices of its packets in play order) of smoke lane
-    ``lane``: clip ``lane mod 4``, cut by :func:`_lane_cut`, at most
-    ``n_packets`` packets if given."""
+    ``lane``: clip ``lane mod len(clips)``, cut by :func:`_lane_cut`, at
+    most ``n_packets`` packets if given."""
     clip = clips[lane % len(clips)]
-    start, count = _lane_cut(lane, len(clip.packets))
+    start, count = _lane_cut(lane, len(clip.packets), len(clips))
     if n_packets is not None:
         count = min(count, n_packets)
     return clip, [(start + t) % len(clip.packets) for t in range(count)]
@@ -128,4 +142,22 @@ def lane_raw(clips: List[OpusClip], num_lanes: int, n_packets: int = None) -> Li
         clip, idx = lane_packets(clips, i, n_packets)
         out.append(clip.head + b"".join(struct.pack("<H", len(clip.packets[t])) + clip.packets[t]
                                         for t in idx))
+    return out
+
+
+def lane_frames(clips: List[OpusClip], lane: int, n_packets: int = None):
+    """The packets of smoke lane ``lane`` (:func:`lane_packets`) split
+    by their TOC, as ``push_packet`` of the SILK and hybrid decoders
+    takes them: [(frame, TOC bandwidth, coded channels)]. Every packet
+    must be a code-0 (single-frame) packet."""
+    from soundkit_tpu_torch.codecs.opus_core import TOC_ATTRS
+
+    clip, idx = lane_packets(clips, lane, n_packets)
+    out = []
+    for t in idx:
+        pkt = clip.packets[t]
+        _, _, stereo, bw, code = TOC_ATTRS[pkt[0]]
+        if code != 0:
+            raise ValueError(f"{clip.name} packet {t}: code {code}, not a single frame")
+        out.append((pkt[1:], bw, 2 if stereo else 1))
     return out

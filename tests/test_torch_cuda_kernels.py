@@ -12,6 +12,7 @@ import torch
 
 from soundkit_tpu_torch.native import AacHostParser
 from soundkit_tpu_torch.ops import flac_lpc
+from soundkit_tpu_torch.ops import silk_synth as ss
 from soundkit_tpu_torch.tools import aac_fixtures as fx
 from soundkit_tpu_torch.tools import kernel_check as kc
 
@@ -305,3 +306,108 @@ def test_celt_postfilter_refuses_a_strided_input_on_the_card(dev):
     with pytest.raises(ValueError, match="non-contiguous"):
         celt_postfilter.celt_postfilter(*inputs)
     assert celt_postfilter.celt_postfilter.launches == before
+
+
+@pytest.mark.parametrize("channels", [2, 1])
+@pytest.mark.parametrize("bw", [0, 1, 2])
+@pytest.mark.parametrize("streams", [1, 37, 300])
+def test_silk_synth_kernel_random_inputs(dev, streams, bw, channels):
+    """Seeded frames at each bandwidth: lags over the whole range and at
+    both ends, voiced and unvoiced rows, with and without lead-in, stable
+    LPC; at C = 1 every side row zero; invalid lanes and lane 0 all zero.
+    Bit-exact, the output line and the new tail."""
+    kc.compare("silk_synth", *kc.silk_synth_random_case(dev, 40 + streams, bw, streams=streams,
+                                                        channels=channels))
+
+
+@pytest.mark.parametrize("bw", [0, 1, 2])
+def test_silk_synth_kernel_on_the_fixture_path(dev, bw):
+    """The SILK decoder's next round over 40 ragged lanes of the voice
+    fixtures, with its carried state after three rounds."""
+    kc.compare("silk_synth", *kc.silk_synth_pair(bw, kc.silk_fixture_inputs(40, dev, bw=bw)))
+
+
+def test_silk_synth_kernel_all_zero_and_wild_rows(dev):
+    """Rows of zeros (a gain of 0: rescale / g is not finite) and rows
+    with lags outside the streams' range neither fault nor disturb the
+    rows beside them; the kernel equals the plain version on every
+    finite value."""
+    inputs = [t.clone() for t in kc.silk_synth_random_inputs(5, 2, streams=24)]
+    inputs[4][3:9] = 1            # voiced
+    inputs[1][3:6] = 0            # zero gains
+    inputs[5][6:9] = torch.tensor([0, 1, -9, 999], dtype=torch.int32)
+    inputs = tuple(t.to(dev) for t in inputs)
+    got = [t.cpu() for t in ss.silk_synth(2, *inputs)]
+    torch.cuda.synchronize()
+    want = [t.cpu() for t in ss.silk_synth_plain(2, *inputs)]
+    for g, w in zip(got, want):
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+        assert torch.isfinite(g[9:]).all() and torch.isfinite(g[:3]).all()
+
+
+def test_silk_round_holds_its_bound_with_tf32_on(dev):
+    """A caller that turns TF32 on does not move the round's resample
+    products off IEEE float32 (they run under ``ieee_fp32``): the round
+    on the card holds 1e-5 against the plain round on the CPU, and the
+    caller's settings are back afterwards."""
+    from soundkit_tpu_torch.ops import silk_batch as sb
+
+    args = kc.silk_round_random_args(6, 2, B=64)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        got = sb.silk_round(2, True, *(t.to(dev) for t in args))
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    kc.compare("silk_round", lambda: tuple(t.cpu() for t in got),
+               lambda: sb.silk_round(2, True, *args))
+
+
+def test_silk_and_hybrid_decoders_on_the_card(dev):
+    """The SILK decoder (NB, MB and WB lanes: three K12 launches a round)
+    and the hybrid decoder (one K12 and one K11 launch a round) on the card
+    against the CPU plain path: lengths identical, PCM >= 100 dB a lane."""
+    import numpy as np
+
+    from soundkit_tpu_torch.models.opus_batch import BatchedHybridDecoder, BatchedSilkDeviceDecoder
+    from soundkit_tpu_torch.ops import celt_postfilter
+    from soundkit_tpu_torch.tools import opus_fixtures
+
+    voice = {c.name: c for c in opus_fixtures.load_clips(names=opus_fixtures.VOICE_CLIPS)}
+    for cls, names, per_round in (
+            (BatchedSilkDeviceDecoder, ("silk_nb", "silk_mb", "silk_wb", "silk_wb_stereo"), 3),
+            (BatchedHybridDecoder, ("hybrid_swb", "hybrid_fb"), 1)):
+        clips = [voice[n] for n in names]
+        outs = []
+        for device in ("cuda", "cpu"):
+            model = cls(12, 2, device=device)
+            for b in range(12):
+                for frame, bw, coded in opus_fixtures.lane_frames(clips, b, 10):
+                    model.push_packet(b, frame, bw, coded)
+            k12, k11 = ss.silk_synth.launches, celt_postfilter.celt_postfilter.launches
+            pcm, lens = model.decode_ready(device_out=True)
+            if device == "cuda":
+                rounds = 16 if cls is BatchedHybridDecoder else 10  # two chunks of 8
+                assert ss.silk_synth.launches - k12 == per_round * rounds
+                assert celt_postfilter.celt_postfilter.launches - k11 == \
+                    (rounds if cls is BatchedHybridDecoder else 0)
+            outs.append((pcm.cpu().numpy().astype(np.float64), lens))
+        (g, gl), (c, cl) = outs
+        np.testing.assert_array_equal(gl, cl)
+        for b in range(12):
+            sig, err = (c[:, b] ** 2).sum(), ((g[:, b] - c[:, b]) ** 2).sum()
+            assert sig > 0 and 10 * np.log10(sig / max(err, 1e-300)) >= 100, (cls, b)
+
+
+def test_silk_synth_refuses_a_strided_input_on_the_card(dev):
+    inputs = [t.to(dev) for t in kc.silk_synth_random_inputs(2, 2, streams=4)]
+    hist = inputs[8]
+    inputs[8] = torch.cat([hist, hist[..., :2]], dim=-1)[..., :hist.shape[-1]]
+    assert not inputs[8].is_contiguous()
+    before = ss.silk_synth.launches
+    with pytest.raises(ValueError, match="non-contiguous"):
+        ss.silk_synth(2, *inputs)
+    assert ss.silk_synth.launches == before

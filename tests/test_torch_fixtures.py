@@ -119,12 +119,15 @@ def test_mp3_fixtures_cover_the_decode_paths():
 
 def test_opus_fixtures_equal_a_regeneration(tmp_path):
     """The generator (on the test side, with the JAX package's libopus-
-    and owned-encoder-backed ``OpusEncoder`` and its Ogg writer) makes
-    the committed streams and their index byte for byte; it also checks
-    that every packet is single-frame 20 ms CELT and which clips carry
-    postfilter and transient frames."""
+    and owned-encoder-backed ``OpusEncoder``, the system's libopus for the
+    voice clips, and the JAX package's Ogg writer) makes the committed
+    streams and their index byte for byte; it also checks that every CELT
+    packet is single-frame 20 ms CELT and which clips carry postfilter and
+    transient frames, and that every voice clip keeps its mode and
+    bandwidth."""
     generate_opus_fixtures(tmp_path)
-    for name in (*(f"{c}.opus" for c in opus_fixtures.CLIPS), "index.json"):
+    names = (*opus_fixtures.CLIPS, *opus_fixtures.VOICE_CLIPS)
+    for name in (*(f"{c}.opus" for c in names), "index.json"):
         assert (tmp_path / name).read_bytes() == (opus_fixtures.FIXTURE_DIR / name).read_bytes(), name
 
 
@@ -157,6 +160,44 @@ def test_opus_fixtures_cover_the_decode_paths():
     assert seen["gain"][3] == -1200 and seen["mono64"][4] == 1
     clips = opus_fixtures.load_clips()
     for i, data in enumerate(opus_fixtures.lane_streams(clips, 16)):
+        dm = OggOpusDemuxer()
+        clip, idx = opus_fixtures.lane_packets(clips, i)
+        assert dm.push(data) == [clip.packets[t] for t in idx] and dm.head.raw == clip.head
+
+
+def test_opus_voice_fixtures_cover_the_decode_paths():
+    """By their TOCs and the JAX package's SILK walk: SILK NB, MB and WB
+    mono, SILK WB stereo with mono-coded packets, mid-only frames and a
+    side-channel reset, hybrid SWB mono and FB stereo; single-frame 20 ms
+    packets, pre-skip 312, an OpusHead gain on the MB clip; every lane of
+    a smoke cut a whole Ogg stream the JAX demuxer reads back; each clip
+    under 40 KB."""
+    from soundkit_tpu.codecs.opus import OggOpusDemuxer
+    from soundkit_tpu.codecs.opus_core import TOC_ATTRS
+    from soundkit_tpu.codecs.silk_native import NativeSilkBatch
+
+    clips = opus_fixtures.load_clips(names=opus_fixtures.VOICE_CLIPS)
+    want = {"silk_nb": ("silk", 0, 1), "silk_mb": ("silk", 1, 1), "silk_wb": ("silk", 2, 1),
+            "silk_wb_stereo": ("silk", 2, 2), "hybrid_swb": ("hybrid", 3, 1),
+            "hybrid_fb": ("hybrid", 4, 2)}
+    for clip in clips:
+        mode, bw, ch = want[clip.name]
+        assert clip.channels == ch and clip.pre_skip == 312 and len(clip.stream()) < 40_000
+        tocs = [TOC_ATTRS[p[0]] for p in clip.packets]
+        assert {(m, d, b, c) for m, d, _, b, c in tocs} == {(mode, 20, bw, 0)}, clip.name
+        stereo = {s for _, _, s, _, _ in tocs}
+        assert stereo == ({False, True} if clip.name == "silk_wb_stereo" else {ch == 2})
+    assert clips[1].output_gain == -600
+    stereo = clips[3]
+    walk = NativeSilkBatch(1, 2)
+    flags = []
+    for pkt in stereo.packets:
+        p = walk.parse_many([pkt[1:]], [2], [2 if TOC_ATTRS[pkt[0]][2] else 1], [20], [1])
+        assert p["n"][0] == 320
+        flags.append(p["flags"][0])
+    flags = np.array(flags)
+    assert flags[:, 3].sum() > 10 and flags[1:, 4].any()  # mid-only frames, a side reset
+    for i, data in enumerate(opus_fixtures.lane_streams(clips, 18)):
         dm = OggOpusDemuxer()
         clip, idx = opus_fixtures.lane_packets(clips, i)
         assert dm.push(data) == [clip.packets[t] for t in idx] and dm.head.raw == clip.head

@@ -2,11 +2,13 @@
 originals: tables and the functions that make them, the G.726 code
 packing, the ADTS framer, the wire packers (byte for byte, each with
 its own package's parser), the C++ sources of the AAC parser, the FLAC
-walk, the MP3 parser and the CELT parse, the MP3 synthesis tables,
-format detection, the FLAC segment-table packer, and the Opus host
-layer: the RFC 6716 tables, the TOC parse, the Ogg packetizer, the
-OpusHead and Ogg Opus demuxer, the CELT IMDCT basis and comb packing,
-and the CELT parse's serving walk on both wires."""
+walk, the MP3 parser and the Opus parse (CELT, SILK, the hybrid glue),
+the MP3 synthesis tables, format detection, the FLAC segment-table
+packer, and the Opus host layer: the RFC 6716 tables, the TOC parse, the
+Ogg packetizer, the OpusHead and Ogg Opus demuxer, the CELT IMDCT basis
+and comb packing, the CELT parse's serving walk on both wires, the SILK
+walk's binding (a verbatim subset of ``codecs/silk_native.py``), its
+resampler plan and the hybrid walk's packed wire."""
 from pathlib import Path
 
 import numpy as np
@@ -51,6 +53,8 @@ G722_TABLES = ("WL", "RL42", "ILB", "WH", "RH2", "QM2", "QM4", "QM6", "QMF_COEFF
     ("soundkit_tpu_torch/demux/detect.py", "soundkit_tpu/demux/detect.py"),
     ("soundkit_tpu_torch/native_src/src/celt_parse.cpp", "soundkit_tpu/native/src/celt_parse.cpp"),
     ("soundkit_tpu_torch/data/opus_tables.npz", "soundkit_tpu/native/generated/opus_tables.npz"),
+    ("soundkit_tpu_torch/native_src/src/silk_parse.cpp", "soundkit_tpu/native/src/silk_parse.cpp"),
+    ("soundkit_tpu_torch/native_src/src/hybrid_glue.cpp", "soundkit_tpu/native/src/hybrid_glue.cpp"),
 ])
 def test_copied_files_are_identical(port, ref):
     assert (REPO / port).read_bytes() == (REPO / ref).read_bytes()
@@ -420,3 +424,107 @@ def test_celt_parse_library_walks_the_wire_of_the_jax_package(quantized):
         assert np.abs(g - w).max() <= 1e-12 * np.abs(w).max()
     assert (got[4][lens.T > 0] == 0).all() and (got[4][lens.T == 0] == -100).all()
     assert np.abs(got[0]).max() > 0
+
+
+SILK_NATIVE_COPIES = [
+    ("SilkNativeError", None), ("NativeSilkDecoder", "__init__"), ("NativeSilkDecoder", "__del__"),
+    ("NativeSilkDecoder", "flush"), ("NativeSilkBatch", "reset_lane"),
+    ("NativeSilkBatch", "parse_many"), ("NativeSilkBatch", "hybrid_parse_rounds_packed"),
+]
+
+
+@pytest.mark.parametrize("cls,method", SILK_NATIVE_COPIES)
+def test_silk_native_is_a_verbatim_subset(cls, method):
+    import inspect
+
+    from soundkit_tpu.codecs import silk_native as jax_silk
+    from soundkit_tpu_torch.codecs import silk_native
+
+    port, ref = getattr(silk_native, cls), getattr(jax_silk, cls)
+    if method is not None:
+        port, ref = getattr(port, method), getattr(ref, method)
+    assert inspect.getsource(port) == inspect.getsource(ref)
+    assert silk_native._TABLE_KEYS == jax_silk._TABLE_KEYS
+
+
+@pytest.mark.parametrize("module,name", [("ops.silk_batch", "_resample_plan"),
+                                         ("ops.silk_batch", "lead_invalid"),
+                                         ("models.opus_batch", "_wire_views")])
+def test_silk_and_hybrid_host_pieces_are_verbatim_copies(module, name):
+    import importlib
+
+    port = importlib.import_module(f"soundkit_tpu_torch.{module}")
+    ref = importlib.import_module(f"soundkit_tpu.{module}")
+    assert _function_source(port, name) == _function_source(ref, name)
+
+
+def test_silk_constants_equal_the_jax_package():
+    from soundkit_tpu.ops import silk_batch as jax_sb
+    from soundkit_tpu_torch.ops import silk_batch, silk_synth
+
+    for name in ("SFL", "ORDER", "RATE", "HIST", "MAXLAG", "FRAME48", "LTP_ORDER", "SUBFRAMES"):
+        assert getattr(silk_batch, name) == getattr(jax_sb, name), name
+    for name in ("SFL", "ORDER", "HIST", "MAXLAG", "LTP_ORDER", "SUBFRAMES"):
+        assert getattr(silk_synth, name) == getattr(jax_sb, name), name
+
+
+@pytest.mark.parametrize("C", [1, 2])
+def test_hybrid_wire_layout_equals_the_jax_package(C):
+    from soundkit_tpu.models import opus_batch as jax_ob
+    from soundkit_tpu_torch.models import opus_batch
+
+    for exc16 in (True, False):
+        assert opus_batch._hybrid_wire_layout(8, 5, C, exc16) == \
+            jax_ob._hybrid_wire_layout(8, 5, C, exc16)
+    assert (opus_batch.ROUNDS_PER_CALL, opus_batch._EXC_Q, opus_batch._HYB_BIN_LO,
+            opus_batch._HYB_BIN_HI) == (jax_ob.ROUNDS_PER_CALL, jax_ob._EXC_Q, jax_ob._HYB_BIN_LO,
+                                         jax_ob._HYB_BIN_HI)
+
+
+def test_opus_library_walks_the_hybrid_wire_of_the_jax_package():
+    """The port's one Opus library (``celt_parse.cpp``, ``silk_parse.cpp``
+    and ``hybrid_glue.cpp``) and the JAX package's give the same packed
+    hybrid wire for a chunk of the fixtures' hybrid packets (every integer
+    field equal, the float planes up to the compilers' rounding), and the
+    same walk results."""
+    from soundkit_tpu.codecs.celt_native import NativeCeltBatch as JaxCelt
+    from soundkit_tpu.codecs.silk_native import NativeSilkBatch as JaxSilk
+    from soundkit_tpu_torch.codecs.celt_native import NativeCeltBatch
+    from soundkit_tpu_torch.codecs.silk_native import NativeSilkBatch
+    from soundkit_tpu_torch.models import opus_batch
+    from soundkit_tpu_torch.tools import opus_fixtures
+
+    clips = opus_fixtures.load_clips(names=("hybrid_swb", "hybrid_fb"))
+    B, R, C = 3, 8, 2
+    lanes = [opus_fixtures.lane_frames(clips, b, R - b) for b in range(B)]
+    band_end = opus_batch.tables()["celt_band_end"].astype(int)
+    plens, ends, coded = (np.zeros((B, R), np.int32) for _ in range(3))
+    base, parts, pos = np.zeros(B, np.int64), [], 0
+    for b, fr in enumerate(lanes):
+        plens[b, :len(fr)] = [len(f) for f, _, _ in fr]
+        ends[b, :len(fr)] = [band_end[bw] for _, bw, _ in fr]
+        coded[b, :len(fr)] = [c for _, _, c in fr]
+        base[b] = pos
+        parts += [f for f, _, _ in fr]
+        pos += sum(len(f) for f, _, _ in fr)
+    buf = b"".join(parts)
+    layout, total = opus_batch._hybrid_wire_layout(R, B, C, True)
+    offs = np.array([dict((n, o) for n, o, _, _ in layout)[k] for k in (
+        "exc", "gains", "coef", "ltp", "ltpscale", "stereo_w", "freq", "comb", "lags", "hl", "vo",
+        "cc", "um", "sr", "sflag")], np.int64)
+    out = []
+    for silk, celt in ((NativeSilkBatch(B, C), NativeCeltBatch(B, C)), (JaxSilk(B, C), JaxCelt(B, C))):
+        wire = np.zeros(total, np.uint8)
+        exc = np.zeros((R, B, 2, 320))
+        res = silk.hybrid_parse_rounds_packed(celt, buf, base, plens, ends, coded, wire, offs, exc)
+        out.append((opus_batch._wire_views(wire, R, B, C, True), res))
+    (got, gres), (want, wres) = out
+    for g, w in zip(gres, wres):
+        np.testing.assert_array_equal(g, w)
+    for k in want:
+        if want[k].dtype == np.float32:
+            np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                       atol=1e-6 * max(np.abs(want[k]).max(), 1e-30))
+        else:
+            assert np.abs(got[k].astype(np.int64) - want[k]).max() <= (1 if k == "exc" else 0), k
+    assert np.abs(want["freq"]).max() > 0 and np.abs(want["exc"]).max() > 0

@@ -40,6 +40,10 @@ CPU = torch.device("cpu")
     ("celt_postfilter", lambda: kc.celt_postfilter_random_case(CPU, seed=6, streams=5, channels=1)),
     ("celt_postfilter", lambda: kc.celt_postfilter_pair(kc.celt_fixture_inputs(6, CPU))),
     ("celt_postfilter", lambda: kc.celt_postfilter_pair(kc.celt_fixture_inputs(5, CPU, wire="i16"))),
+    *[("silk_synth", lambda bw=bw: kc.silk_synth_random_case(CPU, 7, bw, streams=5))
+      for bw in (0, 1, 2)],
+    ("silk_synth", lambda: kc.silk_synth_random_case(CPU, 8, 2, streams=4, channels=1)),
+    ("silk_synth", lambda: kc.silk_synth_pair(2, kc.silk_fixture_inputs(6, CPU, warm=2))),
 ])
 def test_cases_agree_on_cpu(name, make):
     kernel, plain = make()
@@ -79,6 +83,8 @@ def test_carried_g722_case_starts_from_a_scanned_state(encode):
     ("imdct_window", 1e-3),
     ("tns_filter", float("nan")),
     ("celt_postfilter", 1e-3),
+    ("silk_synth", 1e-6),
+    ("silk_round", 1e-3),
 ])
 def test_compare_refuses_a_result_beyond_its_bound(name, bump):
     ref = torch.arange(1, 9, dtype=torch.int32 if name == "spectral_decode" else torch.float32)
@@ -240,3 +246,43 @@ def test_celt_work_counts_bytes_and_active_taps():
         + C * (2 * line + 960 * 4)
     base = 120 + 960 * 3
     assert flops == C * ((120 * 10 + 840 * 9 + base) + (120 * 9 + base))
+
+
+def test_silk_fixture_inputs_are_the_decoders_next_round():
+    """K12's path case is the SILK decoder's next round: the plain
+    synthesis of it equals the round's synthesis inside ``silk_round``
+    (its output history after the decoder's round)."""
+    from soundkit_tpu_torch.ops import silk_synth
+
+    inputs = kc.silk_fixture_inputs(6, CPU, warm=2)
+    assert inputs[0].shape == (6, 2, 320) and inputs[8].shape == (6, 2, 322)
+    dst, tail = silk_synth.silk_synth_plain(2, *inputs)
+    assert dst.shape == (6, 2, 642) and tail.shape == (6, 2, 16)
+    assert torch.isfinite(dst).all() and dst.abs().max() > 0.01
+    assert inputs[8].abs().max() > 0  # a carried history after two rounds
+
+
+def test_silk_random_inputs_cover_the_edges():
+    exc, gains, coef, hl, vo, lags, ltp, ltpscale, hist, tail = kc.silk_synth_random_inputs(
+        2, 0, streams=60, channels=1)
+    assert not exc[0].any() and not gains[0].any()        # lane 0 all zero
+    assert not exc[:, 1].any() and not hl[:, 1].any()      # C = 1: the side rows zero
+    live = gains[:, 0, 0] != 0
+    assert (lags[live] == 16).any() and (lags[live] == 144).any()
+    assert vo[live, 0].any() and (vo[live, 0] == 0).any() and hl[live, 0].any()
+    assert (~live).sum() > 3
+
+
+def test_silk_work_counts_rows_and_voiced_spans():
+    inputs = list(kc.silk_synth_random_inputs(3, 2, streams=4))
+    inputs[4][:] = 0
+    nbytes, flops = kc.silk_synth_work(2, inputs)
+    assert flops == 8 * 320 * 33
+    assert nbytes == 8 * (320 * 4 + 16 + 128 + 8 + 16 + 80 + 4 + 322 * 4 + 64 + 642 * 4 + 64)
+    inputs[4][0, 0] = 1
+    inputs[3][0, 0] = 0
+    inputs[5][0, 0] = torch.tensor([100, 100, 100, 100], dtype=torch.int32)
+    _, flops1 = kc.silk_synth_work(2, inputs)
+    # one voiced row: the LTP (11 a sample), the spans 102, 22, 0, 0 at 34 each, the
+    # divisions, the scaled positions 80 + 160 + 240
+    assert flops1 - flops == 320 * 11 + (102 + 22) * 34 + 8 + 80 + 160 + 240

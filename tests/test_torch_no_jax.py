@@ -123,15 +123,29 @@ for i, s in enumerate(opus_fixtures.lane_streams(clips, 3, 8)[1:]):
 out = fleet.collect()
 assert out["o0"].shape == (2, 8 * 960 - 312) and out["o1"].shape == (2, 8 * 960)
 assert all(np.isfinite(v).all() and np.abs(v).max() > 0.01 for v in out.values())
-silk = bytes([(9 << 3)]) + bytes(30)  # a SILK WB 20 ms TOC
-head = clips[0].header
-fleet.push("s", head[:40])
-fleet.end_stream("s")
+from soundkit_tpu_torch.models.opus_batch import BatchedHybridDecoder, BatchedSilkDeviceDecoder
+voice = {c.name: c for c in opus_fixtures.load_clips(names=opus_fixtures.VOICE_CLIPS)}
+for cls, names in ((BatchedSilkDeviceDecoder, ("silk_nb", "silk_wb_stereo")),
+                   (BatchedHybridDecoder, ("hybrid_swb", "hybrid_fb"))):
+    m = cls(2, 2, device="cpu")
+    for b, name in enumerate(names):
+        for frame, bw, coded in opus_fixtures.lane_frames([voice[name]], 0, 5):
+            m.push_packet(b, frame, bw, coded)
+    pcm, lens = m.decode_ready()
+    assert pcm.shape == (5, 2, 2, 960) and np.isfinite(pcm).all() and np.abs(pcm).max() > 0.01
+    assert lens.sum() == 10 * 960 - (23 if cls is BatchedSilkDeviceDecoder else 0)
+for sid, name in (("v0", "silk_mb"), ("v1", "hybrid_fb")):
+    fleet.push(sid, opus_fixtures.lane_streams([voice[name]], 1, 6)[0], kind="opus")
+    fleet.end_stream(sid)
+out = fleet.collect()
+assert out["v0"].shape == (2, 6 * 960 - 312) and out["v1"].shape == (2, 6 * 960)
+switch = voice["silk_nb"].packets[:3] + voice["silk_wb"].packets[3:5]
 try:
-    fleet.push("s", head[40:] + b"OggS" + bytes(22) + bytes([1, len(silk)]) + silk)
-    raise SystemExit("a SILK lane was not refused")
-except FleetUnsupported:
-    pass
+    fleet.push("s", voice["silk_nb"].header + b"".join(
+        b"OggS" + bytes(22) + bytes([1, len(p)]) + p for p in switch), kind="opus")
+    raise SystemExit("a SILK bandwidth switch was not refused")
+except FleetUnsupported as e:
+    assert "silk bandwidth switch" in str(e)
 assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
 print("opus without jax")
 """
@@ -173,10 +187,12 @@ def test_timed_decoder_needs_cuda():
         BatchedAacLcDecoder(2, 2, device="cpu", timed=True)
     with pytest.raises(ValueError, match="CUDA"):
         BatchedTelephonyDecoder("g722", 2, device="cpu", timed=True)
-    from soundkit_tpu_torch.models.opus_batch import BatchedCeltDecoder
+    from soundkit_tpu_torch.models.opus_batch import (BatchedCeltDecoder, BatchedHybridDecoder,
+                                                      BatchedSilkDeviceDecoder)
 
-    with pytest.raises(ValueError, match="CUDA"):
-        BatchedCeltDecoder(2, 2, device="cpu", timed=True)
+    for cls in (BatchedCeltDecoder, BatchedSilkDeviceDecoder, BatchedHybridDecoder):
+        with pytest.raises(ValueError, match="CUDA"):
+            cls(2, 2, device="cpu", timed=True)
 
 
 def test_cuda_device_raises_without_cuda():
@@ -264,6 +280,47 @@ def test_celt_postfilter_refuses_meta_tensors():
     assert celt_postfilter.celt_postfilter.launches == before
 
 
+SILK_SHAPES = dict(exc=(4, 2, 320), gains=(4, 2, 4), coef=(4, 2, 2, 16), has_leadin=(4, 2),
+                   voiced=(4, 2), lags=(4, 2, 4), ltp=(4, 2, 4, 5), ltpscale=(4, 2),
+                   out_hist=(4, 2, 322), lpch_tail=(4, 2, 16))
+
+
+def _silk_args(device, strided=None):
+    args = []
+    for name, shape in SILK_SHAPES.items():
+        dtype = torch.int32 if name in ("has_leadin", "voiced", "lags") else torch.float32
+        if name == strided:
+            t = torch.empty((*shape, 2), dtype=dtype, device=device)[..., 0]
+            assert t.shape == shape and not t.is_contiguous()
+        else:
+            t = torch.empty(shape, dtype=dtype, device=device)
+        args.append(t)
+    return args
+
+
+def test_silk_synth_refuses_meta_tensors():
+    """K12's wrapper raises for tensors neither on the CPU nor on a CUDA
+    device, and counts no launch."""
+    from soundkit_tpu_torch.ops import silk_synth
+
+    before = silk_synth.silk_synth.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        silk_synth.silk_synth(2, *_silk_args("meta"))
+    assert silk_synth.silk_synth.launches == before
+
+
+@pytest.mark.parametrize("strided", list(SILK_SHAPES))
+def test_silk_synth_refuses_a_strided_input(strided):
+    """K12 indexes its rows as if packed: a view of the right shape but
+    not contiguous is refused before any launch, whichever input it is."""
+    from soundkit_tpu_torch.ops import silk_synth
+
+    before = silk_synth.silk_synth.launches
+    with pytest.raises(ValueError, match="non-contiguous"):
+        silk_synth.silk_synth(2, *_silk_args("meta", strided))
+    assert silk_synth.silk_synth.launches == before
+
+
 CELT_INPUTS = ("full", "comb", "valid", "ola", "hist", "emph", "pcm_out")
 
 
@@ -323,12 +380,16 @@ def test_entry_points_default_to_cuda():
     from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
     from soundkit_tpu_torch.models.fleet import StreamFleet
     from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
-    from soundkit_tpu_torch.models.opus_batch import BatchedCeltDecoder
+    from soundkit_tpu_torch.models.opus_batch import (BatchedCeltDecoder, BatchedHybridDecoder,
+                                                      BatchedSilkDeviceDecoder)
     from soundkit_tpu_torch.models.opus_fleet_model import BatchedOggOpusDecoder
-    from soundkit_tpu_torch.ops import mp3_batch
+    from soundkit_tpu_torch.ops import mp3_batch, silk_batch
 
     calls = {
         BatchedCeltDecoder: lambda: BatchedCeltDecoder(2, 2),
+        BatchedSilkDeviceDecoder: lambda: BatchedSilkDeviceDecoder(2, 2),
+        BatchedHybridDecoder: lambda: BatchedHybridDecoder(2, 2),
+        silk_batch.init_state: lambda: silk_batch.init_state(2, 2),
         BatchedOggOpusDecoder: lambda: BatchedOggOpusDecoder(2),
         BatchedFlacDecoder: lambda: BatchedFlacDecoder(2),
         BatchedMp3Decoder: lambda: BatchedMp3Decoder(2),

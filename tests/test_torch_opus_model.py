@@ -10,7 +10,8 @@ better (float32 sums in another order; the AAC bar), the carried state
 within 1e-5 of its largest value; and at 90 dB or better against the JAX
 package's host ``OpusStreamDecoder``, the bar of its own batched-CELT
 test. The lanes the JAX package's group reroutes to its host decoder
-raise ``OpusLaneUnsupported`` here, one case each."""
+raise ``OpusLaneUnsupported`` here, one case each (the group's SILK and
+hybrid lanes are held in tests/test_torch_silk_model.py)."""
 import struct
 
 import numpy as np
@@ -205,7 +206,7 @@ def test_ogg_group_matches_jax(clips, wire):
     streams = opus_fixtures.lane_streams(clips, B, 30)
     port = BatchedOggOpusDecoder(B, 2, celt_wire=wire, device="cpu")
     ref = JaxOgg(B, 2, celt_wire=wire)
-    assert ref._silk is not None  # the JAX group is whole here; the port's lanes stay CELT
+    assert ref._silk is not None and ref._hyb is not None  # the JAX group is whole here
     for half, device_out in ((0, True), (1, False)):
         for m in (port, ref):
             for i, s in enumerate(streams):
@@ -223,23 +224,30 @@ def test_ogg_group_matches_jax(clips, wire):
 @pytest.mark.parametrize("case", REROUTE_CASES)
 def test_lanes_the_reference_reroutes_raise(clips, case):
     """Each lane the JAX package's group hands to its host decoder raises
-    ``OpusLaneUnsupported`` out of the port's ``push``: the JAX group
-    raises its own for the same bytes (SILK and hybrid are served there,
-    so a SILK first packet is checked against the TOC alone)."""
-    from soundkit_tpu.codecs.opus_core import TOC_ATTRS
+    ``OpusLaneUnsupported`` out of the port's ``push``, and the JAX group
+    raises its own for the same bytes: at the push that brings the head
+    or the packet, or, for a hybrid stream that starts on a transition-
+    redundancy packet, at the push after the decode that froze the lane."""
     from soundkit_tpu.models.opus_fleet_model import OpusLaneUnsupported as JaxUnsupported
 
     head, packets, msg = opus_reroute_case(clips, case)
     data = ogg_opus(head, packets)
     port = BatchedOggOpusDecoder(2, 2, device="cpu")
+    ref = JaxOgg(2, 2)
+    if case == "hybrid_redundancy_start":
+        cut = len(data) - len(packets[-1]) - 28  # the last packet's page
+        for m in (port, ref):
+            m.push(0, data[:cut])
+        assert port.lane_ready(0) == len(packets) - 1
+        _, lens = port.decode_batches(len(packets) - 1)
+        ref.decode_batches(len(packets) - 1)
+        assert lens[:, 0].sum() == 0
+        data = data[cut:]
     port.push(1, opus_fixtures.lane_streams(clips, 1, 4)[0])  # a lane beside it
     with pytest.raises(OpusLaneUnsupported, match=msg):
         port.push(0, data)
-    if case == "silk_first":
-        assert TOC_ATTRS[packets[0][0]][:2] == ("silk", 20)
-    else:
-        with pytest.raises(JaxUnsupported):
-            JaxOgg(2, 2).push(0, data)
+    with pytest.raises(JaxUnsupported, match=msg):
+        ref.push(0, data)
     port.reset_lane(0)
     assert port.lane_ready(0) == 0 and port.lane_ready(1) == 4
     pcm, lens = port.decode_batches(4)

@@ -440,15 +440,16 @@ def opus_clip_pcm(name: str) -> np.ndarray:
     return (np.clip(pcm, -1, 1) * 26000).astype(np.int16).reshape(-1)
 
 
-def generate_opus_fixtures(directory: Path = opus_fixtures.FIXTURE_DIR) -> None:
+def generate_celt_fixtures(directory: Path) -> dict:
     """Encode every clip of ``opus_fixtures.CLIPS`` with the JAX
     package's ``OpusEncoder`` (libopus, or the owned CELT encoder), mux
     it with its ``OggOpusWriter`` (one packet a page) and write the
     streams and their index (header bytes, packet lengths, pre-skip and
-    output gain). Every packet must be a single-frame 20 ms CELT packet;
-    each libopus clip must carry comb-postfilter frames and transient
-    frames (checked with the JAX package's CELT parse), and the owned
-    encoder's clip none of the first."""
+    output gain; returned, not written). Every packet must be a
+    single-frame 20 ms CELT packet; each libopus clip must carry
+    comb-postfilter frames and transient frames (checked with the JAX
+    package's CELT parse), and the owned encoder's clip none of the
+    first."""
     from soundkit_tpu.codecs.celt_native import NativeCeltParser
     from soundkit_tpu.codecs.encoders import OpusEncoder
     from soundkit_tpu.codecs.opus_core import TOC_ATTRS
@@ -456,7 +457,6 @@ def generate_opus_fixtures(directory: Path = opus_fixtures.FIXTURE_DIR) -> None:
     from soundkit_tpu.demux.ogg import OggOpusWriter
 
     band_end = tables()["celt_band_end"].astype(int)
-    directory.mkdir(parents=True, exist_ok=True)
     index = {}
     for name in opus_fixtures.CLIPS:
         ch, bit_rate, backend, _, gain = OPUS_CLIPS[name]
@@ -483,7 +483,146 @@ def generate_opus_fixtures(directory: Path = opus_fixtures.FIXTURE_DIR) -> None:
                            packets=[len(p) for p in packets], postfilter_frames=postfilter,
                            transient_frames=int(transient))
         (directory / f"{name}.opus").write_bytes(stream)
+    return index
+
+
+# voice clip: (channels, bit rate, libopus max bandwidth, forced mode, OpusHead gain, mode, TOC
+# bandwidth); libopus's VoIP application, its voice signal type
+VOICE_CLIPS = {
+    "silk_nb": (1, 12000, 1101, 1000, 0, "silk", 0),
+    "silk_mb": (1, 16000, 1102, 1000, -600, "silk", 1),
+    "silk_wb": (1, 20000, 1103, 1000, 0, "silk", 2),
+    "silk_wb_stereo": (2, 24000, 1103, 1000, 0, "silk", 2),
+    "hybrid_swb": (1, 24000, 1104, 1001, 0, "hybrid", 3),
+    "hybrid_fb": (2, 32000, 1105, 1001, 0, "hybrid", 4),
+}
+VOICE_SECONDS = 3.0
+
+
+def voice_clip_pcm(name: str) -> np.ndarray:
+    """float32 [n, channels] at 48 kHz of voice clip ``name``: a harmonic
+    source gliding around 140 Hz under moving resonances, in bursts with
+    pauses of noise between them, and a 9 kHz component (the hybrid
+    clips' CELT band); the stereo clip is L = R for its first third (so
+    that SILK codes mid-only frames), then a delayed, scaled copy."""
+    ch = VOICE_CLIPS[name][0]
+    rng = np.random.default_rng(6000 + opus_fixtures.VOICE_CLIPS.index(name))
+    n = int(48000 * VOICE_SECONDS)
+    t = np.arange(n) / 48000
+    f0 = 140 * (1 + 0.15 * np.sin(2 * np.pi * 0.7 * t))
+    ph = 2 * np.pi * np.cumsum(f0) / 48000
+    x = sum(np.sin(h * ph) / h ** 0.7 * (1 + 0.8 * np.sin(2 * np.pi * (500 + 300 * h) * t / 2000))
+            for h in range(1, 25)) * 0.08
+    env = (np.sin(2 * np.pi * 2.2 * t) > -0.3).astype(float)
+    x = x * env + 0.02 * rng.standard_normal(n) * (1 - env) + 0.05 * np.sin(2 * np.pi * 9000 * t) * env
+    if ch == 1:
+        return x[:, None].astype(np.float32)
+    pcm = np.stack([x, x], 1)
+    pcm[n // 3:, 1] = np.roll(x, 9)[n // 3:] * 0.7 + 0.01 * rng.standard_normal(n - n // 3)
+    return pcm.astype(np.float32)
+
+
+def libopus_voice_packets(pcm: np.ndarray, bit_rate: int, max_bandwidth: int, mode: int,
+                          toggle_channels: bool = False):
+    """(packets, lookahead) of ``pcm`` float32 [n, channels] at 48 kHz by
+    the system's libopus (``libopus.so.0``, as ``tests/test_fleet.py``
+    opens it) in its VoIP application: voice signal, ``bit_rate``,
+    ``max_bandwidth`` (OPUS_BANDWIDTH_*) as the maximum and the set
+    bandwidth, and ``mode`` forced (1000 SILK, 1001 hybrid, 1002 CELT; a
+    list gives a packet's mode by its index). ``toggle_channels`` forces
+    mono coding every other half second."""
+    import ctypes
+
+    op = ctypes.CDLL("libopus.so.0")
+    op.opus_encoder_create.restype = ctypes.c_void_p
+    op.opus_encoder_create.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    op.opus_encoder_destroy.argtypes = [ctypes.c_void_p]
+    op.opus_encode_float.restype = ctypes.c_int
+    op.opus_encode_float.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                                     ctypes.c_char_p, ctypes.c_int]
+    op.opus_encoder_ctl.restype = ctypes.c_int
+    ch = pcm.shape[1]
+    err = ctypes.c_int(0)
+    enc = ctypes.c_void_p(op.opus_encoder_create(48000, ch, 2048, ctypes.byref(err)))
+    assert err.value == 0 and enc.value
+    modes = mode if isinstance(mode, list) else None
+
+    def ctl(req, v):
+        assert op.opus_encoder_ctl(enc, ctypes.c_int(req), ctypes.c_int(v)) == 0, (req, v)
+
+    try:
+        for req, v in ((4024, 3001), (4002, bit_rate), (4004, max_bandwidth), (4008, max_bandwidth)):
+            ctl(req, v)
+        lookahead = ctypes.c_int(0)
+        assert op.opus_encoder_ctl(enc, ctypes.c_int(4027), ctypes.byref(lookahead)) == 0
+        packets = []
+        for k, i in enumerate(range(0, len(pcm) - 960 + 1, 960)):
+            ctl(11002, modes[k] if modes else mode)
+            if toggle_channels:
+                ctl(4022, 1 if (k // 25) % 2 else -1000)
+            buf = ctypes.create_string_buffer(4000)
+            r = op.opus_encode_float(enc, np.ascontiguousarray(pcm[i: i + 960]).ctypes.data_as(
+                ctypes.POINTER(ctypes.c_float)), 960, buf, 4000)
+            assert r > 0, r
+            packets.append(buf.raw[:r])
+    finally:
+        op.opus_encoder_destroy(enc)
+    return packets, lookahead.value
+
+
+def generate_opus_fixtures(directory: Path = opus_fixtures.FIXTURE_DIR) -> None:
+    """The CELT clips (:func:`generate_celt_fixtures`) and the voice clips
+    (:func:`generate_voice_fixtures`), and their index."""
+    directory.mkdir(parents=True, exist_ok=True)
+    index = generate_celt_fixtures(directory)
+    index.update(generate_voice_fixtures(directory))
     (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
+
+
+def generate_voice_fixtures(directory: Path) -> dict:
+    """Encode every voice clip of ``opus_fixtures.VOICE_CLIPS`` with
+    libopus (:func:`libopus_voice_packets`), mux it with the JAX package's
+    ``OggOpusWriter`` (one packet a page) and write the streams; return
+    their index entries. Every packet must be a single-frame 20 ms packet
+    of the clip's mode and bandwidth (by its TOC); the SILK stereo clip
+    must code mono and stereo packets and mid-only frames (by the JAX
+    package's SILK parse)."""
+    from soundkit_tpu.codecs.opus_core import TOC_ATTRS
+    from soundkit_tpu.codecs.silk_native import NativeSilkBatch
+    from soundkit_tpu.demux.ogg import OggOpusWriter
+
+    index = {}
+    for name in opus_fixtures.VOICE_CLIPS:
+        ch, bit_rate, max_bw, force, gain, mode, bw = VOICE_CLIPS[name]
+        packets, lookahead = libopus_voice_packets(voice_clip_pcm(name), bit_rate, max_bw, force,
+                                                   toggle_channels=name == "silk_wb_stereo")
+        stereo = 0
+        for pkt in packets:
+            m, dur, st, b, code = TOC_ATTRS[pkt[0]]
+            assert (m, dur, code, b) == (mode, 20, 0, bw), (name, TOC_ATTRS[pkt[0]])
+            stereo += st
+        midonly = 0
+        if mode == "silk" and ch == 2:
+            parser = NativeSilkBatch(1, 2)
+            for pkt in packets:
+                coded = 2 if TOC_ATTRS[pkt[0]][2] else 1
+                p = parser.parse_many([pkt[1:]], [bw], [coded], [20], [1])
+                assert p["n"][0] > 0, name
+                midonly += int(p["flags"][0, 3])
+            assert 0 < stereo < len(packets) and midonly > 0, (name, stereo, midonly)
+        else:
+            assert stereo == (len(packets) if ch == 2 else 0), (name, stereo)
+        writer = OggOpusWriter(ch, pre_skip=lookahead, output_gain=gain)
+        header = writer.take()
+        for pkt in packets:
+            writer.write_packet(pkt)
+        stream = header + writer.close()
+        index[name] = dict(channels=ch, bit_rate=bit_rate, encoder="libopus", mode=mode,
+                           bandwidth=bw, pre_skip=lookahead, output_gain=gain, header=len(header),
+                           packets=[len(p) for p in packets], stereo_frames=stereo,
+                           midonly_frames=midonly)
+        (directory / f"{name}.opus").write_bytes(stream)
+    return index
 
 
 def ogg_opus(head: bytes, packets) -> bytes:
@@ -498,27 +637,28 @@ def ogg_opus(head: bytes, packets) -> bytes:
     return b"".join(pages)
 
 
-def silk_packets(n: int):
-    """Single-frame 20 ms SILK packets from the JAX package's owned voice
-    encoder (mono, wideband)."""
-    from soundkit_tpu.codecs.encoders import OpusEncoder
+def hybrid_redundancy_packets(n: int):
+    """``n`` single-frame 20 ms hybrid FB packets by libopus whose first
+    carries CELT-to-hybrid transition redundancy: the encoder runs four
+    CELT frames first, which are dropped, as a receiver joining the
+    stream at the switch sees it."""
+    pcm = voice_clip_pcm("hybrid_fb")[: 960 * (n + 4)]
+    packets, _ = libopus_voice_packets(pcm, 32000, 1105, [1002] * 4 + [1001] * n)
+    return packets[4:]
 
-    t = np.arange(960 * n) / 48000
-    pcm = (8000 * np.sin(2 * np.pi * 220 * t) * (1 + 0.3 * np.sin(2 * np.pi * 3 * t)))
-    enc = OpusEncoder(48000, 1, 24000, mode="voice")
-    return (enc.encode_i16_packets(pcm.astype(np.int16)) + enc.flush_packets())[:n]
 
-
-REROUTE_CASES = ("silk_first", "ten_ms_celt", "code3_multiframe", "mapping_family_1",
-                 "three_channels", "mode_switch")
+REROUTE_CASES = ("silk_bandwidth_switch", "ten_ms_celt", "code3_multiframe", "mapping_family_1",
+                 "three_channels", "mode_switch", "hybrid_redundancy_start")
 
 
 def opus_reroute_case(clips, case: str):
     """(OpusHead, packets, the refusal's message) of an Ogg Opus lane that
-    the JAX package's group reroutes to its host decoder: a SILK first
-    packet, a 10 ms CELT packet, a code-3 packet of two frames, an
-    OpusHead of mapping family 1 or of three channels, a switch from CELT
-    to SILK in mid-stream."""
+    the JAX package's group reroutes to its host decoder: a SILK NB lane
+    that switches to WB, a 10 ms CELT packet, a code-3 packet of two
+    frames, an OpusHead of mapping family 1 or of three channels, a
+    switch from CELT to SILK in mid-stream, and a hybrid stream that
+    starts on a transition-redundancy packet (its lane is frozen by the
+    decode, and refused at its next push)."""
     clip = clips[0]
     celt = clip.packets[:6]
     head2 = clip.head
@@ -527,18 +667,55 @@ def opus_reroute_case(clips, case: str):
     multi = bytes([celt[3][0] | 3, 2]) + frame + frame  # code 3, two CBR frames
     family1 = head2[:18] + b"\x01"
     three = head2[:9] + b"\x03" + head2[10:]
-    silk = silk_packets(3)
+    voice = {c.name: c for c in opus_fixtures.load_clips(names=opus_fixtures.VOICE_CLIPS)}
+    nb, wb = voice["silk_nb"].packets, voice["silk_wb"].packets
     return {
-        "silk_first": (head2, silk, "no batched silk engine"),
+        "silk_bandwidth_switch": (head2, nb[:4] + wb[4:6], "silk bandwidth switch"),
         "ten_ms_celt": (head2, celt[:2] + [ten_ms], "non-20ms/multiframe"),
         "code3_multiframe": (head2, celt[:3] + [multi], "non-20ms/multiframe"),
         "mapping_family_1": (family1, celt, "unsupported OpusHead"),
         "three_channels": (three, celt, "unsupported OpusHead"),
-        "mode_switch": (head2, celt[:4] + silk[:1], "mid-stream mode switch"),
+        "mode_switch": (head2, celt[:4] + nb[:1], "mid-stream mode switch"),
+        "hybrid_redundancy_start": (head2, hybrid_redundancy_packets(4),
+                                    "hybrid transition redundancy"),
     }[case]
+
+
+# ---------------------------------------------------------------------------
+# the SILK resampler's probed taps
+# ---------------------------------------------------------------------------
+
+def silk_resampler_arrays() -> Dict[str, np.ndarray]:
+    """The probed resampler plan of every SILK bandwidth, from the JAX
+    package's functions (``ops/silk_batch.py``: ``resampler_taps``,
+    ``_resample_plan``, ``first_slot_correction``, which probe its
+    libswresample-backed ``utils/swr.SilkResampler``): per bandwidth
+    ``bw``, ``taps_{bw}`` f64 [R, 16], ``off_{bw}``, ``T_{bw}``,
+    ``lead_invalid_{bw}`` and the slot-0 correction ``C_{bw}`` f64
+    [960, 48]."""
+    from soundkit_tpu.ops import silk_batch as jax_sb
+
+    out = {}
+    for bw in range(3):
+        taps, off = jax_sb.resampler_taps(bw)
+        _, _, T, lead = jax_sb._resample_plan(bw)
+        out[f"taps_{bw}"] = np.asarray(taps, np.float64)
+        out[f"off_{bw}"] = np.int64(off)
+        out[f"T_{bw}"] = np.int64(T)
+        out[f"lead_invalid_{bw}"] = np.int64(lead)
+        out[f"C_{bw}"] = np.asarray(jax_sb.first_slot_correction(bw), np.float64)
+    return out
+
+
+def generate_silk_resampler_table(path: Path = None) -> None:
+    """Write :func:`silk_resampler_arrays` to the port's committed table
+    (``soundkit_tpu_torch/data/silk_resampler.npz``)."""
+    from soundkit_tpu_torch.ops import silk_batch
+
+    np.savez_compressed(path or silk_batch.TABLE_PATH, **silk_resampler_arrays())
 
 
 if __name__ == "__main__":
     {"aac": generate_aac_fixtures, "telephony": generate_telephony_fixtures,
      "flac": generate_flac_fixtures, "mp3": generate_mp3_fixtures,
-     "opus": generate_opus_fixtures}[sys.argv[1]]()
+     "opus": generate_opus_fixtures, "silk_resampler": generate_silk_resampler_table}[sys.argv[1]]()
