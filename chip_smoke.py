@@ -24,12 +24,16 @@ gain) through ``soundkit_tpu_torch.models.opus_batch.BatchedCeltDecoder``,
 the batched Opus SILK and hybrid decoders (1024 ragged voice lanes of the
 libopus voice fixtures in the same directory: SILK NB / MB / WB, a
 quarter stereo; hybrid SWB mono and FB stereo) through
-``BatchedSilkDeviceDecoder`` and ``BatchedHybridDecoder``, and the
-serving runtime ``soundkit_tpu_torch.models.fleet.StreamFleet`` over all
-five (1024 lanes a group). Phases:
+``BatchedSilkDeviceDecoder`` and ``BatchedHybridDecoder``, the batched
+Ogg Vorbis decoder (1024 ragged stereo 44.1 kHz lanes of the libvorbis
+fixtures in ``tests/data/torch_port/vorbis``, blocksizes 256 and 2048)
+through ``soundkit_tpu_torch.models.vorbis_batch.BatchedVorbisDecoder``,
+and the serving runtime ``soundkit_tpu_torch.models.fleet.StreamFleet``
+over all six (1024 lanes a group). Phases:
 
 a. build the CUDA kernels, the host parser, the FLAC walk, the MP3
-   parser and the Opus parse (CELT, SILK, hybrid glue) from the checkout;
+   parser, the Opus parse (CELT, SILK, hybrid glue) and the Vorbis packet
+   parse from the checkout;
 b. print the card (``nvidia-smi`` name and power limit), the kernels'
    launch shapes (K4's lanes a block and a warp, K6's threads a lane,
    K7's threads a band and steps a tile, K3's codes a thread and threads
@@ -162,24 +166,48 @@ s. SILK: 1024 ragged voice lanes (lane i: clip i mod 8 of four WB mono,
 t. hybrid: 1024 ragged lanes of the SWB and FB clips the same way, K12
    and K11 once a round of every chunk of 8; one ``[hybrid]`` line with
    the same figures a chunk;
-u. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
+u. Vorbis kernel: K13 (``vorbis_overlap``: the window, the block-size
+   shift, the overlap-add, the new lap and the masks of one packet, after
+   the two IMDCT products; one launch a round) against its plain version
+   on the card, bit-exact: on the [vorbis] path's round after three
+   decoded rounds (1024 lanes, C = 2, with the decoder's lap; the timed
+   case), and on seeded random rounds of 1024 streams (every (previous,
+   current) block-size case, invalid lanes) at C = 2 and 1, with n0 ==
+   n1 and with (512, 4096) among them; beside the graph-replay time
+   (whose launches find their 38 MB warm in the 50 MB L2), the same
+   launches with the inputs rotated over four copies (``cold_ms``);
+v. Vorbis compare: two decodes of a 1024-lane ``BatchedVorbisDecoder`` on
+   the card against the port's plain path on the CPU: lengths identical,
+   PCM >= 120 dB per lane, the lap within 1e-6 of its largest value;
+w. Vorbis: 1024 ragged stereo lanes (lane i: clip i mod 2 from page
+   3·(i // 2), wrapping, every fourth lane of a clip shorter) pushed in
+   three rounds with a decode of every ready round after each, launch
+   counters reset just before; K13 once a round, every sample of the
+   streams out; one ``[vorbis]`` line (x realtime at 44.1 kHz, the parse
+   a push, the decoder's pack a collect, h2d and the step a round by CUDA
+   events, the device operations and their device time a round by
+   ``torch.profiler``);
+x. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    lanes (detected from ADTS), 1024 MP3 lanes (detected from their frame
    headers), 1024 FLAC lanes (detected from ``fLaC``), 1024 Ogg Opus
    lanes (detected from ``OggS`` and ``OpusHead``: CELT, SILK and hybrid
-   streams, clip i mod 10 of the four CELT and six voice clips) and 1024
+   streams, clip i mod 10 of the four CELT and six voice clips), 1024 Ogg
+   Vorbis lanes (detected from ``OggS`` and the identification header:
+   44.1 kHz stereo, four pages, <= ~1 s) and 1024
    G.722 lanes (explicit kind), pushed raggedly in four rounds with a
    ``collect(device_out=True)`` after each, a quarter of the streams
    ended after the second round and their lanes taken by new streams;
    every stream's fetched PCM is held against the bare model's output
    for the same bytes (MP3, FLAC and G.722 bit-exact, AAC and Opus >=
-   100 dB under the same rounds), refused streams (Ogg Vorbis, GSM, an
-   Ogg Opus SILK stream that switches from NB to WB) must raise
-   ``FleetUnsupported``, and every kernel of the five groups must have
-   launched; then an ``out_bits=16`` collect against the quantized bare
-   output (Opus CELT on the i16 spectral wire), and per group a fleet
-   serving that group alone, its x realtime beside the bare model's on
-   the same bytes; one ``[fleet]`` line;
-v. print the kernels' JSON line (all twelve kernels, K2 with no launch:
+   100 dB and Vorbis >= 120 dB under the same rounds), refused streams
+   (a 22.05 kHz mono Ogg Vorbis stream after the group's topology is
+   fixed, GSM, an Ogg Opus SILK stream that switches from NB to WB) must
+   raise ``FleetUnsupported``, and every kernel of the six groups must
+   have launched; then an ``out_bits=16`` collect against the quantized
+   bare output (Opus CELT on the i16 spectral wire), and per group a
+   fleet serving that group alone, its x realtime beside the bare model's
+   on the same bytes; one ``[fleet]`` line;
+y. print the kernels' JSON line (all thirteen kernels, K2 with no launch:
    it is not on a path), then the result line.
 
 Any failed phase exits non-zero before the result line. Without a
@@ -235,6 +263,11 @@ K12_SAMPLE_CYCLES = 8  # dependent cycles an LPC sample (the coeff[0] product an
 # the [silk] lanes: lane i plays clip SILK_MIX[i mod 8] (mostly WB, a quarter stereo)
 SILK_MIX = ("silk_wb",) * 4 + ("silk_nb", "silk_mb") + ("silk_wb_stereo",) * 2
 HYBRID_MIX = ("hybrid_swb", "hybrid_fb")
+VORBIS_ROUNDS = 3        # pushes of the [vorbis] phase, a decode after each
+VORBIS_WARM = 3          # rounds the [vorbis-kernels] path case decodes before its round
+VORBIS_COMPARE_PAGES = 1  # audio pages a [vorbis-compare] lane carries (~20 packets)
+VORBIS_RATE = 44100.0
+FLEET_VORBIS_PAGES = 4   # audio pages an Ogg Vorbis fleet stream carries (<= ~1 s)
 
 
 class SmokeFailure(RuntimeError):
@@ -331,12 +364,15 @@ def phase_build():
     t4 = time.perf_counter()
     cpath = _build.opus_library_path()
     t5 = time.perf_counter()
+    vpath = _build.vorbis_library_path()
+    t6 = time.perf_counter()
     _build.kernels()
     log(f"[build] kernels {kpath.relative_to(ROOT)} in {t1 - t0:.3f} s; "
         f"parser {ppath.relative_to(ROOT)} in {t2 - t1:.3f} s; "
         f"FLAC walk {fpath.relative_to(ROOT)} in {t3 - t2:.3f} s; "
         f"MP3 parser {mpath.relative_to(ROOT)} in {t4 - t3:.3f} s; "
-        f"Opus parse {cpath.relative_to(ROOT)} in {t5 - t4:.3f} s")
+        f"Opus parse {cpath.relative_to(ROOT)} in {t5 - t4:.3f} s; "
+        f"Vorbis parse {vpath.relative_to(ROOT)} in {t6 - t5:.3f} s")
     blog = kpath.with_suffix(".log")
     if blog.exists():
         for line in blog.read_text().splitlines():
@@ -1697,6 +1733,210 @@ def phase_voice(kind: str):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Ogg Vorbis phases
+# ---------------------------------------------------------------------------
+
+def vorbis_wrappers():
+    from soundkit_tpu_torch.ops import vorbis_overlap
+
+    return {"vorbis_overlap": vorbis_overlap.vorbis_overlap}
+
+
+def phase_vorbis_kernels():
+    """K13 against its plain version on the card, bit-exact: on the
+    [vorbis] path's round after VORBIS_WARM decoded rounds (B = 1024 ragged
+    stereo fixture lanes, the decoder's lap; the timed case), on seeded
+    random rounds of B streams at C = 2 and C = 1 (every (previous,
+    current) block-size case, random window flags, invalid lanes, a random
+    lap) and on a case with n0 == n1."""
+    import torch
+
+    from soundkit_tpu_torch.tools import kernel_check as kc
+
+    dev = torch.device("cuda", 0)
+    inputs = kc.vorbis_fixture_inputs(B, dev, warm=VORBIS_WARM)
+    nbytes, flops = kc.vorbis_overlap_work(inputs)
+    kernel, plain = kc.vorbis_overlap_pair(inputs)
+    r = measure("vorbis_overlap", "vorbis_overlap", kernel, plain, nbytes=nbytes, flops=flops)
+    # the graph's launches find their 38 MB warm in the 50 MB L2; the same launches with
+    # the inputs rotated over four copies find them cold
+    copies = [kc.vorbis_overlap_pair(tuple(t.clone() for t in inputs))[0] for _ in range(4)]
+    turn = iter(range(1 << 30))
+    r["cold_ms"] = graph_ms(lambda: copies[next(turn) % 4]())
+    cases = {}
+    for c, (n0, n1) in ((2, (256, 2048)), (1, (256, 2048)), (2, (256, 256)), (1, (512, 4096))):
+        k, p = kc.vorbis_overlap_random_case(dev, 30 + c, streams=B, channels=c, n0=n0, n1=n1)
+        cases[f"C{c}_{n0}_{n1}"] = kc.compare("vorbis_overlap", k, p)
+    flags = inputs[3].cpu()
+    valid = flags[3] != 0
+    r.update(streams=B, valid_streams=int(valid.sum()),
+             short_blocks=int((valid & (flags[0] == 0)).sum()),
+             random_cases=sorted(cases), max_abs_err=max(r["max_abs_err"],
+                                                         *(x["max_abs_err"] for x in cases.values())))
+    log(f"[vorbis-kernels] vorbis_overlap: path {r['ms']:.4f} ms, inputs rotated over four "
+        f"copies (out of L2) {r['cold_ms']:.4f} ms (plain {r['plain_ms']:.3f} ms), "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {nbytes} bytes, {flops} FLOP); "
+        f"{r['valid_streams']} of {B} streams valid, {r['short_blocks']} short blocks; bit-exact "
+        f"on the path and on random rounds {sorted(cases)}")
+    return {"vorbis_overlap": r}
+
+
+def vorbis_compare_run(device: str):
+    """Two decodes (VORBIS_WARM rounds, then the rest) of a B-lane Vorbis
+    decoder on ``device`` over VORBIS_COMPARE_PAGES audio pages of the
+    smoke lanes: (PCM [rounds, B, C, 1024], lengths) of each, and the lap,
+    as numpy."""
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.models.vorbis_batch import BatchedVorbisDecoder
+    from soundkit_tpu_torch.tools import vorbis_fixtures as vf
+
+    model = BatchedVorbisDecoder(B, device=device)
+    clips = vf.load_clips(names=vf.STEREO)
+    for i, data in enumerate(vf.lane_streams(clips, B, VORBIS_COMPARE_PAGES)):
+        model.push(i, data)
+    n = max(model.lane_ready(i) for i in range(B))
+    out = []
+    for k in (VORBIS_WARM, n - VORBIS_WARM):
+        pcm, lens = model.decode_batches(k, device_out=True)
+        out.append((torch.stack(pcm).cpu().numpy(), lens))
+    return out, model._carry.cpu().numpy()
+
+
+def phase_vorbis_compare():
+    """The card's Vorbis decoder against the port's plain path on the CPU,
+    from the same pushes: lengths identical, PCM >= 120 dB a lane (or
+    identical), the lap within 1e-6 of its largest value."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    g_out, g_carry = vorbis_compare_run("cuda")
+    t1 = time.perf_counter()
+    c_out, c_carry = vorbis_compare_run("cpu")
+    t2 = time.perf_counter()
+    for (g, gl), (c, cl) in zip(g_out, c_out):
+        check(g.shape == c.shape and g.shape[1:] == (B, C, 1024), "vorbis: shapes differ")
+        check(np.array_equal(gl, cl), "vorbis: lengths differ")
+        check(np.isfinite(g).all(), "vorbis: non-finite PCM")
+    got = np.concatenate([g for g, _ in g_out]).astype(np.float64)
+    ref = np.concatenate([c for c, _ in c_out]).astype(np.float64)
+    worst, live, identical = float("inf"), 0, 0
+    for b in range(B):
+        sig, err = (ref[:, b] ** 2).sum(), ((got[:, b] - ref[:, b]) ** 2).sum()
+        check(sig > 0, f"vorbis lane {b}: silent")
+        live += 1
+        identical += int(err == 0)
+        worst = min(worst, float(10 * np.log10(sig / max(err, 1e-300))))
+    carry_rel = float(np.abs(g_carry - c_carry).max() / np.abs(c_carry).max())
+    rounds = sum(g.shape[0] for g, _ in g_out)
+    log(f"[vorbis-compare] 2 decodes ({VORBIS_WARM} and {rounds - VORBIS_WARM} rounds) x {B} "
+        f"lanes: min lane PCM SNR {worst:.2f} dB over {live} lanes ({identical} identical); "
+        f"lengths identical; lap max rel err {carry_rel:.2e}; card {t1 - t0:.3f} s, CPU plain "
+        f"{t2 - t1:.3f} s")
+    check(worst >= 120.0, f"vorbis card vs CPU: a lane at {worst:.2f} dB")
+    check(carry_rel <= 1e-6, f"vorbis card vs CPU: lap off by {carry_rel:.2e}")
+    return dict(min_pcm_snr_db=worst, lanes=live, identical_lanes=identical, rounds=rounds,
+                carry_rel_err=carry_rel, card_s=t1 - t0, cpu_s=t2 - t1)
+
+
+def vorbis_step_profile() -> dict:
+    """Device operations a round runs at B = 1024 (the two IMDCT products,
+    K13, the round's copies) and their device time a round in ms, by
+    ``torch.profiler`` over one 4-round decode."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from soundkit_tpu_torch.models.vorbis_batch import BatchedVorbisDecoder
+    from soundkit_tpu_torch.tools import vorbis_fixtures as vf
+
+    model = BatchedVorbisDecoder(B, device="cuda")
+    for i, data in enumerate(vf.lane_streams(vf.load_clips(names=vf.STEREO), B, 1)):
+        model.push(i, data)
+    model.decode_batches(1, device_out=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.decode_batches(4, device_out=True)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in ops if e.name.startswith(("Memcpy", "Memset"))]
+
+    def ms(events):
+        return sum(e.time_range.elapsed_us() for e in events) / 1e3 / 4
+
+    return dict(ops_per_round=len(ops) / 4, kernel_ms_per_round=ms(ops) - ms(copies),
+                copy_ms_per_round=ms(copies), kernel_names=sorted({e.name[:60] for e in ops}))
+
+
+def phase_vorbis():
+    """B ragged stereo lanes of the two 44.1 kHz Vorbis fixtures through
+    the decoder until they drain: VORBIS_ROUNDS pushes (the C++ packet
+    parse runs in the push), a decode of every ready round after each;
+    launch counters reset just before."""
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.models.vorbis_batch import BatchedVorbisDecoder
+    from soundkit_tpu_torch.tools import vorbis_fixtures as vf
+
+    clips = vf.load_clips(names=vf.STEREO)
+    streams = vf.lane_streams(clips, B)
+    want = vf.lane_samples(clips, B)
+    model = BatchedVorbisDecoder(B, device="cuda", timed=True)
+    wrappers = vorbis_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    push_s = decode_s = 0.0
+    samples = np.zeros(B, np.int64)
+    rounds = packets = 0
+    peak = torch.zeros((), device="cuda")
+    for r in range(VORBIS_ROUNDS):
+        t0 = time.perf_counter()
+        for i, data in enumerate(streams):
+            model.push(i, data[len(data) * r // VORBIS_ROUNDS: len(data) * (r + 1) // VORBIS_ROUNDS])
+        t1 = time.perf_counter()
+        ready = [model.lane_ready(i) for i in range(B)]
+        n = max(ready)
+        pcm, lens = model.decode_batches(n, device_out=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        push_s += t1 - t0
+        decode_s += t2 - t1
+        rounds += n
+        packets += sum(ready)
+        samples += lens.sum(axis=0)
+        for p in pcm:
+            check(tuple(p.shape) == (B, C, 1024), f"vorbis pcm {tuple(p.shape)}")
+        out = torch.stack(pcm)
+        check(bool(torch.isfinite(out).all()), "vorbis: non-finite PCM")
+        peak = torch.maximum(peak, out.abs().max())
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(all(model.lane_ready(i) == 0 for i in range(B)), "vorbis: lanes not drained")
+    check(launches["vorbis_overlap"] == rounds,
+          f"vorbis_overlap launched {launches['vorbis_overlap']} times in {rounds} rounds")
+    check(float(peak) > 0.1, f"vorbis: peak {float(peak)} (silent)")
+    check(samples.tolist() == want.tolist(), f"vorbis: {samples.sum()} samples out, the streams "
+          f"carry {want.sum()}")
+    audio_s = float(samples.sum()) / VORBIS_RATE
+    stages = model.stage_ms()
+    res = dict(lanes=B, channels=C, pushes=VORBIS_ROUNDS, rounds=rounds, packets=packets,
+               audio_s=audio_s, xrealtime=audio_s / (push_s + decode_s), push_s=push_s,
+               decode_s=decode_s, xrealtime_decode_only=audio_s / decode_s,
+               parse_ms_per_push=1e3 * push_s / VORBIS_ROUNDS,
+               parse_us_per_packet=1e6 * push_s / packets,
+               pack_ms_median_per_collect=stages["pack"], h2d_ms_median_per_round=stages["h2d"],
+               device_step_ms_median_per_round=stages["step"], launches=launches,
+               k13_launches_per_round=launches["vorbis_overlap"] / rounds)
+    prof = vorbis_step_profile()
+    res.update(device_ops_per_round=prof["ops_per_round"],
+               device_kernel_ms_per_round=prof["kernel_ms_per_round"],
+               device_copy_ms_per_round=prof["copy_ms_per_round"])
+    log(f"[vorbis] {json.dumps(res)}")
+    log(f"[vorbis] device operations of a round: {prof['kernel_names']}")
+    return res
+
+
 class FleetStreams:
     """The streams of the fleet phase: per group, B first-wave streams
     and, for every fourth lane, a second-wave stream that takes the lane
@@ -1710,6 +1950,7 @@ class FleetStreams:
         from soundkit_tpu_torch.tools import mp3_fixtures as mf
         from soundkit_tpu_torch.tools import opus_fixtures as of
         from soundkit_tpu_torch.tools import telephony_fixtures as tf
+        from soundkit_tpu_torch.tools import vorbis_fixtures as vf
 
         self.lanes = lanes
         n2 = lanes // 4
@@ -1741,12 +1982,16 @@ class FleetStreams:
             cut = {"silk_nb": clip.pre_skip + 23, "hybrid_swb": 0, "hybrid_fb": 0}.get(
                 clip.name, clip.pre_skip)
             opus_s.append(max(len(idx) * 960 - cut, 0) / RATE)
+        vclips = vf.load_clips(names=vf.STEREO)
+        vorbis = vf.lane_streams(vclips, lanes + n2, FLEET_VORBIS_PAGES)
+        vorbis_s = vf.lane_samples(vclips, lanes + n2, FLEET_VORBIS_PAGES) / VORBIS_RATE
         for j in range(lanes + n2):
             for g, data, kind, secs in (("aac", aac[j], None, FLEET_AAC_FRAMES * 1024 / RATE),
                                         ("mp3", mp3[j], None, mp3_s[j]),
                                         ("flac", flac[j], None, flac_s[j]),
                                         ("opus", b"".join(self.opus_pages[f"opus-{j}"]), None,
                                          opus_s[j]),
+                                        ("vorbis", vorbis[j], None, float(vorbis_s[j])),
                                         (FLEET_TEL_KIND, tel[j], FLEET_TEL_KIND, len(tel[j]) / tel_rate)):
                 sid = f"{g}-{j}"
                 self.data[sid], self.kind[sid], self.audio[sid], self.group[sid] = data, kind, secs, g
@@ -1819,13 +2064,15 @@ def bare_outputs(fs: "FleetStreams", seats, group: str, rounds=None, wire: str =
     (building the model, the pushes, one decode of every round,
     synchronized). ``wire`` is the Opus model's spectral wire.
 
-    ``rounds`` (AAC and Opus) replays a fleet's lockstep rounds: per
-    collect (batches decoded, {sid: frames the stream had ready}). The
+    ``rounds`` (AAC, Opus and Vorbis) replays a fleet's lockstep rounds:
+    per collect (batches decoded, {sid: frames the stream had ready}). The
     AAC step takes an idle lane's previous window shape for 0, as the JAX
     package's does, so a lane that idles in mid-stream windows its next
     frame otherwise than one fed without a gap; the fleet is held to the
     bare model under the same gaps. The Opus model replays the same
-    rounds of Ogg pages."""
+    rounds of Ogg pages; the Vorbis model takes each stream whole and
+    hands its lanes' parsed packets to the rounds as the fleet's lanes had
+    them ready."""
     import numpy as np
     import torch
 
@@ -1834,6 +2081,7 @@ def bare_outputs(fs: "FleetStreams", seats, group: str, rounds=None, wire: str =
     from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
     from soundkit_tpu_torch.models.opus_fleet_model import BatchedOggOpusDecoder
     from soundkit_tpu_torch.models.telephony_batch import TelephonyLaneGroup
+    from soundkit_tpu_torch.models.vorbis_batch import BatchedVorbisDecoder
 
     t0 = time.perf_counter()
     if group == "aac":
@@ -1844,6 +2092,8 @@ def bare_outputs(fs: "FleetStreams", seats, group: str, rounds=None, wire: str =
         model = BatchedFlacDecoder(B, FLAC_STRIDE, device="cuda")
     elif group == "opus":
         model = BatchedOggOpusDecoder(B, C, celt_wire=wire, device="cuda")
+    elif group == "vorbis":
+        model = BatchedVorbisDecoder(B, device="cuda")
     else:
         model = TelephonyLaneGroup(group, B, TEL_CHUNK, device="cuda")
     if rounds is not None and group == "opus":
@@ -1864,6 +2114,23 @@ def bare_outputs(fs: "FleetStreams", seats, group: str, rounds=None, wire: str =
         check(all(len(p) == 0 for p in pages.values()), "fleet: an Opus stream's pages were not "
               "all collected")
         return {sid: np.concatenate(p, axis=1) for sid, p in parts.items()}, time.perf_counter() - t0
+    if rounds is not None and group == "vorbis":
+        pending = {}
+        for lane, sid in seats.items():
+            model.push(lane, fs.data[sid])
+            pending[lane], model._lanes[lane].queue = model._lanes[lane].queue, []
+        parts = {sid: [] for sid in seats.values()}
+        for n, ready in rounds:
+            for lane, sid in seats.items():
+                k = ready.get(sid, 0)
+                model._lanes[lane].queue, pending[lane] = pending[lane][:k], pending[lane][k:]
+            out = model.decode_batches(n)
+            for lane, sid in seats.items():
+                if out[lane].shape[-1]:
+                    parts[sid].append(out[lane])
+        check(not any(pending.values()), "fleet: a Vorbis stream's packets were not all collected")
+        return ({sid: np.concatenate(p, axis=1) for sid, p in parts.items()},
+                time.perf_counter() - t0)
     if rounds is not None:
         from soundkit_tpu_torch.tools import aac_fixtures as af
 
@@ -1896,6 +2163,10 @@ def bare_outputs(fs: "FleetStreams", seats, group: str, rounds=None, wire: str =
         for i, sid in seats.items():
             out[sid] = np.concatenate([arr[r, i, :, 960 - lens[r, i]:] for r in range(ready[i])],
                                       axis=1)
+    elif group == "vorbis":
+        arr, lens = torch.stack(got[0]).cpu().numpy(), got[1]
+        for i, sid in seats.items():
+            out[sid] = np.concatenate([arr[r, i, :, : lens[r, i]] for r in range(ready[i])], axis=1)
     elif group == "flac":
         arr, metas = got[0].cpu().numpy(), got[1]
         for i, sid in seats.items():
@@ -1915,26 +2186,38 @@ def phase_fleet():
     from soundkit_tpu_torch.models.fleet import FleetUnsupported, StreamFleet
     from soundkit_tpu_torch.ops import aac_batch as ab
     from soundkit_tpu_torch.tools import opus_fixtures as of
+    from soundkit_tpu_torch.tools import vorbis_fixtures as vf
     from soundkit_tpu_torch.ops import aac_entropy as ae
     from soundkit_tpu_torch.ops import g722, imdct
 
     fs = FleetStreams(B)
-    groups = ("aac", "mp3", "flac", "opus", FLEET_TEL_KIND)
+    groups = ("aac", "mp3", "flac", "opus", "vorbis", FLEET_TEL_KIND)
     first = [sid for g in groups for sid in fs.wave(g, False)]
     second = [sid for g in groups for sid in fs.wave(g, True)]
     wrappers = {"spectral_decode": ae.spectral_decode, "tns_filter": ab.tns_filter,
                 "imdct_window": imdct.imdct_window, "g722_scan": g722.g722_decode_scan,
-                **flac_wrappers(), **mp3_wrappers(), **voice_wrappers()}
+                **flac_wrappers(), **mp3_wrappers(), **voice_wrappers(), **vorbis_wrappers()}
 
     # mixed: all three groups in one fleet, lanes recycled, every stream checked
     fleet = StreamFleet(capacity_per_group=B, device="cuda")
     got, lane_of = {}, {}
-    # per collect with AAC or Opus output: (batches decoded, {sid: frames ready})
-    replays = {"aac": [], "opus": []}
+    # per collect with AAC, Opus or Vorbis output: (batches decoded, {sid: frames ready})
+    replays = {"aac": [], "opus": [], "vorbis": []}
 
     def collect_and_fetch():
+        # a Vorbis lane's output is host PCM with no lane or frame count: its lane and
+        # its packets ready, before the collect
+        vorbis = {}
+        for sid, ln in fleet._lanes.items():
+            if ln.group == "vorbis":
+                vorbis[sid] = fleet._groups["vorbis"].lane_ready(ln.index)
+                check(lane_of.setdefault(sid, ln.index) == ln.index, f"{sid}: changed lanes")
+        if vorbis and max(vorbis.values()):
+            replays["vorbis"].append((max(vorbis.values()), vorbis))
         recs = fleet.collect(device_out=True)
         for kind, kind_rounds in replays.items():
+            if kind == "vorbis":
+                continue
             ready = {sid: rec.frames for sid, rec in recs.items() if rec.kind == kind}
             if ready:
                 kind_rounds.append((int(next(recs[sid] for sid in ready).device.shape[0]), ready))
@@ -1942,7 +2225,8 @@ def phase_fleet():
             check(rec.rate == fleet.sample_rate(sid) and rec.rate is not None, f"{sid}: rate {rec.rate}")
             pcm = rec.fetch()
             check(pcm.shape[-1] == rec.samples, f"{sid}: {pcm.shape} for {rec.samples} samples")
-            check(lane_of.setdefault(sid, rec.lane) == rec.lane, f"{sid}: changed lanes")
+            if rec.kind != "vorbis":
+                check(lane_of.setdefault(sid, rec.lane) == rec.lane, f"{sid}: changed lanes")
             got.setdefault(sid, []).append(pcm)
 
     for w in wrappers.values():
@@ -1956,12 +2240,14 @@ def phase_fleet():
     for g in groups:
         used = fleet._groups[g]._used
         check(len(used) == B, f"fleet: group {g} used {len(used)} lanes for {B + B // 4} streams")
-    vorbis_page = b"OggS" + bytes(22) + b"\x01\x1e" + b"\x01vorbis" + bytes(9000)
+    # an Ogg Vorbis stream of another topology than the group's (22.05 kHz mono)
+    mono = vf.load_clips(names=("mono22",))[0].stream()
     try:
-        fleet.push("refused", vorbis_page)
-        check(False, "fleet: an Ogg Vorbis stream was not refused")
+        fleet.push("refused", mono)
+        check(False, "fleet: an Ogg Vorbis stream of another topology was not refused")
     except FleetUnsupported as e:
-        check("ogg_vorbis" in str(e), f"fleet: refusal does not name the kind: {e}")
+        check("kind 'vorbis'" in str(e) and "topology (512, 1024, 1)" in str(e) and e.raw == mono,
+              f"fleet: refusal does not name it: {e}")
     try:
         fleet.push("refused", b"\x00" * 64, kind="gsm")
         check(False, "fleet: a GSM stream was not refused")
@@ -1982,7 +2268,8 @@ def phase_fleet():
     check(not fleet._lanes and not fleet._detect and not fleet._ended,
           "fleet: the refused stream was not forgotten")
 
-    worst_snr = {"aac": float("inf"), "opus": float("inf")}
+    worst_snr = {"aac": float("inf"), "opus": float("inf"), "vorbis": float("inf")}
+    vorbis_identical = 0
     for g in groups:
         # a lane serves several streams in turn (the early enders' lanes go to late
         # arrivals): each bare model seats at most one stream a lane, in its fleet lane
@@ -2000,12 +2287,13 @@ def phase_fleet():
                 pcm = np.concatenate(got[sid], axis=1)
                 ref = want[sid]
                 check(pcm.shape == ref.shape, f"{sid}: fleet {pcm.shape}, bare model {ref.shape}")
-                if g in ("aac", "opus"):
+                if g in ("aac", "opus", "vorbis"):
                     err = float(((pcm.astype(np.float64) - ref) ** 2).sum())
                     sig = float((ref.astype(np.float64) ** 2).sum())
                     check(sig > 0, f"{sid}: silent")
                     snr = 10 * np.log10(sig / max(err, 1e-300))
-                    worst_snr[g] = min(worst_snr[g], snr)
+                    worst_snr[g] = min(worst_snr[g], float(snr))
+                    vorbis_identical += int(g == "vorbis" and err == 0)
                 elif g == "mp3":
                     # an idle MP3 lane keeps its state as it was (no window shape to
                     # lose), so a stream fed in rounds decodes as one fed whole
@@ -2017,36 +2305,40 @@ def phase_fleet():
                           f"{sid}: fleet PCM differs from the bare model's")
                     check(np.any(ref), f"{sid}: silent")
     for g, snr in worst_snr.items():
-        check(snr >= 100.0, f"fleet: {g} stream at {snr:.2f} dB against the bare model")
+        check(snr >= (120.0 if g == "vorbis" else 100.0),
+              f"fleet: {g} stream at {snr:.2f} dB against the bare model")
     audio = sum(fs.audio.values())
     mixed = dict(streams=len(first) + len(second), rounds=FLEET_ROUNDS, audio_s=audio,
                  push_s=push_s, collect_and_fetch_s=collect_s,
                  xrealtime=audio / (push_s + collect_s), min_aac_snr_db=worst_snr["aac"],
-                 min_opus_snr_db=worst_snr["opus"], launches=launches)
+                 min_opus_snr_db=worst_snr["opus"], min_vorbis_snr_db=worst_snr["vorbis"],
+                 vorbis_identical_streams=int(vorbis_identical), launches=launches)
     log(f"[fleet] mixed: {json.dumps(mixed)}")
 
     # out_bits=16: one collect, against the bare outputs quantized on the host
     f16 = StreamFleet(capacity_per_group=B, out_bits=16, device="cuda")
-    sids16 = [sid for g in ("aac", "mp3", "flac", "opus") for sid in fs.wave(g, False)]
+    sids16 = [sid for g in ("aac", "mp3", "flac", "opus", "vorbis") for sid in fs.wave(g, False)]
     for sid in sids16:
         f16.push(sid, fs.data[sid], kind=fs.kind[sid])
         f16.end_stream(sid)
     out16 = f16.collect(device_out=True)
-    for g in ("aac", "mp3", "flac", "opus"):
-        want, _ = bare_outputs(fs, {out16[sid].lane: sid for sid in fs.wave(g, False)}, g,
-                               wire="i16")
+    for g in ("aac", "mp3", "flac", "opus", "vorbis"):
+        # a Vorbis record has no lane (host PCM): its bare model seats the streams in order
+        seats = dict(enumerate(fs.wave(g, False))) if g == "vorbis" else \
+            {out16[sid].lane: sid for sid in fs.wave(g, False)}
+        want, _ = bare_outputs(fs, seats, g, wire="i16")
         for sid in fs.wave(g, False):
             pcm, ref = out16[sid].fetch(), want[sid]
             check(pcm.dtype == np.int16 and pcm.shape == ref.shape, f"{sid}: {pcm.dtype} {pcm.shape}")
-            if g in ("aac", "mp3", "opus"):
+            if g in ("aac", "mp3", "opus", "vorbis"):
                 q = np.clip(np.round(ref * np.float32(32767.0)), -32768, 32767)
                 check(np.abs(pcm - q).max() <= 1, f"{sid}: int16 PCM off by more than 1")
             else:
                 shift = fs.flac_bits[sid] - 16
                 check(np.array_equal(pcm, np.clip(ref >> shift, -32768, 32767)),
                       f"{sid}: int16 FLAC differs")
-    log(f"[fleet] out_bits=16: {len(sids16)} streams, AAC, MP3 and Opus (the i16 spectral wire) "
-        f"within 1 LSB, FLAC exact (24-bit lanes >> 8)")
+    log(f"[fleet] out_bits=16: {len(sids16)} streams, AAC, MP3, Opus (the i16 spectral wire) "
+        f"and Vorbis within 1 LSB, FLAC exact (24-bit lanes >> 8)")
 
     # per group: a fleet serving that group alone, beside the bare model on the same bytes
     by_group = {}
@@ -2143,6 +2435,12 @@ def main() -> int:
         silkres = phase_voice("silk")
         phase = "hybrid"
         hybres = phase_voice("hybrid")
+        phase = "vorbis-kernels"
+        vkres = phase_vorbis_kernels()
+        phase = "vorbis-compare"
+        vcres = phase_vorbis_compare()
+        phase = "vorbis"
+        vres = phase_vorbis()
         phase = "fleet"
         flres = phase_fleet()
     except Exception:
@@ -2211,13 +2509,19 @@ def main() -> int:
         launches_by_phase={"silk": silkres["launches"]["silk_synth"],
                            "hybrid": hybres["launches"]["silk_synth"]},
         launches_per_step=silkres["k12_launches_per_round"], **skres["silk_synth"]))
+    kernels.append(dict(
+        name="vorbis_overlap", route="cuda", source=src + "vorbis_overlap.cu",
+        replaces="soundkit_tpu/ops/vorbis_batch.py:102", on_path=True,
+        launches=vres["launches"]["vorbis_overlap"],
+        launches_per_step=vres["k13_launches_per_round"], **vkres["vorbis_overlap"]))
     for k in kernels:
         k["fleet_launches"] = flres["mixed"]["launches"].get(k["name"], 0)
     log(json.dumps({"slice": sres, "compare": cres, "telephony": tres,
                     "telephony_compare": tcres, "flac": fres, "flac_compare": fcres,
                     "mp3": mres, "mp3_compare": mcres, "celt": celtres, "celt_compare": ccres,
                     "silk": silkres, "silk_compare": scres, "hybrid": hybres,
-                    "hybrid_compare": hcres, "fleet": flres,
+                    "hybrid_compare": hcres, "vorbis": vres, "vorbis_compare": vcres,
+                    "fleet": flres,
                     "wall_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 """Build and load the port's native code at first use.
 
-Five shared libraries, each built into ``soundkit_tpu_torch/_build/``
+Six shared libraries, each built into ``soundkit_tpu_torch/_build/``
 under a name keyed by a hash of its sources and flags, so a checkout
 builds once and a source edit rebuilds:
 
@@ -28,7 +28,11 @@ builds once and a source edit rebuilds:
   with the same flags. They are one library because the glue calls both
   walks directly and each source keeps its spec tables in a
   library-global, pushed at load time (``codecs/celt_native.py``,
-  ``codecs/silk_native.py``).
+  ``codecs/silk_native.py``);
+- the Vorbis packet parse, ``native_src/src/vorbis_parse.cpp`` (a
+  verbatim copy; codebook Huffman, floor1, residue, coupling and the
+  floor multiply of one audio packet), compiled alone by ``g++`` with the
+  same flags; the setup is pushed per stream (``codecs/vorbis_native.py``).
 
 A failed build raises :class:`BuildError` with the compiler's output.
 Nothing here runs at import time.
@@ -56,6 +60,7 @@ MP3_SOURCES = (NATIVE_DIR / "src" / "mp3_parse.cpp",)
 MP3_HEADERS = (NATIVE_DIR / "generated" / "mp3_tables.h",)
 OPUS_SOURCES = tuple(NATIVE_DIR / "src" / f for f in ("celt_parse.cpp", "silk_parse.cpp",
                                                       "hybrid_glue.cpp"))
+VORBIS_SOURCES = (NATIVE_DIR / "src" / "vorbis_parse.cpp",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -133,6 +138,12 @@ def opus_library_path() -> Path:
 
 
 @functools.lru_cache(maxsize=1)
+def vorbis_library_path() -> Path:
+    gxx = _compiler("g++", "/usr/bin/g++")
+    return _build("vorbis_parse", gxx, GXX_FLAGS, VORBIS_SOURCES, ())
+
+
+@functools.lru_cache(maxsize=1)
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library with every entry point's C signature.
 
@@ -155,10 +166,11 @@ def kernels() -> ctypes.CDLL:
     lib.skt_mp3_granule.argtypes = [p, *[i] * 7, p, p, p, p, p, p, i, i, p]
     lib.skt_celt_postfilter.argtypes = [*[p] * 11, i, i, p]
     lib.skt_silk_synth.argtypes = [*[p] * 12, i, i, p]
+    lib.skt_vorbis_overlap.argtypes = [*[p] * 7, i, i, i, i, p]
     for fn in (lib.skt_imdct_window, lib.skt_dequant_imdct_window,
                lib.skt_spectral_decode, lib.skt_tns_filter, lib.skt_g711_decode,
                lib.skt_g711_launch_floor, lib.skt_g726_scan, lib.skt_g722_scan,
                lib.skt_flac_rice_plane, lib.skt_flac_lpc, lib.skt_mp3_granule,
-               lib.skt_celt_postfilter, lib.skt_silk_synth):
+               lib.skt_celt_postfilter, lib.skt_silk_synth, lib.skt_vorbis_overlap):
         fn.restype = ctypes.c_int
     return lib

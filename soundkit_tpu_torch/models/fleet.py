@@ -3,8 +3,8 @@
 
 Each arriving byte stream is routed, after format detection or by its
 explicit kind, into a fixed-capacity batched lane group for its codec:
-AAC-LC, MP3, FLAC, Ogg Opus (CELT, SILK and hybrid lanes), or one of the
-seven telephony kinds.
+AAC-LC, MP3, FLAC, Ogg Vorbis, Ogg Opus (CELT, SILK and hybrid lanes), or
+one of the seven telephony kinds.
 All groups decode in lockstep device batches, and the fleet returns
 per-stream PCM. Lanes are
 recycled when a stream ends, so a long-running fleet serves an unbounded
@@ -13,18 +13,26 @@ sequence of streams with bounded device state.
 Ragged arrival is first-class: a group decodes ``max(lane_ready)``
 batches per collect; lanes with no data decode as silence with frozen
 state (the models' validity masks), and the fleet slices each stream's
-true output by its per-lane produced count.
+true output by its per-lane produced count. The Vorbis group's output is
+ragged host PCM (a packet's length depends on its neighbours' block
+sizes), carried in ``FleetLaneOutput.host``.
 
 Streams this fleet refuses. The JAX package hands some streams to a
 per-stream host pipeline; the port has no pipeline yet, so such a
 stream raises :class:`FleetUnsupported` at the ``push`` or
 ``end_stream`` that routes it, and the fleet forgets it:
 
-- a detected format without a batched group here: Ogg Vorbis, and
-  everything else detection names or fails to name (WAV, M4A, WebM,
-  unknown bytes);
-- an explicit kind of :data:`HOST_KINDS` (gsm, amr_nb, g729, opus_raw),
-  or the explicit kind ``vorbis``;
+- a detected format without a batched group here: everything but AAC,
+  MP3, FLAC, Ogg Vorbis and Ogg Opus that detection names or fails to
+  name (WAV, M4A, WebM, unknown bytes);
+- an explicit kind of :data:`HOST_KINDS` (gsm, amr_nb, g729, opus_raw);
+- an Ogg Vorbis stream whose headers disagree with the topology of the
+  group (blocksizes and channels, fixed by its first stream's headers;
+  ``models/vorbis_batch.TopologyMismatch``), which the JAX package
+  replays into its host decoder, at the push that completes its headers;
+  its lane is reset and freed, and the exception's ``raw`` holds the
+  stream's bytes so far (the fleet keeps a Vorbis stream's bytes only
+  until its headers parse), for a caller that decodes it elsewhere;
 - an Ogg Opus stream that the JAX package's group reroutes to its host
   decoder (``models/opus_fleet_model.OpusLaneUnsupported``: an OpusHead
   of more channels than the group or of a mapping family other than 0,
@@ -47,6 +55,7 @@ import torch
 
 from soundkit_tpu_torch.demux.detect import AudioType, detect_audio
 from soundkit_tpu_torch.models.opus_fleet_model import OpusLaneUnsupported
+from soundkit_tpu_torch.models.vorbis_batch import TopologyMismatch
 from soundkit_tpu_torch.utils.device import resolve_device
 
 MIN_DETECT = 8192
@@ -63,9 +72,9 @@ TELEPHONY_KINDS = (
 HOST_KINDS = ("gsm", "amr_nb", "g729", "opus_raw")
 
 #: groups with a batched model in the port, beside the telephony kinds
-BATCHED_KINDS = ("aac", "mp3", "flac", "opus")
+BATCHED_KINDS = ("aac", "mp3", "flac", "vorbis", "opus")
 #: group names of the JAX package whose models are not ported yet
-UNPORTED_KINDS = ("vorbis",)
+UNPORTED_KINDS = ()
 
 _DETECTED = {
     AudioType.AAC: "aac",
@@ -78,7 +87,12 @@ _DETECTED = {
 
 class FleetUnsupported(ValueError):
     """A stream the JAX package's fleet would decode on its host
-    fallback, which the port does not have."""
+    fallback, which the port does not have. ``raw`` holds the bytes of a
+    refused Ogg Vorbis stream so far (None otherwise)."""
+
+    def __init__(self, msg: str, raw: Optional[bytes] = None):
+        super().__init__(msg)
+        self.raw = raw
 
 
 @dataclass
@@ -141,7 +155,8 @@ class FleetLaneOutput:
     every lane of the group); ``samples`` counts this stream's valid
     samples per channel without any transfer. ``fetch()`` materialises
     the host PCM, bit-identical to plain ``collect()`` (one shared fetch
-    per group)."""
+    per group). A Vorbis stream's ragged PCM is made on the host and
+    carried in ``host``."""
 
     kind: str
     samples: int
@@ -151,9 +166,12 @@ class FleetLaneOutput:
     frames: int = 0
     meta: object = None
     out_bits: int = 32
+    host: Optional[np.ndarray] = None
     _cache: Optional[dict] = None
 
     def fetch(self) -> Optional[np.ndarray]:
+        if self.host is not None:
+            return self.host
         if self._cache is None:
             self._cache = {}
         if "arr" not in self._cache:
@@ -192,6 +210,10 @@ class _BatchedGroup:
             from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
 
             self._model = BatchedFlacDecoder(self.capacity, device=self.device)
+        elif self.kind == "vorbis":
+            from soundkit_tpu_torch.models.vorbis_batch import BatchedVorbisDecoder
+
+            self._model = BatchedVorbisDecoder(self.capacity, device=self.device)
         elif self.kind == "opus":
             from soundkit_tpu_torch.models.opus_fleet_model import BatchedOggOpusDecoder
 
@@ -233,12 +255,21 @@ class _BatchedGroup:
     def lane_ready(self, lane: int) -> int:
         return self._ensure().lane_ready(lane)
 
+    def lane_configured(self, lane: int) -> bool:
+        """True once the lane can no longer reject the stream (only the
+        Vorbis model has a per-group topology constraint)."""
+        m = self._ensure()
+        fn = getattr(m, "lane_configured", None)
+        return True if fn is None else fn(lane)
+
     def lane_sample_rate(self, lane: int) -> Optional[int]:
         if self._model is None:
             return None
         return self._model.lane_sample_rate(lane)
 
     def decode(self, n: int):
+        if self.kind == "vorbis":
+            return self._ensure().decode_batches(n)  # ragged host lists
         return self._ensure().decode_batches(n, device_out=True)
 
 
@@ -294,6 +325,10 @@ class StreamFleet:
         }
         self._lanes: Dict[str, _Lane] = {}
         self._detect: Dict[str, bytearray] = {}
+        # raw bytes of lane streams whose group can still reject them
+        # (Vorbis topology, confirmed only at header parse), handed to the
+        # caller with the refusal
+        self._pretopo: Dict[str, bytearray] = {}
         self._ended: Dict[str, bool] = {}
         self._rates: Dict[str, int] = {}  # last known rate per stream
         self._retired: List[str] = []  # recycled last collect; rates
@@ -307,8 +342,8 @@ class StreamFleet:
         """Feed stream bytes.  ``kind`` is the explicit-kind ingest for
         headerless formats autodetect cannot route: one of
         :data:`TELEPHONY_KINDS` (G.726 kinds assume left-justified
-        packing), or a batched group name ("aac", "mp3", "flac", "opus")
-        to skip detection.  Only the first push of a stream may carry
+        packing), or a batched group name ("aac", "mp3", "flac", "vorbis",
+        "opus") to skip detection.  Only the first push of a stream may carry
         ``kind``."""
         self._ended.setdefault(stream_id, False)
         if stream_id in self._lanes:
@@ -328,12 +363,14 @@ class StreamFleet:
             self._route(stream_id)
         self._ended[stream_id] = True
 
-    def _refuse(self, stream_id: str, what: str, reason: str):
+    def _refuse(self, stream_id: str, what: str, reason: str, raw: Optional[bytes] = None):
         """Forget the stream and raise :class:`FleetUnsupported`."""
         self._detect.pop(stream_id, None)
         self._ended.pop(stream_id, None)
+        self._pretopo.pop(stream_id, None)
         raise FleetUnsupported(
-            f"stream {stream_id!r}: {what}: {reason}; the port has no per-stream host pipeline")
+            f"stream {stream_id!r}: {what}: {reason}; the port has no per-stream host pipeline",
+            raw)
 
     def _seat(self, stream_id: str, kind: str, buf: bytes) -> None:
         """Give the stream a lane of its group and feed it ``buf``."""
@@ -346,6 +383,10 @@ class StreamFleet:
             self._refuse(stream_id, f"kind {kind!r}",
                          f"its group is full ({self._cap} lanes)")
         self._lanes[stream_id] = _Lane(kind, lane_idx)
+        if kind == "vorbis":
+            # raw bytes retained only while the group can still reject
+            # the stream (until its headers parse)
+            self._pretopo[stream_id] = bytearray()
         if buf:
             self._push_lane(stream_id, buf)
 
@@ -354,13 +395,20 @@ class StreamFleet:
         its host decoder is reset and freed, and the stream refused."""
         ln = self._lanes[stream_id]
         group = self._groups[ln.group]
+        pre = self._pretopo.get(stream_id)
+        if pre is not None:
+            pre.extend(data)
         try:
             group.push(ln.index, data)
-        except OpusLaneUnsupported as e:
+        except (TopologyMismatch, OpusLaneUnsupported) as e:
             group.drop(ln.index)
             del self._lanes[stream_id]
+            raw = self._pretopo.pop(stream_id, None)
             self._refuse(stream_id, f"kind {ln.group!r}",
-                         f"{e} (the JAX package reroutes such a lane to its host decoder)")
+                         f"{e} (the JAX package reroutes such a lane to its host decoder)",
+                         None if raw is None else bytes(raw))
+        if pre is not None and group.lane_configured(ln.index):
+            del self._pretopo[stream_id]
 
     def _route(self, stream_id: str) -> None:
         buf = bytes(self._detect.pop(stream_id, b""))
@@ -394,6 +442,13 @@ class StreamFleet:
 
     # -- decode -----------------------------------------------------------
 
+    def _host_out(self, pcm: np.ndarray) -> np.ndarray:
+        """Match the device-side int16 quantization for host-produced
+        planes (the Vorbis group's ragged output)."""
+        if self.out_bits == 16:
+            return np.clip(np.round(pcm * 32767.0), -32768, 32767).astype(np.int16)
+        return pcm
+
     def collect(self, device_out: bool = False):
         """Decode every group and return newly produced PCM per stream.
 
@@ -424,6 +479,23 @@ class StreamFleet:
             ready_before = {
                 sid: group.lane_ready(ln.index) for sid, ln in active.items()
             }
+            if kind == "vorbis":
+                # ragged per-lane PCM on the host (a packet's output length
+                # varies with the neighbouring block sizes)
+                per_lane = group.decode(n)
+                for sid, ln in active.items():
+                    pcm = per_lane[ln.index]
+                    if pcm.shape[-1]:
+                        hostpcm = self._host_out(pcm.astype(np.float32))
+                        if device_out:
+                            out[sid] = FleetLaneOutput(
+                                kind="vorbis", samples=hostpcm.shape[-1],
+                                rate=self.sample_rate(sid), host=hostpcm,
+                            )
+                        else:
+                            out[sid] = hostpcm
+                        ln.produced += 1
+                continue
             if kind in TELEPHONY_KINDS:
                 # i16-native scans: the staged batch is int16 in both
                 # output modes (f32 conversion, when asked for, happens
@@ -511,6 +583,7 @@ class StreamFleet:
                     self._groups[ln.group].release(ln.index)
                     del self._lanes[sid]
                     del self._ended[sid]
+                    self._pretopo.pop(sid, None)
             elif sid not in self._detect:
                 del self._ended[sid]
         return out

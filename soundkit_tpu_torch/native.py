@@ -1,6 +1,6 @@
 """The host libraries of the port, bound with ``ctypes``: the AAC-LC
-syntax parser, the FLAC walk, the MP3 syntax parser and the Opus parse
-(CELT, SILK and the hybrid glue).
+syntax parser, the FLAC walk, the MP3 syntax parser, the Opus parse
+(CELT, SILK and the hybrid glue) and the Vorbis packet parse.
 
 ``AacHostParser`` holds a parser handle ``_h`` of the library ``_lib``,
 which the wire packers of ``codecs/aac_lc_native.py``
@@ -31,6 +31,13 @@ and the int16 wire (``skt_celt_parse_rounds`` / ``_q``), the SILK
 parse-export of one round (``skt_silk_parse_many``) and the hybrid walk
 of a chunk of rounds into its packed wire
 (``skt_hybrid_parse_rounds_packed``).
+
+:func:`vorbis_library` is the port's copy of ``native_src/src/vorbis_parse.cpp``
+with its ten entry points, as ``codecs/vorbis_native.py`` calls them: a
+handle per stream (``skt_vorbis_new`` / ``free``), the setup pushes
+(``add_codebook``, ``add_floor1``, ``add_residue``, ``add_mapping``,
+``add_mode``, ``finish``) and the parse of one audio packet into its
+spectrum (``skt_vorbis_packet``).
 """
 from __future__ import annotations
 
@@ -236,6 +243,41 @@ def opus_library() -> ctypes.CDLL:
         c_int, c_int, c_int, c_int,                       # frame size, C, bin lo, bin len
         P(ctypes.c_ubyte), lp, lp, ip, ip, dp,            # wire, offsets, n, ok, red, exc f64
     ]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def vorbis_library() -> ctypes.CDLL:
+    """The Vorbis packet parse with the signatures ``NativeVorbisParser``
+    calls (ctypes pointers, as the JAX package's
+    ``codecs/vorbis_native.py`` passes them; every pointer typed)."""
+    lib = ctypes.CDLL(str(_build.vorbis_library_path()))
+    c_int, c_long = ctypes.c_int, ctypes.c_long
+    I32P = ctypes.POINTER(ctypes.c_int32)
+    F64P = ctypes.POINTER(ctypes.c_double)
+    lib.skt_vorbis_new.restype = ctypes.c_void_p
+    lib.skt_vorbis_new.argtypes = [c_int, c_int, c_int, F64P]
+    lib.skt_vorbis_free.restype = None
+    lib.skt_vorbis_free.argtypes = [ctypes.c_void_p]
+    lib.skt_vorbis_add_codebook.restype = c_int
+    lib.skt_vorbis_add_codebook.argtypes = [ctypes.c_void_p, c_int, c_int, I32P, F64P, c_long]
+    lib.skt_vorbis_add_floor1.restype = c_int
+    lib.skt_vorbis_add_floor1.argtypes = [ctypes.c_void_p, I32P, c_int, I32P, I32P, I32P, I32P,
+                                          c_int, c_int, I32P, c_int]
+    lib.skt_vorbis_add_residue.restype = c_int
+    lib.skt_vorbis_add_residue.argtypes = [ctypes.c_void_p, c_int, c_long, c_long, c_long, c_int,
+                                           c_int, I32P]
+    lib.skt_vorbis_add_mapping.restype = c_int
+    lib.skt_vorbis_add_mapping.argtypes = [ctypes.c_void_p, c_int, I32P, I32P, c_int, I32P, I32P,
+                                           I32P]
+    lib.skt_vorbis_add_mode.restype = c_int
+    lib.skt_vorbis_add_mode.argtypes = [ctypes.c_void_p, c_int, c_int]
+    lib.skt_vorbis_finish.restype = c_int
+    lib.skt_vorbis_finish.argtypes = [ctypes.c_void_p]
+    lib.skt_vorbis_packet.restype = c_int
+    lib.skt_vorbis_packet.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, c_long, F64P,
+        ctypes.POINTER(c_int), ctypes.POINTER(c_int), ctypes.POINTER(c_int)]
     return lib
 
 

@@ -28,7 +28,9 @@ beyond the bound. The bounds are on ``max|kernel - plain| / max|plain|``:
   (every product and sum rounded alone in the plain version's order);
   the SILK round around it (``silk_round``: K12, the unmix and the
   resample products) 1e-5, the products summed by cuBLAS in another
-  order than the CPU's.
+  order than the CPU's;
+- K13 ``vorbis_overlap``: bit-exact, the PCM and the new lap (every
+  product and sum rounded alone in the plain version's order).
 
 A case may return a tuple of tensors (a scan's output and its state);
 every element is held to the bound.
@@ -42,7 +44,7 @@ from soundkit_tpu_torch import _build
 from soundkit_tpu_torch.ops import aac_batch as ab
 from soundkit_tpu_torch.ops import aac_entropy as ae
 from soundkit_tpu_torch.ops import (adpcm, celt_postfilter, companding, flac_lpc, flac_rice, g722,
-                                    imdct, mp3_synth, silk_synth)
+                                    imdct, mp3_synth, silk_synth, vorbis_overlap)
 from soundkit_tpu_torch.utils.device import launch_check
 
 REL_BOUND = {
@@ -59,6 +61,7 @@ REL_BOUND = {
     "celt_postfilter": 1e-5,
     "silk_synth": 0.0,
     "silk_round": 1e-5,
+    "vorbis_overlap": 0.0,
 }
 
 
@@ -987,3 +990,100 @@ def silk_round_random_args(seed: int, bw: int, B: int = 37):
             f32(rng.uniform(-0.5, 0.5, (B, 4))), f32(rng.uniform(0.5, 1.5, B)),
             torch.ones(B, dtype=torch.bool), f32(fresh), hist, tail,
             f32(rng.standard_normal((B, 2, T)) * 0.2))
+
+
+# ---------------------------------------------------------------------------
+# Vorbis (K13)
+# ---------------------------------------------------------------------------
+
+def vorbis_overlap_pair(inputs):
+    """K13 and its plain version on ``inputs`` = (pcm1, pcm0, bank, flags,
+    carry), each returning (out, new_carry)."""
+    return (lambda: vorbis_overlap.vorbis_overlap(*inputs),
+            lambda: vorbis_overlap.vorbis_overlap_plain(*inputs))
+
+
+def vorbis_overlap_random_inputs(seed: int, streams: int = 37, channels: int = 2, n0: int = 256,
+                                 n1: int = 2048):
+    """Seeded K13 inputs on the CPU: IMDCT outputs and a lap of the size a
+    Vorbis stream's have (~0.3); lane i takes the (previous, current)
+    block-size case i mod 4 (long-long, long-short, short-long,
+    short-short), random window flags, ~a fifth of the lanes invalid."""
+    from soundkit_tpu_torch.ops.vorbis_batch import window_bank
+
+    rng = np.random.default_rng(seed)
+    B, C = streams, channels
+    case = np.arange(B) % 4
+    cflag = (case < 2).astype(np.int32)
+    n_flag = (case % 2 == 0).astype(np.int32)
+    pf, nf = rng.integers(0, 2, (2, B)).astype(np.int32)
+    valid = (rng.random(B) >= 0.2).astype(np.int32)
+    flags = np.stack([n_flag, pf, nf, valid, cflag])
+
+    def f32(*shape):
+        return torch.from_numpy((rng.standard_normal(shape) * 0.3).astype(np.float32))
+
+    return (f32(B, C, n1), f32(B, C, n0), torch.from_numpy(window_bank(n0, n1)),
+            torch.from_numpy(flags), f32(B, C, n1 // 2))
+
+
+def vorbis_overlap_random_case(device, seed: int, **shape):
+    """K13 on :func:`vorbis_overlap_random_inputs`."""
+    inputs = tuple(t.to(device) for t in vorbis_overlap_random_inputs(seed, **shape))
+    return vorbis_overlap_pair(inputs)
+
+
+def vorbis_fixture_inputs(num_lanes: int, device, warm: int = 3, n_pages: int = 2):
+    """K13's inputs on the Vorbis path: ``num_lanes`` ragged lanes of the
+    two stereo 44.1 kHz fixtures (their first ``n_pages`` audio pages)
+    through a batched decoder on ``device`` for ``warm`` rounds, then the
+    next round's IMDCT outputs and flags, with the decoder's lap: (pcm1,
+    pcm0, bank, flags, carry) for :func:`vorbis_overlap_pair`."""
+    from soundkit_tpu_torch.models.vorbis_batch import BatchedVorbisDecoder
+    from soundkit_tpu_torch.ops import vorbis_batch as vb
+    from soundkit_tpu_torch.tools import vorbis_fixtures
+
+    clips = vorbis_fixtures.load_clips(names=vorbis_fixtures.STEREO)
+    model = BatchedVorbisDecoder(num_lanes, device=device)
+    for i, data in enumerate(vorbis_fixtures.lane_streams(clips, num_lanes, n_pages)):
+        model.push(i, data)
+    model.decode_batches(warm)
+    spec, flags, _ = model._pack_round()
+    n0, n1, _ = model._topology
+    pcm1, pcm0 = vb.vorbis_imdct(torch.from_numpy(spec).to(device), n0, n1)
+    return (pcm1, pcm0, vb.device_tables(n0, n1, pcm1.device)[2],
+            torch.from_numpy(flags).to(device), model._carry)
+
+
+def vorbis_overlap_work(inputs) -> tuple:
+    """(bytes, float32 operations) that K13's function needs on
+    ``inputs`` (of :func:`vorbis_overlap_pair`). Bytes: the flags; the
+    window rows the valid lanes use, once each; every channel reads its
+    lap (n1/2) and writes its PCM and new lap (n1/2 each); a valid
+    channel also reads the samples of its block's IMDCT output that reach
+    either (all n of a block but the first (n1 - n0)/4 of a long block
+    after a short one, which its window zeroes; counted by the same index
+    arithmetic as the kernel's). Operations on a valid channel: a product
+    and a sum for each of its n1/2 output samples and n/2 lap samples."""
+    pcm1, pcm0, bank, flags, _ = inputs
+    B, C, n1 = pcm1.shape
+    n0 = pcm0.shape[-1]
+    h1 = n1 // 2
+    f = flags.cpu().numpy()
+    n_flag, pf, nf, valid, cflag = f
+    sL = (n1 - n0) // 4
+    reads = {}
+    for prev_long in (0, 1):
+        for cur_long in (0, 1):
+            n = n1 if cur_long else n0
+            s = 0 if prev_long == cur_long else (sL if prev_long else -sL)
+            d = (n1 if prev_long else n0) // 4 + n // 4
+            idx = np.concatenate([np.arange(h1) - s, d + np.arange(n // 2) - s])
+            reads[prev_long, cur_long] = int(np.unique(idx[(idx >= 0) & (idx < n)]).size)
+    v = valid != 0
+    widx = np.where(n_flag == 1, pf * 2 + nf, 4)[v]
+    nbytes = f.nbytes + np.unique(widx).size * n1 * 4 + B * C * 3 * h1 * 4
+    nbytes += sum(C * reads[int(a == 1), int(b == 1)] * 4 for a, b in zip(cflag[v], n_flag[v]))
+    n_blk = np.where(n_flag[v] == 1, n1, n0)
+    flops = int(C * (2 * h1 + n_blk).sum())
+    return int(nbytes), flops

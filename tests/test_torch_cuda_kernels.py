@@ -411,3 +411,95 @@ def test_silk_synth_refuses_a_strided_input_on_the_card(dev):
     with pytest.raises(ValueError, match="non-contiguous"):
         ss.silk_synth(2, *inputs)
     assert ss.silk_synth.launches == before
+
+
+VORBIS_TOPOLOGIES = [(256, 2048), (512, 4096), (256, 256), (64, 8192), (128, 1024)]
+
+
+@pytest.mark.parametrize("channels", [2, 1])
+@pytest.mark.parametrize("n0,n1", VORBIS_TOPOLOGIES)
+@pytest.mark.parametrize("streams", [1, 37, 300])
+def test_vorbis_overlap_kernel_random_inputs(dev, streams, n0, n1, channels):
+    """Seeded rounds: every (previous, current) block-size case, random
+    window flags, invalid lanes, a random lap. Bit-exact, the PCM and the
+    new lap."""
+    kc.compare("vorbis_overlap", *kc.vorbis_overlap_random_case(
+        dev, 50 + streams, streams=streams, channels=channels, n0=n0, n1=n1))
+
+
+def test_vorbis_overlap_kernel_on_the_fixture_path(dev):
+    """The Vorbis decoder's next round over 40 ragged stereo fixture
+    lanes, with its lap after three rounds."""
+    kc.compare("vorbis_overlap", *kc.vorbis_overlap_pair(kc.vorbis_fixture_inputs(40, dev)))
+
+
+def test_vorbis_imdct_holds_the_bar_with_tf32_on(dev):
+    """A caller that turns TF32 on does not move the Vorbis IMDCT off IEEE
+    float32 (its products run under ``ieee_fp32``): the step on the card
+    (the products, then K13) stays within 1e-6 of the largest value of
+    the plain step on the CPU, lengths and flags equal, and the caller's
+    settings are back afterwards."""
+    import numpy as np
+
+    from soundkit_tpu_torch.ops import vorbis_batch as vb
+
+    rng = np.random.default_rng(5)
+    B, C, n0, n1 = 64, 2, 256, 2048
+    pcm1, pcm0, bank, flags, carry = kc.vorbis_overlap_random_inputs(6, B, C, n0, n1)
+    n_flag, pf, nf, valid, cflag = flags
+    spec = (rng.standard_normal((B, C, n1 // 2)) * 0.05).astype(np.float32)
+    spec[n_flag.numpy() == 0, :, n0 // 2:] = 0.0
+    primed = torch.from_numpy(rng.random(B) < 0.8)
+    args = (torch.from_numpy(spec), n_flag, pf, nf, valid.bool(), primed, carry, cflag)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        got = vb.vorbis_synth_step(*(t.to(dev) for t in args), n0=n0, n1=n1)
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ref = vb.vorbis_synth_step_plain(*args, n0=n0, n1=n1)
+    for i in (0, 2):
+        scale = ref[i].abs().max().item()
+        assert (got[i].cpu() - ref[i]).abs().max().item() <= 1e-6 * scale
+    assert torch.equal(got[1].cpu(), ref[1]) and torch.equal(got[3].cpu(), ref[3])
+
+
+def test_vorbis_decoder_launches_k13_once_a_round(dev):
+    """The Vorbis decoder on the card launches K13 once a round, and its
+    rounds and lap equal the CPU plain path's within 1e-6 of their largest
+    value (the IMDCT products are summed in another order on the card),
+    lengths identical."""
+    from soundkit_tpu_torch.models.vorbis_batch import BatchedVorbisDecoder
+    from soundkit_tpu_torch.ops import vorbis_overlap
+    from soundkit_tpu_torch.tools import vorbis_fixtures as vf
+
+    outs = []
+    for device in ("cuda", "cpu"):
+        model = BatchedVorbisDecoder(12, device=device)
+        for i, data in enumerate(vf.lane_streams(vf.load_clips(names=vf.STEREO), 12, 2)):
+            model.push(i, data)
+        n = max(model.lane_ready(i) for i in range(12))
+        before = vorbis_overlap.vorbis_overlap.launches
+        pcm, lens = model.decode_batches(n, device_out=True)
+        assert vorbis_overlap.vorbis_overlap.launches - before == (n if device == "cuda" else 0)
+        outs.append((torch.stack(pcm).cpu(), lens, model._carry.cpu()))
+    (g, gl, gc), (c, cl, cc) = outs
+    assert (gl == cl).all()
+    for a, b in ((g, c), (gc, cc)):
+        assert (a - b).abs().max().item() <= 1e-6 * b.abs().max().item()
+
+
+def test_vorbis_overlap_refuses_a_misaligned_input_on_the_card(dev):
+    """A view that starts off a 16-byte boundary is refused on the card,
+    with no launch counted."""
+    from soundkit_tpu_torch.ops import vorbis_overlap
+
+    inputs = [t.to(dev) for t in kc.vorbis_overlap_random_inputs(3, 4, 2, 256, 2048)]
+    inputs[4] = torch.empty(4 * 2 * 1024 + 1, device=dev)[1:].view(4, 2, 1024)
+    before = vorbis_overlap.vorbis_overlap.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        vorbis_overlap.vorbis_overlap(*inputs)
+    assert vorbis_overlap.vorbis_overlap.launches == before

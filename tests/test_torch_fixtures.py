@@ -1,5 +1,5 @@
-"""The committed AAC, FLAC, MP3 and Ogg Opus fixtures (tests/data/torch_port)
-and the port's standalone host parser."""
+"""The committed AAC, FLAC, MP3, Ogg Opus and Ogg Vorbis fixtures
+(tests/data/torch_port) and the port's standalone host parser."""
 import numpy as np
 
 from soundkit_tpu.codecs.aac_lc_native import (
@@ -11,7 +11,7 @@ from soundkit_tpu.codecs.aac_lc_native import (
 from soundkit_tpu_torch.native import AacHostParser
 from soundkit_tpu_torch.tools.aac_fixtures import CLIPS, lane_streams, load_clips
 
-from soundkit_tpu_torch.tools import flac_fixtures, mp3_fixtures, opus_fixtures
+from soundkit_tpu_torch.tools import flac_fixtures, mp3_fixtures, opus_fixtures, vorbis_fixtures
 from torch_port_helpers import (
     SR_INDEX_48K,
     clip_aus,
@@ -19,6 +19,7 @@ from torch_port_helpers import (
     generate_flac_fixtures,
     generate_mp3_fixtures,
     generate_opus_fixtures,
+    generate_vorbis_fixtures,
     host_parser,
     picked_aus,
 )
@@ -201,3 +202,52 @@ def test_opus_voice_fixtures_cover_the_decode_paths():
         dm = OggOpusDemuxer()
         clip, idx = opus_fixtures.lane_packets(clips, i)
         assert dm.push(data) == [clip.packets[t] for t in idx] and dm.head.raw == clip.head
+
+
+def test_vorbis_fixtures_equal_a_regeneration(tmp_path):
+    """The generator (on the test side, with the JAX package's
+    libvorbis-backed ``AvEncoder``, its Ogg page writer and
+    ``tests/vorbis_craft.py``) makes the committed streams and their index
+    byte for byte; it also checks that both stereo clips hold every
+    (previous, current) block-size case."""
+    generate_vorbis_fixtures(tmp_path)
+    for name in (*(f"{c}.ogg" for c in vorbis_fixtures.CLIPS), "index.json"):
+        assert (tmp_path / name).read_bytes() == \
+            (vorbis_fixtures.FIXTURE_DIR / name).read_bytes(), name
+
+
+def test_vorbis_fixtures_cover_the_decode_paths():
+    """By the JAX package's Ogg packetizer and Vorbis setup: the stereo
+    clips at 44.1 kHz with blocksizes (256, 2048), square-polar coupling
+    and short blocks; the mono clip of another topology; the crafted
+    floor0 clip with n0 == n1; every audio page whole packets, so that
+    every lane of a cut is a stream the JAX decoder reads from its first
+    audio packet on; the set under 400 KB."""
+    from soundkit_tpu.codecs.vorbis_core import Floor0, Floor1, VorbisSetup
+    from soundkit_tpu.demux.ogg import OggPacketizer
+
+    clips = vorbis_fixtures.load_clips()
+    seen = {}
+    for clip in clips:
+        pk = OggPacketizer()
+        headers = [p for p, _ in pk.push(clip.header)]
+        setup = VorbisSetup(headers[0], headers[2])
+        floors = {type(f) for f in setup.floors}
+        sizes = []
+        for page in clip.pages:
+            got = [p for p, _ in pk.push(page)]
+            assert got and not pk._partial, clip.name
+            sizes += [setup.decode_packet_spectrum(p).n for p in got]
+        coupled = any(m.coupling for m in setup.mappings)
+        seen[clip.name] = (setup.sample_rate, setup.channels, setup.blocksize0,
+                           setup.blocksize1, floors, coupled, sizes.count(setup.blocksize0) > 0)
+        assert (clip.rate, clip.channels, *clip.blocksizes) == seen[clip.name][:4]
+    for name in vorbis_fixtures.STEREO:
+        assert seen[name] == (44100, 2, 256, 2048, {Floor1}, True, True), name
+    assert seen["mono22"][:5] == (22050, 1, 512, 1024, {Floor1})
+    assert seen["floor0"][:5] == (8000, 1, 256, 256, {Floor0})
+    total = sum(len(c.stream()) for c in clips)
+    assert total < 400_000
+    for i, data in enumerate(vorbis_fixtures.lane_streams(clips[:2], 12)):
+        clip, idx = vorbis_fixtures.lane_pages(clips[:2], i)
+        assert data == clip.header + b"".join(clip.pages[t] for t in idx)

@@ -1,13 +1,15 @@
 """Port parity of the serving runtime: soundkit_tpu_torch's StreamFleet
 against the JAX package's on the CPU, driven by the same pushes over the
-committed AAC, MP3, FLAC, Ogg Opus and telephony fixtures. Collect by
-collect: the same key sets, dtypes, shapes and sample rates; FLAC and
-telephony PCM bit-exact; AAC, MP3 and Opus CELT PCM at 100 dB or better
-per collect as f32 (the bar of ``test_torch_aac_lc_model.py``) and within
-1 LSB as int16; Ogg Opus SILK and hybrid streams (ids ``v*``) at 90 dB as
-f32, the bar of ``test_torch_silk_model.py`` (two float32 syntheses of
-an LPC of high gain). The streams the JAX fleet hands to its host
-fallback raise ``FleetUnsupported`` here, one test per case."""
+committed AAC, MP3, FLAC, Ogg Opus, Ogg Vorbis and telephony fixtures.
+Collect by collect: the same key sets, dtypes, shapes and sample rates;
+FLAC and telephony PCM bit-exact; AAC, MP3 and Opus CELT PCM at 100 dB or
+better per collect as f32 (the bar of ``test_torch_aac_lc_model.py``) and
+within 1 LSB as int16; Ogg Opus SILK and hybrid streams (ids ``v*``) at
+90 dB as f32, the bar of ``test_torch_silk_model.py`` (two float32
+syntheses of an LPC of high gain); Ogg Vorbis streams (ids ``w*``) within
+2e-6 as f32 (the bar of ``test_torch_vorbis_model.py``). The streams the
+JAX fleet hands to its host fallback raise ``FleetUnsupported`` here, one
+test per case."""
 import numpy as np
 import pytest
 import torch
@@ -25,7 +27,7 @@ from soundkit_tpu_torch.models.fleet import (
     StreamFleet,
 )
 from soundkit_tpu_torch.tools import (aac_fixtures, flac_fixtures, mp3_fixtures, opus_fixtures,
-                                      telephony_fixtures)
+                                      telephony_fixtures, vorbis_fixtures)
 from torch_port_helpers import REROUTE_CASES, flac_clip_pcm, ogg_opus, opus_reroute_case, snr_db
 
 
@@ -77,10 +79,17 @@ def voice_stream(name: str, lane: int, n: int) -> bytes:
     return opus_fixtures.lane_streams(clip * (lane + 1), lane + 1, n)[lane]
 
 
+def vorbis_stream(lane: int, n_pages=None, names=vorbis_fixtures.STEREO) -> bytes:
+    """Lane ``lane`` of the Ogg Vorbis fixtures ``names`` (the stereo
+    44.1 kHz clips by default), at most ``n_pages`` audio pages."""
+    clips = vorbis_fixtures.load_clips(names=names)
+    return vorbis_fixtures.lane_streams(clips, lane + 1, n_pages)[lane]
+
+
 class Pair:
     """The port's fleet and the JAX package's, driven together. Stream
     ids start with their group's letter: a (AAC), m (MP3), f (FLAC), o
-    (Ogg Opus), t (telephony)."""
+    (Ogg Opus), v (Ogg Opus voice), w (Ogg Vorbis), t (telephony)."""
 
     def __init__(self, capacity=CAP, out_bits=32):
         self.port = StreamFleet(capacity, out_bits=out_bits, device="cpu")
@@ -114,15 +123,21 @@ class Pair:
                 assert isinstance(g, FleetLaneOutput)
                 assert (g.kind, g.samples, g.rate, g.lane, g.frames, g.out_bits) == \
                     (w.kind, w.samples, w.rate, w.lane, w.frames, w.out_bits), sid
-                assert isinstance(g.device, torch.Tensor)
+                # a Vorbis lane's ragged PCM is made on the host
+                if g.kind == "vorbis":
+                    assert isinstance(g.host, np.ndarray) and g.device is None
+                else:
+                    assert isinstance(g.device, torch.Tensor)
                 g, w = g.fetch(), w.fetch()
                 assert g.shape[-1] == got[sid].samples
             w = np.asarray(w)
             assert g.dtype == w.dtype and g.shape == w.shape, (sid, g.dtype, w.dtype, g.shape, w.shape)
-            if not sid.startswith(("a", "m", "o", "v")):
+            if not sid.startswith(("a", "m", "o", "v", "w")):
                 np.testing.assert_array_equal(g, w, err_msg=sid)
             elif g.dtype == np.int16:
                 assert np.abs(g.astype(np.int32) - w).max() <= 1, sid
+            elif sid.startswith("w"):
+                np.testing.assert_allclose(g, w, rtol=0, atol=2e-6, err_msg=sid)
             elif np.any(w):
                 assert snr_db(g, w) >= (90 if sid.startswith("v") else 100), sid
             else:
@@ -426,6 +441,132 @@ def test_explicit_opus_kind_joins_the_opus_group():
     assert pair.rates("o0") == [48000]
 
 
+VORBIS_MIX = {
+    # sid: (bytes, explicit kind, rate, shares of the stream pushed by the end of each round)
+    "w0": (vorbis_stream(0, 4), None, 44100, (0.2, 0.7, 1)),
+    "w1": (vorbis_stream(1), "vorbis", 44100, (0.5, 0.5, 1)),
+    "w2": (vorbis_stream(2, 2), None, 44100, (1, 1, 1)),
+    "w3": (vorbis_stream(7, 3), None, 44100, (0.01, 0.6, 1)),
+    "a0": (aac_stream(2, 4, 6), None, 48000, (0.5, 1, 1)),
+    "o0": (opus_stream(1, 14), None, 48000, (0.3, 0.9, 1)),
+}
+
+
+@pytest.mark.parametrize("out_bits,device_out", [(32, False), (16, True), (32, True), (16, False)])
+def test_mixed_ragged_fleet_with_vorbis_lanes_matches_jax(out_bits, device_out):
+    """Four Ogg Vorbis streams (detected and explicit) beside an AAC and an
+    Ogg Opus stream, pushed in three ragged rounds with a collect after
+    each, one Vorbis stream ended early; collect by collect against the
+    JAX fleet, then every Vorbis stream's whole output against a bare
+    model fed the same bytes."""
+    from soundkit_tpu_torch.models.vorbis_batch import BatchedVorbisDecoder
+
+    pair = Pair(CAP, out_bits)
+    pos = dict.fromkeys(VORBIS_MIX, 0)
+    got = {sid: [] for sid in VORBIS_MIX}
+    for rnd in range(3):
+        for sid, (data, kind, _, shares) in VORBIS_MIX.items():
+            end = int(len(data) * shares[rnd])
+            if end > pos[sid] or rnd == 0:
+                pair.push(sid, data[pos[sid]: end], kind=kind if rnd == 0 else None)
+            pos[sid] = max(pos[sid], end)
+        if rnd == 1:
+            pair.end("w2")
+        if rnd == 2:
+            pair.end(*VORBIS_MIX)
+        for sid, pcm in pair.collect(device_out).items():
+            got[sid].append(pcm)
+            assert pair.rates(sid) == [VORBIS_MIX[sid][2]]
+    got_last = pair.collect(device_out)
+    for sid, pcm in got_last.items():
+        got[sid].append(pcm)
+    for f in (pair.port, pair.ref):
+        assert not f._lanes and not f._detect and not f._ended and not f._pretopo
+    for sid in ("w0", "w1", "w2", "w3"):
+        bare = BatchedVorbisDecoder(1, device="cpu")
+        bare.push(0, VORBIS_MIX[sid][0])
+        want = bare.decode_batches(bare.lane_ready(0))[0].astype(np.float32)
+        pcm = np.concatenate(got[sid], axis=1)
+        if out_bits == 16:
+            want = np.clip(np.round(want * 32767.0), -32768, 32767).astype(np.int16)
+        np.testing.assert_array_equal(pcm, want, err_msg=sid)
+        assert pcm.shape[1] > 4096
+
+
+def test_vorbis_lane_recycling_resets_state():
+    """A second Ogg Vorbis stream takes the lane the first one left and
+    decodes as in a fresh fleet: the packetizer, the headers, the lap and
+    the carried block flag were cleared."""
+    pair = Pair()
+    pair.push("w0", vorbis_stream(0, 3))
+    pair.end("w0")
+    first = pair.collect()["w0"]
+    assert first.shape[0] == 2 and not pair.port._lanes
+    second = vorbis_stream(5, 2)
+    pair.push("w1", second)
+    pair.end("w1")
+    assert pair.port._lanes["w1"].index == pair.ref._lanes["w1"].index == CAP - 1
+    again = pair.collect()["w1"]
+    fresh = StreamFleet(CAP, device="cpu")
+    fresh.push("x", second)
+    fresh.end_stream("x")
+    np.testing.assert_array_equal(again, fresh.collect()["x"])
+    model = pair.port._groups["vorbis"]._model
+    assert model.lane_ready(CAP - 1) == 0 and model.lane_sample_rate(CAP - 1) == 44100
+
+
+def test_explicit_vorbis_kind_joins_the_vorbis_group():
+    """The explicit kind ``vorbis`` (refused before the group was ported)
+    seats an Ogg Vorbis stream with its buffered bytes, as detection
+    would."""
+    pair = Pair()
+    data = vorbis_stream(3, 2)
+    pair.push("w0", data[:100])                  # buffered for detection
+    pair.push("w0", data[100:], kind="vorbis")   # routed now, with the buffered bytes
+    pair.end("w0")
+    for f in (pair.port, pair.ref):
+        assert f._lanes["w0"].group == "vorbis" and not f._detect
+    assert pair.collect()["w0"].shape[0] == 2
+    assert pair.rates("w0") == [44100]
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_refuses_a_vorbis_stream_of_another_topology(split):
+    """A 22.05 kHz mono Ogg Vorbis stream after the group's topology was
+    fixed by a 44.1 kHz stereo one raises at the push that completes its
+    headers (whole, or after a first push of part of its header pages);
+    the refusal carries the stream's bytes so far, its lane is reset and
+    freed, the stream forgotten, and the seated stream decodes as alone."""
+    seated = vorbis_stream(0, 2)
+    mono = vorbis_fixtures.load_clips(names=("mono22",))[0].stream()
+    port = StreamFleet(2, device="cpu")
+    port.push("ok", seated)
+    cut = 3000 if split else 0
+    if split:
+        port.push("s", mono[:cut], kind="vorbis")  # the identification page: no topology yet
+        lane = port._lanes["s"].index
+        assert bytes(port._pretopo["s"]) == mono[:cut]
+    else:
+        lane = 0
+    with pytest.raises(FleetUnsupported, match=r"'s'.*kind 'vorbis'.*topology \(512, 1024, 1\) "
+                                               r"!= model topology \(256, 2048, 2\).*reroutes") as e:
+        port.push("s", mono[cut:], kind=None if split else "vorbis")
+    assert e.value.raw == mono
+    for book in (port._lanes, port._detect, port._ended, port._pretopo):
+        assert "s" not in book
+    assert port.sample_rate("s") is None and "ok" not in port._pretopo
+    group = port._groups["vorbis"]
+    assert lane in group._free and lane not in group._used
+    assert group._model.lane_ready(lane) == 0 and not group._model.lane_configured(lane)
+    port.end_stream("ok")
+    alone = StreamFleet(2, device="cpu")
+    alone.push("ok", seated)
+    alone.end_stream("ok")
+    out = port.collect()
+    assert sorted(out) == ["ok"]
+    np.testing.assert_array_equal(out["ok"], alone.collect()["ok"])
+
+
 def test_bounded_bookkeeping_after_a_churn_of_streams():
     """Thirty streams through two lanes a group: afterwards the fleet
     remembers none of them."""
@@ -535,7 +676,6 @@ def _ogg_first_page(payload: bytes) -> bytes:
 
 DETECTED_WITHOUT_A_GROUP = {
     "webm": b"\x1a\x45\xdf\xa3" + bytes(60),
-    "ogg_vorbis": _ogg_first_page(b"\x01vorbis" + bytes(20)),
     "wav": b"RIFF" + bytes(4) + b"WAVEfmt " + bytes(40),
     "m4a": bytes(4) + b"ftypM4A " + bytes(20),
     "unknown": bytes(range(1, 64)),
@@ -556,7 +696,7 @@ def test_refuses_a_detected_format_without_a_group_at_end_stream(name):
     assert_forgotten(port, "s")
 
 
-@pytest.mark.parametrize("name", ["ogg_vorbis", "wav"])
+@pytest.mark.parametrize("name", ["wav"])
 def test_refuses_a_detected_format_without_a_group_at_the_routing_push(name):
     port = StreamFleet(2, device="cpu")
     data = DETECTED_WITHOUT_A_GROUP[name] + bytes(MIN_DETECT)
@@ -566,7 +706,7 @@ def test_refuses_a_detected_format_without_a_group_at_the_routing_push(name):
     assert_forgotten(port, "s")
 
 
-@pytest.mark.parametrize("kind", HOST_KINDS + ("vorbis",))
+@pytest.mark.parametrize("kind", HOST_KINDS)
 def test_refuses_an_explicit_kind_without_a_group(kind):
     port = StreamFleet(2, device="cpu")
     port.push("s", b"early bytes")
@@ -575,12 +715,12 @@ def test_refuses_an_explicit_kind_without_a_group(kind):
     assert_forgotten(port, "s")
 
 
-@pytest.mark.parametrize("kind", ["aac", "flac", "g722"])
+@pytest.mark.parametrize("kind", ["aac", "flac", "g722", "vorbis"])
 def test_refuses_a_stream_whose_group_is_full(kind):
     """Explicit and detected alike; the seated stream is not disturbed,
     and the lane serves the next stream once it is free."""
     data = {"aac": aac_stream(0, 0, 3), "flac": flac_stream(2, 2),
-            "g722": tel_stream("g722", 0, 600)}[kind]
+            "g722": tel_stream("g722", 0, 600), "vorbis": vorbis_stream(1, 3)}[kind]
     port = StreamFleet(1, device="cpu")
     port.push("first", data, kind=kind)
     with pytest.raises(FleetUnsupported, match=f"'second'.*kind '{kind}'.*group is full \\(1 lanes\\)"):

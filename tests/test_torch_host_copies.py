@@ -8,7 +8,9 @@ packer, and the Opus host layer: the RFC 6716 tables, the TOC parse, the
 Ogg packetizer, the OpusHead and Ogg Opus demuxer, the CELT IMDCT basis
 and comb packing, the CELT parse's serving walk on both wires, the SILK
 walk's binding (a verbatim subset of ``codecs/silk_native.py``), its
-resampler plan and the hybrid walk's packed wire."""
+resampler plan and the hybrid walk's packed wire; and the Vorbis host
+layer: the C++ packet parse, its table, the Python decoder and the
+parse's binding."""
 from pathlib import Path
 
 import numpy as np
@@ -55,6 +57,9 @@ G722_TABLES = ("WL", "RL42", "ILB", "WH", "RH2", "QM2", "QM4", "QM6", "QMF_COEFF
     ("soundkit_tpu_torch/data/opus_tables.npz", "soundkit_tpu/native/generated/opus_tables.npz"),
     ("soundkit_tpu_torch/native_src/src/silk_parse.cpp", "soundkit_tpu/native/src/silk_parse.cpp"),
     ("soundkit_tpu_torch/native_src/src/hybrid_glue.cpp", "soundkit_tpu/native/src/hybrid_glue.cpp"),
+    ("soundkit_tpu_torch/native_src/src/vorbis_parse.cpp",
+     "soundkit_tpu/native/src/vorbis_parse.cpp"),
+    ("soundkit_tpu_torch/data/vorbis_tables.npz", "soundkit_tpu/native/generated/vorbis_tables.npz"),
 ])
 def test_copied_files_are_identical(port, ref):
     assert (REPO / port).read_bytes() == (REPO / ref).read_bytes()
@@ -528,3 +533,47 @@ def test_opus_library_walks_the_hybrid_wire_of_the_jax_package():
         else:
             assert np.abs(got[k].astype(np.int64) - want[k]).max() <= (1 if k == "exc" else 0), k
     assert np.abs(want["freq"]).max() > 0 and np.abs(want["exc"]).max() > 0
+
+
+# ---------------------------------------------------------------------------
+# Vorbis
+# ---------------------------------------------------------------------------
+
+def test_vorbis_core_is_a_copy_but_for_its_table_path():
+    """``codecs/vorbis_core.py`` differs from the original in the path of
+    its table file alone, and reads the same floor1 table."""
+    from soundkit_tpu.codecs import vorbis_core as jax_core
+    from soundkit_tpu_torch.codecs import vorbis_core
+
+    port = (REPO / "soundkit_tpu_torch/codecs/vorbis_core.py").read_text().splitlines()
+    ref = (REPO / "soundkit_tpu/codecs/vorbis_core.py").read_text().splitlines()
+    diff = [(a, b) for a, b in zip(port, ref) if a != b]
+    assert len(port) == len(ref) and len(diff) == 1
+    assert diff[0][0].strip().startswith("path = ") and '"data" / "vorbis_tables.npz"' in diff[0][0]
+    got, want = vorbis_core.floor1_inverse_db_table(), jax_core.floor1_inverse_db_table()
+    assert got.dtype == want.dtype and got.shape == (256,)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["VorbisNativeUnsupported", "_i32", "_ptr_i32",
+                                  "NativeVorbisParser"])
+def test_vorbis_native_is_the_jax_module_but_for_its_library(name):
+    """Every piece of ``codecs/vorbis_native.py`` but ``_lib`` (which
+    returns the port's build, ``native.vorbis_library``) is the JAX
+    package's source."""
+    from soundkit_tpu.codecs import vorbis_native as jax_native
+    from soundkit_tpu_torch.codecs import vorbis_native
+
+    assert _function_source(vorbis_native, name) == _function_source(jax_native, name)
+    names = {n for n in vars(vorbis_native) if not n.startswith("__")}
+    assert {n for n in names if callable(getattr(vorbis_native, n))
+            and getattr(getattr(vorbis_native, n), "__module__", "") == vorbis_native.__name__} \
+        == {"VorbisNativeUnsupported", "_i32", "_ptr_i32", "NativeVorbisParser", "_lib"}
+
+
+@pytest.mark.parametrize("name", ["window_bank", "init_state"])
+def test_vorbis_synthesis_host_pieces_are_verbatim_copies(name):
+    from soundkit_tpu.ops import vorbis_batch as jax_vb
+    from soundkit_tpu_torch.ops import vorbis_batch
+
+    assert _function_source(vorbis_batch, name) == _function_source(jax_vb, name)

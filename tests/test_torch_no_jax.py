@@ -72,9 +72,14 @@ for sid in "aft":
 out = fleet.collect()
 assert out["a"].shape == (2, 2048) and out["f"].shape == (2, 4096) and out["t"].shape == (1, 500)
 assert all(np.isfinite(v).all() and np.abs(v).max() > 0 for v in out.values())
+from soundkit_tpu_torch.tools import vorbis_fixtures
+fleet.push("v", vorbis_fixtures.lane_streams(vorbis_fixtures.load_clips(), 1, 2)[0])
+fleet.end_stream("v")
+pcm = fleet.collect()["v"]
+assert pcm.shape[0] == 2 and pcm.shape[1] > 4096 and np.isfinite(pcm).all() and np.abs(pcm).max() > 0.01
 try:
-    fleet.push("v", b"OggS" + bytes(100), kind="vorbis")
-    raise SystemExit("a vorbis stream was not refused")
+    fleet.push("g", b"\x00" * 64, kind="gsm")
+    raise SystemExit("a gsm stream was not refused")
 except FleetUnsupported:
     pass
 assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
@@ -422,3 +427,20 @@ def test_build_failure_carries_compiler_output(tmp_path):
     bad.write_text("int f( {\n")
     with pytest.raises(_build.BuildError, match="bad.cpp"):
         _build._build("bad", shutil.which("g++"), _build.GXX_FLAGS, [bad], [])
+
+
+def test_vorbis_overlap_refuses_meta_tensors():
+    """K13's wrapper raises for tensors neither on the CPU nor on a CUDA
+    device, and counts no launch; the Vorbis decoder times only on the
+    card."""
+    from soundkit_tpu_torch.models.vorbis_batch import BatchedVorbisDecoder
+    from soundkit_tpu_torch.ops import vorbis_overlap
+
+    before = vorbis_overlap.vorbis_overlap.launches
+    meta = [torch.empty(s, device="meta") for s in ((4, 2, 2048), (4, 2, 256), (5, 2048))]
+    flags = torch.empty((5, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        vorbis_overlap.vorbis_overlap(*meta, flags, torch.empty((4, 2, 1024), device="meta"))
+    assert vorbis_overlap.vorbis_overlap.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        BatchedVorbisDecoder(2, device="cpu", timed=True)

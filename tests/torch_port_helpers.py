@@ -11,6 +11,7 @@ generators live here, on the test side; regenerate from the repository's root wi
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py flac
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py mp3
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py opus
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py vorbis
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import numpy as np
 
 from soundkit_tpu_torch.models.telephony_batch import CODECS
 from soundkit_tpu_torch.tools import (aac_fixtures, flac_fixtures, mp3_fixtures, opus_fixtures,
-                                      telephony_fixtures)
+                                      telephony_fixtures, vorbis_fixtures)
 
 SR_INDEX_48K = 3
 # AUs per clip that cover long, short (EIGHT_SHORT) and TNS frames
@@ -685,6 +686,127 @@ def opus_reroute_case(clips, case: str):
 # the SILK resampler's probed taps
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Ogg Vorbis fixtures
+# ---------------------------------------------------------------------------
+
+# libvorbis clip: (rate, channels, seconds)
+VORBIS_CLIPS = {"stereo44": (44100, 2, 3.0), "stereo44b": (44100, 2, 2.5), "mono22": (22050, 1, 2.0)}
+VORBIS_PAGE_BODY = 4096  # a page is closed before a packet would pass this many body bytes
+VORBIS_FLOOR0_PACKETS = 24
+
+
+def vorbis_clip_pcm(name: str) -> np.ndarray:
+    """The float32 samples [n, C] ``generate_vorbis_fixtures`` encodes for
+    ``name``: a tone with vibrato, clicks (40-sample bursts: libvorbis
+    codes them in short blocks) and decaying noise bursts; in stereo the
+    second channel uncorrelated noise under its own tone."""
+    rate, ch, seconds = VORBIS_CLIPS[name]
+    rng = np.random.default_rng(7000 + list(VORBIS_CLIPS).index(name))
+    n = int(rate * seconds)
+    t = np.arange(n) / rate
+    f0 = {"stereo44": 330.0, "stereo44b": 523.0, "mono22": 220.0}[name]
+    x = 0.25 * np.sin(2 * np.pi * np.cumsum(f0 * (1 + 0.005 * np.sin(2 * np.pi * 5 * t))) / rate)
+    for o in rng.uniform(0.05, seconds - 0.05, int(6 * seconds)):
+        i = int(o * rate)
+        x[i: i + 40] += rng.uniform(-0.9, 0.9, len(x[i: i + 40]))
+    env = np.zeros(n)
+    for o in rng.uniform(0, seconds, int(2 * seconds)):
+        m = t >= o
+        env[m] += np.exp(-(t[m] - o) / 0.05)
+    x = x + rng.standard_normal(n) * (0.01 + 0.3 * env)
+    if ch == 1:
+        return np.clip(x, -1, 1)[:, None].astype(np.float32)
+    y = 0.15 * rng.standard_normal(n) * (0.3 + env) + 0.1 * np.sin(2 * np.pi * 2 * f0 * t)
+    return np.clip(np.stack([x, y], 1), -1, 1).astype(np.float32)
+
+
+def _vorbis_ogg(headers: List[bytes], packets: List[bytes], sizes: List[int], serial: int):
+    """(header bytes, audio pages) of an Ogg Vorbis stream by the JAX
+    package's page writer: the identification header alone on the first
+    page, the comment and setup headers on the second, then whole audio
+    packets a page, a page closed before a packet would pass
+    VORBIS_PAGE_BODY body bytes or 255 lacing values. ``sizes`` are the
+    packets' block sizes; a page's granule counts the samples its packets
+    finish (the first packet none, then ``prev/4 + n/4`` each)."""
+    from soundkit_tpu.demux.ogg import build_ogg_page
+
+    header = build_ogg_page([headers[0]], serial, 0, 0, header_type=2) + \
+        build_ogg_page(headers[1:], serial, 1, 0)
+    pages, cur, body, lacing, granule, prev = [], [], 0, 0, 0, None
+    for k, (pkt, n) in enumerate(zip(packets, sizes)):
+        laces = len(pkt) // 255 + 1
+        if cur and (body + len(pkt) > VORBIS_PAGE_BODY or lacing + laces > 255):
+            pages.append(build_ogg_page(cur, serial, 2 + len(pages), granule))
+            cur, body, lacing = [], 0, 0
+        cur.append(pkt)
+        body += len(pkt)
+        lacing += laces
+        granule += 0 if prev is None else prev // 4 + n // 4
+        prev = n
+    pages.append(build_ogg_page(cur, serial, 2 + len(pages), granule, header_type=4))
+    return header, pages
+
+
+def vorbis_floor0_packets() -> List[bytes]:
+    """The crafted floor0 stream's three headers and its audio packets
+    (``tests/vorbis_craft.py``, LSP order 8): seeded amplitudes, LSP and
+    residue words, one packet with amplitude 0 (an unused channel) and
+    one truncated in its residue."""
+    from vorbis_craft import build_audio_packet, build_headers
+
+    rng = np.random.RandomState(11)
+    pkts = []
+    for k in range(VORBIS_FLOOR0_PACKETS):
+        amp = int(rng.randint(6, 15)) if k != 3 else 0
+        lsp = [int(rng.randint(0, 16)) for _ in range(2)]
+        res = [int(rng.randint(0, 16)) for _ in range(32 if k != 5 else 16)]
+        pkts.append(build_audio_packet(amp, lsp, res, order=8))
+    return list(build_headers(8)) + pkts
+
+
+def generate_vorbis_fixtures(directory: Path = vorbis_fixtures.FIXTURE_DIR) -> None:
+    """Encode the libvorbis clips with the JAX package's
+    ``AvEncoder("libvorbis", ...)``, mux them (:func:`_vorbis_ogg`), craft
+    the floor0 stream with ``vorbis_craft.ogg_encapsulate`` (one packet a
+    page) and write the streams and their index. The stereo clips must
+    hold every (previous, current) block-size case, by the JAX package's
+    packet parse."""
+    from soundkit_tpu.codecs.encoders import AvEncoder
+    from soundkit_tpu.codecs.vorbis import split_xiph_extradata
+    from soundkit_tpu.codecs.vorbis_core import VorbisSetup
+    from vorbis_craft import ogg_encapsulate
+
+    directory.mkdir(parents=True, exist_ok=True)
+    index = {}
+    for serial, (name, (rate, ch, _)) in enumerate(VORBIS_CLIPS.items(), start=0x5000):
+        enc = AvEncoder("libvorbis", rate, ch)
+        packets = enc.push_f32(vorbis_clip_pcm(name).reshape(-1)) + enc.flush()
+        headers = split_xiph_extradata(enc.extradata)
+        setup = VorbisSetup(headers[0], headers[2])
+        sizes = [setup.decode_packet_spectrum(p).n for p in packets]
+        cases = {(a, b) for a, b in zip(sizes, sizes[1:])}
+        if ch == 2:
+            n0, n1 = setup.blocksize0, setup.blocksize1
+            assert cases == {(n0, n0), (n0, n1), (n1, n0), (n1, n1)}, (name, cases)
+        header, pages = _vorbis_ogg(headers, packets, sizes, serial)
+        index[name] = dict(rate=rate, channels=ch,
+                           blocksizes=[setup.blocksize0, setup.blocksize1], header=len(header),
+                           pages=[len(p) for p in pages], packets=len(packets),
+                           short_blocks=sizes.count(setup.blocksize0))
+        (directory / f"{name}.ogg").write_bytes(header + b"".join(pages))
+    crafted = vorbis_floor0_packets()
+    data = ogg_encapsulate(crafted)
+    setup = VorbisSetup(crafted[0], crafted[2])
+    header = sum(len(p) for p in vorbis_fixtures._pages(data)[:3])
+    index["floor0"] = dict(rate=setup.sample_rate, channels=setup.channels,
+                           blocksizes=[setup.blocksize0, setup.blocksize1], header=header,
+                           pages=[len(p) for p in vorbis_fixtures._pages(data)[3:]],
+                           packets=VORBIS_FLOOR0_PACKETS, short_blocks=VORBIS_FLOOR0_PACKETS)
+    (directory / "floor0.ogg").write_bytes(data)
+    (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
+
+
 def silk_resampler_arrays() -> Dict[str, np.ndarray]:
     """The probed resampler plan of every SILK bandwidth, from the JAX
     package's functions (``ops/silk_batch.py``: ``resampler_taps``,
@@ -718,4 +840,5 @@ def generate_silk_resampler_table(path: Path = None) -> None:
 if __name__ == "__main__":
     {"aac": generate_aac_fixtures, "telephony": generate_telephony_fixtures,
      "flac": generate_flac_fixtures, "mp3": generate_mp3_fixtures,
-     "opus": generate_opus_fixtures, "silk_resampler": generate_silk_resampler_table}[sys.argv[1]]()
+     "opus": generate_opus_fixtures, "silk_resampler": generate_silk_resampler_table,
+     "vorbis": generate_vorbis_fixtures}[sys.argv[1]]()
