@@ -28,19 +28,23 @@ quarter stereo; hybrid SWB mono and FB stereo) through
 Ogg Vorbis decoder (1024 ragged stereo 44.1 kHz lanes of the libvorbis
 fixtures in ``tests/data/torch_port/vorbis``, blocksizes 256 and 2048)
 through ``soundkit_tpu_torch.models.vorbis_batch.BatchedVorbisDecoder``,
-and the serving runtime ``soundkit_tpu_torch.models.fleet.StreamFleet``
-over all six (1024 lanes a group). Phases:
+the batched FLAC encoder (1024 lanes of 16-bit stereo 44.1 kHz PCM
+from the FLAC fixtures) through
+``soundkit_tpu_torch.models.flac_encode_batch.BatchedFlacEncoder``, and
+the serving runtime ``soundkit_tpu_torch.models.fleet.StreamFleet``
+over the six decoders (1024 lanes a group). Phases:
 
-a. build the CUDA kernels, the host parser, the FLAC walk, the MP3
-   parser, the Opus parse (CELT, SILK, hybrid glue) and the Vorbis packet
-   parse from the checkout;
+a. build the CUDA kernels (one ``nvcc`` a source, all started together),
+   the host parser, the FLAC walk, the MP3 parser, the Opus parse (CELT,
+   SILK, hybrid glue), the Vorbis packet parse and the FLAC frame packer
+   from the checkout;
 b. print the card (``nvidia-smi`` name and power limit), the kernels'
    launch shapes (K4's lanes a block and a warp, K6's threads a lane,
    K7's threads a band and steps a tile, K3's codes a thread and threads
    a block, K8's warps a block and values a chunk, K9's lanes a block,
    samples a tile and mover threads, K10's threads a channel and rounds a
-   matrixing thread sums, from their sources), the versions and the host
-   (name, CPU model, cores);
+   matrixing thread sums, K14's threads a row and samples a thread, from
+   their sources), the versions and the host (name, CPU model, cores);
 c. hold each kernel against its plain PyTorch version on the card at
    the main path's shapes (B = 1024), with the inputs and bounds of
    ``soundkit_tpu_torch.tools.kernel_check`` (K4 also on seeded random
@@ -66,7 +70,10 @@ e. telephony kernels: K3 (G.711 decode, mixed laws, ragged counts), K6
    each scan also from a carried state (512 codes: the plain scans are
    Python loops, most of this phase's time); beside K3,
    an empty kernel on K3's grid (``launch_floor_ms``: what the launch
-   alone costs);
+   alone costs) and, as its ``library_ms``, one PyTorch call computing
+   its function, the [2, 256] code table indexed by (law, code), held to
+   K3 on the same codes without counts (one call cannot also zero a
+   ragged lane past its count);
 f. telephony compare: per codec, two full-width decoder steps and one
    encoder step on the card against the port's plain path on the CPU,
    from the same pushes: PCM, lengths, bytes and carried state equal;
@@ -187,7 +194,32 @@ w. Vorbis: 1024 ragged stereo lanes (lane i: clip i mod 2 from page
    a push, the decoder's pack a collect, h2d and the step a round by CUDA
    events, the device operations and their device time a round by
    ``torch.profiler``);
-x. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
+x. FLAC encode kernel: K14 (``flac_analyze``: the plan of a FLAC block a
+   row: stereo candidates, fixed order, windowed autocorrelation,
+   Levinson, quantized LPC and its exact residual, Rice estimates, kind
+   and assignment; one launch a device call) against its plain version
+   on the card, plan rows identical: on the wire of [flac-enc]'s first
+   encode_pending (10,240 rows of 4096 samples; timed by graph replay),
+   on seeded random rows at 16 and 24 bits, stereo and mono, and on edge
+   rows (silence, constant blocks, full-scale noise, +-max alternating
+   with a side channel of bits + 1, 16-sample blocks, n_valid < N, a
+   block longer than a tile); its bound the larger of its bytes, its
+   float64 operations at 34 TFLOP/s and its integer operations at the
+   SMs' issue rate (``kernel_check.flac_analyze_work``);
+y. FLAC encode compare: for each of the four FLAC fixtures, 64 lanes of
+   its PCM (decoded by the port's FLAC decoder), each rotated by its own
+   offset, through an encoder on the card and one on the CPU with the
+   same pushes: byte-identical streams; every stream decodes on the card
+   to its input bit for bit, with the input's MD5 in its STREAMINFO;
+z. FLAC encode: 1024 lanes of 4 s (alternating the stereo16 and
+   const_wasted PCM, each from its own offset) in four pushes with an
+   encode_pending after each, then finish_all, launch counters reset
+   just before; K14 once a device call (each encode_pending and each
+   distinct tail length), 64 lanes decoded back bit-exactly with their
+   MD5; one ``[flac-enc]`` line (x realtime at 44.1 kHz, the MD5 at push
+   time, the wire, h2d, K14 by CUDA events, the plans' copy back, the
+   native pack);
+aa. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    lanes (detected from ADTS), 1024 MP3 lanes (detected from their frame
    headers), 1024 FLAC lanes (detected from ``fLaC``), 1024 Ogg Opus
    lanes (detected from ``OggS`` and ``OpusHead``: CELT, SILK and hybrid
@@ -207,8 +239,8 @@ x. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    bare output (Opus CELT on the i16 spectral wire), and per group a
    fleet serving that group alone, its x realtime beside the bare model's
    on the same bytes; one ``[fleet]`` line;
-y. print the kernels' JSON line (all thirteen kernels, K2 with no launch:
-   it is not on a path), then the result line.
+bb. print the kernels' JSON line (all fourteen kernels, K2 with no
+   launch: it is not on a path), then the result line.
 
 Any failed phase exits non-zero before the result line. Without a
 CUDA device, or outside a checkout of the repository, it exits 1
@@ -268,6 +300,11 @@ VORBIS_WARM = 3          # rounds the [vorbis-kernels] path case decodes before 
 VORBIS_COMPARE_PAGES = 1  # audio pages a [vorbis-compare] lane carries (~20 packets)
 VORBIS_RATE = 44100.0
 FLEET_VORBIS_PAGES = 4   # audio pages an Ogg Vorbis fleet stream carries (<= ~1 s)
+FLAC_ENC_RATE = 44100.0
+FLAC_ENC_SECONDS = 4.0    # PCM a [flac-enc] lane carries
+FLAC_ENC_PUSHES = 4       # pushes of the [flac-enc] phase, an encode_pending after each
+FLAC_ENC_COMPARE_LANES = 64
+FLAC_ENC_ROUNDTRIP = 64   # [flac-enc] lanes decoded back on the card
 
 
 class SmokeFailure(RuntimeError):
@@ -366,13 +403,16 @@ def phase_build():
     t5 = time.perf_counter()
     vpath = _build.vorbis_library_path()
     t6 = time.perf_counter()
+    epath = _build.flac_pack_library_path()
+    t7 = time.perf_counter()
     _build.kernels()
     log(f"[build] kernels {kpath.relative_to(ROOT)} in {t1 - t0:.3f} s; "
         f"parser {ppath.relative_to(ROOT)} in {t2 - t1:.3f} s; "
         f"FLAC walk {fpath.relative_to(ROOT)} in {t3 - t2:.3f} s; "
         f"MP3 parser {mpath.relative_to(ROOT)} in {t4 - t3:.3f} s; "
         f"Opus parse {cpath.relative_to(ROOT)} in {t5 - t4:.3f} s; "
-        f"Vorbis parse {vpath.relative_to(ROOT)} in {t6 - t5:.3f} s")
+        f"Vorbis parse {vpath.relative_to(ROOT)} in {t6 - t5:.3f} s; "
+        f"FLAC packer {epath.relative_to(ROOT)} in {t7 - t6:.3f} s")
     blog = kpath.with_suffix(".log")
     if blog.exists():
         for line in blog.read_text().splitlines():
@@ -432,7 +472,9 @@ def phase_card() -> str:
         f"{cu_constant('flac_lpc.cu', 'LANES')}, samples per tile {cu_constant('flac_lpc.cu', 'TILE')}, "
         f"mover threads {cu_constant('flac_lpc.cu', 'MOVERS')}; K10 threads per channel "
         f"{cu_constant('mp3_synth.cu', 'THREADS')}, rounds a matrixing thread sums "
-        f"{cu_constant('mp3_synth.cu', 'RB')}")
+        f"{cu_constant('mp3_synth.cu', 'RB')}; K14 threads per row "
+        f"{cu_constant('flac_analyze.cu', 'THREADS')}, samples a thread takes in a tile "
+        f"{cu_constant('flac_analyze.cu', 'SPT')}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}; host {socket.gethostname()} "
@@ -703,6 +745,11 @@ def phase_tel_kernels():
         r["library_ms"] = None
         if name == "g711_decode":
             r["launch_floor_ms"] = graph_ms(kc.g711_launch_floor(B, N, dev))
+            # one PyTorch call that computes K3's function: the code table
+            # indexed by (law, code), held to K3 on the same codes without counts
+            library, k3 = kc.g711_library_case(B, N, dev, seed=11)
+            check(torch.equal(library(), k3()), "g711: the table gather differs from K3")
+            r["library_ms"] = graph_ms(library)
         log(f"[tel-kernels] {tag}: {r}")
         res[tag] = r
 
@@ -1937,6 +1984,176 @@ def phase_vorbis():
     return res
 
 
+def flac_enc_wrappers():
+    from soundkit_tpu_torch.ops import flac_analyze
+
+    return {"flac_analyze": flac_analyze.flac_analyze}
+
+
+def flac_enc_lanes():
+    """The [flac-enc] lanes: B lanes of FLAC_ENC_SECONDS s of 16-bit stereo
+    44.1 kHz PCM, alternating between the PCM of the stereo16 and
+    const_wasted fixtures (decoded by the port's FLAC decoder on the card),
+    each from its own offset."""
+    from soundkit_tpu_torch.tools import flac_fixtures as ff
+
+    clips = {c.name: c for c in ff.load_clips()}
+    pcms = [ff.clip_pcm(clips[name], "cuda") for name in ("stereo16", "const_wasted")]
+    return ff.rotated_lanes(pcms, B, int(FLAC_ENC_SECONDS * FLAC_ENC_RATE))
+
+
+def phase_flac_enc_kernels(lanes):
+    """K14 against its plain version on the card, plan rows identical: on
+    the wire of [flac-enc]'s first encode_pending (every full block of
+    the B lanes' first push; the timed case), on seeded random rows at 16
+    and 24 bits, stereo and mono, and on the edge rows
+    (``kernel_check.flac_analyze_edge_cases``)."""
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.tools import kernel_check as kc
+
+    dev = torch.device("cuda", 0)
+    x = kc.flac_enc_path_inputs(lanes, lanes[0].shape[1] // FLAC_ENC_PUSHES, dev)
+    N = x.shape[-1]
+    kernel, plain = kc.flac_analyze_pair(x, N, 16)
+    r = kc.compare("flac_analyze", kernel, plain)
+    plans = kernel().cpu().numpy()
+    r["ms"] = graph_ms(kernel, reps=10, replays=3)
+    r["plain_ms"] = cuda_ms(plain, 2)
+    work = kc.flac_analyze_work(x, N)
+    limit = kc.flac_analyze_bound(work)
+    r.update(bound_ms=limit["bound_ms"], bound_by=limit["bound_by"], library_ms=None)
+    cases = {}
+    for bits in (16, 24):
+        for ch in (2, 1):
+            xr = kc.flac_analyze_inputs(70 + bits + ch, B, 4096, bits, ch).to(dev)
+            cases[f"random_b{bits}_c{ch}"] = kc.compare(
+                "flac_analyze", *kc.flac_analyze_pair(xr, 4096, bits, ch))
+        for name, xe, n_valid, ch in kc.flac_analyze_edge_cases(bits):
+            cases[f"{name}_b{bits}"] = kc.compare(
+                "flac_analyze", *kc.flac_analyze_pair(xe.to(dev), n_valid, bits, ch))
+    assign = {int(a): int(n) for a, n in zip(*np.unique(plans[:, 0], return_counts=True))}
+    r.update(rows=int(x.shape[0]), n=N, work=work, bound_parts=limit,
+             share_of_bound=limit["bound_ms"] / r["ms"], assign_counts=assign,
+             lpc_slots=int(plans[:, 1:3].sum()), cases=sorted(cases),
+             max_abs_err=max(r["max_abs_err"], *(c["max_abs_err"] for c in cases.values())))
+    log(f"[flac-enc-kernels] flac_analyze: path {r['rows']} rows x {N}: {r['ms']:.4f} ms by graph "
+        f"replay (plain {r['plain_ms']:.2f} ms), bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+        f"bytes {limit['bytes_ms']:.4f}, float64 {limit['fp64_ms']:.4f}, integer "
+        f"{limit['int_ms']:.4f} ms), {100 * r['share_of_bound']:.1f} % of it; plan rows "
+        f"identical on the path and on {len(cases)} random and edge cases; assignments "
+        f"{assign}, LPC slots {r['lpc_slots']} of {2 * r['rows']}")
+    return {"flac_analyze": r}
+
+
+def phase_flac_enc_compare():
+    """An encoder on the card and one on the CPU fed the same pushes
+    (FLAC_ENC_COMPARE_LANES lanes of each fixture clip's PCM, each lane
+    rotated by its own offset, in two pushes with encode_pending after
+    each, then finish_all) give byte-identical streams; every card stream
+    decodes on the card to its input bit for bit, and its STREAMINFO
+    MD5 is the input's."""
+    import numpy as np
+    from soundkit_tpu_torch.models.flac_encode_batch import BatchedFlacEncoder
+    from soundkit_tpu_torch.tools import flac_fixtures as ff
+
+    res = {}
+    for clip in ff.load_clips():
+        pcm = ff.clip_pcm(clip, "cuda")
+        lanes = ff.rotated_lanes([pcm], FLAC_ENC_COMPARE_LANES, pcm.shape[1])
+        half = pcm.shape[1] // 2
+        streams, secs = {}, {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            enc = BatchedFlacEncoder(len(lanes), clip.rate, clip.channels, clip.bits,
+                                     device=device)
+            for lo, hi in ((0, half), (half, None)):
+                for i, x in enumerate(lanes):
+                    enc.push(i, x[:, lo:hi])
+                enc.encode_pending()
+            streams[device] = enc.finish_all()
+            secs[device] = time.perf_counter() - t0
+        check(streams["cuda"] == streams["cpu"], f"flac-enc {clip.name}: card and CPU streams differ")
+        decoded = ff.decode_streams(streams["cuda"], "cuda")
+        for i, (x, got, stream) in enumerate(zip(lanes, decoded, streams["cuda"])):
+            check(got.shape == x.shape and np.array_equal(got, x),
+                  f"flac-enc {clip.name} lane {i}: the round trip differs")
+            check(ff.streaminfo_md5(stream) == ff.pcm_md5(x, clip.bits),
+                  f"flac-enc {clip.name} lane {i}: STREAMINFO MD5 is not the input's")
+        nbytes = sum(len(st) for st in streams["cuda"])
+        res[clip.name] = dict(lanes=len(lanes), samples=int(pcm.shape[1]), bytes=nbytes,
+                              ratio=nbytes / (pcm.size * len(lanes) * clip.bits / 8),
+                              card_s=secs["cuda"], cpu_s=secs["cpu"])
+        log(f"[flac-enc-compare] {clip.name}: {res[clip.name]}; streams byte-identical, round "
+            f"trip bit-exact, MD5 right")
+    return res
+
+
+def phase_flac_enc(lanes):
+    """B lanes of [flac-enc] PCM through a timed encoder on the card:
+    FLAC_ENC_PUSHES pushes with an encode_pending after each, then
+    finish_all; launch counters reset just before. K14 launches once a
+    device call (each encode_pending with blocks, each distinct tail
+    length); FLAC_ENC_ROUNDTRIP lanes decode back bit-exactly with their
+    MD5."""
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.models.flac_encode_batch import STAGES, BatchedFlacEncoder
+    from soundkit_tpu_torch.tools import flac_fixtures as ff
+
+    n = lanes[0].shape[1]
+    step = n // FLAC_ENC_PUSHES
+    wrappers = flac_enc_wrappers()
+    enc = BatchedFlacEncoder(B, int(FLAC_ENC_RATE), 2, 16, device="cuda", timed=True)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    push_s = pending_s = 0.0
+    calls = frames = 0
+    t_start = time.perf_counter()
+    for r in range(FLAC_ENC_PUSHES):
+        hi = n if r == FLAC_ENC_PUSHES - 1 else (r + 1) * step
+        t0 = time.perf_counter()
+        for i, x in enumerate(lanes):
+            enc.push(i, x[:, r * step: hi])
+        t1 = time.perf_counter()
+        made = enc.encode_pending()
+        pending_s += time.perf_counter() - t1
+        push_s += t1 - t0
+        calls += made > 0
+        frames += made
+    t2 = time.perf_counter()
+    streams = enc.finish_all()
+    wall = time.perf_counter() - t_start
+    finish_s = time.perf_counter() - t2
+    launches = {k: w.launches for k, w in wrappers.items()}
+    tails = int(n % enc.block_size > 0)  # every lane holds n samples: one tail length
+    check(launches["flac_analyze"] == calls + tails,
+          f"flac_analyze launched {launches['flac_analyze']} times in {calls} encode_pending "
+          f"calls and {tails} tail length")
+    check(len(streams) == B and all(st[:4] == b"fLaC" for st in streams), "flac-enc: streams")
+    picks = list(range(0, B, B // FLAC_ENC_ROUNDTRIP))
+    decoded = ff.decode_streams([streams[i] for i in picks], "cuda")
+    for i, got in zip(picks, decoded):
+        check(np.array_equal(got, lanes[i]), f"flac-enc lane {i}: the round trip differs")
+        check(ff.streaminfo_md5(streams[i]) == ff.pcm_md5(lanes[i], 16),
+              f"flac-enc lane {i}: STREAMINFO MD5 is not the input's")
+    audio_s = B * n / FLAC_ENC_RATE
+    stages = enc.stage_s()
+    split = {f"{k}_s": stages[k] for k in STAGES}
+    nbytes = sum(len(st) for st in streams)
+    res = dict(lanes=B, seconds_per_lane=n / FLAC_ENC_RATE, pushes=FLAC_ENC_PUSHES,
+               audio_s=audio_s, wall_s=wall, xrealtime=audio_s / wall, push_s=push_s,
+               encode_pending_s=pending_s, finish_all_s=finish_s, frames=frames + B * tails,
+               device_calls=stages["calls"], **split,
+               other_s=wall - sum(split.values()), launches=launches,
+               bytes_out=nbytes, ratio=nbytes / (B * n * 4), roundtrip_lanes=len(picks))
+    log(f"[flac-enc] {json.dumps(res)}")
+    return res
+
+
 class FleetStreams:
     """The streams of the fleet phase: per group, B first-wave streams
     and, for every fourth lane, a second-wave stream that takes the lane
@@ -2441,6 +2658,13 @@ def main() -> int:
         vcres = phase_vorbis_compare()
         phase = "vorbis"
         vres = phase_vorbis()
+        phase = "flac-enc-kernels"
+        enc_lanes = flac_enc_lanes()
+        ekres = phase_flac_enc_kernels(enc_lanes)
+        phase = "flac-enc-compare"
+        ecres = phase_flac_enc_compare()
+        phase = "flac-enc"
+        eres = phase_flac_enc(enc_lanes)
         phase = "fleet"
         flres = phase_fleet()
     except Exception:
@@ -2514,6 +2738,12 @@ def main() -> int:
         replaces="soundkit_tpu/ops/vorbis_batch.py:102", on_path=True,
         launches=vres["launches"]["vorbis_overlap"],
         launches_per_step=vres["k13_launches_per_round"], **vkres["vorbis_overlap"]))
+    kernels.append(dict(
+        name="flac_analyze", route="cuda", source=src + "flac_analyze.cu",
+        replaces="soundkit_tpu/ops/flac_enc_batch.py:62", on_path=True,
+        launches=eres["launches"]["flac_analyze"],
+        launches_per_step=eres["launches"]["flac_analyze"] / eres["device_calls"],
+        **ekres["flac_analyze"]))
     for k in kernels:
         k["fleet_launches"] = flres["mixed"]["launches"].get(k["name"], 0)
     log(json.dumps({"slice": sres, "compare": cres, "telephony": tres,
@@ -2521,6 +2751,7 @@ def main() -> int:
                     "mp3": mres, "mp3_compare": mcres, "celt": celtres, "celt_compare": ccres,
                     "silk": silkres, "silk_compare": scres, "hybrid": hybres,
                     "hybrid_compare": hcres, "vorbis": vres, "vorbis_compare": vcres,
+                    "flac_enc": eres, "flac_enc_compare": ecres,
                     "fleet": flres,
                     "wall_s": time.perf_counter() - t_start}))
     log(card)

@@ -1,8 +1,9 @@
 """Build and load the port's native code at first use.
 
-Six shared libraries, each built into ``soundkit_tpu_torch/_build/``
+Seven shared libraries, each built into ``soundkit_tpu_torch/_build/``
 under a name keyed by a hash of its sources and flags, so a checkout
-builds once and a source edit rebuilds:
+builds once and a source edit rebuilds. Each is built the same way: one
+compiler process a source, all started together, then one link:
 
 - the CUDA kernels, ``csrc/*.cu`` (and the headers ``csrc/*.cuh`` they
   share), compiled by ``nvcc`` for ``sm_90a`` into one library with a
@@ -24,15 +25,19 @@ builds once and a source edit rebuilds:
   writing a collect's spectral wire), ``silk_parse.cpp`` (the SILK walk
   that exports the synthesis inputs) and ``hybrid_glue.cpp`` (the hybrid
   walk, which chains the SILK export and the CELT continuation over the
-  parse states of both), verbatim copies compiled together by ``g++``
-  with the same flags. They are one library because the glue calls both
-  walks directly and each source keeps its spec tables in a
+  parse states of both), verbatim copies compiled by ``g++`` with the
+  same flags into one library. They are one library because the glue
+  calls both walks directly and each source keeps its spec tables in a
   library-global, pushed at load time (``codecs/celt_native.py``,
   ``codecs/silk_native.py``);
 - the Vorbis packet parse, ``native_src/src/vorbis_parse.cpp`` (a
   verbatim copy; codebook Huffman, floor1, residue, coupling and the
   floor multiply of one audio packet), compiled alone by ``g++`` with the
-  same flags; the setup is pushed per stream (``codecs/vorbis_native.py``).
+  same flags; the setup is pushed per stream (``codecs/vorbis_native.py``);
+- the FLAC frame packer of the encode direction,
+  ``native_src/src/flac_pack.cpp`` (a verbatim copy; the Rice partition
+  search, CRCs and bit packing of frames from the analysis plans),
+  compiled alone by ``g++`` with the same flags.
 
 A failed build raises :class:`BuildError` with the compiler's output.
 Nothing here runs at import time.
@@ -61,6 +66,7 @@ MP3_HEADERS = (NATIVE_DIR / "generated" / "mp3_tables.h",)
 OPUS_SOURCES = tuple(NATIVE_DIR / "src" / f for f in ("celt_parse.cpp", "silk_parse.cpp",
                                                       "hybrid_glue.cpp"))
 VORBIS_SOURCES = (NATIVE_DIR / "src" / "vorbis_parse.cpp",)
+FLAC_PACK_SOURCES = (NATIVE_DIR / "src" / "flac_pack.cpp",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -82,9 +88,18 @@ def _compiler(name: str, fallback: str) -> str:
     raise BuildError(f"{name} not found on PATH or at {fallback}")
 
 
+def _run_all(cmds: Sequence[Sequence[str]]) -> list:
+    """Run the commands together; (command, return code, output) of each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    return [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outputs)]
+
+
 def _build(stem: str, compiler: str, flags: Sequence[str], sources: Sequence[Path],
            deps: Sequence[Path]) -> Path:
-    """Compile ``sources`` into ``_build/<stem>-<hash>.so`` unless it exists."""
+    """Compile ``sources`` into ``_build/<stem>-<hash>.so`` unless it exists:
+    one compiler process a source, all started together, then one link."""
     h = hashlib.sha256(" ".join(flags).encode())
     for p in (*sources, *deps):
         h.update(p.name.encode())
@@ -94,14 +109,22 @@ def _build(stem: str, compiler: str, flags: Sequence[str], sources: Sequence[Pat
         return out
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [compiler, *flags, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise BuildError(
-            f"build of {stem} failed ({' '.join(cmd)}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    objs = [tmp.with_name(f"{tmp.name}.{i}.o") for i in range(len(sources))]
+    cflags = [f for f in flags if f != "-shared"]
+    steps = [[[compiler, *cflags, "-c", "-o", str(o), str(src)] for o, src in zip(objs, sources)],
+             [[compiler, "-shared", "-o", str(tmp), *map(str, objs)]]]
+    log = ""
+    try:
+        for cmds in steps:
+            for cmd, rc, output in _run_all(cmds):
+                log += output
+                if rc != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise BuildError(f"build of {stem} failed ({' '.join(cmd)}):\n{output}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     return out
 
@@ -144,6 +167,12 @@ def vorbis_library_path() -> Path:
 
 
 @functools.lru_cache(maxsize=1)
+def flac_pack_library_path() -> Path:
+    gxx = _compiler("g++", "/usr/bin/g++")
+    return _build("flac_pack", gxx, GXX_FLAGS, FLAC_PACK_SOURCES, ())
+
+
+@functools.lru_cache(maxsize=1)
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library with every entry point's C signature.
 
@@ -167,10 +196,12 @@ def kernels() -> ctypes.CDLL:
     lib.skt_celt_postfilter.argtypes = [*[p] * 11, i, i, p]
     lib.skt_silk_synth.argtypes = [*[p] * 12, i, i, p]
     lib.skt_vorbis_overlap.argtypes = [*[p] * 7, i, i, i, i, p]
+    lib.skt_flac_analyze.argtypes = [p, i, i, i, i, i, i, p, p]
     for fn in (lib.skt_imdct_window, lib.skt_dequant_imdct_window,
                lib.skt_spectral_decode, lib.skt_tns_filter, lib.skt_g711_decode,
                lib.skt_g711_launch_floor, lib.skt_g726_scan, lib.skt_g722_scan,
                lib.skt_flac_rice_plane, lib.skt_flac_lpc, lib.skt_mp3_granule,
-               lib.skt_celt_postfilter, lib.skt_silk_synth, lib.skt_vorbis_overlap):
+               lib.skt_celt_postfilter, lib.skt_silk_synth, lib.skt_vorbis_overlap,
+               lib.skt_flac_analyze):
         fn.restype = ctypes.c_int
     return lib

@@ -38,6 +38,13 @@ handle per stream (``skt_vorbis_new`` / ``free``), the setup pushes
 (``add_codebook``, ``add_floor1``, ``add_residue``, ``add_mapping``,
 ``add_mode``, ``finish``) and the parse of one audio packet into its
 spectrum (``skt_vorbis_packet``).
+
+:func:`flac_pack_library` is the port's copy of ``native_src/src/flac_pack.cpp``,
+the FLAC frame packer of the encode direction: many frames from the
+analysis plans (``skt_flac_pack_frames`` and ``skt_flac_pack_frames16``,
+which recompute each residual from its plan), one frame from explicit
+subframe plans (``skt_flac_pack_frame1``, ``codecs/flac_encode.py``) and
+the big-endian word scatter of frame bytes (``skt_pack_frames_be``).
 """
 from __future__ import annotations
 
@@ -278,6 +285,35 @@ def vorbis_library() -> ctypes.CDLL:
     lib.skt_vorbis_packet.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, c_long, F64P,
         ctypes.POINTER(c_int), ctypes.POINTER(c_int), ctypes.POINTER(c_int)]
+    return lib
+
+
+
+@functools.lru_cache(maxsize=1)
+def flac_pack_library() -> ctypes.CDLL:
+    """The FLAC frame packer with the signatures the batched encoder and
+    ``codecs/flac_encode.py`` call (the JAX package's argtypes; every
+    pointer typed)."""
+    from numpy.ctypeslib import ndpointer
+
+    lib = ctypes.CDLL(str(_build.flac_pack_library_path()))
+    i32 = ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i64 = ndpointer(np.int64, flags="C_CONTIGUOUS")
+    u8 = ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    c_int, c_long = ctypes.c_int, ctypes.c_long
+    for name, block in (("skt_flac_pack_frames", i32),
+                        ("skt_flac_pack_frames16", ndpointer(np.int16, flags="C_CONTIGUOUS"))):
+        fn = getattr(lib, name)
+        fn.restype = c_long
+        fn.argtypes = [c_long, c_long, c_int, c_int, c_int, c_int, i64, i32, i32, i32, i32, i32,
+                       c_int, ctypes.c_void_p, block, u8, c_long, i64]
+    lib.skt_flac_pack_frame1.restype = c_long
+    lib.skt_flac_pack_frame1.argtypes = [
+        c_long, c_int, c_int, c_int, ctypes.c_longlong, c_int, c_int, i32, i32, i32, i32, i64,
+        i64, i32, u8, c_long]
+    lib.skt_pack_frames_be.restype = None
+    lib.skt_pack_frames_be.argtypes = [c_long, ctypes.c_char_p, i64, i64, c_long,
+                                       ndpointer(np.uint32, flags="C_CONTIGUOUS")]
     return lib
 
 

@@ -15,7 +15,8 @@ encoder at a block size of 4096 and committed under
 ``index.json`` beside them holds, per clip, the length of the stream
 header (``fLaC`` and STREAMINFO) and of every frame, so that lanes can
 be cut at frame boundaries: FLAC frames decode on their own. This module
-reads the fixtures and cuts lanes. The clips are made on the test side
+reads the fixtures and cuts lanes, and decodes whole streams with the
+port's decoder (the PCM the batched encoder's checks feed it). The clips are made on the test side
 (``tests/torch_port_helpers.py``; needs the JAX package), from the
 repository's root::
 
@@ -26,6 +27,8 @@ from __future__ import annotations
 import json
 from pathlib import Path
 from typing import List, NamedTuple
+
+import numpy as np
 
 CLIPS = ("stereo16", "stereo24", "mono16", "const_wasted")
 FIXTURE_DIR = Path(__file__).resolve().parents[2] / "tests" / "data" / "torch_port" / "flac"
@@ -102,3 +105,56 @@ def lane_seconds(clips: List[FlacClip], num_lanes: int, n_frames: int = None) ->
         clip, idx = lane_frames(clips, i, n_frames)
         out.append(sum(clip.blocks[t] for t in idx) / clip.rate)
     return out
+
+
+def decode_streams(streams: List[bytes], device, stride: int = 4608) -> List[np.ndarray]:
+    """Decode whole FLAC streams with the port's ``BatchedFlacDecoder`` on
+    ``device``, one lane each: the samples of each, [channels, n] int64."""
+    from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
+
+    model = BatchedFlacDecoder(len(streams), stride, device=device)
+    for i, s in enumerate(streams):
+        model.push(i, s)
+    rounds = max(model.lane_ready(i) for i in range(len(streams)))
+    samples, metas = model.decode_batches(rounds)
+    out = []
+    for b in range(len(streams)):
+        parts = [samples[f, b, : metas[f][b, 1], : metas[f][b, 0]]
+                 for f in range(rounds) if metas[f][b, 0] > 0]
+        out.append(np.concatenate(parts, axis=1).astype(np.int64))
+    return out
+
+
+def clip_pcm(clip: FlacClip, device) -> np.ndarray:
+    """The PCM of a committed clip, [channels, n] int64, decoded by the
+    port's own FLAC decoder on ``device``."""
+    return decode_streams([clip.stream()], device)[0]
+
+
+def rotated_lanes(pcms: List[np.ndarray], num_lanes: int, n: int) -> List[np.ndarray]:
+    """``num_lanes`` lanes of ``n`` samples from clips' PCM [C, m]: lane i
+    plays clip ``i mod len(pcms)`` from its own offset ``(7919 i) mod m``,
+    wrapping around the clip as often as ``n`` needs."""
+    idx = np.arange(n)
+    out = []
+    for i in range(num_lanes):
+        pcm = pcms[i % len(pcms)]
+        out.append(pcm[:, (7919 * i + idx) % pcm.shape[1]])
+    return out
+
+
+def streaminfo_md5(stream: bytes) -> bytes:
+    """The MD5 of a FLAC stream's STREAMINFO (the stream's first block)."""
+    if stream[:4] != b"fLaC" or stream[4] & 0x7F != 0:
+        raise ValueError("no STREAMINFO first")
+    return stream[8 + 18: 8 + 34]
+
+
+def pcm_md5(pcm: np.ndarray, bits: int) -> bytes:
+    """The MD5 FLAC's STREAMINFO holds for the samples ``pcm`` [C, n]:
+    interleaved, little-endian, ``bits / 8`` bytes a sample."""
+    import hashlib
+
+    inter = np.ascontiguousarray(pcm.T).reshape(-1).astype("<i4")
+    nbytes = (bits + 7) // 8
+    return hashlib.md5(inter.view(np.uint8).reshape(-1, 4)[:, :nbytes].tobytes()).digest()

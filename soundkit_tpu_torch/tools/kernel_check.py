@@ -31,6 +31,9 @@ beyond the bound. The bounds are on ``max|kernel - plain| / max|plain|``:
   order than the CPU's;
 - K13 ``vorbis_overlap``: bit-exact, the PCM and the new lap (every
   product and sum rounded alone in the plain version's order).
+- K14 ``flac_analyze``: identical plan rows (the float64 autocorrelation
+  sums run in another order than the plain version's; a plan could move
+  only at a rounding tie of a coefficient or on a power of two of max|a|).
 
 A case may return a tuple of tensors (a scan's output and its state);
 every element is held to the bound.
@@ -43,8 +46,9 @@ import torch
 from soundkit_tpu_torch import _build
 from soundkit_tpu_torch.ops import aac_batch as ab
 from soundkit_tpu_torch.ops import aac_entropy as ae
-from soundkit_tpu_torch.ops import (adpcm, celt_postfilter, companding, flac_lpc, flac_rice, g722,
-                                    imdct, mp3_synth, silk_synth, vorbis_overlap)
+from soundkit_tpu_torch.ops import (adpcm, celt_postfilter, companding, flac_analyze,
+                                    flac_enc_batch, flac_lpc, flac_rice, g722, imdct, mp3_synth,
+                                    silk_synth, vorbis_overlap)
 from soundkit_tpu_torch.utils.device import launch_check
 
 REL_BOUND = {
@@ -62,6 +66,7 @@ REL_BOUND = {
     "silk_synth": 0.0,
     "silk_round": 1e-5,
     "vorbis_overlap": 0.0,
+    "flac_analyze": 0.0,
 }
 
 
@@ -327,6 +332,23 @@ def g711_case(B: int, N: int, device, seed: int, offset: int = 0, ragged: bool =
         counts = torch.from_numpy(counts).to(device)
     return ((lambda: companding.g711_decode(codes, law, counts)),
             (lambda: companding.g711_decode_plain(codes, law, counts)))
+
+
+def g711_library_case(B: int, N: int, device, seed: int):
+    """One PyTorch call that computes K3's function: the [2, 256] int16
+    code table indexed by (law, code), on :func:`g711_case`'s codes and
+    laws (the index tensors made beforehand: a uint8 tensor indexes as a
+    mask), against K3 on the same codes without counts. One call cannot
+    also zero the samples past a ragged lane's count. Returns (library,
+    kernel)."""
+    rng = np.random.default_rng(seed)
+    codes = torch.from_numpy(rng.integers(0, 256, B * N).astype(np.uint8)).to(device).view(B, N)
+    law = torch.from_numpy(rng.integers(0, 2, B).astype(np.int32)).to(device)
+    every = torch.arange(256, dtype=torch.int32)
+    table = torch.stack([companding.decode_mulaw(every), companding.decode_alaw(every)]).to(
+        torch.int16).to(device)
+    law_idx, code_idx = law.long()[:, None], codes.long()
+    return (lambda: table[law_idx, code_idx]), (lambda: companding.g711_decode(codes, law))
 
 
 def g711_launch_floor(B: int, N: int, device):
@@ -1087,3 +1109,148 @@ def vorbis_overlap_work(inputs) -> tuple:
     n_blk = np.where(n_flag[v] == 1, n1, n0)
     flops = int(C * (2 * h1 + n_blk).sum())
     return int(nbytes), flops
+
+
+# ---------------------------------------------------------------------------
+# FLAC encode analysis (K14)
+# ---------------------------------------------------------------------------
+
+#: the H100 SXM's float64 rate outside the tensor cores (NVIDIA's data sheet)
+FP64_RATE = 34e12
+#: integer operations a second at the SMs' issue rate: 132 SMs x 4 schedulers x
+#: 32 lanes at the 1.98 GHz boost clock
+INT_ISSUE_RATE = 132 * 4 * 32 * 1.98e9
+
+
+def flac_analyze_pair(x, n_valid: int, bits: int, channels: int = 2):
+    """K14 and its plain version on the wire ``x`` [L, 2, N], each
+    returning the [L, 23] int32 plan rows."""
+    return (lambda: flac_analyze.flac_analyze(x, n_valid, bits, channels),
+            lambda: flac_enc_batch.flac_plans_pack(
+                *flac_enc_batch.flac_analyze_plain(x, n_valid, bits, channels)[:5]))
+
+
+def flac_enc_path_inputs(lanes, n: int, device, channels: int = 2, rate: int = 44100,
+                         bits: int = 16) -> torch.Tensor:
+    """K14's wire on the batched encoder's path: each of ``lanes`` ([C, m]
+    int PCM) pushes its first ``n`` samples into a ``BatchedFlacEncoder``
+    on ``device``, and the wire of the first ``encode_pending`` comes
+    back, on ``device`` (every full block of every lane, in rows)."""
+    from soundkit_tpu_torch.models.flac_encode_batch import BatchedFlacEncoder
+
+    enc = BatchedFlacEncoder(len(lanes), rate, channels, bits, device=device)
+    for i, x in enumerate(lanes):
+        enc.push(i, x[:, :n])
+    jobs, spans = enc._take_pending()
+    return torch.from_numpy(enc._wire(jobs, enc.block_size, spans)).to(device)
+
+
+def flac_analyze_inputs(seed: int, rows: int = 37, n: int = 4096, bits: int = 16,
+                        channels: int = 2) -> torch.Tensor:
+    """Seeded K14 wires on the CPU, [rows, 2, n] int16 at <= 16 bits, else
+    int32: row i takes kind i mod 6 (left and right correlated with a
+    small side; independent channels; L == R; low-passed noise; white
+    noise; a signal of a few LSB), each with its own tones and level up to
+    full scale. Mono rows keep channel 1 zero."""
+    rng = np.random.default_rng(seed)
+    top = (1 << (bits - 1)) - 1
+    t = np.arange(n)
+    x = np.zeros((rows, 2, n), np.int64)
+    for i in range(rows):
+        amp = top * rng.uniform(0.05, 0.9)
+        tone = amp * np.sin(t * rng.uniform(0.002, 0.3) + rng.uniform(0, 6.3))
+        noise = rng.normal(0, 1, (2, n))
+        kind = i % 6
+        if kind == 0:
+            left, right = tone + noise[0] * amp * 0.01, 0.9 * tone + noise[1] * amp * 0.02
+        elif kind == 1:
+            left, right = tone, amp * 0.5 * np.sin(t * rng.uniform(0.002, 0.3)) + noise[1] * 30
+        elif kind == 2:
+            left = right = tone + noise[0] * amp * 0.05
+        elif kind == 3:
+            lp = np.convolve(noise[0], np.ones(16) / 4, "same")
+            left, right = lp * amp * 0.2, np.roll(lp, 3) * amp * 0.2
+        elif kind == 4:
+            left, right = noise * amp * 0.3
+        else:
+            left, right = noise * rng.uniform(0.5, 4)
+        x[i, 0], x[i, 1] = left.round(), right.round()
+    x = np.clip(x, -top - 1, top)
+    if channels == 1:
+        x[:, 1] = 0
+    return torch.from_numpy(x.astype(np.int16 if bits <= 16 else np.int32))
+
+
+def flac_analyze_edge_cases(bits: int = 24):
+    """(name, x, n_valid, channels) K14 cases at the edges: silence, a
+    constant block (CONSTANT subframes), full-scale noise, rows
+    alternating between +max and -max with R = -L (a side channel of
+    bits + 1), the shortest block FLAC writes (16), n_valid < N with
+    junk past it, a block longer than one of K14's tiles, and the mono
+    form of each."""
+    rng = np.random.default_rng(bits)
+    top = (1 << (bits - 1)) - 1
+    dt = np.int16 if bits <= 16 else np.int32
+    rows, n = 6, 4096
+    cases = []
+    alt = np.where(np.arange(n) % 2 == 0, top, -top)
+    edges = {
+        "silence": np.zeros((rows, 2, n), np.int64),
+        "constant": np.broadcast_to(rng.integers(-top, top, (rows, 2, 1)), (rows, 2, n)),
+        "full_scale_noise": rng.integers(-top - 1, top + 1, (rows, 2, n)),
+        "alternating_max": np.broadcast_to(np.stack([alt, -alt]), (rows, 2, n)),
+    }
+    for name, x in edges.items():
+        cases.append((name, x, n))
+    cases.append(("n16", flac_analyze_inputs(bits + 1, rows, 16, bits).numpy(), 16))
+    short = flac_analyze_inputs(bits + 2, rows, n, bits).numpy()
+    cases.append(("n_valid_1000", short, 1000))
+    cases.append(("n_valid_17", short, 17))
+    cases.append(("multi_tile", flac_analyze_inputs(bits + 3, 3, 9000, bits).numpy(), 8999))
+    out = []
+    for name, x, n_valid in cases:
+        for channels in (2, 1):
+            y = np.array(x, dtype=dt, order="C")
+            if channels == 1:
+                y[:, 1] = 0
+            out.append((f"{name}_c{channels}", torch.from_numpy(y), n_valid, channels))
+    return out
+
+
+def flac_analyze_work(x, n_valid: int, channels: int = 2) -> dict:
+    """What K14's function needs on the wire ``x`` [L, 2, N]: the bytes it
+    moves (each row's ``n_valid`` samples of the channels it reads, once,
+    and the plan rows written), its float64 operations and its integer
+    operations (an int64 operation counted as one), per row:
+
+    - float64: the window once (4 a sample); per candidate and valid
+      sample the windowed value (1) and nine lags of the autocorrelation,
+      a product and a sum each (18); per candidate the Levinson recursion
+      (144) and the quantization (24);
+    - integer: the side and mid channels (3 a sample, stereo); per
+      candidate and valid sample four fixed differences (4), five sums of
+      |d| (10), the chosen order's zigzag and sum (4) and its u >> k and
+      sum (2); the LPC prediction (8 products, 8 sums), shift and
+      difference (2), zigzag and sum (4) and u >> k and sum (2).
+
+    Returns dict(bytes, fp64, int_ops)."""
+    L, _, N = x.shape
+    nc = 4 if channels == 2 else 1
+    n = int(n_valid)
+    nbytes = L * channels * n * x.element_size() + L * flac_enc_batch.PLAN_COLS * 4
+    fp64 = 4 * n + L * nc * (19 * n + 144 + 24)
+    int_ops = L * ((3 * n if channels == 2 else 0) + nc * (20 * n + 24 * n))
+    return dict(bytes=int(nbytes), fp64=int(fp64), int_ops=int(int_ops))
+
+
+def flac_analyze_bound(work: dict) -> dict:
+    """The least time the H100 could take for ``work`` (of
+    :func:`flac_analyze_work`): the larger of its bytes at 3.35 TB/s, its
+    float64 operations at ``FP64_RATE`` and its integer operations at
+    ``INT_ISSUE_RATE``; ``bound_by`` is "bytes" or "operations"."""
+    t_bytes = 1e3 * work["bytes"] / 3.35e12
+    t_fp64 = 1e3 * work["fp64"] / FP64_RATE
+    t_int = 1e3 * work["int_ops"] / INT_ISSUE_RATE
+    t = max(t_bytes, t_fp64, t_int)
+    return dict(bound_ms=t, bound_by="bytes" if t == t_bytes else "operations",
+                bytes_ms=t_bytes, fp64_ms=t_fp64, int_ms=t_int)

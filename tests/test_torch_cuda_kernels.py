@@ -503,3 +503,81 @@ def test_vorbis_overlap_refuses_a_misaligned_input_on_the_card(dev):
     with pytest.raises(ValueError, match="16-byte"):
         vorbis_overlap.vorbis_overlap(*inputs)
     assert vorbis_overlap.vorbis_overlap.launches == before
+
+
+@pytest.mark.parametrize("channels", [2, 1])
+@pytest.mark.parametrize("bits", [16, 24])
+def test_flac_analyze_kernel_random_inputs(dev, bits, channels):
+    """Seeded rows of every kind (correlated, independent and equal
+    channels, low-passed and white noise, a few LSB) at 4096 samples:
+    plan rows identical."""
+    x = kc.flac_analyze_inputs(60 + bits + channels, 37, 4096, bits, channels).to(dev)
+    kc.compare("flac_analyze", *kc.flac_analyze_pair(x, 4096, bits, channels))
+
+
+@pytest.mark.parametrize("bits", [16, 24])
+def test_flac_analyze_kernel_edge_rows(dev, bits):
+    """Silence, constant blocks, full-scale noise, +-max alternating with
+    R = -L (a side channel of bits + 1), 16-sample blocks, n_valid < N
+    with junk past it and a block longer than a tile, stereo and mono:
+    plan rows identical. A failed build or launch fails the test."""
+    for name, x, n_valid, channels in kc.flac_analyze_edge_cases(bits):
+        try:
+            kc.compare("flac_analyze", *kc.flac_analyze_pair(x.to(dev), n_valid, bits, channels))
+        except kc.KernelMismatch as e:
+            raise kc.KernelMismatch(f"{name}: {e}") from None
+
+
+@pytest.mark.parametrize("bits", [16, 24])
+def test_flac_analyze_plain_on_the_card_equals_the_cpu(dev, bits):
+    """The plain version gives the same plan rows on the card as on the
+    CPU (every float64 operation rounded alone, divisions as tensors), on
+    the edge rows: the pure tone of the multi-tile rows moves with any
+    rounding difference."""
+    for name, x, n_valid, channels in kc.flac_analyze_edge_cases(bits):
+        card = kc.flac_analyze_pair(x.to(dev), n_valid, bits, channels)[1]()
+        cpu = kc.flac_analyze_pair(x, n_valid, bits, channels)[1]()
+        assert torch.equal(card.cpu(), cpu), name
+
+
+def test_flac_analyze_refuses_samples_beyond_24_bits(dev):
+    """An int32 wire holding a sample outside 24 bits raises before the
+    launch (the kernel's differences are 32-bit); the extremes of 24 bits
+    pass."""
+    from soundkit_tpu_torch.ops import flac_analyze
+
+    x = torch.zeros((2, 2, 64), dtype=torch.int32, device=dev)
+    x[0, 0, 5], x[1, 1, 7] = (1 << 23) - 1, -(1 << 23)
+    flac_analyze.flac_analyze(x, 64, 24)
+    before = flac_analyze.flac_analyze.launches
+    for v in (1 << 23, -(1 << 23) - 1):
+        y = x.clone()
+        y[1, 0, 9] = v
+        with pytest.raises(ValueError, match="24-bit"):
+            flac_analyze.flac_analyze(y, 64, 24)
+    assert flac_analyze.flac_analyze.launches == before
+
+
+def test_flac_encoder_on_the_card_equals_the_cpu(dev):
+    """1024 lanes of the stereo16 fixture's PCM (each lane rotated by its
+    own offset, 0.5 s) through the encoder on the card and on the CPU, in
+    two pushes with encode_pending after each, then finish_all: the
+    streams are byte-identical, and K14 launched once a device call."""
+    from soundkit_tpu_torch.models.flac_encode_batch import BatchedFlacEncoder
+    from soundkit_tpu_torch.ops import flac_analyze
+    from soundkit_tpu_torch.tools import flac_fixtures as ff
+
+    pcm = ff.clip_pcm(ff.load_clips()[0], dev)
+    lanes = ff.rotated_lanes([pcm], 1024, 22050)
+    streams = []
+    for device in ("cuda", "cpu"):
+        enc = BatchedFlacEncoder(1024, 44100, 2, 16, device=device)
+        before = flac_analyze.flac_analyze.launches
+        for lo, hi in ((0, 10000), (10000, None)):
+            for i, x in enumerate(lanes):
+                enc.push(i, x[:, lo:hi])
+            enc.encode_pending()
+        streams.append(enc.finish_all())
+        if device == "cuda":
+            assert flac_analyze.flac_analyze.launches - before == 3  # two pending, one tail
+    assert streams[0] == streams[1]

@@ -10,7 +10,9 @@ and comb packing, the CELT parse's serving walk on both wires, the SILK
 walk's binding (a verbatim subset of ``codecs/silk_native.py``), its
 resampler plan and the hybrid walk's packed wire; and the Vorbis host
 layer: the C++ packet parse, its table, the Python decoder and the
-parse's binding."""
+parse's binding; and the FLAC encode host layer: the C++ frame packer,
+the Python frame encoder (a verbatim copy but for its ``_native_lib``)
+and the encoder's plan layout and per-frame oracle."""
 from pathlib import Path
 
 import numpy as np
@@ -60,6 +62,7 @@ G722_TABLES = ("WL", "RL42", "ILB", "WH", "RH2", "QM2", "QM4", "QM6", "QMF_COEFF
     ("soundkit_tpu_torch/native_src/src/vorbis_parse.cpp",
      "soundkit_tpu/native/src/vorbis_parse.cpp"),
     ("soundkit_tpu_torch/data/vorbis_tables.npz", "soundkit_tpu/native/generated/vorbis_tables.npz"),
+    ("soundkit_tpu_torch/native_src/src/flac_pack.cpp", "soundkit_tpu/native/src/flac_pack.cpp"),
 ])
 def test_copied_files_are_identical(port, ref):
     assert (REPO / port).read_bytes() == (REPO / ref).read_bytes()
@@ -577,3 +580,50 @@ def test_vorbis_synthesis_host_pieces_are_verbatim_copies(name):
     from soundkit_tpu_torch.ops import vorbis_batch
 
     assert _function_source(vorbis_batch, name) == _function_source(jax_vb, name)
+
+
+# ---------------------------------------------------------------------------
+# FLAC encode
+# ---------------------------------------------------------------------------
+
+def test_flac_encode_is_a_copy_but_for_its_native_lib():
+    """``codecs/flac_encode.py`` is the JAX package's module with one
+    function changed, ``_native_lib`` (the port's packer, which raises
+    if it cannot build, where the original falls back to ``None`` through
+    two module globals)."""
+    from soundkit_tpu.codecs import flac_encode as jax_fe
+    from soundkit_tpu_torch.codecs import flac_encode
+
+    port = (REPO / "soundkit_tpu_torch/codecs/flac_encode.py").read_text()
+    ref = (REPO / "soundkit_tpu/codecs/flac_encode.py").read_text()
+    port = port.replace(_function_source(flac_encode, "_native_lib"), "")
+    ref = ref.replace(_function_source(jax_fe, "_native_lib"), "")
+    ref = ref.replace("\n\n_UNSET = object()\n_NATIVE = _UNSET\n", "")
+    assert port == ref
+    assert "soundkit_tpu_torch.native import flac_pack_library" in \
+        _function_source(flac_encode, "_native_lib")
+
+
+@pytest.mark.parametrize("module,name", [("ops.flac_enc_batch", "flac_plans_unpack"),
+                                         ("models.flac_encode_batch", "_Lane")])
+def test_flac_encode_host_pieces_are_verbatim_copies(module, name):
+    import importlib
+
+    port = importlib.import_module(f"soundkit_tpu_torch.{module}")
+    ref = importlib.import_module(f"soundkit_tpu.{module}")
+    assert _function_source(port, name) == _function_source(ref, name)
+
+
+def test_flac_encoder_oracle_and_constants_equal_the_jax_package():
+    import inspect
+
+    from soundkit_tpu.models import flac_encode_batch as jax_model
+    from soundkit_tpu.ops import flac_enc_batch as jax_ops
+    from soundkit_tpu_torch.models import flac_encode_batch as model
+    from soundkit_tpu_torch.ops import flac_enc_batch as ops
+
+    assert inspect.getsource(model.BatchedFlacEncoder._write_from_plan) == \
+        inspect.getsource(jax_model.BatchedFlacEncoder._write_from_plan)
+    assert model._SLOT_SOURCES == jax_model._SLOT_SOURCES
+    for name in ("LPC_ORDER", "LPC_PRECISION", "MAX_FIXED", "ASSIGN_CODES", "ASSIGN_SLOTS"):
+        assert getattr(ops, name) == getattr(jax_ops, name), name

@@ -156,11 +156,30 @@ print("opus without jax")
 """
 
 
+_NO_JAX_FLAC_ENC = _NO_JAX_DECODE.split("import numpy as np")[0] + r"""
+import numpy as np
+from soundkit_tpu_torch.models.flac_encode_batch import BatchedFlacEncoder
+from soundkit_tpu_torch.tools import flac_fixtures as ff
+clip = ff.load_clips()[3]
+lanes = ff.rotated_lanes([ff.clip_pcm(clip, "cpu")], 2, 9000)
+enc = BatchedFlacEncoder(2, clip.rate, clip.channels, clip.bits, device="cpu")
+for i, x in enumerate(lanes):
+    enc.push(i, x)
+assert enc.encode_pending() == 4
+streams = enc.finish_all()
+for x, got, s in zip(lanes, ff.decode_streams(streams, "cpu"), streams):
+    assert np.array_equal(got, x) and ff.streaminfo_md5(s) == ff.pcm_md5(x, clip.bits)
+assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
+print("flac encode without jax")
+"""
+
+
 @pytest.mark.parametrize("script,said", [(_NO_JAX_DECODE, "decoded without jax"),
                                          (_NO_JAX_TELEPHONY, "telephony without jax"),
                                          (_NO_JAX_FLEET, "fleet without jax"),
                                          (_NO_JAX_MP3, "mp3 without jax"),
-                                         (_NO_JAX_OPUS, "opus without jax")])
+                                         (_NO_JAX_OPUS, "opus without jax"),
+                                         (_NO_JAX_FLAC_ENC, "flac encode without jax")])
 def test_port_runs_on_cpu_with_jax_blocked(script, said):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -383,6 +402,7 @@ def test_entry_points_default_to_cuda():
     from soundkit_tpu_torch.models.telephony_batch import TelephonyLaneGroup
 
     from soundkit_tpu_torch.models.flac_batch import BatchedFlacDecoder
+    from soundkit_tpu_torch.models.flac_encode_batch import BatchedFlacEncoder
     from soundkit_tpu_torch.models.fleet import StreamFleet
     from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
     from soundkit_tpu_torch.models.opus_batch import (BatchedCeltDecoder, BatchedHybridDecoder,
@@ -397,6 +417,7 @@ def test_entry_points_default_to_cuda():
         silk_batch.init_state: lambda: silk_batch.init_state(2, 2),
         BatchedOggOpusDecoder: lambda: BatchedOggOpusDecoder(2),
         BatchedFlacDecoder: lambda: BatchedFlacDecoder(2),
+        BatchedFlacEncoder: lambda: BatchedFlacEncoder(2, 44100, 2),
         BatchedMp3Decoder: lambda: BatchedMp3Decoder(2),
         mp3_batch.init_state: lambda: mp3_batch.init_state(2),
         StreamFleet: lambda: StreamFleet(2),
