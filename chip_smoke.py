@@ -2006,11 +2006,15 @@ def phase_flac_enc_kernels(lanes):
     """K14 against its plain version on the card, plan rows identical: on
     the wire of [flac-enc]'s first encode_pending (every full block of
     the B lanes' first push; the timed case), on seeded random rows at 16
-    and 24 bits, stereo and mono, and on the edge rows
-    (``kernel_check.flac_analyze_edge_cases``)."""
+    and 24 bits, stereo and mono, on the edge rows
+    (``kernel_check.flac_analyze_edge_cases``), on one row of 65535
+    samples, on 1, 131 and 133 rows, on calls back to back with n_valid
+    4096, 1000 and 4096, and at 24-bit full scale; then prints K14's
+    build (registers, spills, shared memory, blocks an SM, grid)."""
     import numpy as np
     import torch
 
+    from soundkit_tpu_torch.ops import flac_analyze
     from soundkit_tpu_torch.tools import kernel_check as kc
 
     dev = torch.device("cuda", 0)
@@ -2033,8 +2037,25 @@ def phase_flac_enc_kernels(lanes):
         for name, xe, n_valid, ch in kc.flac_analyze_edge_cases(bits):
             cases[f"{name}_b{bits}"] = kc.compare(
                 "flac_analyze", *kc.flac_analyze_pair(xe.to(dev), n_valid, bits, ch))
+        xl = kc.flac_analyze_inputs(bits, 1, 65535, bits).to(dev)
+        cases[f"n65535_b{bits}"] = kc.compare(
+            "flac_analyze", *kc.flac_analyze_pair(xl, 65535, bits))
+    # the persistent grid's strides: fewer rows than blocks, and rows
+    # around a multiple of the grid
+    for rows in (1, 131, 133):
+        xr = kc.flac_analyze_inputs(rows, rows, 4096, 16).to(dev)
+        cases[f"rows{rows}"] = kc.compare("flac_analyze", *kc.flac_analyze_pair(xr, 4096, 16))
+    # calls back to back, each with the window of its own n_valid
+    for i, n_valid in enumerate((4096, 1000, 4096)):
+        cases[f"n_valid_{n_valid}_call{i}"] = kc.compare(
+            "flac_analyze", *kc.flac_analyze_pair(x[:B], n_valid, 16))
+    for ch in (2, 1):
+        xf = kc.flac_analyze_full_scale(5, B, 4096, 24, ch).to(dev)
+        cases[f"full_scale_b24_c{ch}"] = kc.compare(
+            "flac_analyze", *kc.flac_analyze_pair(xf, 4096, 24, ch))
+    occ = {"int16": flac_analyze.occupancy(False), "int32": flac_analyze.occupancy(True)}
     assign = {int(a): int(n) for a, n in zip(*np.unique(plans[:, 0], return_counts=True))}
-    r.update(rows=int(x.shape[0]), n=N, work=work, bound_parts=limit,
+    r.update(rows=int(x.shape[0]), n=N, work=work, bound_parts=limit, occupancy=occ,
              share_of_bound=limit["bound_ms"] / r["ms"], assign_counts=assign,
              lpc_slots=int(plans[:, 1:3].sum()), cases=sorted(cases),
              max_abs_err=max(r["max_abs_err"], *(c["max_abs_err"] for c in cases.values())))
@@ -2044,6 +2065,10 @@ def phase_flac_enc_kernels(lanes):
         f"{limit['int_ms']:.4f} ms), {100 * r['share_of_bound']:.1f} % of it; plan rows "
         f"identical on the path and on {len(cases)} random and edge cases; assignments "
         f"{assign}, LPC slots {r['lpc_slots']} of {2 * r['rows']}")
+    for wire, o in occ.items():
+        log(f"[flac-enc-kernels] flac_analyze build, {wire} wire: {o['registers']} registers, "
+            f"{o['local_bytes']} B spilled a thread, {o['shared_bytes']} B of shared memory a "
+            f"block, {o['blocks_per_sm']} blocks an SM, a persistent grid of {o['grid']}")
     return {"flac_analyze": r}
 
 

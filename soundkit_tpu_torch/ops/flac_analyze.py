@@ -13,6 +13,8 @@ for CPU tensors it packs the plans of
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from soundkit_tpu_torch import _build
@@ -58,3 +60,13 @@ def flac_analyze(x: torch.Tensor, n_valid: int, bits: int, channels: int = 2) ->
 
 
 flac_analyze.launches = 0
+
+
+def occupancy(wide: bool = False) -> dict:
+    """K14's build as the card runs it, for the int16 or (``wide``) int32
+    wire: registers and spilled bytes a thread, dynamic shared memory a
+    block, resident blocks an SM and the persistent grid it launches."""
+    out = (ctypes.c_int * 5)()
+    launch_check("flac_analyze_occupancy",
+                 _build.kernels().skt_flac_analyze_occupancy(int(wide), out))
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "grid"), out))

@@ -1217,6 +1217,23 @@ def flac_analyze_edge_cases(bits: int = 24):
     return out
 
 
+def flac_analyze_full_scale(seed: int, rows: int = 6, n: int = 4096, bits: int = 24,
+                            channels: int = 2) -> torch.Tensor:
+    """K14 rows at full scale, every sample +-(2^(bits-1) - 1): even rows
+    of random signs, odd rows alternating with R = -L (a side channel of
+    bits + 1 whose fourth difference reaches 32 times full scale, so a
+    thread's sums of |d_4| come within a few samples of 2^32 at 24 bits).
+    int16 at <= 16 bits, else int32; mono rows keep channel 1 zero."""
+    rng = np.random.default_rng(seed)
+    top = (1 << (bits - 1)) - 1
+    x = rng.choice(np.array([-top, top]), (rows, 2, n))
+    alt = np.where(np.arange(n) % 2 == 0, top, -top)
+    x[1::2] = np.stack([alt, -alt])
+    if channels == 1:
+        x[:, 1] = 0
+    return torch.from_numpy(x.astype(np.int16 if bits <= 16 else np.int32))
+
+
 def flac_analyze_work(x, n_valid: int, channels: int = 2) -> dict:
     """What K14's function needs on the wire ``x`` [L, 2, N]: the bytes it
     moves (each row's ``n_valid`` samples of the channels it reads, once,

@@ -528,6 +528,41 @@ def test_flac_analyze_kernel_edge_rows(dev, bits):
             raise kc.KernelMismatch(f"{name}: {e}") from None
 
 
+@pytest.mark.parametrize("rows", [1, 131, 133, 10240])
+def test_flac_analyze_kernel_row_counts(dev, rows):
+    """K14's persistent grid walks rows in strides of its size: row
+    counts below it, around a multiple of it and far above it give the
+    plan rows of the plain version."""
+    x = kc.flac_analyze_inputs(rows, rows, 4096, 16).to(dev)
+    kc.compare("flac_analyze", *kc.flac_analyze_pair(x, 4096, 16))
+
+
+def test_flac_analyze_kernel_window_follows_n_valid(dev):
+    """Three calls back to back with n_valid 4096, 1000, 4096: each
+    builds the window of its own n_valid (a window kept from the call
+    before would move the plans)."""
+    x = kc.flac_analyze_inputs(11, 40, 4096, 16).to(dev)
+    for n_valid in (4096, 1000, 4096):
+        kc.compare("flac_analyze", *kc.flac_analyze_pair(x, n_valid, 16))
+
+
+@pytest.mark.parametrize("bits", [16, 24])
+def test_flac_analyze_kernel_longest_block(dev, bits):
+    """One row of 65535 samples, the longest block FLAC declares: 16
+    tiles, the window built again for each and pass C predicting again."""
+    x = kc.flac_analyze_inputs(bits, 1, 65535, bits).to(dev)
+    kc.compare("flac_analyze", *kc.flac_analyze_pair(x, 65535, bits))
+
+
+@pytest.mark.parametrize("channels", [2, 1])
+def test_flac_analyze_kernel_full_scale_24_bits(dev, channels):
+    """A 24-bit int32 wire at +-(2^23 - 1): a thread's 32-bit sums of
+    |d_4| come near 2^32, and a warp's go past it (the halves summed
+    apart)."""
+    x = kc.flac_analyze_full_scale(5, 6, 4096, 24, channels).to(dev)
+    kc.compare("flac_analyze", *kc.flac_analyze_pair(x, 4096, 24, channels))
+
+
 @pytest.mark.parametrize("bits", [16, 24])
 def test_flac_analyze_plain_on_the_card_equals_the_cpu(dev, bits):
     """The plain version gives the same plan rows on the card as on the
