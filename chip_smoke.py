@@ -30,7 +30,12 @@ fixtures in ``tests/data/torch_port/vorbis``, blocksizes 256 and 2048)
 through ``soundkit_tpu_torch.models.vorbis_batch.BatchedVorbisDecoder``,
 the batched FLAC encoder (1024 lanes of 16-bit stereo 44.1 kHz PCM
 from the FLAC fixtures) through
-``soundkit_tpu_torch.models.flac_encode_batch.BatchedFlacEncoder``, and
+``soundkit_tpu_torch.models.flac_encode_batch.BatchedFlacEncoder``, the
+MP3 -> 8 kHz µ-law transcode chain (1024 lanes of the 44.1 kHz stereo
+MP3 fixture through ``BatchedMp3Decoder`` and the carried-state resampler)
+through ``soundkit_tpu_torch.tools.transcode``, the device pitch shift
+(1024 mono lanes of 2 s) through
+``soundkit_tpu_torch.ops.stretch.pitch_shift_batch_device``, and
 the serving runtime ``soundkit_tpu_torch.models.fleet.StreamFleet``
 over the six decoders (1024 lanes a group). Phases:
 
@@ -219,7 +224,40 @@ z. FLAC encode: 1024 lanes of 4 s (alternating the stereo16 and
    MD5; one ``[flac-enc]`` line (x realtime at 44.1 kHz, the MD5 at push
    time, the wire, h2d, K14 by CUDA events, the plans' copy back, the
    native pack);
-aa. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
+aa. resampler kernel: K15 (``polyphase_fir``: the polyphase FIR of
+   ``ops.resample.resample`` and ``resample_stateful``) against its plain
+   version on the card (cuDNN's ``conv1d`` under the repaired
+   ``ieee_fp32``) at every pair of ``COMMON_SAMPLE_RATES`` and 3000 ->
+   2000, one-shot and from a carried history (1e-5 of the largest plain
+   value), chunked equal to one-shot bit for bit; timed by graph replay on
+   the [transcode] chunk (1024 x 28,224 samples and a history, 44.1 -> 8
+   kHz) and on the [stretch] resample (1024 x 165,375, 3000 -> 2000), each
+   beside its bound and ``F.conv1d``;
+bb. transcode: 1024 lanes of the stereo44 MP3 fixture, each the whole
+   clip from its own frame, decoded in chunks of 49 granules (K10 a
+   granule) and through the tail (downmix, K15's carried-state resample
+   44.1 -> 8 kHz, µ-law), codes left on the card; the counted run (launch
+   counters reset just before: K10 once a granule, K15 once a chunk) held
+   to a continuous one-shot ``resample_np`` of each lane's whole decoded
+   mono signal (>= 99.99 % of codes identical, the rest within one µ-law
+   step); then three timed passes as the reference's bench runs them; one
+   ``[transcode]`` line (x realtime of the decode and tail, best of three,
+   and with the parse; parse / pop / h2d / K10 step medians, the tail);
+cc. vocoder kernels: on the [stretch] path's own tensors (the vocoder's
+   analysis at 1.875 over the dd. lanes), K17 (``phase_lock``) with its
+   ``nearest`` identical to the plain version's and its spectrum within 3
+   ulps of the rotation's argument, and K16 (``overlap_add``) bit-exact on
+   the irfft of K17's spectrum; both timed by graph replay with their byte
+   bounds, K16 beside ``F.fold``;
+dd. stretch: ``pitch_shift_batch_device`` over 1024 mono lanes of 2 s at
+   44.1 kHz (the stereo44 fixture decoded on the card and downmixed, lane
+   i from its own offset), time ratio 1.25, pitch 1.5, with
+   ``formant_scale`` None and 1.0: K15, K16 and K17 once a call, four
+   lanes held to the float64 host ``stretch_pitch`` (40 dB; 25 dB with
+   the formant warp), x realtime, peak device memory and the device time
+   by operation (``torch.profiler``: FFTs, cumsum, K15-K17, glue); one
+   ``[stretch]`` line each;
+ee. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    lanes (detected from ADTS), 1024 MP3 lanes (detected from their frame
    headers), 1024 FLAC lanes (detected from ``fLaC``), 1024 Ogg Opus
    lanes (detected from ``OggS`` and ``OpusHead``: CELT, SILK and hybrid
@@ -239,7 +277,7 @@ aa. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    bare output (Opus CELT on the i16 spectral wire), and per group a
    fleet serving that group alone, its x realtime beside the bare model's
    on the same bytes; one ``[fleet]`` line;
-bb. print the kernels' JSON line (all fourteen kernels, K2 with no
+ff. print the kernels' JSON line (all seventeen kernels, K2 with no
    launch: it is not on a path), then the result line.
 
 Any failed phase exits non-zero before the result line. Without a
@@ -305,6 +343,13 @@ FLAC_ENC_SECONDS = 4.0    # PCM a [flac-enc] lane carries
 FLAC_ENC_PUSHES = 4       # pushes of the [flac-enc] phase, an encode_pending after each
 FLAC_ENC_COMPARE_LANES = 64
 FLAC_ENC_ROUNDTRIP = 64   # [flac-enc] lanes decoded back on the card
+RESAMPLE_SWEEP_LANES = 64  # rows of each rate pair's K15 check
+TRANSCODE_CHUNK_SAMPLES = 49 * 576  # a [transcode] chunk: 64 x 441 samples at 44.1 kHz
+TRANSCODE_PASSES = 3       # timed passes of the [transcode] phase, the parsers re-fed each
+STRETCH_RATE = 44100.0
+STRETCH_SECONDS = 2.0      # a [stretch] lane
+STRETCH_RATIO = 1.25       # time ratio of the [stretch] pitch shift
+STRETCH_PITCH = 1.5        # its pitch scale: the vocoder at 1.875, then 3000 -> 2000
 
 
 class SmokeFailure(RuntimeError):
@@ -2179,6 +2224,323 @@ def phase_flac_enc(lanes):
     return res
 
 
+# ---------------------------------------------------------------------------
+# resampler and phase vocoder phases
+# ---------------------------------------------------------------------------
+
+def dsp_wrappers():
+    from soundkit_tpu_torch.ops import mp3_synth, phase_lock, stretch_ola
+    from soundkit_tpu_torch.ops import resample as rs
+
+    return {"mp3_synth": mp3_synth.mp3_granule_packed, "polyphase_fir": rs.polyphase_fir,
+            "overlap_add": stretch_ola.overlap_add, "phase_lock": phase_lock.phase_lock}
+
+
+def k15_timed(x, in_rate: int, out_rate: int, hist=None, reps: int = 20) -> dict:
+    """K15 on ``x`` (and ``hist``) held to its plain version and timed by
+    graph replay, beside the plain version, ``F.conv1d`` (cuDNN, IEEE
+    float32) and the bound of its work (``kernel_check.resample_work``)."""
+    from soundkit_tpu_torch.ops import resample as rs
+    from soundkit_tpu_torch.tools import kernel_check as kc
+
+    kernel, plain = kc.resample_pair(x, in_rate, out_rate, hist)
+    r = kc.compare("polyphase_fir", kernel, plain)
+    _, _, L, M = rs.design_polyphase(in_rate, out_rate)
+    rows, n = x.shape
+    n_out = rs.out_len(n, L, M)
+    nbytes, flops = kc.resample_work(rows, n, n_out, L, hist is not None)
+    r["ms"] = graph_ms(kernel, reps=reps)
+    r["plain_ms"] = cuda_ms(plain, 5)
+    r["library_ms"] = graph_ms(kc.conv1d_library(x, in_rate, out_rate, hist), reps=reps)
+    r.update(bound(nbytes, flops))
+    r.update(rows=rows, n=n, n_out=n_out, L=L, M=M, tile_cycles=rs.tile_cycles(L, M, -(-n_out // L)),
+             share_of_bound=r["bound_ms"] / r["ms"])
+    return r
+
+
+def phase_resample_kernels():
+    """K15 against its plain version on the card (cuDNN's convolution under
+    ``ieee_fp32``) at every pair of COMMON_SAMPLE_RATES and 3000 -> 2000,
+    one-shot and from a carried history, and chunked equal to one-shot bit
+    for bit; then timed on the [transcode] chunk (B x 28,224 samples with a
+    history, 44.1 -> 8 kHz) and on the [stretch] resample (B x 165,375,
+    3000 -> 2000), each beside its bound and ``F.conv1d``."""
+    import torch
+
+    from soundkit_tpu_torch.ops import resample as rs
+    from soundkit_tpu_torch.tools import kernel_check as kc
+
+    dev = torch.device("cuda", 0)
+    sweep = {}
+    for a, b in kc.RESAMPLE_PAIRS:
+        errs = [kc.compare("polyphase_fir", *kc.resample_case(a, b, RESAMPLE_SWEEP_LANES, dev,
+                                                             seed=1, stateful=s))["max_abs_err"]
+                for s in (False, True)]
+        M = rs.design_polyphase(a, b)[3]
+        chunked, one = kc.resample_chunked(kc.resample_rows(3, RESAMPLE_SWEEP_LANES, 12 * M, dev),
+                                           a, b, 4 * M)
+        check(torch.equal(chunked, one), f"polyphase_fir {a} -> {b}: chunked differs from one-shot")
+        sweep[f"{a}->{b}"] = max(errs)
+    x = kc.resample_rows(7, B, TRANSCODE_CHUNK_SAMPLES, dev)
+    r = k15_timed(x, 44100, 8000, kc.resample_rows(8, B, rs.SINC_LEN - 1, dev))
+    chunked, one = kc.resample_chunked(kc.resample_rows(9, B, 3 * TRANSCODE_CHUNK_SAMPLES, dev),
+                                       44100, 8000, TRANSCODE_CHUNK_SAMPLES)
+    check(torch.equal(chunked, one), "polyphase_fir: the transcode chunks differ from one-shot")
+    del x, chunked, one
+    stretched = kc.resample_rows(10, B, round(STRETCH_SECONDS * STRETCH_RATE * STRETCH_RATIO
+                                              * STRETCH_PITCH), dev)
+    sr = k15_timed(stretched, 3000, 2000, reps=10)
+    del stretched
+    r.update(stretch=sr, pairs=len(sweep), sweep_max_abs_err=max(sweep.values()),
+             max_abs_err=max(r["max_abs_err"], sr["max_abs_err"], *sweep.values()))
+    log(f"[resample-kernels] polyphase_fir: {len(sweep)} rate pairs x {RESAMPLE_SWEEP_LANES} rows, "
+        f"one-shot and carried, within {max(sweep.values()):.3g} of the plain version; chunked "
+        f"equals one-shot bit for bit at every pair and on 3 transcode chunks")
+    for tag, c in (("transcode chunk", r), ("stretch resample", sr)):
+        log(f"[resample-kernels] polyphase_fir {tag} [{c['rows']}, {c['n']}] -> {c['n_out']} "
+            f"(L {c['L']}, M {c['M']}, {c['tile_cycles']} cycles a block): {c['ms']:.4f} ms by "
+            f"graph replay, plain {c['plain_ms']:.4f}, F.conv1d {c['library_ms']:.4f}, bound "
+            f"{c['bound_ms']:.4f} ({c['bound_by']}), {100 * c['share_of_bound']:.1f} % of it; "
+            f"max|d| {c['max_abs_err']:.3g}")
+    return {"polyphase_fir": r}
+
+
+def phase_transcode():
+    """The MP3 -> 8 kHz µ-law chain at full width: B lanes of the stereo44
+    fixture (each the whole clip from its own frame), chunks of 49
+    granules through ``BatchedMp3Decoder`` (K10) and the tail (downmix,
+    K15's carried-state resample, µ-law), codes on the card until the end.
+    The counted run (one push, every whole chunk; launch counters reset
+    just before) is held to a continuous one-shot ``resample_np`` of each
+    lane's whole decoded mono signal; then TRANSCODE_PASSES timed passes
+    as the reference's bench runs them (the parsers re-fed, x realtime of
+    the decode and tail, best of the passes)."""
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+    from soundkit_tpu_torch.ops import resample as rs
+    from soundkit_tpu_torch.tools import mp3_fixtures as mf
+    from soundkit_tpu_torch.tools import transcode as tc
+
+    clip = next(c for c in mf.load_clips() if c.name == "stereo44")
+    streams = mf.rotated_streams(clip, B)
+    wrappers = dsp_wrappers()
+    model = BatchedMp3Decoder(B, C, device="cuda")
+    for i, s in enumerate(streams):
+        model.push(i, s)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    codes, hist, granules, monos = tc.transcode_ready(model, rs.resample_init_state(B),
+                                                      keep_mono=True)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    chunks = len(codes)
+    check(chunks >= 4, f"transcode: {chunks} chunks of {tc.CHUNK} granules")
+    check(launches["mp3_synth"] == granules and launches["polyphase_fir"] == chunks,
+          f"transcode: launches {launches} for {granules} granules and {chunks} chunks")
+    got = torch.cat(codes, dim=1).cpu().numpy()
+    mono = torch.cat(monos, dim=1).cpu().numpy()
+    del monos
+    t0 = time.perf_counter()
+    ref = tc.continuous_codes(mono, got.shape[1])
+    ref_s = time.perf_counter() - t0
+    check(got.shape == ref.shape == (B, granules * tc.GRANULE * 80 // 441),
+          f"transcode codes {got.shape}, reference {ref.shape}")
+    differ, off_step = tc.codes_apart(got, ref)
+    check(differ <= 1e-4 * got.size and off_step == 0,
+          f"transcode: {differ} of {got.size} codes differ, {off_step} by more than a step")
+    check(np.abs(mono).max() > 0.1, "transcode: silent PCM")
+
+    tmodel = BatchedMp3Decoder(B, C, device="cuda", timed=True)
+    t0 = time.perf_counter()
+    for i, s in enumerate(streams):
+        tmodel.push(i, s)
+    first_push_s = time.perf_counter() - t0
+    hist0 = rs.resample_init_state(B)
+    warm = tmodel.decode_ready(max_granules=tc.CHUNK, device_out=True)
+    merged = warm.permute(1, 2, 0, 3).reshape(B, C, -1)
+    tail_ms = cuda_ms(lambda: tc.tail_stage(merged, hist0), 10)
+    torch.cuda.synchronize()
+    passes = []
+    for _ in range(TRANSCODE_PASSES):
+        t0 = time.perf_counter()
+        for i, s in enumerate(streams):
+            tmodel.push(i, s)
+        t1 = time.perf_counter()
+        pcodes, _, g, _ = tc.transcode_ready(tmodel, hist0)
+        last = pcodes[-1].cpu()  # the last chunk's codes back to the host
+        wall = time.perf_counter() - t1
+        audio_s = g * tc.GRANULE / tc.SRC_RATE * B
+        passes.append(dict(granules=g, chunks=len(pcodes), push_s=t1 - t0, wall_s=wall,
+                           audio_s=audio_s, xrealtime=audio_s / wall,
+                           xrealtime_with_parse=audio_s / (wall + t1 - t0)))
+        check(last.dtype == torch.uint8 and last.shape[0] == B, "transcode: codes")
+    stages = tmodel.stage_ms()
+    best = max(passes, key=lambda p: p["xrealtime"])
+    res = dict(lanes=B, chunk_granules=tc.CHUNK, checked_chunks=chunks, checked_granules=granules,
+               codes_identical=1 - differ / got.size, codes_differing=differ, codes=int(got.size), reference_s=ref_s, first_push_s=first_push_s,
+               passes=passes, xrealtime=best["xrealtime"],
+               xrealtime_with_parse=best["xrealtime_with_parse"],
+               parse_ms_median_per_push=stages["parse"], pop_ms_median=stages["pop"],
+               h2d_ms_median=stages["h2d"], k10_step_ms_median=stages["step"],
+               tail_ms=tail_ms, launches=launches)
+    log(f"[transcode] {json.dumps(res)}")
+    return res
+
+
+def stretch_lanes():
+    """The [stretch] input: B mono lanes of STRETCH_SECONDS at 44.1 kHz on
+    the card, from the stereo44 fixture decoded on the card and downmixed,
+    lane i from sample 37 i mod (length - lane)."""
+    import torch
+
+    from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+    from soundkit_tpu_torch.tools import mp3_fixtures as mf
+
+    clip = next(c for c in mf.load_clips() if c.name == "stereo44")
+    model = BatchedMp3Decoder(1, C, device="cuda")
+    model.push(0, clip.stream())
+    pcm = model.decode_ready(device_out=True)  # [G, 1, C, 576]
+    mono = pcm[:, 0].permute(1, 0, 2).reshape(C, -1).mean(dim=0)
+    n = int(STRETCH_SECONDS * STRETCH_RATE)
+    check(mono.shape[0] > n, f"stretch: the clip has {mono.shape[0]} samples")
+    offs = torch.tensor([(37 * i) % (mono.shape[0] - n) for i in range(B)], device=mono.device)
+    return mono[offs[:, None] + torch.arange(n, device=mono.device)[None, :]].contiguous()
+
+
+def phase_stretch_kernels(x):
+    """K17 and K16 on the [stretch] path's own tensors (the vocoder at
+    time ratio x pitch over ``x``): K17's nearest identical to its plain
+    version and its spectrum within 3 ulps of the rotation's argument; K16
+    bit-exact on the irfft of K17's spectrum; both timed by graph replay,
+    with their byte bounds, K16 beside ``F.fold``."""
+    import torch
+
+    from soundkit_tpu_torch.ops import phase_lock
+    from soundkit_tpu_torch.ops import stretch as st
+    from soundkit_tpu_torch.tools import kernel_check as kc
+
+    mag, phase, syn, win, hop, target = st.vocoder_analysis(x, STRETCH_RATIO * STRETCH_PITCH)
+    r17 = kc.phase_lock_check(mag, phase, syn)
+    rows, K = mag.numel() // mag.shape[-1], mag.shape[-1]
+    r17["ms"] = graph_ms(lambda: phase_lock.phase_lock(mag, phase, syn), reps=2, replays=5)
+    r17["plain_ms"] = cuda_ms(lambda: phase_lock.phase_lock_plain(mag, phase, syn), 1)
+    r17.update(bound(kc.phase_lock_work(rows, K)), library_ms=None, rows=rows, K=K,
+               syn_abs_max=float(syn.abs().max()))
+    r17["share_of_bound"] = r17["bound_ms"] / r17["ms"]
+    spec = phase_lock.phase_lock(mag, phase, syn)
+    del mag, phase, syn
+    frames = torch.fft.irfft(spec, n=st.FRAME, dim=-1)
+    del spec
+    B_, T, F = frames.shape
+    kernel, plain = kc.stretch_ola_pair(frames, win, hop, target)
+    r16 = kc.compare("overlap_add", kernel, plain)
+    r16["ms"] = graph_ms(kernel, reps=10, replays=3)
+    r16["plain_ms"] = cuda_ms(plain, 1)
+    r16["library_ms"] = graph_ms(kc.fold_library(frames, win, hop, target), reps=3, replays=3)
+    r16.update(bound(kc.stretch_ola_work(B_, T, F, hop, target)), frames=T, hop=hop,
+               target=target)
+    r16["share_of_bound"] = r16["bound_ms"] / r16["ms"]
+    del frames
+    torch.cuda.empty_cache()
+    log(f"[stretch-kernels] phase_lock [{rows} rows, {K} bins], |syn| up to "
+        f"{r17['syn_abs_max']:.4g} rad: nearest identical, spectrum within "
+        f"{r17['max_ulps']:.3f} ulps of the argument (max|d| {r17['max_abs_err']:.3g}); "
+        f"{r17['ms']:.4f} ms by graph replay, plain {r17['plain_ms']:.3f}, bound "
+        f"{r17['bound_ms']:.4f} ({r17['bound_by']}), {100 * r17['share_of_bound']:.1f} % of it")
+    log(f"[stretch-kernels] overlap_add [{B_}, {T}, {F}] hop {hop} -> [{B_}, {target}]: bit-exact; "
+        f"{r16['ms']:.4f} ms by graph replay, plain {r16['plain_ms']:.3f}, F.fold "
+        f"{r16['library_ms']:.4f}, bound {r16['bound_ms']:.4f} ({r16['bound_by']}), "
+        f"{100 * r16['share_of_bound']:.1f} % of it")
+    return {"phase_lock": r17, "overlap_add": r16}
+
+
+def stretch_profile(x, formant) -> dict:
+    """Device time of one pitch shift over ``x`` by ``torch.profiler``,
+    split by operation: the FFTs, the cumsum, K15-K17, copies, the rest
+    (glue)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from soundkit_tpu_torch.ops import stretch as st
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        st.pitch_shift_batch_device(x, STRETCH_RATIO, STRETCH_PITCH, formant)
+        torch.cuda.synchronize()
+    groups = {"fft": ("fft",), "cumsum": ("scan",), "k15_polyphase_fir": ("resample_kernel",),
+              "k16_overlap_add": ("stretch_ola_kernel",), "k17_phase_lock": ("phase_lock_kernel",),
+              "copies": ("memcpy", "memset")}
+    split = {k: 0.0 for k in (*groups, "glue")}
+    count = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        count += 1
+        name = e.name.lower()
+        key = next((k for k, pats in groups.items() if any(p in name for p in pats)), "glue")
+        split[key] += e.time_range.elapsed_us() / 1e3
+    return dict(device_ops=count, device_ms=sum(split.values()),
+                **{f"{k}_ms": v for k, v in split.items()})
+
+
+def phase_stretch(x):
+    """``pitch_shift_batch_device`` at full width: B mono lanes of
+    STRETCH_SECONDS, time ratio STRETCH_RATIO, pitch STRETCH_PITCH, with
+    ``formant_scale`` None and then 1.0 (the envelope path). Each: the
+    counted run (launch counters reset just before: K15, K16 and K17 once
+    each), a timed run (x realtime, peak device memory), the device time by
+    operation, and four lanes held to the float64 host ``stretch_pitch``
+    (40 dB; 25 dB with the formant warp, the JAX tests' bar for it)."""
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.ops import stretch as st
+
+    wrappers = dsp_wrappers()
+    picks = [0, B // 3, 2 * B // 3, B - 1]
+    host_x = x[picks].cpu().numpy()
+    res = {}
+    for name, formant, bar in (("pitch", None, 40.0), ("formant", 1.0, 25.0)):
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        out = st.pitch_shift_batch_device(x, STRETCH_RATIO, STRETCH_PITCH, formant)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        check(all(launches[k] == 1 for k in ("polyphase_fir", "overlap_add", "phase_lock")),
+              f"stretch {name}: launches {launches}")
+        target = int(round(x.shape[1] * STRETCH_RATIO))
+        check(tuple(out.shape) == (B, target) and bool(torch.isfinite(out).all()),
+              f"stretch {name}: {tuple(out.shape)}")
+        got = out[picks].cpu().numpy()
+        del out
+        snrs = []
+        for j in range(len(picks)):
+            ref = st.stretch_pitch(host_x[j:j + 1], STRETCH_RATIO, STRETCH_PITCH, formant)[0]
+            snrs.append(float(10 * np.log10(np.mean(ref ** 2) /
+                                            max(np.mean((ref - got[j]) ** 2), 1e-30))))
+        check(min(snrs) >= bar, f"stretch {name}: {snrs} dB against the host path (bar {bar})")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = st.pitch_shift_batch_device(x, STRETCH_RATIO, STRETCH_PITCH, formant)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del out
+        prof = stretch_profile(x, formant)
+        audio_s = B * x.shape[1] / STRETCH_RATE
+        res[name] = dict(lanes=B, seconds_per_lane=x.shape[1] / STRETCH_RATE,
+                         time_ratio=STRETCH_RATIO, pitch_scale=STRETCH_PITCH,
+                         formant_scale=formant, audio_s=audio_s, wall_s=wall,
+                         xrealtime=audio_s / wall, peak_bytes=peak, snr_db_vs_host=snrs,
+                         launches=launches, **prof)
+        log(f"[stretch] {name}: {json.dumps(res[name])}")
+    return res
+
+
 class FleetStreams:
     """The streams of the fleet phase: per group, B first-wave streams
     and, for every fourth lane, a second-wave stream that takes the lane
@@ -2690,6 +3052,16 @@ def main() -> int:
         ecres = phase_flac_enc_compare()
         phase = "flac-enc"
         eres = phase_flac_enc(enc_lanes)
+        phase = "resample-kernels"
+        rkres = phase_resample_kernels()
+        phase = "transcode"
+        trres = phase_transcode()
+        phase = "stretch-kernels"
+        st_lanes = stretch_lanes()
+        stkres = phase_stretch_kernels(st_lanes)
+        phase = "stretch"
+        stres = phase_stretch(st_lanes)
+        del st_lanes
         phase = "fleet"
         flres = phase_fleet()
     except Exception:
@@ -2769,6 +3141,26 @@ def main() -> int:
         launches=eres["launches"]["flac_analyze"],
         launches_per_step=eres["launches"]["flac_analyze"] / eres["device_calls"],
         **ekres["flac_analyze"]))
+    stretch_launches = {k: sum(r["launches"][k] for r in stres.values())
+                        for k in ("polyphase_fir", "overlap_add", "phase_lock")}
+    kernels.append(dict(
+        name="polyphase_fir", route="cuda", source=src + "resample.cu",
+        replaces="soundkit_tpu/ops/resample.py:154", on_path=True,
+        launches=trres["launches"]["polyphase_fir"] + stretch_launches["polyphase_fir"],
+        launches_by_phase={"transcode": trres["launches"]["polyphase_fir"],
+                           "stretch": stretch_launches["polyphase_fir"]},
+        launches_per_step=trres["launches"]["polyphase_fir"] / trres["checked_chunks"],
+        **rkres["polyphase_fir"]))
+    kernels.append(dict(
+        name="overlap_add", route="cuda", source=src + "stretch_ola.cu",
+        replaces="soundkit_tpu/ops/stretch.py:294", on_path=True,
+        launches=stretch_launches["overlap_add"],
+        launches_per_step=stretch_launches["overlap_add"] / len(stres), **stkres["overlap_add"]))
+    kernels.append(dict(
+        name="phase_lock", route="cuda", source=src + "phase_lock.cu",
+        replaces="soundkit_tpu/ops/stretch.py:262", on_path=True,
+        launches=stretch_launches["phase_lock"],
+        launches_per_step=stretch_launches["phase_lock"] / len(stres), **stkres["phase_lock"]))
     for k in kernels:
         k["fleet_launches"] = flres["mixed"]["launches"].get(k["name"], 0)
     log(json.dumps({"slice": sres, "compare": cres, "telephony": tres,
@@ -2777,6 +3169,7 @@ def main() -> int:
                     "silk": silkres, "silk_compare": scres, "hybrid": hybres,
                     "hybrid_compare": hcres, "vorbis": vres, "vorbis_compare": vcres,
                     "flac_enc": eres, "flac_enc_compare": ecres,
+                    "transcode": trres, "stretch": stres,
                     "fleet": flres,
                     "wall_s": time.perf_counter() - t_start}))
     log(card)

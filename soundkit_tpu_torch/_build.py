@@ -198,11 +198,15 @@ def kernels() -> ctypes.CDLL:
     lib.skt_vorbis_overlap.argtypes = [*[p] * 7, i, i, i, i, p]
     lib.skt_flac_analyze.argtypes = [p, i, i, i, i, i, i, p, p]
     lib.skt_flac_analyze_occupancy.argtypes = [i, p]
+    lib.skt_resample.argtypes = [*[p] * 5, *[i] * 6, p]
+    lib.skt_stretch_ola.argtypes = [*[p] * 4, *[i] * 6, p]
+    lib.skt_phase_lock.argtypes = [*[p] * 5, i, i, p]
     for fn in (lib.skt_imdct_window, lib.skt_dequant_imdct_window,
                lib.skt_spectral_decode, lib.skt_tns_filter, lib.skt_g711_decode,
                lib.skt_g711_launch_floor, lib.skt_g726_scan, lib.skt_g722_scan,
                lib.skt_flac_rice_plane, lib.skt_flac_lpc, lib.skt_mp3_granule,
                lib.skt_celt_postfilter, lib.skt_silk_synth, lib.skt_vorbis_overlap,
-               lib.skt_flac_analyze, lib.skt_flac_analyze_occupancy):
+               lib.skt_flac_analyze, lib.skt_flac_analyze_occupancy, lib.skt_resample,
+               lib.skt_stretch_ola, lib.skt_phase_lock):
         fn.restype = ctypes.c_int
     return lib

@@ -34,6 +34,17 @@ beyond the bound. The bounds are on ``max|kernel - plain| / max|plain|``:
 - K14 ``flac_analyze``: identical plan rows (the float64 autocorrelation
   sums run in another order than the plain version's; a plan could move
   only at a rounding tie of a coefficient or on a power of two of max|a|).
+- K15 ``polyphase_fir``: 1e-5 (256 fused multiply-adds in the order q = 0
+  .. 255 against cuDNN's float32 convolution over the embedded bank, in
+  its own order); chunked against one-shot, bit-exact
+  (:func:`resample_chunked`).
+- K16 ``overlap_add``: bit-exact (every product and sum rounded alone in
+  the scan's order, the divide IEEE).
+- K17 ``phase_lock``: ``nearest`` identical, and the spectrum within
+  ``3 ulp(max(|syn'|, 1)) mag`` of the plain version's, elementwise
+  (:func:`phase_lock_check`): two ulps of the rotation's argument for the
+  card's ``sincosf`` against torch's ``cos`` and ``sin``, one for the
+  product with the magnitude.
 
 A case may return a tuple of tensors (a scan's output and its state);
 every element is held to the bound.
@@ -48,7 +59,8 @@ from soundkit_tpu_torch.ops import aac_batch as ab
 from soundkit_tpu_torch.ops import aac_entropy as ae
 from soundkit_tpu_torch.ops import (adpcm, celt_postfilter, companding, flac_analyze,
                                     flac_enc_batch, flac_lpc, flac_rice, g722, imdct, mp3_synth,
-                                    silk_synth, vorbis_overlap)
+                                    phase_lock, silk_synth, stretch_ola, vorbis_overlap)
+from soundkit_tpu_torch.ops import resample as rs
 from soundkit_tpu_torch.utils.device import launch_check
 
 REL_BOUND = {
@@ -67,6 +79,8 @@ REL_BOUND = {
     "silk_round": 1e-5,
     "vorbis_overlap": 0.0,
     "flac_analyze": 0.0,
+    "polyphase_fir": 1e-5,
+    "overlap_add": 0.0,
 }
 
 
@@ -1117,9 +1131,11 @@ def vorbis_overlap_work(inputs) -> tuple:
 
 #: the H100 SXM's float64 rate outside the tensor cores (NVIDIA's data sheet)
 FP64_RATE = 34e12
-#: integer operations a second at the SMs' issue rate: 132 SMs x 4 schedulers x
-#: 32 lanes at the 1.98 GHz boost clock
-INT_ISSUE_RATE = 132 * 4 * 32 * 1.98e9
+#: integer operations a second at the SMs' issue rate: 132 SMs x 64 lanes a clock
+#: at the 1.98 GHz boost clock (NVIDIA's arithmetic-instruction throughput table
+#: for compute capability 9.0: 64 results a clock an SM for 32-bit integer
+#: multiply-add, shift and compare, half the 128 of float32)
+INT_ISSUE_RATE = 132 * 64 * 1.98e9
 
 
 def flac_analyze_pair(x, n_valid: int, bits: int, channels: int = 2):
@@ -1271,3 +1287,166 @@ def flac_analyze_bound(work: dict) -> dict:
     t = max(t_bytes, t_fp64, t_int)
     return dict(bound_ms=t, bound_by="bytes" if t == t_bytes else "operations",
                 bytes_ms=t_bytes, fp64_ms=t_fp64, int_ms=t_int)
+
+
+# ---------------------------------------------------------------------------
+# the resampler (K15) and the phase vocoder (K16, K17)
+# ---------------------------------------------------------------------------
+
+#: every ordered pair of ``core.audio_pipeline.COMMON_SAMPLE_RATES``, and the
+#: pitch shift's 3000 -> 2000 (pitch_scale 1.5)
+RESAMPLE_PAIRS = tuple((a, b) for a in (8000, 16000, 22050, 24000, 32000, 44100, 48000, 88200,
+                                        96000)
+                       for b in (8000, 16000, 22050, 24000, 32000, 44100, 48000, 88200, 96000)
+                       if a != b) + ((3000, 2000),)
+
+
+def resample_rows(seed: int, B: int, n: int, device) -> torch.Tensor:
+    """Seeded unit-scale rows f32 [B, n] (a tone and noise) on ``device``."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 8000.0
+    x = 0.5 * np.sin(2 * np.pi * rng.uniform(50, 3000, (B, 1)) * t) \
+        + 0.3 * rng.standard_normal((B, n))
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+def resample_pair(x, in_rate: int, out_rate: int, hist=None):
+    """K15 and its plain version on ``x`` [B, n] (and ``hist``): the
+    one-shot length ``ceil(n L / M)``."""
+    L, M = rs.design_polyphase(in_rate, out_rate)[2:4]
+    n_out = rs.out_len(x.shape[-1], L, M)
+    return (lambda: rs.polyphase_fir(x, hist, in_rate, out_rate, n_out),
+            lambda: rs.polyphase_fir_plain(x, hist, in_rate, out_rate, n_out))
+
+
+def resample_case(in_rate: int, out_rate: int, B: int, device, seed: int = 0,
+                  stateful: bool = False, cycles: int = 3):
+    """K15's case at a rate pair: ``cycles`` x 3 M + 37 inputs a row
+    (one-shot; ragged against the cycle) or 3 M x ``cycles`` with a seeded
+    history (stateful)."""
+    L, M = rs.design_polyphase(in_rate, out_rate)[2:4]
+    n = 3 * M * cycles + (0 if stateful else 37)
+    x = resample_rows(seed, B, n, device)
+    hist = resample_rows(seed + 1, B, rs.SINC_LEN - 1, device) if stateful else None
+    return resample_pair(x, in_rate, out_rate, hist)
+
+
+def resample_chunked(x, in_rate: int, out_rate: int, chunk: int):
+    """(``resample_stateful`` over ``x`` in chunks of ``chunk`` samples,
+    concatenated; one-shot ``resample`` of ``x``), both on ``x``'s device,
+    to be held equal bit for bit (``chunk L % M == 0``)."""
+    hist = rs.resample_init_state(x.shape[0], x.device)
+    outs = []
+    for lo in range(0, x.shape[1], chunk):
+        o, hist = rs.resample_stateful(x[:, lo:lo + chunk].contiguous(), hist, in_rate, out_rate)
+        outs.append(o)
+    return torch.cat(outs, dim=1), rs.resample(x, in_rate, out_rate)
+
+
+def resample_work(B: int, n: int, n_out: int, L: int, stateful: bool = False) -> tuple:
+    """(bytes, flops) of K15's function: the rows (and history) read once,
+    the output written once, the bank once; 2 x 256 flops an output."""
+    nbytes = 4 * (B * n + B * n_out + rs.SINC_LEN * L + L
+                  + (B * (rs.SINC_LEN - 1) if stateful else 0))
+    return nbytes, 2 * rs.SINC_LEN * B * n_out
+
+
+def conv1d_library(x, in_rate: int, out_rate: int, hist=None):
+    """One ``F.conv1d`` of stride M over the bank embedded in ``[L, 1, S +
+    M - 1]`` (cuDNN, in IEEE float32) on the input the plain version pads
+    (made beforehand): the library yardstick of K15."""
+    from soundkit_tpu_torch.utils.device import ieee_fp32
+
+    L, M = rs.design_polyphase(in_rate, out_rate)[2:4]
+    xp = rs.conv_input(x, hist, in_rate, out_rate, rs.out_len(x.shape[1], L, M))
+    w = rs._conv_weight(in_rate, out_rate, x.device)
+
+    def run():
+        with ieee_fp32():
+            return torch.nn.functional.conv1d(xp, w, stride=M)
+    return run
+
+
+def stretch_ola_inputs(seed: int, B: int, T: int, device, F: int = 2048):
+    """Seeded synthesis frames f32 [B, T, F] (unit-scale noise) and the
+    Hann window f32 [F] on ``device``."""
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.standard_normal((B, T, F)).astype(np.float32)).to(device)
+    win = torch.from_numpy(np.hanning(F).astype(np.float32)).to(device)
+    return frames, win
+
+
+def stretch_ola_pair(frames, win, hop: int, target: int):
+    """K16 and its plain version."""
+    return (lambda: stretch_ola.overlap_add(frames, win, hop, target),
+            lambda: stretch_ola.overlap_add_plain(frames, win, hop, target))
+
+
+def stretch_ola_work(B: int, T: int, F: int, hop: int, target: int) -> int:
+    """Bytes of K16's function: the frames that cover the crop window read
+    once, the window and the output."""
+    last = min(T - 1, (F // 2 + target - 1) // hop)
+    return 4 * (B * (last + 1) * F + F + B * target)
+
+
+def fold_library(frames, win, hop: int, target: int):
+    """``F.fold`` with kernel (1, F) and stride (1, hop) over the windowed
+    frames, then the divide by the clamped norm and the crop: the library
+    yardstick of K16 (the windowed frames and the norm made beforehand)."""
+    B, T, F = frames.shape
+    out_len = hop * (T - 1) + F
+    cols = (frames * win).transpose(1, 2).contiguous()  # [B, F, T]
+    norm = torch.nn.functional.fold((win * win)[None, :, None].expand(1, F, T).contiguous(),
+                                    (1, out_len), (1, F), stride=(1, hop))[:, 0, 0]
+    den = torch.clamp_min(norm, 1e-8)
+
+    def run():
+        line = torch.nn.functional.fold(cols, (1, out_len), (1, F), stride=(1, hop))[:, 0, 0]
+        return (line / den)[:, F // 2:F // 2 + target]
+    return run
+
+
+def phase_lock_inputs(seed: int, rows: int, K: int, device, span: float = 1e5):
+    """Seeded K17 inputs f32 [rows, K]: magnitudes on a grid of quarters
+    (ties, flat runs, a constant row), analysis phases in (-pi, pi),
+    synthesis phases up to ``span`` rad."""
+    rng = np.random.default_rng(seed)
+    mag = np.round(np.abs(rng.standard_normal((rows, K))) * 4) / 4
+    mag[0, 10:20] = 1.0
+    if rows > 1:
+        mag[1] = 0.5
+    phase = rng.uniform(-np.pi, np.pi, (rows, K))
+    syn = rng.uniform(-span, span, (rows, K))
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in (mag, phase, syn))
+
+
+def phase_lock_check(mag, phase, syn) -> dict:
+    """K17 against its plain version: ``nearest`` identical and the
+    spectrum within ``3 ulp(max(|syn'|, 1)) mag`` elementwise, or
+    :class:`KernelMismatch`. Returns ``max_abs_err``, ``rel_err`` (of the
+    largest magnitude) and ``max_ulps`` (the largest error in ulps of the
+    argument, times the magnitude)."""
+    spec, near = phase_lock.phase_lock(mag, phase, syn, with_nearest=True)
+    ref, ref_near = phase_lock.phase_lock_plain(mag, phase, syn, with_nearest=True)
+    if spec.is_cuda:
+        torch.cuda.synchronize()
+    if not torch.equal(near, ref_near):
+        raise KernelMismatch(f"phase_lock: nearest differs at "
+                             f"{int((near != ref_near).sum())} bins")
+    idx = ref_near.long()
+    s = phase + (torch.take_along_dim(syn, idx, -1) - torch.take_along_dim(phase, idx, -1))
+    ulp = torch.exp2(torch.floor(torch.log2(torch.clamp_min(s.abs(), 1.0))) - 23)
+    err = (spec - ref).abs()
+    ulps = err / torch.clamp_min(ulp * mag, 1e-30)
+    worst = float(ulps.max()) if ulps.numel() else 0.0
+    e = float(err.max()) if err.numel() else 0.0
+    if not (bool(torch.isfinite(torch.view_as_real(spec)).all()) and worst <= 3.0):
+        raise KernelMismatch(f"phase_lock: spectrum {worst:.2f} ulps of the argument off (bound 3)")
+    return {"max_abs_err": e, "rel_err": e / max(float(mag.abs().max()), 1e-30),
+            "max_ulps": worst}
+
+
+def phase_lock_work(rows: int, K: int) -> int:
+    """Bytes of K17's function: three f32 inputs read once, the complex64
+    output written once."""
+    return rows * K * (3 * 4 + 8)

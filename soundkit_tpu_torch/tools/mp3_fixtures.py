@@ -92,6 +92,18 @@ def lane_streams(clips: List[Mp3Clip], num_lanes: int, n_frames: int = None) -> 
     return out
 
 
+def rotated_streams(clip: Mp3Clip, num_lanes: int) -> List[bytes]:
+    """``num_lanes`` lanes that each play the whole of ``clip`` once, lane
+    ``i`` from the first frame :func:`_lane_cut` gives it, wrapping: every
+    lane as long as the clip (less the frames its reservoir drops)."""
+    n = len(clip.frames)
+    out = []
+    for i in range(num_lanes):
+        start = _lane_cut(i, n)[0]
+        out.append(b"".join(clip.frames[(start + t) % n] for t in range(n)))
+    return out
+
+
 def lane_rates(clips: List[Mp3Clip], num_lanes: int) -> List[int]:
     """The sample rate of each smoke lane."""
     return [clips[i % len(clips)].rate for i in range(num_lanes)]

@@ -47,18 +47,57 @@ def launch_check(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
 
+def _precision_nodes() -> list:
+    """The backends whose ``fp32_precision`` the guard sets, each before
+    the children that setting it sets too (cuDNN before its convolutions
+    and RNNs); empty on torch versions without that attribute."""
+    cudnn = torch.backends.cudnn
+    nodes = (torch.backends.cuda.matmul, cudnn, getattr(cudnn, "conv", None),
+             getattr(cudnn, "rnn", None))
+    if not all(n is not None and hasattr(n, "fp32_precision") for n in nodes):
+        return []
+    return list(nodes)
+
+
+def _read(getter):
+    """``getter()``, or None where torch refuses to read a flag (a state
+    set through both its older and its newer precision API)."""
+    try:
+        return getter()
+    except RuntimeError:
+        return None
+
+
 @contextlib.contextmanager
 def ieee_fp32():
-    """Float32 matrix products in IEEE float32 inside the block, never
-    TF32, whatever the caller set (``allow_tf32``,
-    ``set_float32_matmul_precision``); the caller's settings come back
-    on exit. The reference pins float32 for the same products
-    (``jax.default_matmul_precision("float32")``)."""
-    precision = torch.get_float32_matmul_precision()
-    tf32 = torch.backends.cuda.matmul.allow_tf32
+    """Float32 matrix products and cuDNN convolutions in IEEE float32
+    inside the block, never TF32, whatever the caller set
+    (``set_float32_matmul_precision``, ``allow_tf32``, and the
+    ``fp32_precision`` attributes of the torch versions that have them);
+    the caller's settings come back on exit, after an exception too. The
+    reference pins float32 for the same products and convolutions
+    (``jax.default_matmul_precision("float32")``, ``Precision.HIGHEST``).
+    A flag torch refuses to read on entry (the caller mixed the two APIs)
+    is restored through the ``fp32_precision`` attributes alone."""
+    cudnn = torch.backends.cudnn
+    precision = _read(torch.get_float32_matmul_precision)
+    tf32 = _read(lambda: torch.backends.cuda.matmul.allow_tf32)
+    conv_tf32 = _read(lambda: cudnn.allow_tf32)
+    nodes = _precision_nodes()
+    saved = [n.fp32_precision for n in nodes]
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    for n in nodes:
+        n.fp32_precision = "ieee"
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(precision)
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+        if tf32 is not None:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        if precision is not None:
+            torch.set_float32_matmul_precision(precision)
+        if conv_tf32 is not None:
+            cudnn.allow_tf32 = conv_tf32
+        for n, v in zip(nodes, saved):
+            n.fp32_precision = v

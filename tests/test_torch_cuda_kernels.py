@@ -616,3 +616,105 @@ def test_flac_encoder_on_the_card_equals_the_cpu(dev):
         if device == "cuda":
             assert flac_analyze.flac_analyze.launches - before == 3  # two pending, one tail
     assert streams[0] == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# the resampler (K15) and the phase vocoder (K16, K17)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("in_rate,out_rate", kc.RESAMPLE_PAIRS)
+def test_polyphase_fir_kernel_every_rate_pair(dev, in_rate, out_rate):
+    """K15 against its plain version (cuDNN's convolution in IEEE float32)
+    one-shot and from a carried history, and chunked equal to one-shot
+    bit for bit, at every supported rate pair and the pitch shift's."""
+    from soundkit_tpu_torch.ops import resample as rs
+
+    kc.compare("polyphase_fir", *kc.resample_case(in_rate, out_rate, 5, dev, seed=1))
+    kc.compare("polyphase_fir", *kc.resample_case(in_rate, out_rate, 3, dev, seed=2,
+                                                  stateful=True))
+    M = rs.design_polyphase(in_rate, out_rate)[3]
+    chunked, one = kc.resample_chunked(kc.resample_rows(3, 3, 12 * M, dev), in_rate, out_rate,
+                                       4 * M)
+    assert torch.equal(chunked, one)
+
+
+def test_polyphase_fir_kernel_on_the_transcode_chunk(dev):
+    """K15 at the transcode chain's shape (44.1 -> 8 kHz, 28,224 samples a
+    row, a carried history), 64 rows; chunked over three such chunks equals
+    one-shot; one launch a call."""
+    from soundkit_tpu_torch.ops import resample as rs
+
+    x = kc.resample_rows(4, 64, 3 * 28224, dev)
+    hist = kc.resample_rows(5, 64, 255, dev)
+    kc.compare("polyphase_fir", *kc.resample_pair(x[:, :28224].contiguous(), 44100, 8000, hist))
+    before = rs.polyphase_fir.launches
+    chunked, one = kc.resample_chunked(x, 44100, 8000, 28224)
+    assert torch.equal(chunked, one) and rs.polyphase_fir.launches - before == 4
+
+
+def test_plain_resampler_is_ieee_under_the_guard_with_tf32_on(dev):
+    """cuDNN's TF32 on, the plain resampler (a conv1d under ``ieee_fp32``)
+    still agrees within 1e-5 with the same polyphase bank evaluated in
+    float64 by numpy on a unit-scale signal (TF32's 10-bit mantissa would
+    miss by 1e-4 or more); the caller's flag comes back."""
+    import numpy as np
+
+    from soundkit_tpu_torch.ops import resample as rs
+
+    x = kc.resample_rows(6, 4, 4410, dev)
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        got = rs.polyphase_fir_plain(x, None, 44100, 48000, rs.out_len(4410, 160, 147))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    taps, offs, L, M = rs.design_polyphase(44100, 48000)
+    x64 = x.double().cpu().numpy()
+    n_out = got.shape[1]
+    xp = np.pad(x64, ((0, 0), (255, n_out // L * M + M + 256)))
+    ref = np.empty((4, n_out))
+    for k in range(n_out):
+        c, p = divmod(k, L)
+        ref[:, k] = xp[:, c * M + offs[p]: c * M + offs[p] + 256] @ taps[p].astype(np.float64)
+    assert np.abs(got.cpu().numpy() - ref).max() < 1e-5
+
+
+@pytest.mark.parametrize("B,T,hop,target", [(5, 9, 960, 3000), (3, 40, 960, 36000),
+                                            (2, 7, 333, 1500), (4, 4, 2048, 9000)])
+def test_overlap_add_kernel_bit_exact(dev, B, T, hop, target):
+    frames, win = kc.stretch_ola_inputs(B + T, B, T, dev)
+    kc.compare("overlap_add", *kc.stretch_ola_pair(frames, win, hop, target))
+
+
+@pytest.mark.parametrize("span", [50.0, 1e5, 1e6])
+def test_phase_lock_kernel_nearest_identical(dev, span):
+    """K17's nearest identical to the plain version's, ties and flat runs
+    included, and its spectrum within 3 ulps of the rotation's argument,
+    with synthesis phases up to ``span`` rad."""
+    kc.phase_lock_check(*kc.phase_lock_inputs(int(span) % 97, 37, 1025, dev, span=span))
+    kc.phase_lock_check(*kc.phase_lock_inputs(3, 5, 33, dev, span=span))
+
+
+def test_pitch_shift_on_the_card_matches_the_cpu(dev):
+    """The device pitch shift (K17, K16, K15 on the card) against the same
+    function on the CPU: 60 dB (the FFTs and the angle differ by ulps, and
+    the synthesis phase's running sum magnifies them)."""
+    import numpy as np
+
+    from soundkit_tpu_torch.ops import phase_lock, stretch_ola
+    from soundkit_tpu_torch.ops import resample as rs
+    from soundkit_tpu_torch.ops import stretch as st
+
+    t = np.arange(16000) / 16000
+    x = np.stack([np.sin(2 * np.pi * (200 + 50 * b) * t) * 0.5 for b in range(3)])
+    x = torch.from_numpy(x.astype(np.float32))
+    before = (rs.polyphase_fir.launches, stretch_ola.overlap_add.launches,
+              phase_lock.phase_lock.launches)
+    got = st.pitch_shift_batch_device(x.to(dev), 1.25, 1.5).cpu().numpy()
+    after = (rs.polyphase_fir.launches, stretch_ola.overlap_add.launches,
+             phase_lock.phase_lock.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    ref = st.pitch_shift_batch_device(x, 1.25, 1.5).numpy()
+    snr = 10 * np.log10(np.mean(ref ** 2) / np.mean((ref - got) ** 2))
+    assert got.shape == ref.shape and snr > 60, snr

@@ -12,7 +12,10 @@ resampler plan and the hybrid walk's packed wire; and the Vorbis host
 layer: the C++ packet parse, its table, the Python decoder and the
 parse's binding; and the FLAC encode host layer: the C++ frame packer,
 the Python frame encoder (a verbatim copy but for its ``_native_lib``)
-and the encoder's plan layout and per-frame oracle."""
+and the encoder's plan layout and per-frame oracle; and the numpy halves of
+the resampler and the phase vocoder with the host modules above them
+(``core/``, ``pipeline/``, ``stretch.py``), their imports turned to the
+port's."""
 from pathlib import Path
 
 import numpy as np
@@ -627,3 +630,49 @@ def test_flac_encoder_oracle_and_constants_equal_the_jax_package():
     assert model._SLOT_SOURCES == jax_model._SLOT_SOURCES
     for name in ("LPC_ORDER", "LPC_PRECISION", "MAX_FIXED", "ASSIGN_CODES", "ASSIGN_SLOTS"):
         assert getattr(ops, name) == getattr(jax_ops, name), name
+
+
+# ---------------------------------------------------------------------------
+# the resampler, the phase vocoder and the host modules above them
+# ---------------------------------------------------------------------------
+
+def _as_port(text: str) -> str:
+    """``text`` with its imports of the JAX package's modules turned to
+    the port's (the one change a verbatim copy makes)."""
+    import re
+
+    return re.sub(r"^(\s*)from soundkit_tpu\.", r"\1from soundkit_tpu_torch.", text, flags=re.M)
+
+
+@pytest.mark.parametrize("module", ["core/__init__.py", "core/audio_types.py",
+                                    "core/audio_bytes.py", "core/audio_pipeline.py",
+                                    "pipeline/__init__.py", "pipeline/resampler.py",
+                                    "pipeline/output_options.py", "stretch.py"])
+def test_host_modules_are_verbatim_copies(module):
+    port = (REPO / "soundkit_tpu_torch" / module).read_text()
+    assert port == _as_port((REPO / "soundkit_tpu" / module).read_text())
+
+
+@pytest.mark.parametrize("name", ["_blackman_harris2", "design_polyphase", "out_len",
+                                  "resample_np", "_conv_kernel"])
+def test_resample_host_half_is_verbatim(name):
+    """The numpy half of ``ops/resample.py``; ``resample_init_state`` is
+    not a copy (the port's returns a tensor on the device it is given,
+    ``tests/test_torch_resample.py``)."""
+    from soundkit_tpu.ops import resample as jax_rs
+    from soundkit_tpu_torch.ops import resample as rs
+
+    assert _function_source(rs, name) == _function_source(jax_rs, name)
+    assert (rs.SINC_LEN, rs.CUTOFF) == (jax_rs.SINC_LEN, jax_rs.CUTOFF)
+
+
+@pytest.mark.parametrize("name", ["_princarg", "_spectral_envelope", "_warp_envelope",
+                                  "_nearest_peak_np", "stretch_channels", "pitch_ratio_fraction",
+                                  "stretch_pitch"])
+def test_stretch_host_half_is_verbatim(name):
+    from soundkit_tpu.ops import stretch as jax_st
+    from soundkit_tpu_torch.ops import stretch as st
+
+    assert _function_source(st, name) == _as_port(_function_source(jax_st, name))
+    assert (st.FRAME, st.HOP_A, st.ENVELOPE_ORDER) == \
+        (jax_st.FRAME, jax_st.HOP_A, jax_st.ENVELOPE_ORDER)

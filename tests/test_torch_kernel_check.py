@@ -44,6 +44,10 @@ CPU = torch.device("cpu")
       for bw in (0, 1, 2)],
     ("silk_synth", lambda: kc.silk_synth_random_case(CPU, 8, 2, streams=4, channels=1)),
     ("silk_synth", lambda: kc.silk_synth_pair(2, kc.silk_fixture_inputs(6, CPU, warm=2))),
+    ("polyphase_fir", lambda: kc.resample_case(44100, 8000, 3, CPU, seed=1)),
+    ("polyphase_fir", lambda: kc.resample_case(8000, 44100, 2, CPU, seed=2, stateful=True)),
+    ("polyphase_fir", lambda: kc.resample_case(3000, 2000, 2, CPU, seed=3, cycles=40)),
+    ("overlap_add", lambda: kc.stretch_ola_pair(*kc.stretch_ola_inputs(4, 2, 7, CPU), 960, 5000)),
 ])
 def test_cases_agree_on_cpu(name, make):
     kernel, plain = make()
@@ -286,3 +290,47 @@ def test_silk_work_counts_rows_and_voiced_spans():
     # one voiced row: the LTP (11 a sample), the spans 102, 22, 0, 0 at 34 each, the
     # divisions, the scaled positions 80 + 160 + 240
     assert flops1 - flops == 320 * 11 + (102 + 22) * 34 + 8 + 80 + 160 + 240
+
+
+def test_integer_issue_rate_is_hoppers_64_lanes_a_clock():
+    """An H100 SM issues 64 32-bit integer operations a clock (NVIDIA's
+    throughput table for compute capability 9.0), so K14's 7.5 G integer
+    operations take 0.4484 ms at 1.98 GHz on 132 SMs, and bound it when
+    they outweigh its bytes and float64 work."""
+    assert kc.INT_ISSUE_RATE == 132 * 64 * 1.98e9
+    b = kc.flac_analyze_bound({"bytes": 167_772_160, "fp64": 2e9, "int_ops": 7.5e9})
+    assert b["int_ms"] == pytest.approx(0.448376, abs=1e-6)
+    assert b["bound_ms"] == b["int_ms"] and b["bound_by"] == "operations"
+
+
+def test_resample_chunked_equals_one_shot_on_cpu():
+    for a, c in ((44100, 441 * 4), (8000, 80 * 7), (3000, 3 * 101)):
+        b = {44100: 8000, 8000: 44100, 3000: 2000}[a]
+        chunked, one = kc.resample_chunked(kc.resample_rows(a, 2, 3 * c, CPU), a, b, c)
+        assert torch.equal(chunked, one)
+
+
+def test_phase_lock_check_holds_nearest_and_the_spectrum(monkeypatch):
+    mag, phase, syn = kc.phase_lock_inputs(5, 7, 1025, CPU)
+    assert kc.phase_lock_check(mag, phase, syn) == \
+        {"max_abs_err": 0.0, "rel_err": 0.0, "max_ulps": 0.0}
+    plain = kc.phase_lock.phase_lock_plain
+    monkeypatch.setattr(kc.phase_lock, "phase_lock", lambda *a, **k: (
+        lambda s, n: (s * (1 + 1e-5), n))(*plain(*a, **k)))
+    with pytest.raises(kc.KernelMismatch, match="phase_lock: spectrum"):
+        kc.phase_lock_check(mag, phase, syn)
+    monkeypatch.setattr(kc.phase_lock, "phase_lock", lambda *a, **k: (
+        lambda s, n: (s, torch.roll(n, 1, -1)))(*plain(*a, **k)))
+    with pytest.raises(kc.KernelMismatch, match="nearest differs"):
+        kc.phase_lock_check(mag, phase, syn)
+
+
+def test_dsp_work_counts():
+    """K15: 2 x 256 flops an output and the rows, history, output and bank
+    bytes; K16: only the frames that cover the crop window; K17: 20 bytes
+    a bin."""
+    assert kc.resample_work(1024, 28224, 5120, 80, stateful=True) == (
+        4 * (1024 * 28224 + 1024 * 5120 + 256 * 80 + 80 + 1024 * 255), 512 * 1024 * 5120)
+    assert kc.stretch_ola_work(1024, 348, 2048, 960, 165375) == \
+        4 * (1024 * 174 * 2048 + 2048 + 1024 * 165375)
+    assert kc.phase_lock_work(1024 * 348, 1025) == 1024 * 348 * 1025 * 20

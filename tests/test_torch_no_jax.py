@@ -174,12 +174,43 @@ print("flac encode without jax")
 """
 
 
+_NO_JAX_DSP = _NO_JAX_DECODE.split("import numpy as np")[0] + r"""
+import numpy as np
+import torch
+import soundkit_tpu_torch.core
+from soundkit_tpu_torch.core.audio_pipeline import downsample_audio
+from soundkit_tpu_torch.core.audio_types import AudioData, EncodingFlag, Endianness
+from soundkit_tpu_torch.ops import resample as rs
+from soundkit_tpu_torch.ops import stretch as st
+from soundkit_tpu_torch.pipeline.resampler import StreamingResampler
+from soundkit_tpu_torch import stretch
+x = torch.from_numpy(np.sin(np.arange(2 * 4410, dtype=np.float32) * 0.05).reshape(2, 4410))
+one = rs.resample(x, 44100, 8000)
+h = rs.resample_init_state(2, "cpu")
+a, h = rs.resample_stateful(x[:, :2205].contiguous(), h, 44100, 8000)
+b, h = rs.resample_stateful(x[:, 2205:].contiguous(), h, 44100, 8000)
+assert one.shape == (2, 800) and torch.equal(torch.cat([a, b], 1), one)
+sr = StreamingResampler(44100, 8000, 2)
+assert np.array_equal(sr.process(x.numpy()), rs.resample_np(x.numpy(), 44100, 8000))
+audio = AudioData(16, 1, 44100, (x[0].numpy() * 9000).astype("<i2").tobytes(),
+                  EncodingFlag.PCM_SIGNED, Endianness.LITTLE)
+assert downsample_audio(audio, 8000)[0].shape == (800,)
+y = st.pitch_shift_batch_device(x, 1.25, 1.5)
+assert y.shape == (2, 5512) and torch.isfinite(y).all() and y.abs().max() > 0.1
+cfg = stretch.OfflineStretchConfig.recommended_for_music(44100, 1).with_time_ratio(1.5)
+assert abs(stretch.stretch_audio_data(audio, cfg).frame_count - 6615) <= 2
+assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
+print("dsp without jax")
+"""
+
+
 @pytest.mark.parametrize("script,said", [(_NO_JAX_DECODE, "decoded without jax"),
                                          (_NO_JAX_TELEPHONY, "telephony without jax"),
                                          (_NO_JAX_FLEET, "fleet without jax"),
                                          (_NO_JAX_MP3, "mp3 without jax"),
                                          (_NO_JAX_OPUS, "opus without jax"),
-                                         (_NO_JAX_FLAC_ENC, "flac encode without jax")])
+                                         (_NO_JAX_FLAC_ENC, "flac encode without jax"),
+                                         (_NO_JAX_DSP, "dsp without jax")])
 def test_port_runs_on_cpu_with_jax_blocked(script, said):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -409,8 +440,10 @@ def test_entry_points_default_to_cuda():
                                                       BatchedSilkDeviceDecoder)
     from soundkit_tpu_torch.models.opus_fleet_model import BatchedOggOpusDecoder
     from soundkit_tpu_torch.ops import mp3_batch, silk_batch
+    from soundkit_tpu_torch.ops import resample as rs
 
     calls = {
+        rs.resample_init_state: lambda: rs.resample_init_state(2),
         BatchedCeltDecoder: lambda: BatchedCeltDecoder(2, 2),
         BatchedSilkDeviceDecoder: lambda: BatchedSilkDeviceDecoder(2, 2),
         BatchedHybridDecoder: lambda: BatchedHybridDecoder(2, 2),
@@ -465,3 +498,28 @@ def test_vorbis_overlap_refuses_meta_tensors():
     assert vorbis_overlap.vorbis_overlap.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         BatchedVorbisDecoder(2, device="cpu", timed=True)
+
+
+def test_dsp_wrappers_refuse_meta_tensors():
+    """K15, K16 and K17's wrappers raise for tensors neither on the CPU nor
+    on a CUDA device, and count no launch."""
+    from soundkit_tpu_torch.ops import phase_lock, stretch_ola
+    from soundkit_tpu_torch.ops import resample as rs
+
+    def counts():
+        return (rs.polyphase_fir.launches, stretch_ola.overlap_add.launches,
+                phase_lock.phase_lock.launches)
+
+    before = counts()
+    meta = torch.empty((2, 441 * 4), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        rs.resample(meta, 44100, 8000)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rs.resample_stateful(meta, torch.empty((2, 255), device="meta"), 44100, 8000)
+    with pytest.raises(ValueError, match="CUDA device"):
+        stretch_ola.overlap_add(torch.empty((2, 3, 2048), device="meta"),
+                                torch.empty(2048, device="meta"), 960, 100)
+    spec = torch.empty((2, 3, 1025), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        phase_lock.phase_lock(spec, spec, spec)
+    assert counts() == before
