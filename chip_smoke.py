@@ -232,7 +232,9 @@ aa. resampler kernel: K15 (``polyphase_fir``: the polyphase FIR of
    value), chunked equal to one-shot bit for bit; timed by graph replay on
    the [transcode] chunk (1024 x 28,224 samples and a history, 44.1 -> 8
    kHz) and on the [stretch] resample (1024 x 165,375, 3000 -> 2000), each
-   beside its bound and ``F.conv1d``;
+   beside its bound, ``F.conv1d`` and its first design
+   (``tools/first_designs``, equal to it bit for bit, timed in turns), with
+   its launch plan, registers and resident warps;
 bb. transcode: 1024 lanes of the stereo44 MP3 fixture, each the whole
    clip from its own frame, decoded in chunks of 49 granules (K10 a
    granule) and through the tail (downmix, K15's carried-state resample
@@ -245,10 +247,12 @@ bb. transcode: 1024 lanes of the stereo44 MP3 fixture, each the whole
    and with the parse; parse / pop / h2d / K10 step medians, the tail);
 cc. vocoder kernels: on the [stretch] path's own tensors (the vocoder's
    analysis at 1.875 over the dd. lanes), K17 (``phase_lock``) with its
-   ``nearest`` identical to the plain version's and its spectrum within 3
-   ulps of the rotation's argument, and K16 (``overlap_add``) bit-exact on
-   the irfft of K17's spectrum; both timed by graph replay with their byte
-   bounds, K16 beside ``F.fold``;
+   ``nearest`` identical to the plain version's, its spectrum within 3
+   ulps of the rotation's argument and within 2^-21 of the magnitude of
+   float64 cos / sin of the argument, and K16 (``overlap_add``) bit-exact
+   on the irfft of K17's spectrum; both timed by graph replay with their
+   byte bounds, K16 beside ``F.fold``, K17 beside its first design
+   (``tools/first_designs``, nearest identical, timed in turns);
 dd. stretch: ``pitch_shift_batch_device`` over 1024 mono lanes of 2 s at
    44.1 kHz (the stereo44 fixture decoded on the card and downmixed, lane
    i from its own offset), time ratio 1.25, pitch 1.5, with
@@ -433,8 +437,23 @@ def measure(tag: str, name: str, kernel, plain, nbytes: float, flops: float = 0.
 # ---------------------------------------------------------------------------
 
 def phase_build():
-    from soundkit_tpu_torch import _build
+    import threading
 
+    from soundkit_tpu_torch import _build
+    from soundkit_tpu_torch.tools import first_designs
+
+    first = {}
+
+    def build_first():
+        t = time.perf_counter()
+        try:
+            first["path"] = first_designs.library_path()
+        except Exception as e:  # raised below, in this thread
+            first["error"] = e
+        first["s"] = time.perf_counter() - t
+
+    first_build = threading.Thread(target=build_first)
+    first_build.start()
     t0 = time.perf_counter()
     kpath = _build.kernel_library_path()
     t1 = time.perf_counter()
@@ -451,6 +470,12 @@ def phase_build():
     epath = _build.flac_pack_library_path()
     t7 = time.perf_counter()
     _build.kernels()
+    first_build.join()
+    if "error" in first:
+        raise first["error"]
+    first_designs.library()
+    log(f"[build] first designs of K15 and K17 {first['path'].relative_to(ROOT)} in "
+        f"{first['s']:.3f} s, beside the kernels")
     log(f"[build] kernels {kpath.relative_to(ROOT)} in {t1 - t0:.3f} s; "
         f"parser {ppath.relative_to(ROOT)} in {t2 - t1:.3f} s; "
         f"FLAC walk {fpath.relative_to(ROOT)} in {t3 - t2:.3f} s; "
@@ -2236,11 +2261,30 @@ def dsp_wrappers():
             "overlap_add": stretch_ola.overlap_add, "phase_lock": phase_lock.phase_lock}
 
 
+def k15_occupancy(plan) -> dict:
+    """Registers a thread, spilled bytes a thread and resident warps an SM
+    of K15's instance for ``plan`` (``skt_resample_occupancy``)."""
+    import ctypes
+
+    from soundkit_tpu_torch import _build
+
+    occ = (ctypes.c_int * 3)()
+    check(_build.kernels().skt_resample_occupancy(plan.RC, plan.WS, plan.threads, plan.smem, occ) == 0,
+          "skt_resample_occupancy failed")
+    return dict(registers=occ[0], local_bytes=occ[1], blocks_per_sm=occ[2],
+                warps_per_sm=occ[2] * plan.threads // 32)
+
+
 def k15_timed(x, in_rate: int, out_rate: int, hist=None, reps: int = 20) -> dict:
-    """K15 on ``x`` (and ``hist``) held to its plain version and timed by
-    graph replay, beside the plain version, ``F.conv1d`` (cuDNN, IEEE
-    float32) and the bound of its work (``kernel_check.resample_work``)."""
+    """K15 on ``x`` (and ``hist``) held to its plain version and to its
+    first design (bit for bit) and timed by graph replay in turns with the
+    first design (first, kernel, kernel, first), beside the plain version,
+    ``F.conv1d`` (cuDNN, IEEE float32) and the bound of its work
+    (``kernel_check.resample_work``); with its launch plan and occupancy."""
+    import torch
+
     from soundkit_tpu_torch.ops import resample as rs
+    from soundkit_tpu_torch.tools import first_designs as fd
     from soundkit_tpu_torch.tools import kernel_check as kc
 
     kernel, plain = kc.resample_pair(x, in_rate, out_rate, hist)
@@ -2248,13 +2292,24 @@ def k15_timed(x, in_rate: int, out_rate: int, hist=None, reps: int = 20) -> dict
     _, _, L, M = rs.design_polyphase(in_rate, out_rate)
     rows, n = x.shape
     n_out = rs.out_len(n, L, M)
+
+    def first():
+        return fd.polyphase_fir(x, hist, in_rate, out_rate, n_out)
+
+    check(torch.equal(kernel(), first()), f"polyphase_fir {in_rate} -> {out_rate}: differs from "
+          "its first design")
     nbytes, flops = kc.resample_work(rows, n, n_out, L, hist is not None)
-    r["ms"] = graph_ms(kernel, reps=reps)
+    turns = [graph_ms(f, reps=reps) for f in (first, kernel, kernel, first)]
+    r["ms"] = (turns[1] + turns[2]) / 2
+    r["first_ms"] = (turns[0] + turns[3]) / 2
+    r["turns_ms"] = turns
     r["plain_ms"] = cuda_ms(plain, 5)
     r["library_ms"] = graph_ms(kc.conv1d_library(x, in_rate, out_rate, hist), reps=reps)
     r.update(bound(nbytes, flops))
-    r.update(rows=rows, n=n, n_out=n_out, L=L, M=M, tile_cycles=rs.tile_cycles(L, M, -(-n_out // L)),
-             share_of_bound=r["bound_ms"] / r["ms"])
+    plan = rs.k15_plan(in_rate, out_rate, n_out)
+    r.update(rows=rows, n=n, n_out=n_out, L=L, M=M, plan=plan._asdict(), **k15_occupancy(plan),
+             first_tile_cycles=fd.tile_cycles(L, M, -(-n_out // L)),
+             share_of_bound=r["bound_ms"] / r["ms"], first_share_of_bound=r["bound_ms"] / r["first_ms"])
     return r
 
 
@@ -2297,11 +2352,16 @@ def phase_resample_kernels():
         f"one-shot and carried, within {max(sweep.values()):.3g} of the plain version; chunked "
         f"equals one-shot bit for bit at every pair and on 3 transcode chunks")
     for tag, c in (("transcode chunk", r), ("stretch resample", sr)):
+        p = c["plan"]
         log(f"[resample-kernels] polyphase_fir {tag} [{c['rows']}, {c['n']}] -> {c['n_out']} "
-            f"(L {c['L']}, M {c['M']}, {c['tile_cycles']} cycles a block): {c['ms']:.4f} ms by "
-            f"graph replay, plain {c['plain_ms']:.4f}, F.conv1d {c['library_ms']:.4f}, bound "
-            f"{c['bound_ms']:.4f} ({c['bound_by']}), {100 * c['share_of_bound']:.1f} % of it; "
-            f"max|d| {c['max_abs_err']:.3g}")
+            f"(L {c['L']}, M {c['M']}; super-cycle {p['Lq']} / {p['Mq']}, {p['G']} groups, "
+            f"{p['RC']} super-cycles a thread, {p['threads']} threads and {p['smem']} B a block; "
+            f"{c['registers']} registers, {c['local_bytes']} B spilled, {c['warps_per_sm']} warps "
+            f"an SM): {c['ms']:.4f} ms by graph replay ({100 * c['share_of_bound']:.1f} % of its "
+            f"bound), the first design {c['first_ms']:.4f} ({100 * c['first_share_of_bound']:.1f} "
+            f"%; turns {', '.join(f'{v:.4f}' for v in c['turns_ms'])}), plain "
+            f"{c['plain_ms']:.4f}, F.conv1d {c['library_ms']:.4f}, bound {c['bound_ms']:.4f} "
+            f"({c['bound_by']}); max|d| {c['max_abs_err']:.3g}, equal to the first design")
     return {"polyphase_fir": r}
 
 
@@ -2413,23 +2473,43 @@ def stretch_lanes():
 def phase_stretch_kernels(x):
     """K17 and K16 on the [stretch] path's own tensors (the vocoder at
     time ratio x pitch over ``x``): K17's nearest identical to its plain
-    version and its spectrum within 3 ulps of the rotation's argument; K16
-    bit-exact on the irfft of K17's spectrum; both timed by graph replay,
-    with their byte bounds, K16 beside ``F.fold``."""
+    version and to its first design's, its spectrum within 3 ulps of the
+    rotation's argument and within 2^-21 of the magnitude of float64 cos /
+    sin; K16 bit-exact on the irfft of K17's spectrum; both timed by graph
+    replay, with their byte bounds, K16 beside ``F.fold``, K17 in turns
+    with its first design."""
+    import ctypes
+
     import torch
 
+    from soundkit_tpu_torch import _build
     from soundkit_tpu_torch.ops import phase_lock
+    from soundkit_tpu_torch.tools import first_designs as fd
     from soundkit_tpu_torch.ops import stretch as st
     from soundkit_tpu_torch.tools import kernel_check as kc
 
     mag, phase, syn, win, hop, target = st.vocoder_analysis(x, STRETCH_RATIO * STRETCH_PITCH)
     r17 = kc.phase_lock_check(mag, phase, syn)
     rows, K = mag.numel() // mag.shape[-1], mag.shape[-1]
-    r17["ms"] = graph_ms(lambda: phase_lock.phase_lock(mag, phase, syn), reps=2, replays=5)
+    _, near = phase_lock.phase_lock(mag, phase, syn, with_nearest=True)
+    first_spec, first_near = fd.phase_lock(mag, phase, syn, with_nearest=True)
+    check(torch.equal(near, first_near), "phase_lock: nearest differs from its first design")
+    r17["first_max_abs_diff"] = float((phase_lock.phase_lock(mag, phase, syn) - first_spec).abs().max())
+    del near, first_spec, first_near
+    turns = [graph_ms(f, reps=2, replays=5) for f in (
+        lambda: fd.phase_lock(mag, phase, syn), lambda: phase_lock.phase_lock(mag, phase, syn),
+        lambda: phase_lock.phase_lock(mag, phase, syn), lambda: fd.phase_lock(mag, phase, syn))]
+    r17["ms"] = (turns[1] + turns[2]) / 2
+    r17["first_ms"] = (turns[0] + turns[3]) / 2
+    r17["turns_ms"] = turns
     r17["plain_ms"] = cuda_ms(lambda: phase_lock.phase_lock_plain(mag, phase, syn), 1)
+    occ = (ctypes.c_int * 4)()
+    check(_build.kernels().skt_phase_lock_occupancy(K, occ) == 0, "skt_phase_lock_occupancy failed")
     r17.update(bound(kc.phase_lock_work(rows, K)), library_ms=None, rows=rows, K=K,
-               syn_abs_max=float(syn.abs().max()))
+               syn_abs_max=float(syn.abs().max()), registers=occ[0], local_bytes=occ[1],
+               smem=occ[2], warps_per_sm=occ[3] * 8)
     r17["share_of_bound"] = r17["bound_ms"] / r17["ms"]
+    r17["first_share_of_bound"] = r17["bound_ms"] / r17["first_ms"]
     spec = phase_lock.phase_lock(mag, phase, syn)
     del mag, phase, syn
     frames = torch.fft.irfft(spec, n=st.FRAME, dim=-1)
@@ -2446,10 +2526,16 @@ def phase_stretch_kernels(x):
     del frames
     torch.cuda.empty_cache()
     log(f"[stretch-kernels] phase_lock [{rows} rows, {K} bins], |syn| up to "
-        f"{r17['syn_abs_max']:.4g} rad: nearest identical, spectrum within "
-        f"{r17['max_ulps']:.3f} ulps of the argument (max|d| {r17['max_abs_err']:.3g}); "
-        f"{r17['ms']:.4f} ms by graph replay, plain {r17['plain_ms']:.3f}, bound "
-        f"{r17['bound_ms']:.4f} ({r17['bound_by']}), {100 * r17['share_of_bound']:.1f} % of it")
+        f"{r17['syn_abs_max']:.4g} rad: nearest identical (and to the first design's), spectrum "
+        f"within {r17['max_ulps']:.3f} ulps of the argument (max|d| {r17['max_abs_err']:.3g}) and "
+        f"{r17['max_f64_err']:.3g} of the magnitude from float64 cos / sin (bound 2^-21), "
+        f"{r17['first_max_abs_diff']:.3g} from the first design; {r17['registers']} registers, "
+        f"{r17['local_bytes']} B spilled, {r17['smem']} B shared a block, {r17['warps_per_sm']} "
+        f"warps an SM; {r17['ms']:.4f} ms by graph replay ({100 * r17['share_of_bound']:.1f} % "
+        f"of its bound), the first design {r17['first_ms']:.4f} "
+        f"({100 * r17['first_share_of_bound']:.1f} %; turns "
+        f"{', '.join(f'{v:.4f}' for v in r17['turns_ms'])}), plain {r17['plain_ms']:.3f}, bound "
+        f"{r17['bound_ms']:.4f} ({r17['bound_by']})")
     log(f"[stretch-kernels] overlap_add [{B_}, {T}, {F}] hop {hop} -> [{B_}, {target}]: bit-exact; "
         f"{r16['ms']:.4f} ms by graph replay, plain {r16['plain_ms']:.3f}, F.fold "
         f"{r16['library_ms']:.4f}, bound {r16['bound_ms']:.4f} ({r16['bound_by']}), "

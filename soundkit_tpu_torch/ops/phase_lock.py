@@ -15,8 +15,12 @@ i sin syn')``.
 
 For CUDA tensors it launches ``csrc/phase_lock.cu`` and counts
 ``phase_lock.launches``; with ``with_nearest`` it also returns the
-kernel's ``nearest`` (int32). For CPU tensors it takes
-:func:`phase_lock_plain`, the reference's ops in torch.
+kernel's ``nearest`` (int32). The kernel's ``nearest`` and ``syn'`` are
+the plain version's; it rotates by ``syn'`` reduced by pi/2 in float64,
+so its spectrum lies within ``2^-22 mag`` of float64 ``cos`` / ``sin`` of
+``syn'`` but no longer has torch's float32 ``cos`` / ``sin`` bits. For
+CPU tensors it takes :func:`phase_lock_plain`, the reference's ops in
+torch.
 """
 from __future__ import annotations
 

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -137,40 +137,162 @@ def _conv_kernel(in_rate: int, out_rate: int) -> Tuple[np.ndarray, int, int, int
     return kern, L, M, Kc
 
 
-#: K15's launch shape (``csrc/resample.cu``): cycles a thread sums, outputs a
-#: block aims at, and the floats of input a block may stage (48 KB)
-CYCLES_PER_THREAD = 4
-TILE_OUTPUTS = 2048
-TILE_FLOATS = 12288
+#: K15's tiling (``csrc/resample.cu``): phases a group (a thread's outputs of
+#: one super-cycle), warps a block at most and (where a row has them) at
+#: least, the shared memory under which RC is chosen (two blocks an SM), and
+#: the most a block may take (the card's 227 KB)
+GROUP_PHASES = 8
+MAX_WARPS = 16
+MIN_WARPS = 4
+SMEM_TARGET = 113 * 1024
+SMEM_LIMIT = 227 * 1024
+#: shared memory under which a block takes more slabs: smaller blocks, more
+#: of them an SM, overlap one block's staging with another's sums
+SLAB_SMEM = 48 * 1024
+#: super-cycles a thread sums (the kernel's instances)
+CYCLES_PER_THREAD = (8, 4, 2, 1)
+
+
+def max_warps(rc: int) -> int:
+    """Warps a K15 block may have at ``rc`` super-cycles a thread (its 64
+    accumulators at rc = 8 take up to 255 registers: 8 warps)."""
+    return MAX_WARPS // 2 if rc == 8 else MAX_WARPS
+
+
+def super_cycle(L: int) -> int:
+    """Cycles K15 takes as one super-cycle: enough that a group of
+    GROUP_PHASES phases fills (8 / gcd(L, 8) under 16 phases, else 1)."""
+    return 1 if L >= 16 else GROUP_PHASES // math.gcd(L, GROUP_PHASES)
+
+
+@functools.lru_cache(maxsize=64)
+def band_bank(in_rate: int, out_rate: int):
+    """K15's banded bank for in_rate -> out_rate.
+
+    Super-cycle ``g`` (:func:`super_cycle`) gives ``Lq = g L`` phases and
+    ``Mq = g M`` inputs, super-phase ``r L + p`` at offset ``r M + off[p]``
+    with phase p's taps. Group ``k`` holds super-phases ``8k .. 8k + 7``
+    (past ``Lq``: zero columns), from ``base[k] = off'[8k]``:
+
+        W[k, j, i] = taps_rev[p_i, j - d_i] for 0 <= j - d_i < 256, else 0,
+
+    ``d_i = off'[8k + i] - base[k]``, j < ``band[k] = d_last + 256``, so
+    that output ``c Lq + 8k + i`` is ``sum_j W[k, j, i] xpad[c Mq + base[k]
+    + j]``, its 256 taps in the order q = 0 .. 255 between zero products.
+
+    Returns ``(W f32 [G, band_max, 8], meta int32 [G, 2] (base, band), g,
+    Lq, Mq, offp int64 [Lq])``."""
+    taps_rev, offsets, L, M = design_polyphase(in_rate, out_rate)
+    S = taps_rev.shape[1]
+    g = super_cycle(L)
+    Lq, Mq = g * L, g * M
+    offp = (np.arange(g)[:, None] * M + offsets[None, :]).reshape(-1)
+    P = GROUP_PHASES
+    G = -(-Lq // P)
+    meta = np.zeros((G, 2), dtype=np.int32)
+    for k in range(G):
+        last = min(P * k + P, Lq) - 1
+        meta[k] = offp[P * k], offp[last] - offp[P * k] + S
+    band_max = int(meta[:, 1].max())
+    W = np.zeros((G, band_max, P), dtype=np.float32)
+    for sp in range(Lq):
+        k, i = divmod(sp, P)
+        d = int(offp[sp] - meta[k, 0])
+        W[k, d:d + S, i] = taps_rev[sp % L]
+    return W, meta, g, Lq, Mq, offp
+
+
+class K15Plan(NamedTuple):
+    """K15's launch for one call: the super-cycle (``Lq`` outputs from
+    ``Mq`` inputs), ``pitch`` (the shared words a super-cycle takes,
+    :func:`k15_pitch`), ``G`` groups in ``chunks`` of
+    ``GB`` a block, ``S`` slabs of ``32 RC`` super-cycles a block (``ct``
+    super-cycles a tile), ``RC`` super-cycles a thread, ``tiles`` a row,
+    ``threads`` and ``smem`` bytes a block, and ``WS`` 1 where the block
+    stages its groups' bank rows in shared memory after its tile."""
+    Lq: int
+    Mq: int
+    pitch: int
+    G: int
+    band_max: int
+    GB: int
+    chunks: int
+    S: int
+    RC: int
+    ct: int
+    tiles: int
+    threads: int
+    smem: int
+    WS: int
+
+
+def k15_pitch(Mq: int) -> int:
+    """Shared words K15 gives a super-cycle of ``Mq`` inputs: ``Mq`` made
+    odd, so that its 32 lanes, a super-cycle apart, read 32 banks."""
+    return Mq | 1
+
+
+def _tile_smem(meta: np.ndarray, Mq: int, pitch: int, GB: int, ct: int) -> int:
+    """Shared bytes of a block of ``ct`` super-cycles and ``GB`` groups: the
+    input span (in the pitched layout) or the output tile, the larger."""
+    G = meta.shape[0]
+    reach = max(int(meta[min(k + GB, G) - 1].sum()) - int(meta[k, 0]) for k in range(0, G, GB))
+    span = (ct - 1) * Mq + reach
+    span_words = span + (span // Mq + 1) * (pitch - Mq)
+    return 4 * (-(-max(span_words, ct * (GB * GROUP_PHASES + 4)) // 4) * 4)
+
+
+def k15_plan(in_rate: int, out_rate: int, n_out: int, rc: Optional[int] = None,
+             slabs: Optional[int] = None, ws: Optional[int] = None) -> K15Plan:
+    """K15's launch for ``n_out`` outputs a row: every group of a chunk in
+    one block (at most MAX_WARPS groups a chunk), ``RC`` the most
+    super-cycles a thread that a row fills and whose block of MIN_WARPS
+    warps (or one slab) SMEM_TARGET holds (or ``rc``), then as many slabs
+    as the row needs, :func:`max_warps` allows and SLAB_SMEM holds (or
+    ``slabs``), the tiles of a row even; the chunk's bank rows go to
+    shared memory after the tile where the two fit a block (or as ``ws``
+    says)."""
+    W, meta, _, Lq, Mq, _ = band_bank(in_rate, out_rate)
+    G, band_max = meta.shape[0], W.shape[1]
+    pitch = k15_pitch(Mq)
+    chunks = -(-G // MAX_WARPS)
+    GB = -(-G // chunks)
+    ncp = max(1, -(-n_out // Lq))
+    if rc is None:
+        rc = next((r for r in CYCLES_PER_THREAD if 32 * r <= ncp and GB <= max_warps(r)
+                   and _tile_smem(meta, Mq, pitch, GB, 32 * r * min(
+                       max(1, MIN_WARPS // GB), -(-ncp // (32 * r)))) <= SMEM_TARGET), 1)
+    if rc not in CYCLES_PER_THREAD:
+        raise ValueError(f"k15_plan: rc {rc} not in {CYCLES_PER_THREAD}")
+    wbytes = GB * band_max * GROUP_PHASES * 4
+    if ws is None:
+        ws = int(_tile_smem(meta, Mq, pitch, GB, 32 * rc) + wbytes <= SMEM_LIMIT)
+    if slabs is None:
+        slabs = max(1, min(max_warps(rc) // GB, -(-ncp // (32 * rc))))
+        while slabs > 1 and (_tile_smem(meta, Mq, pitch, GB, slabs * 32 * rc) + ws * wbytes
+                             > SLAB_SMEM):
+            slabs -= 1
+        tiles = -(-ncp // (slabs * 32 * rc))
+        slabs = -(-ncp // (tiles * 32 * rc))
+    ct = slabs * 32 * rc
+    smem = _tile_smem(meta, Mq, pitch, GB, ct) + ws * wbytes
+    if slabs * GB > max_warps(rc) or smem > SMEM_LIMIT:
+        raise ValueError(f"k15_plan: {slabs} slabs x {GB} groups, {smem} shared bytes")
+    return K15Plan(Lq, Mq, pitch, G, band_max, GB, chunks, slabs, rc, ct, -(-ncp // ct),
+                   32 * slabs * GB, smem, ws)
 
 
 @functools.lru_cache(maxsize=64)
 def _kernel_bank(in_rate: int, out_rate: int, device: torch.device):
-    """K15's bank on ``device``: the taps transposed to [SINC_LEN, L]
-    (phase-minor, so that neighbouring threads read neighbouring taps) and
-    the phase offsets as int32 [L]."""
-    taps_rev, offsets, _, _ = design_polyphase(in_rate, out_rate)
-    return (torch.from_numpy(np.ascontiguousarray(taps_rev.T)).to(device),
-            torch.from_numpy(offsets.astype(np.int32)).to(device))
+    """K15's banded bank (:func:`band_bank`) on ``device``: W f32 [G,
+    band_max, 8] and the groups' (base, band) int32 [G, 2]."""
+    W, meta = band_bank(in_rate, out_rate)[:2]
+    return torch.from_numpy(W).to(device), torch.from_numpy(meta).to(device)
 
 
 @functools.lru_cache(maxsize=64)
 def _conv_weight(in_rate: int, out_rate: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_conv_kernel(in_rate, out_rate)[0]).to(device)
-
-
-def tile_cycles(L: int, M: int, n_cycles: int) -> int:
-    """Cycles (of L outputs and M inputs) a K15 block takes: about
-    TILE_OUTPUTS outputs, at most TILE_FLOATS staged inputs, a multiple of
-    CYCLES_PER_THREAD, spread evenly over the blocks of a row."""
-    R = CYCLES_PER_THREAD
-    want = -(-TILE_OUTPUTS // L)
-    cap = max(R, (TILE_FLOATS - SINC_LEN + 1) // M // R * R)
-    ct = max(R, min(-(-want // R) * R, cap))
-    n_cycles = max(n_cycles, 1)
-    tiles = -(-n_cycles // ct)
-    per = -(-n_cycles // tiles)
-    return -(-per // R) * R
 
 
 def conv_input(x, hist: Optional[torch.Tensor], in_rate: int, out_rate: int,
@@ -202,6 +324,25 @@ def polyphase_fir_plain(x, hist: Optional[torch.Tensor], in_rate: int, out_rate:
     return out.transpose(1, 2).reshape(x.shape[0], n_cycles * L)[:, :n_out]
 
 
+def launch_k15(x, hist: Optional[torch.Tensor], in_rate: int, out_rate: int, n_out: int,
+               plan: K15Plan) -> torch.Tensor:
+    """K15 on checked CUDA tensors with the launch ``plan`` (any plan that
+    :func:`k15_plan` can give, for these rates) -> [B, n_out] f32; counts
+    nothing (:func:`polyphase_fir` counts its launches)."""
+    B, n = x.shape
+    bank, meta = _kernel_bank(in_rate, out_rate, x.device)
+    out = torch.empty((B, n_out), dtype=torch.float32, device=x.device)
+    if B == 0 or n_out == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _build.kernels().skt_resample(
+        x.data_ptr(), hist.data_ptr() if hist is not None else None, bank.data_ptr(),
+        meta.data_ptr(), out.data_ptr(), B, n, plan.Lq, plan.Mq, plan.pitch, n_out, plan.G,
+        plan.band_max, plan.GB, plan.S, plan.RC, plan.smem, plan.WS, stream)
+    launch_check("polyphase_fir", rc)
+    return out
+
+
 def polyphase_fir(x, hist: Optional[torch.Tensor], in_rate: int, out_rate: int,
                   n_out: int) -> torch.Tensor:
     """K15: the polyphase FIR (see the module's docstring) -> [B, n_out]
@@ -210,25 +351,15 @@ def polyphase_fir(x, hist: Optional[torch.Tensor], in_rate: int, out_rate: int,
     if x.device.type == "cpu":
         return polyphase_fir_plain(x, hist, in_rate, out_rate, n_out)
     hists = () if hist is None else (hist,)
-    dev = check_cuda("polyphase_fir", x, *hists)
+    check_cuda("polyphase_fir", x, *hists)
     B, n = x.shape
     if hist is not None and hist.shape != (B, SINC_LEN - 1):
         raise ValueError(f"polyphase_fir: hist{tuple(hist.shape)}, want [{B}, {SINC_LEN - 1}]")
     if any(t.dtype != torch.float32 for t in (x, *hists)):
         raise TypeError("polyphase_fir: x and hist must be float32")
-    taps_t, offsets = _kernel_bank(in_rate, out_rate, dev)
-    L = taps_t.shape[1]
-    M = in_rate // math.gcd(in_rate, out_rate)
-    ct = tile_cycles(L, M, (n_out + L - 1) // L)
-    out = torch.empty((B, n_out), dtype=torch.float32, device=dev)
-    if B == 0 or n_out == 0:
-        return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.kernels().skt_resample(
-        x.data_ptr(), hist.data_ptr() if hist is not None else None, taps_t.data_ptr(),
-        offsets.data_ptr(), out.data_ptr(), B, n, L, M, n_out, ct, stream)
-    launch_check("polyphase_fir", rc)
-    polyphase_fir.launches += 1
+    out = launch_k15(x, hist, in_rate, out_rate, n_out, k15_plan(in_rate, out_rate, n_out))
+    if B and n_out:
+        polyphase_fir.launches += 1
     return out
 
 

@@ -43,8 +43,11 @@ beyond the bound. The bounds are on ``max|kernel - plain| / max|plain|``:
 - K17 ``phase_lock``: ``nearest`` identical, and the spectrum within
   ``3 ulp(max(|syn'|, 1)) mag`` of the plain version's, elementwise
   (:func:`phase_lock_check`): two ulps of the rotation's argument for the
-  card's ``sincosf`` against torch's ``cos`` and ``sin``, one for the
-  product with the magnitude.
+  card's rotation against torch's ``cos`` and ``sin``, one for the
+  product with the magnitude; and each component within ``2^-21 mag`` of
+  float64 ``cos`` / ``sin`` of the float32 ``syn'`` (the kernel reduces
+  ``syn'`` by pi/2 in float64 and rounds the remainder to float32: under
+  2^-22, and the product with the magnitude).
 
 A case may return a tuple of tensors (a scan's output and its state);
 every element is held to the bound.
@@ -1420,12 +1423,20 @@ def phase_lock_inputs(seed: int, rows: int, K: int, device, span: float = 1e5):
     return tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in (mag, phase, syn))
 
 
+#: K17's spectrum against float64 cos / sin of the float32 syn', per
+#: component, in units of the bin's magnitude
+PHASE_LOCK_F64_BOUND = 2.0 ** -21
+
+
 def phase_lock_check(mag, phase, syn) -> dict:
-    """K17 against its plain version: ``nearest`` identical and the
-    spectrum within ``3 ulp(max(|syn'|, 1)) mag`` elementwise, or
-    :class:`KernelMismatch`. Returns ``max_abs_err``, ``rel_err`` (of the
-    largest magnitude) and ``max_ulps`` (the largest error in ulps of the
-    argument, times the magnitude)."""
+    """K17 against its plain version: ``nearest`` identical, the spectrum
+    within ``3 ulp(max(|syn'|, 1)) mag`` elementwise, and each component
+    within ``PHASE_LOCK_F64_BOUND mag`` of float64 ``cos`` / ``sin`` of the
+    plain version's float32 ``syn'``, or :class:`KernelMismatch`. Returns
+    ``max_abs_err``, ``rel_err`` (of the largest magnitude), ``max_ulps``
+    (the largest error in ulps of the argument, times the magnitude) and
+    ``max_f64_err`` (the largest component error against float64, over the
+    bin's magnitude)."""
     spec, near = phase_lock.phase_lock(mag, phase, syn, with_nearest=True)
     ref, ref_near = phase_lock.phase_lock_plain(mag, phase, syn, with_nearest=True)
     if spec.is_cuda:
@@ -1442,8 +1453,16 @@ def phase_lock_check(mag, phase, syn) -> dict:
     e = float(err.max()) if err.numel() else 0.0
     if not (bool(torch.isfinite(torch.view_as_real(spec)).all()) and worst <= 3.0):
         raise KernelMismatch(f"phase_lock: spectrum {worst:.2f} ulps of the argument off (bound 3)")
+    s64 = s.double()
+    exact = torch.stack([torch.cos(s64), torch.sin(s64)], -1) * mag.double()[..., None]
+    f64 = ((torch.view_as_real(spec).double() - exact).abs().amax(-1)
+           / torch.clamp_min(mag.double(), 1e-30))
+    f64_err = float(f64.max()) if f64.numel() else 0.0
+    if f64_err > PHASE_LOCK_F64_BOUND:
+        raise KernelMismatch(f"phase_lock: spectrum {f64_err:.3g} of the magnitude from float64 "
+                             f"cos / sin (bound {PHASE_LOCK_F64_BOUND:.3g})")
     return {"max_abs_err": e, "rel_err": e / max(float(mag.abs().max()), 1e-30),
-            "max_ulps": worst}
+            "max_ulps": worst, "max_f64_err": f64_err}
 
 
 def phase_lock_work(rows: int, K: int) -> int:

@@ -652,6 +652,57 @@ def test_polyphase_fir_kernel_on_the_transcode_chunk(dev):
     assert torch.equal(chunked, one) and rs.polyphase_fir.launches - before == 4
 
 
+@pytest.mark.parametrize("in_rate,out_rate,B,n", [
+    (44100, 8000, 1, 28224 + 3 * 441 + 17),  # B = 1, the last tile past the row
+    (16000, 8000, 3, 2 * 8192 + 5),          # L = 1: a super-cycle of 8
+    (48000, 8000, 2, 77777),                 # L = 1, M = 6: Mq 48, pitched
+    (96000, 8000, 2, 12 * 2048 + 11),        # L = 1, M = 12: Mq 96, pitched
+    (8000, 44100, 2, 4003),                  # L = 441: groups in four chunks
+    (8000, 88200, 1, 1001),                  # L = 441, M = 40
+    (3000, 2000, 2, 165375),                 # the pitch shift's row, seven tiles
+    (3000, 2000, 5, 3),                      # fewer outputs than a super-cycle
+])
+def test_polyphase_fir_kernel_at_tile_edges(dev, in_rate, out_rate, B, n):
+    """K15 where its tiles end: n_out not a multiple of a tile or of a
+    super-cycle, L = 1 (super-cycles of 8) and L = 441 (groups split over
+    blocks), B = 1; one-shot and from a carried history, against the plain
+    version and, bit for bit, against its first design."""
+    from soundkit_tpu_torch.ops import resample as rs
+    from soundkit_tpu_torch.tools import first_designs as fd
+
+    x = kc.resample_rows(n % 89, B, n, dev)
+    for hist in (None, kc.resample_rows(5, B, rs.SINC_LEN - 1, dev)):
+        kernel, plain = kc.resample_pair(x, in_rate, out_rate, hist)
+        kc.compare("polyphase_fir", kernel, plain)
+        L, M = rs.design_polyphase(in_rate, out_rate)[2:4]
+        assert torch.equal(kernel(), fd.polyphase_fir(x, hist, in_rate, out_rate,
+                                                      rs.out_len(n, L, M)))
+
+
+@pytest.mark.parametrize("in_rate,out_rate", [(44100, 8000), (3000, 2000), (8000, 44100)])
+def test_polyphase_fir_kernel_bits_do_not_depend_on_the_plan(dev, in_rate, out_rate):
+    """Every launch shape K15 can take (1, 2, 4 and 8 super-cycles a thread,
+    one slab or several, the bank read through L1 or staged in shared
+    memory) gives the same bits: each output sums its taps in one order
+    whatever the tile."""
+    from soundkit_tpu_torch.ops import resample as rs
+
+    x = kc.resample_rows(2, 3, 40000, dev)
+    hist = kc.resample_rows(3, 3, rs.SINC_LEN - 1, dev)
+    L, M = rs.design_polyphase(in_rate, out_rate)[2:4]
+    n_out = rs.out_len(40000, L, M)
+    ref = rs.polyphase_fir(x, hist, in_rate, out_rate, n_out)
+    for rc in rs.CYCLES_PER_THREAD:
+        for slabs in (1, 2):
+            for ws in (0, 1):
+                try:
+                    plan = rs.k15_plan(in_rate, out_rate, n_out, rc=rc, slabs=slabs, ws=ws)
+                except ValueError:  # more warps or shared memory than a block may have
+                    continue
+                got = rs.launch_k15(x, hist, in_rate, out_rate, n_out, plan)
+                assert torch.equal(got, ref), plan
+
+
 def test_plain_resampler_is_ieee_under_the_guard_with_tf32_on(dev):
     """cuDNN's TF32 on, the plain resampler (a conv1d under ``ieee_fp32``)
     still agrees within 1e-5 with the same polyphase bank evaluated in
@@ -694,6 +745,26 @@ def test_phase_lock_kernel_nearest_identical(dev, span):
     with synthesis phases up to ``span`` rad."""
     kc.phase_lock_check(*kc.phase_lock_inputs(int(span) % 97, 37, 1025, dev, span=span))
     kc.phase_lock_check(*kc.phase_lock_inputs(3, 5, 33, dev, span=span))
+
+
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 1025, 1280])
+def test_phase_lock_kernel_against_float64_and_its_first_design(dev, K):
+    """K17 at row widths around a step of 32 bins and at its largest:
+    nearest identical to the plain version's and to its first design's, the
+    spectrum within 2^-21 of the magnitude of float64 cos / sin of the
+    float32 argument (``phase_lock_check``), up to 1.05e6 rad; rows with
+    NaN magnitudes take the plain version's nearest too."""
+    from soundkit_tpu_torch.ops import phase_lock
+    from soundkit_tpu_torch.tools import first_designs as fd
+
+    mag, phase, syn = kc.phase_lock_inputs(K, 19, K, dev, span=1.05e6)
+    r = kc.phase_lock_check(mag, phase, syn)
+    assert r["max_f64_err"] <= kc.PHASE_LOCK_F64_BOUND
+    _, near = phase_lock.phase_lock(mag, phase, syn, with_nearest=True)
+    assert torch.equal(near, fd.phase_lock(mag, phase, syn, with_nearest=True)[1])
+    mag[3, ::7] = float("nan")
+    _, near = phase_lock.phase_lock(mag, phase, syn, with_nearest=True)
+    assert torch.equal(near, phase_lock.nearest_peak_plain(mag))
 
 
 def test_pitch_shift_on_the_card_matches_the_cpu(dev):

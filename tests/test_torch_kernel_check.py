@@ -312,8 +312,10 @@ def test_resample_chunked_equals_one_shot_on_cpu():
 
 def test_phase_lock_check_holds_nearest_and_the_spectrum(monkeypatch):
     mag, phase, syn = kc.phase_lock_inputs(5, 7, 1025, CPU)
-    assert kc.phase_lock_check(mag, phase, syn) == \
+    r = kc.phase_lock_check(mag, phase, syn)
+    assert {k: r[k] for k in ("max_abs_err", "rel_err", "max_ulps")} == \
         {"max_abs_err": 0.0, "rel_err": 0.0, "max_ulps": 0.0}
+    assert 0.0 < r["max_f64_err"] <= kc.PHASE_LOCK_F64_BOUND
     plain = kc.phase_lock.phase_lock_plain
     monkeypatch.setattr(kc.phase_lock, "phase_lock", lambda *a, **k: (
         lambda s, n: (s * (1 + 1e-5), n))(*plain(*a, **k)))

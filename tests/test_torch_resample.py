@@ -154,14 +154,17 @@ def test_downsample_audio_equals_the_jax_package(bits, fmt):
 
 @pytest.mark.parametrize("in_rate,out_rate", kc.RESAMPLE_PAIRS)
 def test_k15_tiles_fit_for_every_rate_pair(in_rate, out_rate):
-    """K15's tile for every supported pair stages at most 48 KB of input
-    (the kernel refuses more), holds whole cycles of CYCLES_PER_THREAD,
-    and the plain version gives ``ceil(n L / M)`` outputs there."""
+    """K15's tile for every supported pair stays within the card's shared
+    memory a block (the kernel refuses more) and the warps its instance
+    allows, covers whole super-cycles of one of the kernel's
+    CYCLES_PER_THREAD, and the plain version gives ``ceil(n L / M)``
+    outputs there."""
     L, M = rs.design_polyphase(in_rate, out_rate)[2:4]
     for n_cycles in (1, 64, 55125):
-        ct = rs.tile_cycles(L, M, n_cycles)
-        assert ct % rs.CYCLES_PER_THREAD == 0
-        assert (ct * M + rs.SINC_LEN - 1) * 4 <= 48 * 1024
+        plan = rs.k15_plan(in_rate, out_rate, n_cycles * L)
+        assert plan.RC in rs.CYCLES_PER_THREAD and plan.ct == plan.S * 32 * plan.RC
+        assert plan.threads == 32 * plan.S * plan.GB <= 32 * rs.max_warps(plan.RC)
+        assert plan.smem <= rs.SMEM_LIMIT
     x = torch.from_numpy(_rows(2, 1, 2 * M + 5))
     assert rs.resample(x, in_rate, out_rate).shape == (1, rs.out_len(2 * M + 5, L, M))
 
