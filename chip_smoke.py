@@ -134,14 +134,18 @@ m. MP3: 1024 ragged lanes pushed in three rounds with a decode of every
    step);
 n. CELT kernel: K11 (``celt_postfilter``: overlap-add, comb postfilter
    and de-emphasis of a 20 ms frame, one launch a round) against its
-   plain version on the card on the CELT path's next round (1024 ragged
-   fixture lanes, C = 2, after three decoded rounds, with the decoder's
-   carried state; the timed case), and on seeded random frames of 1024
-   streams at C = 2 and C = 1 (periods 15..1022 and the edge periods,
-   all three tapsets, zero and non-zero gains, invalid streams); bound
-   1e-5 of the largest plain value on the PCM and each state, invalid
-   streams bit-equal; beside the bound, on the log line only, the chain
-   floor estimated from the code;
+   plain version and its first design (``tools/first_designs``) on the
+   card on the CELT path's next round (1024 ragged fixture lanes, C = 2,
+   after three decoded rounds, with the decoder's carried state; timed
+   by graph replay in turns with the first design), on seeded random
+   frames of 1024 streams at C = 2 and C = 1 (periods 15..1022 and the
+   edge periods, all three tapsets, zero and non-zero gains, invalid
+   streams; timed the same way) and on the frames its step widths turn
+   on (zero sets at period 15 beside long active ones, the postfilter
+   turning on and off); bound 1e-5 of the largest plain value on the PCM
+   and each state, and of the first design's, invalid streams
+   bit-equal; beside the bound, on the log line only, the chain floor
+   estimated from the code and both builds' registers and spills;
 o. CELT compare: two decodes of a 1024-lane ``BatchedCeltDecoder`` on
    the card against the port's plain path on the CPU, on the f32 and on
    the i16 wire: PCM >= 100 dB per lane, lengths identical, the carried
@@ -155,13 +159,17 @@ p. CELT: 1024 ragged stereo lanes (lane i: clip i mod 4 from packet
    device time a round by ``torch.profiler``);
 q. SILK kernel: K12 (``silk_synth``: the LTP/LPC synthesis of a 20 ms
    frame of every (lane, channel) row, one launch a bandwidth group a
-   round) against its plain version on the card, bit-exact: on the
-   [silk] path's WB round after three decoded rounds (1024 lanes of the
-   [silk] mix x 2 rows, with the decoder's carried state; the timed
-   case), and on seeded random rounds of 1024 streams at NB, MB and WB,
-   C = 2 and 1 (lags at both ends of the range, voiced and unvoiced rows,
-   lead-in, invalid and all-zero lanes); beside the bound, the chain
-   floor and the issue floor of the LPC recursion, estimated;
+   round) against its plain version and its first design on the card,
+   bit-exact: on the [silk] path's WB round after three decoded rounds
+   (1024 lanes of the [silk] mix x 2 rows, with the decoder's carried
+   state; timed by graph replay in turns with the first design), on
+   seeded random rounds of 1024 streams at NB, MB and WB, C = 2 and 1
+   (lags at both ends of the range, voiced and unvoiced rows, lead-in,
+   invalid and all-zero lanes; C = 2 timed the same way), and on the
+   rounds its schedule turns on (rows with and without lead-in side by
+   side, lags 3, 16 and 288, gains apart in every subframe); beside the
+   bound, the chain floor and the issue floor of the LPC recursion,
+   estimated, and both builds' registers and spills;
 r. SILK and hybrid compare: two decodes of a 1024-lane
    ``BatchedSilkDeviceDecoder`` (the [silk] mix) and of a
    ``BatchedHybridDecoder`` (the [hybrid] mix) on the card against the
@@ -326,7 +334,7 @@ CELT_ROUNDS = 3        # pushes of the [celt] phase, a decode after each
 CELT_WARM = 3          # rounds the [celt-kernels] path case decodes before its round
 CELT_COMPARE_PACKETS = 8
 K11_STEP_CYCLES = 60   # dependent cycles a comb step (five shared loads, the tap sums, a store)
-K11_EM_CYCLES = 8      # dependent cycles a block of the de-emphasis memory (a multiply, an add)
+K11_SCAN_CYCLES = 33   # dependent cycles a level of the de-emphasis scan (a shuffle, a multiply, an add)
 FLEET_OPUS_PACKETS = 60  # packets an Ogg Opus fleet stream carries (1.2 s)
 SILK_ROUNDS = 3        # pushes of the [silk] phase, a decode after each
 SILK_WARM = 3          # rounds the [silk-kernels] path case decodes before its round
@@ -474,7 +482,7 @@ def phase_build():
     if "error" in first:
         raise first["error"]
     first_designs.library()
-    log(f"[build] first designs of K15 and K17 {first['path'].relative_to(ROOT)} in "
+    log(f"[build] first designs of K11, K12, K15 and K17 {first['path'].relative_to(ROOT)} in "
         f"{first['s']:.3f} s, beside the kernels")
     log(f"[build] kernels {kpath.relative_to(ROOT)} in {t1 - t0:.3f} s; "
         f"parser {ppath.relative_to(ROOT)} in {t2 - t1:.3f} s; "
@@ -1385,58 +1393,115 @@ def celt_wrappers():
 
 def k11_chain_floor_ms(comb, valid) -> float:
     """K11's chain floor, estimated from the code: the comb steps of the
-    slowest valid stream (``min(32, Tmin - 2)`` samples a step) at
-    K11_STEP_CYCLES, then the 120 blocks of the de-emphasis memory at
-    K11_EM_CYCLES, at SM_CLOCK."""
-    import torch
+    slowest valid stream (``kernel_check.celt_comb_steps``: each region at
+    ``min(128, Tmin - 2)`` samples over its taps with gains) at
+    K11_STEP_CYCLES, then the de-emphasis memory's four rounds of six scan
+    levels at K11_SCAN_CYCLES, at SM_CLOCK."""
+    from soundkit_tpu_torch.tools import kernel_check as kc
 
-    periods = comb[:, [0, 1, 8, 9]].cpu().to(torch.int32).clamp(15, 1024)
-    step = (periods.min(dim=1).values - 2).clamp(max=32)[valid.cpu()]
-    steps = int((-(-960 // step)).max()) if step.numel() else 0
-    return 1e3 * (steps * K11_STEP_CYCLES + 120 * K11_EM_CYCLES) / SM_CLOCK
+    steps = kc.celt_comb_steps(comb.cpu().numpy())[valid.cpu().numpy()]
+    return 1e3 * (int(steps.max(initial=0)) * K11_STEP_CYCLES + 4 * 6 * K11_SCAN_CYCLES) / SM_CLOCK
+
+
+def in_turns(first, kernel, reps: int = 20) -> dict:
+    """``kernel`` and its first design timed by graph replay in turns:
+    first, kernel, kernel, first."""
+    turns = [graph_ms(f, reps=reps) for f in (first, kernel, kernel, first)]
+    return dict(ms=(turns[1] + turns[2]) / 2, first_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
+
+
+def opus_build_info(name: str) -> dict:
+    """Registers and spilled bytes of each instance of kernel ``name`` in
+    the kernels' build and in the first designs' build (``ptxas -v``)."""
+    from soundkit_tpu_torch import _build
+    from soundkit_tpu_torch.tools import first_designs as fd
+
+    def pick(so):
+        return [dict(registers=b["registers"], spill_bytes=b["spill_stores"] + b["spill_loads"])
+                for b in _build.build_info(so, name)]
+
+    return dict(build=pick(_build.kernel_library_path()), first_build=pick(fd.library_path()))
+
+
+def regs_text(info: dict) -> str:
+    return "; ".join(f"{k}: " + ", ".join(f"{b['registers']} registers, {b['spill_bytes']} B "
+                                          "spilled" for b in v) for k, v in info.items())
 
 
 def phase_celt_kernels():
-    """K11 against its plain version on the card: on the [celt] path's
-    round after CELT_WARM decoded rounds (B = 1024 ragged fixture lanes,
-    C = 2, the decoder's carried state; the timed case), and on seeded
-    random frames of B streams at C = 2 and C = 1 (periods 15..1022 and
-    the edge periods, all three tapsets, zero and non-zero gains, a mix
-    of valid and invalid streams). Bound 1e-5 of the largest plain value
-    on the PCM and each state; invalid streams bit-equal."""
+    """K11 against its plain version and its first design on the card: on
+    the [celt] path's round after CELT_WARM decoded rounds (B = 1024
+    ragged fixture lanes, C = 2, the decoder's carried state; the timed
+    case), on seeded random frames of B streams at C = 2 and C = 1
+    (periods 15..1022 and the edge periods, all three tapsets, zero and
+    non-zero gains, a mix of valid and invalid streams; timed too) and on
+    the seeded frames its step widths turn on (zero sets at period 15 beside
+    long active ones, the postfilter turning on and off, periods 15 and 1024
+    side by side; ``kc.celt_postfilter_schedule_inputs``). Bound 1e-5 of the
+    largest plain value on the PCM and each state, and of the first
+    design's; invalid streams bit-equal. Timed by graph replay in turns
+    with the first design (``tools/first_designs``)."""
     import torch
 
+    from soundkit_tpu_torch.tools import first_designs as fd
     from soundkit_tpu_torch.tools import kernel_check as kc
 
     dev = torch.device("cuda", 0)
+    bound_rel = kc.REL_BOUND["celt_postfilter"]
+
+    def held(inputs) -> dict:
+        kernel, plain = kc.celt_postfilter_pair(inputs)
+        r = kc.compare("celt_postfilter", kernel, plain)
+        got, first = kernel(), fd.celt_postfilter(*inputs)
+        kc.celt_invalid_passthrough(got, inputs)
+        rel = max(float((g.double() - f.double()).abs().max() / f.double().abs().max().clamp_min(1e-30))
+                  for g, f in zip(got, first))
+        check(rel <= bound_rel, f"celt_postfilter: {rel:.3e} from its first design")
+        r["first_rel_err"] = rel
+        return r
+
     inputs = kc.celt_fixture_inputs(B, dev, warm=CELT_WARM)
     nbytes, flops = kc.celt_postfilter_work(inputs)
     kernel, plain = kc.celt_postfilter_pair(inputs)
-    r = measure("celt_postfilter", "celt_postfilter", kernel, plain, nbytes=nbytes, flops=flops,
-                plain_reps=3)
+    r = held(inputs)
+    r.update(in_turns(lambda: fd.celt_postfilter(*inputs), kernel))
+    r["plain_ms"] = cuda_ms(plain, 3)
+    r.update(bound(nbytes, flops))
+    r["library_ms"] = None
     got, ref = kernel(), plain()
-    kc.celt_invalid_passthrough(got, inputs)
     hist_exact = bool(torch.equal(got[2], ref[2]))
     full, comb, valid = inputs[:3]
     chain_ms = k11_chain_floor_ms(comb, valid)
-    rand = {}
+    rand, sched = {}, {}
     for c in (2, 1):
         rin = tuple(t.to(dev) for t in kc.celt_postfilter_random_inputs(20 + c, streams=B, channels=c))
-        k, p = kc.celt_postfilter_pair(rin)
-        rand[c] = kc.compare("celt_postfilter", k, p)
-        kc.celt_invalid_passthrough(k(), rin)
+        rand[c] = held(rin)
+        rand[c].update(in_turns(lambda: fd.celt_postfilter(*rin), kc.celt_postfilter_pair(rin)[0]))
+        sin = tuple(t.to(dev) for t in kc.celt_postfilter_schedule_inputs(60 + c, streams=B,
+                                                                          channels=c))
+        sched[c] = held(sin)
     postfilter = int(((comb[:, 2:8] != 0).any(1) | (comb[:, 10:16] != 0).any(1))[valid].sum())
+    regs = opus_build_info("celt_postfilter")
+    errs = [r, *rand.values(), *sched.values()]
     r.update(streams=B, valid_streams=int(valid.sum()), postfilter_streams=postfilter,
              path_rel_err=r["rel_err"], random_rel_err=max(x["rel_err"] for x in rand.values()),
-             max_abs_err=max(r["max_abs_err"], *(x["max_abs_err"] for x in rand.values())),
-             rel_err=max(r["rel_err"], *(x["rel_err"] for x in rand.values())))
-    log(f"[celt-kernels] celt_postfilter: path {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms), "
-        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {nbytes} bytes, {flops} FLOP), chain "
-        f"floor ~{chain_ms:.4f} ms (estimated); {r['valid_streams']} of {B} streams valid, "
-        f"{postfilter} with the postfilter on; max rel err: path {r['path_rel_err']:.2e} (comb "
-        f"and history bit-exact: {hist_exact}), random {B} streams C = 2 {rand[2]['rel_err']:.2e}, "
-        f"C = 1 {rand[1]['rel_err']:.2e} (bound {kc.REL_BOUND['celt_postfilter']}); invalid "
-        f"streams passed through bit-equal")
+             schedule_rel_err=max(x["rel_err"] for x in sched.values()),
+             random_c2_ms=rand[2]["ms"], random_c2_first_ms=rand[2]["first_ms"],
+             random_c1_ms=rand[1]["ms"], random_c1_first_ms=rand[1]["first_ms"],
+             first_rel_err=max(x["first_rel_err"] for x in errs), chain_floor_ms=chain_ms,
+             share_of_bound=r["bound_ms"] / r["ms"], **regs,
+             max_abs_err=max(x["max_abs_err"] for x in errs),
+             rel_err=max(x["rel_err"] for x in errs))
+    log(f"[celt-kernels] celt_postfilter: path {r['ms']:.4f} ms, first design {r['first_ms']:.4f} "
+        f"(turns {' / '.join(f'{t:.4f}' for t in r['turns_ms'])}; plain {r['plain_ms']:.3f} ms), "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {nbytes} bytes, {flops} FLOP; "
+        f"{100 * r['share_of_bound']:.1f} %), chain floor ~{chain_ms:.4f} ms (estimated); random "
+        f"{B} streams C = 2 {rand[2]['ms']:.4f} (first design {rand[2]['first_ms']:.4f}), C = 1 "
+        f"{rand[1]['ms']:.4f} ({rand[1]['first_ms']:.4f}); {r['valid_streams']} of {B} streams "
+        f"valid, {postfilter} with the postfilter on; max rel err: path {r['path_rel_err']:.2e} "
+        f"(comb and history equal: {hist_exact}), random {r['random_rel_err']:.2e}, schedule "
+        f"draws {r['schedule_rel_err']:.2e}, from the first design {r['first_rel_err']:.2e} "
+        f"(bound {bound_rel}); invalid streams passed through bit-equal; {regs_text(regs)}")
     return {"celt_postfilter": r}
 
 
@@ -1637,41 +1702,70 @@ def k12_floors_ms(bw: int) -> tuple:
 
 
 def phase_silk_kernels():
-    """K12 against its plain version on the card, bit-exact: on the
-    [silk] path's WB round after SILK_WARM decoded rounds (B = 1024
-    lanes of the [silk] mix x 2 rows: the WB launch runs over every lane;
-    the timed case), and on seeded random rounds of B streams at each
-    bandwidth, C = 2 and 1 (lags at both ends, voiced and unvoiced rows,
-    lead-in, invalid and all-zero lanes)."""
+    """K12 against its plain version and its first design on the card, bit
+    for bit: on the [silk] path's WB round after SILK_WARM decoded rounds
+    (B = 1024 lanes of the [silk] mix x 2 rows: the WB launch runs over
+    every lane; the timed case), on seeded random rounds of B streams at
+    each bandwidth, C = 2 and 1 (lags at both ends, voiced and unvoiced
+    rows, lead-in, invalid and all-zero lanes; C = 2 timed), and on the
+    seeded rounds its schedule turns on (``kc.silk_synth_schedule_inputs``:
+    warps of rows with and without lead-in side by side, lags 3, 16 and
+    288, gains apart in every subframe). Timed by graph replay in turns
+    with the first design (``tools/first_designs``)."""
     import torch
 
+    from soundkit_tpu_torch.tools import first_designs as fd
     from soundkit_tpu_torch.tools import kernel_check as kc
 
     dev = torch.device("cuda", 0)
+
+    def held(bw: int, inputs) -> dict:
+        kernel, plain = kc.silk_synth_pair(bw, inputs)
+        r = kc.compare("silk_synth", kernel, plain)
+        got, first = kernel(), fd.silk_synth(bw, *inputs)
+        check(all(torch.equal(g, f) for g, f in zip(got, first)),
+              f"silk_synth: differs from its first design at bandwidth {bw}")
+        return r
+
     inputs = kc.silk_fixture_inputs(B, dev, warm=SILK_WARM, bw=2, names=SILK_MIX)
     nbytes, flops = kc.silk_synth_work(2, inputs)
     kernel, plain = kc.silk_synth_pair(2, inputs)
-    r = measure("silk_synth", "silk_synth", kernel, plain, nbytes=nbytes, flops=flops, plain_reps=2)
+    r = held(2, inputs)
+    r.update(in_turns(lambda: fd.silk_synth(2, *inputs), kernel))
+    r["plain_ms"] = cuda_ms(plain, 2)
+    r.update(bound(nbytes, flops))
+    r["library_ms"] = None
     chain_ms, issue_ms = k12_floors_ms(2)
     rand = {}
     for bw in (0, 1, 2):
         for c in (2, 1):
-            k, p = kc.silk_synth_random_case(dev, 30 + bw, bw, streams=B, channels=c)
-            rand[f"bw{bw}_c{c}"] = kc.compare("silk_synth", k, p)
-        k, _ = kc.silk_synth_random_case(dev, 30 + bw, bw, streams=B, channels=2)
-        rand[f"bw{bw}_ms"] = graph_ms(k)
+            rin = tuple(t.to(dev) for t in kc.silk_synth_random_inputs(30 + bw, bw, streams=B,
+                                                                      channels=c))
+            rand[f"bw{bw}_c{c}"] = held(bw, rin)
+            if c == 2:
+                rand[f"bw{bw}_c{c}"].update(in_turns(lambda: fd.silk_synth(bw, *rin),
+                                                     kc.silk_synth_pair(bw, rin)[0]))
+        sin = tuple(t.to(dev) for t in kc.silk_synth_schedule_inputs(50 + bw, bw, streams=B))
+        rand[f"schedule_bw{bw}"] = held(bw, sin)
     voiced = int((inputs[4] != 0).sum())
-    r.update(streams=B, rows=2 * B, voiced_rows=voiced, chain_floor_ms=chain_ms,
-             issue_floor_ms=issue_ms, random_nb_ms=rand["bw0_ms"], random_mb_ms=rand["bw1_ms"],
-             random_wb_ms=rand["bw2_ms"],
-             max_abs_err=max(r["max_abs_err"], *(x["max_abs_err"] for k_, x in rand.items()
-                                                 if not k_.endswith("_ms"))))
-    log(f"[silk-kernels] silk_synth: path (WB, {B} streams x 2 rows, {voiced} voiced) "
-        f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms), bound {r['bound_ms']:.4f} ms "
-        f"({r['bound_by']}; {nbytes} bytes, {flops} FLOP), chain floor ~{chain_ms:.4f} ms, issue "
-        f"floor ~{issue_ms:.4f} ms (estimated); random rounds NB {rand['bw0_ms']:.4f}, MB "
-        f"{rand['bw1_ms']:.4f}, WB {rand['bw2_ms']:.4f} ms; bit-exact on the path and on random "
-        f"rounds at every bandwidth, C = 2 and 1")
+    lead = int((inputs[3] != 0).sum())
+    regs = opus_build_info("silk_synth")
+    r.update(streams=B, rows=2 * B, voiced_rows=voiced, lead_in_rows=lead, chain_floor_ms=chain_ms,
+             issue_floor_ms=issue_ms, share_of_bound=r["bound_ms"] / r["ms"], **regs,
+             **{f"random_{n}{k}": rand[f"bw{bw}_c2"][k[1:]] for bw, n in enumerate(("nb", "mb", "wb"))
+                for k in ("_ms", "_first_ms")},
+             max_abs_err=max(r["max_abs_err"], *(x["max_abs_err"] for x in rand.values())))
+    log(f"[silk-kernels] silk_synth: path (WB, {B} streams x 2 rows, {voiced} voiced, {lead} with "
+        f"lead-in) {r['ms']:.4f} ms, first design {r['first_ms']:.4f} (turns "
+        f"{' / '.join(f'{t:.4f}' for t in r['turns_ms'])}; plain {r['plain_ms']:.3f} ms), bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {nbytes} bytes, {flops} FLOP; "
+        f"{100 * r['share_of_bound']:.1f} %), chain floor ~{chain_ms:.4f} ms, issue floor "
+        f"~{issue_ms:.4f} ms (estimated); random rounds C = 2, kernel (first design): NB "
+        f"{r['random_nb_ms']:.4f} ({r['random_nb_first_ms']:.4f}), MB {r['random_mb_ms']:.4f} "
+        f"({r['random_mb_first_ms']:.4f}), WB {r['random_wb_ms']:.4f} "
+        f"({r['random_wb_first_ms']:.4f}) ms; bit-exact against the plain version and the first "
+        f"design on the path, on random rounds at every bandwidth, C = 2 and 1, and on the "
+        f"schedule draws; {regs_text(regs)}")
     return {"silk_synth": r}
 
 

@@ -48,6 +48,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -127,6 +128,32 @@ def _build(stem: str, compiler: str, flags: Sequence[str], sources: Sequence[Pat
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     return out
+
+
+def ptxas_info(log: str, name: str) -> list:
+    """Registers, spilled bytes (stores, loads) and static shared bytes of
+    each kernel whose mangled name holds ``name``, as ``ptxas -v`` reported
+    them in a build's ``log``."""
+    out, fn, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn and name in fn:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(dict(function=fn, registers=int(m.group(1)), spill_stores=spill[0],
+                            spill_loads=spill[1], smem=int(smem.group(1)) if smem else 0))
+    return out
+
+
+def build_info(library: Path, name: str) -> list:
+    """:func:`ptxas_info` of the build log kept beside ``library``."""
+    log = library.with_suffix(".log")
+    return ptxas_info(log.read_text(), name) if log.exists() else []
 
 
 @functools.lru_cache(maxsize=1)

@@ -59,9 +59,14 @@ def kernel_tables(device: torch.device) -> torch.Tensor:
     """K11's float32 table on ``device``, in the order of the ``T_*``
     offsets of ``csrc/celt_postfilter.cu``: ``w^2`` [120], then ``c^0 ..
     c^8`` [9] as the reference builds its powers (``np.power`` of
-    ``np.float32(c)``, then float32)."""
+    ``np.float32(c)``, then float32), then ``m^0 .. m^32`` [33] for the
+    de-emphasis memory's warp scan, ``m`` = that float32 ``c^8`` and each
+    power the float32 product of the one before and ``m``."""
     powers = np.power(np.float32(CELT_EMPH_COEFF), np.arange(BLK + 1)).astype(np.float32)
-    flat = np.concatenate([_win2(), powers])
+    mpow = [np.float32(1.0)]
+    for _ in range(32):
+        mpow.append(np.float32(mpow[-1] * powers[BLK]))
+    flat = np.concatenate([_win2(), powers, np.array(mpow, np.float32)])
     return torch.from_numpy(flat).to(device)
 
 

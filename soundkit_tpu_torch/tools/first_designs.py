@@ -1,14 +1,20 @@
-"""The first designs of K15 and K17, built beside the kernels for timing.
+"""The first designs of K11, K12, K15 and K17, built beside the kernels for
+timing.
 
-``first_designs_csrc/resample.cu`` and ``first_designs_csrc/phase_lock.cu``
-are the sources of the polyphase FIR and the phase locking as they were
-before their redesign for Hopper (one phase a thread at four cycles with a
-shared load a product; a warp a row with warp scans and the full-range
-``sincosf``). They build into a library of their own (``_build/first_designs-*.so``,
-one ``nvcc`` a source, as the kernels build) and are called here on the
-tensors a caller gives, so that ``chip_smoke.py`` and
-``tools/dsp_kernel_bench.py`` can time a redesigned kernel against its
-first design on one card in one process. Nothing on a path calls them, and
+``first_designs_csrc/`` holds the sources of the CELT comb postfilter, the
+SILK LTP/LPC synthesis, the polyphase FIR and the phase locking as they were
+before their redesign for Hopper (one block a CELT stream, every line loaded
+before any is filtered, comb steps of ``min(32, Tmin - 2)`` over all four
+periods and the de-emphasis memory on one lane; eight SILK rows a block,
+three block barriers a subframe and the LPC on eight lanes of one warp; one
+phase a thread at four cycles with a shared load a product; a warp a row
+with warp scans and the full-range ``sincosf``), their entry points renamed
+``skt_celt_postfilter_first`` and ``skt_silk_synth_first`` where the
+kernel library has the same name. They build into a library of their own
+(``_build/first_designs-*.so``, one ``nvcc`` a source, as the kernels
+build) and are called here on the tensors a caller gives, so that
+``chip_smoke.py`` and ``tools/dsp_kernel_bench.py`` can time a redesigned
+kernel against its first design on one card in one process. Nothing on a path calls them, and
 they count no launches.
 """
 from __future__ import annotations
@@ -21,11 +27,14 @@ from pathlib import Path
 import torch
 
 from soundkit_tpu_torch import _build
+from soundkit_tpu_torch.ops import celt_postfilter as cp
 from soundkit_tpu_torch.ops import resample as rs
+from soundkit_tpu_torch.ops import silk_synth as ss
 from soundkit_tpu_torch.utils.device import check_cuda, launch_check
 
 SRC_DIR = Path(__file__).resolve().parent / "first_designs_csrc"
-SOURCES = (SRC_DIR / "resample.cu", SRC_DIR / "phase_lock.cu")
+SOURCES = tuple(SRC_DIR / f for f in ("celt_postfilter.cu", "silk_synth.cu", "resample.cu",
+                                      "phase_lock.cu"))
 #: the first K15's launch shape: cycles a thread sums, outputs a block aims
 #: at, and the floats of input a block may stage (48 KB)
 CYCLES_PER_THREAD = 4
@@ -44,7 +53,11 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.skt_resample.argtypes = [*[p] * 5, *[i] * 6, p]
     lib.skt_phase_lock.argtypes = [*[p] * 5, i, i, p]
-    lib.skt_resample.restype = lib.skt_phase_lock.restype = ctypes.c_int
+    lib.skt_celt_postfilter_first.argtypes = [*[p] * 11, i, i, p]
+    lib.skt_silk_synth_first.argtypes = [*[p] * 12, i, i, p]
+    for fn in (lib.skt_resample, lib.skt_phase_lock, lib.skt_celt_postfilter_first,
+               lib.skt_silk_synth_first):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -98,3 +111,34 @@ def phase_lock(mag, phase, syn, with_nearest: bool = False):
         torch.cuda.current_stream(dev).cuda_stream)
     launch_check("phase_lock (first design)", rc)
     return (spec, nearest) if with_nearest else spec
+
+
+def celt_postfilter(full, comb, valid, ola, hist, emph):
+    """The first K11 on CUDA tensors: ``cp.celt_postfilter``'s contract
+    (without ``pcm_out``) -> (pcm, new_ola, new_hist, new_emph)."""
+    dev = check_cuda("celt_postfilter (first design)", full, comb, valid, ola, hist, emph)
+    B, C = full.shape[0], full.shape[1]
+    pcm = torch.empty((B, C, cp.N), dtype=torch.float32, device=dev)
+    new_ola, new_hist, new_emph = (torch.empty_like(t) for t in (ola, hist, emph))
+    rc = library().skt_celt_postfilter_first(
+        full.data_ptr(), comb.data_ptr(), valid.data_ptr(), ola.data_ptr(), hist.data_ptr(),
+        emph.data_ptr(), cp.kernel_tables(dev).data_ptr(), pcm.data_ptr(), new_ola.data_ptr(),
+        new_hist.data_ptr(), new_emph.data_ptr(), B, C, torch.cuda.current_stream(dev).cuda_stream)
+    launch_check("celt_postfilter (first design)", rc)
+    return pcm, new_ola, new_hist, new_emph
+
+
+def silk_synth(bw: int, exc, gains, coef, has_leadin, voiced, lags, ltp, ltpscale, out_hist,
+               lpch_tail):
+    """The first K12 on CUDA tensors: ``ss.silk_synth``'s contract ->
+    (dst, new lpch_tail)."""
+    ins = (exc, gains, coef, has_leadin, voiced, lags, ltp, ltpscale, out_hist, lpch_tail)
+    dev = check_cuda("silk_synth (first design)", *ins)
+    B = exc.shape[0]
+    dst = torch.empty((B, 2, ss.HIST + ss.SUBFRAMES * ss.SFL[bw]), dtype=torch.float32, device=dev)
+    new_tail = torch.empty_like(lpch_tail)
+    rc = library().skt_silk_synth_first(*(t.data_ptr() for t in ins), dst.data_ptr(),
+                                        new_tail.data_ptr(), B * 2, bw,
+                                        torch.cuda.current_stream(dev).cuda_stream)
+    launch_check("silk_synth (first design)", rc)
+    return dst, new_tail

@@ -144,25 +144,6 @@ def graph_ms(fn, reps: int = 10, replays: int = 3) -> float:
     return start.elapsed_time(stop) / (reps * replays)
 
 
-def ptxas_info(log: str) -> list:
-    """(function, registers, spill stores, spill loads, shared bytes) of
-    each ``flac_analyze`` kernel ``ptxas -v`` reported."""
-    out, fn, spill = [], None, (0, 0)
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            fn = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            spill = (int(m.group(1)), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and fn and "flac_analyze" in fn:
-            smem = re.search(r"(\d+) bytes smem", line)
-            out.append(dict(function=fn, registers=int(m.group(1)), spill_stores=spill[0],
-                            spill_loads=spill[1], smem=int(smem.group(1)) if smem else 0))
-    return out
-
-
 def sass_opcodes(so: Path, dump: Path) -> dict:
     """Opcode counts of the SASS of every function in ``so`` (written to
     ``dump``, gzipped), or {} where ``cuobjdump`` is missing."""
@@ -214,7 +195,7 @@ def main(argv=None) -> int:
     for b, (cmd, rc, log) in zip(builds, _build._run_all(cmds)):
         if rc != 0:
             raise _build.BuildError(f"{' '.join(cmd)}:\n{log}")
-        b["ptxas"] = ptxas_info(log)
+        b["ptxas"] = _build.ptxas_info(log, "flac_analyze")
         lib = ctypes.CDLL(str(b["so"]))
         lib.skt_flac_analyze.argtypes = [ctypes.c_void_p, *[ctypes.c_int] * 6,
                                          ctypes.c_void_p, ctypes.c_void_p]

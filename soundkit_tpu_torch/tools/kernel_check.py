@@ -808,6 +808,54 @@ def celt_postfilter_random_inputs(seed: int, streams: int = 37, channels: int = 
             f32(B, C, 120, scale=3000.0), f32(B, C, 1200, scale=3000.0), f32(B, C, scale=3000.0))
 
 
+def celt_postfilter_schedule_inputs(seed: int, streams: int = 37, channels: int = 2):
+    """Seeded K11 inputs that the comb's step widths turn on, as
+    :func:`celt_postfilter_random_inputs` draws its signal and state. Per
+    stream, by ``stream % 6``: the postfilter off (every gain zero, the
+    periods at 15); turning on (the stage A sets and stage B's first zero
+    at period 15 beside a second at a long period); turning off (stage B's
+    second set zero at period 15 beside long active ones); every set active
+    at periods 15..1022; the edge periods 15 and 1024 active beside each
+    other; zero gains on random sets at random periods. Every tenth stream
+    invalid."""
+    from soundkit_tpu_torch.codecs.opus_tables import tables
+
+    rng = np.random.default_rng(seed)
+    B, C = streams, channels
+    taps = tables()["celt_postfilter_taps"].astype(np.float64)
+
+    def gains(n):
+        return rng.uniform(0.1, 0.75, n)[:, None] * taps[rng.integers(0, 3, n)]
+
+    comb = np.zeros((B, 16), np.float32)
+    kind = np.arange(B) % 6
+    comb[:, [0, 1, 8, 9]] = rng.integers(15, 1023, (B, 4))
+    for col in (2, 5, 10, 13):
+        comb[:, col: col + 3] = gains(B)
+    off = kind == 0
+    comb[off] = 0.0
+    comb[np.ix_(off, [0, 1, 8, 9])] = 15
+    on = kind == 1  # was off: p_old = p_cur = 15 with zero gains, the new period long
+    comb[np.ix_(on, [0, 1, 8])] = 15
+    comb[np.ix_(on, [2, 3, 4, 5, 6, 7, 10, 11, 12])] = 0.0
+    comb[on, 9] = rng.integers(200, 1023, int(on.sum()))
+    stop = kind == 2  # turns off: the new gains zero at period 15
+    comb[stop, 9] = 15
+    comb[np.ix_(stop, [13, 14, 15])] = 0.0
+    edge = kind == 4
+    comb[np.ix_(edge, [0, 1, 8, 9])] = rng.choice((15, 1024), (int(edge.sum()), 4))
+    rand = kind == 5
+    for col in (2, 5, 10, 13):
+        comb[np.ix_(rand, range(col, col + 3))] *= (rng.random(int(rand.sum())) < 0.5)[:, None]
+    valid = np.arange(B) % 10 != 9
+
+    def f32(*shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+    return (f32(B, C, 1080, scale=3000.0), torch.from_numpy(comb), torch.from_numpy(valid),
+            f32(B, C, 120, scale=3000.0), f32(B, C, 1200, scale=3000.0), f32(B, C, scale=3000.0))
+
+
 def celt_postfilter_random_case(device, seed: int, **shape):
     """K11 on :func:`celt_postfilter_random_inputs`."""
     inputs = tuple(t.to(device) for t in celt_postfilter_random_inputs(seed, **shape))
@@ -842,6 +890,33 @@ def celt_fixture_inputs(num_lanes: int, device, warm: int = 3, channels: int = 2
     full = cb.celt_imdct(cb.pad_wire(f), torch.from_numpy(sflag[0]).to(device))
     return (full, torch.from_numpy(comb[0]).to(device), torch.from_numpy(valid[0]).to(device),
             model._ola, model._hist, model._emph)
+
+
+def celt_comb_widths(comb) -> np.ndarray:
+    """K11's comb step widths [B, 3] for the parameters ``comb`` [B, 16]:
+    stage A (samples 0-119), stage B to sample 240, stage B's second tap
+    alone after; each ``min(128, Tmin - 2)`` over the taps whose gains are
+    not all zero, 0 where none is (that region runs no comb)."""
+    c = np.asarray(comb, np.float32)
+    T = np.clip(c[:, [0, 1, 8, 9]].astype(np.int32), celt_postfilter.T_MIN, celt_postfilter.T_MAX)
+    on = np.stack([(c[:, s: s + 3] != 0).any(1) for s in (2, 5, 10, 13)], 1)
+    big = np.iinfo(np.int32).max
+
+    def width(t0, on0, t1, on1):
+        tmin = np.minimum(np.where(on0, t0, big), np.where(on1, t1, big))
+        return np.where(on0 | on1, np.minimum(128, tmin - 2), 0)
+
+    return np.stack([width(T[:, 0], on[:, 0], T[:, 1], on[:, 1]),
+                     width(T[:, 2], on[:, 2], T[:, 3], on[:, 3]),
+                     width(T[:, 3], on[:, 3], T[:, 3], on[:, 3])], 1)
+
+
+def celt_comb_steps(comb) -> np.ndarray:
+    """K11's comb steps [B] on ``comb``: ceil(samples / width) over its
+    three regions (120, 120 and 720 samples)."""
+    w = celt_comb_widths(comb)
+    n = np.array([120, 120, 720])
+    return np.where(w > 0, -(-n // np.maximum(w, 1)), 0).sum(1)
 
 
 def celt_postfilter_work(inputs) -> tuple:
@@ -946,6 +1021,32 @@ def silk_synth_random_inputs(seed: int, bw: int, streams: int = 37, channels: in
     dts = (np.float32, np.float32, np.float32, np.int32, np.int32, np.int32, np.float32,
            np.float32, np.float32, np.float32)
     return tuple(torch.from_numpy(np.ascontiguousarray(a, dt)) for a, dt in zip(planes, dts))
+
+
+def silk_synth_schedule_inputs(seed: int, bw: int, streams: int = 37):
+    """Seeded K12 inputs that its schedule turns on, drawn as
+    :func:`silk_synth_random_inputs` draws them, with four rows (two
+    lanes) in turn: no row with lead-in, every row, every second row, rows
+    at random; rows voiced four times in five; each subframe's lag 3, 16,
+    288 or drawn over the bandwidth's range (3 lies below the streams'
+    range: the LTP then steps a sample at a time); and gains drawn apart
+    for every subframe, 0.5 to 60, so that each rescale by g_{i-1} / g_i
+    moves the residual."""
+    ins = [t.numpy().copy() for t in silk_synth_random_inputs(seed, bw, streams=streams)]
+    rng = np.random.default_rng(seed + 1000)
+    B = streams
+    rows = np.arange(2 * B).reshape(B, 2)
+    pattern = (rows // 4) % 4
+    hl = np.where(pattern == 0, 0, np.where(pattern == 1, 1, np.where(
+        pattern == 2, rows % 2, rng.integers(0, 2, (B, 2)))))
+    lo, hi = (16, 24, 32)[bw], (144, 216, 288)[bw]
+    lags = np.where(rng.random((B, 2, 4)) < 0.5,
+                    rng.choice((3, 16, 288), (B, 2, 4)), rng.integers(lo, hi + 1, (B, 2, 4)))
+    ins[1] = rng.uniform(0.5, 60, (B, 2, 4)).astype(np.float32)
+    ins[3] = hl.astype(np.int32)
+    ins[4] = (rng.random((B, 2)) < 0.8).astype(np.int32)
+    ins[5] = lags.astype(np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in ins)
 
 
 def silk_synth_random_case(device, seed: int, bw: int, **shape):

@@ -181,11 +181,16 @@ def test_pack_comb_params_and_band_map_equal_the_jax_package():
 
 def test_k11_tables_are_the_reference_window_and_powers():
     """K11's table: ``w^2`` and ``c^0 .. c^8`` as the reference's scan
-    builds its ``fvec``, ``Lmat`` and ``cpow``."""
+    builds its ``fvec``, ``Lmat`` and ``cpow``, then the de-emphasis
+    scan's ``m^0 .. m^32``, ``m`` the float32 ``c^8`` and each power the
+    float32 product of the one before and ``m``."""
     tab = cp.kernel_tables(torch.device("cpu")).numpy()
     np.testing.assert_array_equal(tab[:120], jax_cb._win2())
     c = np.float32(27853.0 / 32768.0)
-    np.testing.assert_array_equal(tab[120:], np.power(c, np.arange(9)).astype(np.float32))
+    np.testing.assert_array_equal(tab[120:129], np.power(c, np.arange(9)).astype(np.float32))
+    m = tab[128]
+    assert tab[129] == 1 and len(tab) == 129 + 33
+    np.testing.assert_array_equal(tab[130:], tab[129:-1] * m)
     fvec, lmat, cpow = (t.numpy() for t in cp._plain_tables(torch.device("cpu")))
     np.testing.assert_array_equal(cpow, tab[121:129])
     np.testing.assert_array_equal(lmat[:, 7], tab[127:119:-1])

@@ -245,6 +245,26 @@ def test_celt_postfilter_kernel_on_the_fixture_path(dev, wire, channels):
     _celt_check(kc.celt_fixture_inputs(40, dev, channels=channels, wire=wire))
 
 
+@pytest.mark.parametrize("channels", [2, 1])
+@pytest.mark.parametrize("streams", [5, 37, 300])
+def test_celt_postfilter_kernel_schedule_draws_and_first_design(dev, streams, channels):
+    """Frames the comb's step widths turn on (``kc.celt_postfilter_schedule_inputs``:
+    the postfilter off, turning on with zero sets at period 15 beside a long
+    active one, turning off, every set active, periods 15 and 1024 side by
+    side, zero gains at random; invalid streams): within the bound of the
+    plain version and of the first design (``tools/first_designs``), the
+    comb's output (the new history) equal to the plain version's, invalid
+    streams passed through."""
+    from soundkit_tpu_torch.tools import first_designs as fd
+
+    inputs = tuple(t.to(dev) for t in kc.celt_postfilter_schedule_inputs(
+        70 + streams, streams=streams, channels=channels))
+    _celt_check(inputs)
+    got, want = kc.celt_postfilter_pair(inputs)[0](), kc.celt_postfilter_pair(inputs)[1]()
+    assert torch.equal(got[2], want[2])
+    kc.compare("celt_postfilter", lambda: got, lambda: fd.celt_postfilter(*inputs))
+
+
 def test_celt_step_holds_its_bound_with_tf32_on(dev):
     """A caller that turns TF32 on does not move the step's IMDCT
     products off IEEE float32 (they run under ``ieee_fp32``): the step on
@@ -343,6 +363,33 @@ def test_silk_synth_kernel_all_zero_and_wild_rows(dev):
     for g, w in zip(got, want):
         assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
         assert torch.isfinite(g[9:]).all() and torch.isfinite(g[:3]).all()
+
+
+@pytest.mark.parametrize("bw", [0, 1, 2])
+@pytest.mark.parametrize("streams", [3, 37, 300])
+def test_silk_synth_kernel_schedule_draws_and_first_design(dev, streams, bw):
+    """Rounds whose pairs of warps hold rows with and without lead-in side
+    by side (none, all, every second, at random), voiced rows four in five,
+    lags 3, 16 and 288 beside drawn ones and gains apart in every subframe
+    (``kc.silk_synth_schedule_inputs``): bit-exact against the plain version
+    and against the first design (``tools/first_designs``)."""
+    from soundkit_tpu_torch.tools import first_designs as fd
+
+    inputs = tuple(t.to(dev) for t in kc.silk_synth_schedule_inputs(60 + streams, bw,
+                                                                    streams=streams))
+    kernel, plain = kc.silk_synth_pair(bw, inputs)
+    kc.compare("silk_synth", kernel, plain)
+    for got, first in zip(kernel(), fd.silk_synth(bw, *inputs)):
+        assert torch.equal(got, first)
+
+
+@pytest.mark.parametrize("bw", [0, 1, 2])
+def test_silk_synth_kernel_equals_its_first_design_on_random_rounds(dev, bw):
+    from soundkit_tpu_torch.tools import first_designs as fd
+
+    inputs = tuple(t.to(dev) for t in kc.silk_synth_random_inputs(70 + bw, bw, streams=45))
+    for got, first in zip(ss.silk_synth(bw, *inputs), fd.silk_synth(bw, *inputs)):
+        assert torch.equal(got, first)
 
 
 def test_silk_round_holds_its_bound_with_tf32_on(dev):
