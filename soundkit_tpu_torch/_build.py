@@ -227,7 +227,8 @@ def kernels() -> ctypes.CDLL:
     lib.skt_flac_analyze_occupancy.argtypes = [i, p]
     lib.skt_resample.argtypes = [*[p] * 5, *[i] * 13, p]
     lib.skt_resample_occupancy.argtypes = [i, i, i, i, p]
-    lib.skt_stretch_ola.argtypes = [*[p] * 4, *[i] * 6, p]
+    lib.skt_stretch_ola.argtypes = [*[p] * 3, *[i] * 7, p]
+    lib.skt_stretch_ola_occupancy.argtypes = [i, p]
     lib.skt_phase_lock.argtypes = [*[p] * 5, i, i, p]
     lib.skt_phase_lock_occupancy.argtypes = [i, p]
     for fn in (lib.skt_imdct_window, lib.skt_dequant_imdct_window,
@@ -236,7 +237,7 @@ def kernels() -> ctypes.CDLL:
                lib.skt_flac_rice_plane, lib.skt_flac_lpc, lib.skt_mp3_granule,
                lib.skt_celt_postfilter, lib.skt_silk_synth, lib.skt_vorbis_overlap,
                lib.skt_flac_analyze, lib.skt_flac_analyze_occupancy, lib.skt_resample,
-               lib.skt_resample_occupancy, lib.skt_stretch_ola, lib.skt_phase_lock,
-               lib.skt_phase_lock_occupancy):
+               lib.skt_resample_occupancy, lib.skt_stretch_ola, lib.skt_stretch_ola_occupancy,
+               lib.skt_phase_lock, lib.skt_phase_lock_occupancy):
         fn.restype = ctypes.c_int
     return lib

@@ -17,11 +17,13 @@ over the frames that cover J, added in ascending t, and 0 where J is
 past the line. Each product and sum is rounded alone in the scan's order
 and the divide is IEEE, so the card and the CPU give the same bits.
 
-For CUDA tensors it launches ``csrc/stretch_ola.cu`` and counts
-``overlap_add.launches``: its first kernel builds the norm's divisor once
-a call (it does not depend on the lane), the second the output. For CPU
-tensors it takes :func:`overlap_add_plain`, the reference's scan: T adds
-of a frame into the line and of the window's square into the norm.
+For CUDA tensors it launches ``csrc/stretch_ola.cu`` once a call and
+counts ``overlap_add.launches``: a thread takes V adjacent outputs of two
+lanes, loads the frames that cover them three at a time and forms the
+divisor from the same window loads (:func:`k16_vector` picks V). For CPU
+tensors it takes :func:`overlap_add_plain`, the
+reference's scan: T adds of a frame into the line and of the window's
+square into the norm.
 """
 from __future__ import annotations
 
@@ -29,6 +31,14 @@ import torch
 
 from soundkit_tpu_torch import _build
 from soundkit_tpu_torch.utils.device import check_cuda, launch_check
+
+def k16_vector(F: int, hop: int, start: int, *addresses: int) -> int:
+    """V, the outputs a K16 thread takes: the largest of 4, 2, 1 that
+    divides ``F``, ``hop``, ``start`` and each of the inputs' byte
+    ``addresses`` over 4. Then a vector's samples share one cover and each
+    covering frame's segment is one aligned load."""
+    return next(v for v in (4, 2, 1)
+                if F % v == hop % v == start % v == 0 and all(a % (4 * v) == 0 for a in addresses))
 
 
 def overlap_add_plain(frames, win, hop: int, target: int) -> torch.Tensor:
@@ -66,15 +76,23 @@ def overlap_add(frames, win, hop: int, target: int) -> torch.Tensor:
                          "a line shorter than 2^31 samples")
     if frames.dtype != torch.float32 or win.dtype != torch.float32:
         raise TypeError("overlap_add: frames and win must be float32")
-    den = torch.empty(target, dtype=torch.float32, device=dev)
-    out = torch.empty((B, target), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.kernels().skt_stretch_ola(
-        frames.data_ptr(), win.data_ptr(), den.data_ptr(), out.data_ptr(), B, T, F, hop,
-        F // 2, target, stream)
-    launch_check("overlap_add", rc)
+    out = launch_k16(frames, win, hop, target)
     overlap_add.launches += 1
     return out
 
 
 overlap_add.launches = 0
+
+
+def launch_k16(frames, win, hop: int, target: int, V: int | None = None) -> torch.Tensor:
+    """K16 with ``V`` outputs a thread (:func:`k16_vector`'s by default)
+    on tensors :func:`overlap_add` has checked; counts no launch (timing
+    runs the other widths through it)."""
+    B, T, F = frames.shape
+    V = V or k16_vector(F, hop, F // 2, frames.data_ptr(), win.data_ptr())
+    out = torch.empty((B, target), dtype=torch.float32, device=frames.device)
+    rc = _build.kernels().skt_stretch_ola(
+        frames.data_ptr(), win.data_ptr(), out.data_ptr(), B, T, F, hop, F // 2, target, V,
+        torch.cuda.current_stream(frames.device).cuda_stream)
+    launch_check("overlap_add", rc)
+    return out

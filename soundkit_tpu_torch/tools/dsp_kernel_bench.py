@@ -1,5 +1,5 @@
-"""Time K15 and K17 on the card beside their first designs, K15 over the
-launch plans it can take.
+"""Time K15, K16 and K17 on the card beside their first designs, K15 and
+K16 over the launch plans they can take.
 
 K15 (``ops.resample.launch_k15``) runs on the two shapes the paths give it
 (the transcode chunk: 1024 x 28,224 samples and a history, 44.1 -> 8 kHz;
@@ -10,10 +10,13 @@ staged in shared memory),
 each held bit for bit to the chosen plan's output and to the first design
 (``tools/first_designs``). K17 runs on the phase vocoder's tensors for
 1024 lanes of 2 s (tones and noise, ``kernel_check.resample_rows``),
-against its first design (nearest identical). Everything is timed by CUDA
-graph replay, the chosen plan in turns with the first design (first
-design, kernel, kernel, first design), the other plans twice. Prints
-one JSON line (also written to ``--out``), with the card's name and power
+against its first design (nearest identical). K16 runs on the irfft of
+K17's spectrum there ([1024, 348, 2048], hop 960 -> [1024, 165375]) with
+the vector width ``k16_vector`` chooses and the others (V = 4, 2, 1
+outputs a thread), each bit for bit the first design's output.
+Everything is timed by CUDA graph replay, the chosen plan in turns with
+the first design (first design, kernel, kernel, first design), the other
+plans twice. Prints one JSON line (also written to ``--out``), with the card's name and power
 limit. From the repository's root, on a machine with the card::
 
     python -m soundkit_tpu_torch.tools.dsp_kernel_bench
@@ -30,7 +33,7 @@ from pathlib import Path
 import torch
 
 from soundkit_tpu_torch import _build
-from soundkit_tpu_torch.ops import phase_lock
+from soundkit_tpu_torch.ops import phase_lock, stretch_ola
 from soundkit_tpu_torch.ops import resample as rs
 from soundkit_tpu_torch.ops import stretch as st
 from soundkit_tpu_torch.tools import first_designs as fd
@@ -120,10 +123,43 @@ def bench_k17(dev, rounds: int) -> dict:
                 local_bytes=occ[1], smem=occ[2], warps_per_sm=occ[3] * 8)
 
 
+def bench_k16(dev, rounds: int) -> dict:
+    x = kc.resample_rows(13, LANES, 88200, dev)
+    mag, phase, syn, win, hop, target = st.vocoder_analysis(x, 1.875)
+    del x
+    spec = phase_lock.phase_lock(mag, phase, syn)
+    del mag, phase, syn
+    frames = torch.fft.irfft(spec, n=st.FRAME, dim=-1)
+    del spec
+    B, T, F = frames.shape
+    first = lambda: fd.overlap_add(frames, win, hop, target)  # noqa: E731
+    ref = first()
+    chosen = stretch_ola.k16_vector(F, hop, F // 2, frames.data_ptr(), win.data_ptr())
+    runs = []
+    occ = (ctypes.c_int * 4)()
+    for i, V in enumerate([chosen, *(v for v in (4, 2, 1) if v != chosen)]):
+        call = lambda v=V: stretch_ola.launch_k16(frames, win, hop, target, v)  # noqa: E731
+        same = bool(torch.equal(call(), ref))
+        _build.kernels().skt_stretch_ola_occupancy(V, occ)
+        info = dict(V=V, equal_to_first=same, registers=occ[0], local_bytes=occ[1],
+                    smem=occ[2], warps_per_sm=occ[3] * 8)
+        if i:
+            turns = [graph_ms(call), graph_ms(call)]
+            runs.append(dict(info, turns_ms=turns, ms=sum(turns) / 2))
+            continue
+        turns = []
+        for _ in range(rounds):
+            turns += [graph_ms(first), graph_ms(call), graph_ms(call), graph_ms(first)]
+        runs.append(dict(info, turns_ms=turns, ms=sum(turns[1::4] + turns[2::4]) / (2 * rounds),
+                         first_ms=sum(turns[0::4] + turns[3::4]) / (2 * rounds)))
+    return dict(B=B, T=T, F=F, hop=hop, target=target,
+                bound_ms=1e3 * kc.stretch_ola_work(B, T, F, hop, target) / 3.35e12, plans=runs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--only", choices=("k15", "k17"))
+    ap.add_argument("--only", choices=("k15", "k16", "k17"))
     ap.add_argument("--out", default="soundkit_tpu_torch/_build/bench/dsp_kernel_bench.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -135,16 +171,21 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     res = dict(card=card)
-    if args.only != "k17":
-        res["k15"] = bench_k15(dev, args.rounds)
-    if args.only != "k15":
-        res["k17"] = bench_k17(dev, args.rounds)
+    for name, bench in (("k15", bench_k15), ("k16", bench_k16), ("k17", bench_k17)):
+        if args.only in (None, name):
+            res[name] = bench(dev, args.rounds)
+            torch.cuda.empty_cache()
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(res, indent=1))
     print(json.dumps(res))
-    bad = [n for n, r in res.get("k15", {}).items() if not all(p["equal_to_first"] for p in r["plans"])]
-    if bad or not res.get("k17", {}).get("nearest_equal_to_first", True):
-        print(f"dsp_kernel_bench: differs from the first design in {bad or 'k17'}", file=sys.stderr)
+    bad = [f"k15 {n}" for n, r in res.get("k15", {}).items()
+           if not all(p["equal_to_first"] for p in r["plans"])]
+    if not all(p["equal_to_first"] for p in res.get("k16", {}).get("plans", ())):
+        bad.append("k16")
+    if not res.get("k17", {}).get("nearest_equal_to_first", True):
+        bad.append("k17")
+    if bad:
+        print(f"dsp_kernel_bench: differs from the first design in {bad}", file=sys.stderr)
         return 1
     return 0
 

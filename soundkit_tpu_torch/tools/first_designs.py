@@ -1,21 +1,23 @@
-"""The first designs of K11, K12, K15 and K17, built beside the kernels for
-timing.
+"""The first designs of K11, K12, K15, K16 and K17, built beside the kernels
+for timing.
 
 ``first_designs_csrc/`` holds the sources of the CELT comb postfilter, the
-SILK LTP/LPC synthesis, the polyphase FIR and the phase locking as they were
-before their redesign for Hopper (one block a CELT stream, every line loaded
-before any is filtered, comb steps of ``min(32, Tmin - 2)`` over all four
-periods and the de-emphasis memory on one lane; eight SILK rows a block,
-three block barriers a subframe and the LPC on eight lanes of one warp; one
-phase a thread at four cycles with a shared load a product; a warp a row
-with warp scans and the full-range ``sincosf``), their entry points renamed
-``skt_celt_postfilter_first`` and ``skt_silk_synth_first`` where the
-kernel library has the same name. They build into a library of their own
-(``_build/first_designs-*.so``, one ``nvcc`` a source, as the kernels
-build) and are called here on the tensors a caller gives, so that
+SILK LTP/LPC synthesis, the polyphase FIR, the vocoder's overlap-add and the
+phase locking as they were before their redesign for Hopper (one block a
+CELT stream, every line loaded before any is filtered, comb steps of
+``min(32, Tmin - 2)`` over all four periods and the de-emphasis memory on
+one lane; eight SILK rows a block, three block barriers a subframe and the
+LPC on eight lanes of one warp; one phase a thread at four cycles with a
+shared load a product; the divisor built into a scratch by a first launch,
+then an output a thread with its covering frames loaded one at a time; a
+warp a row with warp scans and the full-range ``sincosf``), their entry
+points renamed ``skt_celt_postfilter_first`` and ``skt_silk_synth_first``
+where the kernel library has the same name. They build into a library of
+their own (``_build/first_designs-*.so``, one ``nvcc`` a source, as the
+kernels build) and are called here on the tensors a caller gives, so that
 ``chip_smoke.py`` and ``tools/dsp_kernel_bench.py`` can time a redesigned
-kernel against its first design on one card in one process. Nothing on a path calls them, and
-they count no launches.
+kernel against its first design on one card in one process. Nothing on a
+path calls them, and they count no launches.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from soundkit_tpu_torch.utils.device import check_cuda, launch_check
 
 SRC_DIR = Path(__file__).resolve().parent / "first_designs_csrc"
 SOURCES = tuple(SRC_DIR / f for f in ("celt_postfilter.cu", "silk_synth.cu", "resample.cu",
-                                      "phase_lock.cu"))
+                                      "stretch_ola.cu", "phase_lock.cu"))
 #: the first K15's launch shape: cycles a thread sums, outputs a block aims
 #: at, and the floats of input a block may stage (48 KB)
 CYCLES_PER_THREAD = 4
@@ -52,11 +54,12 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(library_path()))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.skt_resample.argtypes = [*[p] * 5, *[i] * 6, p]
+    lib.skt_stretch_ola.argtypes = [*[p] * 4, *[i] * 6, p]
     lib.skt_phase_lock.argtypes = [*[p] * 5, i, i, p]
     lib.skt_celt_postfilter_first.argtypes = [*[p] * 11, i, i, p]
     lib.skt_silk_synth_first.argtypes = [*[p] * 12, i, i, p]
-    for fn in (lib.skt_resample, lib.skt_phase_lock, lib.skt_celt_postfilter_first,
-               lib.skt_silk_synth_first):
+    for fn in (lib.skt_resample, lib.skt_stretch_ola, lib.skt_phase_lock,
+               lib.skt_celt_postfilter_first, lib.skt_silk_synth_first):
         fn.restype = ctypes.c_int
     return lib
 
@@ -96,6 +99,20 @@ def polyphase_fir(x, hist, in_rate: int, out_rate: int, n_out: int) -> torch.Ten
         offsets.data_ptr(), out.data_ptr(), B, n, L, M, n_out, ct,
         torch.cuda.current_stream(dev).cuda_stream)
     launch_check("polyphase_fir (first design)", rc)
+    return out
+
+
+def overlap_add(frames, win, hop: int, target: int) -> torch.Tensor:
+    """The first K16 on CUDA tensors: ``ops.stretch_ola.overlap_add``'s
+    contract, with the divisor's scratch."""
+    dev = check_cuda("overlap_add (first design)", frames, win)
+    B, T, F = frames.shape
+    den = torch.empty(target, dtype=torch.float32, device=dev)
+    out = torch.empty((B, target), dtype=torch.float32, device=dev)
+    rc = library().skt_stretch_ola(
+        frames.data_ptr(), win.data_ptr(), den.data_ptr(), out.data_ptr(), B, T, F, hop, F // 2,
+        target, torch.cuda.current_stream(dev).cuda_stream)
+    launch_check("overlap_add (first design)", rc)
     return out
 
 

@@ -1487,10 +1487,12 @@ def stretch_ola_pair(frames, win, hop: int, target: int):
 
 
 def stretch_ola_work(B: int, T: int, F: int, hop: int, target: int) -> int:
-    """Bytes of K16's function: the frames that cover the crop window read
-    once, the window and the output."""
-    last = min(T - 1, (F // 2 + target - 1) // hop)
-    return 4 * (B * (last + 1) * F + F + B * target)
+    """Bytes of K16's function: of each frame only the samples that cover
+    the crop window J in [F/2, F/2 + target), read once, the window and the
+    output."""
+    lo, hi = F // 2, min(F // 2 + target, hop * (T - 1) + F)
+    need = sum(max(0, min(F, hi - t * hop) - max(0, lo - t * hop)) for t in range(T))
+    return 4 * (B * need + F + B * target)
 
 
 def fold_library(frames, win, hop: int, target: int):

@@ -778,11 +778,59 @@ def test_plain_resampler_is_ieee_under_the_guard_with_tf32_on(dev):
     assert np.abs(got.cpu().numpy() - ref).max() < 1e-5
 
 
-@pytest.mark.parametrize("B,T,hop,target", [(5, 9, 960, 3000), (3, 40, 960, 36000),
-                                            (2, 7, 333, 1500), (4, 4, 2048, 9000)])
-def test_overlap_add_kernel_bit_exact(dev, B, T, hop, target):
-    frames, win = kc.stretch_ola_inputs(B + T, B, T, dev)
+#: K16's cases: (B, T, hop, target, F)
+OLA_CASES = [
+    (5, 9, 960, 3000, 2048), (3, 40, 960, 36000, 2048), (2, 7, 333, 1500, 2048),
+    (4, 4, 2048, 9000, 2048),   # the line ends inside the crop
+    (2, 9, 962, 3001, 2048),    # V = 2
+    (3, 5, 2500, 9000, 2048),   # hop > F: samples no frame covers
+    (2, 9, 960, 4000, 512),     # F = 512, gaps too
+    (1, 9, 960, 5001, 2048),    # one lane, a target no multiple of a vector or a block
+    (3, 6, 960, 7777, 2048),    # the line ends inside the crop, a ragged last vector
+    (2, 12, 256, 2999, 2048),   # eight covering frames: two load groups
+]
+
+
+@pytest.mark.parametrize("B,T,hop,target,F", OLA_CASES)
+def test_overlap_add_kernel_bit_exact(dev, B, T, hop, target, F):
+    frames, win = kc.stretch_ola_inputs(B + T, B, T, dev, F=F)
     kc.compare("overlap_add", *kc.stretch_ola_pair(frames, win, hop, target))
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+def test_overlap_add_kernel_on_frames_off_16_byte_boundaries(dev, offset):
+    """Frames 4 or 8 bytes past a 16-byte boundary take V = 1 or 2 and
+    keep the bits."""
+    from soundkit_tpu_torch.ops import stretch_ola
+
+    B, T, F = 3, 9, 2048
+    src, win = kc.stretch_ola_inputs(7, B, T, dev)
+    frames = torch.empty(B * T * F + offset, device=dev)[offset:].view(B, T, F)
+    frames.copy_(src)
+    assert stretch_ola.k16_vector(F, 960, F // 2, frames.data_ptr(), win.data_ptr()) == offset
+    kc.compare("overlap_add", *kc.stretch_ola_pair(frames, win, 960, 5001))
+
+
+@pytest.mark.parametrize("B,T,hop,target,F", OLA_CASES)
+def test_overlap_add_kernel_equals_its_first_design(dev, B, T, hop, target, F):
+    """K16 bit for bit its first design (``tools/first_designs``)."""
+    from soundkit_tpu_torch.ops import stretch_ola
+    from soundkit_tpu_torch.tools import first_designs as fd
+
+    frames, win = kc.stretch_ola_inputs(B + T + 1, B, T, dev, F=F)
+    assert torch.equal(stretch_ola.overlap_add(frames, win, hop, target),
+                       fd.overlap_add(frames, win, hop, target))
+
+
+def test_overlap_add_kernel_under_every_vector_width(dev):
+    """K16's V = 4, 2 and 1 instances on one input (V = 4 allowed): the
+    same bits as the plain version."""
+    from soundkit_tpu_torch.ops import stretch_ola
+
+    frames, win = kc.stretch_ola_inputs(11, 3, 9, dev)
+    ref = stretch_ola.overlap_add_plain(frames, win, 960, 5001)
+    for V in (4, 2, 1):
+        assert torch.equal(stretch_ola.launch_k16(frames, win, 960, 5001, V), ref), V
 
 
 @pytest.mark.parametrize("span", [50.0, 1e5, 1e6])

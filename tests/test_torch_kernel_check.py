@@ -329,10 +329,16 @@ def test_phase_lock_check_holds_nearest_and_the_spectrum(monkeypatch):
 
 def test_dsp_work_counts():
     """K15: 2 x 256 flops an output and the rows, history, output and bank
-    bytes; K16: only the frames that cover the crop window; K17: 20 bytes
-    a bin."""
+    bytes; K16: only the frame samples that cover the crop window J in
+    [1024, 1024 + target), the window and the output; K17: 20 bytes a
+    bin."""
     assert kc.resample_work(1024, 28224, 5120, 80, stateful=True) == (
         4 * (1024 * 28224 + 1024 * 5120 + 256 * 80 + 80 + 1024 * 255), 512 * 1024 * 5120)
+    # hop 960, J < 166399: frame 0 from J = 1024, frame 1 from 1024, frames
+    # 2-171 whole, frame 172 up to 166399, frame 173 too, none after
     assert kc.stretch_ola_work(1024, 348, 2048, 960, 165375) == \
-        4 * (1024 * 174 * 2048 + 2048 + 1024 * 165375)
+        4 * (1024 * (1024 + 1984 + 170 * 2048 + 1279 + 319) + 2048 + 1024 * 165375)
+    # hop 2500 > F (gaps) and a line that ends at 12048, past the crop's 10024
+    assert kc.stretch_ola_work(2, 5, 2048, 2500, 9000) == \
+        4 * (2 * (1024 + 3 * 2048 + 24) + 2048 + 2 * 9000)
     assert kc.phase_lock_work(1024 * 348, 1025) == 1024 * 348 * 1025 * 20
