@@ -37,7 +37,9 @@ through ``soundkit_tpu_torch.tools.transcode``, the device pitch shift
 (1024 mono lanes of 2 s) through
 ``soundkit_tpu_torch.ops.stretch.pitch_shift_batch_device``, and
 the serving runtime ``soundkit_tpu_torch.models.fleet.StreamFleet``
-over the six decoders (1024 lanes a group). Phases:
+over the six decoders (1024 lanes a group), and the streaming decode
+pipeline ``soundkit_tpu_torch.pipeline.decode_pipeline.DecodePipeline``
+(one stream at a time, K3, K6, K7 and K10 on one lane). Phases:
 
 a. build the CUDA kernels (one ``nvcc`` a source, all started together),
    the host parser, the FLAC walk, the MP3 parser, the Opus parse (CELT,
@@ -291,8 +293,41 @@ ee. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    bare output (Opus CELT on the i16 spectral wire), and per group a
    fleet serving that group alone, its x realtime beside the bare model's
    on the same bytes; one ``[fleet]`` line;
-ff. print the kernels' JSON line (all seventeen kernels, K2 with no
-   launch: it is not on a path), then the result line.
+ff. pipeline: K3, K6 and K7 at B = 1 on 1, 127 and 313 codes and on one
+   4096-byte send (K6 at 16384 / 10922 / 8192 / 6553 codes decoding and
+   4096 encoding, K7 at 4096 codes both ways, K3 at 4096), from a
+   carried state, unmasked, and K10 on one granule of a stereo and a
+   mono stream at B = 1, each against its plain version (the scans at a
+   send against the plain scan run in 128-code segments, a lane each,
+   from the kernel's states at the segments' starts,
+   ``kernel_check.segmented_scan_pair``); K7's refusal of an odd sample
+   count and K10's of a FIFO off a 16-byte boundary; a stream of at
+   least 60 s of every pipeline format (MP3 and AAC-ADTS fixture frames
+   concatenated; 16-bit stereo and 24-bit FLAC encoded on the card by
+   ``BatchedFlacEncoder``; G.711 mu / A, G.722 and G.726 at 16 / 24 / 32
+   / 40 kbit/s encoded on the card by the streaming encoders from the
+   telephony fixtures' PCM in 4096-sample chunks, their K6 / K7 launches
+   counted alone as ``stream_encoder_launches``; WAV and raw PCM); the
+   first send of each telephony stream, its encoded codes against a
+   plain encode of the same PCM and its decoded PCM against a plain
+   decode; then, the launch counters reset, each stream through
+   ``DecodePipeline`` on the card (``spawn()`` where the format is
+   detected, else its ``spawn_*``) in 4096-byte sends, no
+   ``DecodeError`` allowed, with x realtime; the counters read (the four
+   decode wrappers above 0, the encode wrappers at 0); each stream's
+   first 15 s again under the timing hook: the median host time of a
+   chunk's ``process``, its span between CUDA events, and the timed x
+   realtime (the hook's cost beside the untimed one);
+   each stream's first 5 s (G.722 and G.726: 1000 codes, their plain
+   scans step a code at a time on the CPU) through the same pipeline on
+   the CPU, bit-exact but MP3, which is held within 1 LSB, and at >= 100
+   dB in float32 through ``Mp3Decoder``; eight mixed pipelines at once,
+   each equal to its lone run; one ``[pipeline]`` line a format and a
+   summary line;
+gg. print the kernels' JSON line (all seventeen kernels, K2 with no
+   launch: it is not on a path; K3, K6, K7 and K10 with their
+   ``pipeline_launches``, K6 and K7 also with ``stream_encoder_launches``),
+   then the result line.
 
 Any failed phase exits non-zero before the result line. Without a
 CUDA device, or outside a checkout of the repository, it exits 1
@@ -3168,6 +3203,308 @@ def phase_fleet():
     return dict(mixed=mixed, by_group=by_group)
 
 
+# ---------------------------------------------------------------------------
+# the streaming decode pipeline: one stream at a time through DecodePipeline
+# ---------------------------------------------------------------------------
+
+PIPE_SECONDS = 60.0       # audio a [pipeline] stream carries, at least
+PIPE_CHUNK = 4096         # bytes a send
+PIPE_COMPARE_SECONDS = 5.0  # the prefix each stream also decodes on the CPU
+# G.722 / G.726 prefix on the CPU, whose plain scans step a code at a time;
+# the card holds K6 and K7 at whole sends against segmented plain scans
+PIPE_SCAN_COMPARE_CODES = 1000
+PIPE_TIMED_SECONDS = 15.0  # the prefix the per-chunk timing hook runs on
+PIPE_CONCURRENT = ("mp3", "flac16", "flac24", "g722", "g726_16", "g726_32", "g711_mulaw", "wav")
+
+
+def pipeline_wrappers():
+    from soundkit_tpu_torch.ops import adpcm, companding, g722, mp3_synth
+
+    return {"g711_decode": companding.g711_decode,
+            "g726_decode_scan": adpcm.g726_decode_scan,
+            "g726_encode_scan": adpcm.g726_encode_scan,
+            "g722_decode_scan": g722.g722_decode_scan,
+            "g722_encode_scan": g722.g722_encode_scan,
+            "mp3_synth": mp3_synth.mp3_granule_packed}
+
+
+def _tiled(x, n: int):
+    import numpy as np
+
+    return np.resize(x, n) if x.ndim == 1 else x[:, np.arange(n) % x.shape[1]]
+
+
+def pipeline_streams() -> tuple:
+    """({format: (stream bytes, spawn(device) -> handle, seconds of
+    audio)}, {telephony format: the PCM its stream encodes}): every
+    format of the pipeline at >= PIPE_SECONDS s. MP3 and AAC-ADTS are
+    fixture frames concatenated; FLAC is the fixtures' PCM tiled and
+    encoded by BatchedFlacEncoder on the card; the telephony streams are
+    the telephony fixtures' PCM tiled and encoded by the streaming
+    encoders on the card in PIPE_CHUNK-sample chunks
+    (``kernel_check.telephony_stream``); WAV and raw PCM are the
+    telephony PCM at 16 kHz, stereo."""
+    import numpy as np
+
+    from soundkit_tpu_torch.codecs.g711 import G711Law
+    from soundkit_tpu_torch.codecs.g726 import G726Packing, G726Rate
+    from soundkit_tpu_torch.core.audio_types import PcmData
+    from soundkit_tpu_torch.core.raw_pcm import RawPcmFormat
+    from soundkit_tpu_torch.core.wav import generate_wav_buffer
+    from soundkit_tpu_torch.models.flac_encode_batch import BatchedFlacEncoder
+    from soundkit_tpu_torch.pipeline.decode_pipeline import DecodePipeline as DP
+    from soundkit_tpu_torch.tools import aac_fixtures as af
+    from soundkit_tpu_torch.tools import flac_fixtures as ff
+    from soundkit_tpu_torch.tools import kernel_check as kc
+    from soundkit_tpu_torch.tools import mp3_fixtures as mf
+    from soundkit_tpu_torch.tools import telephony_fixtures as tf
+
+    assert kc.STREAM_SEND == PIPE_CHUNK
+    out = {}
+    mp3 = {c.name: c for c in mf.load_clips()}["stereo44"]
+    reps = int(np.ceil(PIPE_SECONDS / (sum(mp3.granules) * 576 / mp3.rate)))
+    out["mp3"] = (mp3.stream() * reps, DP.spawn, reps * sum(mp3.granules) * 576 / mp3.rate)
+    aac = af.load_clips()[0]
+    reps = int(np.ceil(PIPE_SECONDS / (len(aac) * 1024 / 48000)))
+    out["aac"] = (b"".join(aac) * reps, DP.spawn, reps * len(aac) * 1024 / 48000)
+
+    clips = {c.name: c for c in ff.load_clips()}
+    for fmt, name in (("flac16", "stereo16"), ("flac24", "stereo24")):
+        clip = clips[name]
+        n = int(PIPE_SECONDS * clip.rate)
+        pcm = _tiled(ff.clip_pcm(clip, "cuda"), n)
+        enc = BatchedFlacEncoder(1, clip.rate, clip.channels, clip.bits, device="cuda")
+        enc.push(0, pcm)
+        enc.encode_pending()
+        out[fmt] = (enc.finish_all()[0], DP.spawn, n / clip.rate)
+
+    pcm8 = _tiled(np.concatenate(tf.pcm_clips(8000)), int(PIPE_SECONDS * 8000))
+    pcm16 = _tiled(np.concatenate(tf.pcm_clips(16000)), int(PIPE_SECONDS * 16000))
+    sources = {}
+    for law, fmt in ((G711Law.MU_LAW, "g711_mulaw"), (G711Law.A_LAW, "g711_alaw")):
+        out[fmt] = (kc.telephony_stream(fmt, pcm8, "cuda"),
+                    lambda device, law=law: DP.spawn_g711(law, device=device), PIPE_SECONDS)
+        sources[fmt] = pcm8
+    out["g722"] = (kc.telephony_stream("g722", pcm16, "cuda"),
+                   lambda device: DP.spawn_g722(device=device), PIPE_SECONDS)
+    sources["g722"] = pcm16
+    for kbit in (16, 24, 32, 40):
+        rate = G726Rate.from_bitrate(kbit * 1000)
+        out[f"g726_{kbit}"] = (
+            kc.telephony_stream(f"g726_{kbit}", pcm8, "cuda"),
+            lambda device, rate=rate: DP.spawn_g726_with_rate(rate, G726Packing.LEFT,
+                                                              device=device),
+            PIPE_SECONDS)
+        sources[f"g726_{kbit}"] = pcm8
+    stereo = np.stack([pcm16, pcm16[::-1]])
+    out["wav"] = (generate_wav_buffer(PcmData.i16(list(stereo)), 16000), DP.spawn, PIPE_SECONDS)
+    fmt16 = RawPcmFormat.linear16(16000, 2)
+    out["raw_pcm"] = (np.ascontiguousarray(stereo.T).astype("<i2").tobytes(),
+                      lambda device: DP.spawn_raw_pcm(fmt16, device=device), PIPE_SECONDS)
+    return out, sources
+
+
+def pipeline_run(spawn, data: bytes, device: str, timed: bool = False):
+    """One stream through a threaded pipeline in PIPE_CHUNK-byte sends:
+    (outputs, wall s, host s of each chunk's ``process``, device ms of
+    each chunk between CUDA events recorded just before and after it).
+    The timing hook (``timed``) wraps the handle's ``process``; its two
+    event records a chunk are outside the host span but inside the wall,
+    so a timed run's wall is not the stream's."""
+    import torch
+
+    handle = spawn(device=device)
+    walls, events = [], []
+    if timed:
+        core = handle._core
+        process = core.process
+
+        def timed_process(chunk):
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            t0 = time.perf_counter()
+            outs = process(chunk)
+            walls.append(time.perf_counter() - t0)
+            stop.record()
+            events.append((start, stop))
+            return outs
+
+        core.process = timed_process
+    t0 = time.perf_counter()
+    drained = []
+    for i in range(0, len(data), PIPE_CHUNK):
+        handle.send_blocking(data[i:i + PIPE_CHUNK], drained)
+    handle.send_blocking(b"", drained)
+    outs = drained + handle.recv_all(timeout=600)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return outs, wall, walls, [a.elapsed_time(b) for a, b in events]
+
+
+def _pcm_bytes(outs) -> bytes:
+    from soundkit_tpu_torch.core.audio_types import AudioData
+
+    return b"".join(o.data for o in outs if isinstance(o, AudioData))
+
+
+def _audio_seconds(outs) -> float:
+    from soundkit_tpu_torch.core.audio_types import AudioData
+
+    return sum(len(o.data) / (o.bits_per_sample // 8) / o.channel_count / o.sampling_rate
+               for o in outs if isinstance(o, AudioData))
+
+
+def _prefix(fmt: str, data: bytes, seconds: float) -> bytes:
+    """The first part of a stream the CPU also decodes: PIPE_COMPARE_SECONDS
+    s of it, or PIPE_SCAN_COMPARE_CODES codes of G.722 / G.726."""
+    if fmt == "g722":
+        return data[:PIPE_SCAN_COMPARE_CODES]
+    if fmt.startswith("g726"):  # 1000 codes: whole packing groups at every rate
+        return data[:PIPE_SCAN_COMPARE_CODES * (int(fmt[5:]) // 8) // 8]
+    cut = int(len(data) * PIPE_COMPARE_SECONDS / seconds)
+    return data[:max(cut, 9000)]
+
+
+def phase_pipeline(card: str):
+    """K3, K6, K7 and K10 at B = 1 against their plain versions; each
+    format's stream made (the encoders' launches counted alone), the
+    first send of each telephony stream against plain scans, then each
+    stream through DecodePipeline on the card (the launch counters reset
+    just before and read just after), its prefix on the CPU, and eight
+    mixed streams at once."""
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.codecs.mp3 import Mp3Decoder
+    from soundkit_tpu_torch.core.audio_types import AudioData
+    from soundkit_tpu_torch.pipeline.output_options import DecodeError
+    from soundkit_tpu_torch.tools import kernel_check as kc
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    checks = {}
+    for name, (kernel, plain) in kc.stream_cases(dev).items():
+        checks[name] = kc.compare(name.split("/")[0], kernel, plain)["max_abs_err"]
+    rules = kc.stream_rules(dev)
+    checks_s = time.perf_counter() - t_phase
+    log(f"[pipeline] B = 1 kernel checks: {len(checks)} cases, max |err| "
+        f"{max(checks.values())}; rules {sorted(rules)}; {checks_s:.1f} s")
+
+    wrappers = pipeline_wrappers()
+    encoders = ("g726_encode_scan", "g722_encode_scan")
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    streams, sources = pipeline_streams()
+    make_s = time.perf_counter() - t0
+    encoder_launches = {n: wrappers[n].launches for n in encoders}
+    for n, c in encoder_launches.items():
+        check(c > 0, f"[pipeline] {n} was not launched by the streaming encoders")
+
+    # the first send of each telephony stream, encoded and decoded,
+    # against plain scans on the card
+    t0 = time.perf_counter()
+    for fmt, pcm in sources.items():
+        for name, (kernel, plain) in kc.telephony_send_pairs(fmt, pcm, streams[fmt][0],
+                                                             dev).items():
+            checks[name] = kc.compare(name.split("/")[0], kernel, plain)["max_abs_err"]
+    send_checks_s = time.perf_counter() - t0
+    log(f"[pipeline] first sends against plain scans: {len(sources)} streams, "
+        f"{send_checks_s:.1f} s")
+
+    for w in wrappers.values():
+        w.launches = 0
+    res, lone = {}, {}
+    for fmt, (data, spawn, seconds) in streams.items():
+        outs, wall, _, _ = pipeline_run(spawn, data, "cuda")
+        errors = [type(o).__name__ for o in outs if isinstance(o, DecodeError)]
+        check(not errors, f"[pipeline] {fmt}: errors on a clean stream: {errors}")
+        audio = [o for o in outs if isinstance(o, AudioData)]
+        check(audio, f"[pipeline] {fmt}: no audio")
+        a0 = audio[0]
+        got_s = _audio_seconds(audio)
+        check(got_s >= 0.99 * seconds and got_s >= PIPE_SECONDS * 0.99,
+              f"[pipeline] {fmt}: {got_s:.2f} s of audio out of {seconds:.2f}")
+        lone[fmt] = outs
+        res[fmt] = dict(audio_s=got_s, bytes=len(data), wall_s=wall, xrealtime=got_s / wall,
+                        rate=a0.sampling_rate, channels=a0.channel_count,
+                        bits=a0.bits_per_sample)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    for n, c in launches.items():
+        check((c == 0) if n in encoders else (c > 0),
+              f"[pipeline] {n}: {c} launches on the decode path")
+
+    # the per-chunk timing hook, on each stream's first PIPE_TIMED_SECONDS s
+    for fmt, (data, spawn, seconds) in streams.items():
+        outs, wall, walls, dev_ms = pipeline_run(
+            spawn, data[:int(len(data) * PIPE_TIMED_SECONDS / seconds)], "cuda", timed=True)
+        res[fmt].update(timed_chunks=len(walls),
+                        chunk_ms_median=1e3 * float(np.median(walls)),
+                        device_ms_median=float(np.median(dev_ms)),
+                        timed_xrealtime=_audio_seconds(outs) / wall)
+
+    # the CPU path on each stream's prefix: bit-exact, MP3 within 1 LSB
+    t0 = time.perf_counter()
+    for fmt, (data, spawn, seconds) in streams.items():
+        head = _prefix(fmt, data, seconds)
+        host = _pcm_bytes(pipeline_run(spawn, head, "cpu")[0])
+        card_pcm = _pcm_bytes(lone[fmt])[:len(host)]
+        check(len(host) > 0 and len(card_pcm) == len(host),
+              f"[pipeline] {fmt}: {len(host)} CPU bytes, {len(card_pcm)} card bytes")
+        if fmt == "mp3":
+            a = np.frombuffer(card_pcm, "<i2").astype(np.int32)
+            b = np.frombuffer(host, "<i2").astype(np.int32)
+            lsb = int(np.abs(a - b).max())
+            check(lsb <= 1, f"[pipeline] mp3: int16 {lsb} LSB from the CPU path")
+            res[fmt]["int16_max_lsb_vs_cpu"] = lsb
+            res[fmt]["int16_samples_off_by_one"] = int((a != b).sum())
+        else:
+            check(card_pcm == host, f"[pipeline] {fmt}: card and CPU outputs differ")
+        res[fmt]["cpu_compare_bytes"] = len(head)
+    head = _prefix("mp3", streams["mp3"][0], streams["mp3"][2])
+    f32 = []
+    for device in ("cuda", "cpu"):
+        d = Mp3Decoder(device=device)
+        f32.append(np.concatenate([d.decode_f32(head[i:i + PIPE_CHUNK])
+                                   for i in range(0, len(head), PIPE_CHUNK)]).astype(np.float64))
+    snr = 10 * np.log10(np.sum(f32[1] ** 2) / max(np.sum((f32[0] - f32[1]) ** 2), 1e-300))
+    check(f32[0].shape == f32[1].shape and snr >= 100.0, f"[pipeline] mp3 f32 {snr:.1f} dB")
+    res["mp3"]["f32_snr_db_vs_cpu"] = float(snr)
+    compare_s = time.perf_counter() - t0
+
+    # eight mixed pipelines at once, each against its lone run
+    import threading
+
+    t0 = time.perf_counter()
+    got = {}
+
+    def run(fmt):
+        data, spawn, _ = streams[fmt]
+        got[fmt] = pipeline_run(spawn, data, "cuda")[0]
+
+    threads = [threading.Thread(target=run, args=(fmt,)) for fmt in PIPE_CONCURRENT]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    concurrent_s = time.perf_counter() - t0
+    for fmt in PIPE_CONCURRENT:
+        check(fmt in got and _pcm_bytes(got[fmt]) == _pcm_bytes(lone[fmt])
+              and len(got[fmt]) == len(lone[fmt]),
+              f"[pipeline] {fmt}: a concurrent run differs from its lone run")
+    audio_s = sum(res[f]["audio_s"] for f in PIPE_CONCURRENT)
+    summary = dict(card=card, checks_s=checks_s, make_streams_s=make_s,
+                   send_checks_s=send_checks_s, cpu_compare_s=compare_s,
+                   concurrent=dict(streams=len(PIPE_CONCURRENT), wall_s=concurrent_s,
+                                   aggregate_xrealtime=audio_s / concurrent_s),
+                   launches=launches, encoder_launches=encoder_launches,
+                   phase_s=time.perf_counter() - t_phase)
+    for fmt, r in res.items():
+        log(f"[pipeline] {fmt} ({card}): {json.dumps(r)}")
+    log(f"[pipeline] {json.dumps(summary)}")
+    return dict(formats=res, kernel_checks=checks, rules=rules, **summary)
+
+
 def main() -> int:
     if not (ROOT / "soundkit_tpu_torch").is_dir() or not (ROOT / "tests" / "data" / "torch_port").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -3266,6 +3603,8 @@ def main() -> int:
         del st_lanes
         phase = "fleet"
         flres = phase_fleet()
+        phase = "pipeline"
+        pres = phase_pipeline(card)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
@@ -3365,6 +3704,18 @@ def main() -> int:
         launches_per_step=stretch_launches["phase_lock"] / len(stres), **stkres["phase_lock"]))
     for k in kernels:
         k["fleet_launches"] = flres["mixed"]["launches"].get(k["name"], 0)
+    # DecodePipeline only decodes; the encoders that built its telephony
+    # streams are counted apart
+    pipe_by_row = {"g711_decode": ("g711_decode", None),
+                   "g726_scan": ("g726_decode_scan", "g726_encode_scan"),
+                   "g722_scan": ("g722_decode_scan", "g722_encode_scan"),
+                   "mp3_synth": ("mp3_synth", None)}
+    for k in kernels:
+        if k["name"] in pipe_by_row:
+            dec, enc = pipe_by_row[k["name"]]
+            k["pipeline_launches"] = pres["launches"][dec]
+            if enc:
+                k["stream_encoder_launches"] = pres["encoder_launches"][enc]
     log(json.dumps({"slice": sres, "compare": cres, "telephony": tres,
                     "telephony_compare": tcres, "flac": fres, "flac_compare": fcres,
                     "mp3": mres, "mp3_compare": mcres, "celt": celtres, "celt_compare": ccres,
@@ -3372,7 +3723,7 @@ def main() -> int:
                     "hybrid_compare": hcres, "vorbis": vres, "vorbis_compare": vcres,
                     "flac_enc": eres, "flac_enc_compare": ecres,
                     "transcode": trres, "stretch": stres,
-                    "fleet": flres,
+                    "fleet": flres, "pipeline": pres,
                     "wall_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -7,6 +7,9 @@ The parser is the port's own build of ``native_src/src/mp3_parse.cpp``
 reservoir, MPEG-1 and LSF scalefactors, Huffman big-values and count1,
 requantize exponents and the short-block reorder, emitting one compact
 granule lane a pop (int16 quant, int16 quarter-exponents).
+:func:`pop_wire_rounds` pops the queued granules of several parsers into
+rows of the packed wire K10 takes (``ops.mp3_synth.mp3_wire_layout``),
+for the batched decoder and the streaming one alike.
 
 The JAX package's pure-Python decoder (``Mp3NativeDecoder``,
 ``Granule``, ``Mp3Frame``) is not on the batched path and is not
@@ -60,3 +63,25 @@ class NativeMp3Parser:
             sample_rate=int(m[8]),
         )
         return self._quant.copy(), self._expq.copy(), meta
+
+
+def pop_wire_rounds(lib, handles, B: int, G: int):
+    """One C call pops up to ``G`` granules from each of the ``B``
+    parsers behind ``handles`` into ``G`` rows of the packed wire;
+    returns ``(wire uint8 [G, stride], rate int32 [B], popped int32
+    [B])``, ``rate`` the sample rate of each parser's last popped
+    granule (0 where none popped). A row of a parser with nothing queued
+    is a silent, invalid lane."""
+    from soundkit_tpu_torch.ops.mp3_synth import mp3_wire_layout
+
+    layout, stride = mp3_wire_layout(B)
+    offs = {name: off for name, off, _, _ in layout}
+    wire = np.zeros((G, stride), dtype=np.uint8)
+    rate = np.zeros(B, dtype=np.int32)
+    popped = np.zeros(B, dtype=np.int32)
+    lib.skt_mp3_pop_rounds(
+        handles, B, G, wire.reshape(-1), stride,
+        offs["bt"], offs["nal"], offs["quant"], offs["expq"],
+        offs["mixed"], offs["ms"], offs["valid"], rate, popped,
+    )
+    return wire, rate, popped

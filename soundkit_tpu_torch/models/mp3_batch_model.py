@@ -27,7 +27,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from soundkit_tpu_torch.codecs.mp3_native import NativeMp3Parser
+from soundkit_tpu_torch.codecs.mp3_native import NativeMp3Parser, pop_wire_rounds
 from soundkit_tpu_torch.ops import mp3_batch as mb
 from soundkit_tpu_torch.utils.device import resolve_device
 
@@ -95,16 +95,7 @@ class BatchedMp3Decoder:
         """One C call pops up to ``G`` granules from every lane into
         ``G`` packed wire rows; returns the [G, stride] uint8 wire and
         updates the per-lane counts and rates."""
-        layout, stride = mb.mp3_wire_layout(self.B)
-        offs = {name: off for name, off, _, _ in layout}
-        wire = np.zeros((G, stride), dtype=np.uint8)
-        rate = np.zeros(self.B, dtype=np.int32)
-        popped = np.zeros(self.B, dtype=np.int32)
-        self._lib.skt_mp3_pop_rounds(
-            self._handles, self.B, G, wire.reshape(-1), stride,
-            offs["bt"], offs["nal"], offs["quant"], offs["expq"],
-            offs["mixed"], offs["ms"], offs["valid"], rate, popped,
-        )
+        wire, rate, popped = pop_wire_rounds(self._lib, self._handles, self.B, G)
         self._note_rates(rate)
         for b in range(self.B):
             self._counts[b] -= int(popped[b])

@@ -137,6 +137,13 @@ def flac_library() -> ctypes.CDLL:
                                   ctypes.POINTER(c_long), ctypes.POINTER(ctypes.c_longlong)]
     lib.skt_flac_error.restype = ctypes.c_char_p
     lib.skt_flac_error.argtypes = [vp]
+    # the streaming host decoder (codecs/flac.py)
+    lib.skt_flac_push.restype = ctypes.c_int
+    lib.skt_flac_push.argtypes = [vp, ctypes.c_char_p, c_long]
+    lib.skt_flac_pull.restype = c_long
+    lib.skt_flac_pull.argtypes = [vp, ctypes.POINTER(ctypes.c_int32), c_long]
+    lib.skt_flac_md5.restype = None
+    lib.skt_flac_md5.argtypes = [vp, ctypes.c_char_p]
     lib.skt_flac_queue_stats.restype = None
     lib.skt_flac_queue_stats.argtypes = [handles, ctypes.c_int, c_long, arr(np.int64)]
     lib.skt_flac_export_rounds.restype = c_long

@@ -1,0 +1,169 @@
+"""Synchronous push/flush streaming API (counterpart of a subset of
+``soundkit_tpu/simple.py``).
+
+Thread-free push-based decoders: ``push(bytes)`` with arbitrary chunk
+sizes returning zero or more frames, one ``flush()`` at EOF, errors as
+exceptions, 8 KiB/64 KiB detection window:
+
+- ``MusicDecoder``: full decode to PCM frames, with autodetect or
+  ``new_with_format``, over ``pipeline.decode_pipeline.StreamDecoder``;
+  its kernels run on ``device``, the card unless the caller names the
+  CPU.
+- ``AacDeboxer``: ADTS bytes -> raw AAC access units (an M4A stream
+  raises ``UnsupportedFormat`` at ``flush``: the MP4 demuxer is not in
+  the port yet).
+- ``AacLcStreamDecoder``: raw AUs -> PCM via the AAC-LC host decoder,
+  interleaved or planar.
+
+The Opus deboxer and decoder, the frame-stream decoder, the track
+demuxer, the encoders and the content ciphers of the JAX package's
+module are not in the port yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+
+from soundkit_tpu_torch.core.audio_types import AudioData
+from soundkit_tpu_torch.demux.detect import AudioType
+from soundkit_tpu_torch.pipeline.decode_pipeline import StreamDecoder, _init_decoder
+from soundkit_tpu_torch.pipeline.output_options import (DecodeError, DecodeOptions,
+                                                       UnsupportedFormat)
+from soundkit_tpu_torch.utils.device import resolve_device
+
+_FORMAT_NAMES = {
+    "mp3": AudioType.MP3,
+    "aac": AudioType.AAC,
+    "m4a": AudioType.M4A,
+    "flac": AudioType.FLAC,
+    "wav": AudioType.WAV,
+    "vorbis": AudioType.OGG_VORBIS,
+    "ogg-opus": AudioType.OGG_OPUS,
+    "opus": AudioType.OPUS,
+    "speex": AudioType.OGG_SPEEX,
+    "webm": AudioType.WEBM,
+    "alac": AudioType.ALAC,
+    "aiff": AudioType.AIFF,
+    "ac3": AudioType.AC3,
+}
+
+
+@dataclass
+class PcmFrame:
+    """The per-frame JS object shape: {pcm, sampleRate, channels, bits}."""
+
+    pcm: bytes
+    sample_rate: int
+    channels: int
+    bits: int
+
+    @classmethod
+    def from_audio(cls, audio: AudioData) -> "PcmFrame":
+        return cls(audio.data, audio.sampling_rate, audio.channel_count, audio.bits_per_sample)
+
+
+class MusicDecoder:
+    """Full decode to PCM frames."""
+
+    def __init__(self, options: DecodeOptions = DecodeOptions(), initial_decoder=None,
+                 device="cuda"):
+        self._core = StreamDecoder(options, initial_decoder, device)
+
+    @classmethod
+    def new_with_format(cls, fmt: str, options: DecodeOptions = DecodeOptions(),
+                        device="cuda") -> "MusicDecoder":
+        try:
+            audio_type = _FORMAT_NAMES[fmt]
+        except KeyError:
+            raise ValueError(f"unknown format {fmt!r}")
+        return cls(options, _init_decoder(audio_type, resolve_device(device)), device)
+
+    def push(self, data: bytes) -> List[PcmFrame]:
+        return self._collect(self._core.process(bytes(data)) if data else [])
+
+    def flush(self) -> List[PcmFrame]:
+        return self._collect(self._core.process(b""))
+
+    @staticmethod
+    def _collect(outputs) -> List[PcmFrame]:
+        frames = []
+        for o in outputs:
+            if isinstance(o, DecodeError):
+                raise o
+            frames.append(PcmFrame.from_audio(o))
+        return frames
+
+
+class AacDeboxer:
+    """ADTS bytes -> raw access units."""
+
+    def __init__(self) -> None:
+        from soundkit_tpu_torch.codecs.aac_lc import AdtsStream
+
+        self._adts = AdtsStream()
+        self._maybe_mp4 = bytearray()
+        self._mode: Optional[str] = None
+        self.audio_specific_config: bytes = b""
+
+    def push(self, data: bytes) -> List[bytes]:
+        if self._mode is None:
+            self._maybe_mp4.extend(data)
+            if len(self._maybe_mp4) < 12:
+                return []
+            if self._maybe_mp4[4:8] == b"ftyp":
+                self._mode = "mp4"
+                return []  # buffered already; refused at flush
+            self._mode = "adts"
+            data = bytes(self._maybe_mp4)
+            self._maybe_mp4.clear()
+        if self._mode == "adts":
+            aus = self._adts.push(data)
+            if self._adts.sr_index is not None and not self.audio_specific_config:
+                sr, ch = self._adts.sr_index, self._adts.channel_config
+                self.audio_specific_config = bytes(
+                    [(2 << 3) | (sr >> 1), ((sr & 1) << 7) | (ch << 3)]
+                )
+            return aus
+        self._maybe_mp4.extend(data)
+        return []
+
+    def flush(self) -> List[bytes]:
+        if self._mode == "mp4":
+            raise UnsupportedFormat("Unsupported format: M4A is not in the port yet")
+        return []
+
+
+class AacLcStreamDecoder:
+    """WasmAacLcDecoder mirror: raw AUs -> PCM via our own AAC-LC."""
+
+    def __init__(self, audio_specific_config: bytes):
+        from soundkit_tpu_torch.codecs.aac_lc import AacLcDecoder
+        from soundkit_tpu_torch.ops.aac_dsp import AacLcSynth
+
+        if len(audio_specific_config) < 2:
+            raise ValueError("AudioSpecificConfig too short")
+        asc = audio_specific_config
+        object_type = asc[0] >> 3
+        sr_index = ((asc[0] & 0x7) << 1) | (asc[1] >> 7)
+        self.channels = (asc[1] >> 3) & 0xF
+        if object_type != 2:
+            raise ValueError(f"only AAC-LC supported (object type {object_type})")
+        self._dec = AacLcDecoder(sr_index)
+        self._synth = AacLcSynth(sr_index)
+        from soundkit_tpu_torch.codecs.aac_lc import SAMPLE_RATES
+
+        self.sample_rate = SAMPLE_RATES[sr_index]
+
+    def decode_planar(self, au: bytes) -> np.ndarray:
+        frame = self._dec.decode_au(au)
+        return self._synth.process_frame(frame)  # [C, 1024]
+
+    def decode_interleaved(self, au: bytes) -> np.ndarray:
+        return self.decode_planar(au).T.reshape(-1)
+
+    def decode_interleaved_into(self, au: bytes, out: np.ndarray) -> int:
+        pcm = self.decode_interleaved(au)
+        out[: len(pcm)] = pcm
+        return len(pcm)

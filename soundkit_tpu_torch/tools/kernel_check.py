@@ -714,6 +714,230 @@ def mp3_fixture_inputs(num_lanes: int, device, warm: int = 3, channels: int = 2)
     return [row], model._overlap, model._fifo
 
 
+def mp3_stream_inputs(name: str, device, warm_bytes: int = 6000):
+    """K10's inputs on the streaming path: a streaming ``Mp3Decoder`` on
+    ``device`` fed the first ``warm_bytes`` of fixture ``name``, then its
+    next granule popped into a B = 1 wire row (a mono granule is the
+    lane ``valid [1, 0]``), with the decoder's carried overlap [1, 2, 32,
+    18] and FIFO [1, 2, 1024]. Returns ([row], overlap, fifo) for
+    :func:`mp3_synth_pair`."""
+    from soundkit_tpu_torch.codecs.mp3 import Mp3Decoder
+    from soundkit_tpu_torch.codecs.mp3_native import pop_wire_rounds
+    from soundkit_tpu_torch.tools import mp3_fixtures
+
+    clip = {c.name: c for c in mp3_fixtures.load_clips()}[name]
+    data = clip.stream()
+    dec = Mp3Decoder(device=device)
+    dec.decode_f32(data[:warm_bytes])
+    dec._parser.push(data[warm_bytes: warm_bytes + 4000])
+    wire, _, popped = pop_wire_rounds(dec._parser._lib, dec._handles, 1, 1)
+    if popped[0] != 1:
+        raise ValueError(f"{name}: no granule queued after {warm_bytes} bytes")
+    overlap, fifo = dec._state
+    return [torch.from_numpy(wire[0]).to(device)], overlap, fifo
+
+
+# the streaming codecs' chunk lengths the B = 1 checks take, in codes
+STREAM_LENGTHS = (1, 127, 313)
+# one send of the streaming pipeline, in bytes, and the samples a chunk
+# of the streaming encoders takes
+STREAM_SEND = 4096
+# codes a lane of the segmented plain scan steps (segmented_scan_pair)
+SEGMENT = 128
+
+
+def send_codes(bits: int | None = None, encode: bool = False) -> int:
+    """Codes one launch takes at a send: a decoder's STREAM_SEND bytes
+    (``8 / bits`` G.726 codes a byte, else one), an encoder's chunk
+    (STREAM_SEND codes; K7's encode takes two samples a code)."""
+    return STREAM_SEND * 8 // bits if bits and not encode else STREAM_SEND
+
+
+def segmented_scan_pair(scan, plain, xs, state, per: int = 1, got=None, seg: int | None = None):
+    """(kernel, plain) for one lane's scan over ``xs`` [1, per * N]
+    (``per`` inputs a code: 2 for K7's encode) from ``state`` [1, W], at
+    lengths where the plain scan stepping N codes in order takes too long.
+    The kernel side: the output of the launch over all N codes (or of
+    ``got()``, a streaming codec's own), and the states that its launches
+    over the first ``seg``, ``2 seg``, ... codes leave, the full launch's
+    final state last. The plain side: the plain scan over each segment of
+    ``seg`` codes in a lane of its own, from the kernel's state at the
+    segment's start (``state`` for the first), its outputs end to end and
+    each lane's end state. The sides agree only if each segment starts
+    from the state the plain scan in order reaches there, and so only if
+    the output equals the plain scan's over all N codes in order.
+    ``seg`` defaults to :data:`SEGMENT`."""
+    seg = seg or SEGMENT
+    N = xs.shape[1] // per
+    S = -(-N // seg)
+    memo = []
+
+    def starts():
+        if not memo:
+            memo.append([scan(xs[:, :k * seg * per], state)[1] for k in range(1, S)])
+        return memo[0]
+
+    def kernel():
+        out, final = scan(xs, state)
+        return (out if got is None else got()), torch.cat(starts() + [final])
+
+    def plain_side():
+        lanes = torch.cat([xs, xs.new_zeros(1, (S * seg - N) * per)], 1).view(S, seg * per)
+        valid = (torch.arange(S * seg, device=xs.device) < N).view(S, seg)
+        out, ends = plain(lanes, torch.cat([state] + starts()), valid)
+        return out.reshape(1, -1)[:, :out.shape[1] // seg * N], ends
+    return kernel, plain_side
+
+
+def _scan_pair(bits: int | None, encode: bool):
+    """(scan, plain) of K7 (``bits`` None) or of K6 at ``bits`` per code,
+    taking (xs, state) and (xs, state, valid)."""
+    if bits is None:
+        return ((g722.g722_encode_scan, g722.g722_encode_scan_plain) if encode
+                else (g722.g722_decode_scan, g722.g722_decode_scan_plain))
+    scan, plain = ((adpcm.g726_encode_scan, adpcm.g726_encode_scan_plain) if encode
+                   else (adpcm.g726_decode_scan, adpcm.g726_decode_scan_plain))
+    return (lambda x, s: scan(x, s, bits)), (lambda x, s, v: plain(x, s, bits, v))
+
+
+def carried_state(bits: int | None, encode: bool, device, seed: int) -> torch.Tensor:
+    """The state [1, W] that the plain scan of K7 (``bits`` None) or of K6
+    at ``bits`` per code leaves after :data:`CARRY_STEPS` steps of seeded
+    inputs from the initial state."""
+    rng = np.random.default_rng(seed)
+    if bits is None:
+        xs, init = _g722_inputs(1, CARRY_STEPS, encode, rng), g722.g722_init_state
+    else:
+        xs, init = _g726_inputs(1, CARRY_STEPS, bits, encode, rng), adpcm.g726_init_state
+    return _scan_pair(bits, encode)[1](xs.to(device), init(1, device), None)[1]
+
+
+def stream_case(bits: int | None, encode: bool, n: int, start, seed: int,
+                segmented: bool = False):
+    """K7 (``bits`` None) or K6 at ``bits`` per code, at B = 1 over ``n``
+    codes, unmasked, from the state ``start``: the decode of random codes
+    or the encode of :func:`_synthetic_pcm`, against the plain scan in
+    order or, if ``segmented``, :func:`segmented_scan_pair`."""
+    rng = np.random.default_rng(seed)
+    xs = (_g722_inputs(1, n, encode, rng) if bits is None
+          else _g726_inputs(1, n, bits, encode, rng)).to(start.device)
+    scan, plain = _scan_pair(bits, encode)
+    if segmented:
+        return segmented_scan_pair(scan, plain, xs, start, 2 if bits is None and encode else 1)
+    return (lambda: scan(xs, start)), (lambda: plain(xs, start, None))
+
+
+def stream_cases(device, seed: int = 5):
+    """``{name: (kernel, plain)}``: K3, K6 (4 rates, both ways) and K7
+    (both ways) at B = 1 over :data:`STREAM_LENGTHS` codes and over one
+    send (:func:`send_codes`, held by :func:`segmented_scan_pair`),
+    unmasked, from a carried state (:func:`carried_state`, one for each
+    scan and way), as the streaming codecs launch them; K10 on one
+    granule of a stereo and a mono fixture stream at B = 1."""
+    cases = {}
+    for n in STREAM_LENGTHS + (STREAM_SEND,):
+        cases[f"g711_decode/{n}"] = g711_case(1, n, device, seed + n, ragged=False)
+    for enc in (False, True):
+        way = "encode" if enc else "decode"
+        for bits in (None, 2, 3, 4, 5):
+            name = "g722_scan" if bits is None else f"g726_scan/{bits}"
+            start = carried_state(bits, enc, device, seed + (bits or 0))
+            for n in STREAM_LENGTHS:
+                cases[f"{name}/{way}/{n}"] = stream_case(bits, enc, n, start, seed + n)
+            n = send_codes(bits, enc)
+            cases[f"{name}/{way}/{n}"] = stream_case(bits, enc, n, start, seed + n, True)
+    for name in ("stereo44", "mono16"):
+        cases[f"mp3_synth/{name}"] = mp3_synth_pair(*mp3_stream_inputs(name, device))
+    return cases
+
+
+def telephony_codec(codec: str, encode: bool, device):
+    """The streaming encoder or decoder of ``codec``: 'g711_mulaw',
+    'g711_alaw', 'g722' or 'g726_<kbit/s>' (LEFT packing)."""
+    from soundkit_tpu_torch.codecs.g711 import G711Decoder, G711Encoder, G711Law
+    from soundkit_tpu_torch.codecs.g722 import G722Decoder, G722Encoder
+    from soundkit_tpu_torch.codecs.g726 import G726Decoder, G726Encoder, G726Packing, G726Rate
+
+    if codec.startswith("g711"):
+        law = G711Law.A_LAW if codec.endswith("alaw") else G711Law.MU_LAW
+        return (G711Encoder if encode else G711Decoder)(law, device=device)
+    if codec == "g722":
+        return (G722Encoder if encode else G722Decoder)(device)
+    rate = G726Rate.from_bitrate(int(codec[5:]) * 1000)
+    return (G726Encoder if encode else G726Decoder)(rate, G726Packing.LEFT, device)
+
+
+def telephony_stream(codec: str, pcm: np.ndarray, device) -> bytes:
+    """``pcm`` through the streaming encoder of ``codec`` on ``device`` in
+    chunks of :data:`STREAM_SEND` samples, flushed where it buffers."""
+    enc = telephony_codec(codec, True, device)
+    parts = [enc.encode_i16(pcm[i:i + STREAM_SEND]) for i in range(0, len(pcm), STREAM_SEND)]
+    return b"".join(parts) + (enc.flush() if hasattr(enc, "flush") else b"")
+
+
+def telephony_send_pairs(codec: str, pcm: np.ndarray, data: bytes, device) -> dict:
+    """``{name: (card, plain)}`` on the first send of ``data``, the stream
+    that :func:`telephony_stream` made from ``pcm`` on ``device``: the
+    codes of the encoder's first chunk (none for G.711, whose encode is
+    no kernel) against a plain encode of the same PCM, and the PCM that
+    the streaming decoder gives for the first :data:`STREAM_SEND` bytes
+    against a plain decode of the codes they hold, both from the initial
+    state (:func:`segmented_scan_pair` for K6 and K7)."""
+    from soundkit_tpu_torch.codecs.g726 import G726Packing, unpack_codes
+
+    first = data[:STREAM_SEND]
+    dec = telephony_codec(codec, False, device)
+    got = lambda: torch.from_numpy(dec.decode_i16(first)).to(device)[None]  # noqa: E731
+    if codec.startswith("g711"):
+        codes = torch.from_numpy(np.frombuffer(first, np.uint8).copy()).to(device)[None]
+        law = torch.tensor([int(codec.endswith("alaw"))], dtype=torch.int32, device=device)
+        return {f"g711_decode/{codec}/send":
+                (got, lambda: companding.g711_decode_plain(codes, law))}
+    if codec == "g722":
+        name, bits, code_bits, per, group = "g722_scan", None, 8, 2, 1
+        init = g722.g722_init_state
+        unpack = lambda b: np.frombuffer(b, np.uint8).copy()  # noqa: E731
+    else:
+        name, bits, per, group = "g726_scan", int(codec[5:]) // 8, 1, dec.rate.bytes_per_group
+        code_bits, init = bits, adpcm.g726_init_state
+        unpack = lambda b: unpack_codes(b, bits, G726Packing.LEFT)  # noqa: E731
+    n_codes = STREAM_SEND // per
+    pcm_lane = torch.from_numpy(np.ascontiguousarray(pcm[:n_codes * per], np.int16)).to(device)
+    enc_bytes = data[:n_codes * code_bits // 8]
+    dec_codes = torch.from_numpy(unpack(first[:len(first) - len(first) % group])).to(device)
+    return {
+        f"{name}/{codec}/encode/send": segmented_scan_pair(
+            *_scan_pair(bits, True), pcm_lane[None], init(1, device), per,
+            got=lambda: torch.from_numpy(unpack(enc_bytes)).to(device)[None]),
+        f"{name}/{codec}/decode/send": segmented_scan_pair(
+            *_scan_pair(bits, False), dec_codes[None], init(1, device), got=got),
+    }
+
+
+def stream_rules(device) -> dict:
+    """The launch rules the streaming path must keep, each checked on
+    ``device``: K7's encode refuses an odd number of samples, K10 refuses
+    a FIFO off a 16-byte boundary (a ``[1, 2, 1024]`` FIFO one float in).
+    Returns ``{rule: the refusal's message}``; raises if a rule fails."""
+    out = {}
+    state = g722.g722_init_state(1, device)
+    try:
+        g722.g722_encode_scan(torch.zeros((1, 127), dtype=torch.int16, device=device), state)
+    except ValueError as e:
+        out["g722_odd_samples"] = str(e)
+    else:
+        raise KernelMismatch("g722_encode_scan took an odd number of samples")
+    rows, overlap, fifo = mp3_stream_inputs("stereo44", device)
+    shifted = torch.zeros(2 * 1024 + 1, dtype=torch.float32, device=device)[1:].view(1, 2, 1024)
+    try:
+        mp3_synth.mp3_granule_packed(rows[0], overlap, shifted)
+    except ValueError as e:
+        out["mp3_fifo_alignment"] = str(e)
+    else:
+        raise KernelMismatch("mp3_granule_packed took a FIFO off a 16-byte boundary")
+    return out
+
+
 def mp3_synth_work(rows, overlap) -> tuple:
     """(bytes, float32 operations) that K10's function needs for the
     wire ``rows`` (of :func:`mp3_synth_pair`) at the state shape of

@@ -41,10 +41,28 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
+class KernelLaunchError(RuntimeError):
+    """A hand kernel's C entry point returned a CUDA error."""
+
+
 def launch_check(name: str, rc: int) -> None:
-    """Raise on a non-zero ``cudaError_t`` from a kernel's C entry point."""
+    """Raise :class:`KernelLaunchError` on a non-zero ``cudaError_t``
+    from a kernel's C entry point."""
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+        raise KernelLaunchError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def is_device_fault(exc: BaseException) -> bool:
+    """True for a failed kernel launch or an error the CUDA runtime
+    raised through torch: faults of the device, never of the stream, so
+    a decoder that turns exceptions into error outputs lets them pass."""
+    if isinstance(exc, (KernelLaunchError, torch.cuda.OutOfMemoryError)):
+        return True
+    faults = tuple(c for c in (getattr(torch.cuda, "CudaError", None),
+                               getattr(torch, "AcceleratorError", None)) if c is not None)
+    if faults and isinstance(exc, faults):
+        return True
+    return isinstance(exc, RuntimeError) and "CUDA error" in str(exc)
 
 
 def _precision_nodes() -> list:

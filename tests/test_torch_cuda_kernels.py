@@ -7,6 +7,7 @@ no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -884,3 +885,156 @@ def test_pitch_shift_on_the_card_matches_the_cpu(dev):
     ref = st.pitch_shift_batch_device(x, 1.25, 1.5).numpy()
     snr = 10 * np.log10(np.mean(ref ** 2) / np.mean((ref - got) ** 2))
     assert got.shape == ref.shape and snr > 60, snr
+
+
+# ---------------------------------------------------------------------------
+# the streaming pipeline: K3, K6, K7 and K10 at B = 1
+# ---------------------------------------------------------------------------
+
+STREAM_CASES = ["g711_decode/1", "g711_decode/127", "g711_decode/313",
+                f"g711_decode/{kc.STREAM_SEND}",
+                *(f"g722_scan/{w}/{n}" for w in ("decode", "encode") for n in kc.STREAM_LENGTHS),
+                *(f"g722_scan/{w}/{kc.send_codes(encode=w == 'encode')}"
+                  for w in ("decode", "encode")),
+                *(f"g726_scan/{b}/{w}/{n}" for b in (2, 3, 4, 5) for w in ("decode", "encode")
+                  for n in kc.STREAM_LENGTHS),
+                *(f"g726_scan/{b}/{w}/{kc.send_codes(b, w == 'encode')}" for b in (2, 3, 4, 5)
+                  for w in ("decode", "encode")),
+                "mp3_synth/stereo44", "mp3_synth/mono16"]
+_STREAM_CASES = {}  # built once, on the first case's device
+
+
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_kernels_at_the_streaming_shapes(dev, case):
+    """One lane, the chunk lengths of the streaming codecs and one
+    pipeline send (K6 and K7 against the segmented plain scan), unmasked
+    and from a carried state; K10 on one granule of a stereo and a mono
+    stream (the lane ``valid [1, 0]``) with the streaming decoder's
+    state."""
+    if not _STREAM_CASES:
+        _STREAM_CASES.update(kc.stream_cases(dev))
+    kernel, plain = _STREAM_CASES[case]
+    kc.compare(case.split("/")[0], kernel, plain)
+
+
+def test_streaming_launch_rules(dev):
+    """K7's encode refuses an odd sample count; K10 refuses a
+    ``[1, 2, 1024]`` FIFO off a 16-byte boundary."""
+    rules = kc.stream_rules(dev)
+    assert set(rules) == {"g722_odd_samples", "mp3_fifo_alignment"}
+
+
+def test_g722_encoder_carry_on_the_card(dev):
+    """The encoder's odd-sample carry never hands K7 an odd count, and
+    its codes equal the CPU encoder's."""
+    from soundkit_tpu_torch.codecs.g722 import G722Encoder
+    from soundkit_tpu_torch.ops import g722
+
+    rng = np.random.default_rng(3)
+    pcm = (rng.standard_normal(4001) * 3000).astype(np.int16)
+    card, host = G722Encoder("cuda"), G722Encoder("cpu")
+    before = g722.g722_encode_scan.launches
+    pos, got, want = 0, b"", b""
+    for n in (1, 1, 127, 313, 0, 3, 2000):
+        got += card.encode_i16(pcm[pos: pos + n])
+        want += host.encode_i16(pcm[pos: pos + n])
+        pos += n
+    got += card.flush()
+    want += host.flush()
+    assert got == want and g722.g722_encode_scan.launches > before
+
+
+@pytest.mark.parametrize("codec", ["g711_mulaw", "g711_alaw", "g722", "g726_16", "g726_24",
+                                   "g726_32", "g726_40"])
+def test_streaming_telephony_decoders_on_the_card(dev, codec):
+    """Each streaming decoder on the card equals its CPU plain path bit
+    for bit over chunks of 1, 127 and 313 bytes."""
+    from soundkit_tpu_torch.tools import telephony_fixtures as tfx
+
+    data = tfx.load_clips(codec)[0][:900]
+    card, host = (kc.telephony_codec(codec, False, d) for d in ("cuda", "cpu"))
+    pos = 0
+    for n in (1, 127, 313, 1, 313):
+        np.testing.assert_array_equal(card.decode_i16(data[pos: pos + n]),
+                                      host.decode_i16(data[pos: pos + n]))
+        pos += n
+
+
+@pytest.mark.parametrize("codec", ["g711_mulaw", "g711_alaw", "g722", "g726_16", "g726_24",
+                                   "g726_32", "g726_40"])
+def test_telephony_first_send_on_the_card(dev, codec):
+    """A stream that the streaming encoder makes on the card in chunks of
+    one send: its first chunk's codes against a plain encode of the same
+    PCM, and the streaming decoder's PCM for its first send against a
+    plain decode, at the pipeline's lengths."""
+    from soundkit_tpu_torch.tools import telephony_fixtures as tfx
+
+    pcm = np.concatenate(tfx.pcm_clips(16000 if codec == "g722" else 8000))[:20000]
+    data = kc.telephony_stream(codec, pcm, dev)
+    assert len(data) >= kc.STREAM_SEND
+    for name, (card, plain) in kc.telephony_send_pairs(codec, pcm, data, dev).items():
+        kc.compare(name.split("/")[0], card, plain)
+
+
+def test_streaming_mp3_decoder_on_the_card(dev):
+    """K10 once a granule, chained on the stream; PCM within 1 LSB and
+    the state within K10's bound of the CPU plain path."""
+    from soundkit_tpu_torch.codecs.mp3 import Mp3Decoder, f32_to_i16
+    from soundkit_tpu_torch.ops import mp3_synth
+    from soundkit_tpu_torch.tools import mp3_fixtures
+
+    for clip in mp3_fixtures.load_clips():
+        data = clip.stream()
+        card, host = Mp3Decoder(device="cuda"), Mp3Decoder(device="cpu")
+        before = mp3_synth.mp3_granule_packed.launches
+        got = np.concatenate([card.decode_f32(data[i:i + 4096]) for i in range(0, len(data), 4096)])
+        want = np.concatenate([host.decode_f32(data[i:i + 4096])
+                               for i in range(0, len(data), 4096)])
+        assert mp3_synth.mp3_granule_packed.launches - before == sum(clip.granules)
+        assert got.shape == want.shape
+        err = np.abs(f32_to_i16(got).astype(np.int32) - f32_to_i16(want))
+        assert err.max() <= 1
+        kc.compare("mp3_synth", lambda: tuple(t.cpu() for t in card._state),
+                   lambda: tuple(host._state))
+
+
+@pytest.mark.parametrize("fmt", ["wav", "flac", "mp3", "aac", "g722"])
+def test_stream_decoder_on_the_card_equals_the_cpu(dev, fmt):
+    """The pipeline on the card gives the CPU pipeline's outputs (MP3
+    within 1 LSB), no error on a clean stream."""
+    from pathlib import Path
+
+    from soundkit_tpu_torch.core.audio_types import AudioData, PcmData
+    from soundkit_tpu_torch.core.wav import generate_wav_buffer
+    from soundkit_tpu_torch.pipeline.decode_pipeline import G722Adapter, StreamDecoder
+    from soundkit_tpu_torch.pipeline.output_options import DecodeOptions
+    from soundkit_tpu_torch.tools import telephony_fixtures as tfx
+
+    data_dir = Path(__file__).resolve().parent / "data" / "torch_port"
+    pcm = (np.sin(np.arange(20000) * 0.02) * 9000).astype(np.int16)
+    data = {"wav": lambda: generate_wav_buffer(PcmData.i16([pcm, pcm[::-1]]), 22050),
+            "flac": lambda: (data_dir / "flac" / "stereo24.flac").read_bytes(),
+            "mp3": lambda: (data_dir / "mp3" / "stereo48.mp3").read_bytes(),
+            "aac": lambda: (data_dir / "drums.aac").read_bytes()[:30000],
+            "g722": lambda: tfx.load_clips("g722")[2][:3000]}[fmt]()
+
+    def run(device):
+        core = StreamDecoder(DecodeOptions(), G722Adapter(device), device) if fmt == "g722" \
+            else StreamDecoder(device=device)
+        outs = []
+        for i in range(0, len(data), 4096):
+            outs += core.process(data[i:i + 4096])
+        outs += core.process(b"")
+        assert outs and all(isinstance(o, AudioData) for o in outs)
+        return outs
+
+    card, host = run("cuda"), run("cpu")
+    assert [(o.sampling_rate, o.channel_count, o.bits_per_sample, len(o.data)) for o in card] == \
+        [(o.sampling_rate, o.channel_count, o.bits_per_sample, len(o.data)) for o in host]
+    a = np.frombuffer(b"".join(o.data for o in card), np.uint8)
+    b = np.frombuffer(b"".join(o.data for o in host), np.uint8)
+    if fmt == "mp3":
+        a, b = a.view("<i2").astype(np.int32), b.view("<i2")
+        assert np.abs(a - b).max() <= 1
+    else:
+        np.testing.assert_array_equal(a, b)

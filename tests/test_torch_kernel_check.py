@@ -1,6 +1,7 @@
 """The shared kernel-vs-plain harness (``soundkit_tpu_torch.tools.kernel_check``)
 on the CPU, where both sides of every case run the plain version: each
 case builds and agrees, and a result beyond its bound is refused."""
+import numpy as np
 import pytest
 import torch
 
@@ -150,6 +151,92 @@ def test_compare_refuses_an_off_by_one_in_a_telephony_result(name, element):
     with pytest.raises(kc.KernelMismatch, match=name):
         kc.compare(name, lambda: bad, lambda: ref)
     assert kc.compare(name, lambda: ref, lambda: ref)["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("bits,encode", [(None, False), (None, True), (2, False), (3, True),
+                                         (5, False), (4, True)])
+def test_segmented_scan_pair_equals_the_scan_in_order(bits, encode):
+    """The segmented plain side (segments of 16 codes, the last short)
+    gives the plain scan's output over all 100 codes in order, and the
+    states at the segment ends that the scan in order passes through."""
+    rng = np.random.default_rng(4)
+    per = 2 if bits is None and encode else 1
+    if bits is None:
+        xs = kc._g722_inputs(1, 100, encode, rng)
+        state = kc.g722.g722_init_state(1, CPU)
+    else:
+        xs = kc._g726_inputs(1, 100, bits, encode, rng)
+        state = kc.adpcm.g726_init_state(1, CPU)
+    scan, plain = kc._scan_pair(bits, encode)
+    kernel, segmented = kc.segmented_scan_pair(scan, plain, xs, state, per, seg=16)
+    assert kc.compare("g726_scan", kernel, segmented) == {"max_abs_err": 0.0, "rel_err": 0.0}
+    out, ends = segmented()
+    want = plain(xs, state, None)
+    assert torch.equal(out, want[0]) and ends.shape[0] == 7 and torch.equal(ends[-1:], want[1])
+    assert torch.equal(ends[2:3], plain(xs[:, :48 * per], state, None)[1])
+
+
+@pytest.mark.parametrize("fault", ["output", "boundary", "final"])
+def test_segmented_scan_pair_refuses_a_fault(fault):
+    """A code off in the output, a state off at one segment's start, or
+    a final state off: each is refused."""
+    rng = np.random.default_rng(5)
+    xs = kc._g726_inputs(1, 70, 4, False, rng)
+    state = kc.adpcm.g726_init_state(1, CPU)
+    scan, plain = kc._scan_pair(4, False)
+
+    def faulty(x, s):
+        out, new = scan(x, s)
+        if (fault == "boundary" and x.shape[1] == 32) or (fault == "final" and x.shape[1] == 70):
+            new = new.clone()
+            new[0, 3] += 1
+        if fault == "output" and x.shape[1] == 70:
+            out = out.clone()
+            out[0, 40] += 1
+        return out, new
+
+    kernel, segmented = kc.segmented_scan_pair(faulty, plain, xs, state, seg=16)
+    with pytest.raises(kc.KernelMismatch, match="g726_scan"):
+        kc.compare("g726_scan", kernel, segmented)
+
+
+def test_stream_cases_agree_on_cpu(monkeypatch):
+    """Every B = 1 case of the streaming path, at short lengths, a 64-byte
+    send and 16-code segments: named by kernel, scan, way and codes, each
+    scan from a carried state, and each agreeing."""
+    monkeypatch.setattr(kc, "STREAM_LENGTHS", (1, 7))
+    monkeypatch.setattr(kc, "STREAM_SEND", 64)
+    monkeypatch.setattr(kc, "SEGMENT", 16)
+    monkeypatch.setattr(kc, "CARRY_STEPS", 8)
+    cases = kc.stream_cases(CPU)
+    assert {"g722_scan/decode/64", "g722_scan/encode/64", "g726_scan/2/decode/256",
+            "g726_scan/3/decode/170", "g726_scan/5/encode/64", "g711_decode/64",
+            "mp3_synth/mono16"} <= set(cases)
+    assert len(cases) == 3 + 2 * 5 * 3 + 2
+    for name, (kernel, plain) in cases.items():
+        assert kc.compare(name.split("/")[0], kernel, plain)["max_abs_err"] == 0.0 or (
+            name.startswith("mp3_synth"))
+    start = kc.carried_state(3, True, CPU, 5)
+    assert not torch.equal(start, kc.adpcm.g726_init_state(1, CPU))
+
+
+@pytest.mark.parametrize("codec", ["g711_mulaw", "g711_alaw", "g722", "g726_16", "g726_24",
+                                   "g726_32", "g726_40"])
+def test_telephony_send_pairs_agree_on_cpu(monkeypatch, codec):
+    """At a 64-byte send and 16-code segments: the first send of a stream
+    that the streaming encoder made, encoded and decoded, against plain
+    scans of the same PCM and codes."""
+    from soundkit_tpu_torch.tools import telephony_fixtures as tfx
+
+    monkeypatch.setattr(kc, "STREAM_SEND", 64)
+    monkeypatch.setattr(kc, "SEGMENT", 16)
+    pcm = np.concatenate(tfx.pcm_clips(16000 if codec == "g722" else 8000))[:600]
+    data = kc.telephony_stream(codec, pcm, CPU)
+    pairs = kc.telephony_send_pairs(codec, pcm, data, CPU)
+    assert len(pairs) == (1 if codec.startswith("g711") else 2)
+    for name, (card, plain) in pairs.items():
+        assert kc.compare(name.split("/")[0], card, plain)["max_abs_err"] == 0.0
+        assert card()[0].numel() > 0
 
 
 def test_mp3_fixture_inputs_are_the_decoders_next_granule():

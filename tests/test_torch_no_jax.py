@@ -204,13 +204,54 @@ print("dsp without jax")
 """
 
 
+_NO_JAX_PIPELINE = _NO_JAX_DECODE.split("import numpy as np")[0] + r"""
+import numpy as np
+from pathlib import Path
+from soundkit_tpu_torch.codecs.g711 import G711Law
+from soundkit_tpu_torch.codecs.g726 import G726Packing, G726Rate
+from soundkit_tpu_torch.core.audio_types import AudioData, PcmData
+from soundkit_tpu_torch.core.raw_pcm import RawPcmFormat
+from soundkit_tpu_torch.core.wav import generate_wav_buffer
+from soundkit_tpu_torch.pipeline.decode_pipeline import DecodePipeline
+from soundkit_tpu_torch.tools import telephony_fixtures as tfx
+data = Path("tests/data/torch_port")
+pcm = (np.sin(np.arange(9000) * 0.03) * 8000).astype(np.int16)
+streams = {
+    "wav": (DecodePipeline.spawn, generate_wav_buffer(PcmData.i16([pcm, pcm]), 16000)),
+    "flac": (DecodePipeline.spawn, (data / "flac" / "mono16.flac").read_bytes()),
+    "mp3": (DecodePipeline.spawn, (data / "mp3" / "mono8.mp3").read_bytes()),
+    "aac": (DecodePipeline.spawn, (data / "drums.aac").read_bytes()[:20000]),
+    "raw_pcm": (lambda device: DecodePipeline.spawn_raw_pcm(RawPcmFormat.linear16(8000, 1),
+                                                            device=device), pcm.tobytes()),
+    "g711": (lambda device: DecodePipeline.spawn_g711(G711Law.A_LAW, device=device),
+             tfx.load_clips("g711_alaw")[0][:800]),
+    "g722": (lambda device: DecodePipeline.spawn_g722(device=device),
+             tfx.load_clips("g722")[0][:100]),
+    "g726": (lambda device: DecodePipeline.spawn_g726_with_rate(
+        G726Rate.RATE_24000, G726Packing.LEFT, device=device), tfx.load_clips("g726_24")[0][:90]),
+}
+for name, (spawn, stream) in streams.items():
+    h = spawn(device="cpu")
+    for i in range(0, len(stream), 4096):
+        h.send_blocking(stream[i:i + 4096])
+    h.send_blocking(b"")
+    outs = h.recv_all()
+    assert outs and all(isinstance(o, AudioData) for o in outs), (name, outs)
+    x = np.frombuffer(b"".join(o.data for o in outs), "<i2")
+    assert len(x) > 100 and np.abs(x).max() > 0, name
+assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
+print("pipeline without jax")
+"""
+
+
 @pytest.mark.parametrize("script,said", [(_NO_JAX_DECODE, "decoded without jax"),
                                          (_NO_JAX_TELEPHONY, "telephony without jax"),
                                          (_NO_JAX_FLEET, "fleet without jax"),
                                          (_NO_JAX_MP3, "mp3 without jax"),
                                          (_NO_JAX_OPUS, "opus without jax"),
                                          (_NO_JAX_FLAC_ENC, "flac encode without jax"),
-                                         (_NO_JAX_DSP, "dsp without jax")])
+                                         (_NO_JAX_DSP, "dsp without jax"),
+                                         (_NO_JAX_PIPELINE, "pipeline without jax")])
 def test_port_runs_on_cpu_with_jax_blocked(script, said):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
