@@ -285,11 +285,17 @@ ee. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    ended after the second round and their lanes taken by new streams;
    every stream's fetched PCM is held against the bare model's output
    for the same bytes (MP3, FLAC and G.722 bit-exact, AAC and Opus >=
-   100 dB and Vorbis >= 120 dB under the same rounds), refused streams
-   (a 22.05 kHz mono Ogg Vorbis stream after the group's topology is
-   fixed, GSM, an Ogg Opus SILK stream that switches from NB to WB) must
-   raise ``FleetUnsupported``, and every kernel of the six groups must
-   have launched; then an ``out_bits=16`` collect against the quantized
+   100 dB and Vorbis >= 120 dB under the same rounds), and every kernel
+   of the six groups must have launched; beside the lanes the same run
+   serves streams on the host fallback (``fleet_host_streams``: four
+   beyond capacity for each group, 1024 G.711 and G.726-32 fillers and
+   four beyond them, four WAV and four raw-Opus streams, the single-
+   stream Ogg Opus reroutes, a 22.05 kHz mono Ogg Vorbis stream of
+   another topology), each equal to its lone decode on the card, the
+   fallback's K3 / K6 / K7 / K10 launches counted inside its pushes;
+   the multistream reroutes and GSM must raise ``FleetUnsupported``; the
+   waves run again without the host streams for the x realtime beside;
+   then an ``out_bits=16`` collect against the quantized
    bare output (Opus CELT on the i16 spectral wire), and per group a
    fleet serving that group alone, its x realtime beside the bare model's
    on the same bytes; one ``[fleet]`` line;
@@ -321,12 +327,16 @@ ff. pipeline: K3, K6 and K7 at B = 1 on 1, 127 and 313 codes and on one
    each stream's first 5 s (G.722 and G.726: 1000 codes, their plain
    scans step a code at a time on the CPU) through the same pipeline on
    the CPU, bit-exact but MP3, which is held within 1 LSB, and at >= 100
-   dB in float32 through ``Mp3Decoder``; eight mixed pipelines at once,
+   dB in float32 through ``Mp3Decoder``; six host-decoded streams of ~20 s
+   (``pipeline_host_streams``: Ogg Opus CELT stereo and mono, SILK WB,
+   hybrid FB, raw Opus, Ogg Vorbis) the same way, hooked on their first
+   5 s and held whole against the CPU bit for bit; eight mixed pipelines at once,
    each equal to its lone run; one ``[pipeline]`` line a format and a
    summary line;
 gg. print the kernels' JSON line (all seventeen kernels, K2 with no
    launch: it is not on a path; K3, K6, K7 and K10 with their
-   ``pipeline_launches``, K6 and K7 also with ``stream_encoder_launches``),
+   ``pipeline_launches`` and ``fleet_fallback_launches``, K6 and K7 also
+   with ``stream_encoder_launches``),
    then the result line.
 
 Any failed phase exits non-zero before the result line. Without a
@@ -336,6 +346,7 @@ without a result.
 from __future__ import annotations
 
 import json
+import struct
 import subprocess
 import sys
 import time
@@ -387,6 +398,12 @@ VORBIS_WARM = 3          # rounds the [vorbis-kernels] path case decodes before 
 VORBIS_COMPARE_PAGES = 1  # audio pages a [vorbis-compare] lane carries (~20 packets)
 VORBIS_RATE = 44100.0
 FLEET_VORBIS_PAGES = 4   # audio pages an Ogg Vorbis fleet stream carries (<= ~1 s)
+FLEET_OVERFLOW = 4       # streams beyond a full group's lanes, decoded on the host
+# telephony groups filled to capacity in [fleet]'s last round, so that their overflow
+# streams run K3 and K6 on the host fallback
+FLEET_FILLERS = ("g711_mulaw", "g726_32")
+FLEET_FILLER_BYTES = 400
+FLEET_HOST_WAV_SECONDS = 1.0
 FLAC_ENC_RATE = 44100.0
 FLAC_ENC_SECONDS = 4.0    # PCM a [flac-enc] lane carries
 FLAC_ENC_PUSHES = 4       # pushes of the [flac-enc] phase, an encode_pending after each
@@ -2866,10 +2883,12 @@ def fleet_schedule(fs: "FleetStreams", sid: str, k: int):
     return [(r, share * (0.5 if (k + r) % 5 == 0 and share < 1.0 else 1.0)) for r, share in plan]
 
 
-def drive_fleet(fleet, fs: "FleetStreams", sids, collect):
+def drive_fleet(fleet, fs: "FleetStreams", sids, collect, hook=None):
     """Push ``sids`` by :func:`fleet_schedule` over FLEET_ROUNDS rounds,
-    ``collect`` after each and once more at the end. Returns (push
-    seconds, collect seconds, synchronized)."""
+    ``collect`` after each and once more at the end; ``hook(r, when)``
+    pushes more streams just before ("before") and after ("after") the
+    pushes of round r, inside the push time. Returns (push seconds,
+    collect seconds, synchronized)."""
     import torch
 
     plans = {sid: dict(fleet_schedule(fs, sid, k)) for k, sid in enumerate(sids)}
@@ -2877,6 +2896,8 @@ def drive_fleet(fleet, fs: "FleetStreams", sids, collect):
     push_s = collect_s = 0.0
     for r in range(FLEET_ROUNDS + 1):
         t0 = time.perf_counter()
+        if hook is not None:
+            hook(r, "before")
         for sid in sids:
             share = plans[sid].get(r)
             if share is None:
@@ -2887,6 +2908,8 @@ def drive_fleet(fleet, fs: "FleetStreams", sids, collect):
             pos[sid] = end
             if share == 1.0:
                 fleet.end_stream(sid)
+        if hook is not None:
+            hook(r, "after")
         t1 = time.perf_counter()
         collect()
         torch.cuda.synchronize()
@@ -3020,28 +3043,129 @@ def bare_outputs(fs: "FleetStreams", seats, group: str, rounds=None, wire: str =
     return out, seconds
 
 
+def fleet_host_streams(fs: "FleetStreams") -> dict:
+    """The [fleet] streams without a lane, {sid: dict(data, kind, pushes,
+    expect)}: ``pushes`` [(round, "before" / "after", start, end, ends)],
+    ``expect`` "host" (decoded on the host fallback), "refused" (the port
+    cannot decode it) or "lane" (a filler seated in a telephony group).
+
+    - FLEET_OVERFLOW streams beyond capacity for each of the six groups,
+      the bytes of first-wave streams, pushed whole in the last round,
+      when every group's 1024 lanes are taken (the detected ones routed by
+      detection, G.722 by its kind);
+    - 1024 short G.711 mu-law and G.726-32 fillers and FLEET_OVERFLOW more
+      of each (the fallback's K3 and K6), in the last round;
+    - 4 WAV and 4 raw-Opus (``opus_raw``) streams;
+    - the Ogg Opus streams the group reroutes (``opus_fixtures.reroute_case``):
+      each pushed whole with kind "opus" after round 0's pushes, so its
+      lane is taken and freed within the push; the hybrid one that starts
+      on transition redundancy pushed but its last page then, its lane
+      frozen by round 0's collect and freed by the rest of it before
+      round 1's pushes; the two multistream heads refused;
+    - a 22.05 kHz mono Ogg Vorbis stream with kind "vorbis" after round 0's
+      pushes (the group's topology is 44.1 kHz stereo by then)."""
+    import numpy as np
+
+    from soundkit_tpu_torch.core.audio_types import PcmData
+    from soundkit_tpu_torch.core.wav import generate_wav_buffer
+    from soundkit_tpu_torch.tools import opus_fixtures as of
+    from soundkit_tpu_torch.tools import telephony_fixtures as tf
+    from soundkit_tpu_torch.tools import vorbis_fixtures as vf
+
+    hs = {}
+
+    def add(sid, data, kind, at, expect, cut=None):
+        r, when = at
+        pushes = [(r, when, 0, len(data), True)] if cut is None else \
+            [(r, when, 0, cut, False), (r + 1, "before", cut, len(data), True)]
+        hs[sid] = dict(data=data, kind=kind, pushes=pushes, expect=expect)
+
+    for sid, data in zip((f"wav-host-{i}" for i in range(4)), (
+            generate_wav_buffer(PcmData.i16(list(np.stack([x, x[::-1]]))), 16000)
+            for x in np.split(np.resize(np.concatenate(tf.pcm_clips(16000)),
+                                        int(4 * FLEET_HOST_WAV_SECONDS * 16000)), 4))):
+        add(sid, data, None, (0, "after"), "host")
+    oclips = of.load_clips()
+    for i, data in enumerate(of.lane_raw(oclips, 4, FLEET_OPUS_PACKETS)):
+        add(f"opus_raw-host-{i}", data, "opus_raw", (0, "after"), "host")
+    for case in of.REROUTE_CASES:
+        head, packets, _ = of.reroute_case(case)
+        data = of.ogg_stream(head, packets)
+        cut = len(data) - len(packets[-1]) - 28 if case == "hybrid_redundancy_start" else None
+        add(f"reroute-{case}", data, "opus", (0, "after"),
+            "refused" if case in ("mapping_family_1", "three_channels") else "host", cut)
+    add("vorbis-topology", vf.load_clips(names=("mono22",))[0].stream(), "vorbis", (0, "after"),
+        "host")
+    for kind in FLEET_FILLERS:
+        streams = [s[:FLEET_FILLER_BYTES] for s in tf.lane_streams(kind, B + FLEET_OVERFLOW)]
+        for j, data in enumerate(streams):
+            add(f"{kind}-{'fill' if j < B else 'host'}-{j}", data, kind, (FLEET_ROUNDS - 1, "after"),
+                "lane" if j < B else "host")
+    for g in ("aac", "mp3", "flac", "opus", "vorbis", FLEET_TEL_KIND):
+        for i in range(FLEET_OVERFLOW):
+            src = f"{g}-{i}"
+            add(f"{g}-host-{i}", fs.data[src], fs.kind[src], (FLEET_ROUNDS - 1, "after"), "host")
+    return hs
+
+
 def phase_fleet():
     import numpy as np
     import torch
 
+    from soundkit_tpu_torch.codecs.opus import OggOpusDecoder
+    from soundkit_tpu_torch.core.audio_pipeline import audio_to_f32_channels
+    from soundkit_tpu_torch.core.audio_types import AudioData
+    from soundkit_tpu_torch.models import fleet as fleet_mod
     from soundkit_tpu_torch.models.fleet import FleetUnsupported, StreamFleet
     from soundkit_tpu_torch.ops import aac_batch as ab
-    from soundkit_tpu_torch.tools import opus_fixtures as of
-    from soundkit_tpu_torch.tools import vorbis_fixtures as vf
     from soundkit_tpu_torch.ops import aac_entropy as ae
-    from soundkit_tpu_torch.ops import g722, imdct
+    from soundkit_tpu_torch.ops import adpcm, companding, g722, imdct
 
     fs = FleetStreams(B)
+    hs = fleet_host_streams(fs)
     groups = ("aac", "mp3", "flac", "opus", "vorbis", FLEET_TEL_KIND)
     first = [sid for g in groups for sid in fs.wave(g, False)]
     second = [sid for g in groups for sid in fs.wave(g, True)]
     wrappers = {"spectral_decode": ae.spectral_decode, "tns_filter": ab.tns_filter,
                 "imdct_window": imdct.imdct_window, "g722_scan": g722.g722_decode_scan,
+                "g711_decode": companding.g711_decode, "g726_scan": adpcm.g726_decode_scan,
                 **flac_wrappers(), **mp3_wrappers(), **voice_wrappers(), **vorbis_wrappers()}
+    # the kernels the host fallback launches (K3, K6, K7 and K10 at B = 1)
+    fallback_names = ("g711_decode", "g726_scan", "g722_scan", "mp3_synth")
+    fallback_launches = dict.fromkeys(fallback_names, 0)
+    refused = {}
+    host_push_s = {}  # push and end_stream seconds by kind of stream ("aac-host", "reroute", ...)
 
-    # mixed: all three groups in one fleet, lanes recycled, every stream checked
+    def host_hook(r, when):
+        """Push the streams of ``hs`` due at (r, when); the launches made
+        inside these pushes are the host fallback's (a lane launches
+        nothing at a push)."""
+        for sid, h in hs.items():
+            for rr, ww, lo, hi, ends in h["pushes"]:
+                if (rr, ww) != (r, when):
+                    continue
+                before = {n: wrappers[n].launches for n in fallback_names}
+                t0 = time.perf_counter()
+                try:
+                    fleet.push(sid, h["data"][lo:hi], kind=h["kind"] if lo == 0 else None)
+                    if ends:
+                        fleet.end_stream(sid)
+                except FleetUnsupported as e:
+                    refused[sid] = str(e)
+                what = sid.rsplit("-", 1)[0]
+                host_push_s[what] = host_push_s.get(what, 0.0) + time.perf_counter() - t0
+                for n in fallback_names:
+                    fallback_launches[n] += wrappers[n].launches - before[n]
+                if ends and sid not in refused:
+                    where = "lane" if sid in fleet._lanes else \
+                        "host" if sid in fleet._fallback or sid in got else "gone"
+                    check(where == h["expect"], f"fleet: {sid} went to {where}, not {h['expect']}")
+
+    # mixed: the six groups in one fleet, lanes recycled, every stream checked, and the
+    # streams without a lane on the host fallback beside them
     fleet = StreamFleet(capacity_per_group=B, device="cuda")
-    got, lane_of = {}, {}
+    got, lane_of, rate_of = {}, {}, {}
+    collect_call_s = [0.0]  # seconds in StreamFleet.collect alone
     # per collect with AAC, Opus or Vorbis output: (batches decoded, {sid: frames ready})
     replays = {"aac": [], "opus": [], "vorbis": []}
 
@@ -3055,7 +3179,10 @@ def phase_fleet():
                 check(lane_of.setdefault(sid, ln.index) == ln.index, f"{sid}: changed lanes")
         if vorbis and max(vorbis.values()):
             replays["vorbis"].append((max(vorbis.values()), vorbis))
+        t0 = time.perf_counter()
         recs = fleet.collect(device_out=True)
+        torch.cuda.synchronize()
+        collect_call_s[0] += time.perf_counter() - t0
         for kind, kind_rounds in replays.items():
             if kind == "vorbis":
                 continue
@@ -3064,50 +3191,61 @@ def phase_fleet():
                 kind_rounds.append((int(next(recs[sid] for sid in ready).device.shape[0]), ready))
         for sid, rec in recs.items():
             check(rec.rate == fleet.sample_rate(sid) and rec.rate is not None, f"{sid}: rate {rec.rate}")
+            check(rate_of.setdefault(sid, rec.rate) == rec.rate, f"{sid}: changed rates")
             pcm = rec.fetch()
             check(pcm.shape[-1] == rec.samples, f"{sid}: {pcm.shape} for {rec.samples} samples")
-            if rec.kind != "vorbis":
+            check((rec.kind == "host") == (sid in hs and hs[sid]["expect"] == "host"),
+                  f"{sid}: a {rec.kind} output")
+            if rec.kind not in ("vorbis", "host"):
                 check(lane_of.setdefault(sid, rec.lane) == rec.lane, f"{sid}: changed lanes")
             got.setdefault(sid, []).append(pcm)
 
     for w in wrappers.values():
         w.launches = 0
-    push_s, collect_s = drive_fleet(fleet, fs, first + second, collect_and_fetch)
+    push_s, collect_s = drive_fleet(fleet, fs, first + second, collect_and_fetch, host_hook)
     launches = {n: w.launches for n, w in wrappers.items()}
     for n, c in launches.items():
         check(c > 0, f"{n} was not launched by the fleet")
-    check(not fleet._lanes and not fleet._detect and not fleet._ended,
-          "fleet: streams left over after every stream ended and drained")
+    for n, c in fallback_launches.items():
+        check(c > 0, f"fleet: the host fallback launched no {n}")
+    check(not fleet._lanes and not fleet._detect and not fleet._ended and not fleet._fallback
+          and not fleet._pending_out, "fleet: streams left over after every stream ended and drained")
     for g in groups:
         used = fleet._groups[g]._used
         check(len(used) == B, f"fleet: group {g} used {len(used)} lanes for {B + B // 4} streams")
-    # an Ogg Vorbis stream of another topology than the group's (22.05 kHz mono)
-    mono = vf.load_clips(names=("mono22",))[0].stream()
-    try:
-        fleet.push("refused", mono)
-        check(False, "fleet: an Ogg Vorbis stream of another topology was not refused")
-    except FleetUnsupported as e:
-        check("kind 'vorbis'" in str(e) and "topology (512, 1024, 1)" in str(e) and e.raw == mono,
-              f"fleet: refusal does not name it: {e}")
+    check(sorted(refused) == sorted(sid for sid, h in hs.items() if h["expect"] == "refused")
+          and all("multistream OpusHead" in m for m in refused.values()),
+          f"fleet: refused {refused}")
     try:
         fleet.push("refused", b"\x00" * 64, kind="gsm")
         check(False, "fleet: a GSM stream was not refused")
     except FleetUnsupported:
         pass
-    # an Ogg Opus SILK stream that switches from NB to WB in mid-stream (the reference
-    # reroutes it to its host decoder)
-    voice = {c.name: c for c in of.load_clips(names=of.VOICE_CLIPS)}
-    switch = voice["silk_nb"].packets[:4] + voice["silk_wb"].packets[4:6]
-    try:
-        fleet.push("refused", voice["silk_nb"].header + b"".join(
-            b"OggS" + bytes(22) + bytes([1, len(pkt)]) + pkt for pkt in switch))
-        fleet.end_stream("refused")
-        check(False, "fleet: an Ogg Opus SILK bandwidth switch was not refused")
-    except FleetUnsupported as e:
-        check("kind 'opus'" in str(e) and "silk bandwidth switch" in str(e),
-              f"fleet: refusal does not name it: {e}")
-    check(not fleet._lanes and not fleet._detect and not fleet._ended,
+    check(not fleet._detect and not fleet._ended and not fleet._fallback,
           "fleet: the refused stream was not forgotten")
+    # each host stream against its lone decode on the card: the same pipeline fed the
+    # same bytes; a rerouted Ogg Opus stream (its lane emitted nothing) against the
+    # whole stream through the host decoder, whose float output it replays
+    host_audio_s = 0.0
+    for sid, h in hs.items():
+        if h["expect"] != "host":
+            continue
+        check(sid in got, f"fleet returned nothing for {sid}")
+        pcm = np.concatenate(got[sid], axis=1)
+        if sid.startswith("reroute-"):
+            d = OggOpusDecoder()
+            want = d.decode_f32(h["data"]).reshape(-1, d.channels).T
+        else:
+            lone = fleet_mod._host_decoder("cuda") if h["kind"] in (None, "vorbis") else \
+                fleet_mod._explicit_host_decoder(h["kind"], "cuda")
+            outs = lone.process(h["data"]) + lone.process(b"")
+            want = np.concatenate([np.stack(audio_to_f32_channels(o)) for o in outs
+                                   if isinstance(o, AudioData)], axis=1)
+        check(pcm.shape == want.shape and np.array_equal(pcm, want) and np.any(want),
+              f"{sid}: the fleet's host PCM {pcm.shape} differs from its lone decode {want.shape}")
+        host_audio_s += pcm.shape[1] / rate_of[sid]
+    filler_audio_s = sum(np.concatenate(got[sid], axis=1).shape[1] / rate_of[sid]
+                         for sid, h in hs.items() if h["expect"] == "lane")
 
     worst_snr = {"aac": float("inf"), "opus": float("inf"), "vorbis": float("inf")}
     vorbis_identical = 0
@@ -3148,12 +3286,36 @@ def phase_fleet():
     for g, snr in worst_snr.items():
         check(snr >= (120.0 if g == "vorbis" else 100.0),
               f"fleet: {g} stream at {snr:.2f} dB against the bare model")
-    audio = sum(fs.audio.values())
+    audio = sum(fs.audio.values()) + host_audio_s + filler_audio_s
+
+    # the same waves again without the host streams and the fillers: each collect
+    # fetched as the checked run fetches it, without the checks
+    bare_fleet = StreamFleet(capacity_per_group=B, device="cuda")
+    bare_call_s = [0.0]
+
+    def collect_fetch_only():
+        t0 = time.perf_counter()
+        recs = bare_fleet.collect(device_out=True)
+        torch.cuda.synchronize()
+        bare_call_s[0] += time.perf_counter() - t0
+        for rec in recs.values():
+            rec.fetch()
+
+    p0, c0 = drive_fleet(bare_fleet, fs, first + second, collect_fetch_only)
+    without = dict(audio_s=sum(fs.audio.values()), push_s=p0, collect_and_fetch_s=c0,
+                   collect_call_s=bare_call_s[0], xrealtime=sum(fs.audio.values()) / (p0 + c0))
+    n_host = sum(h["expect"] == "host" for h in hs.values())
     mixed = dict(streams=len(first) + len(second), rounds=FLEET_ROUNDS, audio_s=audio,
-                 push_s=push_s, collect_and_fetch_s=collect_s,
+                 push_s=push_s, collect_and_fetch_s=collect_s, collect_call_s=collect_call_s[0],
                  xrealtime=audio / (push_s + collect_s), min_aac_snr_db=worst_snr["aac"],
                  min_opus_snr_db=worst_snr["opus"], min_vorbis_snr_db=worst_snr["vorbis"],
-                 vorbis_identical_streams=int(vorbis_identical), launches=launches)
+                 vorbis_identical_streams=int(vorbis_identical), launches=launches,
+                 host_streams=n_host, host_audio_s=host_audio_s,
+                 fillers=sum(h["expect"] == "lane" for h in hs.values()),
+                 filler_audio_s=filler_audio_s, refused=sorted(refused),
+                 fallback_launches=fallback_launches, host_push_s=host_push_s,
+                 lane_launches={n: c - fallback_launches.get(n, 0) for n, c in launches.items()},
+                 without_host_streams=without)
     log(f"[fleet] mixed: {json.dumps(mixed)}")
 
     # out_bits=16: one collect, against the bare outputs quantized on the host
@@ -3215,6 +3377,12 @@ PIPE_COMPARE_SECONDS = 5.0  # the prefix each stream also decodes on the CPU
 PIPE_SCAN_COMPARE_CODES = 1000
 PIPE_TIMED_SECONDS = 15.0  # the prefix the per-chunk timing hook runs on
 PIPE_CONCURRENT = ("mp3", "flac16", "flac24", "g722", "g726_16", "g726_32", "g711_mulaw", "wav")
+# the host-decoded Opus and Vorbis streams: ~PIPE_HOST_SECONDS each, the timing hook on
+# their first PIPE_HOST_TIMED_SECONDS, the CPU compare on the whole stream
+PIPE_HOST_SECONDS = 20.0
+PIPE_HOST_TIMED_SECONDS = 5.0
+PIPE_HOST_FORMATS = ("ogg_opus_stereo", "ogg_opus_mono", "ogg_opus_silk_wb", "ogg_opus_hybrid_fb",
+                     "opus_raw", "ogg_vorbis")
 
 
 def pipeline_wrappers():
@@ -3301,7 +3469,47 @@ def pipeline_streams() -> tuple:
     fmt16 = RawPcmFormat.linear16(16000, 2)
     out["raw_pcm"] = (np.ascontiguousarray(stereo.T).astype("<i2").tobytes(),
                       lambda device: DP.spawn_raw_pcm(fmt16, device=device), PIPE_SECONDS)
+    out.update(pipeline_host_streams())
     return out, sources
+
+
+def pipeline_host_streams() -> dict:
+    """The Opus and Vorbis streams of [pipeline], each a fixture clip's
+    packets repeated to >= PIPE_HOST_SECONDS: Ogg Opus CELT stereo
+    (``stereo96``) and mono (``mono64``), SILK WB (``silk_wb``) and hybrid
+    FB (``hybrid_fb``), one page a packet; soundkit's raw Opus framing
+    (``owned``); Ogg Vorbis (``stereo44``'s headers, then its audio
+    packets repeated, a page each). All detected by ``DecodePipeline.spawn``."""
+    import numpy as np
+
+    from soundkit_tpu_torch.demux.ogg import build_ogg_page
+    from soundkit_tpu_torch.pipeline.decode_pipeline import DecodePipeline as DP
+    from soundkit_tpu_torch.tools import opus_fixtures as of
+    from soundkit_tpu_torch.tools import vorbis_fixtures as vf
+
+    out = {}
+    clips = {c.name: c for c in of.load_clips() + of.load_clips(names=of.VOICE_CLIPS)}
+    for fmt, name in (("ogg_opus_stereo", "stereo96"), ("ogg_opus_mono", "mono64"),
+                      ("ogg_opus_silk_wb", "silk_wb"), ("ogg_opus_hybrid_fb", "hybrid_fb"),
+                      ("opus_raw", "owned")):
+        clip = clips[name]
+        reps = int(np.ceil(PIPE_HOST_SECONDS * 50 / len(clip.packets)))
+        packets = clip.packets * reps
+        data = (clip.head + b"".join(struct.pack("<H", len(p)) + p for p in packets)
+                if fmt == "opus_raw" else of.ogg_stream(clip.head, packets))
+        out[fmt] = (data, DP.spawn, (len(packets) * 960 - clip.pre_skip) / 48000)
+    clip = vf.load_clips(names=("stereo44",))[0]
+    from soundkit_tpu_torch.demux.ogg import OggPacketizer
+
+    packets = [p for p, _g in OggPacketizer().push(clip.stream())]
+    audio = packets[3:]
+    samples = vf.lane_samples([clip], 1)[0]
+    reps = int(np.ceil(PIPE_HOST_SECONDS * 44100 / samples))
+    pages = [build_ogg_page([packets[0]], 9, 0, 0, header_type=2),
+             build_ogg_page(packets[1:3], 9, 1, 0)]
+    pages += [build_ogg_page([p], 9, 2 + i, 0) for i, p in enumerate(audio * reps)]
+    out["ogg_vorbis"] = (b"".join(pages), DP.spawn, reps * samples / 44100)
+    return out
 
 
 def pipeline_run(spawn, data: bytes, device: str, timed: bool = False):
@@ -3423,7 +3631,8 @@ def phase_pipeline(card: str):
         check(audio, f"[pipeline] {fmt}: no audio")
         a0 = audio[0]
         got_s = _audio_seconds(audio)
-        check(got_s >= 0.99 * seconds and got_s >= PIPE_SECONDS * 0.99,
+        floor_s = PIPE_HOST_SECONDS if fmt in PIPE_HOST_FORMATS else PIPE_SECONDS
+        check(got_s >= 0.99 * seconds and got_s >= floor_s * 0.99,
               f"[pipeline] {fmt}: {got_s:.2f} s of audio out of {seconds:.2f}")
         lone[fmt] = outs
         res[fmt] = dict(audio_s=got_s, bytes=len(data), wall_s=wall, xrealtime=got_s / wall,
@@ -3436,17 +3645,19 @@ def phase_pipeline(card: str):
 
     # the per-chunk timing hook, on each stream's first PIPE_TIMED_SECONDS s
     for fmt, (data, spawn, seconds) in streams.items():
+        timed_s = PIPE_HOST_TIMED_SECONDS if fmt in PIPE_HOST_FORMATS else PIPE_TIMED_SECONDS
         outs, wall, walls, dev_ms = pipeline_run(
-            spawn, data[:int(len(data) * PIPE_TIMED_SECONDS / seconds)], "cuda", timed=True)
+            spawn, data[:int(len(data) * timed_s / seconds)], "cuda", timed=True)
         res[fmt].update(timed_chunks=len(walls),
                         chunk_ms_median=1e3 * float(np.median(walls)),
                         device_ms_median=float(np.median(dev_ms)),
                         timed_xrealtime=_audio_seconds(outs) / wall)
 
-    # the CPU path on each stream's prefix: bit-exact, MP3 within 1 LSB
+    # the CPU path on each stream's prefix (the Opus and Vorbis streams whole, the
+    # same host code): bit-exact, MP3 within 1 LSB
     t0 = time.perf_counter()
     for fmt, (data, spawn, seconds) in streams.items():
-        head = _prefix(fmt, data, seconds)
+        head = data if fmt in PIPE_HOST_FORMATS else _prefix(fmt, data, seconds)
         host = _pcm_bytes(pipeline_run(spawn, head, "cpu")[0])
         card_pcm = _pcm_bytes(lone[fmt])[:len(host)]
         check(len(host) > 0 and len(card_pcm) == len(host),
@@ -3703,7 +3914,9 @@ def main() -> int:
         launches=stretch_launches["phase_lock"],
         launches_per_step=stretch_launches["phase_lock"] / len(stres), **stkres["phase_lock"]))
     for k in kernels:
-        k["fleet_launches"] = flres["mixed"]["launches"].get(k["name"], 0)
+        k["fleet_launches"] = flres["mixed"]["lane_launches"].get(k["name"], 0)
+        if k["name"] in flres["mixed"]["fallback_launches"]:
+            k["fleet_fallback_launches"] = flres["mixed"]["fallback_launches"][k["name"]]
     # DecodePipeline only decodes; the encoders that built its telephony
     # streams are counted apart
     pipe_by_row = {"g711_decode": ("g711_decode", None),

@@ -1,6 +1,6 @@
 """The one piece of ``soundkit_tpu/codecs/avdec.py`` the port needs:
-:func:`f32_to_i16`, the float-to-int16 conversion of the MP3 and AAC
-adapters. The libavcodec decoder there (``AvDecoder``) is not ported:
+:func:`f32_to_i16`, the float-to-int16 conversion of the streaming
+adapters (MP3, AAC, Opus, Vorbis). The libavcodec decoder there (``AvDecoder``) is not ported:
 the port builds no FFmpeg, and the shapes the JAX package hands to it
 raise in the port's codecs instead."""
 from __future__ import annotations

@@ -7,11 +7,13 @@ spectra and packed postfilter parameters that the batched synthesis
 
 The spec tables are pushed from the port's copy of the RFC 6716 set
 (``codecs/opus_tables.py``) when the library loads, as the JAX package
-does. Bound here: :class:`NativeCeltParser` (one stream's parse state)
-and :class:`NativeCeltBatch` with ``reset_lane`` and the serving walk
-``parse_rounds``. The single-frame parses (``parse``, ``parse_many``,
-``parse_many_q``), the hybrid continuation ``parse_many_cont`` and the
-encoder ``NativeCeltEncoder`` of the JAX package are not bound yet.
+does. Bound here: :class:`NativeCeltParser` (one stream's parse state,
+with the single-frame ``parse`` of the host decoder's CELT fast path,
+``codecs/opus._NativeCeltStream``) and :class:`NativeCeltBatch` with
+``reset_lane`` and the serving walk ``parse_rounds``. The batch parses
+``parse_many`` and ``parse_many_q``, the hybrid continuation
+``parse_many_cont`` and the encoder ``NativeCeltEncoder`` of the JAX
+package are not bound yet.
 """
 from __future__ import annotations
 
@@ -88,6 +90,22 @@ class NativeCeltParser:
 
     def reset(self) -> None:
         self._lib.skt_celt_reset(self._h)
+
+    def parse(self, frame: bytes, end: int, coded_channels: int = 0,
+              frame_size: int = FRAME, start: int = 0):
+        """Returns (freq [C, frame_size] f64, comb [16] f64, sflag)."""
+        C = coded_channels or self.channels
+        freq = np.zeros((C, frame_size), dtype=np.float64)
+        comb = np.zeros(16, dtype=np.float64)
+        sflag = ctypes.c_int(0)
+        r = self._lib.skt_celt_parse(
+            self._h, frame, len(frame), frame_size, start, end, C,
+            freq.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            comb.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            ctypes.byref(sflag))
+        if r != 0:
+            raise CeltNativeError(f"celt parse failed ({r})")
+        return freq, comb, int(sflag.value)
 
 
 class NativeCeltBatch:

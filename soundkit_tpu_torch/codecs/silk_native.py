@@ -10,12 +10,12 @@ The spec tables are pushed from the port's copy of the RFC 6716 set
 (``codecs/opus_tables.py``) when the library loads, as the JAX package
 does. Bound here, as verbatim copies of the JAX package's methods:
 ``SilkNativeError``, ``_TABLE_KEYS``, :class:`NativeSilkDecoder` (one
-stream's SILK state: ``__init__``, ``__del__``, ``flush``) and
-:class:`NativeSilkBatch` with ``reset_lane``, the per-round
-parse-export ``parse_many`` and the packed hybrid walk
-``hybrid_parse_rounds_packed``. The single-stream
-``NativeSilkDecoder.decode_superframe``, the batch ``decode_many``, the
-unpacked ``hybrid_parse_rounds`` and ``NativeSilkEncoder`` are not
+stream's SILK state: ``__init__``, ``__del__``, ``flush`` and the
+single-stream ``decode_superframe`` of the host decoder,
+``codecs/opus_core.OpusDecoder``) and :class:`NativeSilkBatch` with
+``reset_lane``, the per-round parse-export ``parse_many`` and the packed
+hybrid walk ``hybrid_parse_rounds_packed``. The batch ``decode_many``,
+the unpacked ``hybrid_parse_rounds`` and ``NativeSilkEncoder`` are not
 bound yet.
 """
 from __future__ import annotations
@@ -99,6 +99,27 @@ class NativeSilkDecoder:
 
     def flush(self) -> None:
         self._lib.skt_silk_reset(self._h)
+
+    def decode_superframe(self, frame: bytes, bandwidth: int,
+                          coded_channels: int, duration_ms: int,
+                          read_redundancy: bool = False):
+        nb = 1 + (duration_ms > 20) + (duration_ms > 40)
+        flen = 20 * (bandwidth + 2) * (duration_ms // nb // 5)
+        out = np.zeros((nb * flen, coded_channels), dtype=np.float64)
+        info = np.zeros(13, dtype=np.int64)
+        n = self._lib.skt_silk_decode(
+            self._h, frame, len(frame), bandwidth, coded_channels,
+            duration_ms, 1 if read_redundancy else 0,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            info.ctypes.data_as(ctypes.POINTER(ctypes.c_long)))
+        if n < 0:
+            raise SilkNativeError(f"silk decode failed ({n})")
+        red = None
+        if info[0]:
+            red = {"pos": int(info[1]), "offset": int(info[2]),
+                   "size": int(info[3])}
+        rc_state = tuple(int(x) for x in info[4:13])
+        return out[:n], red, rc_state
 
 
 class NativeSilkBatch:

@@ -2,7 +2,9 @@
 ``OggPageParser`` and ``OggPacketizer`` of the JAX package's
 ``demux/ogg.py``, copied verbatim (chunk-boundary-agnostic page sync,
 segment-table packet assembly with 255-lacing continuation across
-pages). The page writer is not ported.
+pages), and the page writer ``build_ogg_page`` with its CRC, which the
+smoke and the fixture tools build Ogg streams with. The Opus stream
+writer ``OggOpusWriter`` is not ported.
 """
 from __future__ import annotations
 
@@ -97,3 +99,48 @@ class OggPacketizer:
                     packets.append((bytes(self._partial), page.granule))
                     self._partial.clear()
         return packets
+
+
+def _ogg_crc_table():
+    table = []
+    for i in range(256):
+        crc = i << 24
+        for _ in range(8):
+            crc = ((crc << 1) ^ 0x04C11DB7) & 0xFFFFFFFF \
+                if crc & 0x80000000 else (crc << 1) & 0xFFFFFFFF
+        table.append(crc)
+    return table
+
+
+_OGG_CRC_TABLE = _ogg_crc_table()
+
+
+def _ogg_crc(data: bytes) -> int:
+    """Ogg page CRC-32 (poly 0x04C11DB7, no reflection, init 0)."""
+    crc = 0
+    tab = _OGG_CRC_TABLE
+    for b in data:
+        crc = ((crc << 8) & 0xFFFFFFFF) ^ tab[((crc >> 24) ^ b) & 0xFF]
+    return crc
+
+
+def build_ogg_page(packets, serial: int, seq: int, granule: int,
+                   header_type: int = 0) -> bytes:
+    """One Ogg page from whole packets (RFC 3533 framing: 255-run
+    segment lacing, little-endian header, CRC over the full page)."""
+    import struct
+
+    segs = bytearray()
+    body = bytearray()
+    for pkt in packets:
+        n = len(pkt)
+        while n >= 255:
+            segs.append(255)
+            n -= 255
+        segs.append(n)
+        body.extend(pkt)
+    hdr = struct.pack("<4sBBqIII", b"OggS", 0, header_type, granule,
+                      serial, seq, 0) + bytes([len(segs)]) + bytes(segs)
+    page = bytearray(hdr + bytes(body))
+    page[22:26] = struct.pack("<I", _ogg_crc(bytes(page)))
+    return bytes(page)

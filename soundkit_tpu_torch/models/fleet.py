@@ -17,30 +17,43 @@ true output by its per-lane produced count. The Vorbis group's output is
 ragged host PCM (a packet's length depends on its neighbours' block
 sizes), carried in ``FleetLaneOutput.host``.
 
-Streams this fleet refuses. The JAX package hands some streams to a
-per-stream host pipeline; the port has no pipeline yet, so such a
-stream raises :class:`FleetUnsupported` at the ``push`` or
-``end_stream`` that routes it, and the fleet forgets it:
+A stream without a lane decodes beside the groups on a per-stream host
+fallback, as in the JAX package: a ``pipeline.decode_pipeline.StreamDecoder``
+on the fleet's ``device`` (its telephony and MP3 codecs launch K3, K6, K7
+and K10 at B = 1 there), whose PCM ``collect`` returns with the lanes'.
+These streams take it:
 
-- a detected format without a batched group here: everything but AAC,
-  MP3, FLAC, Ogg Vorbis and Ogg Opus that detection names or fails to
-  name (WAV, M4A, WebM, unknown bytes);
-- an explicit kind of :data:`HOST_KINDS` (gsm, amr_nb, g729, opus_raw);
+- a detected format without a batched group (WAV), and bytes that
+  detection cannot name (which decode to nothing, as in the JAX package);
+- the explicit kind ``opus_raw`` (soundkit's raw Opus framing);
+- any stream whose group is full, detected or of an explicit kind;
 - an Ogg Vorbis stream whose headers disagree with the topology of the
-  group (blocksizes and channels, fixed by its first stream's headers;
-  ``models/vorbis_batch.TopologyMismatch``), which the JAX package
-  replays into its host decoder, at the push that completes its headers;
-  its lane is reset and freed, and the exception's ``raw`` holds the
-  stream's bytes so far (the fleet keeps a Vorbis stream's bytes only
-  until its headers parse), for a caller that decodes it elsewhere;
-- an Ogg Opus stream that the JAX package's group reroutes to its host
-  decoder (``models/opus_fleet_model.OpusLaneUnsupported``: an OpusHead
-  of more channels than the group or of a mapping family other than 0,
-  a packet that is not a single 20 ms frame, a mid-stream mode switch or
-  SILK bandwidth switch, a hybrid lane frozen by its walk: a stream that
-  starts on a transition-redundancy packet), at the push that brings it;
-  its lane is reset and freed;
-- any stream whose group is full.
+  group (``models/vorbis_batch.TopologyMismatch``), replayed from its
+  bytes so far (the fleet keeps a Vorbis stream's bytes only until its
+  headers parse);
+- an Ogg Opus stream that its group reroutes
+  (``models/opus_fleet_model.OpusLaneUnsupported``: a packet that is not a
+  single 20 ms frame, a mid-stream mode or SILK bandwidth switch, a hybrid
+  lane frozen by its walk), seeded from the lane's bounded packet tail
+  (``opus_fleet_model._OpusTailFallback``).
+
+A host stream reports the rate of its decoder's last output (a telephony
+overflow stream its codec's rate from the start).
+
+Streams this fleet refuses: what the port cannot decode at all raises
+:class:`FleetUnsupported` at the ``push`` or ``end_stream`` that routes
+it, and the fleet forgets it:
+
+- the explicit kinds ``gsm`` (not ported yet), ``amr_nb`` and ``g729``
+  (libavcodec in the JAX package);
+- a detected format the port's pipeline does not decode (M4A, ALAC,
+  WebM, AIFF, Ogg Speex, AC-3: ``decode_pipeline._NOT_PORTED`` and AC-3);
+- an Opus stream whose OpusHead is multistream (mapping family other
+  than 0, or more than two channels), which the JAX package hands to
+  libavcodec: an Ogg Opus stream at the push that brings its head, a raw
+  one at the push that completes it;
+- any host stream whose decoder finds a format the port does not decode
+  (``UnsupportedFormat``).
 
 An explicit kind that is none of these names raises a plain
 ``ValueError``.
@@ -56,6 +69,7 @@ import torch
 from soundkit_tpu_torch.demux.detect import AudioType, detect_audio
 from soundkit_tpu_torch.models.opus_fleet_model import OpusLaneUnsupported
 from soundkit_tpu_torch.models.vorbis_batch import TopologyMismatch
+from soundkit_tpu_torch.pipeline.decode_pipeline import _NOT_PORTED
 from soundkit_tpu_torch.utils.device import resolve_device
 
 MIN_DETECT = 8192
@@ -67,14 +81,14 @@ TELEPHONY_KINDS = (
     "g726_16", "g726_24", "g726_32", "g726_40",
 )
 
-#: headerless kinds the JAX package serves by per-stream host pipelines;
-#: refused here
+#: headerless kinds served by per-stream host pipelines through the same
+#: explicit-kind ingest
 HOST_KINDS = ("gsm", "amr_nb", "g729", "opus_raw")
+#: the host kinds the port cannot decode
+REFUSED_HOST_KINDS = ("gsm", "amr_nb", "g729")
 
 #: groups with a batched model in the port, beside the telephony kinds
 BATCHED_KINDS = ("aac", "mp3", "flac", "vorbis", "opus")
-#: group names of the JAX package whose models are not ported yet
-UNPORTED_KINDS = ()
 
 _DETECTED = {
     AudioType.AAC: "aac",
@@ -85,14 +99,13 @@ _DETECTED = {
 }
 
 
-class FleetUnsupported(ValueError):
-    """A stream the JAX package's fleet would decode on its host
-    fallback, which the port does not have. ``raw`` holds the bytes of a
-    refused Ogg Vorbis stream so far (None otherwise)."""
+#: detected formats the port's pipeline does not decode
+_UNDECODED = frozenset(_NOT_PORTED) | {AudioType.AC3}
 
-    def __init__(self, msg: str, raw: Optional[bytes] = None):
-        super().__init__(msg)
-        self.raw = raw
+
+class FleetUnsupported(ValueError):
+    """A stream the port cannot decode (the JAX package's fleet decodes it
+    through libavcodec)."""
 
 
 @dataclass
@@ -100,6 +113,41 @@ class _Lane:
     group: str
     index: int
     produced: int = 0  # batches decoded for this lane so far
+
+
+def _host_decoder(device):
+    """A self-detecting host decoder: container formats, undetected bytes."""
+    from soundkit_tpu_torch.pipeline.decode_pipeline import StreamDecoder
+
+    return StreamDecoder(device=device)
+
+
+def _explicit_host_decoder(kind: str, device):
+    """Per-stream host decoder for an explicit kind: ``opus_raw``, or a
+    telephony/batched kind whose group is full (overflow streams keep
+    decoding, just without batching), its kernels on ``device``."""
+    from soundkit_tpu_torch.pipeline.decode_pipeline import DecodeOptions, StreamDecoder
+
+    if kind == "opus_raw":
+        from soundkit_tpu_torch.pipeline.adapters import make_opus_stream_adapter
+
+        return StreamDecoder(DecodeOptions(), make_opus_stream_adapter(), device)
+    if kind not in TELEPHONY_KINDS:
+        return _host_decoder(device)  # container formats self-detect
+    from soundkit_tpu_torch.codecs.g711 import G711Law
+    from soundkit_tpu_torch.codecs.g726 import G726Packing, G726Rate
+    from soundkit_tpu_torch.pipeline.decode_pipeline import G711Adapter, G722Adapter, G726Adapter
+
+    if kind.startswith("g711"):
+        law = G711Law.A_LAW if kind.endswith("alaw") else G711Law.MU_LAW
+        return StreamDecoder(DecodeOptions(), G711Adapter(law, 8000, 1, device), device)
+    if kind == "g722":
+        return StreamDecoder(DecodeOptions(), G722Adapter(device), device)
+    rate = {
+        "g726_16": G726Rate.RATE_16000, "g726_24": G726Rate.RATE_24000,
+        "g726_32": G726Rate.RATE_32000, "g726_40": G726Rate.RATE_40000,
+    }[kind]
+    return StreamDecoder(DecodeOptions(), G726Adapter(rate, G726Packing.LEFT, device), device)
 
 
 def _slice_lane_host(kind, arr, lane, k, meta, out_bits):
@@ -292,15 +340,15 @@ class StreamFleet:
     - ``push(stream_id, data)``: buffer until detection (8 KiB or
       ``end_stream``), then feed the stream's lane.
     - ``end_stream(stream_id)``: EOF; triggers detection for small
-      streams and recycles the lane at the next ``collect`` that finds
-      it drained.
+      streams, flushes host streams, and recycles the lane at the next
+      ``collect`` that finds it drained.
     - ``collect()``: decode all groups in lockstep batches and return
       ``{stream_id: PCM [C, samples]}`` newly produced since the last
       collect.
 
-    The groups run on ``device`` ('cuda', the default, or 'cpu'). The
-    module's docstring lists the streams that raise
-    :class:`FleetUnsupported`.
+    The groups and the host streams' decoders run on ``device`` ('cuda',
+    the default, or 'cpu'). The module's docstring lists the streams that
+    decode on the host and those that raise :class:`FleetUnsupported`.
     """
 
     def __init__(self, capacity_per_group: int = 16, channels: int = 2,
@@ -326,10 +374,12 @@ class StreamFleet:
         self._lanes: Dict[str, _Lane] = {}
         self._detect: Dict[str, bytearray] = {}
         # raw bytes of lane streams whose group can still reject them
-        # (Vorbis topology, confirmed only at header parse), handed to the
-        # caller with the refusal
+        # (Vorbis topology, confirmed only at header parse), kept so a
+        # rejected stream can be replayed into a host fallback
         self._pretopo: Dict[str, bytearray] = {}
+        self._fallback: Dict[str, object] = {}
         self._ended: Dict[str, bool] = {}
+        self._pending_out: Dict[str, List[np.ndarray]] = {}
         self._rates: Dict[str, int] = {}  # last known rate per stream
         self._retired: List[str] = []  # recycled last collect; rates
         # kept one extra collect-cycle so callers can still query the
@@ -343,11 +393,15 @@ class StreamFleet:
         headerless formats autodetect cannot route: one of
         :data:`TELEPHONY_KINDS` (G.726 kinds assume left-justified
         packing), or a batched group name ("aac", "mp3", "flac", "vorbis",
-        "opus") to skip detection.  Only the first push of a stream may carry
+        "opus") to skip detection, or ``opus_raw`` (soundkit's raw Opus
+        framing, a host stream). Only the first push of a stream may carry
         ``kind``."""
         self._ended.setdefault(stream_id, False)
         if stream_id in self._lanes:
             self._push_lane(stream_id, data)
+            return
+        if stream_id in self._fallback:
+            self._feed_fallback(stream_id, data)
             return
         if kind is not None:
             buf = bytes(self._detect.pop(stream_id, b"")) + data
@@ -362,37 +416,41 @@ class StreamFleet:
         if stream_id in self._detect:
             self._route(stream_id)
         self._ended[stream_id] = True
+        if stream_id in self._fallback:
+            self._feed_fallback(stream_id, b"")
 
-    def _refuse(self, stream_id: str, what: str, reason: str, raw: Optional[bytes] = None):
+    def _refuse(self, stream_id: str, what: str, reason: str):
         """Forget the stream and raise :class:`FleetUnsupported`."""
-        self._detect.pop(stream_id, None)
-        self._ended.pop(stream_id, None)
-        self._pretopo.pop(stream_id, None)
-        raise FleetUnsupported(
-            f"stream {stream_id!r}: {what}: {reason}; the port has no per-stream host pipeline",
-            raw)
+        for book in (self._detect, self._ended, self._pretopo, self._fallback,
+                     self._pending_out, self._rates):
+            book.pop(stream_id, None)
+        raise FleetUnsupported(f"stream {stream_id!r}: {what}: {reason}; the port cannot decode it")
 
-    def _seat(self, stream_id: str, kind: str, buf: bytes) -> None:
-        """Give the stream a lane of its group and feed it ``buf``."""
+    def _seat(self, stream_id: str, kind: str, buf: bytes) -> bool:
+        """Give the stream a lane of its group and feed it ``buf``; False
+        when the group is full."""
         group = self._groups.get(kind)
         if group is None:
             group = _BatchedGroup(kind, self._cap, self.channels, self.device, self.out_bits)
             self._groups[kind] = group
         lane_idx = group.alloc()
         if lane_idx is None:
-            self._refuse(stream_id, f"kind {kind!r}",
-                         f"its group is full ({self._cap} lanes)")
+            return False
         self._lanes[stream_id] = _Lane(kind, lane_idx)
         if kind == "vorbis":
             # raw bytes retained only while the group can still reject
-            # the stream (until its headers parse)
+            # the stream (until its headers parse); opus lanes reroute
+            # from their own bounded packet tail, so the fleet retains
+            # nothing for them
             self._pretopo[stream_id] = bytearray()
         if buf:
             self._push_lane(stream_id, buf)
+        return True
 
     def _push_lane(self, stream_id: str, data: bytes) -> None:
-        """Feed a seated stream; a lane the JAX package would reroute to
-        its host decoder is reset and freed, and the stream refused."""
+        """Feed a seated stream; if its group rejects it (a Vorbis topology
+        mismatch, an Opus reroute), reset and free the lane and move the
+        stream to a host fallback."""
         ln = self._lanes[stream_id]
         group = self._groups[ln.group]
         pre = self._pretopo.get(stream_id)
@@ -403,38 +461,85 @@ class StreamFleet:
         except (TopologyMismatch, OpusLaneUnsupported) as e:
             group.drop(ln.index)
             del self._lanes[stream_id]
-            raw = self._pretopo.pop(stream_id, None)
-            self._refuse(stream_id, f"kind {ln.group!r}",
-                         f"{e} (the JAX package reroutes such a lane to its host decoder)",
-                         None if raw is None else bytes(raw))
+            replay = getattr(e, "replay", None)
+            if replay is not None:
+                # opus reroute: seed a single-stream decoder from the
+                # lane's bounded packet tail and drain the current push's
+                # unprocessed packets now
+                from soundkit_tpu_torch.models.opus_fleet_model import _OpusTailFallback
+
+                head = replay["head"]
+                if head.mapping_family != 0 or head.channels not in (1, 2):
+                    self._refuse(stream_id, f"kind {ln.group!r}",
+                                 f"multistream OpusHead (mapping family {head.mapping_family}, "
+                                 f"{head.channels} channels): the JAX package decodes it "
+                                 "through libavcodec")
+                self._pretopo.pop(stream_id, None)
+                self._fallback[stream_id] = _OpusTailFallback(**replay)
+                self._feed_fallback(stream_id, b"")
+            else:
+                raw = bytes(self._pretopo.pop(stream_id, data))
+                self._fallback[stream_id] = _host_decoder(self.device)
+                self._feed_fallback(stream_id, raw)
+            if self._ended.get(stream_id):
+                self._feed_fallback(stream_id, b"")
+            return
         if pre is not None and group.lane_configured(ln.index):
             del self._pretopo[stream_id]
 
     def _route(self, stream_id: str) -> None:
         buf = bytes(self._detect.pop(stream_id, b""))
         detected = detect_audio(buf)
-        kind = _DETECTED.get(detected)
-        if kind not in BATCHED_KINDS:
+        if detected in _UNDECODED:
             self._refuse(stream_id, f"detected format {detected.value!r}",
-                         "no batched group for it")
-        self._seat(stream_id, kind, buf)
+                         "the port's pipeline does not decode it")
+        kind = _DETECTED.get(detected)
+        if kind is not None and self._seat(stream_id, kind, buf):
+            return
+        # no group for the format, or its group is full: a host stream
+        self._fallback[stream_id] = _host_decoder(self.device)
+        self._feed_fallback(stream_id, buf)
 
     def _route_explicit(self, stream_id: str, kind: str,
                         buf: bytes) -> None:
         """Route a stream into a named group, bypassing detection.
-        Telephony groups build lazily (most fleets serve none)."""
-        if kind in HOST_KINDS or kind in UNPORTED_KINDS:
-            self._refuse(stream_id, f"kind {kind!r}", "no batched group for it")
-        if kind not in TELEPHONY_KINDS and kind not in BATCHED_KINDS:
+        Telephony groups build lazily (most fleets serve none); a full
+        group overflows to the matching per-stream host decoder."""
+        if kind in REFUSED_HOST_KINDS:
+            self._refuse(stream_id, f"kind {kind!r}", "the port has no decoder for it")
+        if kind not in HOST_KINDS and kind not in TELEPHONY_KINDS and kind not in BATCHED_KINDS:
             self._ended.pop(stream_id, None)
             raise ValueError(f"unknown explicit kind {kind!r}")
-        self._seat(stream_id, kind, buf)
+        if kind not in HOST_KINDS and self._seat(stream_id, kind, buf):
+            return
+        self._fallback[stream_id] = _explicit_host_decoder(kind, self.device)
+        if kind in TELEPHONY_KINDS:
+            self._rates[stream_id] = 16000 if kind == "g722" else 8000
+        self._feed_fallback(stream_id, buf)
+
+    def _feed_fallback(self, stream_id: str, data: bytes) -> None:
+        """Feed a host stream and keep its PCM for the next ``collect``;
+        a format the port does not decode refuses the stream."""
+        from soundkit_tpu_torch.core.audio_pipeline import audio_to_f32_channels
+        from soundkit_tpu_torch.core.audio_types import AudioData
+        from soundkit_tpu_torch.pipeline.output_options import UnsupportedFormat
+
+        outs = self._fallback[stream_id].process(data)
+        for o in outs:
+            if isinstance(o, UnsupportedFormat):
+                self._refuse(stream_id, "host stream", str(o))
+        audio = [o for o in outs if isinstance(o, AudioData)]
+        if audio:
+            self._rates[stream_id] = audio[-1].sampling_rate
+            self._pending_out.setdefault(stream_id, []).extend(
+                np.stack(audio_to_f32_channels(o)) for o in audio)
 
     def sample_rate(self, stream_id: str) -> Optional[int]:
         """Per-stream sample rate: a lane stream reports its own lane's
-        rate (mixed-rate groups surface each lane's true rate). None
-        until the stream's first header has parsed; a stream recycled by
-        the last collect keeps its rate until the next one."""
+        rate (mixed-rate groups surface each lane's true rate), a host
+        stream its decoder's last output rate. None until the stream's
+        first header has parsed; a stream recycled by the last collect
+        keeps its rate until the next one."""
         ln = self._lanes.get(stream_id)
         if ln is not None:
             return self._groups[ln.group].lane_sample_rate(ln.index)
@@ -444,7 +549,7 @@ class StreamFleet:
 
     def _host_out(self, pcm: np.ndarray) -> np.ndarray:
         """Match the device-side int16 quantization for host-produced
-        planes (the Vorbis group's ragged output)."""
+        planes (the Vorbis group's ragged output, host streams)."""
         if self.out_bits == 16:
             return np.clip(np.round(pcm * 32767.0), -32768, 32767).astype(np.int16)
         return pcm
@@ -570,6 +675,19 @@ class StreamFleet:
                     out[sid] = pcm
                 ln.produced += k
 
+        # host streams: whatever their decoders produced
+        for sid, parts in list(self._pending_out.items()):
+            if parts:
+                maxc = max(p.shape[0] for p in parts)
+                padded = [np.pad(p, ((0, maxc - p.shape[0]), (0, 0))) for p in parts]
+                pcm = self._host_out(np.concatenate(padded, axis=1))
+                if device_out:
+                    out[sid] = FleetLaneOutput(kind="host", samples=pcm.shape[-1],
+                                               rate=self._rates.get(sid), host=pcm)
+                else:
+                    out[sid] = pcm
+                self._pending_out[sid] = []
+
         # recycle lanes of ended, fully drained streams, and drop all
         # bookkeeping so a long-running fleet has bounded state
         for sid in [s for s, e in self._ended.items() if e]:
@@ -584,6 +702,12 @@ class StreamFleet:
                     del self._lanes[sid]
                     del self._ended[sid]
                     self._pretopo.pop(sid, None)
+            elif sid in self._fallback:
+                if not self._pending_out.get(sid):
+                    del self._fallback[sid]
+                    self._pending_out.pop(sid, None)
+                    self._retired.append(sid)
+                    del self._ended[sid]
             elif sid not in self._detect:
                 del self._ended[sid]
         return out

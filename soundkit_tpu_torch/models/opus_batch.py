@@ -24,8 +24,9 @@ spectra with one float32 scale a (lane, band), dequantized on the device.
 Either wire is trimmed to the widest coded band of the collect and
 padded back to 960 bins on the device.
 
-The JAX package's Python ``CeltDecoder`` fallback is not ported: the port
-always builds its library, and a failed build raises ``BuildError``. Its
+The JAX package falls back to its Python ``CeltDecoder`` when its library
+is missing; this decoder does not: the port always builds its library,
+and a failed build raises ``BuildError``. Its
 eight-round device scan (``_celt_multi_step``) is a host loop over the
 rounds here, as the MP3 decoder's is.
 

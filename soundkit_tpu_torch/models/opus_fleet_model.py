@@ -34,10 +34,16 @@ per-stream host decoder raises :class:`OpusLaneUnsupported` out of
   transition-redundancy packet, or a failed CELT continuation), on the
   push after the decode that found it.
 
-The reference's reroute keeps a bounded packet tail per lane (``_tail``,
-``_emitted``, ``TAIL_KEEP``) only to seed that host decoder
-(``_OpusTailFallback``); the port has no host decoder yet and keeps no
-tail.
+The exception's ``replay`` seeds the fleet's per-stream host decoder,
+:class:`_OpusTailFallback` (a verbatim copy of the JAX package's), from
+the lane's own bounded state: the lane keeps its last ``TAIL_KEEP``
+decoded packets beyond its undecoded queue (``_tail``, ~2 s), the 48 kHz
+samples of the packets trimmed from it (``_tail_dropped``) and the
+samples it delivered (``_emitted``), so the fleet retains no raw bytes of
+an Opus stream. The host decoder replays the tail through the Python
+decoder (``codecs/opus._OpusCore``; decoder state memory is short, so the
+replay converges to the full-history decode well inside the tail) and
+drops the samples the lane already delivered.
 """
 from __future__ import annotations
 
@@ -55,9 +61,75 @@ from soundkit_tpu_torch.models.opus_batch import (
 
 
 class OpusLaneUnsupported(Exception):
-    """This stream needs a per-stream host decoder (odd framing, a mode
-    or SILK bandwidth switch, a frozen hybrid lane), which the port does
-    not have."""
+    """This stream needs the host pipeline (odd framing / mode
+    switches); carries ``replay`` — everything the fleet needs to
+    seed a :class:`_OpusTailFallback` (bounded tail, no raw-byte
+    retention)."""
+
+    replay: Optional[dict] = None
+
+
+class _OpusTailFallback:
+    """Per-stream host decoder seeded from a lane's bounded packet
+    tail (fleet reroute target; codecs/opus.py converge-from-tail).
+
+    Duck-types the ``StreamDecoder.process`` surface the fleet's
+    fallback path consumes: ``process(data) -> [AudioData]`` with
+    f32 PCM, where ``data`` is the stream's raw Ogg bytes arriving
+    after the reroute (the lane's demuxer moves over for byte
+    continuity) and ``b""`` drains/flushes.  The first replayed
+    packet rebuilds the Python decoder's state from the retained
+    tail and drops the ``emitted`` samples the lane already
+    delivered, so interleaved push/collect callers see a gapless,
+    duplicate-free stream."""
+
+    def __init__(self, demux, head, tail, dropped, emitted, pending):
+        from soundkit_tpu_torch.codecs.opus import _OpusCore
+
+        self._demux = demux
+        core = _OpusCore(head)
+        core._fast = False  # native CELT state can't seed from a tail
+        if core._own is not None:
+            core._history = list(tail)
+            core._dropped = int(dropped)
+            core._emitted = int(emitted)
+            self._primed = False
+        else:
+            # multistream head: avcodec delegate, rejected before any
+            # packet decoded (nothing emitted, no tail to converge)
+            self._primed = True
+        self._core = core
+        self._queue: List[bytes] = list(pending)
+
+    def process(self, data: bytes):
+        from soundkit_tpu_torch.codecs.opus_core import OpusUnsupported
+        from soundkit_tpu_torch.core.audio_types import AudioData, EncodingFlag
+
+        pkts = self._queue
+        self._queue = []
+        if data:
+            pkts = pkts + self._demux.push(data)
+        outs = []
+        for p in pkts:
+            if not self._primed:
+                self._core._history.append(p)
+                self._core._trim_history()
+                try:
+                    pcm = self._core._replay_own()
+                except OpusUnsupported:
+                    pcm = self._core._fallback()
+                self._primed = True
+            else:
+                pcm = self._core.decode_packet_f32(p)
+            if pcm.size:
+                outs.append(AudioData(
+                    bits_per_sample=32,
+                    channel_count=self._core.channels,
+                    sampling_rate=self._core.sample_rate,
+                    data=np.asarray(pcm, "<f4").tobytes(),
+                    audio_format=EncodingFlag.PCM_FLOAT,
+                ))
+        return outs
 
 
 def _classify(packet: bytes, channels: int):
@@ -108,6 +180,16 @@ class BatchedOggOpusDecoder:
         self._hyb = BatchedHybridDecoder(num_streams, channels, device=device)
         self._kind: List[Optional[str]] = [None] * num_streams
         self._demux: List[OggOpusDemuxer] = [OggOpusDemuxer() for _ in range(num_streams)]
+        # converge-from-tail reroute state: bounded packet tail plus
+        # trimmed-duration / emitted-sample accounting per lane
+        self._tail: List[List[bytes]] = [[] for _ in range(num_streams)]
+        self._tail_dropped = [0] * num_streams  # 48k samples trimmed
+        self._emitted = [0] * num_streams  # samples delivered per lane
+
+    #: warmup packets retained beyond the undecoded queue (~2 s at
+    #: 20 ms — matches codecs/opus.py _HISTORY_KEEP; far beyond CELT/
+    #: SILK state memory, so a tail replay converges before it ends)
+    TAIL_KEEP = 96
 
     def reset_lane(self, b: int) -> None:
         self._celt.reset_lane(b)
@@ -115,6 +197,28 @@ class BatchedOggOpusDecoder:
         self._hyb.reset_lane(b)
         self._kind[b] = None
         self._demux[b] = OggOpusDemuxer()
+        self._tail[b] = []
+        self._tail_dropped[b] = 0
+        self._emitted[b] = 0
+
+    def lane_configured(self, b: int) -> bool:
+        # an Opus lane can still hit a reroute at any packet (mode
+        # switch) — but the reroute replays from the lane's own
+        # bounded tail, so the fleet retains NO raw bytes; report
+        # configured as soon as the head has parsed
+        return self._demux[b].head is not None
+
+    def _reroute(self, b: int, msg: str, pending: List[bytes]):
+        """Build the reroute exception: the lane's demuxer, head, and
+        bounded tail (plus the still-unprocessed packets of the
+        current push, offender first) seed a _OpusTailFallback."""
+        exc = OpusLaneUnsupported(msg)
+        exc.replay = dict(
+            demux=self._demux[b], head=self._demux[b].head,
+            tail=list(self._tail[b]), dropped=self._tail_dropped[b],
+            emitted=self._emitted[b], pending=pending,
+        )
+        return exc
 
     def lane_sample_rate(self, b: int) -> Optional[int]:
         return 48000 if self._demux[b].head is not None else None
@@ -132,17 +236,17 @@ class BatchedOggOpusDecoder:
         pkts = dm.push(data)
         if dm.head is not None and not had_head:
             if dm.head.channels > self.C or dm.head.mapping_family != 0:
-                raise OpusLaneUnsupported("unsupported OpusHead")
+                raise self._reroute(b, "unsupported OpusHead", pkts)
             self._celt.configure_lane(b, dm.head.pre_skip, dm.head.output_gain)
             self._silk.configure_lane(b, dm.head.pre_skip, dm.head.output_gain)
-        for pkt in pkts:
+        for i, pkt in enumerate(pkts):
             kind, toc, frame = _classify(pkt, self.C)
             if kind is None:
-                raise OpusLaneUnsupported("non-20ms/multiframe packet")
+                raise self._reroute(b, "non-20ms/multiframe packet", pkts[i:])
             if self._kind[b] is None:
                 self._kind[b] = kind
             if kind != self._kind[b]:
-                raise OpusLaneUnsupported("mid-stream mode switch")
+                raise self._reroute(b, "mid-stream mode switch", pkts[i:])
             coded = 2 if toc.stereo else 1
             if kind == "celt":
                 # _classify already split the TOC: hand the frame, end band
@@ -153,13 +257,14 @@ class BatchedOggOpusDecoder:
                 # by the engine at decode time; the lane raises on its
                 # next push
                 if self._hyb.lane_error(b):
-                    raise OpusLaneUnsupported(self._hyb.lane_error(b))
+                    raise self._reroute(b, self._hyb.lane_error(b), pkts[i:])
                 self._hyb.push_packet(b, frame, toc.bandwidth, coded)
             else:
                 bw0 = self._silk.bw[b]
                 if bw0 is not None and toc.bandwidth != bw0:
-                    raise OpusLaneUnsupported("silk bandwidth switch")
+                    raise self._reroute(b, "silk bandwidth switch", pkts[i:])
                 self._silk.push_packet(b, frame, toc.bandwidth, coded)
+            self._tail[b].append(pkt)
 
     def decode_batches(self, n: int, device_out: bool = False):
         """Decode up to ``n`` lockstep packet rounds.
@@ -180,6 +285,19 @@ class BatchedOggOpusDecoder:
             lengths[:r] += lens
             if r:
                 total[:r] += pcm
+        if R:
+            # the reroute tail: count delivered samples and trim each
+            # lane's tail to its undecoded queue and TAIL_KEEP packets;
+            # every trimmed packet is a decoded 20 ms frame
+            tot = lengths.sum(axis=0)
+            for b in range(self.B):
+                self._emitted[b] += int(tot[b])
+                t = self._tail[b]
+                keep = self.lane_ready(b) + self.TAIL_KEEP
+                if len(t) > keep:
+                    cut = len(t) - keep
+                    del t[:cut]
+                    self._tail_dropped[b] += 960 * cut
         if device_out:
             return total, lengths
         # the host convention: the valid samples at the START of each slot

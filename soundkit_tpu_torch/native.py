@@ -26,7 +26,8 @@ lane, up to ``G`` granules a lane into a collect's packed wire).
 signatures ``codecs/celt_native.py`` and ``codecs/silk_native.py`` call:
 the table pushes of both codecs, a handle per stream and codec
 (``skt_celt_new`` / ``free`` / ``reset``, ``skt_silk_new`` / ``free`` /
-``reset``), the CELT serving walk over a collect's rounds on the float32
+``reset``), the single-stream parses of the host decoder (one CELT frame,
+``skt_celt_parse``; one SILK superframe, ``skt_silk_decode``), the CELT serving walk over a collect's rounds on the float32
 and the int16 wire (``skt_celt_parse_rounds`` / ``_q``), the SILK
 parse-export of one round (``skt_silk_parse_many``) and the hybrid walk
 of a chunk of rounds into its packed wire
@@ -223,6 +224,11 @@ def opus_library() -> ctypes.CDLL:
     lib.skt_celt_free.argtypes = [vp]
     lib.skt_celt_reset.restype = None
     lib.skt_celt_reset.argtypes = [vp]
+    lib.skt_celt_parse.restype = c_int
+    lib.skt_celt_parse.argtypes = [  # one frame: handle, frame, size, n, start, end, C
+        vp, ctypes.c_char_p, c_long, c_int, c_int, c_int, c_int,
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),  # freq, comb
+        ctypes.POINTER(c_int)]                                             # sflag
     walk = [handles, c_int, c_int, ctypes.c_char_p, i64,  # handles, B, R, buf, base
             i32, i32, i32, c_int, c_int, c_int]           # lens, ends, coded, n, C, W
     lib.skt_celt_parse_rounds.restype = c_int
@@ -243,6 +249,10 @@ def opus_library() -> ctypes.CDLL:
     lib.skt_silk_free.argtypes = [vp]
     lib.skt_silk_reset.restype = None
     lib.skt_silk_reset.argtypes = [vp]
+    lib.skt_silk_decode.restype = c_long
+    lib.skt_silk_decode.argtypes = [  # one superframe: handle, frame, size, bw, coded, ms,
+        vp, ctypes.c_char_p, c_long, c_int, c_int, c_int, c_int,  # read redundancy
+        dp, lp]                                                    # pcm, info
     lib.skt_silk_parse_many.restype = c_int
     lib.skt_silk_parse_many.argtypes = [
         handles, c_int, ctypes.c_char_p, lp, lp,  # handles, B, buf, offs, lens

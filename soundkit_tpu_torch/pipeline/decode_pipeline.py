@@ -13,10 +13,11 @@
 
 The synchronous core (``StreamDecoder``) is reusable without threads.
 
-The port's formats are WAV, raw PCM, G.711, G.722, G.726, FLAC, MP3
-and AAC-ADTS. The telephony codecs and MP3 launch their kernels (K3,
-K6, K7, K10) on ``device``, the card unless the caller names the CPU;
-WAV, raw PCM, FLAC and AAC decode on the host. Every other format
+The port's formats are WAV, raw PCM, G.711, G.722, G.726, FLAC, MP3,
+AAC-ADTS, Ogg Opus, soundkit's raw Opus framing and Ogg Vorbis. The
+telephony codecs and MP3 launch their kernels (K3, K6, K7, K10) on
+``device``, the card unless the caller names the CPU; WAV, raw PCM,
+FLAC, AAC, Opus and Vorbis decode on the host. Every other format
 raises ``UnsupportedFormat`` naming it, at detection or at its
 ``spawn_*``.
 
@@ -64,10 +65,7 @@ DEFAULT_OUTPUT_BUFFER = 128
 
 # formats the JAX package decodes and the port does not have yet
 _NOT_PORTED = {
-    AudioType.OGG_OPUS: "Ogg Opus",
-    AudioType.OGG_VORBIS: "Ogg Vorbis",
     AudioType.OGG_SPEEX: "Ogg Speex",
-    AudioType.OPUS: "Opus",
     AudioType.M4A: "M4A",
     AudioType.ALAC: "ALAC",
     AudioType.WEBM: "WebM",
@@ -214,6 +212,18 @@ def _init_decoder(audio_type: AudioType, device="cuda"):
         from soundkit_tpu_torch.pipeline.adapters import make_ac3_adapter
 
         return make_ac3_adapter()
+    if audio_type == AudioType.OGG_OPUS:
+        from soundkit_tpu_torch.pipeline.adapters import make_ogg_opus_adapter
+
+        return make_ogg_opus_adapter()
+    if audio_type == AudioType.OGG_VORBIS:
+        from soundkit_tpu_torch.pipeline.adapters import make_vorbis_adapter
+
+        return make_vorbis_adapter()
+    if audio_type == AudioType.OPUS:
+        from soundkit_tpu_torch.pipeline.adapters import make_opus_stream_adapter
+
+        return make_opus_stream_adapter()
     if audio_type in _NOT_PORTED:
         raise _not_ported(_NOT_PORTED[audio_type])
     if audio_type == AudioType.UNKNOWN:
@@ -519,6 +529,27 @@ class DecodePipeline:
 
         return cls._spawn(StreamDecoder(options, AacAdtsAdapter(), device))
 
+    @classmethod
+    def spawn_vorbis(cls, options: DecodeOptions = DecodeOptions(),
+                     device="cuda") -> DecodePipelineHandle:
+        from soundkit_tpu_torch.pipeline.adapters import make_vorbis_adapter
+
+        return cls._spawn(StreamDecoder(options, make_vorbis_adapter(), device))
+
+    @classmethod
+    def spawn_ogg_opus(cls, options: DecodeOptions = DecodeOptions(),
+                       device="cuda") -> DecodePipelineHandle:
+        from soundkit_tpu_torch.pipeline.adapters import make_ogg_opus_adapter
+
+        return cls._spawn(StreamDecoder(options, make_ogg_opus_adapter(), device))
+
+    @classmethod
+    def spawn_opus(cls, options: DecodeOptions = DecodeOptions(),
+                   device="cuda") -> DecodePipelineHandle:
+        from soundkit_tpu_torch.pipeline.adapters import make_opus_stream_adapter
+
+        return cls._spawn(StreamDecoder(options, make_opus_stream_adapter(), device))
+
     # formats the JAX package decodes and the port does not have yet:
     # each spawn raises UnsupportedFormat naming its format
 
@@ -542,21 +573,11 @@ class DecodePipeline:
     def spawn_ac3(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
         raise _not_ported("AC-3")
 
-    @classmethod
-    def spawn_vorbis(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
-        raise _not_ported("Ogg Vorbis")
 
     @classmethod
     def spawn_speex(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
         raise _not_ported("Ogg Speex")
 
-    @classmethod
-    def spawn_ogg_opus(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
-        raise _not_ported("Ogg Opus")
-
-    @classmethod
-    def spawn_opus(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
-        raise _not_ported("Opus")
 
     @classmethod
     def spawn_alac(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):

@@ -12,12 +12,15 @@ exceptions, 8 KiB/64 KiB detection window:
 - ``AacDeboxer``: ADTS bytes -> raw AAC access units (an M4A stream
   raises ``UnsupportedFormat`` at ``flush``: the MP4 demuxer is not in
   the port yet).
+- ``OpusDeboxer``: Ogg Opus or soundkit's raw framing -> Opus packets.
 - ``AacLcStreamDecoder``: raw AUs -> PCM via the AAC-LC host decoder,
   interleaved or planar.
+- ``OpusDecoder``: raw Opus packets -> interleaved int16 at 48 kHz
+  through the owned RFC 6716 decoder (``codecs/opus_core.py``), with the
+  reusable-output ``dec_frame`` / ``dec_frame_reuse``.
 
-The Opus deboxer and decoder, the frame-stream decoder, the track
-demuxer, the encoders and the content ciphers of the JAX package's
-module are not in the port yet.
+The frame-stream decoder, the track demuxer, the encoders and the
+content ciphers of the JAX package's module are not in the port yet.
 """
 from __future__ import annotations
 
@@ -135,6 +138,58 @@ class AacDeboxer:
         return []
 
 
+class OpusDeboxer:
+    """WasmOpusDeboxer mirror: Ogg / raw-framing -> Opus packets."""
+
+    def __init__(self) -> None:
+        self._buf = bytearray()
+        self._mode: Optional[str] = None
+        self._ogg = None
+        self._raw = None
+        self.opus_head: bytes = b""
+
+    def push(self, data: bytes) -> List[bytes]:
+        if self._mode is None:
+            self._buf.extend(data)
+            if len(self._buf) < 8:
+                return []
+            if self._buf[:4] == b"OggS":
+                from soundkit_tpu_torch.codecs.opus import OggOpusDemuxer
+
+                self._mode, self._ogg = "ogg", OggOpusDemuxer()
+            elif self._buf[:8] == b"OpusHead":
+                self._mode = "raw"
+            else:
+                raise ValueError("not an Opus stream")
+            data = bytes(self._buf)
+            self._buf.clear()
+        if self._mode == "ogg":
+            pkts = self._ogg.push(data)
+            if self._ogg.head is not None and not self.opus_head:
+                self.opus_head = self._ogg.head.raw
+            return pkts
+        # raw soundkit framing
+        import struct
+
+        self._buf.extend(data)
+        out = []
+        if not self.opus_head:
+            if len(self._buf) < 19:
+                return []
+            self.opus_head = bytes(self._buf[:19])
+            del self._buf[:19]
+        while len(self._buf) >= 2:
+            plen = struct.unpack_from("<H", self._buf, 0)[0]
+            if len(self._buf) < 2 + plen:
+                break
+            out.append(bytes(self._buf[2 : 2 + plen]))
+            del self._buf[: 2 + plen]
+        return out
+
+    def flush(self) -> List[bytes]:
+        return []
+
+
 class AacLcStreamDecoder:
     """WasmAacLcDecoder mirror: raw AUs -> PCM via our own AAC-LC."""
 
@@ -167,3 +222,63 @@ class AacLcStreamDecoder:
         pcm = self.decode_interleaved(au)
         out[: len(pcm)] = pcm
         return len(pcm)
+
+
+@dataclass
+class OpusDecodeResult:
+    """WasmOpusDecodeResult mirror (lib.rs:279): a decoded packet's
+    interleaved i16 buffer plus the samples-per-channel count."""
+
+    output: np.ndarray  # interleaved int16, frame_size * channels long
+    decoded_size: int
+    channels: int
+
+    def pcm(self) -> np.ndarray:
+        """The valid interleaved samples."""
+        return self.output[: self.decoded_size * self.channels]
+
+
+class OpusDecoder:
+    """WasmOpusDecoder mirror (lib.rs:271,872-932): per-packet raw
+    Opus decode to interleaved i16 at 48 kHz through the framework's
+    OWN RFC 6716 decoder (codecs/opus_core.py), with the reference's
+    reusable-output contract: ``dec_frame`` returns a result snapshot,
+    ``dec_frame_reuse`` decodes into ``self.output`` and returns the
+    samples-per-channel count."""
+
+    def __init__(self, channels: int, sample_rate: int = 48000,
+                 frame_size: int = 960):
+        if sample_rate != 48000:
+            raise ValueError(
+                "soundkit currently supports 48 kHz Opus decode"
+            )
+        from soundkit_tpu_torch.codecs.opus_core import OpusDecoder as _Own
+
+        self.channels = channels
+        self._dec = _Own(channels)
+        out_len = max(frame_size * channels, max(channels, 1))
+        self.output = np.zeros(out_len, np.int16)
+        self.decoded_size = 0
+
+    def dec_frame(self, packet: bytes) -> OpusDecodeResult:
+        self.dec_frame_reuse(packet)
+        return OpusDecodeResult(self.output.copy(), self.decoded_size,
+                                self.channels)
+
+    def dec_frame_reuse(self, packet: bytes) -> int:
+        pcm = np.asarray(self._dec.decode_packet(bytes(packet)),
+                         np.float32).reshape(-1)
+        # libopus decode_i16 conversion: round(x * 32768), saturated
+        i16 = np.clip(
+            np.rint(pcm.astype(np.float64) * 32768.0), -32768, 32767
+        ).astype(np.int16)
+        n = i16.size
+        if n > self.output.size:
+            self.output = np.zeros(n, np.int16)
+        self.output[:n] = i16
+        self.output[n:] = 0
+        self.decoded_size = n // max(self.channels, 1)
+        return self.decoded_size
+
+    def destroy(self) -> None:
+        """Reference-API parity no-op (wasm frees its linear memory)."""

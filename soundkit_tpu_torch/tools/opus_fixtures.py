@@ -34,7 +34,15 @@ and cuts lanes: lane ``i`` of a list of ``n`` clips takes clip ``i mod
 n`` from packet ``7 (i // n)``, wrapping, and every fourth lane of a clip
 plays a shorter stream (:func:`lane_packets`); its Ogg stream is the
 clip's header pages and the pages of its packets, as a receiver joining
-a broadcast sees them. The clips are made on the test side
+a broadcast sees them.
+
+The streams an Ogg Opus fleet group hands to its host decoder
+(:func:`reroute_case`, one per name of :data:`REROUTE_CASES`) are cut from
+these clips, but for the hybrid one that starts on CELT-to-hybrid
+transition redundancy: its four packets are committed as
+``hybrid_redundancy.bin`` (each behind its u16 little-endian length; made
+by libopus on the test side, ``torch_port_helpers.hybrid_redundancy_packets``).
+The clips are made on the test side
 (``tests/torch_port_helpers.py``; needs the JAX package and libopus),
 from the repository's root::
 
@@ -161,3 +169,60 @@ def lane_frames(clips: List[OpusClip], lane: int, n_packets: int = None):
             raise ValueError(f"{clip.name} packet {t}: code {code}, not a single frame")
         out.append((pkt[1:], bw, 2 if stereo else 1))
     return out
+
+
+REROUTE_CASES = ("silk_bandwidth_switch", "ten_ms_celt", "code3_multiframe", "mapping_family_1",
+                 "three_channels", "mode_switch", "hybrid_redundancy_start")
+
+
+def ogg_stream(head: bytes, packets) -> bytes:
+    """An Ogg Opus stream of ``head`` (an OpusHead), an OpusTags page and
+    one page a packet."""
+    from soundkit_tpu_torch.demux.ogg import build_ogg_page
+
+    tags = b"OpusTags" + struct.pack("<I", 2) + b"sk" + struct.pack("<I", 0)
+    pages = [build_ogg_page([head], 7, 0, 0, header_type=2), build_ogg_page([tags], 7, 1, 0)]
+    for i, p in enumerate(packets):
+        pages.append(build_ogg_page([p], 7, 2 + i, 960 * (i + 1)))
+    return b"".join(pages)
+
+
+def hybrid_redundancy_packets(directory: Path = FIXTURE_DIR) -> List[bytes]:
+    """Four 20 ms hybrid FB packets by libopus whose first carries
+    CELT-to-hybrid transition redundancy."""
+    data = (directory / "hybrid_redundancy.bin").read_bytes()
+    out, pos = [], 0
+    while pos < len(data):
+        n = struct.unpack_from("<H", data, pos)[0]
+        out.append(data[pos + 2: pos + 2 + n])
+        pos += 2 + n
+    return out
+
+
+def reroute_case(case: str, directory: Path = FIXTURE_DIR):
+    """(OpusHead, packets, the group's reason) of an Ogg Opus stream that
+    the fleet's Opus group hands to its host decoder: a SILK NB stream
+    that switches to WB, a 10 ms CELT packet, a code-3 packet of two
+    frames, an OpusHead of mapping family 1 or of three channels, a switch
+    from CELT to SILK in mid-stream, and a hybrid stream that starts on a
+    transition-redundancy packet."""
+    clip = load_clips(directory)[0]
+    celt = clip.packets[:6]
+    head2 = clip.head
+    ten_ms = bytes([(30 << 3) | (celt[2][0] & 7)]) + celt[2][1:]  # CELT FB 10 ms
+    frame = celt[3][1:]
+    multi = bytes([celt[3][0] | 3, 2]) + frame + frame  # code 3, two CBR frames
+    family1 = head2[:18] + b"\x01"
+    three = head2[:9] + b"\x03" + head2[10:]
+    voice = {c.name: c for c in load_clips(directory, names=VOICE_CLIPS)}
+    nb, wb = voice["silk_nb"].packets, voice["silk_wb"].packets
+    return {
+        "silk_bandwidth_switch": (head2, nb[:4] + wb[4:6], "silk bandwidth switch"),
+        "ten_ms_celt": (head2, celt[:2] + [ten_ms], "non-20ms/multiframe"),
+        "code3_multiframe": (head2, celt[:3] + [multi], "non-20ms/multiframe"),
+        "mapping_family_1": (family1, celt, "unsupported OpusHead"),
+        "three_channels": (three, celt, "unsupported OpusHead"),
+        "mode_switch": (head2, celt[:4] + nb[:1], "mid-stream mode switch"),
+        "hybrid_redundancy_start": (head2, hybrid_redundancy_packets(directory),
+                                    "hybrid transition redundancy"),
+    }[case]

@@ -7,9 +7,13 @@ better per collect as f32 (the bar of ``test_torch_aac_lc_model.py``) and
 within 1 LSB as int16; Ogg Opus SILK and hybrid streams (ids ``v*``) at
 90 dB as f32, the bar of ``test_torch_silk_model.py`` (two float32
 syntheses of an LPC of high gain); Ogg Vorbis streams (ids ``w*``) within
-2e-6 as f32 (the bar of ``test_torch_vorbis_model.py``). The streams the
-JAX fleet hands to its host fallback raise ``FleetUnsupported`` here, one
-test per case."""
+2e-6 as f32 (the bar of ``test_torch_vorbis_model.py``). Streams without a
+lane decode on both fleets' host fallbacks (ids ``x*`` bit-exact, ids
+``y*`` within 1 LSB: an MP3 stream through K10's plain version, or a
+SILK decode through the port's resampler); the streams the port cannot
+decode raise ``FleetUnsupported``, one test per case."""
+import struct
+
 import numpy as np
 import pytest
 import torch
@@ -123,8 +127,8 @@ class Pair:
                 assert isinstance(g, FleetLaneOutput)
                 assert (g.kind, g.samples, g.rate, g.lane, g.frames, g.out_bits) == \
                     (w.kind, w.samples, w.rate, w.lane, w.frames, w.out_bits), sid
-                # a Vorbis lane's ragged PCM is made on the host
-                if g.kind == "vorbis":
+                # a Vorbis lane's ragged PCM and a host stream's are made on the host
+                if g.kind in ("vorbis", "host"):
                     assert isinstance(g.host, np.ndarray) and g.device is None
                 else:
                     assert isinstance(g.device, torch.Tensor)
@@ -132,7 +136,10 @@ class Pair:
                 assert g.shape[-1] == got[sid].samples
             w = np.asarray(w)
             assert g.dtype == w.dtype and g.shape == w.shape, (sid, g.dtype, w.dtype, g.shape, w.shape)
-            if not sid.startswith(("a", "m", "o", "v", "w")):
+            if sid.startswith("y"):
+                lsb = 1 if g.dtype == np.int16 else 1.0001 / 32768
+                assert np.abs(g.astype(np.float64) - w).max() <= lsb, sid
+            elif not sid.startswith(("a", "m", "o", "v", "w")):
                 np.testing.assert_array_equal(g, w, err_msg=sid)
             elif g.dtype == np.int16:
                 assert np.abs(g.astype(np.int32) - w).max() <= 1, sid
@@ -530,43 +537,6 @@ def test_explicit_vorbis_kind_joins_the_vorbis_group():
     assert pair.rates("w0") == [44100]
 
 
-@pytest.mark.parametrize("split", [False, True])
-def test_refuses_a_vorbis_stream_of_another_topology(split):
-    """A 22.05 kHz mono Ogg Vorbis stream after the group's topology was
-    fixed by a 44.1 kHz stereo one raises at the push that completes its
-    headers (whole, or after a first push of part of its header pages);
-    the refusal carries the stream's bytes so far, its lane is reset and
-    freed, the stream forgotten, and the seated stream decodes as alone."""
-    seated = vorbis_stream(0, 2)
-    mono = vorbis_fixtures.load_clips(names=("mono22",))[0].stream()
-    port = StreamFleet(2, device="cpu")
-    port.push("ok", seated)
-    cut = 3000 if split else 0
-    if split:
-        port.push("s", mono[:cut], kind="vorbis")  # the identification page: no topology yet
-        lane = port._lanes["s"].index
-        assert bytes(port._pretopo["s"]) == mono[:cut]
-    else:
-        lane = 0
-    with pytest.raises(FleetUnsupported, match=r"'s'.*kind 'vorbis'.*topology \(512, 1024, 1\) "
-                                               r"!= model topology \(256, 2048, 2\).*reroutes") as e:
-        port.push("s", mono[cut:], kind=None if split else "vorbis")
-    assert e.value.raw == mono
-    for book in (port._lanes, port._detect, port._ended, port._pretopo):
-        assert "s" not in book
-    assert port.sample_rate("s") is None and "ok" not in port._pretopo
-    group = port._groups["vorbis"]
-    assert lane in group._free and lane not in group._used
-    assert group._model.lane_ready(lane) == 0 and not group._model.lane_configured(lane)
-    port.end_stream("ok")
-    alone = StreamFleet(2, device="cpu")
-    alone.push("ok", seated)
-    alone.end_stream("ok")
-    out = port.collect()
-    assert sorted(out) == ["ok"]
-    np.testing.assert_array_equal(out["ok"], alone.collect()["ok"])
-
-
 def test_bounded_bookkeeping_after_a_churn_of_streams():
     """Thirty streams through two lanes a group: afterwards the fleet
     remembers none of them."""
@@ -667,115 +637,296 @@ def test_default_device_is_the_card():
 
 
 # ---------------------------------------------------------------------------
-# what the reference sends to its host fallback
+# the host fallback: streams without a lane decode beside the groups
 # ---------------------------------------------------------------------------
 
-def _ogg_first_page(payload: bytes) -> bytes:
-    return b"OggS" + bytes(22) + b"\x01" + bytes([len(payload)]) + payload
+def _wav(seconds: float, rate: int = 16000) -> bytes:
+    from soundkit_tpu_torch.core.audio_types import PcmData
+    from soundkit_tpu_torch.core.wav import generate_wav_buffer
+
+    rng = np.random.default_rng(21)
+    t = np.arange(int(seconds * rate)) / rate
+    left = 11000 * np.sin(2 * np.pi * 330 * t) + rng.normal(0, 400, t.size)
+    right = 7000 * np.sin(2 * np.pi * 550 * t)
+    return generate_wav_buffer(PcmData.i16([left.astype(np.int16), right.astype(np.int16)]), rate)
 
 
 DETECTED_WITHOUT_A_GROUP = {
     "webm": b"\x1a\x45\xdf\xa3" + bytes(60),
-    "wav": b"RIFF" + bytes(4) + b"WAVEfmt " + bytes(40),
+    "wav": _wav(0.1),   # less than MIN_DETECT bytes: routed at its end
     "m4a": bytes(4) + b"ftypM4A " + bytes(20),
     "unknown": bytes(range(1, 64)),
 }
+REFUSED_DETECTED = ("webm", "m4a")
 
 
 def assert_forgotten(fleet, sid):
-    assert sid not in fleet._lanes and sid not in fleet._detect and sid not in fleet._ended
+    for book in (fleet._lanes, fleet._detect, fleet._ended, fleet._fallback, fleet._pending_out):
+        assert sid not in book
     assert fleet.sample_rate(sid) is None and sid not in fleet.collect()
+
+
+def assert_retired(pair, sid):
+    """One more collect: the drained host stream is forgotten by both."""
+    pair.collect()
+    for f in (pair.port, pair.ref):
+        assert sid not in f._fallback and sid not in f._ended and sid not in f._pending_out
 
 
 @pytest.mark.parametrize("name", DETECTED_WITHOUT_A_GROUP)
 def test_refuses_a_detected_format_without_a_group_at_end_stream(name):
-    port = StreamFleet(2, device="cpu")
-    port.push("s", DETECTED_WITHOUT_A_GROUP[name])
-    with pytest.raises(FleetUnsupported, match=f"'s'.*detected format '{name}'.*no batched group"):
-        port.end_stream("s")
-    assert_forgotten(port, "s")
+    """A short stream routed at its end (the name is the earlier slices':
+    only what the port cannot decode is refused now): WAV decodes on the
+    host, undetected bytes give no PCM (as in the JAX package), M4A and
+    WebM are refused."""
+    data = DETECTED_WITHOUT_A_GROUP[name]
+    if name in REFUSED_DETECTED:
+        port = StreamFleet(2, device="cpu")
+        port.push("s", data)
+        with pytest.raises(FleetUnsupported, match=f"'s'.*detected format '{name}'.*does not decode"):
+            port.end_stream("s")
+        assert_forgotten(port, "s")
+        return
+    pair = Pair()
+    pair.push("xs", data)
+    pair.end("xs")
+    for f in (pair.port, pair.ref):
+        assert "xs" in f._fallback and "xs" not in f._lanes
+    out = pair.collect()
+    if name == "wav":
+        assert out["xs"].shape == (2, 1600) and pair.rates("xs") == [16000]
+    else:
+        assert "xs" not in out
+    assert_retired(pair, "xs")
 
 
 @pytest.mark.parametrize("name", ["wav"])
 def test_refuses_a_detected_format_without_a_group_at_the_routing_push(name):
-    port = StreamFleet(2, device="cpu")
-    data = DETECTED_WITHOUT_A_GROUP[name] + bytes(MIN_DETECT)
-    port.push("s", data[:MIN_DETECT - 1])
-    with pytest.raises(FleetUnsupported, match=f"detected format '{name}'"):
-        port.push("s", data[MIN_DETECT - 1:])
-    assert_forgotten(port, "s")
+    data = _wav(1.0)
+    pair = Pair()
+    pair.push("xs", data[:MIN_DETECT - 1])
+    assert "xs" in pair.port._detect
+    pair.push("xs", data[MIN_DETECT - 1:MIN_DETECT + 5000])
+    assert "xs" in pair.port._fallback
+    first = pair.collect()["xs"]
+    pair.push("xs", data[MIN_DETECT + 5000:])
+    pair.end("xs")
+    second = pair.collect()["xs"]
+    assert first.shape[1] + second.shape[1] == 16000 and pair.rates("xs") == [16000]
+    assert_retired(pair, "xs")
 
 
 @pytest.mark.parametrize("kind", HOST_KINDS)
 def test_refuses_an_explicit_kind_without_a_group(kind):
-    port = StreamFleet(2, device="cpu")
-    port.push("s", b"early bytes")
-    with pytest.raises(FleetUnsupported, match=f"kind '{kind}'.*no batched group"):
-        port.push("s", b"\x00" * 33, kind=kind)
-    assert_forgotten(port, "s")
+    """``opus_raw`` decodes on the host, joined to the bytes buffered
+    before its kind came; gsm, amr_nb and g729 are refused."""
+    if kind != "opus_raw":
+        port = StreamFleet(2, device="cpu")
+        port.push("s", b"early bytes")
+        with pytest.raises(FleetUnsupported, match=f"kind '{kind}'.*no decoder"):
+            port.push("s", b"\x00" * 33, kind=kind)
+        assert_forgotten(port, "s")
+        return
+    raw = opus_fixtures.lane_raw(opus_fixtures.load_clips(), 1, 30)[0]
+    pair = Pair()
+    pair.push("xs", raw[:10])
+    pair.push("xs", raw[10:2000], kind="opus_raw")
+    assert "xs" in pair.port._fallback
+    first = pair.collect()["xs"]
+    pair.push("xs", raw[2000:])
+    pair.end("xs")
+    second = pair.collect()["xs"]
+    assert first.shape[0] == 2 and first.shape[1] + second.shape[1] == 30 * 960 - 312
+    assert pair.rates("xs") == [48000]
+    assert_retired(pair, "xs")
 
 
-@pytest.mark.parametrize("kind", ["aac", "flac", "g722", "vorbis"])
+FULL_GROUP_STREAMS = {
+    # kind: (lane id, overflow ids: x exact, y within 1 LSB)
+    "aac": ("a0", "x"), "flac": ("f0", "x"), "g722": ("t0", "x"), "vorbis": ("w0", "x"),
+    "mp3": ("m0", "y"), "opus": ("o0", "x"),
+}
+
+
+@pytest.mark.parametrize("kind", FULL_GROUP_STREAMS)
 def test_refuses_a_stream_whose_group_is_full(kind):
-    """Explicit and detected alike; the seated stream is not disturbed,
+    """Explicit and detected alike: the stream that finds its group full
+    decodes on the host beside the seated one, which is not disturbed,
     and the lane serves the next stream once it is free."""
     data = {"aac": aac_stream(0, 0, 3), "flac": flac_stream(2, 2),
-            "g722": tel_stream("g722", 0, 600), "vorbis": vorbis_stream(1, 3)}[kind]
-    port = StreamFleet(1, device="cpu")
-    port.push("first", data, kind=kind)
-    with pytest.raises(FleetUnsupported, match=f"'second'.*kind '{kind}'.*group is full \\(1 lanes\\)"):
-        port.push("second", data, kind=kind)
+            "g722": tel_stream("g722", 0, 600), "vorbis": vorbis_stream(1, 3),
+            "mp3": mp3_stream(0, 0, 40), "opus": opus_stream(0, 25)}[kind]
+    lane_id, host = FULL_GROUP_STREAMS[kind]
+    pair = Pair(1)
+    pair.push(lane_id, data, kind=kind)
+    pair.push(f"{host}2", data, kind=kind)
+    ids = [lane_id, f"{host}2"]
     if kind != "g722":  # detected from its bytes: at MIN_DETECT bytes, or at the end
-        with pytest.raises(FleetUnsupported, match="'third'.*group is full"):
-            port.push("third", data)
-            port.end_stream("third")
-    port.end_stream("first")
-    out = port.collect()
-    assert sorted(out) == ["first"]
-    assert_forgotten(port, "second")
-    assert_forgotten(port, "third")
-    port.push("fourth", data, kind=kind)
-    np.testing.assert_array_equal(port.collect()["fourth"], out["first"])
+        pair.push(f"{host}3", data)
+        ids.append(f"{host}3")
+    pair.end(*ids)
+    for f in (pair.port, pair.ref):
+        assert sorted(f._fallback) == sorted(ids[1:])
+    out = pair.collect()
+    assert sorted(out) == sorted(ids)
+    for sid in ids[1:]:
+        assert out[sid].shape == out[lane_id].shape, sid
+    assert pair.rates(*ids) == pair.rates(lane_id) * len(ids)
+    for sid in ids[1:]:
+        assert_retired(pair, sid)
+    pair.push(f"{lane_id[0]}4", data, kind=kind)
+    np.testing.assert_array_equal(pair.collect()[f"{lane_id[0]}4"], out[lane_id])
+
+
+# reroutes whose host decode runs SILK (the port's resampler): within 1 LSB
+LOSSY_REROUTES = ("silk_bandwidth_switch", "mode_switch", "hybrid_redundancy_start")
+MULTISTREAM_REROUTES = ("mapping_family_1", "three_channels")
 
 
 @pytest.mark.parametrize("case", REROUTE_CASES)
 def test_refuses_an_opus_lane_the_reference_reroutes(case):
-    """An Ogg Opus stream that the JAX package's group hands to its host
-    decoder (a SILK bandwidth switch, a 10 ms CELT packet, a code-3
-    multi-frame packet, mapping family 1, three channels, a mid-stream
-    mode switch) raises at the push that brings the head or the packet,
-    a hybrid stream that starts on transition redundancy at the push
-    after the collect that froze its lane;
-    its lane is reset and freed, the stream forgotten, and the next Opus
-    stream takes the lane and decodes. A stream of less than a page seats
-    a lane at its end."""
+    """An Ogg Opus stream its group hands to the host (a SILK bandwidth
+    switch, a 10 ms CELT packet, a code-3 multi-frame packet, a mid-stream
+    mode switch, a hybrid stream that starts on transition redundancy) is
+    moved at the push that brings the packet (the hybrid one at the push
+    after the collect that froze its lane) to a host decoder seeded from
+    the lane's packet tail, and decodes on as the JAX package's; its lane
+    is reset and freed. A multistream head (mapping family 1, three
+    channels) is refused at the push that brings it. A stream of less
+    than a page seats a lane at its end."""
     head, packets, msg = opus_reroute_case(opus_fixtures.load_clips(), case)
     data = ogg_opus(head, packets)
-    port = StreamFleet(2, device="cpu")
-    port.push("ok", opus_stream(2, 12))
+    sid = "ys" if case in LOSSY_REROUTES else "xs"
+    pair = Pair(2)
+    fleets = (pair.port,) if case in MULTISTREAM_REROUTES else (pair.port, pair.ref)
+    for f in fleets:
+        f.push("o0", opus_stream(2, 12))
     if case == "hybrid_redundancy_start":
-        # the walk freezes the lane at the collect; the next push raises
+        # the walk freezes the lane at the collect; the next push reroutes
         cut = len(data) - len(packets[-1]) - 28  # the last packet's page
-        port.push("s", data[:cut], kind="opus")
-        lane = port._lanes["s"].index
-        assert "s" not in port.collect()
+        pair.push(sid, data[:cut], kind="opus")
+        lane = pair.port._lanes[sid].index
+        assert sid not in pair.collect()
         rest = data[cut:]
     else:
-        port.push("s", data[:40])  # most of the OpusHead page: seated at the end, no head yet
-        port.end_stream("s")
-        lane = port._lanes["s"].index
+        for f in fleets:
+            f.push(sid, data[:40])  # most of the OpusHead page: seated at the end, no head yet
+            f.end_stream(sid)
+        lane = pair.port._lanes[sid].index
         rest = data[40:]
-    with pytest.raises(FleetUnsupported, match=f"'s'.*kind 'opus'.*{msg}.*reroutes"):
-        port.push("s", rest)
-    assert_forgotten(port, "s")
-    group = port._groups["opus"]
+    group = pair.port._groups["opus"]
+    if case in MULTISTREAM_REROUTES:
+        with pytest.raises(FleetUnsupported, match=f"'{sid}'.*kind 'opus'.*multistream OpusHead"):
+            pair.port.push(sid, rest)
+        assert_forgotten(pair.port, sid)
+    else:
+        pair.push(sid, rest)
+        for f in (pair.port, pair.ref):
+            assert sid in f._fallback and sid not in f._lanes
     assert lane in group._free and lane not in group._used
     assert group._model.lane_ready(lane) == 0 and group._model.lane_sample_rate(lane) is None
-    port.end_stream("ok")
-    assert port.collect()["ok"].shape == (2, 12 * 960)
+    assert not group._model._tail[lane] and group._model._emitted[lane] == 0
+    if case not in MULTISTREAM_REROUTES:
+        pair.end("o0", sid)
+        out = pair.collect()
+        assert out[sid].shape[0] == 2 and out[sid].shape[1] > 0
+        assert out["o0"].shape == (2, 12 * 960)
+        assert_retired(pair, sid)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_refuses_a_vorbis_stream_of_another_topology(split):
+    """A 22.05 kHz mono Ogg Vorbis stream after the group's topology was
+    fixed by a 44.1 kHz stereo one moves to the host at the push that
+    completes its headers (whole, or after a first push of part of its
+    header pages), replayed from its bytes so far; its lane is reset and
+    freed, and the seated stream decodes as alone."""
+    seated = vorbis_stream(0, 2)
+    mono = vorbis_fixtures.load_clips(names=("mono22",))[0].stream()
+    pair = Pair(2)
+    pair.push("w0", seated)
+    cut = 3000 if split else 0
+    if split:
+        pair.push("xs", mono[:cut], kind="vorbis")  # the identification page: no topology yet
+        lane = pair.port._lanes["xs"].index
+        assert bytes(pair.port._pretopo["xs"]) == mono[:cut]
+    else:
+        lane = 0
+    pair.push("xs", mono[cut:], kind=None if split else "vorbis")
+    for f in (pair.port, pair.ref):
+        assert "xs" in f._fallback and "xs" not in f._lanes and "xs" not in f._pretopo
+    group = pair.port._groups["vorbis"]
+    assert lane in group._free and lane not in group._used
+    assert group._model.lane_ready(lane) == 0 and not group._model.lane_configured(lane)
+    pair.end("w0", "xs")
+    out = pair.collect()
+    assert sorted(out) == ["w0", "xs"] and out["xs"].shape[0] == 1
+    assert pair.rates("w0", "xs") == [44100, 22050]
+    alone = StreamFleet(2, device="cpu")
+    alone.push("w0", seated)
+    alone.end_stream("w0")
+    np.testing.assert_array_equal(out["w0"], alone.collect()["w0"])
+    assert_retired(pair, "xs")
+
+
+@pytest.mark.parametrize("out_bits,device_out", [(16, True), (32, True), (16, False)])
+def test_host_streams_in_every_output_mode(out_bits, device_out):
+    """Host streams beside lanes under int16 output and device-resident
+    collects: a WAV stream, a G.722 overflow stream and an Opus reroute."""
+    pair = Pair(1, out_bits)
+    head, packets, _ = opus_reroute_case(opus_fixtures.load_clips(), "ten_ms_celt")
+    pair.push("t0", tel_stream("g722", 0, 600), kind="g722")
+    pair.push("x1", tel_stream("g722", 1, 500), kind="g722")
+    pair.push("x2", _wav(0.6))
+    pair.push("x3", ogg_opus(head, packets), kind="opus")
+    for f in (pair.port, pair.ref):
+        assert sorted(f._fallback) == ["x1", "x2", "x3"]
+    first = pair.collect(device_out)
+    assert sorted(first) == ["t0", "x1", "x2", "x3"]
+    pair.end("t0", "x1", "x2", "x3")
+    pair.collect(device_out)
+    assert_retired(pair, "x2")
 
 
 def test_refused_streams_never_reach_the_jax_pipeline():
-    """The port's fleet module names no host decoder at all."""
+    """Every host stream decodes through the port's pipeline (never the
+    JAX package's) on the fleet's device, and a refused stream builds no
+    decoder."""
+    from soundkit_tpu_torch.models.opus_fleet_model import _OpusTailFallback
+    from soundkit_tpu_torch.pipeline.decode_pipeline import StreamDecoder
+
+    port = StreamFleet(1, device="cpu")
+    raw = opus_fixtures.lane_raw(opus_fixtures.load_clips(), 1, 4)[0]
+    head, packets, _ = opus_reroute_case(opus_fixtures.load_clips(), "code3_multiframe")
+    port.push("t0", tel_stream("g711_alaw", 0, 300), kind="g711_alaw")
+    port.push("g", tel_stream("g711_alaw", 1, 300), kind="g711_alaw")
+    port.push("r", raw, kind="opus_raw")
+    port.push("w", _wav(0.6))
+    port.push("o", ogg_opus(head, packets), kind="opus")
+    assert sorted(port._fallback) == ["g", "o", "r", "w"]
+    for sid in "grw":
+        dec = port._fallback[sid]
+        assert isinstance(dec, StreamDecoder) and dec.device == torch.device("cpu"), sid
+    assert isinstance(port._fallback["o"], _OpusTailFallback)
+    for sid, kind in (("s1", "gsm"), ("s2", "amr_nb"), ("s3", "g729")):
+        with pytest.raises(FleetUnsupported):
+            port.push(sid, b"\x00" * 40, kind=kind)
+    with pytest.raises(FleetUnsupported):
+        port.push("s4", DETECTED_WITHOUT_A_GROUP["m4a"])
+        port.end_stream("s4")
+    assert sorted(port._fallback) == ["g", "o", "r", "w"]
     src = open(fleet_mod.__file__).read()
-    assert "StreamDecoder" not in src and "decode_pipeline" not in src
+    assert "from soundkit_tpu." not in src and "import soundkit_tpu." not in src
+
+
+def test_raw_opus_multistream_head_is_refused_at_the_push_that_completes_it():
+    """A raw-Opus stream whose OpusHead is multistream is refused once its
+    19 head bytes are in, not handed on as an error the fleet drops."""
+    clip = opus_fixtures.load_clips()[0]
+    raw = clip.head[:18] + b"\x01" + struct.pack("<H", len(clip.packets[0])) + clip.packets[0]
+    port = StreamFleet(2, device="cpu")
+    port.push("r", raw[:12], kind="opus_raw")
+    assert "r" in port._fallback
+    with pytest.raises(FleetUnsupported, match="'r'.*host stream.*multistream"):
+        port.push("r", raw[12:])
+    assert_forgotten(port, "r")

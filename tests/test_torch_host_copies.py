@@ -755,3 +755,118 @@ def test_pipeline_classes_keep_the_jax_packages_methods(module, cls, methods):
 
     for m in props:
         assert inspect.getsource(getattr(port, m).fget) == inspect.getsource(getattr(ref, m).fget)
+
+
+# ---------------------------------------------------------------------------
+# the streaming Opus and Vorbis decoders and the fleet's Opus reroute
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("module", ["codecs/opus_rc.py", "codecs/opus_silk.py",
+                                    "codecs/opus_celt.py"])
+def test_opus_codec_modules_are_verbatim_copies(module):
+    port = (REPO / "soundkit_tpu_torch" / module).read_text()
+    assert port == _as_port((REPO / "soundkit_tpu" / module).read_text())
+
+
+def test_opus_core_is_a_copy_but_for_its_resampler():
+    """``codecs/opus_core.py`` imports the port's SILK resampler
+    (``utils/silk_resampler.py``) where the original opens libswresample."""
+    port = (REPO / "soundkit_tpu_torch/codecs/opus_core.py").read_text()
+    ref = _as_port((REPO / "soundkit_tpu/codecs/opus_core.py").read_text())
+    assert port == ref.replace("from soundkit_tpu_torch.utils.swr import SilkResampler",
+                               "from soundkit_tpu_torch.utils.silk_resampler import SilkResampler")
+
+
+def _methods_but(cls, ref_cls, changed):
+    import inspect
+
+    names = [n for n, v in vars(ref_cls).items()
+             if (inspect.isfunction(v) or isinstance(v, property)) and n not in changed]
+    assert set(names) <= set(vars(cls)), set(names) - set(vars(cls))
+    return [(n, _source(getattr(cls, n))) for n in names], \
+        [(n, _as_port(_source(getattr(ref_cls, n)))) for n in names]
+
+
+def _source(obj) -> str:
+    import inspect
+
+    return inspect.getsource(obj.fget if isinstance(obj, property) else obj)
+
+
+# (module, class or function, the methods that carry the libavcodec departure)
+STREAM_DECODER_COPIES = [
+    ("codecs.opus", "OpusHead", ()),
+    ("codecs.opus", "_celt_support_window", None),
+    ("codecs.opus", "_NativeCeltStream", ()),
+    ("codecs.opus", "_OpusCore", ("__init__", "_fallback", "decode_packet_f32", "flush_f32")),
+    ("codecs.opus", "OggOpusDemuxer", ()),
+    ("codecs.opus", "OggOpusDecoder", ()),
+    ("codecs.opus", "OpusStreamDecoder", ()),
+    ("codecs.vorbis", "xiph_extradata", None),
+    ("codecs.vorbis", "split_xiph_extradata", None),
+    ("codecs.vorbis", "VorbisPacketDecoder", ("__init__",)),
+    ("codecs.vorbis", "VorbisDecoder", ("_init_decoder",)),
+    ("codecs.celt_native", "NativeCeltParser", ()),
+    ("models.opus_fleet_model", "_OpusTailFallback", ()),
+    ("simple", "OpusDeboxer", ()),
+    ("simple", "OpusDecodeResult", ()),
+    ("simple", "OpusDecoder", ()),
+]
+
+
+@pytest.mark.parametrize("module,name,changed", STREAM_DECODER_COPIES)
+def test_stream_decoder_pieces_are_verbatim_copies(module, name, changed):
+    """The streaming decoders' classes and functions equal the JAX
+    package's but for their imports and the methods named in the table:
+    the libavcodec branches, which raise in the port
+    (``tests/test_torch_opus_stream.py``, ``tests/test_torch_vorbis_stream.py``)."""
+    import importlib
+
+    port = getattr(importlib.import_module(f"soundkit_tpu_torch.{module}"), name)
+    ref = getattr(importlib.import_module(f"soundkit_tpu.{module}"), name)
+    if not changed:
+        assert _source(port) == _as_port(_source(ref))
+        return
+    got, want = _methods_but(port, ref, changed)
+    assert got == want
+    for m in changed:
+        assert "AvDecoder" in _source(getattr(ref, m)) or "_av" in _source(getattr(ref, m))
+        assert "AvDecoder" not in _source(getattr(port, m))
+
+
+def test_opus_constants_of_the_stream_decoders():
+    from soundkit_tpu.codecs import opus as jax_opus
+    from soundkit_tpu.utils import swr
+    from soundkit_tpu_torch.codecs import opus
+    from soundkit_tpu_torch.utils import silk_resampler
+
+    assert (opus._HISTORY_CAP, opus._HISTORY_KEEP, opus.OPUS_SAMPLE_RATE) == \
+        (jax_opus._HISTORY_CAP, jax_opus._HISTORY_KEEP, jax_opus.OPUS_SAMPLE_RATE)
+    assert silk_resampler.SILK_RESAMPLE_DELAY == swr.SILK_RESAMPLE_DELAY
+
+
+def test_silk_decode_superframe_is_a_verbatim_copy():
+    from soundkit_tpu.codecs import silk_native as jax_silk
+    from soundkit_tpu_torch.codecs import silk_native
+
+    assert _source(silk_native.NativeSilkDecoder.decode_superframe) == \
+        _source(jax_silk.NativeSilkDecoder.decode_superframe)
+
+
+@pytest.mark.parametrize("name", ["_audio_i16", "_StreamI16Adapter"])
+def test_stream_adapter_is_a_verbatim_copy(name):
+    from soundkit_tpu.codecs import containers
+    from soundkit_tpu_torch.pipeline import adapters
+
+    assert _source(getattr(adapters, name)) == _as_port(_source(getattr(containers, name)))
+
+
+def test_opus_fleet_tail_equals_the_jax_package():
+    from soundkit_tpu.models import opus_fleet_model as jax_ofm
+    from soundkit_tpu_torch.models import opus_fleet_model as ofm
+
+    port, ref = ofm.BatchedOggOpusDecoder, jax_ofm.BatchedOggOpusDecoder
+    assert port.TAIL_KEEP == ref.TAIL_KEEP
+    for m in ("lane_configured", "_reroute"):
+        assert _source(getattr(port, m)) == _source(getattr(ref, m))
+    assert _source(ofm.OpusLaneUnsupported) == _source(jax_ofm.OpusLaneUnsupported)

@@ -145,12 +145,12 @@ for sid, name in (("v0", "silk_mb"), ("v1", "hybrid_fb")):
 out = fleet.collect()
 assert out["v0"].shape == (2, 6 * 960 - 312) and out["v1"].shape == (2, 6 * 960)
 switch = voice["silk_nb"].packets[:3] + voice["silk_wb"].packets[3:5]
-try:
-    fleet.push("s", voice["silk_nb"].header + b"".join(
-        b"OggS" + bytes(22) + bytes([1, len(p)]) + p for p in switch), kind="opus")
-    raise SystemExit("a SILK bandwidth switch was not refused")
-except FleetUnsupported as e:
-    assert "silk bandwidth switch" in str(e)
+fleet.push("s", voice["silk_nb"].header + b"".join(
+    b"OggS" + bytes(22) + bytes([1, len(p)]) + p for p in switch), kind="opus")
+assert "s" in fleet._fallback  # the SILK bandwidth switch moved it to the host
+fleet.end_stream("s")
+out = fleet.collect()["s"]
+assert out.shape == (1, 5 * 960 - 312) and np.isfinite(out).all() and np.abs(out).max() > 0.01
 assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
 print("opus without jax")
 """
@@ -244,6 +244,40 @@ print("pipeline without jax")
 """
 
 
+_NO_JAX_STREAMS = _NO_JAX_DECODE.split("import numpy as np")[0] + r"""
+import numpy as np
+from soundkit_tpu_torch.core.audio_types import AudioData
+from soundkit_tpu_torch.models.fleet import StreamFleet
+from soundkit_tpu_torch.pipeline.decode_pipeline import StreamDecoder
+from soundkit_tpu_torch.tools import opus_fixtures, vorbis_fixtures
+clips = opus_fixtures.load_clips()
+voice = opus_fixtures.load_clips(names=("silk_wb",))
+streams = {"ogg_opus": clips[0].stream(), "silk": voice[0].stream(),
+           "opus_raw": opus_fixtures.lane_raw(clips, 2, 20)[1],
+           "vorbis": vorbis_fixtures.load_clips(names=("mono22",))[0].stream()}
+for name, data in streams.items():
+    dec = StreamDecoder(device="cpu")
+    outs = [o for i in range(0, len(data), 4096) for o in dec.process(data[i:i + 4096])]
+    outs += dec.process(b"")
+    assert outs and all(isinstance(o, AudioData) for o in outs), (name, outs)
+    x = np.frombuffer(b"".join(o.data for o in outs), "<i2")
+    assert len(x) > 1000 and np.abs(x).max() > 100, name
+fleet = StreamFleet(1, device="cpu")
+lanes = opus_fixtures.lane_streams(clips, 2, 10)
+fleet.push("lane", lanes[0], kind="opus")
+fleet.push("overflow", lanes[1], kind="opus")
+assert "overflow" in fleet._fallback
+for sid in ("lane", "overflow"):
+    fleet.end_stream(sid)
+out = fleet.collect()
+# a host stream keeps its own channel count: the mono clip decodes to one plane
+assert out["lane"].shape == (2, 10 * 960 - 312) and out["overflow"].shape == (1, 10 * 960 - 312)
+assert np.abs(out["overflow"]).max() > 0.01
+assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
+print("streams without jax")
+"""
+
+
 @pytest.mark.parametrize("script,said", [(_NO_JAX_DECODE, "decoded without jax"),
                                          (_NO_JAX_TELEPHONY, "telephony without jax"),
                                          (_NO_JAX_FLEET, "fleet without jax"),
@@ -251,7 +285,8 @@ print("pipeline without jax")
                                          (_NO_JAX_OPUS, "opus without jax"),
                                          (_NO_JAX_FLAC_ENC, "flac encode without jax"),
                                          (_NO_JAX_DSP, "dsp without jax"),
-                                         (_NO_JAX_PIPELINE, "pipeline without jax")])
+                                         (_NO_JAX_PIPELINE, "pipeline without jax"),
+                                         (_NO_JAX_STREAMS, "streams without jax")])
 def test_port_runs_on_cpu_with_jax_blocked(script, said):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)

@@ -244,11 +244,37 @@ def test_lanes_the_reference_reroutes_raise(clips, case):
         assert lens[:, 0].sum() == 0
         data = data[cut:]
     port.push(1, opus_fixtures.lane_streams(clips, 1, 4)[0])  # a lane beside it
-    with pytest.raises(OpusLaneUnsupported, match=msg):
+    with pytest.raises(OpusLaneUnsupported, match=msg) as got:
         port.push(0, data)
-    with pytest.raises(JaxUnsupported, match=msg):
+    with pytest.raises(JaxUnsupported, match=msg) as want:
         ref.push(0, data)
+    # the replay that seeds the fleet's host decoder: the same tail and accounting
+    g, w = got.value.replay, want.value.replay
+    assert g.keys() == w.keys()
+    assert g["head"].raw == w["head"].raw and g["tail"] == w["tail"] and g["pending"] == w["pending"]
+    assert (g["dropped"], g["emitted"]) == (w["dropped"], w["emitted"])
     port.reset_lane(0)
     assert port.lane_ready(0) == 0 and port.lane_ready(1) == 4
     pcm, lens = port.decode_batches(4)
     assert lens[:, 0].sum() == 0 and (lens[:, 1] > 0).all()
+
+
+def test_reroute_tail_stays_bounded_as_in_the_jax_package(clips):
+    """A lane keeps its undecoded queue and TAIL_KEEP decoded packets, and
+    counts the samples it delivered and the 48 kHz samples it trimmed, as
+    the JAX package's group does, collect by collect."""
+    clip = clips[1]
+    data = ogg_opus(clip.head, (clip.packets * 2)[:220])
+    port, ref = BatchedOggOpusDecoder(2, 2, device="cpu"), JaxOgg(2, 2)
+    assert port.TAIL_KEEP == ref.TAIL_KEEP == 96
+    cuts = [0, len(data) // 3, 2 * len(data) // 3, len(data)]
+    for a, b in zip(cuts, cuts[1:]):
+        for m in (port, ref):
+            m.push(0, data[a:b])
+            m.decode_batches(m.lane_ready(0) - 10)
+        assert port._tail[0] == ref._tail[0]
+        assert (port._tail_dropped[0], port._emitted[0]) == (ref._tail_dropped[0], ref._emitted[0])
+    assert port._tail_dropped[0] > 0 and len(port._tail[0]) == 10 + 96
+    assert port.lane_configured(0) and not port.lane_configured(1)
+    port.reset_lane(0)
+    assert (port._tail[0], port._tail_dropped[0], port._emitted[0]) == ([], 0, 0)

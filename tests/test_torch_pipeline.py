@@ -3,9 +3,11 @@ simple API against the JAX package's on the CPU (``device="cpu"``).
 
 The output lists are equal: each ``AudioData``'s bytes, rate, channels
 and bits, each error by its class (MP3 within 1 LSB in its int16
-bytes, its bar in ``tests/test_torch_streaming_codecs.py``). Formats by
-autodetect (WAV, FLAC, MP3, AAC) and by explicit spawn (raw PCM, G.711,
-G.722, G.726), chunk invariance, ``DecodeOptions``, the error cases,
+bytes, its bar in ``tests/test_torch_streaming_codecs.py``; Opus SILK
+and hybrid within 1 LSB, the port's resampler rounding its sums
+otherwise than libswresample). Formats by autodetect (WAV, FLAC, MP3,
+AAC, Ogg Opus, raw Opus, Ogg Vorbis) and by explicit spawn (raw PCM,
+G.711, G.722, G.726, and the Opus and Vorbis spawns), chunk invariance, ``DecodeOptions``, the error cases,
 the threaded handle against the synchronous core, and a device fault
 that must reach the caller."""
 from pathlib import Path
@@ -191,17 +193,15 @@ def test_silent_consumption_is_no_audio_decoded():
     assert dp.StreamDecoder(device="cpu").process(b"") == []
 
 
-OGG_OPUS = DATA / "opus" / "owned.opus"
+M4A = bytes(4) + b"ftypM4A " + bytes(20)
 
 
 def test_unported_formats_raise_unsupported_format():
-    data = OGG_OPUS.read_bytes()
-    got = _drive(dp.StreamDecoder(device="cpu"), data, 4096)
+    got = _drive(dp.StreamDecoder(device="cpu"), M4A, 4096)
     assert _summary(got) == [("error", "UnsupportedFormat")]
-    assert "Ogg Opus" in str(got[0])
+    assert "M4A" in str(got[0])
     spawns = ["spawn_aac_latm", "spawn_gsm", "spawn_amr_nb", "spawn_g729", "spawn_ac3",
-              "spawn_vorbis", "spawn_speex", "spawn_ogg_opus", "spawn_opus", "spawn_alac",
-              "spawn_aiff", "spawn_webm"]
+              "spawn_speex", "spawn_alac", "spawn_aiff", "spawn_webm"]
     for name in spawns:
         assert hasattr(jax_dp.DecodePipeline, name)
         with pytest.raises(UnsupportedFormat):
@@ -213,8 +213,52 @@ def test_unported_formats_raise_unsupported_format():
 
     with pytest.raises(UnsupportedFormat, match="AC-3"):
         dp._init_decoder(AudioType.AC3, "cpu")
-    with pytest.raises(UnsupportedFormat):
-        simple.MusicDecoder.new_with_format("vorbis", device="cpu")
+    for fmt in ("m4a", "webm", "speex", "alac", "aiff", "ac3"):
+        with pytest.raises(UnsupportedFormat):
+            simple.MusicDecoder.new_with_format(fmt, device="cpu")
+
+
+def _opus_raw(name: str) -> bytes:
+    from soundkit_tpu_torch.tools import opus_fixtures
+
+    return opus_fixtures.lane_raw(opus_fixtures.load_clips(names=(name,)), 1)[0]
+
+
+# Ogg Opus (CELT, SILK, hybrid), raw Opus and Ogg Vorbis: CELT-only and
+# Vorbis streams bit-exact, SILK and hybrid within 1 LSB (the port's
+# resampler rounds its float64 sums where libswresample sums in float32)
+OPUS_VORBIS = {
+    "ogg_opus_celt": (lambda: (DATA / "opus" / "stereo96.opus").read_bytes(), 0),
+    "ogg_opus_silk": (lambda: (DATA / "opus" / "silk_wb_stereo.opus").read_bytes(), 1),
+    "ogg_opus_hybrid": (lambda: (DATA / "opus" / "hybrid_fb.opus").read_bytes(), 1),
+    "opus_raw_celt": (lambda: _opus_raw("mono64"), 0),
+    "opus_raw_silk": (lambda: _opus_raw("silk_nb"), 1),
+    "vorbis": (lambda: (DATA / "vorbis" / "stereo44.ogg").read_bytes(), 0),
+}
+
+
+@pytest.mark.parametrize("fmt", list(OPUS_VORBIS))
+@pytest.mark.parametrize("chunk", [313, 4096])
+def test_opus_and_vorbis_autodetect_match_jax(fmt, chunk):
+    make, lsb = OPUS_VORBIS[fmt]
+    data = make()
+    got = _drive(dp.StreamDecoder(device="cpu"), data, chunk)
+    want = _drive(jax_dp.StreamDecoder(), data, chunk)
+    _assert_same_outputs(got, want, lsb=lsb)
+    assert not any(isinstance(o, DecodeError) for o in got)
+
+
+@pytest.mark.parametrize("fmt,spawn", [("ogg_opus_hybrid", "spawn_ogg_opus"),
+                                       ("opus_raw_celt", "spawn_opus"), ("vorbis", "spawn_vorbis")])
+def test_opus_and_vorbis_spawns_match_jax(fmt, spawn):
+    make, lsb = OPUS_VORBIS[fmt]
+    data = make()[:60000]
+    got = _recv_all(getattr(dp.DecodePipeline, spawn)(device="cpu"), data, 4096)
+    want = _recv_all(getattr(jax_dp.DecodePipeline, spawn)(), data, 4096)
+    _assert_same_outputs(got, want, lsb=lsb)
+    for name in ("ogg-opus", "opus", "vorbis"):
+        assert isinstance(simple.MusicDecoder.new_with_format(name, device="cpu"),
+                          simple.MusicDecoder)
 
 
 def _recv_all(handle, data: bytes, chunk: int):
