@@ -43,8 +43,8 @@ pipeline ``soundkit_tpu_torch.pipeline.decode_pipeline.DecodePipeline``
 
 a. build the CUDA kernels (one ``nvcc`` a source, all started together),
    the host parser, the FLAC walk, the MP3 parser, the Opus parse (CELT,
-   SILK, hybrid glue), the Vorbis packet parse and the FLAC frame packer
-   from the checkout;
+   SILK, hybrid glue), the Vorbis packet parse, the FLAC frame packer
+   and the GSM and ALAC decoders from the checkout;
 b. print the card (``nvidia-smi`` name and power limit), the kernels'
    launch shapes (K4's lanes a block and a warp, K6's threads a lane,
    K7's threads a band and steps a tile, K3's codes a thread and threads
@@ -293,7 +293,10 @@ ee. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    stream Ogg Opus reroutes, a 22.05 kHz mono Ogg Vorbis stream of
    another topology), each equal to its lone decode on the card, the
    fallback's K3 / K6 / K7 / K10 launches counted inside its pushes;
-   the multistream reroutes and GSM must raise ``FleetUnsupported``; the
+   one stream of each owned host codec (GSM by its kind, AIFF-C µ-law,
+   ALAC in MP4, AC-3 and Ogg Speex WB detected), each equal to its lone
+   decode too; the multistream reroutes and AMR-NB must raise
+   ``FleetUnsupported``; the
    waves run again without the host streams for the x realtime beside;
    then an ``out_bits=16`` collect against the quantized
    bare output (Opus CELT on the i16 spectral wire), and per group a
@@ -330,13 +333,21 @@ ff. pipeline: K3, K6 and K7 at B = 1 on 1, 127 and 313 codes and on one
    dB in float32 through ``Mp3Decoder``; six host-decoded streams of ~20 s
    (``pipeline_host_streams``: Ogg Opus CELT stereo and mono, SILK WB,
    hybrid FB, raw Opus, Ogg Vorbis) the same way, hooked on their first
-   5 s and held whole against the CPU bit for bit; eight mixed pipelines at once,
+   5 s and held whole against the CPU bit for bit; eleven streams of the
+   owned host codecs (``pipeline_codec_streams``: GSM standard and WAV49,
+   AIFF 16-bit, AIFF-C µ-law and A-law, 60 s each; ALAC in CAF and in
+   MP4, 20 s; AC-3 stereo 10 s; Ogg Speex NB / WB / UWB 10 / 5 / 3 s)
+   the same way, hooked on their first 2 s (AIFF and ALAC, decoded at
+   EOF, whole), held whole against the CPU bit for bit and against the
+   JAX package's decode of their clip (``codec_reference_check``: exact,
+   AC-3 and Speex within 1 LSB), AIFF-C's K3 once at each file's end;
+   eight mixed pipelines at once,
    each equal to its lone run; one ``[pipeline]`` line a format and a
    summary line;
 gg. print the kernels' JSON line (all seventeen kernels, K2 with no
    launch: it is not on a path; K3, K6, K7 and K10 with their
-   ``pipeline_launches`` and ``fleet_fallback_launches``, K6 and K7 also
-   with ``stream_encoder_launches``),
+   ``pipeline_launches`` and ``fleet_fallback_launches``, K3 also with
+   ``pipeline_aifc_launches``, K6 and K7 with ``stream_encoder_launches``),
    then the result line.
 
 Any failed phase exits non-zero before the result line. Without a
@@ -404,6 +415,13 @@ FLEET_OVERFLOW = 4       # streams beyond a full group's lanes, decoded on the h
 FLEET_FILLERS = ("g711_mulaw", "g726_32")
 FLEET_FILLER_BYTES = 400
 FLEET_HOST_WAV_SECONDS = 1.0
+# one host stream of each owned host codec in [fleet], {sid: (host_codec_fixtures clip, explicit
+# kind or None for detection, seconds at least)}; pushed whole after round 0's pushes
+FLEET_CODEC_STREAMS = {"gsm-host-0": ("gsm_standard", "gsm", 10.0),
+                       "aifc_ulaw-host-0": ("aifc_ulaw", None, 10.0),
+                       "alac_mp4-host-0": ("alac_mp4", None, 5.0),
+                       "ac3-host-0": ("ac3_stereo", None, 2.0),
+                       "speex_wb-host-0": ("speex_wb", None, 2.0)}
 FLAC_ENC_RATE = 44100.0
 FLAC_ENC_SECONDS = 4.0    # PCM a [flac-enc] lane carries
 FLAC_ENC_PUSHES = 4       # pushes of the [flac-enc] phase, an encode_pending after each
@@ -557,6 +575,10 @@ def phase_build():
     t6 = time.perf_counter()
     epath = _build.flac_pack_library_path()
     t7 = time.perf_counter()
+    gpath = _build.gsm_library_path()
+    t8 = time.perf_counter()
+    apath = _build.alac_library_path()
+    t9 = time.perf_counter()
     _build.kernels()
     first_build.join()
     if "error" in first:
@@ -570,7 +592,9 @@ def phase_build():
         f"MP3 parser {mpath.relative_to(ROOT)} in {t4 - t3:.3f} s; "
         f"Opus parse {cpath.relative_to(ROOT)} in {t5 - t4:.3f} s; "
         f"Vorbis parse {vpath.relative_to(ROOT)} in {t6 - t5:.3f} s; "
-        f"FLAC packer {epath.relative_to(ROOT)} in {t7 - t6:.3f} s")
+        f"FLAC packer {epath.relative_to(ROOT)} in {t7 - t6:.3f} s; "
+        f"GSM decoder {gpath.relative_to(ROOT)} in {t8 - t7:.3f} s; "
+        f"ALAC decoder {apath.relative_to(ROOT)} in {t9 - t8:.3f} s")
     blog = kpath.with_suffix(".log")
     if blog.exists():
         for line in blog.read_text().splitlines():
@@ -3063,11 +3087,15 @@ def fleet_host_streams(fs: "FleetStreams") -> dict:
       frozen by round 0's collect and freed by the rest of it before
       round 1's pushes; the two multistream heads refused;
     - a 22.05 kHz mono Ogg Vorbis stream with kind "vorbis" after round 0's
-      pushes (the group's topology is 44.1 kHz stereo by then)."""
+      pushes (the group's topology is 44.1 kHz stereo by then);
+    - one stream of each owned host codec (FLEET_CODEC_STREAMS) after round
+      0's pushes: GSM by its kind, AIFF-C µ-law (K3 at its end), ALAC in
+      MP4, AC-3 and Ogg Speex WB detected."""
     import numpy as np
 
     from soundkit_tpu_torch.core.audio_types import PcmData
     from soundkit_tpu_torch.core.wav import generate_wav_buffer
+    from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
     from soundkit_tpu_torch.tools import opus_fixtures as of
     from soundkit_tpu_torch.tools import telephony_fixtures as tf
     from soundkit_tpu_torch.tools import vorbis_fixtures as vf
@@ -3096,6 +3124,8 @@ def fleet_host_streams(fs: "FleetStreams") -> dict:
             "refused" if case in ("mapping_family_1", "three_channels") else "host", cut)
     add("vorbis-topology", vf.load_clips(names=("mono22",))[0].stream(), "vorbis", (0, "after"),
         "host")
+    for sid, (clip, kind, seconds) in FLEET_CODEC_STREAMS.items():
+        add(sid, hcf.long_stream(clip, seconds)[0], kind, (0, "after"), "host")
     for kind in FLEET_FILLERS:
         streams = [s[:FLEET_FILLER_BYTES] for s in tf.lane_streams(kind, B + FLEET_OVERFLOW)]
         for j, data in enumerate(streams):
@@ -3217,8 +3247,8 @@ def phase_fleet():
           and all("multistream OpusHead" in m for m in refused.values()),
           f"fleet: refused {refused}")
     try:
-        fleet.push("refused", b"\x00" * 64, kind="gsm")
-        check(False, "fleet: a GSM stream was not refused")
+        fleet.push("refused", b"\x00" * 64, kind="amr_nb")
+        check(False, "fleet: an AMR-NB stream was not refused")
     except FleetUnsupported:
         pass
     check(not fleet._detect and not fleet._ended and not fleet._fallback,
@@ -3383,6 +3413,18 @@ PIPE_HOST_SECONDS = 20.0
 PIPE_HOST_TIMED_SECONDS = 5.0
 PIPE_HOST_FORMATS = ("ogg_opus_stereo", "ogg_opus_mono", "ogg_opus_silk_wb", "ogg_opus_hybrid_fb",
                      "opus_raw", "ogg_vorbis")
+# the owned host codecs' streams, {format: (host_codec_fixtures clip, seconds at least)}, each
+# the clip's frames, packets or sound data repeated; the timing hook on their first
+# PIPE_CODEC_TIMED_SECONDS (the EOF-buffered AIFF and ALAC whole), the CPU compare whole
+PIPE_CODEC_STREAMS = {
+    "gsm": ("gsm_standard", 60.0), "gsm_wav49": ("gsm_wav49", 60.0),
+    "aiff_16": ("aiff_16", 60.0), "aifc_ulaw": ("aifc_ulaw", 60.0),
+    "aifc_alaw": ("aifc_alaw", 60.0), "alac_caf": ("alac_caf", 20.0),
+    "alac_mp4": ("alac_mp4", 20.0), "ac3": ("ac3_stereo", 10.0),
+    "speex_nb": ("speex_nb", 10.0), "speex_wb": ("speex_wb", 5.0), "speex_uwb": ("speex_uwb", 3.0),
+}
+PIPE_CODEC_TIMED_SECONDS = 2.0
+PIPE_EOF_FORMATS = ("aiff_16", "aifc_ulaw", "aifc_alaw", "alac_caf", "alac_mp4")
 
 
 def pipeline_wrappers():
@@ -3470,6 +3512,7 @@ def pipeline_streams() -> tuple:
     out["raw_pcm"] = (np.ascontiguousarray(stereo.T).astype("<i2").tobytes(),
                       lambda device: DP.spawn_raw_pcm(fmt16, device=device), PIPE_SECONDS)
     out.update(pipeline_host_streams())
+    out.update(pipeline_codec_streams())
     return out, sources
 
 
@@ -3510,6 +3553,51 @@ def pipeline_host_streams() -> dict:
     pages += [build_ogg_page([p], 9, 2 + i, 0) for i, p in enumerate(audio * reps)]
     out["ogg_vorbis"] = (b"".join(pages), DP.spawn, reps * samples / 44100)
     return out
+
+
+def pipeline_codec_streams() -> dict:
+    """The owned host codecs' streams of [pipeline] (PIPE_CODEC_STREAMS),
+    each made by ``host_codec_fixtures.long_stream``: GSM standard and
+    WAV49 by ``spawn_gsm``, ALAC in CAF by ``spawn_alac``, the rest (AIFF
+    16-bit, AIFF-C µ-law and A-law, ALAC in MP4, AC-3 stereo, Ogg Speex
+    NB / WB / UWB) detected by ``DecodePipeline.spawn``."""
+    from soundkit_tpu_torch.codecs.telephony import GsmVariant
+    from soundkit_tpu_torch.pipeline.decode_pipeline import DecodePipeline as DP
+    from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
+
+    spawns = {"detect": DP.spawn, "alac": DP.spawn_alac,
+              "gsm_standard": lambda device: DP.spawn_gsm(GsmVariant.STANDARD, device=device),
+              "gsm_microsoft": lambda device: DP.spawn_gsm(GsmVariant.MICROSOFT, device=device)}
+    index = hcf.load_index()
+    out = {}
+    for fmt, (clip, seconds) in PIPE_CODEC_STREAMS.items():
+        data, audio_s = hcf.long_stream(clip, seconds)
+        out[fmt] = (data, spawns[index[clip]["spawn"]], audio_s)
+    return out
+
+
+def codec_reference_check(fmt: str, pcm: bytes) -> dict:
+    """A host codec stream's PCM against the JAX package's decode of its
+    clip, as ``host_codec_fixtures`` records it: the stream's first
+    ``pcm_bytes`` bytes (its decode begins with the clip's) bit for bit
+    by SHA-256, or, for the float-decoded AC-3 and Speex, within 1 LSB of
+    the committed int16 PCM."""
+    import numpy as np
+
+    from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
+
+    clip = PIPE_CODEC_STREAMS[fmt][0]
+    e = hcf.load_index()[clip]
+    head = pcm[:e["pcm_bytes"]]
+    check(len(head) == e["pcm_bytes"], f"[pipeline] {fmt}: {len(pcm)} bytes, shorter than its clip")
+    if clip in hcf.REFERENCE_PCM:
+        a = np.frombuffer(head, "<i2").astype(np.int32)
+        lsb = int(np.abs(a - hcf.reference_pcm(clip)).max())
+        check(lsb <= 1, f"[pipeline] {fmt}: {lsb} LSB from the JAX package's PCM of {clip}")
+        return dict(vs_jax_max_lsb=lsb, vs_jax_samples_off=int((a != hcf.reference_pcm(clip)).sum()))
+    check(hcf.sha256(head) == e["sha256"], f"[pipeline] {fmt}: differs from the JAX package's "
+          f"decode of {clip}")
+    return dict(vs_jax="identical")
 
 
 def pipeline_run(spawn, data: bytes, device: str, timed: bool = False):
@@ -3624,20 +3712,26 @@ def phase_pipeline(card: str):
         w.launches = 0
     res, lone = {}, {}
     for fmt, (data, spawn, seconds) in streams.items():
+        k3_before = wrappers["g711_decode"].launches
         outs, wall, _, _ = pipeline_run(spawn, data, "cuda")
+        k3_launches = wrappers["g711_decode"].launches - k3_before
         errors = [type(o).__name__ for o in outs if isinstance(o, DecodeError)]
         check(not errors, f"[pipeline] {fmt}: errors on a clean stream: {errors}")
         audio = [o for o in outs if isinstance(o, AudioData)]
         check(audio, f"[pipeline] {fmt}: no audio")
         a0 = audio[0]
         got_s = _audio_seconds(audio)
-        floor_s = PIPE_HOST_SECONDS if fmt in PIPE_HOST_FORMATS else PIPE_SECONDS
+        floor_s = PIPE_HOST_SECONDS if fmt in PIPE_HOST_FORMATS else \
+            PIPE_CODEC_STREAMS[fmt][1] if fmt in PIPE_CODEC_STREAMS else PIPE_SECONDS
         check(got_s >= 0.99 * seconds and got_s >= floor_s * 0.99,
               f"[pipeline] {fmt}: {got_s:.2f} s of audio out of {seconds:.2f}")
         lone[fmt] = outs
         res[fmt] = dict(audio_s=got_s, bytes=len(data), wall_s=wall, xrealtime=got_s / wall,
                         rate=a0.sampling_rate, channels=a0.channel_count,
                         bits=a0.bits_per_sample)
+        if fmt.startswith("aifc"):  # K3 once, at the file's end
+            check(k3_launches == 1, f"[pipeline] {fmt}: K3 launched {k3_launches} times")
+            res[fmt]["k3_launches"] = k3_launches
     launches = {n: w.launches for n, w in wrappers.items()}
     for n, c in launches.items():
         check((c == 0) if n in encoders else (c > 0),
@@ -3645,7 +3739,9 @@ def phase_pipeline(card: str):
 
     # the per-chunk timing hook, on each stream's first PIPE_TIMED_SECONDS s
     for fmt, (data, spawn, seconds) in streams.items():
-        timed_s = PIPE_HOST_TIMED_SECONDS if fmt in PIPE_HOST_FORMATS else PIPE_TIMED_SECONDS
+        timed_s = PIPE_HOST_TIMED_SECONDS if fmt in PIPE_HOST_FORMATS else \
+            seconds if fmt in PIPE_EOF_FORMATS else \
+            PIPE_CODEC_TIMED_SECONDS if fmt in PIPE_CODEC_STREAMS else PIPE_TIMED_SECONDS
         outs, wall, walls, dev_ms = pipeline_run(
             spawn, data[:int(len(data) * timed_s / seconds)], "cuda", timed=True)
         res[fmt].update(timed_chunks=len(walls),
@@ -3657,7 +3753,8 @@ def phase_pipeline(card: str):
     # same host code): bit-exact, MP3 within 1 LSB
     t0 = time.perf_counter()
     for fmt, (data, spawn, seconds) in streams.items():
-        head = data if fmt in PIPE_HOST_FORMATS else _prefix(fmt, data, seconds)
+        head = data if fmt in PIPE_HOST_FORMATS or fmt in PIPE_CODEC_STREAMS else \
+            _prefix(fmt, data, seconds)
         host = _pcm_bytes(pipeline_run(spawn, head, "cpu")[0])
         card_pcm = _pcm_bytes(lone[fmt])[:len(host)]
         check(len(host) > 0 and len(card_pcm) == len(host),
@@ -3671,6 +3768,8 @@ def phase_pipeline(card: str):
             res[fmt]["int16_samples_off_by_one"] = int((a != b).sum())
         else:
             check(card_pcm == host, f"[pipeline] {fmt}: card and CPU outputs differ")
+        if fmt in PIPE_CODEC_STREAMS:
+            res[fmt].update(codec_reference_check(fmt, card_pcm))
         res[fmt]["cpu_compare_bytes"] = len(head)
     head = _prefix("mp3", streams["mp3"][0], streams["mp3"][2])
     f32 = []
@@ -3927,6 +4026,9 @@ def main() -> int:
         if k["name"] in pipe_by_row:
             dec, enc = pipe_by_row[k["name"]]
             k["pipeline_launches"] = pres["launches"][dec]
+            if dec == "g711_decode":  # of which the AIFF-C streams' (one at each file's end)
+                k["pipeline_aifc_launches"] = sum(
+                    r.get("k3_launches", 0) for r in pres["formats"].values())
             if enc:
                 k["stream_encoder_launches"] = pres["encoder_launches"][enc]
     log(json.dumps({"slice": sres, "compare": cres, "telephony": tres,

@@ -1,6 +1,6 @@
 """Build and load the port's native code at first use.
 
-Seven shared libraries, each built into ``soundkit_tpu_torch/_build/``
+Nine shared libraries, each built into ``soundkit_tpu_torch/_build/``
 under a name keyed by a hash of its sources and flags, so a checkout
 builds once and a source edit rebuilds. Each is built the same way: one
 compiler process a source, all started together, then one link:
@@ -37,7 +37,13 @@ compiler process a source, all started together, then one link:
 - the FLAC frame packer of the encode direction,
   ``native_src/src/flac_pack.cpp`` (a verbatim copy; the Rice partition
   search, CRCs and bit packing of frames from the analysis plans),
-  compiled alone by ``g++`` with the same flags.
+  compiled alone by ``g++`` with the same flags;
+- the GSM 06.10 decoder, ``native_src/src/gsm.cpp`` (a verbatim copy;
+  the ETSI fixed-point RPE-LTP decode of standard and WAV49 frames),
+  compiled alone by ``g++`` with the same flags;
+- the ALAC packet decoder, ``native_src/src/alac.cpp`` (a verbatim copy;
+  the magic cookie, the adaptive Golomb residuals, the LPC restore and
+  the channel unmix), compiled alone by ``g++`` with the same flags.
 
 A failed build raises :class:`BuildError` with the compiler's output.
 Nothing here runs at import time.
@@ -68,6 +74,8 @@ OPUS_SOURCES = tuple(NATIVE_DIR / "src" / f for f in ("celt_parse.cpp", "silk_pa
                                                       "hybrid_glue.cpp"))
 VORBIS_SOURCES = (NATIVE_DIR / "src" / "vorbis_parse.cpp",)
 FLAC_PACK_SOURCES = (NATIVE_DIR / "src" / "flac_pack.cpp",)
+GSM_SOURCES = (NATIVE_DIR / "src" / "gsm.cpp",)
+ALAC_SOURCES = (NATIVE_DIR / "src" / "alac.cpp",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -241,3 +249,15 @@ def kernels() -> ctypes.CDLL:
                lib.skt_phase_lock, lib.skt_phase_lock_occupancy):
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def gsm_library_path() -> Path:
+    gxx = _compiler("g++", "/usr/bin/g++")
+    return _build("gsm", gxx, GXX_FLAGS, GSM_SOURCES, ())
+
+
+@functools.lru_cache(maxsize=1)
+def alac_library_path() -> Path:
+    gxx = _compiler("g++", "/usr/bin/g++")
+    return _build("alac", gxx, GXX_FLAGS, ALAC_SOURCES, ())

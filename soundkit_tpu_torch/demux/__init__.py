@@ -1,2 +1,2 @@
-"""Container and codec detection, and the Ogg page and packet layer
-(host side, no torch)."""
+"""Container and codec detection, the Ogg page and packet layer, and the
+CAF and MP4 demuxers (host side, no torch)."""

@@ -23,9 +23,11 @@ on the fleet's ``device`` (its telephony and MP3 codecs launch K3, K6, K7
 and K10 at B = 1 there), whose PCM ``collect`` returns with the lanes'.
 These streams take it:
 
-- a detected format without a batched group (WAV), and bytes that
-  detection cannot name (which decode to nothing, as in the JAX package);
-- the explicit kind ``opus_raw`` (soundkit's raw Opus framing);
+- a detected format without a batched group (WAV, AIFF / AIFF-C, ALAC in
+  MP4, AC-3, Ogg Speex), and bytes that detection cannot name (which
+  decode to nothing, as in the JAX package);
+- the explicit kinds ``opus_raw`` (soundkit's raw Opus framing) and
+  ``gsm`` (GSM 06.10, standard framing);
 - any stream whose group is full, detected or of an explicit kind;
 - an Ogg Vorbis stream whose headers disagree with the topology of the
   group (``models/vorbis_batch.TopologyMismatch``), replayed from its
@@ -38,22 +40,24 @@ These streams take it:
   (``opus_fleet_model._OpusTailFallback``).
 
 A host stream reports the rate of its decoder's last output (a telephony
-overflow stream its codec's rate from the start).
+overflow stream its codec's rate from the start). AIFF and ALAC decode
+at the stream's end (their decoders buffer the whole file), an AIFF-C
+file's µ-law / A-law through K3 on the fleet's device.
 
 Streams this fleet refuses: what the port cannot decode at all raises
 :class:`FleetUnsupported` at the ``push`` or ``end_stream`` that routes
 it, and the fleet forgets it:
 
-- the explicit kinds ``gsm`` (not ported yet), ``amr_nb`` and ``g729``
-  (libavcodec in the JAX package);
-- a detected format the port's pipeline does not decode (M4A, ALAC,
-  WebM, AIFF, Ogg Speex, AC-3: ``decode_pipeline._NOT_PORTED`` and AC-3);
+- the explicit kinds ``amr_nb`` and ``g729`` (libavcodec in the JAX
+  package);
+- a detected format the port's pipeline does not decode (M4A with an
+  AAC track and WebM: ``decode_pipeline._NOT_PORTED``);
 - an Opus stream whose OpusHead is multistream (mapping family other
   than 0, or more than two channels), which the JAX package hands to
   libavcodec: an Ogg Opus stream at the push that brings its head, a raw
   one at the push that completes it;
 - any host stream whose decoder finds a format the port does not decode
-  (``UnsupportedFormat``).
+  (``UnsupportedFormat``: an Ogg Speex header outside the owned modes).
 
 An explicit kind that is none of these names raises a plain
 ``ValueError``.
@@ -84,8 +88,8 @@ TELEPHONY_KINDS = (
 #: headerless kinds served by per-stream host pipelines through the same
 #: explicit-kind ingest
 HOST_KINDS = ("gsm", "amr_nb", "g729", "opus_raw")
-#: the host kinds the port cannot decode
-REFUSED_HOST_KINDS = ("gsm", "amr_nb", "g729")
+#: the host kinds the port cannot decode (libavcodec in the JAX package)
+REFUSED_HOST_KINDS = ("amr_nb", "g729")
 
 #: groups with a batched model in the port, beside the telephony kinds
 BATCHED_KINDS = ("aac", "mp3", "flac", "vorbis", "opus")
@@ -100,7 +104,7 @@ _DETECTED = {
 
 
 #: detected formats the port's pipeline does not decode
-_UNDECODED = frozenset(_NOT_PORTED) | {AudioType.AC3}
+_UNDECODED = frozenset(_NOT_PORTED)
 
 
 class FleetUnsupported(ValueError):
@@ -123,13 +127,17 @@ def _host_decoder(device):
 
 
 def _explicit_host_decoder(kind: str, device):
-    """Per-stream host decoder for an explicit kind: ``opus_raw``, or a
-    telephony/batched kind whose group is full (overflow streams keep
+    """Per-stream host decoder for an explicit kind: ``gsm``, ``opus_raw``,
+    or a telephony/batched kind whose group is full (overflow streams keep
     decoding, just without batching), its kernels on ``device``."""
     from soundkit_tpu_torch.pipeline.decode_pipeline import DecodeOptions, StreamDecoder
 
+    if kind == "gsm":
+        from soundkit_tpu_torch.codecs.telephony import GsmVariant, make_gsm_adapter
+
+        return StreamDecoder(DecodeOptions(), make_gsm_adapter(GsmVariant.STANDARD), device)
     if kind == "opus_raw":
-        from soundkit_tpu_torch.pipeline.adapters import make_opus_stream_adapter
+        from soundkit_tpu_torch.codecs.containers import make_opus_stream_adapter
 
         return StreamDecoder(DecodeOptions(), make_opus_stream_adapter(), device)
     if kind not in TELEPHONY_KINDS:

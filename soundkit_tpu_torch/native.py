@@ -1,6 +1,7 @@
 """The host libraries of the port, bound with ``ctypes``: the AAC-LC
 syntax parser, the FLAC walk, the MP3 syntax parser, the Opus parse
-(CELT, SILK and the hybrid glue) and the Vorbis packet parse.
+(CELT, SILK and the hybrid glue), the Vorbis packet parse, the FLAC frame
+packer, and the GSM and ALAC decoders.
 
 ``AacHostParser`` holds a parser handle ``_h`` of the library ``_lib``,
 which the wire packers of ``codecs/aac_lc_native.py``
@@ -46,6 +47,12 @@ analysis plans (``skt_flac_pack_frames`` and ``skt_flac_pack_frames16``,
 which recompute each residual from its plan), one frame from explicit
 subframe plans (``skt_flac_pack_frame1``, ``codecs/flac_encode.py``) and
 the big-endian word scatter of frame bytes (``skt_pack_frames_be``).
+
+:func:`gsm_library` is the port's copy of ``native_src/src/gsm.cpp``, the
+GSM 06.10 decoder (``skt_gsm_new`` / ``decode`` / ``free`` / ``reset``),
+and :func:`alac_library` that of ``native_src/src/alac.cpp``, the ALAC
+packet decoder (``skt_alac_new`` / ``decode`` / ``free`` / ``error`` and
+the cookie's channels, sample size, rate and frame length).
 """
 from __future__ import annotations
 
@@ -304,6 +311,52 @@ def vorbis_library() -> ctypes.CDLL:
         ctypes.POINTER(c_int), ctypes.POINTER(c_int), ctypes.POINTER(c_int)]
     return lib
 
+
+
+@functools.lru_cache(maxsize=1)
+def gsm_library() -> ctypes.CDLL:
+    """The GSM 06.10 decoder with the signatures ``codecs/telephony.GsmDecoder``
+    calls (the JAX package's argtypes; every pointer typed)."""
+    from numpy.ctypeslib import ndpointer
+
+    lib = ctypes.CDLL(str(_build.gsm_library_path()))
+    lib.skt_gsm_new.restype = ctypes.c_void_p
+    lib.skt_gsm_new.argtypes = [ctypes.c_int]
+    lib.skt_gsm_free.restype = None
+    lib.skt_gsm_free.argtypes = [ctypes.c_void_p]
+    lib.skt_gsm_decode.restype = ctypes.c_long
+    lib.skt_gsm_decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long,
+                                   ndpointer(np.int16, flags="C_CONTIGUOUS")]
+    lib.skt_gsm_reset.restype = None
+    lib.skt_gsm_reset.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def alac_library() -> ctypes.CDLL:
+    """The ALAC packet decoder with the signatures ``codecs/alac.AlacPacketDecoder``
+    calls (the JAX package's argtypes; every pointer typed)."""
+    from numpy.ctypeslib import ndpointer
+
+    lib = ctypes.CDLL(str(_build.alac_library_path()))
+    lib.skt_alac_new.restype = ctypes.c_void_p
+    lib.skt_alac_new.argtypes = [ctypes.c_char_p, ctypes.c_long]
+    lib.skt_alac_free.restype = None
+    lib.skt_alac_free.argtypes = [ctypes.c_void_p]
+    for name in ("skt_alac_channels", "skt_alac_sample_size"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p]
+    for name in ("skt_alac_sample_rate", "skt_alac_frame_length"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_long
+        fn.argtypes = [ctypes.c_void_p]
+    lib.skt_alac_error.restype = ctypes.c_char_p
+    lib.skt_alac_error.argtypes = [ctypes.c_void_p]
+    lib.skt_alac_decode.restype = ctypes.c_long
+    lib.skt_alac_decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long,
+                                    ndpointer(np.int32, flags="C_CONTIGUOUS")]
+    return lib
 
 
 @functools.lru_cache(maxsize=1)

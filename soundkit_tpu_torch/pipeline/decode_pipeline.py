@@ -14,12 +14,14 @@
 The synchronous core (``StreamDecoder``) is reusable without threads.
 
 The port's formats are WAV, raw PCM, G.711, G.722, G.726, FLAC, MP3,
-AAC-ADTS, Ogg Opus, soundkit's raw Opus framing and Ogg Vorbis. The
-telephony codecs and MP3 launch their kernels (K3, K6, K7, K10) on
-``device``, the card unless the caller names the CPU; WAV, raw PCM,
-FLAC, AAC, Opus and Vorbis decode on the host. Every other format
-raises ``UnsupportedFormat`` naming it, at detection or at its
-``spawn_*``.
+AAC-ADTS, Ogg Opus, soundkit's raw Opus framing, Ogg Vorbis, GSM 06.10
+(standard and WAV49), AC-3, Ogg Speex, ALAC (in MP4 or CAF) and AIFF /
+AIFF-C. The telephony codecs and MP3 launch their kernels (K3, K6, K7,
+K10) on ``device``, the card unless the caller names the CPU, and so
+does an AIFF-C file's µ-law / A-law (K3 at EOF); the rest decode on the
+host. Every other format (M4A with an AAC track, WebM, LOAS/LATM,
+AMR-NB, G.729) raises ``UnsupportedFormat`` naming it, at detection or
+at its ``spawn_*``.
 
 A decoder's exception becomes a ``DecodingFailed`` output, as in the
 JAX package, but for a fault of the device (a failed kernel launch,
@@ -63,13 +65,11 @@ DecodeOutput = Union[AudioData, DecodeError]
 DEFAULT_INPUT_BUFFER = 128
 DEFAULT_OUTPUT_BUFFER = 128
 
-# formats the JAX package decodes and the port does not have yet
+# detected formats the JAX package decodes and the port does not have yet
+# (a detected M4A holds no ALAC sample entry: its track is AAC)
 _NOT_PORTED = {
-    AudioType.OGG_SPEEX: "Ogg Speex",
     AudioType.M4A: "M4A",
-    AudioType.ALAC: "ALAC",
     AudioType.WEBM: "WebM",
-    AudioType.AIFF: "AIFF",
 }
 
 
@@ -213,17 +213,29 @@ def _init_decoder(audio_type: AudioType, device="cuda"):
 
         return make_ac3_adapter()
     if audio_type == AudioType.OGG_OPUS:
-        from soundkit_tpu_torch.pipeline.adapters import make_ogg_opus_adapter
+        from soundkit_tpu_torch.codecs.containers import make_ogg_opus_adapter
 
         return make_ogg_opus_adapter()
     if audio_type == AudioType.OGG_VORBIS:
-        from soundkit_tpu_torch.pipeline.adapters import make_vorbis_adapter
+        from soundkit_tpu_torch.codecs.containers import make_vorbis_adapter
 
         return make_vorbis_adapter()
+    if audio_type == AudioType.OGG_SPEEX:
+        from soundkit_tpu_torch.codecs.containers import make_speex_adapter
+
+        return make_speex_adapter()
     if audio_type == AudioType.OPUS:
-        from soundkit_tpu_torch.pipeline.adapters import make_opus_stream_adapter
+        from soundkit_tpu_torch.codecs.containers import make_opus_stream_adapter
 
         return make_opus_stream_adapter()
+    if audio_type == AudioType.ALAC:
+        from soundkit_tpu_torch.codecs.containers import AlacAdapter
+
+        return AlacAdapter()
+    if audio_type == AudioType.AIFF:
+        from soundkit_tpu_torch.codecs.aiff import AiffAdapter
+
+        return AiffAdapter(device)
     if audio_type in _NOT_PORTED:
         raise _not_ported(_NOT_PORTED[audio_type])
     if audio_type == AudioType.UNKNOWN:
@@ -530,62 +542,81 @@ class DecodePipeline:
         return cls._spawn(StreamDecoder(options, AacAdtsAdapter(), device))
 
     @classmethod
+    def spawn_gsm(cls, variant=None, options: DecodeOptions = DecodeOptions(),
+                  device="cuda") -> DecodePipelineHandle:
+        from soundkit_tpu_torch.codecs.telephony import GsmVariant, make_gsm_adapter
+
+        return cls._spawn(
+            StreamDecoder(options, make_gsm_adapter(variant or GsmVariant.STANDARD), device))
+
+    @classmethod
+    def spawn_ac3(cls, options: DecodeOptions = DecodeOptions(),
+                  device="cuda") -> DecodePipelineHandle:
+        from soundkit_tpu_torch.codecs.telephony import make_ac3_adapter
+
+        return cls._spawn(StreamDecoder(options, make_ac3_adapter(), device))
+
+    @classmethod
     def spawn_vorbis(cls, options: DecodeOptions = DecodeOptions(),
                      device="cuda") -> DecodePipelineHandle:
-        from soundkit_tpu_torch.pipeline.adapters import make_vorbis_adapter
+        from soundkit_tpu_torch.codecs.containers import make_vorbis_adapter
 
         return cls._spawn(StreamDecoder(options, make_vorbis_adapter(), device))
 
     @classmethod
     def spawn_ogg_opus(cls, options: DecodeOptions = DecodeOptions(),
                        device="cuda") -> DecodePipelineHandle:
-        from soundkit_tpu_torch.pipeline.adapters import make_ogg_opus_adapter
+        from soundkit_tpu_torch.codecs.containers import make_ogg_opus_adapter
 
         return cls._spawn(StreamDecoder(options, make_ogg_opus_adapter(), device))
 
     @classmethod
     def spawn_opus(cls, options: DecodeOptions = DecodeOptions(),
                    device="cuda") -> DecodePipelineHandle:
-        from soundkit_tpu_torch.pipeline.adapters import make_opus_stream_adapter
+        from soundkit_tpu_torch.codecs.containers import make_opus_stream_adapter
 
         return cls._spawn(StreamDecoder(options, make_opus_stream_adapter(), device))
 
-    # formats the JAX package decodes and the port does not have yet:
-    # each spawn raises UnsupportedFormat naming its format
+    @classmethod
+    def spawn_speex(cls, options: DecodeOptions = DecodeOptions(),
+                    device="cuda") -> DecodePipelineHandle:
+        from soundkit_tpu_torch.codecs.containers import make_speex_adapter
+
+        return cls._spawn(StreamDecoder(options, make_speex_adapter(), device))
+
+    @classmethod
+    def spawn_alac(cls, options: DecodeOptions = DecodeOptions(),
+                   device="cuda") -> DecodePipelineHandle:
+        from soundkit_tpu_torch.codecs.containers import AlacAdapter
+
+        return cls._spawn(StreamDecoder(options, AlacAdapter(), device))
+
+    @classmethod
+    def spawn_aiff(cls, options: DecodeOptions = DecodeOptions(),
+                   device="cuda") -> DecodePipelineHandle:
+        from soundkit_tpu_torch.codecs.aiff import AiffAdapter
+
+        return cls._spawn(StreamDecoder(options, AiffAdapter(device), device))
+
+    # formats the JAX package decodes and the port does not have yet, or
+    # decodes only through libavcodec: each spawn raises UnsupportedFormat
+    # naming its format
 
     @classmethod
     def spawn_aac_latm(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
         raise _not_ported("LOAS/LATM AAC")
 
     @classmethod
-    def spawn_gsm(cls, variant=None, options: DecodeOptions = DecodeOptions(), device="cuda"):
-        raise _not_ported("GSM")
-
-    @classmethod
     def spawn_amr_nb(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
-        raise _not_ported("AMR-NB")
+        from soundkit_tpu_torch.codecs.telephony import make_amr_adapter
+
+        return cls._spawn(StreamDecoder(options, make_amr_adapter(), device))
 
     @classmethod
     def spawn_g729(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
-        raise _not_ported("G.729")
+        from soundkit_tpu_torch.codecs.telephony import make_g729_adapter
 
-    @classmethod
-    def spawn_ac3(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
-        raise _not_ported("AC-3")
-
-
-    @classmethod
-    def spawn_speex(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
-        raise _not_ported("Ogg Speex")
-
-
-    @classmethod
-    def spawn_alac(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
-        raise _not_ported("ALAC")
-
-    @classmethod
-    def spawn_aiff(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
-        raise _not_ported("AIFF")
+        return cls._spawn(StreamDecoder(options, make_g729_adapter(), device))
 
     @classmethod
     def spawn_webm(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):

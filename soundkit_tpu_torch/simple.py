@@ -9,9 +9,9 @@ exceptions, 8 KiB/64 KiB detection window:
   ``new_with_format``, over ``pipeline.decode_pipeline.StreamDecoder``;
   its kernels run on ``device``, the card unless the caller names the
   CPU.
-- ``AacDeboxer``: ADTS bytes -> raw AAC access units (an M4A stream
-  raises ``UnsupportedFormat`` at ``flush``: the MP4 demuxer is not in
-  the port yet).
+- ``AacDeboxer``: ADTS or M4A bytes -> raw AAC access units (an M4A
+  stream is buffered and walked at ``flush`` by the owned MP4 demuxer,
+  ``demux/mp4.py``).
 - ``OpusDeboxer``: Ogg Opus or soundkit's raw framing -> Opus packets.
 - ``AacLcStreamDecoder``: raw AUs -> PCM via the AAC-LC host decoder,
   interleaved or planar.
@@ -32,8 +32,7 @@ import numpy as np
 from soundkit_tpu_torch.core.audio_types import AudioData
 from soundkit_tpu_torch.demux.detect import AudioType
 from soundkit_tpu_torch.pipeline.decode_pipeline import StreamDecoder, _init_decoder
-from soundkit_tpu_torch.pipeline.output_options import (DecodeError, DecodeOptions,
-                                                       UnsupportedFormat)
+from soundkit_tpu_torch.pipeline.output_options import DecodeError, DecodeOptions
 from soundkit_tpu_torch.utils.device import resolve_device
 
 _FORMAT_NAMES = {
@@ -100,7 +99,7 @@ class MusicDecoder:
 
 
 class AacDeboxer:
-    """ADTS bytes -> raw access units."""
+    """WasmAacDeboxer mirror: ADTS or M4A bytes -> raw access units."""
 
     def __init__(self) -> None:
         from soundkit_tpu_torch.codecs.aac_lc import AdtsStream
@@ -117,7 +116,7 @@ class AacDeboxer:
                 return []
             if self._maybe_mp4[4:8] == b"ftyp":
                 self._mode = "mp4"
-                return []  # buffered already; refused at flush
+                return []  # buffered already; EOF-decoded at flush
             self._mode = "adts"
             data = bytes(self._maybe_mp4)
             self._maybe_mp4.clear()
@@ -134,7 +133,12 @@ class AacDeboxer:
 
     def flush(self) -> List[bytes]:
         if self._mode == "mp4":
-            raise UnsupportedFormat("Unsupported format: M4A is not in the port yet")
+            from soundkit_tpu_torch.demux.mp4 import demux_mp4_audio
+
+            track = demux_mp4_audio(bytes(self._maybe_mp4))
+            self._maybe_mp4.clear()
+            self.audio_specific_config = track.config
+            return list(track.samples)
         return []
 
 

@@ -1038,3 +1038,31 @@ def test_stream_decoder_on_the_card_equals_the_cpu(dev, fmt):
         assert np.abs(a - b).max() <= 1
     else:
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["aifc_ulaw", "aifc_alaw"])
+def test_aiff_c_g711_on_the_card_equals_the_cpu(dev, name):
+    """An AIFF-C file's µ-law / A-law through K3 on the card (one [1, N]
+    launch at its end, through the pipeline's detection) gives the CPU's
+    bytes, and its clip's part the JAX package's decode in the index."""
+    from soundkit_tpu_torch.core.audio_types import AudioData
+    from soundkit_tpu_torch.ops import companding
+    from soundkit_tpu_torch.pipeline.decode_pipeline import StreamDecoder
+    from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
+
+    data, seconds = hcf.long_stream(name, 30.0)
+
+    def run(device):
+        core = StreamDecoder(device=device)
+        outs = [o for i in range(0, len(data), 4096) for o in core.process(data[i:i + 4096])]
+        outs += core.process(b"")
+        assert outs and all(isinstance(o, AudioData) for o in outs)
+        return b"".join(o.data for o in outs)
+
+    before = companding.g711_decode.launches
+    card = run("cuda")
+    assert companding.g711_decode.launches - before == 1
+    host = run("cpu")
+    assert card == host and len(card) == round(seconds * 8000) * 2 * 2
+    e = hcf.load_index()[name]
+    assert hcf.sha256(card[:e["pcm_bytes"]]) == e["sha256"]

@@ -30,8 +30,9 @@ from soundkit_tpu_torch.models.fleet import (
     FleetUnsupported,
     StreamFleet,
 )
-from soundkit_tpu_torch.tools import (aac_fixtures, flac_fixtures, mp3_fixtures, opus_fixtures,
-                                      telephony_fixtures, vorbis_fixtures)
+from soundkit_tpu_torch.tools import (aac_fixtures, flac_fixtures, host_codec_fixtures,
+                                      mp3_fixtures, opus_fixtures, telephony_fixtures,
+                                      vorbis_fixtures)
 from torch_port_helpers import REROUTE_CASES, flac_clip_pcm, ogg_opus, opus_reroute_case, snr_db
 
 
@@ -718,8 +719,23 @@ def test_refuses_a_detected_format_without_a_group_at_the_routing_push(name):
 
 @pytest.mark.parametrize("kind", HOST_KINDS)
 def test_refuses_an_explicit_kind_without_a_group(kind):
-    """``opus_raw`` decodes on the host, joined to the bytes buffered
-    before its kind came; gsm, amr_nb and g729 are refused."""
+    """``opus_raw`` and ``gsm`` decode on the host, joined to the bytes
+    buffered before their kind came (the name is the earlier slices':
+    only amr_nb and g729, libavcodec in the JAX package, are refused)."""
+    if kind == "gsm":
+        data = host_codec_fixtures.clip_bytes("gsm_standard")
+        pair = Pair()
+        pair.push("xs", data[:33])
+        pair.push("xs", data[33:1000], kind="gsm")
+        assert "xs" in pair.port._fallback
+        first = pair.collect()["xs"]
+        pair.push("xs", data[1000:])
+        pair.end("xs")
+        second = pair.collect()["xs"]
+        assert first.shape[0] == 1 and first.shape[1] + second.shape[1] == 16000
+        assert pair.rates("xs") == [8000]
+        assert_retired(pair, "xs")
+        return
     if kind != "opus_raw":
         port = StreamFleet(2, device="cpu")
         port.push("s", b"early bytes")
@@ -908,13 +924,17 @@ def test_refused_streams_never_reach_the_jax_pipeline():
         dec = port._fallback[sid]
         assert isinstance(dec, StreamDecoder) and dec.device == torch.device("cpu"), sid
     assert isinstance(port._fallback["o"], _OpusTailFallback)
-    for sid, kind in (("s1", "gsm"), ("s2", "amr_nb"), ("s3", "g729")):
+    # a gsm stream decodes on the port's pipeline too (refused before its codec was ported)
+    port.push("s1", host_codec_fixtures.clip_bytes("gsm_standard")[:330], kind="gsm")
+    assert isinstance(port._fallback["s1"], StreamDecoder)
+    assert port._fallback["s1"].device == torch.device("cpu")
+    for sid, kind in (("s2", "amr_nb"), ("s3", "g729")):
         with pytest.raises(FleetUnsupported):
             port.push(sid, b"\x00" * 40, kind=kind)
     with pytest.raises(FleetUnsupported):
         port.push("s4", DETECTED_WITHOUT_A_GROUP["m4a"])
         port.end_stream("s4")
-    assert sorted(port._fallback) == ["g", "o", "r", "w"]
+    assert sorted(port._fallback) == ["g", "o", "r", "s1", "w"]
     src = open(fleet_mod.__file__).read()
     assert "from soundkit_tpu." not in src and "import soundkit_tpu." not in src
 
@@ -930,3 +950,41 @@ def test_raw_opus_multistream_head_is_refused_at_the_push_that_completes_it():
     with pytest.raises(FleetUnsupported, match="'r'.*host stream.*multistream"):
         port.push("r", raw[12:])
     assert_forgotten(port, "r")
+
+
+# detected (AIFF / AIFF-C, ALAC in MP4, AC-3, Ogg Speex) and explicit (gsm) host
+# streams of the owned host codecs, beside a telephony lane
+HOST_CODEC_STREAMS = {"x-gsm": ("gsm_standard", "gsm"), "x-ac3": ("ac3_stereo", None),
+                      "x-ac3-51": ("ac3_51", None), "x-speex": ("speex_wb", None),
+                      "x-speex-stereo": ("speex_nb_stereo", None), "x-alac": ("alac_mp4", None),
+                      "x-aifc-ulaw": ("aifc_ulaw", None), "x-aiff-24": ("aiff_24", None),
+                      "x-aifc-fl64": ("aifc_fl64", None)}
+
+
+def test_host_codec_streams_decode_beside_the_lanes():
+    """Each owned host codec's stream decodes on both fleets' host
+    fallbacks, bit for bit, pushed in two parts with collects between
+    (an AIFF or ALAC file decodes at its end); the G.711 lane beside
+    them matches as ever."""
+    pair = Pair()
+    data = {sid: host_codec_fixtures.clip_bytes(name) for sid, (name, _k) in HOST_CODEC_STREAMS.items()}
+    pair.push("t0", tel_stream("g711_alaw", 0, 800), kind="g711_alaw")
+    for sid, (_name, kind) in HOST_CODEC_STREAMS.items():
+        pair.push(sid, data[sid][:len(data[sid]) // 2], kind=kind)
+    first = pair.collect()
+    for sid in HOST_CODEC_STREAMS:
+        pair.push(sid, data[sid][len(data[sid]) // 2:])
+    pair.end("t0", *HOST_CODEC_STREAMS)
+    second = pair.collect()
+    index = host_codec_fixtures.load_index()
+    for sid, (name, _kind) in HOST_CODEC_STREAMS.items():
+        e = index[name]
+        assert sid in pair.port._fallback or sid in second, sid
+        pcm = np.concatenate([o[sid] for o in (first, second) if sid in o], axis=1)
+        assert pcm.shape == (e["channels"], round(e["seconds"] * e["rate"])), (sid, pcm.shape)
+        assert np.any(pcm), sid  # (both fleets scale 24-bit AIFF PCM by 2^-31)
+        assert pair.rates(sid) == [e["rate"]]
+    assert "t0" in first and set(HOST_CODEC_STREAMS) <= set(second)
+    for sid in HOST_CODEC_STREAMS:
+        assert_retired(pair, sid)
+

@@ -10,7 +10,11 @@ and comb packing, the CELT parse's serving walk on both wires, the SILK
 walk's binding (a verbatim subset of ``codecs/silk_native.py``), its
 resampler plan and the hybrid walk's packed wire; and the Vorbis host
 layer: the C++ packet parse, its table, the Python decoder and the
-parse's binding; and the FLAC encode host layer: the C++ frame packer,
+parse's binding; the owned host codecs: the GSM and ALAC C++ decoders,
+the AC-3 and Speex cores and their tables, the AIFF, ALAC, Speex and
+GSM / AC-3 decoders, the CAF and MP4 demuxers and the ALAC / M4A and
+streaming adapters (each a copy but for its named difference); and the
+FLAC encode host layer: the C++ frame packer,
 the Python frame encoder (a verbatim copy but for its ``_native_lib``)
 and the encoder's plan layout and per-frame oracle; and the numpy halves of
 the resampler and the phase vocoder with the host modules above them
@@ -66,6 +70,10 @@ G722_TABLES = ("WL", "RL42", "ILB", "WH", "RH2", "QM2", "QM4", "QM6", "QMF_COEFF
      "soundkit_tpu/native/src/vorbis_parse.cpp"),
     ("soundkit_tpu_torch/data/vorbis_tables.npz", "soundkit_tpu/native/generated/vorbis_tables.npz"),
     ("soundkit_tpu_torch/native_src/src/flac_pack.cpp", "soundkit_tpu/native/src/flac_pack.cpp"),
+    ("soundkit_tpu_torch/native_src/src/gsm.cpp", "soundkit_tpu/native/src/gsm.cpp"),
+    ("soundkit_tpu_torch/native_src/src/alac.cpp", "soundkit_tpu/native/src/alac.cpp"),
+    ("soundkit_tpu_torch/data/ac3_tables.npz", "soundkit_tpu/native/generated/ac3_tables.npz"),
+    ("soundkit_tpu_torch/data/speex_tables.npz", "soundkit_tpu/native/generated/speex_tables.npz"),
 ])
 def test_copied_files_are_identical(port, ref):
     assert (REPO / port).read_bytes() == (REPO / ref).read_bytes()
@@ -856,9 +864,9 @@ def test_silk_decode_superframe_is_a_verbatim_copy():
 @pytest.mark.parametrize("name", ["_audio_i16", "_StreamI16Adapter"])
 def test_stream_adapter_is_a_verbatim_copy(name):
     from soundkit_tpu.codecs import containers
-    from soundkit_tpu_torch.pipeline import adapters
+    from soundkit_tpu_torch.codecs import containers as port_containers
 
-    assert _source(getattr(adapters, name)) == _as_port(_source(getattr(containers, name)))
+    assert _source(getattr(port_containers, name)) == _as_port(_source(getattr(containers, name)))
 
 
 def test_opus_fleet_tail_equals_the_jax_package():
@@ -870,3 +878,147 @@ def test_opus_fleet_tail_equals_the_jax_package():
     for m in ("lane_configured", "_reroute"):
         assert _source(getattr(port, m)) == _source(getattr(ref, m))
     assert _source(ofm.OpusLaneUnsupported) == _source(jax_ofm.OpusLaneUnsupported)
+
+
+# ---------------------------------------------------------------------------
+# the owned host codecs: GSM, AC-3, Ogg Speex, ALAC in CAF and MP4, AIFF
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("module", ["demux/caf.py", "demux/mp4.py"])
+def test_container_demuxers_are_verbatim_copies(module):
+    port = (REPO / "soundkit_tpu_torch" / module).read_text()
+    assert port == _as_port((REPO / "soundkit_tpu" / module).read_text())
+
+
+@pytest.mark.parametrize("module,table", [("ac3_core", "ac3_tables.npz"),
+                                          ("speex_core", "speex_tables.npz")])
+def test_codec_cores_are_copies_but_for_their_table_path(module, table):
+    """``codecs/ac3_core.py`` and ``speex_core.py`` read their table from
+    the port's ``data/`` (a byte copy), where the originals read
+    ``native/generated/``; the same tables come back."""
+    import importlib
+
+    port = (REPO / "soundkit_tpu_torch/codecs" / f"{module}.py").read_text()
+    ref = (REPO / "soundkit_tpu/codecs" / f"{module}.py").read_text()
+    old = f'        / "data"\n        / "{table}"\n'
+    assert port.count(old) == 1
+    assert port.replace(old, f'        / "native"\n        / "generated"\n        / "{table}"\n') == ref
+    load = "_t" if module == "ac3_core" else "_tables"
+    got = getattr(importlib.import_module(f"soundkit_tpu_torch.codecs.{module}"), load)()
+    want = getattr(importlib.import_module(f"soundkit_tpu.codecs.{module}"), load)()
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _without_docstring_note(text: str, note: str) -> str:
+    """``text`` with the port's paragraph ``note`` (the one that names the
+    difference) taken out of the module docstring."""
+    assert text.count(note) == 1, note
+    return text.replace(note, "")
+
+
+def test_aiff_is_a_copy_but_for_its_device_carrying_g711_call():
+    """``codecs/aiff.py``: the G.711 branch decodes through the port's
+    ``codecs/g711.decode_i16`` on the decoder's device (K3), so
+    ``decode_aiff_container``, ``AiffDecoder`` and ``AiffAdapter`` take and
+    pass on ``device``; nothing else differs."""
+    port = (REPO / "soundkit_tpu_torch/codecs/aiff.py").read_text()
+    ref = _as_port((REPO / "soundkit_tpu/codecs/aiff.py").read_text())
+    port = _without_docstring_note(port, """
+
+Port: the G.711 codes decode through ``codecs/g711.decode_i16`` on the
+decoder's ``device`` (K3 on one ``[1, N]`` lane, the card unless the
+caller names the CPU); the rest is the JAX package's code.""")
+    for got, want in (
+            ('def decode_aiff_container(data: bytes, device="cuda") -> AudioData:',
+             "def decode_aiff_container(data: bytes) -> AudioData:"),
+            ("g711_decode_i16(law, sound, device)", "g711_decode_i16(law, sound)"),
+            ('    def __init__(self, device="cuda") -> None:\n        self._buf = bytearray()\n'
+             "        self._device = device\n",
+             "    def __init__(self) -> None:\n        self._buf = bytearray()\n"),
+            ("decode_aiff_container(data, self._device)", "decode_aiff_container(data)"),
+            ('    def __init__(self, device="cuda") -> None:\n        self._dec = AiffDecoder(device)',
+             "    def __init__(self) -> None:\n        self._dec = AiffDecoder()")):
+        assert port.count(got) == 1, got
+        port = port.replace(got, want)
+    assert port == ref
+
+
+def test_alac_is_a_copy_but_for_its_library():
+    port = (REPO / "soundkit_tpu_torch/codecs/alac.py").read_text()
+    ref = _as_port((REPO / "soundkit_tpu/codecs/alac.py").read_text())
+    port = _without_docstring_note(port, """
+
+Port: the decoder loads the port's build of ``native_src/src/alac.cpp``
+(``native.alac_library``); the rest is the JAX package's code.""")
+    port = port.replace("from soundkit_tpu_torch.native import alac_library\n",
+                        "from soundkit_tpu_torch.native.loader import load\n")
+    assert port.replace("self._lib = alac_library()", "self._lib = load()") == ref
+
+
+# (module, class or function, the members that carry the named difference)
+HOST_CODEC_COPIES = [
+    ("codecs.telephony", "amr_nb_frame_len", None),
+    ("codecs.telephony", "GsmVariant", ()),
+    ("codecs.telephony", "GsmDecoder", ("__init__",)),
+    ("codecs.telephony", "Ac3Decoder", ()),
+    ("codecs.telephony", "_I16Adapter", ()),
+    ("codecs.telephony", "make_gsm_adapter", None),
+    ("codecs.telephony", "make_amr_adapter", None),
+    ("codecs.telephony", "make_g729_adapter", None),
+    ("codecs.telephony", "make_ac3_adapter", None),
+    ("codecs.containers", "_Mp4BufferedAdapter", ("flush",)),
+    ("codecs.containers", "M4aAdapter", ()),
+    ("codecs.containers", "AlacAdapter", ()),
+    ("codecs.containers", "make_ogg_opus_adapter", None),
+    ("codecs.containers", "make_opus_stream_adapter", None),
+    ("codecs.containers", "make_vorbis_adapter", None),
+    ("codecs.containers", "make_speex_adapter", None),
+    ("codecs.speex", "SpeexDecoder", ("__init__", "_init_decoder")),
+    ("simple", "AacDeboxer", ()),
+]
+
+
+@pytest.mark.parametrize("module,name,changed", HOST_CODEC_COPIES)
+def test_host_codec_pieces_are_verbatim_copies(module, name, changed):
+    """The verbatim subsets of ``codecs/telephony.py``, ``containers.py``
+    and ``speex.py`` (and ``simple.AacDeboxer``, M4A walk included) equal
+    the JAX package's but for their imports and the members named in the
+    table: ``GsmDecoder.__init__`` loads the port's library, and the
+    libavcodec branches raise ``UnsupportedFormat``
+    (``tests/test_torch_host_codecs.py``, ``tests/test_torch_containers.py``)."""
+    import importlib
+
+    port = getattr(importlib.import_module(f"soundkit_tpu_torch.{module}"), name)
+    ref = getattr(importlib.import_module(f"soundkit_tpu.{module}"), name)
+    if not changed:
+        assert _source(port) == _as_port(_source(ref))
+        return
+    got, want = _methods_but(port, ref, changed)
+    assert got == want
+    if name == "GsmDecoder":
+        assert _source(port.__init__) == _as_port(_source(ref.__init__)).replace(
+            "from soundkit_tpu_torch.native.loader import load",
+            "from soundkit_tpu_torch.native import gsm_library").replace(
+            "self._lib = load()", "self._lib = gsm_library()")
+        return
+    for m in changed:
+        assert "AvDecoder" in _source(getattr(ref, m))
+        assert "AvDecoder" not in _source(getattr(port, m))
+    assert any("raise UnsupportedFormat" in _source(getattr(port, m)) for m in changed)
+
+
+def test_amr_and_g729_decoders_raise_where_the_jax_package_opens_libavcodec():
+    from soundkit_tpu.codecs import telephony as jax_tel
+    from soundkit_tpu_torch.codecs import telephony
+
+    assert "AvDecoder" in _source(jax_tel.AmrNbDecoder.__init__)
+    assert "AvDecoder" in _source(jax_tel._FrameBufferedDecoder.__init__)
+    assert issubclass(jax_tel.G729Decoder, jax_tel._FrameBufferedDecoder)
+    for name in ("AmrNbDecoder", "G729Decoder"):
+        assert "raise _libavcodec" in _source(getattr(telephony, name).__init__)
+    assert telephony.AMR_MAGIC == jax_tel.AMR_MAGIC
+    assert telephony._AMR_NB_FRAME_BYTES == jax_tel._AMR_NB_FRAME_BYTES
+

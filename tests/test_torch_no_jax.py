@@ -78,10 +78,14 @@ fleet.end_stream("v")
 pcm = fleet.collect()["v"]
 assert pcm.shape[0] == 2 and pcm.shape[1] > 4096 and np.isfinite(pcm).all() and np.abs(pcm).max() > 0.01
 try:
-    fleet.push("g", b"\x00" * 64, kind="gsm")
-    raise SystemExit("a gsm stream was not refused")
+    fleet.push("g", b"\x00" * 64, kind="amr_nb")
+    raise SystemExit("an amr_nb stream was not refused")
 except FleetUnsupported:
     pass
+from soundkit_tpu_torch.tools import host_codec_fixtures
+fleet.push("gsm", host_codec_fixtures.clip_bytes("gsm_standard"), kind="gsm")
+fleet.end_stream("gsm")
+assert fleet.collect()["gsm"].shape == (1, 16000)
 assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
 print("fleet without jax")
 """
@@ -278,6 +282,32 @@ print("streams without jax")
 """
 
 
+_NO_JAX_HOST_CODECS = _NO_JAX_DECODE.split("import numpy as np")[0] + r"""
+import numpy as np
+from soundkit_tpu_torch.codecs.telephony import GsmVariant
+from soundkit_tpu_torch.core.audio_types import AudioData
+from soundkit_tpu_torch.pipeline.decode_pipeline import DecodePipeline
+from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
+spawns = {"detect": DecodePipeline.spawn, "alac": DecodePipeline.spawn_alac,
+          "gsm_standard": lambda device: DecodePipeline.spawn_gsm(device=device),
+          "gsm_microsoft": lambda device: DecodePipeline.spawn_gsm(GsmVariant.MICROSOFT,
+                                                                   device=device)}
+index = hcf.load_index()
+for name in ("gsm_standard", "gsm_wav49", "ac3_stereo", "speex_nb", "speex_wb", "speex_uwb",
+             "alac_caf", "alac_mp4", "aiff_16", "aifc_ulaw", "aifc_alaw"):
+    data, e = hcf.clip_bytes(name), index[name]
+    h = spawns[e["spawn"]](device="cpu")
+    for i in range(0, len(data), 4096):
+        h.send_blocking(data[i:i + 4096])
+    h.send_blocking(b"")
+    outs = h.recv_all()
+    assert outs and all(isinstance(o, AudioData) for o in outs), (name, outs)
+    assert hcf.sha256(b"".join(o.data for o in outs)) == e["sha256"], name
+assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
+print("host codecs without jax")
+"""
+
+
 @pytest.mark.parametrize("script,said", [(_NO_JAX_DECODE, "decoded without jax"),
                                          (_NO_JAX_TELEPHONY, "telephony without jax"),
                                          (_NO_JAX_FLEET, "fleet without jax"),
@@ -286,7 +316,8 @@ print("streams without jax")
                                          (_NO_JAX_FLAC_ENC, "flac encode without jax"),
                                          (_NO_JAX_DSP, "dsp without jax"),
                                          (_NO_JAX_PIPELINE, "pipeline without jax"),
-                                         (_NO_JAX_STREAMS, "streams without jax")])
+                                         (_NO_JAX_STREAMS, "streams without jax"),
+                                         (_NO_JAX_HOST_CODECS, "host codecs without jax")])
 def test_port_runs_on_cpu_with_jax_blocked(script, said):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)

@@ -7,7 +7,9 @@ bytes, its bar in ``tests/test_torch_streaming_codecs.py``; Opus SILK
 and hybrid within 1 LSB, the port's resampler rounding its sums
 otherwise than libswresample). Formats by autodetect (WAV, FLAC, MP3,
 AAC, Ogg Opus, raw Opus, Ogg Vorbis) and by explicit spawn (raw PCM,
-G.711, G.722, G.726, and the Opus and Vorbis spawns), chunk invariance, ``DecodeOptions``, the error cases,
+G.711, G.722, G.726, the Opus and Vorbis spawns and the owned host
+codecs' spawns, whose detection ``tests/test_torch_host_codecs.py``
+holds), chunk invariance, ``DecodeOptions``, the error cases,
 the threaded handle against the synchronous core, and a device fault
 that must reach the caller."""
 from pathlib import Path
@@ -197,25 +199,48 @@ M4A = bytes(4) + b"ftypM4A " + bytes(20)
 
 
 def test_unported_formats_raise_unsupported_format():
+    """What the port still refuses: a detected M4A (its track is AAC) and
+    WebM, LOAS/LATM (not ported yet), AMR-NB and G.729 (libavcodec in the
+    JAX package). The host codecs' spawns decode since they were ported
+    (``test_host_codec_spawns_decode``)."""
     got = _drive(dp.StreamDecoder(device="cpu"), M4A, 4096)
     assert _summary(got) == [("error", "UnsupportedFormat")]
     assert "M4A" in str(got[0])
-    spawns = ["spawn_aac_latm", "spawn_gsm", "spawn_amr_nb", "spawn_g729", "spawn_ac3",
-              "spawn_speex", "spawn_alac", "spawn_aiff", "spawn_webm"]
+    spawns = ["spawn_aac_latm", "spawn_amr_nb", "spawn_g729", "spawn_webm"]
     for name in spawns:
         assert hasattr(jax_dp.DecodePipeline, name)
         with pytest.raises(UnsupportedFormat):
             getattr(dp.DecodePipeline, name)(device="cpu")
+    from soundkit_tpu_torch.demux.detect import AudioType
+
+    assert set(dp._NOT_PORTED) == {AudioType.M4A, AudioType.WEBM}
     for audio_type in dp._NOT_PORTED:
         with pytest.raises(UnsupportedFormat, match=dp._NOT_PORTED[audio_type]):
             dp._init_decoder(audio_type, "cpu")
-    from soundkit_tpu_torch.demux.detect import AudioType
-
-    with pytest.raises(UnsupportedFormat, match="AC-3"):
-        dp._init_decoder(AudioType.AC3, "cpu")
-    for fmt in ("m4a", "webm", "speex", "alac", "aiff", "ac3"):
+    for fmt in ("m4a", "webm"):
         with pytest.raises(UnsupportedFormat):
             simple.MusicDecoder.new_with_format(fmt, device="cpu")
+
+
+@pytest.mark.parametrize("spawn,clip", [
+    ("spawn_gsm", "gsm_standard"), ("spawn_ac3", "ac3_mono"), ("spawn_speex", "speex_nb"),
+    ("spawn_alac", "alac_caf"), ("spawn_aiff", "aifc_alaw")])
+def test_host_codec_spawns_decode(spawn, clip):
+    """The spawns the earlier slices refused (GSM, AC-3, Speex, ALAC,
+    AIFF) decode their clip as the JAX package's spawns do."""
+    from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
+
+    data = hcf.clip_bytes(clip)
+    outs = []
+    for handle in (getattr(dp.DecodePipeline, spawn)(device="cpu"),
+                   getattr(jax_dp.DecodePipeline, spawn)()):
+        for i in range(0, len(data), 4096):
+            handle.send_blocking(data[i:i + 4096])
+        handle.send_blocking(b"")
+        outs.append(handle.recv_all(timeout=60))
+    got, want = outs
+    assert _summary(got) == _summary(want) and got[0].channel_count >= 1
+    assert _pcm(got).tobytes() == b"".join(o.data for o in want)
 
 
 def _opus_raw(name: str) -> bytes:
@@ -436,9 +461,21 @@ def test_aac_deboxer_and_lc_stream_decoder_match_jax():
     for au in aus[:3]:
         n = dec2.decode_interleaved_into(au, out)
         np.testing.assert_array_equal(out[:n], ref2.decode_interleaved(au))
-    mp4 = simple.AacDeboxer()
-    mp4.push(b"\x00\x00\x00\x18ftypM4A " + bytes(20))
-    with pytest.raises(UnsupportedFormat, match="M4A"):
-        mp4.flush()
+    # the same AUs in an M4A: the port's walk (``demux/mp4.py``) gives them back with
+    # the ASC, as the JAX package's does; an M4A with no moov raises in both
+    from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
+
+    m4a = hcf.mux_mp4("aac", port.audio_specific_config, aus, dec.sample_rate, dec.channels, 1024)
+    mp4, ref4 = simple.AacDeboxer(), jax_simple.AacDeboxer()
+    assert mp4.push(m4a) == ref4.push(m4a) == []
+    assert mp4.flush() == ref4.flush() == aus
+    assert mp4.audio_specific_config == ref4.audio_specific_config == port.audio_specific_config
+    from soundkit_tpu.demux.mp4 import Mp4Error as JaxMp4Error
+    from soundkit_tpu_torch.demux.mp4 import Mp4Error
+
+    for deboxer, error in ((simple.AacDeboxer(), Mp4Error), (jax_simple.AacDeboxer(), JaxMp4Error)):
+        deboxer.push(b"\x00\x00\x00\x18ftypM4A " + bytes(20))
+        with pytest.raises(error, match="no moov box"):
+            deboxer.flush()
     with pytest.raises(ValueError, match="only AAC-LC"):
         simple.AacLcStreamDecoder(bytes([5 << 3, 0x10]))

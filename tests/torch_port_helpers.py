@@ -12,6 +12,7 @@ generators live here, on the test side; regenerate from the repository's root wi
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py mp3
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py opus
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py vorbis
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py host_codecs
 """
 from __future__ import annotations
 
@@ -25,8 +26,9 @@ from typing import Dict, List
 import numpy as np
 
 from soundkit_tpu_torch.models.telephony_batch import CODECS
-from soundkit_tpu_torch.tools import (aac_fixtures, flac_fixtures, mp3_fixtures, opus_fixtures,
-                                      telephony_fixtures, vorbis_fixtures)
+from soundkit_tpu_torch.tools import (aac_fixtures, flac_fixtures, host_codec_fixtures,
+                                      mp3_fixtures, opus_fixtures, telephony_fixtures,
+                                      vorbis_fixtures)
 
 SR_INDEX_48K = 3
 # AUs per clip that cover long, short (EIGHT_SHORT) and TNS frames
@@ -837,8 +839,191 @@ def generate_silk_resampler_table(path: Path = None) -> None:
     np.savez_compressed(path or silk_batch.TABLE_PATH, **silk_resampler_arrays())
 
 
+# ---------------------------------------------------------------------------
+# host codec fixtures: GSM, AC-3, Ogg Speex, ALAC (CAF, MP4), AIFF / AIFF-C
+# ---------------------------------------------------------------------------
+
+HOST_SPEEX = {"speex_nb": (8000, 1, 1.0), "speex_wb": (16000, 1, 1.0),
+              "speex_uwb": (32000, 1, 0.5), "speex_nb_stereo": (8000, 2, 1.0)}
+HOST_AC3 = {"ac3_mono": (1, 96000, 0.5), "ac3_stereo": (2, 192000, 0.5),
+            "ac3_51": (6, 448000, 0.25)}
+ALAC_PACKETS = 3
+ALAC_FRAMES = 4096
+AIFF_RATE, AIFF_SECONDS = 8000, 0.25
+# (compression or None for AIFF, bits)
+HOST_AIFF = {"aiff_8": (None, 8), "aiff_16": (None, 16), "aiff_24": (None, 24),
+             "aiff_32": (None, 32), "aifc_sowt": (b"sowt", 16), "aifc_fl32": (b"fl32", 32),
+             "aifc_fl64": (b"fl64", 64), "aifc_ulaw": (b"ulaw", 16), "aifc_alaw": (b"alaw", 16)}
+
+
+def host_voice(rate: int, seconds: float, channels: int, seed: int) -> np.ndarray:
+    """Float samples [n, C] of a voiced, speech-like sound: a glottal
+    harmonic series at a wandering pitch, bursts of syllable envelopes,
+    breath noise and, in stereo, the second channel panned apart."""
+    rng = np.random.default_rng(seed)
+    n = int(rate * seconds)
+    t = np.arange(n) / rate
+    f0 = 120 + 30 * np.sin(2 * np.pi * 1.7 * t) + 10 * np.sin(2 * np.pi * 4.1 * t)
+    ph = np.cumsum(2 * np.pi * f0 / rate)
+    x = sum(a * np.sin(k * ph) for k, a in ((1, 0.4), (2, 0.25), (3, 0.12), (5, 0.06), (9, 0.02)))
+    x = x * (0.3 + 0.7 * np.abs(np.sin(2 * np.pi * 2.3 * t + rng.uniform(0, 3)))) \
+        + 0.02 * rng.standard_normal(n) + 0.03 * np.sin(2 * np.pi * min(5000, rate / 3) * t)
+    if channels == 1:
+        return np.clip(x, -1, 1)[:, None]
+    y = 0.6 * x + 0.1 * np.sin(2 * np.pi * 330 * t) + 0.01 * rng.standard_normal(n)
+    return np.clip(np.stack([x, y], 1), -1, 1)
+
+
+def host_music(rate: int, seconds: float, channels: int, seed: int) -> np.ndarray:
+    """Float samples [n, C]: a chord per channel under decaying noise hits."""
+    rng = np.random.default_rng(seed)
+    n = int(rate * seconds)
+    t = np.arange(n) / rate
+    env = np.zeros(n)
+    for o in rng.uniform(0, seconds, int(4 * seconds) + 1):
+        m = t >= o
+        env[m] += np.exp(-(t[m] - o) / 0.03)
+    chans = []
+    for c in range(channels):
+        f = 110 * 2 ** (c / 4)
+        x = sum(0.12 * np.sin(2 * np.pi * f * r * t + c) for r in (1, 1.25, 1.5, 2))
+        chans.append(x + rng.standard_normal(n) * 0.15 * env + 0.005 * rng.standard_normal(n))
+    return np.clip(np.stack(chans, 1), -1, 1)
+
+
+def _flip_ac3_blksw(data: bytes, n_frames: int) -> bytes:
+    """``data``'s first ``n_frames`` syncframes with their block switch
+    flags set: every block of the even frames, blocks 1 and 4 of the odd
+    ones (``tests/test_ac3.py``'s patch: it changes the transform only)."""
+    from soundkit_tpu.codecs import ac3_core as jax_ac3
+
+    size = 2 * int(jax_ac3._t()["frame_size"][data[4] & 0x3F][data[4] >> 6])
+    out = bytearray(data[: size * n_frames])
+    for k, off in enumerate(range(0, len(out), size)):
+        frame = bytearray(out[off: off + size])
+        probe = jax_ac3.Ac3Decoder()
+        probe.decode_frame(bytes(frame))
+        for b in (range(6) if k % 2 == 0 else (1, 4)):
+            p = probe._blk_bitpos[b]
+            frame[p >> 3] ^= 0x80 >> (p & 7)
+        out[off: off + size] = frame
+    return bytes(out)
+
+
+def _ogg_speex_stream(extradata: bytes, packets: List[bytes]) -> bytes:
+    comment = struct.pack("<I", 12) + b"soundkit-tpu" + bytes(4)
+    return host_codec_fixtures._ogg_speex(extradata, comment, packets)
+
+
+def jax_host_decode(name: str, data: bytes, spawn: str) -> list:
+    """The JAX package's ``StreamDecoder`` outputs for a clip, by ``spawn``:
+    "detect", "gsm_standard", "gsm_microsoft" or "alac"."""
+    from soundkit_tpu.codecs.containers import AlacAdapter
+    from soundkit_tpu.codecs.telephony import GsmVariant, make_gsm_adapter
+    from soundkit_tpu.pipeline.decode_pipeline import StreamDecoder
+    from soundkit_tpu.pipeline.output_options import DecodeOptions
+
+    adapter = {"detect": lambda: None, "alac": AlacAdapter,
+               "gsm_standard": lambda: make_gsm_adapter(GsmVariant.STANDARD),
+               "gsm_microsoft": lambda: make_gsm_adapter(GsmVariant.MICROSOFT)}[spawn]()
+    dec = StreamDecoder(DecodeOptions(), adapter)
+    return dec.process(data) + dec.process(b"")
+
+
+def generate_host_codec_fixtures(directory: Path = host_codec_fixtures.FIXTURE_DIR) -> None:
+    """Encode the host codecs' clips with the JAX package's ``AvEncoder``
+    (libgsm, libgsm_ms, ac3, libspeex, alac), write the AIFF files and the
+    MP4 with the port's writers (``tools/host_codec_fixtures.py``), decode
+    each through the JAX package's ``StreamDecoder`` and write the index
+    and the AC-3 / Speex reference PCM."""
+    from soundkit_tpu.codecs.encoders import AvEncoder
+    from soundkit_tpu.codecs.g711 import G711Law
+    from soundkit_tpu.codecs.g711 import encode_i16 as g711_encode
+    from soundkit_tpu.core.audio_types import AudioData
+    from soundkit_tpu.demux.caf import mux_caf_alac
+
+    hcf = host_codec_fixtures
+    directory.mkdir(parents=True, exist_ok=True)
+    clips = {}  # name: (bytes, extension, spawn, extra index fields)
+
+    def encode(codec, rate, channels, pcm, bit_rate=0):
+        enc = AvEncoder(codec, rate, channels, bit_rate)
+        packets = enc.push_f32(pcm.reshape(-1).astype(np.float32)) + enc.flush()
+        return packets, enc
+
+    for seed, (name, codec, spawn) in enumerate((("gsm_standard", "libgsm", "gsm_standard"),
+                                                 ("gsm_wav49", "libgsm_ms", "gsm_microsoft")),
+                                                start=8100):
+        packets, _ = encode(codec, 8000, 1, host_voice(8000, 2.0, 1, seed))
+        clips[name] = (b"".join(packets), "gsm", spawn, dict(frame_bytes=len(packets[0])))
+    for seed, (name, (ch, bit_rate, seconds)) in enumerate(HOST_AC3.items(), start=8200):
+        packets, _ = encode("ac3", 48000, ch, host_music(48000, seconds, ch, seed), bit_rate)
+        clips[name] = (b"".join(packets), "ac3", "detect", dict(frame_bytes=len(packets[0])))
+    n_frames = len(clips["ac3_stereo"][0]) // clips["ac3_stereo"][3]["frame_bytes"]
+    clips["ac3_blksw"] = (_flip_ac3_blksw(clips["ac3_stereo"][0], n_frames), "ac3", "detect",
+                          dict(frame_bytes=clips["ac3_stereo"][3]["frame_bytes"]))
+    for seed, (name, (rate, ch, seconds)) in enumerate(HOST_SPEEX.items(), start=8300):
+        packets, enc = encode("libspeex", rate, ch, host_voice(rate, seconds, ch, seed))
+        clips[name] = (_ogg_speex_stream(enc.extradata, packets), "spx", "detect",
+                       dict(packets=len(packets)))
+    t = np.arange(ALAC_PACKETS * ALAC_FRAMES) / 44100
+    pcm = np.stack([0.2 * np.sin(2 * np.pi * f * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t + f))
+                    + 1e-4 * np.random.default_rng(8400 + i).standard_normal(t.size)
+                    for i, f in enumerate((220.0, 331.0))], 1)
+    pcm16 = np.clip(np.round(pcm * 32768), -32768, 32767).astype(np.int16)
+    packets, enc = encode("alac", 44100, 2, pcm16.astype(np.float32) / 32768.0)
+    assert len(packets) == ALAC_PACKETS, len(packets)
+    bits = enc.extradata[12 + 5]  # the cookie's bit depth: 24 (libavcodec encodes from S32P)
+    alac = dict(frames_per_packet=ALAC_FRAMES, alac_bits=bits,
+                source_sha256=hcf.sha256(pcm16.astype("<i2").tobytes()))
+    clips["alac_caf"] = (mux_caf_alac(packets, enc.extradata, 44100, 2, bits, ALAC_FRAMES), "caf",
+                         "alac", alac)
+    clips["alac_mp4"] = (hcf.mux_mp4("alac", enc.extradata, packets, 44100, 2, ALAC_FRAMES, bits),
+                         "m4a", "detect", alac)
+    x = host_music(AIFF_RATE, AIFF_SECONDS, 2, 8500) * 0.9
+    for name, (comp, bits) in HOST_AIFF.items():
+        inter = x.reshape(-1)
+        if comp in (b"ulaw", b"alaw"):
+            law = G711Law.MU_LAW if comp == b"ulaw" else G711Law.A_LAW
+            sound = g711_encode(law, np.round(inter * 32767).astype(np.int16)).tobytes()
+        elif comp in (b"fl32", b"fl64"):
+            sound = inter.astype(">f4" if comp == b"fl32" else ">f8").tobytes()
+        else:
+            full = np.clip(np.round(inter * 2.0 ** (bits - 1)), -2 ** (bits - 1),
+                           2 ** (bits - 1) - 1).astype(np.int64)
+            dt = {8: ">i1", 16: ">i2", 32: ">i4"}.get(bits)
+            if comp == b"sowt":
+                sound = full.astype("<i2").tobytes()
+            elif dt:
+                sound = full.astype(dt).tobytes()
+            else:  # 24-bit big-endian
+                sound = np.stack([(full >> 16) & 255, (full >> 8) & 255, full & 255],
+                                 1).astype(np.uint8).tobytes()
+        clips[name] = (hcf.build_aiff(2, bits, AIFF_RATE, sound, comp),
+                       "aifc" if comp else "aiff", "detect", {})
+
+    index, ref_pcm = {}, {}
+    for name, (data, ext, spawn, extra) in clips.items():
+        outs = jax_host_decode(name, data, spawn)
+        audio = [o for o in outs if isinstance(o, AudioData)]
+        assert audio and len(audio) == len(outs), (name, outs)
+        pcm_bytes = b"".join(o.data for o in audio)
+        a0 = audio[0]
+        frames = len(pcm_bytes) // (a0.bits_per_sample // 8) // a0.channel_count
+        (directory / f"{name}.{ext}").write_bytes(data)
+        index[name] = dict(file=f"{name}.{ext}", spawn=spawn, rate=a0.sampling_rate,
+                           channels=a0.channel_count, bits=a0.bits_per_sample,
+                           format=a0.audio_format.value, seconds=frames / a0.sampling_rate,
+                           pcm_bytes=len(pcm_bytes), sha256=hcf.sha256(pcm_bytes), **extra)
+        if name in hcf.REFERENCE_PCM:
+            ref_pcm[name] = np.frombuffer(pcm_bytes, "<i2")
+    np.savez_compressed(directory / "reference_pcm.npz", **ref_pcm)
+    (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
+
+
 if __name__ == "__main__":
     {"aac": generate_aac_fixtures, "telephony": generate_telephony_fixtures,
      "flac": generate_flac_fixtures, "mp3": generate_mp3_fixtures,
      "opus": generate_opus_fixtures, "silk_resampler": generate_silk_resampler_table,
-     "vorbis": generate_vorbis_fixtures}[sys.argv[1]]()
+     "vorbis": generate_vorbis_fixtures,
+     "host_codecs": generate_host_codec_fixtures}[sys.argv[1]]()
