@@ -294,8 +294,10 @@ ee. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    another topology), each equal to its lone decode on the card, the
    fallback's K3 / K6 / K7 / K10 launches counted inside its pushes;
    one stream of each owned host codec (GSM by its kind, AIFF-C µ-law,
-   ALAC in MP4, AC-3 and Ogg Speex WB detected), each equal to its lone
-   decode too; the multistream reroutes and AMR-NB must raise
+   ALAC in MP4, AC-3 and Ogg Speex WB detected) and one detected stream of
+   each container (``FLEET_CONTAINER_STREAMS``: M4A AAC, WebM Opus, WebM
+   Vorbis), each equal to its lone decode too, their push seconds by kind
+   of stream; the multistream reroutes and AMR-NB must raise
    ``FleetUnsupported``; the
    waves run again without the host streams for the x realtime beside;
    then an ``out_bits=16`` collect against the quantized
@@ -341,10 +343,22 @@ ff. pipeline: K3, K6 and K7 at B = 1 on 1, 127 and 313 codes and on one
    EOF, whole), held whole against the CPU bit for bit and against the
    JAX package's decode of their clip (``codec_reference_check``: exact,
    AC-3 and Speex within 1 LSB), AIFF-C's K3 once at each file's end;
-   eight mixed pipelines at once,
-   each equal to its lone run; one ``[pipeline]`` line a format and a
-   summary line;
-gg. print the kernels' JSON line (all seventeen kernels, K2 with no
+   five container streams (``pipeline_container_streams``: M4A AAC and
+   LOAS/LATM AAC 60 s, by detection and ``spawn_aac_latm``; WebM Vorbis,
+   Opus CELT and Opus SILK 20 s, detected; each a container case's units
+   repeated, ``container_fixtures.long_stream``) the same way, hooked on
+   their first 5 s (the M4A, decoded at EOF, whole), held whole against
+   the CPU bit for bit and against the JAX package's owned decode of the
+   case (``container_reference_check``: exact, the SILK stream within 1
+   LSB of the committed PCM of its first second); eight mixed pipelines
+   at once, each equal to its lone run; one ``[pipeline]`` line a format
+   and a summary line;
+gg. containers: ``simple.AudioTrackDemuxer`` over the MP4, WebM and
+   three-track MPEG-TS cases of ``container_fixtures`` (their bytes first
+   held to the index's hash), fed in 188-byte pushes and whole: its
+   events equal the JAX package's as the index records them; one
+   ``[containers]`` line a case and a summary line;
+hh. print the kernels' JSON line (all seventeen kernels, K2 with no
    launch: it is not on a path; K3, K6, K7 and K10 with their
    ``pipeline_launches`` and ``fleet_fallback_launches``, K3 also with
    ``pipeline_aifc_launches``, K6 and K7 with ``stream_encoder_launches``),
@@ -422,6 +436,11 @@ FLEET_CODEC_STREAMS = {"gsm-host-0": ("gsm_standard", "gsm", 10.0),
                        "alac_mp4-host-0": ("alac_mp4", None, 5.0),
                        "ac3-host-0": ("ac3_stereo", None, 2.0),
                        "speex_wb-host-0": ("speex_wb", None, 2.0)}
+# one detected host stream of each container in [fleet], {sid: (container_fixtures case, seconds
+# at least)}; pushed whole after round 0's pushes (the M4A decodes at its end)
+FLEET_CONTAINER_STREAMS = {"m4a_aac-host-0": ("m4a_aac", 5.0),
+                           "webm_opus-host-0": ("webm_opus_celt", 5.0),
+                           "webm_vorbis-host-0": ("webm_vorbis", 5.0)}
 FLAC_ENC_RATE = 44100.0
 FLAC_ENC_SECONDS = 4.0    # PCM a [flac-enc] lane carries
 FLAC_ENC_PUSHES = 4       # pushes of the [flac-enc] phase, an encode_pending after each
@@ -3090,11 +3109,15 @@ def fleet_host_streams(fs: "FleetStreams") -> dict:
       pushes (the group's topology is 44.1 kHz stereo by then);
     - one stream of each owned host codec (FLEET_CODEC_STREAMS) after round
       0's pushes: GSM by its kind, AIFF-C µ-law (K3 at its end), ALAC in
-      MP4, AC-3 and Ogg Speex WB detected."""
+      MP4, AC-3 and Ogg Speex WB detected;
+    - one detected stream of each container (FLEET_CONTAINER_STREAMS) after
+      round 0's pushes: M4A AAC (decoded at its end), WebM Opus CELT and
+      WebM Vorbis."""
     import numpy as np
 
     from soundkit_tpu_torch.core.audio_types import PcmData
     from soundkit_tpu_torch.core.wav import generate_wav_buffer
+    from soundkit_tpu_torch.tools import container_fixtures as cf
     from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
     from soundkit_tpu_torch.tools import opus_fixtures as of
     from soundkit_tpu_torch.tools import telephony_fixtures as tf
@@ -3126,6 +3149,8 @@ def fleet_host_streams(fs: "FleetStreams") -> dict:
         "host")
     for sid, (clip, kind, seconds) in FLEET_CODEC_STREAMS.items():
         add(sid, hcf.long_stream(clip, seconds)[0], kind, (0, "after"), "host")
+    for sid, (case, seconds) in FLEET_CONTAINER_STREAMS.items():
+        add(sid, cf.long_stream(case, seconds)[0], None, (0, "after"), "host")
     for kind in FLEET_FILLERS:
         streams = [s[:FLEET_FILLER_BYTES] for s in tf.lane_streams(kind, B + FLEET_OVERFLOW)]
         for j, data in enumerate(streams):
@@ -3424,7 +3449,14 @@ PIPE_CODEC_STREAMS = {
     "speex_nb": ("speex_nb", 10.0), "speex_wb": ("speex_wb", 5.0), "speex_uwb": ("speex_uwb", 3.0),
 }
 PIPE_CODEC_TIMED_SECONDS = 2.0
-PIPE_EOF_FORMATS = ("aiff_16", "aifc_ulaw", "aifc_alaw", "alac_caf", "alac_mp4")
+# the container streams, {format: (container_fixtures case, seconds at least)}, each the case's
+# units repeated in its container; the timing hook on their first PIPE_HOST_TIMED_SECONDS (the
+# EOF-buffered M4A whole), the CPU compare whole
+PIPE_CONTAINER_STREAMS = {
+    "m4a_aac": ("m4a_aac", 60.0), "latm": ("latm_8", 60.0), "webm_vorbis": ("webm_vorbis", 20.0),
+    "webm_opus_celt": ("webm_opus_celt", 20.0), "webm_opus_silk": ("webm_opus_silk", 20.0),
+}
+PIPE_EOF_FORMATS = ("aiff_16", "aifc_ulaw", "aifc_alaw", "alac_caf", "alac_mp4", "m4a_aac")
 
 
 def pipeline_wrappers():
@@ -3513,6 +3545,7 @@ def pipeline_streams() -> tuple:
                       lambda device: DP.spawn_raw_pcm(fmt16, device=device), PIPE_SECONDS)
     out.update(pipeline_host_streams())
     out.update(pipeline_codec_streams())
+    out.update(pipeline_container_streams())
     return out, sources
 
 
@@ -3574,6 +3607,48 @@ def pipeline_codec_streams() -> dict:
         data, audio_s = hcf.long_stream(clip, seconds)
         out[fmt] = (data, spawns[index[clip]["spawn"]], audio_s)
     return out
+
+
+def pipeline_container_streams() -> dict:
+    """The container streams of [pipeline] (PIPE_CONTAINER_STREAMS), each
+    made by ``container_fixtures.long_stream``: M4A AAC and the WebM ones
+    detected by ``DecodePipeline.spawn``, LOAS/LATM by ``spawn_aac_latm``."""
+    from soundkit_tpu_torch.pipeline.decode_pipeline import DecodePipeline as DP
+    from soundkit_tpu_torch.tools import container_fixtures as cf
+
+    out = {}
+    for fmt, (case, seconds) in PIPE_CONTAINER_STREAMS.items():
+        data, audio_s = cf.long_stream(case, seconds)
+        if case.startswith("webm_opus"):
+            audio_s -= 312 / 48000  # the clips' OpusHead pre-skip
+        out[fmt] = (data, DP.spawn_aac_latm if case in cf.LATM else DP.spawn, audio_s)
+    return out
+
+
+def container_reference_check(fmt: str, pcm: bytes) -> dict:
+    """A container stream's PCM against the JAX package's owned decode of
+    its case, as ``container_fixtures`` records it: the stream's first
+    ``pcm_bytes`` bytes (its decode begins with the case's) bit for bit by
+    SHA-256, or, for the SILK stream (the port's resampler stands in for
+    libswresample), within 1 LSB of the committed int16 PCM of the first
+    second."""
+    import numpy as np
+
+    from soundkit_tpu_torch.tools import container_fixtures as cf
+
+    case = PIPE_CONTAINER_STREAMS[fmt][0]
+    e = cf.load_index()[case]
+    head = pcm[:e["pcm_bytes"]]
+    check(len(head) == e["pcm_bytes"], f"[pipeline] {fmt}: {len(pcm)} bytes, shorter than its case")
+    if case in cf.REFERENCE_PCM:
+        ref = cf.reference_pcm(case).astype(np.int32)
+        a = np.frombuffer(head, "<i2").astype(np.int32)[:ref.size]
+        lsb = int(np.abs(a - ref).max())
+        check(lsb <= 1, f"[pipeline] {fmt}: {lsb} LSB from the JAX package's PCM of {case}")
+        return dict(vs_jax_max_lsb=lsb, vs_jax_samples_off=int((a != ref).sum()))
+    check(cf.sha256(head) == e["sha256"], f"[pipeline] {fmt}: differs from the JAX package's "
+          f"decode of {case}")
+    return dict(vs_jax="identical")
 
 
 def codec_reference_check(fmt: str, pcm: bytes) -> dict:
@@ -3722,7 +3797,8 @@ def phase_pipeline(card: str):
         a0 = audio[0]
         got_s = _audio_seconds(audio)
         floor_s = PIPE_HOST_SECONDS if fmt in PIPE_HOST_FORMATS else \
-            PIPE_CODEC_STREAMS[fmt][1] if fmt in PIPE_CODEC_STREAMS else PIPE_SECONDS
+            PIPE_CODEC_STREAMS[fmt][1] if fmt in PIPE_CODEC_STREAMS else \
+            PIPE_CONTAINER_STREAMS[fmt][1] if fmt in PIPE_CONTAINER_STREAMS else PIPE_SECONDS
         check(got_s >= 0.99 * seconds and got_s >= floor_s * 0.99,
               f"[pipeline] {fmt}: {got_s:.2f} s of audio out of {seconds:.2f}")
         lone[fmt] = outs
@@ -3739,8 +3815,9 @@ def phase_pipeline(card: str):
 
     # the per-chunk timing hook, on each stream's first PIPE_TIMED_SECONDS s
     for fmt, (data, spawn, seconds) in streams.items():
-        timed_s = PIPE_HOST_TIMED_SECONDS if fmt in PIPE_HOST_FORMATS else \
-            seconds if fmt in PIPE_EOF_FORMATS else \
+        host_head = fmt in PIPE_HOST_FORMATS or fmt in PIPE_CONTAINER_STREAMS
+        timed_s = seconds if fmt in PIPE_EOF_FORMATS else \
+            PIPE_HOST_TIMED_SECONDS if host_head else \
             PIPE_CODEC_TIMED_SECONDS if fmt in PIPE_CODEC_STREAMS else PIPE_TIMED_SECONDS
         outs, wall, walls, dev_ms = pipeline_run(
             spawn, data[:int(len(data) * timed_s / seconds)], "cuda", timed=True)
@@ -3753,8 +3830,8 @@ def phase_pipeline(card: str):
     # same host code): bit-exact, MP3 within 1 LSB
     t0 = time.perf_counter()
     for fmt, (data, spawn, seconds) in streams.items():
-        head = data if fmt in PIPE_HOST_FORMATS or fmt in PIPE_CODEC_STREAMS else \
-            _prefix(fmt, data, seconds)
+        head = data if fmt in PIPE_HOST_FORMATS or fmt in PIPE_CODEC_STREAMS or \
+            fmt in PIPE_CONTAINER_STREAMS else _prefix(fmt, data, seconds)
         host = _pcm_bytes(pipeline_run(spawn, head, "cpu")[0])
         card_pcm = _pcm_bytes(lone[fmt])[:len(host)]
         check(len(host) > 0 and len(card_pcm) == len(host),
@@ -3770,6 +3847,8 @@ def phase_pipeline(card: str):
             check(card_pcm == host, f"[pipeline] {fmt}: card and CPU outputs differ")
         if fmt in PIPE_CODEC_STREAMS:
             res[fmt].update(codec_reference_check(fmt, card_pcm))
+        if fmt in PIPE_CONTAINER_STREAMS:
+            res[fmt].update(container_reference_check(fmt, card_pcm))
         res[fmt]["cpu_compare_bytes"] = len(head)
     head = _prefix("mp3", streams["mp3"][0], streams["mp3"][2])
     f32 = []
@@ -3813,6 +3892,39 @@ def phase_pipeline(card: str):
         log(f"[pipeline] {fmt} ({card}): {json.dumps(r)}")
     log(f"[pipeline] {json.dumps(summary)}")
     return dict(formats=res, kernel_checks=checks, rules=rules, **summary)
+
+
+def phase_containers() -> dict:
+    """``simple.AudioTrackDemuxer`` over the MP4, WebM and three-track
+    MPEG-TS cases of ``container_fixtures``, in 188-byte pushes and whole:
+    each case's bytes equal the index's and its events the JAX package's
+    as the index records them (their SHA-256)."""
+    from soundkit_tpu_torch.simple import AudioTrackDemuxer
+    from soundkit_tpu_torch.tools import container_fixtures as cf
+
+    t_phase = time.perf_counter()
+    index = cf.load_index()
+    res = {}
+    for name in cf.CASES:
+        e = index[name]
+        data = cf.build(name)
+        check(cf.sha256(data) == e["sha256_bytes"], f"[containers] {name}: its bytes differ from "
+              "the index's")
+        if "events" not in e:  # LOAS: no container for the track demuxer
+            continue
+        r = dict(bytes=len(data), events=e["events"]["events"])
+        for chunk, key in ((188, "chunk188_s"), (0, "whole_s")):
+            t0 = time.perf_counter()
+            events = cf.demux_events(AudioTrackDemuxer.new_auto(), data, chunk)
+            r[key] = time.perf_counter() - t0
+            check(cf.events_digest(events) == e["events"],
+                  f"[containers] {name}: events in {key[:-2]} pushes differ from the JAX package's")
+        r["chunk188_mb_per_s"] = len(data) / 1e6 / r["chunk188_s"]
+        res[name] = r
+        log(f"[containers] {name}: {json.dumps(r)}")
+    summary = dict(n_cases=len(res), phase_s=time.perf_counter() - t_phase)
+    log(f"[containers] {json.dumps(summary)}")
+    return dict(cases=res, **summary)
 
 
 def main() -> int:
@@ -3915,6 +4027,8 @@ def main() -> int:
         flres = phase_fleet()
         phase = "pipeline"
         pres = phase_pipeline(card)
+        phase = "containers"
+        cnres = phase_containers()
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
@@ -4038,7 +4152,7 @@ def main() -> int:
                     "hybrid_compare": hcres, "vorbis": vres, "vorbis_compare": vcres,
                     "flac_enc": eres, "flac_enc_compare": ecres,
                     "transcode": trres, "stretch": stres,
-                    "fleet": flres, "pipeline": pres,
+                    "fleet": flres, "pipeline": pres, "containers": cnres,
                     "wall_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

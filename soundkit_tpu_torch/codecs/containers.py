@@ -1,12 +1,22 @@
-"""Container-based decoders: ALAC in MP4 or CAF, and the streaming
-adapter of the Ogg and raw Opus, Ogg Vorbis and Ogg Speex decoders
-(counterpart of ``soundkit_tpu/codecs/containers.py``, a verbatim subset).
+"""Container-based decoders: M4A (AAC or ALAC), ALAC in MP4 or CAF,
+WebM (Opus or Vorbis), and the streaming adapter of the Ogg and raw
+Opus, Ogg Vorbis and Ogg Speex decoders (counterpart of
+``soundkit_tpu/codecs/containers.py``).
 
 ``AlacAdapter`` and ``M4aAdapter`` buffer the whole file and decode it
-at EOF through the owned demuxers (``demux/mp4.py``, ``demux/caf.py``)
-and the owned ALAC decoder (``codecs/alac.py``). Where the JAX package
-opens libavcodec for an MP4 track that is not ALAC (M4A AAC), the port
-raises ``UnsupportedFormat``. ``WebmAdapter`` is not in the port yet.
+at EOF through the owned demuxers (``demux/mp4.py``, ``demux/caf.py``),
+the owned ALAC decoder (``codecs/alac.py``) and, for an MP4 AAC track,
+the owned raw-AU AAC-LC decoder (``codecs/aac.AacRawDecoder``).
+``WebmAdapter`` demuxes WebM incrementally (``demux/ebml.py``): a Vorbis
+track decodes through ``codecs/vorbis.VorbisPacketDecoder`` as in the
+JAX package, an Opus track through the owned ``codecs/opus._OpusCore``
+configured from its OpusHead (pre-skip and output gain applied).
+
+Stated departures (no FFmpeg in the port): the JAX package decodes an
+MP4 AAC track and a WebM Opus track through libavcodec; the port decodes
+them with its owned decoders, which refuse with ``UnsupportedFormat``
+what they do not serve (HE-AAC, more than two channels, a multistream
+OpusHead). An MP4 track of another codec raises ``UnsupportedFormat``.
 """
 from __future__ import annotations
 
@@ -16,6 +26,7 @@ import numpy as np
 
 from soundkit_tpu_torch.codecs.avdec import f32_to_i16
 from soundkit_tpu_torch.core.audio_types import AudioData, EncodingFlag, Endianness
+from soundkit_tpu_torch.demux.ebml import WebmAudioDemuxer
 from soundkit_tpu_torch.demux.mp4 import Mp4Error, demux_mp4_audio
 
 
@@ -61,10 +72,20 @@ class _Mp4BufferedAdapter:
         if track.codec == "alac":
             return self._decode_alac(track.samples, track.config,
                                      track.sample_rate, track.channels)
-        from soundkit_tpu_torch.pipeline.output_options import UnsupportedFormat
+        if track.codec != "aac":
+            from soundkit_tpu_torch.pipeline.output_options import UnsupportedFormat
 
-        raise UnsupportedFormat(f"Unsupported format: an MP4 {track.codec} track decodes "
-                                "only through libavcodec, which the port does not build")
+            raise UnsupportedFormat(f"Unsupported format: an MP4 {track.codec} track decodes "
+                                    "only through libavcodec, which the port does not build")
+        from soundkit_tpu_torch.codecs.aac import AacRawDecoder
+
+        dec = AacRawDecoder(track.config)
+        outs = [dec.decode_access_unit_f32(s) for s in track.samples]
+        outs.append(dec.flush_f32())
+        pcm = np.concatenate(outs) if outs else np.zeros(0, np.float32)
+        rate = dec.sample_rate or track.sample_rate
+        ch = dec.channels or track.channels
+        return _audio_i16(f32_to_i16(pcm), rate, ch)
 
 
     @staticmethod
@@ -115,6 +136,67 @@ class AlacAdapter(_Mp4BufferedAdapter):
             raise DecodingFailed(f"expected alac track, found {track.codec}")
         return self._decode_alac(track.packets, track.config,
                                  track.sample_rate, track.channels)
+
+
+class WebmAdapter:
+    """Incremental WebM Opus/Vorbis decode."""
+
+    def __init__(self) -> None:
+        self._demux = WebmAudioDemuxer()
+        self._dec = None
+        self._rate_ch = None
+
+    def _ensure_decoder(self):
+        from soundkit_tpu_torch.pipeline.output_options import DecodingFailed
+
+        tr = self._demux.track
+        if tr is None or self._dec is not None:
+            return
+        if tr.codec_id == "A_OPUS":
+            from soundkit_tpu_torch.codecs.opus import OpusHead, _OpusCore
+
+            try:
+                head = OpusHead.parse(tr.codec_private)
+            except ValueError as e:
+                raise DecodingFailed(f"WebM Opus track: {e}")
+            self._dec = _OpusCore(head)
+            self._rate_ch = None
+        elif tr.codec_id == "A_VORBIS":
+            # from-scratch Vorbis packet decode (codecs/vorbis_core.py)
+            from soundkit_tpu_torch.codecs.vorbis import (
+                VorbisPacketDecoder,
+                split_xiph_extradata,
+            )
+
+            dec = VorbisPacketDecoder(split_xiph_extradata(tr.codec_private))
+            self._dec = dec
+            self._rate_ch = (dec.sample_rate, dec.channels)
+        else:
+            raise DecodingFailed(f"unsupported WebM audio codec {tr.codec_id}")
+
+    def process(self, chunk: bytes) -> List[AudioData]:
+        packets = self._demux.push(chunk)
+        self._ensure_decoder()
+        if self._dec is None or not packets:
+            return []
+        if self._rate_ch is not None:  # vorbis packet decoder
+            outs = [self._dec.decode_packet_f32(p) for p in packets]
+            pcm = np.concatenate(outs) if outs else np.zeros(0, np.float32)
+            rate, ch = self._rate_ch
+            return _audio_i16(f32_to_i16(pcm), rate, ch)
+        outs = [self._dec.decode_packet_f32(p) for p in packets]
+        pcm = np.concatenate(outs) if outs else np.zeros(0, np.float32)
+        return _audio_i16(f32_to_i16(pcm), self._dec.sample_rate, self._dec.channels)
+
+    def flush(self) -> List[AudioData]:
+        if self._dec is None:
+            return []
+        if self._rate_ch is not None:
+            rate, ch = self._rate_ch
+            return _audio_i16(f32_to_i16(self._dec.flush()), rate, ch)
+        return _audio_i16(
+            f32_to_i16(self._dec.flush_f32()), self._dec.sample_rate, self._dec.channels
+        )
 
 
 class _StreamI16Adapter:

@@ -1,2 +1,3 @@
 """Container and codec detection, the Ogg page and packet layer, and the
-CAF and MP4 demuxers (host side, no torch)."""
+CAF, MP4, WebM (EBML), MPEG-TS and LOAS/LATM demuxers with the
+container-only track demuxer over them (host side, no torch)."""

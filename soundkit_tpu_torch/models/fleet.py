@@ -23,9 +23,10 @@ on the fleet's ``device`` (its telephony and MP3 codecs launch K3, K6, K7
 and K10 at B = 1 there), whose PCM ``collect`` returns with the lanes'.
 These streams take it:
 
-- a detected format without a batched group (WAV, AIFF / AIFF-C, ALAC in
-  MP4, AC-3, Ogg Speex), and bytes that detection cannot name (which
-  decode to nothing, as in the JAX package);
+- a detected format without a batched group (WAV, AIFF / AIFF-C, M4A
+  with an AAC or ALAC track, WebM with an Opus or Vorbis track, AC-3, Ogg
+  Speex), and bytes that detection cannot name (which decode to nothing,
+  as in the JAX package);
 - the explicit kinds ``opus_raw`` (soundkit's raw Opus framing) and
   ``gsm`` (GSM 06.10, standard framing);
 - any stream whose group is full, detected or of an explicit kind;
@@ -40,9 +41,12 @@ These streams take it:
   (``opus_fleet_model._OpusTailFallback``).
 
 A host stream reports the rate of its decoder's last output (a telephony
-overflow stream its codec's rate from the start). AIFF and ALAC decode
-at the stream's end (their decoders buffer the whole file), an AIFF-C
-file's µ-law / A-law through K3 on the fleet's device.
+overflow stream its codec's rate from the start). AIFF and M4A (AAC or
+ALAC) decode at the stream's end (their decoders buffer the whole file),
+an AIFF-C file's µ-law / A-law through K3 on the fleet's device. An M4A
+AAC track and a WebM Opus track decode through the owned AAC-LC and Opus
+decoders, where the JAX package's fleet opens libavcodec (a stated
+departure).
 
 Streams this fleet refuses: what the port cannot decode at all raises
 :class:`FleetUnsupported` at the ``push`` or ``end_stream`` that routes
@@ -50,14 +54,14 @@ it, and the fleet forgets it:
 
 - the explicit kinds ``amr_nb`` and ``g729`` (libavcodec in the JAX
   package);
-- a detected format the port's pipeline does not decode (M4A with an
-  AAC track and WebM: ``decode_pipeline._NOT_PORTED``);
 - an Opus stream whose OpusHead is multistream (mapping family other
   than 0, or more than two channels), which the JAX package hands to
   libavcodec: an Ogg Opus stream at the push that brings its head, a raw
   one at the push that completes it;
 - any host stream whose decoder finds a format the port does not decode
-  (``UnsupportedFormat``: an Ogg Speex header outside the owned modes).
+  (``UnsupportedFormat``: an Ogg Speex header outside the owned modes, a
+  multistream OpusHead in WebM, an HE-AAC or multichannel M4A AAC track
+  at the stream's end).
 
 An explicit kind that is none of these names raises a plain
 ``ValueError``.
@@ -73,7 +77,6 @@ import torch
 from soundkit_tpu_torch.demux.detect import AudioType, detect_audio
 from soundkit_tpu_torch.models.opus_fleet_model import OpusLaneUnsupported
 from soundkit_tpu_torch.models.vorbis_batch import TopologyMismatch
-from soundkit_tpu_torch.pipeline.decode_pipeline import _NOT_PORTED
 from soundkit_tpu_torch.utils.device import resolve_device
 
 MIN_DETECT = 8192
@@ -101,10 +104,6 @@ _DETECTED = {
     AudioType.OGG_VORBIS: "vorbis",
     AudioType.OGG_OPUS: "opus",
 }
-
-
-#: detected formats the port's pipeline does not decode
-_UNDECODED = frozenset(_NOT_PORTED)
 
 
 class FleetUnsupported(ValueError):
@@ -497,11 +496,7 @@ class StreamFleet:
 
     def _route(self, stream_id: str) -> None:
         buf = bytes(self._detect.pop(stream_id, b""))
-        detected = detect_audio(buf)
-        if detected in _UNDECODED:
-            self._refuse(stream_id, f"detected format {detected.value!r}",
-                         "the port's pipeline does not decode it")
-        kind = _DETECTED.get(detected)
+        kind = _DETECTED.get(detect_audio(buf))
         if kind is not None and self._seat(stream_id, kind, buf):
             return
         # no group for the format, or its group is full: a host stream

@@ -14,14 +14,17 @@
 The synchronous core (``StreamDecoder``) is reusable without threads.
 
 The port's formats are WAV, raw PCM, G.711, G.722, G.726, FLAC, MP3,
-AAC-ADTS, Ogg Opus, soundkit's raw Opus framing, Ogg Vorbis, GSM 06.10
-(standard and WAV49), AC-3, Ogg Speex, ALAC (in MP4 or CAF) and AIFF /
-AIFF-C. The telephony codecs and MP3 launch their kernels (K3, K6, K7,
-K10) on ``device``, the card unless the caller names the CPU, and so
-does an AIFF-C file's µ-law / A-law (K3 at EOF); the rest decode on the
-host. Every other format (M4A with an AAC track, WebM, LOAS/LATM,
-AMR-NB, G.729) raises ``UnsupportedFormat`` naming it, at detection or
-at its ``spawn_*``.
+AAC-ADTS, M4A (AAC or ALAC), LOAS/LATM AAC, Ogg Opus, soundkit's raw
+Opus framing, Ogg Vorbis, WebM (Opus or Vorbis), GSM 06.10 (standard and
+WAV49), AC-3, Ogg Speex, ALAC (in MP4 or CAF) and AIFF / AIFF-C. The
+telephony codecs and MP3 launch their kernels (K3, K6, K7, K10) on
+``device``, the card unless the caller names the CPU, and so does an
+AIFF-C file's µ-law / A-law (K3 at EOF); the rest decode on the host.
+M4A AAC, LATM AAC and WebM Opus decode through the owned AAC-LC and Opus
+decoders where the JAX package opens libavcodec (a stated departure).
+AMR-NB and G.729 raise ``UnsupportedFormat`` at their ``spawn_*``, as
+does a stream the owned decoders refuse (HE-AAC, more than two AAC
+channels, a multistream Opus head) when it reaches them.
 
 A decoder's exception becomes a ``DecodingFailed`` output, as in the
 JAX package, but for a fault of the device (a failed kernel launch,
@@ -64,18 +67,6 @@ DecodeOutput = Union[AudioData, DecodeError]
 
 DEFAULT_INPUT_BUFFER = 128
 DEFAULT_OUTPUT_BUFFER = 128
-
-# detected formats the JAX package decodes and the port does not have yet
-# (a detected M4A holds no ALAC sample entry: its track is AAC)
-_NOT_PORTED = {
-    AudioType.M4A: "M4A",
-    AudioType.WEBM: "WebM",
-}
-
-
-def _not_ported(name: str) -> UnsupportedFormat:
-    return UnsupportedFormat(f"Unsupported format: {name} is not in the port yet")
-
 
 def _audio_i16(samples: np.ndarray, rate: int, channels: int) -> AudioData:
     """create_audio_data_i16 equivalent (lib.rs:1160): i16 -> LE bytes."""
@@ -228,16 +219,18 @@ def _init_decoder(audio_type: AudioType, device="cuda"):
         from soundkit_tpu_torch.codecs.containers import make_opus_stream_adapter
 
         return make_opus_stream_adapter()
-    if audio_type == AudioType.ALAC:
-        from soundkit_tpu_torch.codecs.containers import AlacAdapter
+    if audio_type in (AudioType.M4A, AudioType.ALAC):
+        from soundkit_tpu_torch.codecs.containers import AlacAdapter, M4aAdapter
 
-        return AlacAdapter()
+        return AlacAdapter() if audio_type == AudioType.ALAC else M4aAdapter()
+    if audio_type == AudioType.WEBM:
+        from soundkit_tpu_torch.codecs.containers import WebmAdapter
+
+        return WebmAdapter()
     if audio_type == AudioType.AIFF:
         from soundkit_tpu_torch.codecs.aiff import AiffAdapter
 
         return AiffAdapter(device)
-    if audio_type in _NOT_PORTED:
-        raise _not_ported(_NOT_PORTED[audio_type])
     if audio_type == AudioType.UNKNOWN:
         raise FormatDetectionFailed()
     raise UnsupportedFormat(f"Unsupported format: {audio_type.value}")
@@ -598,13 +591,27 @@ class DecodePipeline:
 
         return cls._spawn(StreamDecoder(options, AiffAdapter(device), device))
 
-    # formats the JAX package decodes and the port does not have yet, or
-    # decodes only through libavcodec: each spawn raises UnsupportedFormat
-    # naming its format
+    @classmethod
+    def spawn_aac_latm(cls, options: DecodeOptions = DecodeOptions(),
+                       device="cuda") -> DecodePipelineHandle:
+        """LOAS/LATM AAC elementary stream (broadcast transport).
+
+        Beyond reference parity: the reference only tags LATM packets
+        (soundkit-audio-demux/src/lib.rs:2369); this path decodes them.
+        """
+        from soundkit_tpu_torch.codecs.aac import AacLatmAdapter
+
+        return cls._spawn(StreamDecoder(options, AacLatmAdapter(), device))
 
     @classmethod
-    def spawn_aac_latm(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
-        raise _not_ported("LOAS/LATM AAC")
+    def spawn_webm(cls, options: DecodeOptions = DecodeOptions(),
+                   device="cuda") -> DecodePipelineHandle:
+        from soundkit_tpu_torch.codecs.containers import WebmAdapter
+
+        return cls._spawn(StreamDecoder(options, WebmAdapter(), device))
+
+    # formats the JAX package decodes only through libavcodec: each spawn
+    # raises UnsupportedFormat naming its format
 
     @classmethod
     def spawn_amr_nb(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
@@ -617,7 +624,3 @@ class DecodePipeline:
         from soundkit_tpu_torch.codecs.telephony import make_g729_adapter
 
         return cls._spawn(StreamDecoder(options, make_g729_adapter(), device))
-
-    @classmethod
-    def spawn_webm(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):
-        raise _not_ported("WebM")

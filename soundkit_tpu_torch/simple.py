@@ -18,9 +18,12 @@ exceptions, 8 KiB/64 KiB detection window:
 - ``OpusDecoder``: raw Opus packets -> interleaved int16 at 48 kHz
   through the owned RFC 6716 decoder (``codecs/opus_core.py``), with the
   reusable-output ``dec_frame`` / ``dec_frame_reuse``.
+- ``AudioTrackDemuxer``: MP4, WebM or MPEG-TS bytes -> the track's
+  ``AudioTrackConfig`` and ``AudioTrackPacket`` events, container only
+  (``demux/audio_demux.py``; a LATM track parsed down to raw AUs).
 
-The frame-stream decoder, the track demuxer, the encoders and the
-content ciphers of the JAX package's module are not in the port yet.
+The frame-stream decoder, the encoders and the content ciphers of the
+JAX package's module are not in the port yet.
 """
 from __future__ import annotations
 
@@ -226,6 +229,35 @@ class AacLcStreamDecoder:
         pcm = self.decode_interleaved(au)
         out[: len(pcm)] = pcm
         return len(pcm)
+
+
+class AudioTrackDemuxer:
+    """WasmAudioTrackDemuxer mirror (lib.rs:605-636): arbitrary
+    container bytes in, ``AudioTrackConfig``/``AudioTrackPacket``
+    events out — container-only, no codec decode."""
+
+    def __init__(self) -> None:
+        from soundkit_tpu_torch.demux.audio_demux import AudioTrackDemuxer as _Core
+
+        self._core = _Core.new_auto()
+
+    @classmethod
+    def new_auto(cls) -> "AudioTrackDemuxer":
+        return cls()
+
+    @classmethod
+    def new_with_format(cls, fmt: str) -> "AudioTrackDemuxer":
+        from soundkit_tpu_torch.demux.audio_demux import AudioTrackDemuxer as _Core
+
+        self = cls.__new__(cls)
+        self._core = _Core.new_with_format(fmt)
+        return self
+
+    def push(self, data: bytes) -> list:
+        return self._core.push(bytes(data))
+
+    def flush(self) -> list:
+        return self._core.flush()
 
 
 @dataclass

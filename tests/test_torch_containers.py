@@ -2,9 +2,9 @@
 demuxers, the owned ALAC decoder and the EOF-buffered ALAC / M4A
 adapters against the JAX package, bit for bit and equal to the source
 PCM (ALAC is lossless), ``simple.AacDeboxer``'s M4A walk, and the long
-streams ``chip_smoke.py`` builds from the clips. The stated departures
-raise: an MP4 track that is not ALAC (M4A AAC, libavcodec in the JAX
-package), a detected M4A, WebM and LOAS/LATM."""
+streams ``chip_smoke.py`` builds from the clips. An MP4 AAC track decodes
+through the owned raw-AU AAC-LC decoder (libavcodec in the JAX package);
+what that decoder refuses raises, as does an MP4 track of another codec."""
 import numpy as np
 import pytest
 
@@ -134,26 +134,61 @@ def test_aac_deboxer_walks_an_m4a_like_the_jax_package():
 
 def test_an_mp4_aac_track_raises_unsupported_format():
     """A stated departure: the JAX package decodes an MP4 AAC track
-    through libavcodec (``codecs/containers.py:63``); the port's
-    ``M4aAdapter`` raises, and a detected M4A is refused at detection."""
+    through libavcodec (``codecs/containers.py:63``); the port decodes an
+    AAC-LC track with its owned raw-AU decoder (equal to the JAX package's
+    owned decode of the same access units, ``tests/test_torch_container_decode.py``)
+    and raises ``UnsupportedFormat`` for a track that decoder refuses (an
+    HE-AAC config) and for an ``mp4a`` track without an AAC config; a
+    detected M4A decodes."""
+    from torch_port_helpers import jax_owned_aac_i16
+
     data = _aac_m4a()
+    track = mp4.demux_mp4_audio(data)
+    want = jax_owned_aac_i16(track.config, track.samples)
     a = containers.M4aAdapter()
     assert a.process(data) == []
-    with pytest.raises(UnsupportedFormat, match="aac track.*libavcodec"):
-        a.flush()
+    assert b"".join(o.data for o in a.flush()) == want
     b = containers.AlacAdapter()
     b.process(data)
     with pytest.raises(DecodingFailed, match="expected alac track, found aac"):
         b.flush()
     core = dp.StreamDecoder(device="cpu")
     outs = core.process(data) + core.process(b"")
-    assert [type(o).__name__ for o in outs] == ["UnsupportedFormat"] and "M4A" in str(outs[0])
+    assert b"".join(o.data for o in outs) == want
+    he = hcf.mux_mp4("aac", bytes([0x29, 0x90]), track.samples[:4], 48000, 2, 1024)
+    c = containers.M4aAdapter()
+    c.process(he)
+    with pytest.raises(UnsupportedFormat, match="HE-AAC"):
+        c.flush()
+    no_config = data.replace(b"esds", b"xsds")
+    assert mp4.demux_mp4_audio(no_config).codec == "mp4a"
+    d = containers.M4aAdapter()
+    d.process(no_config)
+    with pytest.raises(UnsupportedFormat, match="mp4a track.*libavcodec"):
+        d.flush()
 
 
 @pytest.mark.parametrize("spawn", ["spawn_webm", "spawn_aac_latm"])
 def test_webm_and_latm_spawns_raise(spawn):
-    with pytest.raises(UnsupportedFormat):
-        getattr(dp.DecodePipeline, spawn)(device="cpu")
+    """The two spawns decode now (``tests/test_torch_container_decode.py``);
+    what still raises through them is what the owned decoders refuse: a
+    multistream OpusHead in WebM and a 5.1 StreamMuxConfig in LATM, each
+    an ``UnsupportedFormat`` output before any audio."""
+    from soundkit_tpu_torch.demux import latm
+    from soundkit_tpu_torch.tools import container_fixtures as cf
+
+    if spawn == "spawn_webm":
+        head, packets = cf.opus_units("webm_opus_celt", 4)
+        data = cf.mux_webm("A_OPUS", head[:18] + b"\x01", 48000, 2, packets, [20.0] * 4)
+    else:
+        _asc, aus = cf.aac_units("chords", 4)
+        data = latm.mux_loas(aus, latm.AscInfo(2, 3, 48000, 6))
+    h = getattr(dp.DecodePipeline, spawn)(device="cpu")
+    h.send_blocking(data)
+    h.send_blocking(b"")
+    outs = h.recv_all()
+    assert type(outs[0]).__name__ == "UnsupportedFormat"
+    assert not any(hasattr(o, "data") for o in outs)
 
 
 @pytest.mark.parametrize("name", ["gsm_wav49", "ac3_stereo", "speex_uwb", "alac_caf", "alac_mp4",

@@ -30,9 +30,9 @@ from soundkit_tpu_torch.models.fleet import (
     FleetUnsupported,
     StreamFleet,
 )
-from soundkit_tpu_torch.tools import (aac_fixtures, flac_fixtures, host_codec_fixtures,
-                                      mp3_fixtures, opus_fixtures, telephony_fixtures,
-                                      vorbis_fixtures)
+from soundkit_tpu_torch.tools import (aac_fixtures, container_fixtures, flac_fixtures,
+                                      host_codec_fixtures, mp3_fixtures, opus_fixtures,
+                                      telephony_fixtures, vorbis_fixtures)
 from torch_port_helpers import REROUTE_CASES, flac_clip_pcm, ogg_opus, opus_reroute_case, snr_db
 
 
@@ -658,7 +658,6 @@ DETECTED_WITHOUT_A_GROUP = {
     "m4a": bytes(4) + b"ftypM4A " + bytes(20),
     "unknown": bytes(range(1, 64)),
 }
-REFUSED_DETECTED = ("webm", "m4a")
 
 
 def assert_forgotten(fleet, sid):
@@ -678,16 +677,10 @@ def assert_retired(pair, sid):
 def test_refuses_a_detected_format_without_a_group_at_end_stream(name):
     """A short stream routed at its end (the name is the earlier slices':
     only what the port cannot decode is refused now): WAV decodes on the
-    host, undetected bytes give no PCM (as in the JAX package), M4A and
-    WebM are refused."""
+    host; undetected bytes, a bare WebM header and a bare M4A header (whose
+    MP4 walk fails) give no PCM, as in the JAX package. Whole M4A and WebM
+    streams decode (``test_container_streams_decode_beside_the_lanes``)."""
     data = DETECTED_WITHOUT_A_GROUP[name]
-    if name in REFUSED_DETECTED:
-        port = StreamFleet(2, device="cpu")
-        port.push("s", data)
-        with pytest.raises(FleetUnsupported, match=f"'s'.*detected format '{name}'.*does not decode"):
-            port.end_stream("s")
-        assert_forgotten(port, "s")
-        return
     pair = Pair()
     pair.push("xs", data)
     pair.end("xs")
@@ -931,8 +924,11 @@ def test_refused_streams_never_reach_the_jax_pipeline():
     for sid, kind in (("s2", "amr_nb"), ("s3", "g729")):
         with pytest.raises(FleetUnsupported):
             port.push(sid, b"\x00" * 40, kind=kind)
-    with pytest.raises(FleetUnsupported):
-        port.push("s4", DETECTED_WITHOUT_A_GROUP["m4a"])
+    # an M4A whose AAC track the owned decoder refuses (5.1), at its end
+    _asc, aus = container_fixtures.aac_units("chords", 4)
+    port.push("s4", host_codec_fixtures.mux_mp4("aac", bytes([0x11, 0xB0]), aus, 48000, 6, 1024))
+    assert "s4" in port._detect
+    with pytest.raises(FleetUnsupported, match="'s4'.*host stream.*6 channel configuration"):
         port.end_stream("s4")
     assert sorted(port._fallback) == ["g", "o", "r", "s1", "w"]
     src = open(fleet_mod.__file__).read()
@@ -959,6 +955,61 @@ HOST_CODEC_STREAMS = {"x-gsm": ("gsm_standard", "gsm"), "x-ac3": ("ac3_stereo", 
                       "x-speex-stereo": ("speex_nb_stereo", None), "x-alac": ("alac_mp4", None),
                       "x-aifc-ulaw": ("aifc_ulaw", None), "x-aiff-24": ("aiff_24", None),
                       "x-aifc-fl64": ("aifc_fl64", None)}
+
+
+def _lone_decode(data: bytes) -> np.ndarray:
+    """A stream's PCM [C, n] from the port's own ``StreamDecoder``, fed whole."""
+    from soundkit_tpu_torch.core.audio_pipeline import audio_to_f32_channels
+    from soundkit_tpu_torch.core.audio_types import AudioData
+    from soundkit_tpu_torch.pipeline.decode_pipeline import StreamDecoder
+
+    dec = StreamDecoder(device="cpu")
+    outs = dec.process(data) + dec.process(b"")
+    assert outs and all(isinstance(o, AudioData) for o in outs)
+    return np.concatenate([np.stack(audio_to_f32_channels(o)) for o in outs], axis=1)
+
+
+def test_container_streams_decode_beside_the_lanes():
+    """Detected M4A AAC and WebM (Opus CELT, SILK, hybrid and Vorbis)
+    streams decode on the host fallback beside a G.711 lane, pushed in two
+    parts with a collect between (the M4A at its end, as it buffers to
+    EOF): each equals its lone ``StreamDecoder`` decode. The WebM Vorbis
+    stream also equals the JAX fleet's (the same code); the others
+    decode through libavcodec in the JAX fleet, a stated departure
+    (``tests/test_torch_container_decode.py``)."""
+    vorbis = container_fixtures.build("webm_vorbis")
+    pair = Pair()
+    pair.push("t0", tel_stream("g711_alaw", 0, 800), kind="g711_alaw")
+    pair.push("x-webm-vorbis", vorbis[:len(vorbis) // 2])
+    first = pair.collect()
+    pair.push("x-webm-vorbis", vorbis[len(vorbis) // 2:])
+    pair.end("t0", "x-webm-vorbis")
+    second = pair.collect()
+    got = np.concatenate([o["x-webm-vorbis"] for o in (first, second)], axis=1)
+    np.testing.assert_array_equal(got, _lone_decode(vorbis))
+    assert pair.rates("x-webm-vorbis") == [44100]
+    assert_retired(pair, "x-webm-vorbis")
+
+    names = ("m4a_aac", "webm_opus_celt", "webm_opus_silk", "webm_opus_hybrid")
+    data = {n: container_fixtures.build(n) for n in names}
+    port = StreamFleet(CAP, device="cpu")
+    port.push("t0", tel_stream("g711_alaw", 0, 800), kind="g711_alaw")
+    for n in names:
+        port.push(n, data[n][:len(data[n]) // 2])
+    first = port.collect()
+    assert "m4a_aac" not in first
+    for n in names:
+        port.push(n, data[n][len(data[n]) // 2:])
+        port.end_stream(n)
+    assert set(names) <= set(port._fallback) and not set(names) & set(port._lanes)
+    second = port.collect()
+    for n in names:
+        pcm = np.concatenate([o[n] for o in (first, second) if n in o], axis=1)
+        want = _lone_decode(data[n])
+        e = container_fixtures.load_index()[n]
+        assert pcm.shape == want.shape == (e["channels"], e["pcm_bytes"] // 2 // e["channels"])
+        np.testing.assert_array_equal(pcm, want, err_msg=n)
+        assert port.sample_rate(n) == e["rate"]
 
 
 def test_host_codec_streams_decode_beside_the_lanes():

@@ -13,7 +13,10 @@ layer: the C++ packet parse, its table, the Python decoder and the
 parse's binding; the owned host codecs: the GSM and ALAC C++ decoders,
 the AC-3 and Speex cores and their tables, the AIFF, ALAC, Speex and
 GSM / AC-3 decoders, the CAF and MP4 demuxers and the ALAC / M4A and
-streaming adapters (each a copy but for its named difference); and the
+streaming adapters (each a copy but for its named difference); the
+container layer: the WebM, MPEG-TS and LOAS/LATM demuxers, the track
+demuxer and ``simple.AudioTrackDemuxer``, ``AacLatmAdapter`` and
+``WebmAdapter`` (but for their owned decoders); and the
 FLAC encode host layer: the C++ frame packer,
 the Python frame encoder (a verbatim copy but for its ``_native_lib``)
 and the encoder's plan layout and per-frame oracle; and the numpy halves of
@@ -819,6 +822,7 @@ STREAM_DECODER_COPIES = [
     ("simple", "OpusDeboxer", ()),
     ("simple", "OpusDecodeResult", ()),
     ("simple", "OpusDecoder", ()),
+    ("codecs.aac", "AacLatmAdapter", ("flush",)),
 ]
 
 
@@ -884,7 +888,8 @@ def test_opus_fleet_tail_equals_the_jax_package():
 # the owned host codecs: GSM, AC-3, Ogg Speex, ALAC in CAF and MP4, AIFF
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("module", ["demux/caf.py", "demux/mp4.py"])
+@pytest.mark.parametrize("module", ["demux/caf.py", "demux/mp4.py", "demux/ebml.py",
+                                    "demux/mpegts.py", "demux/latm.py", "demux/audio_demux.py"])
 def test_container_demuxers_are_verbatim_copies(module):
     port = (REPO / "soundkit_tpu_torch" / module).read_text()
     assert port == _as_port((REPO / "soundkit_tpu" / module).read_text())
@@ -978,6 +983,7 @@ HOST_CODEC_COPIES = [
     ("codecs.containers", "make_speex_adapter", None),
     ("codecs.speex", "SpeexDecoder", ("__init__", "_init_decoder")),
     ("simple", "AacDeboxer", ()),
+    ("simple", "AudioTrackDemuxer", ()),
 ]
 
 
@@ -1022,3 +1028,37 @@ def test_amr_and_g729_decoders_raise_where_the_jax_package_opens_libavcodec():
     assert telephony.AMR_MAGIC == jax_tel.AMR_MAGIC
     assert telephony._AMR_NB_FRAME_BYTES == jax_tel._AMR_NB_FRAME_BYTES
 
+
+def test_webm_adapter_is_a_copy_but_for_its_opus_decoder():
+    """``codecs/containers.WebmAdapter``: where the JAX package opens
+    ``AvDecoder("opus")`` on the track's OpusHead, the port builds the owned
+    ``_OpusCore`` from it (a stated departure, held in
+    ``tests/test_torch_container_decode.py``); the Vorbis route and the
+    rest are the JAX package's code."""
+    import inspect
+
+    from soundkit_tpu.codecs import containers as jax_containers
+    from soundkit_tpu_torch.codecs import containers as port_containers
+
+    port = inspect.getsource(port_containers.WebmAdapter)
+    for got, want in (
+            ("""            from soundkit_tpu_torch.codecs.opus import OpusHead, _OpusCore
+
+            try:
+                head = OpusHead.parse(tr.codec_private)
+            except ValueError as e:
+                raise DecodingFailed(f"WebM Opus track: {e}")
+            self._dec = _OpusCore(head)
+""", """            self._dec = AvDecoder("opus", extradata=tr.codec_private)
+"""),
+            ("""        outs = [self._dec.decode_packet_f32(p) for p in packets]
+        pcm = np.concatenate(outs) if outs else np.zeros(0, np.float32)
+        return _audio_i16(f32_to_i16(pcm), self._dec.sample_rate, self._dec.channels)""",
+             """        outs = [self._dec.push(p) for p in packets]
+        pcm = np.concatenate(outs) if outs else np.zeros(0, np.float32)
+        return _audio_i16(f32_to_i16(pcm), self._dec.rate, self._dec.channels)"""),
+            ("f32_to_i16(self._dec.flush_f32()), self._dec.sample_rate, self._dec.channels",
+             "f32_to_i16(self._dec.flush()), self._dec.rate, self._dec.channels")):
+        assert port.count(got) == 1, got
+        port = port.replace(got, want)
+    assert port == _as_port(inspect.getsource(jax_containers.WebmAdapter))

@@ -308,6 +308,45 @@ print("host codecs without jax")
 """
 
 
+_NO_JAX_CONTAINERS = _NO_JAX_DECODE.split("import numpy as np")[0] + r"""
+import numpy as np
+from soundkit_tpu_torch.core.audio_types import AudioData
+from soundkit_tpu_torch.models.fleet import StreamFleet
+from soundkit_tpu_torch.pipeline.decode_pipeline import DecodePipeline
+from soundkit_tpu_torch.simple import AudioTrackDemuxer
+from soundkit_tpu_torch.tools import container_fixtures as cf
+index = cf.load_index()
+for name in cf.CASES:
+    data, e = cf.build(name), index[name]
+    assert cf.sha256(data) == e["sha256_bytes"], name
+    if "events" in e:
+        for chunk in (188, 0):
+            events = cf.demux_events(AudioTrackDemuxer.new_auto(), data, chunk)
+            assert cf.events_digest(events) == e["events"], name
+    if name not in cf.DECODED:
+        continue
+    spawn = DecodePipeline.spawn_aac_latm if e["spawn"] == "latm" else DecodePipeline.spawn
+    h = spawn(device="cpu")
+    for i in range(0, len(data), 4096):
+        h.send_blocking(data[i:i + 4096])
+    h.send_blocking(b"")
+    outs = h.recv_all()
+    assert outs and all(isinstance(o, AudioData) for o in outs), (name, outs)
+    pcm = b"".join(o.data for o in outs)
+    if name in cf.REFERENCE_PCM:
+        a = np.frombuffer(pcm, "<i2").astype(np.int32)[:48000]
+        assert len(pcm) == e["pcm_bytes"] and np.abs(a - cf.reference_pcm(name)).max() <= 1, name
+    elif name != "webm_opus_hybrid":
+        assert (len(pcm), cf.sha256(pcm)) == (e["pcm_bytes"], e["sha256"]), name
+fleet = StreamFleet(1, device="cpu")
+fleet.push("m4a", cf.build("m4a_aac"))
+fleet.end_stream("m4a")
+assert fleet.collect()["m4a"].shape == (2, 40 * 1024)
+assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
+print("containers without jax")
+"""
+
+
 @pytest.mark.parametrize("script,said", [(_NO_JAX_DECODE, "decoded without jax"),
                                          (_NO_JAX_TELEPHONY, "telephony without jax"),
                                          (_NO_JAX_FLEET, "fleet without jax"),
@@ -317,7 +356,8 @@ print("host codecs without jax")
                                          (_NO_JAX_DSP, "dsp without jax"),
                                          (_NO_JAX_PIPELINE, "pipeline without jax"),
                                          (_NO_JAX_STREAMS, "streams without jax"),
-                                         (_NO_JAX_HOST_CODECS, "host codecs without jax")])
+                                         (_NO_JAX_HOST_CODECS, "host codecs without jax"),
+                                         (_NO_JAX_CONTAINERS, "containers without jax")])
 def test_port_runs_on_cpu_with_jax_blocked(script, said):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)

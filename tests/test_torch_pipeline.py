@@ -199,27 +199,34 @@ M4A = bytes(4) + b"ftypM4A " + bytes(20)
 
 
 def test_unported_formats_raise_unsupported_format():
-    """What the port still refuses: a detected M4A (its track is AAC) and
-    WebM, LOAS/LATM (not ported yet), AMR-NB and G.729 (libavcodec in the
-    JAX package). The host codecs' spawns decode since they were ported
-    (``test_host_codec_spawns_decode``)."""
+    """What the port still refuses: AMR-NB and G.729 (libavcodec in the
+    JAX package) raise at their spawns. A detected M4A and WebM, and the
+    LOAS/LATM and WebM spawns, decode since the containers were ported
+    (``tests/test_torch_container_decode.py``): a bare M4A header now meets
+    the MP4 walk's error, as in the JAX package, and detection and
+    ``new_with_format`` build the M4A and WebM adapters."""
     got = _drive(dp.StreamDecoder(device="cpu"), M4A, 4096)
-    assert _summary(got) == [("error", "UnsupportedFormat")]
-    assert "M4A" in str(got[0])
-    spawns = ["spawn_aac_latm", "spawn_amr_nb", "spawn_g729", "spawn_webm"]
-    for name in spawns:
+    want = _drive(jax_dp.StreamDecoder(), M4A, 4096)
+    assert _summary(got) == _summary(want) == [("error", "DecodingFailed")]
+    for name in ["spawn_amr_nb", "spawn_g729"]:
         assert hasattr(jax_dp.DecodePipeline, name)
         with pytest.raises(UnsupportedFormat):
             getattr(dp.DecodePipeline, name)(device="cpu")
+    from soundkit_tpu_torch.codecs.aac import AacLatmAdapter
+    from soundkit_tpu_torch.codecs.containers import M4aAdapter, WebmAdapter
     from soundkit_tpu_torch.demux.detect import AudioType
 
-    assert set(dp._NOT_PORTED) == {AudioType.M4A, AudioType.WEBM}
-    for audio_type in dp._NOT_PORTED:
-        with pytest.raises(UnsupportedFormat, match=dp._NOT_PORTED[audio_type]):
-            dp._init_decoder(audio_type, "cpu")
-    for fmt in ("m4a", "webm"):
-        with pytest.raises(UnsupportedFormat):
-            simple.MusicDecoder.new_with_format(fmt, device="cpu")
+    assert not hasattr(dp, "_NOT_PORTED")
+    for audio_type, cls in ((AudioType.M4A, M4aAdapter), (AudioType.WEBM, WebmAdapter)):
+        assert isinstance(dp._init_decoder(audio_type, "cpu"), cls)
+    for name, cls in (("spawn_aac_latm", AacLatmAdapter), ("spawn_webm", WebmAdapter)):
+        h = getattr(dp.DecodePipeline, name)(device="cpu")
+        assert isinstance(h._core._decoder, cls) and h._core.device.type == "cpu"
+        h.send(b"")
+        assert h.recv_all() == []
+    for fmt, cls in (("m4a", M4aAdapter), ("webm", WebmAdapter)):
+        dec = simple.MusicDecoder.new_with_format(fmt, device="cpu")
+        assert isinstance(dec._core._decoder, cls)
 
 
 @pytest.mark.parametrize("spawn,clip", [

@@ -13,6 +13,7 @@ generators live here, on the test side; regenerate from the repository's root wi
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py opus
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py vorbis
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py host_codecs
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py containers
 """
 from __future__ import annotations
 
@@ -26,9 +27,9 @@ from typing import Dict, List
 import numpy as np
 
 from soundkit_tpu_torch.models.telephony_batch import CODECS
-from soundkit_tpu_torch.tools import (aac_fixtures, flac_fixtures, host_codec_fixtures,
-                                      mp3_fixtures, opus_fixtures, telephony_fixtures,
-                                      vorbis_fixtures)
+from soundkit_tpu_torch.tools import (aac_fixtures, container_fixtures, flac_fixtures,
+                                      host_codec_fixtures, mp3_fixtures, opus_fixtures,
+                                      telephony_fixtures, vorbis_fixtures)
 
 SR_INDEX_48K = 3
 # AUs per clip that cover long, short (EIGHT_SHORT) and TNS frames
@@ -1021,9 +1022,91 @@ def generate_host_codec_fixtures(directory: Path = host_codec_fixtures.FIXTURE_D
     (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
 
 
+def jax_owned_aac_i16(asc: bytes, aus: List[bytes]) -> bytes:
+    """The JAX package's owned decode of raw access units
+    (``simple.AacLcStreamDecoder``), converted to int16 as the ADTS path
+    converts (float32, then ``f32_to_i16``): little-endian bytes."""
+    from soundkit_tpu.codecs.avdec import f32_to_i16
+    from soundkit_tpu.simple import AacLcStreamDecoder
+
+    dec = AacLcStreamDecoder(asc)
+    return b"".join(f32_to_i16(dec.decode_interleaved(au).astype(np.float32)).astype("<i2").tobytes()
+                    for au in aus)
+
+
+def jax_owned_opus_i16(head: bytes, packets: List[bytes]) -> bytes:
+    """The JAX package's owned Opus decode (``codecs/opus._OpusCore`` with
+    the OpusHead: pre-skip and gain) of ``packets``, int16 bytes."""
+    from soundkit_tpu.codecs.avdec import f32_to_i16
+    from soundkit_tpu.codecs.opus import OpusHead, _OpusCore
+
+    core = _OpusCore(OpusHead.parse(head))
+    return b"".join(f32_to_i16(core.decode_packet_f32(p)).astype("<i2").tobytes() for p in packets)
+
+
+def jax_container_pcm(name: str) -> bytes:
+    """The JAX package's decode of a decodable container case: its owned
+    AAC-LC (M4A, LATM) and Opus decoders on the case's units, its
+    ``WebmAdapter`` (through ``StreamDecoder``) for WebM Vorbis."""
+    cf = container_fixtures
+    config, units = cf.units(name)
+    if name in cf.M4A or name in cf.LATM:
+        return jax_owned_aac_i16(config, units)
+    if name == "webm_vorbis":
+        from soundkit_tpu.core.audio_types import AudioData
+        from soundkit_tpu.pipeline.decode_pipeline import StreamDecoder
+
+        dec = StreamDecoder()
+        outs = dec.process(cf.build(name)) + dec.process(b"")
+        assert all(isinstance(o, AudioData) for o in outs), outs
+        return b"".join(o.data for o in outs)
+    return jax_owned_opus_i16(config, units)
+
+
+def jax_track_events(data: bytes, chunk: int = 0) -> list:
+    from soundkit_tpu.demux.audio_demux import AudioTrackDemuxer
+
+    return container_fixtures.demux_events(AudioTrackDemuxer.new_auto(), data, chunk)
+
+
+def generate_container_index(directory: Path = container_fixtures.FIXTURE_DIR) -> None:
+    """Build every container case (``tools/container_fixtures.py``), decode
+    the decodable ones with the JAX package's owned decoders, demux the
+    MP4, WebM and MPEG-TS ones with its ``AudioTrackDemuxer``, and write
+    the index and the reference PCM of ``webm_opus_silk``'s first second."""
+    cf = container_fixtures
+    directory.mkdir(parents=True, exist_ok=True)
+    index, ref_pcm = {}, {}
+    for name in cf.CASES:
+        data = cf.build(name)
+        e = dict(bytes=len(data), sha256_bytes=cf.sha256(data),
+                 spawn="demux" if name in cf.TS else "latm" if name in cf.LATM else "detect")
+        if name in cf.DECODED:
+            config, units = cf.units(name)
+            pcm = jax_container_pcm(name)
+            if name in cf.M4A or name in cf.LATM:
+                info = cf._asc_info(config)
+                rate, channels = info.sample_rate, info.channels
+            elif name == "webm_vorbis":
+                rate, channels = 44100, 2
+            else:
+                rate, channels = 48000, config[9]
+            e.update(rate=rate, channels=channels, units=len(units),
+                     seconds=len(pcm) // 2 // channels / rate, pcm_bytes=len(pcm),
+                     sha256=cf.sha256(pcm))
+            if name in cf.REFERENCE_PCM:
+                ref_pcm[name] = np.frombuffer(pcm, "<i2")[:rate * channels]
+        if name not in cf.LATM:
+            e["events"] = cf.events_digest(jax_track_events(data))
+        index[name] = e
+    np.savez_compressed(directory / "reference_pcm.npz", **ref_pcm)
+    (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
+
+
 if __name__ == "__main__":
     {"aac": generate_aac_fixtures, "telephony": generate_telephony_fixtures,
      "flac": generate_flac_fixtures, "mp3": generate_mp3_fixtures,
      "opus": generate_opus_fixtures, "silk_resampler": generate_silk_resampler_table,
      "vorbis": generate_vorbis_fixtures,
-     "host_codecs": generate_host_codec_fixtures}[sys.argv[1]]()
+     "host_codecs": generate_host_codec_fixtures,
+     "containers": generate_container_index}[sys.argv[1]]()
