@@ -39,7 +39,10 @@ through ``soundkit_tpu_torch.tools.transcode``, the device pitch shift
 the serving runtime ``soundkit_tpu_torch.models.fleet.StreamFleet``
 over the six decoders (1024 lanes a group), and the streaming decode
 pipeline ``soundkit_tpu_torch.pipeline.decode_pipeline.DecodePipeline``
-(one stream at a time, K3, K6, K7 and K10 on one lane). Phases:
+(one stream at a time, K3, K6, K7 and K10 on one lane), and the encode
+direction: the owned Opus and FLAC encoders on the host, their streams
+decoded by a ``StreamFleet`` on the card, and soundkit's v2 frame stream
+(``simple.SoundKitFrameDecoder``). Phases:
 
 a. build the CUDA kernels (one ``nvcc`` a source, all started together),
    the host parser, the FLAC walk, the MP3 parser, the Opus parse (CELT,
@@ -358,11 +361,31 @@ gg. containers: ``simple.AudioTrackDemuxer`` over the MP4, WebM and
    held to the index's hash), fed in 188-byte pushes and whole: its
    events equal the JAX package's as the index records them; one
    ``[containers]`` line a case and a summary line;
-hh. print the kernels' JSON line (all seventeen kernels, K2 with no
+hh. encode: 8 seeded 4 s stereo 48 kHz clips (``encode_clip``) through
+   the port's encoders on the host (``simple.OpusEncoder``, CELT 64
+   kbit/s stereo, native; ``encoders.OpusEncoder(mode="voice")``, SILK WB
+   mono, native; ``simple.FlacEncoder``, 16-bit stereo, level 5; one 1 s
+   hybrid FB clip, Python SILK), each encoder's x realtime on the host
+   clock; the native and Python CELT and SILK encoders equal on 10
+   frames; the packets muxed by ``OggOpusWriter``, the FLAC frames behind
+   ``fLaC`` + STREAMINFO; 1024 FLAC and 1024 Ogg Opus streams (512 CELT,
+   384 SILK, 128 hybrid; each clip repeated across its lanes) through one
+   ``StreamFleet(capacity_per_group=1024)`` on the card in four ragged
+   pushes: every FLAC lane equal to its source samples, every Opus lane
+   bit-identical to the other lanes of its clip and, over its clip's first
+   25 packets, within 100 dB (CELT) / 90 dB (SILK, hybrid) of a fleet on
+   the CPU; each Opus clip's SNR against its source; K8 / K9 / K11 / K12
+   launched; one ``[encode]`` line a clip and a summary line;
+ii. frames: one clip's Opus packets as v2 frames (``encode_frame``, CRC
+   on) through ``simple.SoundKitFrameDecoder`` in 313-byte pushes, the
+   payloads equal to the packets; where the ``cryptography`` package is
+   installed, encrypted frames (fixed nonces, a decimal key) and each
+   packet through an ACE1 seal / open too, else a line that says so;
+jj. print the kernels' JSON line (all seventeen kernels, K2 with no
    launch: it is not on a path; K3, K6, K7 and K10 with their
    ``pipeline_launches`` and ``fleet_fallback_launches``, K3 also with
-   ``pipeline_aifc_launches``, K6 and K7 with ``stream_encoder_launches``),
-   then the result line.
+   ``pipeline_aifc_launches``, K6 and K7 with ``stream_encoder_launches``,
+   K8, K9, K11 and K12 with ``encode_launches``), then the result line.
 
 Any failed phase exits non-zero before the result line. Without a
 CUDA device, or outside a checkout of the repository, it exits 1
@@ -3927,6 +3950,392 @@ def phase_containers() -> dict:
     return dict(cases=res, **summary)
 
 
+# ---------------------------------------------------------------------------
+# the encode direction and the SoundKit frame format
+# ---------------------------------------------------------------------------
+
+ENC_CLIPS = 8             # distinct seeded stereo clips
+ENC_SECONDS = 4.0         # a clip, at 48 kHz
+ENC_HYBRID_SECONDS = 1.0  # the one hybrid FB clip (its encoder is Python)
+ENC_PY_FRAMES = 10        # frames the native and Python encoders are held equal on
+ENC_PUSHES = 4            # ragged pushes of the [encode] fleet, a collect after each
+ENC_CPU_PACKETS = 25      # a clip's first packets, decoded on the CPU for the compare (0.5 s)
+ENC_OPUS_MIX = (("celt", 512), ("silk", 384), ("hybrid", 128))  # Ogg Opus lanes by encoder
+FRAMES_CHUNK = 313        # bytes a push of the [frames] decoder
+
+
+def encode_clip(k: int, seconds: float = ENC_SECONDS):
+    """Clip ``k``: [n, 2] float64 at 48 kHz in [-1, 1], made from seed
+    ``k``: a melody of harmonic notes (a new pitch every 250 ms, vibrato),
+    a bass line, breath noise and decaying clicks, the right channel its
+    own mix of the same parts."""
+    import numpy as np
+
+    rng = np.random.default_rng(1000 + k)
+    n = int(RATE * seconds)
+    t = np.arange(n) / RATE
+    note = rng.integers(48, 84, int(np.ceil(seconds * 4)) + 1)
+    f0 = 440.0 * 2 ** ((note[(t * 4).astype(int)] - 69) / 12.0) * (1 + 0.004 * np.sin(2 * np.pi * 5.5 * t))
+    phase = 2 * np.pi * np.cumsum(f0) / RATE
+    melody = sum(np.sin(h * phase) / h ** 1.3 for h in range(1, 9))
+    env = 0.6 + 0.4 * np.cos(2 * np.pi * 4 * t) ** 2
+    bass = np.sin(2 * np.pi * (55.0 * 2 ** (rng.integers(0, 12) / 12.0)) * t)
+    clicks = np.zeros(n)
+    for pos in rng.integers(0, n - 2000, 6):
+        clicks[pos:pos + 2000] += np.sin(0.35 * np.arange(2000)) * np.exp(-np.arange(2000) / 250.0)
+    noise = rng.standard_normal(n)
+    left = 0.22 * melody * env + 0.20 * bass + 0.15 * clicks + 0.01 * noise
+    right = 0.16 * melody * env + 0.25 * bass + 0.10 * np.roll(clicks, 37) + 0.01 * rng.standard_normal(n)
+    return np.clip(np.stack([left, right], axis=1), -0.95, 0.95)
+
+
+def _i16(x):
+    import numpy as np
+
+    return np.clip(np.rint(x * 32767.0), -32768, 32767).astype(np.int16)
+
+
+def _best_lag_snr_db(src, out, max_lag: int = 1200) -> float:
+    """SNR of ``out`` against ``src`` ([n, C] each) at the lag (0..max_lag
+    samples of delay) and the gain that fit best, the first channel."""
+    import numpy as np
+
+    a = np.asarray(src[:, 0], np.float64)
+    b = np.asarray(out[:, 0], np.float64)
+    n = min(len(a), len(b)) - max_lag
+    corr = np.correlate(b[:n + max_lag], a[:n], mode="valid")[:max_lag + 1]
+    lag = int(np.argmax(corr))
+    bb = b[lag:lag + n]
+    g = float(np.dot(a[:n], bb)) / max(float(np.dot(bb, bb)), 1e-30)
+    err = a[:n] - g * bb
+    return float(10 * np.log10(np.sum(a[:n] ** 2) / max(np.sum(err ** 2), 1e-30)))
+
+
+def encode_streams(seconds: float = ENC_SECONDS, n_clips: int = ENC_CLIPS,
+                   hybrid_seconds: float = ENC_HYBRID_SECONDS):
+    """Every [encode] clip through the port's encoders on the host: Ogg
+    Opus CELT (``simple.OpusEncoder``, 64 kbit/s stereo, native), SILK WB
+    mono (``encoders.OpusEncoder(mode="voice")``, native, the left
+    channel), hybrid FB stereo (one clip of ``hybrid_seconds``, Python
+    SILK) and FLAC (``simple.FlacEncoder``, 16-bit stereo, level 5,
+    wrapped as ``fLaC`` + STREAMINFO + frames). Returns (streams, timings):
+    streams[kind] is a list of dicts (data, source PCM, packets), timings
+    each encoder's audio and host seconds."""
+    import numpy as np
+
+    from soundkit_tpu_torch import simple
+    from soundkit_tpu_torch.codecs import encoders
+    from soundkit_tpu_torch.demux.ogg import OggOpusWriter
+
+    clips = [encode_clip(k, seconds) for k in range(n_clips)]
+    streams = {"celt": [], "silk": [], "hybrid": [], "flac": []}
+    timing = {k: dict(audio_s=0.0, host_s=0.0) for k in streams}
+
+    def ogg(packets, channels):
+        w = OggOpusWriter(channels=channels)
+        for p in packets:
+            w.write_packet(p)
+        return w.close()
+
+    for x in clips:
+        pcm = _i16(x)
+        # CELT: simple.OpusEncoder takes one frame a call (the reference's contract)
+        t0 = time.perf_counter()
+        enc = simple.OpusEncoder(48000, 2, 64000)
+        fs = enc.frame_size
+        inter = pcm.reshape(-1)
+        packets = []
+        for i in range(0, len(pcm) - fs + 1, fs):
+            packets += enc.encode_interleaved_i16(inter[2 * i: 2 * (i + fs)])
+        packets += enc.flush()
+        timing["celt"]["host_s"] += time.perf_counter() - t0
+        timing["celt"]["audio_s"] += len(pcm) / RATE
+        streams["celt"].append(dict(data=ogg(packets, 2), source=pcm, packets=packets))
+        # SILK WB mono
+        t0 = time.perf_counter()
+        enc = encoders.OpusEncoder(48000, 1, 32000, mode="voice")
+        check(enc.backend == "owned-silk" and enc._own._native is not None,
+              "[encode] the SILK route is not the native owned encoder")
+        packets = enc.encode_i16_packets(pcm[:, 0]) + enc.flush_packets()
+        timing["silk"]["host_s"] += time.perf_counter() - t0
+        timing["silk"]["audio_s"] += len(pcm) / RATE
+        streams["silk"].append(dict(data=ogg(packets, 1), source=pcm[:, :1], packets=packets))
+        # FLAC 16-bit stereo, level 5
+        t0 = time.perf_counter()
+        enc = simple.FlacEncoder(48000, 2, bits_per_sample=16, compression_level=5)
+        planar = np.ascontiguousarray(x.T.astype(np.float32)).reshape(-1)
+        frames = enc.encode_planar_f32(planar, len(pcm)) + enc.flush()
+        head = b"fLaC" + bytes([0x80, 0, 0, 34]) + enc._enc.streaminfo
+        timing["flac"]["host_s"] += time.perf_counter() - t0
+        timing["flac"]["audio_s"] += len(pcm) / RATE
+        # the FLAC source: the encoder's own int conversion of the planar floats
+        src = np.clip(np.rint(planar.astype(np.float64) * 32768.0), -32768, 32767)
+        streams["flac"].append(dict(data=head + frames, source=src.reshape(2, -1).T.astype(np.int16),
+                                    packets=None))
+    x = clips[0][: int(RATE * hybrid_seconds)]
+    pcm = _i16(x)
+    t0 = time.perf_counter()
+    enc = encoders.OpusEncoder(48000, 2, 64000, mode="voice", voice_bandwidth="fb")
+    check(enc.backend == "owned-hybrid", "[encode] the hybrid route is not the owned encoder")
+    packets = enc.encode_i16_packets(pcm.reshape(-1)) + enc.flush_packets()
+    timing["hybrid"]["host_s"] += time.perf_counter() - t0
+    timing["hybrid"]["audio_s"] += len(pcm) / RATE
+    streams["hybrid"].append(dict(data=ogg(packets, 2), source=pcm, packets=packets))
+    return streams, timing, clips
+
+
+def encode_backends_agree(clip) -> dict:
+    """The native and the Python (``native=False``) CELT and SILK encoders
+    on the first ENC_PY_FRAMES frames of ``clip``: the same bytes (the
+    JAX package's own contract, ``tests/test_opus_encoder.py:352``)."""
+    from soundkit_tpu_torch.codecs.opus_celt_enc import OVERLAP, OpusCeltEncoder
+    from soundkit_tpu_torch.codecs.opus_silk_enc import OpusSilkEncoder
+
+    res = {}
+    head = clip[: ENC_PY_FRAMES * 960 + OVERLAP]
+    for name, make, x in (("celt", lambda nat: OpusCeltEncoder(2, 64000, native=nat), head),
+                          ("silk", lambda nat: OpusSilkEncoder("wb", 32000, 1, native=nat),
+                           head[: ENC_PY_FRAMES * 960, :1])):
+        got = {}
+        for nat in (True, False):
+            enc = make(nat)
+            check((enc._native is not None) == nat, f"[encode] {name} native={nat} took the other path")
+            t0 = time.perf_counter()
+            got[nat] = enc.push(x)
+            got[f"s{nat}"] = time.perf_counter() - t0
+        check(len(got[True]) == ENC_PY_FRAMES and got[True] == got[False],
+              f"[encode] {name}: native and Python packets differ ({len(got[True])} / "
+              f"{len(got[False])} packets)")
+        res[name] = dict(frames=ENC_PY_FRAMES, bytes=sum(map(len, got[True])),
+                         native_ms_per_frame=1e3 * got["sTrue"] / ENC_PY_FRAMES,
+                         python_ms_per_frame=1e3 * got["sFalse"] / ENC_PY_FRAMES)
+    return res
+
+
+def encode_lanes(streams, lanes: int = B):
+    """{sid: (kind, clip index)}: ``lanes`` FLAC streams (clip j mod 8) and
+    ``lanes`` Ogg Opus streams in ENC_OPUS_MIX's shares (each clip repeated
+    across its kind's lanes)."""
+    out = {f"flac-{j}": ("flac", j % len(streams["flac"])) for j in range(lanes)}
+    j = 0
+    total = sum(share for _, share in ENC_OPUS_MIX)
+    for kind, share in ENC_OPUS_MIX:
+        for i in range(share * lanes // total):
+            out[f"{kind}-{j}"] = (kind, i % len(streams[kind]))
+            j += 1
+    return out
+
+
+def drive_encode_fleet(fleet, streams, lanes, collect) -> tuple:
+    """Push every stream of ``lanes`` in ENC_PUSHES ragged rounds (stream
+    j's cut points move with j; every fifth (stream, round) pushes nothing
+    new), ``collect`` after each round; each stream ends with its last
+    push. Returns (push seconds, collect seconds)."""
+    pos = dict.fromkeys(lanes, 0)
+    push_s = collect_s = 0.0
+    for r in range(ENC_PUSHES):
+        t0 = time.perf_counter()
+        for k, (sid, (kind, c)) in enumerate(lanes.items()):
+            data = streams[kind][c]["data"]
+            last = r == ENC_PUSHES - 1
+            if not last and (k + r) % 5 == 0:
+                continue
+            share = 1.0 if last else (r + 1) / ENC_PUSHES * (0.6 + 0.4 * ((k * 7919) % 101) / 100)
+            end = len(data) if last else max(int(len(data) * share), pos[sid])
+            fleet.push(sid, data[pos[sid]:end])
+            pos[sid] = end
+            if last:
+                fleet.end_stream(sid)
+        t1 = time.perf_counter()
+        collect()
+        t2 = time.perf_counter()
+        push_s += t1 - t0
+        collect_s += t2 - t1
+    check(all(pos[sid] == len(streams[k][c]["data"]) for sid, (k, c) in lanes.items()),
+          "[encode] a stream was not pushed whole")
+    return push_s, collect_s
+
+
+def phase_encode(lanes: int = B, device: str = "cuda", seconds: float = ENC_SECONDS,
+                 hybrid_seconds: float = ENC_HYBRID_SECONDS) -> dict:
+    """Encode on the host with the port's encoders, then decode on the card
+    through one ``StreamFleet``: every FLAC lane equal to its source,
+    every Opus lane bit-identical to the other lanes of its clip and
+    within the bars of ``tests/test_torch_fleet.py`` of the port's CPU
+    decode of the same streams (CELT 100 dB, SILK and hybrid 90 dB),
+    K8 / K9 / K11 / K12 launched by the fleet's lanes."""
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.models.fleet import StreamFleet
+
+    t_phase = time.perf_counter()
+    streams, timing, clips = encode_streams(seconds, hybrid_seconds=hybrid_seconds)
+    enc = {k: dict(v, xrealtime=v["audio_s"] / v["host_s"]) for k, v in timing.items()}
+    log(f"[encode] encoders (host clock): {json.dumps(enc)}")
+    agree = encode_backends_agree(clips[0])
+    log(f"[encode] native = Python: {json.dumps(agree)}")
+
+    plan = encode_lanes(streams, lanes)
+    wrappers = {**flac_wrappers(), **voice_wrappers()}
+    fleet = StreamFleet(capacity_per_group=lanes, device=device)
+    got = {}
+
+    def collect():
+        recs = fleet.collect(device_out=True)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        for sid, rec in recs.items():
+            want = "flac" if plan[sid][0] == "flac" else "opus"
+            check(rec.kind == want, f"[encode] {sid}: a {rec.kind} output, not {want}")
+            pcm = rec.fetch()
+            if pcm is not None:
+                got.setdefault(sid, []).append(pcm)
+
+    for w in wrappers.values():
+        w.launches = 0
+    push_s, collect_s = drive_encode_fleet(fleet, streams, plan, collect)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    for n, c in launches.items():
+        check(c > 0, f"[encode] {n} was not launched by the fleet")
+    check(not fleet._lanes and not fleet._fallback and not fleet._pending_out,
+          "[encode] streams left in the fleet or on its host fallback")
+
+    t_check = time.perf_counter()
+    pcm = {sid: np.concatenate(parts, axis=1) for sid, parts in got.items()}
+    check(sorted(pcm) == sorted(plan), f"[encode] {len(plan) - len(pcm)} streams returned nothing")
+    for sid, (kind, c) in plan.items():
+        if kind != "flac":
+            continue
+        src = streams["flac"][c]["source"]
+        check(pcm[sid].shape == (2, len(src)) and np.array_equal(pcm[sid] * 32768.0, src.T),
+              f"[encode] {sid}: the FLAC lane's PCM {pcm[sid].shape} differs from its source")
+    first = {}
+    for sid, (kind, c) in plan.items():
+        if kind == "flac":
+            continue
+        ref = first.setdefault((kind, c), sid)
+        check(np.array_equal(pcm[sid], pcm[ref]),
+              f"[encode] {sid}: not bit-identical to {ref}, a lane of the same clip")
+
+    # the port's CPU decode of each clip's first ENC_CPU_PACKETS packets (an Ogg stream
+    # of them), through a fleet on the CPU: a lane's first samples are theirs alone
+    from soundkit_tpu_torch.demux.ogg import OggOpusWriter
+
+    cpu_ids = sorted(first, key=lambda kc: first[kc])
+    cpu = StreamFleet(capacity_per_group=len(cpu_ids), device="cpu")
+    t0 = time.perf_counter()
+    for kind, c in cpu_ids:
+        w = OggOpusWriter(channels=1 if kind == "silk" else 2)
+        for pkt in streams[kind][c]["packets"][:ENC_CPU_PACKETS]:
+            w.write_packet(pkt)
+        cpu.push(f"{kind}-{c}", w.close())
+        cpu.end_stream(f"{kind}-{c}")
+    cref = cpu.collect()
+    cpu_s = time.perf_counter() - t0
+    snrs = {}
+    for kind, c in cpu_ids:
+        g, w = pcm[first[(kind, c)]], cref[f"{kind}-{c}"]
+        check(g.dtype == w.dtype and g.shape[0] == w.shape[0]
+              and w.shape[1] >= ENC_CPU_PACKETS * 960 - 24 and g.shape[1] >= w.shape[1],
+              f"[encode] {kind}-{c}: {g.shape} on the card, {w.shape} on the CPU")
+        g = g[:, :w.shape[1]]
+        bar = 100.0 if kind == "celt" else 90.0
+        s_cpu = float(10 * np.log10(np.sum(w.astype(np.float64) ** 2)
+                                    / max(np.sum((g.astype(np.float64) - w) ** 2), 1e-300)))
+        check(s_cpu >= bar, f"[encode] {kind}-{c}: {s_cpu:.2f} dB against the CPU decode (bar {bar})")
+        src = streams[kind][c]["source"].astype(np.float64) / 32768.0
+        s_src = _best_lag_snr_db(src, g.T)
+        check(np.isfinite(s_src) and np.any(g), f"[encode] {kind}-{c}: silent or non-finite")
+        snrs[f"{kind}-{c}"] = dict(vs_cpu_db=min(s_cpu, 999.0), vs_source_db=s_src)
+    audio = {k: sum(streams[kind][c]["source"].shape[0] for sid, (kind, c) in plan.items()
+                    if (kind == "flac") == (k == "flac")) / RATE for k in ("flac", "opus")}
+    res = dict(
+        encoders=enc, native_python=agree, streams=len(plan),
+        flac_streams=sum(k == "flac" for k, _ in plan.values()),
+        opus_streams={kind: sum(k == kind for k, _ in plan.values()) for kind, _ in ENC_OPUS_MIX},
+        audio_s=audio, push_s=push_s, collect_and_fetch_s=collect_s,
+        fleet_xrealtime=sum(audio.values()) / (push_s + collect_s),
+        launches=launches, check_s=time.perf_counter() - t_check, cpu_decode_s=cpu_s,
+        min_opus_snr_vs_cpu_db=min(v["vs_cpu_db"] for v in snrs.values()),
+        phase_s=time.perf_counter() - t_phase)
+    for name, v in snrs.items():
+        log(f"[encode] {name}: {json.dumps(v)}")
+    log(f"[encode] {json.dumps(res)}")
+    res["snr_db"] = snrs
+    res["_packets"] = streams["celt"][0]["packets"]
+    return res
+
+
+def phase_frames(packets) -> dict:
+    """One clip's Opus packets as v2 frames (``encode_frame``, CRC on)
+    through ``simple.SoundKitFrameDecoder`` in FRAMES_CHUNK-byte pushes:
+    the payloads equal the packets. Where the ``cryptography`` package is
+    installed, encrypted frames (fixed nonces) and the ACE1 seal / open of
+    every packet too."""
+    import importlib.util
+
+    from soundkit_tpu_torch import simple
+    from soundkit_tpu_torch.core.audio_types import EncodingFlag
+    from soundkit_tpu_torch.core.frame_header import FLAG_ENCRYPTED, FrameHeaderV2
+    from soundkit_tpu_torch.core.frame_stream import encode_frame
+
+    t_phase = time.perf_counter()
+
+    def frames_of(payloads, flags=0):
+        return b"".join(encode_frame(FrameHeaderV2(EncodingFlag.OPUS, len(p), 960, 48000, 2, 16,
+                                                   id=i, bitrate=64000)
+                                     .with_packet_flags(flags).with_packet_crc32(p), p)
+                        for i, p in enumerate(payloads))
+
+    def decode(dec, wire):
+        out = []
+        for i in range(0, len(wire), FRAMES_CHUNK):
+            out += dec.push(wire[i:i + FRAMES_CHUNK])
+        check(dec.flush() == [], "[frames] the decoder's flush returned frames")
+        return out
+
+    t0 = time.perf_counter()
+    wire = frames_of(packets)
+    frames = decode(simple.SoundKitFrameDecoder(), wire)
+    plain_s = time.perf_counter() - t0
+    check([f.payload for f in frames] == packets and [f.header.id for f in frames] == list(
+        range(len(packets))) and not any(f.encrypted for f in frames),
+        "[frames] the payloads differ from the packets")
+    res = dict(frames=len(frames), bytes=len(wire), chunk=FRAMES_CHUNK, plain_s=plain_s,
+               cryptography=importlib.util.find_spec("cryptography") is not None)
+    if res["cryptography"]:
+        from soundkit_tpu_torch.core.audio_content_crypto import AudioGroupMetadata
+        from soundkit_tpu_torch.core.crypto import ChaCha20Poly1305PacketCipher
+
+        key = "83843157117408337365446905028299378179116700186920144823595584430653437972238"
+        cipher = ChaCha20Poly1305PacketCipher.new_from_decimal_key(key)
+        t0 = time.perf_counter()
+        sealed = [cipher.encrypt_nonce_prefixed(i.to_bytes(12, "big"), p, b"")
+                  for i, p in enumerate(packets)]
+        frames = decode(simple.SoundKitFrameDecoder(decimal_key=key),
+                        frames_of(sealed, FLAG_ENCRYPTED))
+        res["encrypted_s"] = time.perf_counter() - t0
+        check([f.payload for f in frames] == packets and all(f.encrypted for f in frames)
+              and [f.encrypted_payload_size for f in frames] == [len(s) for s in sealed],
+              "[frames] the decrypted payloads differ from the packets")
+        t0 = time.perf_counter()
+        ace = simple.AudioContentCipher(bytes(range(1, 33)))
+        for i, p in enumerate(packets):
+            aad = AudioGroupMetadata(b"smoke", 1, 1, 7, 960 * i, 48000, 960, 1, 0, 0, 0, 2, 1, 2,
+                                     0).associated_data()
+            env = ace.seal(7, (i + 1).to_bytes(12, "little"), p, aad)
+            check(env[:4] == b"ACE1" and ace.open(7, env, aad) == p,
+                  f"[frames] ACE1 packet {i} does not open to itself")
+        res["ace1_s"] = time.perf_counter() - t0
+    else:
+        log("[frames] the cryptography package is not installed: encrypted frames and ACE1 "
+            "not run")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[frames] {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     if not (ROOT / "soundkit_tpu_torch").is_dir() or not (ROOT / "tests" / "data" / "torch_port").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -4029,6 +4438,10 @@ def main() -> int:
         pres = phase_pipeline(card)
         phase = "containers"
         cnres = phase_containers()
+        phase = "encode"
+        enres = phase_encode()
+        phase = "frames"
+        frres = phase_frames(enres.pop("_packets"))
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
@@ -4130,6 +4543,10 @@ def main() -> int:
         k["fleet_launches"] = flres["mixed"]["lane_launches"].get(k["name"], 0)
         if k["name"] in flres["mixed"]["fallback_launches"]:
             k["fleet_fallback_launches"] = flres["mixed"]["fallback_launches"][k["name"]]
+    # the [encode] fleet's launches: FLAC lanes (K8, K9), Opus lanes (K11, K12)
+    for k in kernels:
+        if k["name"] in enres["launches"]:
+            k["encode_launches"] = enres["launches"][k["name"]]
     # DecodePipeline only decodes; the encoders that built its telephony
     # streams are counted apart
     pipe_by_row = {"g711_decode": ("g711_decode", None),
@@ -4153,6 +4570,7 @@ def main() -> int:
                     "flac_enc": eres, "flac_enc_compare": ecres,
                     "transcode": trres, "stretch": stres,
                     "fleet": flres, "pipeline": pres, "containers": cnres,
+                    "encode": enres, "frames": frres,
                     "wall_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

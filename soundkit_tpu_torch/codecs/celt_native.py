@@ -10,10 +10,12 @@ The spec tables are pushed from the port's copy of the RFC 6716 set
 does. Bound here: :class:`NativeCeltParser` (one stream's parse state,
 with the single-frame ``parse`` of the host decoder's CELT fast path,
 ``codecs/opus._NativeCeltStream``) and :class:`NativeCeltBatch` with
-``reset_lane`` and the serving walk ``parse_rounds``. The batch parses
-``parse_many`` and ``parse_many_q``, the hybrid continuation
-``parse_many_cont`` and the encoder ``NativeCeltEncoder`` of the JAX
-package are not bound yet.
+``reset_lane`` and the serving walk ``parse_rounds``, and the encoder
+:class:`NativeCeltEncoder` (``skt_celt_enc_frame``, a verbatim copy of the
+JAX package's class) that ``codecs/opus_celt_enc.OpusCeltEncoder`` range-codes
+its frames with. The batch parses ``parse_many`` and ``parse_many_q`` and
+the hybrid continuation ``parse_many_cont`` of the JAX package are not
+bound yet.
 """
 from __future__ import annotations
 
@@ -159,3 +161,40 @@ class NativeCeltBatch:
         freq = np.zeros((R_alloc, B, C, W), dtype=np.float32)
         self._lib.skt_celt_parse_rounds(*common, freq, comb, sflag, ok)
         return freq, None, comb, sflag, ok
+
+
+class NativeCeltEncoder:
+    """One stream's CELT encode state (mirrors CeltEncoder
+    encode_frame via native/src/celt_parse.cpp skt_celt_enc_frame)."""
+
+    def __init__(self, channels: int):
+        self._lib = _lib()
+        self.channels = channels
+        self._h = self._lib.skt_celt_new(channels)
+        if not self._h:
+            raise CeltNativeError("skt_celt_new failed")
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.skt_celt_free(self._h)
+            self._h = None
+
+    def reset(self) -> None:
+        self._lib.skt_celt_reset(self._h)
+
+    def encode_frame(self, freq: np.ndarray, frame_size: int,
+                     nbytes: int, transient: bool = False) -> bytes:
+        """``freq``: [C, frame_size] forward-MDCT spectra (the caller
+        runs the dense MDCT matmul through BLAS, batched over frames;
+        bin-interleaved short blocks when ``transient``) -> the nbytes
+        CBR range-coded payload (no TOC)."""
+        freq = np.ascontiguousarray(freq, dtype=np.float64)
+        out = np.zeros(nbytes, dtype=np.uint8)
+        r = self._lib.skt_celt_enc_frame(
+            self._h,
+            freq.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            frame_size, nbytes, 1 if transient else 0,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)))
+        if r != nbytes:
+            raise CeltNativeError(f"celt encode failed ({r})")
+        return out.tobytes()

@@ -14,9 +14,11 @@ stream's SILK state: ``__init__``, ``__del__``, ``flush`` and the
 single-stream ``decode_superframe`` of the host decoder,
 ``codecs/opus_core.OpusDecoder``) and :class:`NativeSilkBatch` with
 ``reset_lane``, the per-round parse-export ``parse_many`` and the packed
-hybrid walk ``hybrid_parse_rounds_packed``. The batch ``decode_many``,
-the unpacked ``hybrid_parse_rounds`` and ``NativeSilkEncoder`` are not
-bound yet.
+hybrid walk ``hybrid_parse_rounds_packed``, and
+:class:`NativeSilkEncoder` (the ``skt_silk_enc_*`` frame encoders, mono
+and stereo) that ``codecs/opus_silk_enc.OpusSilkEncoder`` codes its frames
+with. The batch ``decode_many`` and the unpacked ``hybrid_parse_rounds``
+are not bound yet.
 """
 from __future__ import annotations
 
@@ -241,3 +243,85 @@ class NativeSilkBatch:
             d(r["ltpscale"]), d(r["stereo_w"]), i(r["lags"]),
             i(r["flags"]), l(r["n"]), l(r["info"]))
         return r
+
+
+class NativeSilkEncoder:
+    """Native SILK frame encoder (mono or stereo), byte-identical to
+    the Python SilkEncoder / SilkStereoEncoder (differential-pinned in
+    tests/test_silk_native.py).  One 20 ms frame per call at the
+    internal rate; the 48 kHz packetizer (decimation + VBR rate loop +
+    TOC) stays in codecs/opus_silk_enc.OpusSilkEncoder."""
+
+    def __init__(self, bandwidth: int, channels: int = 1) -> None:
+        self._lib = _lib()
+        lib = self._lib
+        if not hasattr(lib, "_skt_silk_enc_ready"):
+            lib.skt_silk_enc_new.restype = ctypes.c_void_p
+            lib.skt_silk_enc_new.argtypes = [ctypes.c_int]
+            lib.skt_silk_enc_free.argtypes = [ctypes.c_void_p]
+            lib.skt_silk_enc_reset.argtypes = [ctypes.c_void_p]
+            lib.skt_silk_enc_frame.restype = ctypes.c_long
+            lib.skt_silk_enc_frame.argtypes = [
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_double),
+                ctypes.c_double, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_ubyte), ctypes.c_long]
+            lib.skt_silk_enc_stereo_new.restype = ctypes.c_void_p
+            lib.skt_silk_enc_stereo_new.argtypes = [ctypes.c_int]
+            lib.skt_silk_enc_stereo_free.argtypes = [ctypes.c_void_p]
+            lib.skt_silk_enc_stereo_reset.argtypes = [ctypes.c_void_p]
+            lib.skt_silk_enc_stereo_frame.restype = ctypes.c_long
+            lib.skt_silk_enc_stereo_frame.argtypes = [
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_double),
+                ctypes.POINTER(ctypes.c_double), ctypes.c_double,
+                ctypes.c_int, ctypes.POINTER(ctypes.c_ubyte),
+                ctypes.c_long]
+            lib._skt_silk_enc_ready = True
+        self.channels = channels
+        self.bandwidth = bandwidth
+        self.flength = 20 * (bandwidth + 2) * 4
+        if channels == 1:
+            self._h = lib.skt_silk_enc_new(bandwidth)
+            self._stereo = False
+        else:
+            self._h = lib.skt_silk_enc_stereo_new(bandwidth)
+            self._stereo = True
+        if not self._h:
+            raise SilkNativeError("silk encoder create failed")
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            if self._stereo:
+                self._lib.skt_silk_enc_stereo_free(self._h)
+            else:
+                self._lib.skt_silk_enc_free(self._h)
+            self._h = None
+
+    def reset(self) -> None:
+        if self._stereo:
+            self._lib.skt_silk_enc_stereo_reset(self._h)
+        else:
+            self._lib.skt_silk_enc_reset(self._h)
+
+    def encode_frame(self, frame: np.ndarray, target_pulse: float,
+                     seed0: int = 0) -> bytes:
+        """frame: [flength, channels] float at the internal rate ->
+        the finalized SILK payload (no TOC byte)."""
+        out = np.zeros(1275, dtype=np.uint8)
+        op = out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte))
+        if self._stereo:
+            xl = np.ascontiguousarray(frame[:, 0], dtype=np.float64)
+            xr = np.ascontiguousarray(frame[:, 1], dtype=np.float64)
+            n = self._lib.skt_silk_enc_stereo_frame(
+                self._h,
+                xl.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                xr.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                target_pulse, seed0, op, 1275)
+        else:
+            x = np.ascontiguousarray(frame[:, 0], dtype=np.float64)
+            n = self._lib.skt_silk_enc_frame(
+                self._h,
+                x.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                target_pulse, seed0, op, 1275)
+        if n < 0:
+            raise SilkNativeError("silk encode failed")
+        return bytes(out[:n])

@@ -3,8 +3,8 @@
 ``demux/ogg.py``, copied verbatim (chunk-boundary-agnostic page sync,
 segment-table packet assembly with 255-lacing continuation across
 pages), and the page writer ``build_ogg_page`` with its CRC, which the
-smoke and the fixture tools build Ogg streams with. The Opus stream
-writer ``OggOpusWriter`` is not ported.
+smoke and the fixture tools build Ogg streams with, and the Opus stream
+writer ``OggOpusWriter`` over it, also verbatim.
 """
 from __future__ import annotations
 
@@ -144,3 +144,102 @@ def build_ogg_page(packets, serial: int, seq: int, granule: int,
     page = bytearray(hdr + bytes(body))
     page[22:26] = struct.pack("<I", _ogg_crc(bytes(page)))
     return bytes(page)
+
+
+def _packet_samples_48k(packet: bytes) -> int:
+    """48 kHz sample count of one Opus packet from its TOC byte."""
+    from soundkit_tpu_torch.codecs.opus_core import parse_packet
+
+    if not packet:
+        return 0
+    toc, frames = parse_packet(packet)
+    return int(toc.frame_duration * 48) * max(len(frames), 1)
+
+
+class OggOpusWriter:
+    """Mux Opus packets into an Ogg-Opus stream (RFC 7845): OpusHead
+    BOS page, OpusTags page, then one packet per page with 48 kHz
+    granule positions and an EOS flag at close.
+
+    The encode-direction sibling of OggOpusDemuxer — pair with the
+    owned encoder (codecs/opus_celt_enc.OpusCeltEncoder) for a fully
+    owned .opus-file pipeline.  No reference analog exists (its
+    encoders emit raw packets only)."""
+
+    def __init__(self, channels: int, pre_skip: int = 0,
+                 input_sample_rate: int = 48000, output_gain: int = 0,
+                 serial: int = 0x534B5401, vendor: bytes = b"soundkit-tpu"):
+        import struct
+
+        self._serial = serial
+        self._seq = 0
+        self._granule = 0
+        self._pending: list = []
+        self._closed = False
+        head = (b"OpusHead" + bytes([1, channels])
+                + struct.pack("<H", pre_skip)
+                + struct.pack("<I", input_sample_rate)
+                + struct.pack("<h", output_gain) + b"\x00")
+        tags = (b"OpusTags" + struct.pack("<I", len(vendor)) + vendor
+                + struct.pack("<I", 0))
+        self._out = bytearray()
+        self._out += build_ogg_page([head], serial, self._next_seq(), 0,
+                                    header_type=2)  # BOS
+        self._out += build_ogg_page([tags], serial, self._next_seq(), 0)
+
+    def _next_seq(self) -> int:
+        s = self._seq
+        self._seq += 1
+        return s
+
+    def write_packet(self, packet: bytes,
+                     samples_48k: int = 0) -> None:
+        """Append one Opus packet.  The granule advances by the
+        packet's own 48 kHz sample count, derived from its TOC byte
+        (frame duration x frame count) unless ``samples_48k``
+        overrides it."""
+        if self._closed:
+            raise ValueError("writer is closed")
+        packet = bytes(packet)
+        if samples_48k <= 0:
+            samples_48k = _packet_samples_48k(packet)
+        self._pending.append((packet, samples_48k))
+
+    def take(self) -> bytes:
+        """Drain the muxed bytes produced so far (streamable)."""
+        for pkt, n in self._pending:
+            self._granule += n
+            self._out += build_ogg_page([pkt], self._serial,
+                                        self._next_seq(), self._granule)
+        self._pending = []
+        out = bytes(self._out)
+        self._out = bytearray()
+        return out
+
+    def close(self) -> bytes:
+        """Flush with the EOS flag on the final page."""
+        if self._closed:
+            return b""
+        self._closed = True
+        if self._pending:
+            *head_pkts, last = self._pending
+            for pkt, n in head_pkts:
+                self._granule += n
+                self._out += build_ogg_page([pkt], self._serial,
+                                            self._next_seq(),
+                                            self._granule)
+            pkt, n = last
+            self._granule += n
+            self._out += build_ogg_page([pkt], self._serial,
+                                        self._next_seq(), self._granule,
+                                        header_type=4)  # EOS
+            self._pending = []
+        else:
+            # packet-free EOS page (zero segments): a zero-length
+            # "packet" would reach the Opus layer and is invalid
+            self._out += build_ogg_page([], self._serial,
+                                        self._next_seq(), self._granule,
+                                        header_type=4)
+        out = bytes(self._out)
+        self._out = bytearray()
+        return out

@@ -30,9 +30,11 @@ the table pushes of both codecs, a handle per stream and codec
 ``reset``), the single-stream parses of the host decoder (one CELT frame,
 ``skt_celt_parse``; one SILK superframe, ``skt_silk_decode``), the CELT serving walk over a collect's rounds on the float32
 and the int16 wire (``skt_celt_parse_rounds`` / ``_q``), the SILK
-parse-export of one round (``skt_silk_parse_many``) and the hybrid walk
+parse-export of one round (``skt_silk_parse_many``), the hybrid walk
 of a chunk of rounds into its packed wire
-(``skt_hybrid_parse_rounds_packed``).
+(``skt_hybrid_parse_rounds_packed``) and the CELT frame encoder
+(``skt_celt_enc_frame``); the SILK frame encoders (``skt_silk_enc_*``) are
+typed by ``codecs/silk_native.NativeSilkEncoder``, as in the JAX package.
 
 :func:`vorbis_library` is the port's copy of ``native_src/src/vorbis_parse.cpp``
 with its ten entry points, as ``codecs/vorbis_native.py`` calls them: a
@@ -242,6 +244,9 @@ def opus_library() -> ctypes.CDLL:
     lib.skt_celt_parse_rounds.argtypes = [*walk, f32, f32, i32, i32]  # freq, comb, sflag, ok
     lib.skt_celt_parse_rounds_q.restype = c_int
     lib.skt_celt_parse_rounds_q.argtypes = [*walk, arr(np.int16), f32, f32, i32, i32]  # + scales
+    lib.skt_celt_enc_frame.restype = c_long
+    lib.skt_celt_enc_frame.argtypes = [  # handle, freq, frame size, bytes, transient, out
+        vp, ctypes.POINTER(ctypes.c_double), c_int, c_int, c_int, ctypes.POINTER(ctypes.c_ubyte)]
     # the SILK and hybrid entries take ctypes pointers (``a.ctypes.data_as``),
     # as the JAX package's ``codecs/silk_native.py`` passes them
     P = ctypes.POINTER

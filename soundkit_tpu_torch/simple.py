@@ -22,8 +22,18 @@ exceptions, 8 KiB/64 KiB detection window:
   ``AudioTrackConfig`` and ``AudioTrackPacket`` events, container only
   (``demux/audio_demux.py``; a LATM track parsed down to raw AUs).
 
-The frame-stream decoder, the encoders and the content ciphers of the
-JAX package's module are not in the port yet.
+- ``SoundKitFrameDecoder``: v2 frame stream -> payloads (with optional
+  decrypt, ``core/frame_stream.py``).
+- ``FlacEncoder``: planar f32 -> FLAC frame bytes; ``OpusEncoder``:
+  interleaved i16 -> raw Opus packets (``codecs/encoders.py``, the owned
+  encoders, on the host).
+- ``AudioContentCipher``: ACE1 envelope seal / open;
+  ``AudioContentKeyUnwrapper``: the content-key envelope open / seal.
+
+The module imports without the ``cryptography`` package: only a
+``SoundKitFrameDecoder`` given a ``decimal_key``, ``AudioContentCipher`` and
+``AudioContentKeyUnwrapper`` reach it (``core/crypto.py``), and raise an
+``ImportError`` that names it where it is missing.
 """
 from __future__ import annotations
 
@@ -33,6 +43,12 @@ from typing import List, Optional
 import numpy as np
 
 from soundkit_tpu_torch.core.audio_types import AudioData
+from soundkit_tpu_torch.core.crypto import ChaCha20Poly1305PacketCipher
+from soundkit_tpu_torch.core.frame_stream import (
+    SoundKitFrame,
+    SoundKitFrameStream,
+    SoundKitFrameStreamOptions,
+)
 from soundkit_tpu_torch.demux.detect import AudioType
 from soundkit_tpu_torch.pipeline.decode_pipeline import StreamDecoder, _init_decoder
 from soundkit_tpu_torch.pipeline.output_options import DecodeError, DecodeOptions
@@ -258,6 +274,165 @@ class AudioTrackDemuxer:
 
     def flush(self) -> list:
         return self._core.flush()
+
+
+class FlacEncoder:
+    """WasmFlacEncoder mirror (lib.rs:763-818): planar f32 frames ->
+    FLAC frame bytes (encode_planar_f32 semantics incl. the i32
+    conversion at the declared bit depth)."""
+
+    def __init__(self, sample_rate: int, channels: int,
+                 bits_per_sample: int = 16, frame_size: int = 0,
+                 compression_level: int = 5):
+        from soundkit_tpu_torch.codecs import encoders
+
+        self._args = (sample_rate, bits_per_sample, channels, frame_size,
+                      compression_level)
+        self._enc = encoders.FlacEncoder(*self._args)
+        self.channels = channels
+        self.bits_per_sample = bits_per_sample
+
+    def encode_planar_f32(self, planar: np.ndarray,
+                          frames_per_channel: int) -> bytes:
+        """``planar``: channel-major [C * frames] f32 in [-1, 1]."""
+        c, n = self.channels, int(frames_per_channel)
+        planar = np.asarray(planar, np.float32)
+        if planar.size < c * n:
+            raise ValueError(
+                f"planar input too short: need {c * n} samples, got {planar.size}"
+            )
+        chans = planar[: c * n].reshape(c, n)
+        scale = float(1 << (self.bits_per_sample - 1))
+        inter = np.clip(
+            np.rint(chans.T.reshape(-1).astype(np.float64) * scale),
+            -scale, scale - 1,
+        ).astype(np.int64)
+        return self._enc.encode_i32(inter)
+
+    def flush(self) -> bytes:
+        return self._enc.flush()
+
+    def reset(self) -> None:
+        from soundkit_tpu_torch.codecs import encoders
+
+        self._enc = encoders.FlacEncoder(*self._args)
+
+
+class OpusEncoder:
+    """WasmOpusEncoder mirror (lib.rs:827-869): interleaved i16 in,
+    raw Opus packets out.  ``frame_size`` follows the underlying
+    encoder (exposed as an attribute like the reference's constructor
+    parameter); short final frames are the caller's to zero-pad, as in
+    the reference contract."""
+
+    def __init__(self, sample_rate: int = 48000, channels: int = 2,
+                 bitrate: int = 64000, frame_size: int = 0):
+        from soundkit_tpu_torch.codecs import encoders
+
+        self._args = (sample_rate, channels, bitrate)
+        self._enc = encoders.OpusEncoder(*self._args)
+        self.frame_size = self._enc.frame_size
+        self.channels = channels
+
+    def encode_interleaved_i16(self, interleaved: np.ndarray) -> List[bytes]:
+        required = self.frame_size * self.channels
+        samples = np.asarray(interleaved, np.int16)
+        if samples.size < required:
+            raise ValueError(
+                f"opus encode input too short: need {required} samples, "
+                f"got {samples.size}"
+            )
+        return self._enc.encode_i16_packets(samples[:required])
+
+    def flush(self) -> List[bytes]:
+        return self._enc.flush_packets()
+
+    def reset(self) -> None:
+        from soundkit_tpu_torch.codecs import encoders
+
+        self._enc = encoders.OpusEncoder(*self._args)
+
+
+class AudioContentCipher:
+    """WasmAudioContentCipher mirror (lib.rs:61-99): ACE1 envelope
+    seal/open with key-epoch binding and canonical AAD."""
+
+    def __init__(self, key: bytes):
+        from soundkit_tpu_torch.core.audio_content_crypto import (
+            AudioContentCipher as _Core,
+        )
+
+        self._core = _Core(bytes(key))
+
+    def seal(self, key_epoch: int, nonce: bytes, plaintext: bytes,
+             authenticated_data: bytes = b"") -> bytes:
+        return self._core.seal(key_epoch, bytes(nonce), bytes(plaintext),
+                               bytes(authenticated_data))
+
+    def open(self, expected_key_epoch: int, envelope: bytes,
+             authenticated_data: bytes = b"") -> bytes:
+        return self._core.open(expected_key_epoch, bytes(envelope),
+                               bytes(authenticated_data))
+
+
+class SoundKitFrameDecoder:
+    """WasmSoundKitFrameDecoder mirror: v2 frames -> payloads."""
+
+    def __init__(self, decimal_key: Optional[str] = None):
+        cipher = (
+            ChaCha20Poly1305PacketCipher.new_from_decimal_key(decimal_key)
+            if decimal_key
+            else None
+        )
+        self._stream = SoundKitFrameStream(SoundKitFrameStreamOptions(cipher=cipher))
+
+    def push(self, data: bytes) -> List[SoundKitFrame]:
+        return self._stream.push(data)
+
+    def flush(self) -> List[SoundKitFrame]:
+        self._stream.finish()
+        return []
+
+
+class AudioContentKeyUnwrapper:
+    """WasmAudioContentKeyUnwrapper mirror (lib.rs:106-163): opens and
+    seals the endpoint-specific envelope that transports a 32-byte
+    audio content key under a P-256 ECDH + HKDF-SHA256 wrapping key
+    (the wrapping-key derivation happens outside this surface; the
+    caller supplies the canonical key-exchange context as AAD)."""
+
+    NONCE_LEN = 12
+    KEY_LEN = 32
+    SEALED_LEN = 48  # 32-byte key + 16-byte Poly1305 tag
+
+    def __init__(self, key: bytes):
+        key = bytes(key)
+        if len(key) != self.KEY_LEN or not any(key):
+            raise ValueError("invalid audio content wrapping key")
+        self._cipher = ChaCha20Poly1305PacketCipher(key)
+
+    def open(self, nonce: bytes, ciphertext: bytes,
+             authenticated_data: bytes = b"") -> bytes:
+        nonce, ciphertext = bytes(nonce), bytes(ciphertext)
+        if len(nonce) != self.NONCE_LEN or len(ciphertext) != self.SEALED_LEN:
+            raise ValueError("invalid audio content key envelope")
+        plaintext = self._cipher.decrypt_nonce_prefixed(
+            nonce + ciphertext, bytes(authenticated_data)
+        )
+        if len(plaintext) != self.KEY_LEN or not any(plaintext):
+            raise ValueError("invalid audio content key")
+        return plaintext
+
+    def seal(self, nonce: bytes, plaintext: bytes,
+             authenticated_data: bytes = b"") -> bytes:
+        nonce, plaintext = bytes(nonce), bytes(plaintext)
+        if (len(nonce) != self.NONCE_LEN or len(plaintext) != self.KEY_LEN
+                or not any(plaintext)):
+            raise ValueError("invalid audio content key")
+        packet = self._cipher.encrypt_nonce_prefixed(
+            nonce, plaintext, bytes(authenticated_data)
+        )
+        return packet[self.NONCE_LEN:]  # ciphertext only, as the reference
 
 
 @dataclass

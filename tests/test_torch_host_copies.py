@@ -1062,3 +1062,185 @@ def test_webm_adapter_is_a_copy_but_for_its_opus_decoder():
         assert port.count(got) == 1, got
         port = port.replace(got, want)
     assert port == _as_port(inspect.getsource(jax_containers.WebmAdapter))
+
+
+# ---------------------------------------------------------------------------
+# the encode direction and the SoundKit frame format
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("module", ["core/frame_header.py", "core/frame_stream.py",
+                                    "core/audio_packet.py", "core/audio_content_crypto.py",
+                                    "codecs/opus_enc_rc.py", "codecs/opus_hybrid_enc.py"])
+def test_encode_and_frame_modules_are_verbatim_copies(module):
+    port = (REPO / "soundkit_tpu_torch" / module).read_text()
+    assert port == _as_port((REPO / "soundkit_tpu" / module).read_text())
+
+
+def test_crypto_is_a_copy_but_for_its_lazy_import():
+    """``core/crypto.py`` imports ``cryptography`` where a cipher is made
+    (``_aead_class``, which names the package when it is missing) and where
+    it decrypts, not at the module's top."""
+    port = (REPO / "soundkit_tpu_torch/core/crypto.py").read_text()
+    ref = (REPO / "soundkit_tpu/core/crypto.py").read_text()
+    port = _without_docstring_note(port, """
+
+Port: the ``cryptography`` package is imported where a cipher is made or
+used, not when the module loads, so the error types, the constants and
+``key_from_decimal`` (and the modules above them: the frame stream, the
+simple API) import without it; a cipher made without it raises an
+``ImportError`` that names the package. The rest is the JAX package's
+code.""")
+    for got, want in (
+            ("from __future__ import annotations\n\nKEY_BYTES",
+             "from __future__ import annotations\n\nfrom cryptography.exceptions import InvalidTag\n"
+             "from cryptography.hazmat.primitives.ciphers.aead import ChaCha20Poly1305\n\n"
+             "KEY_BYTES"),
+            ('''def _aead_class():
+    try:
+        from cryptography.hazmat.primitives.ciphers.aead import ChaCha20Poly1305
+    except ImportError as e:
+        raise ImportError("ChaCha20-Poly1305 needs the 'cryptography' package, which is not "
+                          f"installed ({e})") from e
+    return ChaCha20Poly1305
+
+
+''', ""),
+            ("self._aead = _aead_class()(bytes(key))", "self._aead = ChaCha20Poly1305(bytes(key))"),
+            ("        from cryptography.exceptions import InvalidTag\n\n", "")):
+        assert port.count(got) == 1, got
+        port = port.replace(got, want)
+    assert port == ref
+
+
+def test_opus_celt_enc_is_a_copy_but_for_its_native_fallback():
+    port = (REPO / "soundkit_tpu_torch/codecs/opus_celt_enc.py").read_text()
+    ref = _as_port((REPO / "soundkit_tpu/codecs/opus_celt_enc.py").read_text())
+    port = _without_docstring_note(port, """
+
+Port: ``OpusCeltEncoder(native=True)`` loads the port's build of
+``native_src/src/celt_parse.cpp`` (``codecs/celt_native.NativeCeltEncoder``)
+and raises when it cannot, where the JAX package falls back to the Python
+encoder; ``native=False`` chooses the Python encoder. The rest is the JAX
+package's code.""")
+    got = '''        # encode backend: the C++ port (native_src/src/celt_parse.cpp
+        # skt_celt_enc_frame, byte-identical to the Python encoder and
+        # ~100x faster); a library that fails to build or load raises
+        self._native = None
+        if native:
+            from soundkit_tpu_torch.codecs.celt_native import (
+                NativeCeltEncoder,
+            )
+
+            self._native = NativeCeltEncoder(channels)
+'''
+    want = '''        # encode backend: the C++ port (native/src/celt_parse.cpp
+        # skt_celt_enc_frame, byte-identical to the Python encoder and
+        # ~100x faster) when the toolchain is present
+        self._native = None
+        if native:
+            try:
+                from soundkit_tpu_torch.codecs.celt_native import (
+                    NativeCeltEncoder,
+                )
+
+                self._native = NativeCeltEncoder(channels)
+            except Exception:
+                self._native = None
+'''
+    assert port.count(got) == 1
+    assert port.replace(got, want) == ref
+
+
+def test_opus_silk_enc_is_a_copy_but_for_its_native_choice():
+    port = (REPO / "soundkit_tpu_torch/codecs/opus_silk_enc.py").read_text()
+    ref = _as_port((REPO / "soundkit_tpu/codecs/opus_silk_enc.py").read_text())
+    port = _without_docstring_note(port, """
+
+Port: ``OpusSilkEncoder`` takes ``native`` (default True), as
+``OpusCeltEncoder`` does: True loads the port's build of
+``native_src/src/silk_parse.cpp`` (``codecs/silk_native.NativeSilkEncoder``)
+and raises when it cannot, where the JAX package falls back to the Python
+encoder; False chooses the Python encoder. The rest is the JAX package's
+code.""")
+    for got, want in (
+            ("                 channels: int = 1, native: bool = True):",
+             "                 channels: int = 1):"),
+            ('''        # native frame encoder (byte-identical C++ port); a library
+        # that fails to build or load raises
+        self._native = None
+        if native:
+            from soundkit_tpu_torch.codecs.silk_native import NativeSilkEncoder
+            self._native = NativeSilkEncoder(bw, channels)
+''', '''        # native frame encoder (byte-identical C++ port); falls back
+        # to the Python encoder when the library is unavailable
+        self._native = None
+        try:
+            from soundkit_tpu_torch.codecs.silk_native import NativeSilkEncoder
+            self._native = NativeSilkEncoder(bw, channels)
+        except Exception:
+            self._native = None
+''')):
+        assert port.count(got) == 1, got
+        port = port.replace(got, want)
+    assert port == ref
+
+
+def test_encoders_is_a_copy_but_for_its_libavcodec_encoder():
+    """``codecs/encoders.py``: ``AvEncoder`` raises ``EncodeError`` at
+    construction (and so ``AacEncoder``, ``Mp3Encoder`` and ``OpusEncoder``'s
+    libopus route, whose code is the JAX package's); no native loader."""
+    import inspect
+
+    from soundkit_tpu.codecs import encoders as jax_encoders
+    from soundkit_tpu_torch.codecs import encoders
+
+    port = (REPO / "soundkit_tpu_torch/codecs/encoders.py").read_text()
+    ref = _as_port((REPO / "soundkit_tpu/codecs/encoders.py").read_text())
+    port = _without_docstring_note(port, """
+
+Port: the libavcodec encoder ``AvEncoder`` raises ``EncodeError`` at
+construction (the port builds no libavcodec), and with it ``AacEncoder``,
+``Mp3Encoder`` and ``OpusEncoder``'s libopus route (another rate than
+48 kHz, or ``backend="libopus"``). The owned encoders (``FlacEncoder``,
+``OpusEncoder``'s CELT, SILK and hybrid routes) and ``AudioEncoder`` are
+the JAX package's code.""")
+    port = port.replace(inspect.getsource(encoders.AvEncoder), inspect.getsource(jax_encoders.AvEncoder))
+    port = port.replace("import struct\n", "import ctypes\nimport struct\n", 1)
+    port = port.replace("from soundkit_tpu_torch.core.wav import WavStreamProcessor\n",
+                        "from soundkit_tpu_torch.core.wav import WavStreamProcessor\n"
+                        "from soundkit_tpu_torch.native.loader import load\n")
+    assert port == ref
+    assert "raise EncodeError" in inspect.getsource(encoders.AvEncoder.__init__)
+    assert not hasattr(encoders, "ctypes") and not hasattr(encoders, "load")
+
+
+ENCODE_COPIES = [
+    ("codecs.celt_native", "NativeCeltEncoder"),
+    ("codecs.silk_native", "NativeSilkEncoder"),
+    ("demux.ogg", "_packet_samples_48k"),
+    ("demux.ogg", "OggOpusWriter"),
+    ("simple", "FlacEncoder"),
+    ("simple", "OpusEncoder"),
+    ("simple", "AudioContentCipher"),
+    ("simple", "SoundKitFrameDecoder"),
+    ("simple", "AudioContentKeyUnwrapper"),
+]
+
+
+@pytest.mark.parametrize("module,name", ENCODE_COPIES)
+def test_encode_pieces_are_verbatim_copies(module, name):
+    import importlib
+
+    port = getattr(importlib.import_module(f"soundkit_tpu_torch.{module}"), name)
+    ref = getattr(importlib.import_module(f"soundkit_tpu.{module}"), name)
+    assert _source(port) == _as_port(_source(ref))
+
+
+def test_celt_encoder_binding_types_the_jax_packages_signature():
+    """``native.opus_library`` types ``skt_celt_enc_frame`` as the JAX
+    package's ``codecs/celt_native._lib`` does."""
+    from soundkit_tpu.codecs import celt_native as jax_celt
+    from soundkit_tpu_torch.native import opus_library
+
+    port, ref = opus_library().skt_celt_enc_frame, jax_celt._lib().skt_celt_enc_frame
+    assert port.restype == ref.restype and list(port.argtypes) == list(ref.argtypes)

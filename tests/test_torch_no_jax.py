@@ -347,6 +347,53 @@ print("containers without jax")
 """
 
 
+_NO_JAX_ENCODE = r"""
+import importlib.abc, sys
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name in ("jax", "soundkit_tpu", "cryptography") or name.startswith(
+                ("jax.", "jaxlib", "soundkit_tpu.", "cryptography.")):
+            raise ImportError(f"{name} is blocked")
+sys.meta_path.insert(0, _Block())
+import numpy as np
+from soundkit_tpu_torch import simple
+from soundkit_tpu_torch.codecs import encoders, opus_celt_enc, opus_silk_enc
+from soundkit_tpu_torch.core import audio_content_crypto, audio_packet, crypto, frame_header
+from soundkit_tpu_torch.core.audio_types import EncodingFlag
+from soundkit_tpu_torch.core.frame_stream import encode_frame
+from soundkit_tpu_torch.demux.ogg import OggOpusWriter
+t = np.arange(9600)
+x = 0.3 * np.sin(0.03 * t)
+pkts = opus_celt_enc.OpusCeltEncoder(2, 64000).push(np.stack([x, x], 1))
+assert len(pkts) == 9 and opus_celt_enc.OpusCeltEncoder(1, 64000)._native is not None
+voice = opus_silk_enc.OpusSilkEncoder("wb", 24000, 1)
+assert voice._native is not None and len(voice.push(x[:, None])) == 10
+flac = simple.FlacEncoder(48000, 2).encode_planar_f32(np.concatenate([x, x]).astype(np.float32), 9600)
+assert flac[:2] == b"\xff\xf8"
+w = OggOpusWriter(2)
+for p in pkts:
+    w.write_packet(p)
+assert w.close()[:4] == b"OggS"
+wire = b"".join(encode_frame(frame_header.FrameHeaderV2(EncodingFlag.OPUS, len(p), 960, 48000, 2, 0)
+                             .with_packet_crc32(p), p) for p in pkts)
+dec = simple.SoundKitFrameDecoder()
+assert [f.payload for f in dec.push(wire)] == pkts and dec.flush() == []
+assert len(crypto.key_from_decimal("12345")) == 32
+for make in (lambda: crypto.ChaCha20Poly1305PacketCipher(bytes(range(32))),
+             lambda: simple.SoundKitFrameDecoder("12345"),
+             lambda: simple.AudioContentCipher(bytes(range(32))),
+             lambda: simple.AudioContentKeyUnwrapper(bytes(range(1, 33)))):
+    try:
+        make()
+        raise AssertionError("a cipher was made without cryptography")
+    except ImportError as e:
+        assert "'cryptography' package" in str(e), e
+assert not any(k in ("jax", "soundkit_tpu", "cryptography")
+               or k.startswith(("jax.", "soundkit_tpu.", "cryptography.")) for k in sys.modules)
+print("encoders without jax or cryptography")
+"""
+
+
 @pytest.mark.parametrize("script,said", [(_NO_JAX_DECODE, "decoded without jax"),
                                          (_NO_JAX_TELEPHONY, "telephony without jax"),
                                          (_NO_JAX_FLEET, "fleet without jax"),
@@ -357,7 +404,8 @@ print("containers without jax")
                                          (_NO_JAX_PIPELINE, "pipeline without jax"),
                                          (_NO_JAX_STREAMS, "streams without jax"),
                                          (_NO_JAX_HOST_CODECS, "host codecs without jax"),
-                                         (_NO_JAX_CONTAINERS, "containers without jax")])
+                                         (_NO_JAX_CONTAINERS, "containers without jax"),
+                                         (_NO_JAX_ENCODE, "encoders without jax or cryptography")])
 def test_port_runs_on_cpu_with_jax_blocked(script, said):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)

@@ -67,6 +67,20 @@ def snr_db(got, ref) -> float:
     return float(10 * np.log10(np.sum(ref**2) / max(err, 1e-300)))
 
 
+class OpusPacketEncoder:
+    """``encode_i16`` of an audio packet (``core/audio_packet.py``,
+    ``codecs/encoders.AudioEncoder``) over either package's ``encoders``
+    module ``mod``: every packet of a fresh owned 48 kHz Opus encoder over
+    the samples, flushed, joined."""
+
+    def __init__(self, mod, channels: int = 2):
+        self._mod, self._channels = mod, channels
+
+    def encode_i16(self, samples):
+        enc = self._mod.OpusEncoder(48000, self._channels, 64000)
+        return b"".join(enc.encode_i16_packets(samples) + enc.flush_packets())
+
+
 def lane_snrs(got, ref, lane_axis: int) -> np.ndarray:
     """SNR per lane; lanes whose reference is silent must match exactly
     and report +inf."""
