@@ -4335,6 +4335,328 @@ def phase_frames(packets) -> dict:
     log(f"[frames] {json.dumps(res)}")
     return res
 
+# ---------------------------------------------------------------------------
+# the host Opus models, the batch walks and the two repairs
+# ---------------------------------------------------------------------------
+
+LEFT_SILK_ROUNDS = 8       # rounds of the host / device SILK check
+# the host / device SILK floor: the JAX package's own pair of decoders reads
+# 93.93 dB on the worst 8-round window of the WB clip (an LPC of high gain;
+# 95 dB on its corpus clip), the port's 93.94, on the CPU
+# (tests/test_torch_opus_host_models.py); 0.5 dB under the reference's
+LEFT_SILK_FLOOR_DB = 93.4
+LEFT_OPUS_LANES = 16       # BatchedOpusDecoder lanes a kind (CELT, SILK, hybrid)
+LEFT_OPUS_PACKETS = 12     # packets a BatchedOpusDecoder lane carries
+LEFT_AAC_PARTS = ((3, 4), (3, 6), (6, 6))  # the idle lane: (frames pushed, batches decoded)
+LEFT_HYBRID_STREAMS = 16   # hybrid Ogg Opus streams through the fleet
+LEFT_HYBRID_PACKETS = 20
+LEFT_HYBRID_GAIN_Q8 = -768  # their OpusHeads' output gain (-3 dB); pre-skip 312
+LEFT_FLAC_CLIP = "stereo16"
+LEFT_FLAC_STRIDE = 4096
+
+
+def leftover_wrappers():
+    from soundkit_tpu_torch.ops import aac_batch as ab
+    from soundkit_tpu_torch.ops import aac_entropy as ae
+    from soundkit_tpu_torch.ops import celt_postfilter, flac_lpc, flac_rice, imdct, silk_synth
+
+    return {"imdct_window": imdct.imdct_window, "spectral_decode": ae.spectral_decode,
+            "tns_filter": ab.tns_filter, "flac_rice_plane": flac_rice.flac_rice_plane,
+            "flac_frame": flac_lpc.flac_frame, "celt_postfilter": celt_postfilter.celt_postfilter,
+            "silk_synth": silk_synth.silk_synth}
+
+
+def _clip_frames(clip, start: int, n: int):
+    """Packets ``start`` to ``start + n`` of an Opus clip split by their TOC:
+    [(frame, TOC bandwidth, coded channels)]."""
+    from soundkit_tpu_torch.codecs.opus_core import TOC_ATTRS
+
+    out = []
+    for pkt in clip.packets[start: start + n]:
+        _, _, stereo, bw, code = TOC_ATTRS[pkt[0]]
+        check(code == 0, f"{clip.name}: a packet of code {code}")
+        out.append((pkt[1:], bw, 2 if stereo else 1))
+    return out
+
+
+def _masked_lane_snr(got, ref, lengths, start_aligned: bool):
+    """Per-lane SNR in dB of ``got`` against ``ref`` ([rounds, lanes, C,
+    960]) over each slot's valid samples; inf where they are equal."""
+    import numpy as np
+
+    F = got.shape[-1]
+    pos = np.arange(F)
+    valid = (pos[None, None] < lengths[..., None]) if start_aligned else \
+        (pos[None, None] >= F - lengths[..., None])
+    m = valid[:, :, None, :]
+    sig = ((ref.astype(np.float64) ** 2) * m).sum(axis=(0, 2, 3))
+    err = (((got.astype(np.float64) - ref) ** 2) * m).sum(axis=(0, 2, 3))
+    with np.errstate(divide="ignore"):
+        return 10 * np.log10(sig / err)
+
+
+def leftovers_silk(lanes: int, device) -> dict:
+    """The host ``BatchedSilkDecoder`` (native synthesis, numpy resampler)
+    against the device ``BatchedSilkDeviceDecoder`` on ``lanes`` WB lanes
+    of the ``[silk]`` clip for LEFT_SILK_ROUNDS rounds, lane i from packet
+    7 i (mod the windows), pre-skip taken: lengths identical, every lane at
+    LEFT_SILK_FLOOR_DB or better; the lanes under 95 dB are counted."""
+    import numpy as np
+
+    from soundkit_tpu_torch.models.opus_batch import BatchedSilkDecoder, BatchedSilkDeviceDecoder
+    from soundkit_tpu_torch.tools import opus_fixtures as of
+
+    clip = of.load_clips(names=("silk_wb",))[0]
+    n = len(clip.packets) - LEFT_SILK_ROUNDS
+    host, dev = BatchedSilkDecoder(lanes, 1), BatchedSilkDeviceDecoder(lanes, 1, device=device)
+    for i in range(lanes):
+        for m in (host, dev):
+            m.configure_lane(i, clip.pre_skip, clip.output_gain)
+            for frame, bw, coded in _clip_frames(clip, (7 * i) % n, LEFT_SILK_ROUNDS):
+                m.push_packet(i, frame, bw, coded)
+    t0 = time.perf_counter()
+    hp, hl = host.decode_ready()
+    t1 = time.perf_counter()
+    dp, dl = dev.decode_ready(device_out=True)
+    dp = dp.cpu().numpy()
+    t2 = time.perf_counter()
+    check(np.array_equal(hl, dl), "[leftovers] SILK: host and device lengths differ")
+    check(hl.shape == (LEFT_SILK_ROUNDS, lanes) and hl[0].min() == 960 - clip.pre_skip,
+          f"[leftovers] SILK: lengths {hl.shape}, first slot {hl[0].min()}")
+    snr = _masked_lane_snr(dp, hp, hl, start_aligned=False)
+    worst = float(snr.min())
+    check(worst >= LEFT_SILK_FLOOR_DB,
+          f"[leftovers] SILK: a lane at {worst:.2f} dB host against device")
+    audio_s = float(hl.sum()) / RATE
+    return dict(lanes=lanes, rounds=LEFT_SILK_ROUNDS, min_lane_snr_db=worst,
+                lanes_under_95_db=int((snr <= 95.0).sum()),
+                median_lane_snr_db=float(np.median(snr)),
+                host_s=t1 - t0, device_s=t2 - t1, audio_s=audio_s,
+                host_xrealtime=audio_s / (t1 - t0), device_xrealtime=audio_s / (t2 - t1))
+
+
+def leftovers_opus_batch() -> dict:
+    """``BatchedOpusDecoder`` on LEFT_OPUS_LANES lanes each of CELT, SILK
+    and hybrid clips, every lane bit for bit the streaming
+    ``OpusStreamDecoder`` on its bytes."""
+    import numpy as np
+
+    from soundkit_tpu_torch.codecs.opus import OpusStreamDecoder
+    from soundkit_tpu_torch.models.opus_batch import BatchedOpusDecoder
+    from soundkit_tpu_torch.tools import opus_fixtures as of
+
+    by_kind = {"celt": of.load_clips(),
+               "silk": of.load_clips(names=("silk_nb", "silk_mb", "silk_wb", "silk_wb_stereo")),
+               "hybrid": of.load_clips(names=("hybrid_swb", "hybrid_fb"))}
+    lanes = []
+    for kind, clips in by_kind.items():
+        for j in range(LEFT_OPUS_LANES):
+            clip = clips[j % len(clips)]
+            start = (5 * j) % (len(clip.packets) - LEFT_OPUS_PACKETS)
+            pkts = clip.packets[start: start + LEFT_OPUS_PACKETS]
+            raw = clip.head + b"".join(struct.pack("<H", len(p)) + p for p in pkts)
+            lanes.append((kind, clip, raw))
+    dec = BatchedOpusDecoder(len(lanes), C)
+    for b, (_, _, raw) in enumerate(lanes):
+        dec.push(b, raw)
+    t0 = time.perf_counter()
+    pcm, lengths = dec.decode_ready()
+    t1 = time.perf_counter()
+    check(pcm.shape == (LEFT_OPUS_PACKETS, len(lanes), C, 960), f"opus batch {pcm.shape}")
+    for b, (kind, clip, raw) in enumerate(lanes):
+        s = OpusStreamDecoder()
+        want = np.concatenate([s.decode_f32(raw), s.flush()]).reshape(-1, clip.channels)
+        got = np.concatenate([pcm[i, b, :clip.channels, :lengths[i, b]].T
+                              for i in range(LEFT_OPUS_PACKETS)])
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"[leftovers] BatchedOpusDecoder lane {b} ({kind} {clip.name}) differs from "
+              "the streaming decoder")
+    t2 = time.perf_counter()
+    audio_s = float(lengths.sum()) / RATE
+    return dict(lanes=len(lanes), packets=LEFT_OPUS_PACKETS, audio_s=audio_s,
+                batch_s=t1 - t0, stream_s=t2 - t1, batch_xrealtime=audio_s / (t1 - t0))
+
+
+def leftovers_aac_idle(lanes: int, device) -> dict:
+    """Lane 0 idles after KBD frames, for one batch and then three, beside
+    ``lanes - 1`` lanes that never idle; against the same streams decoded
+    gaplessly on ``device``: every lane within the bar ``[compare]`` holds
+    the card to against the CPU (100 dB)."""
+    import numpy as np
+
+    from soundkit_tpu_torch.models.aac_lc_batch import BatchedAacLcDecoder
+    from soundkit_tpu_torch.tools import aac_fixtures
+
+    clips = aac_fixtures.load_clips()
+    idle = clips[0][10:22]  # KBD-shaped frames
+    total = sum(b for _, b in LEFT_AAC_PARTS)
+    others = aac_fixtures.lane_streams(clips, lanes, total)
+    ragged = BatchedAacLcDecoder(lanes, C, device=device)
+    gapless = BatchedAacLcDecoder(lanes, C, device=device)
+    for i in range(1, lanes):
+        ragged.push(i, others[i])
+        gapless.push(i, others[i])
+    gapless.push(0, b"".join(idle))
+    outs, shapes, pos = [], [], 0
+    for n_frames, batches in LEFT_AAC_PARTS:
+        ragged.push(0, b"".join(idle[pos: pos + n_frames]))
+        pos += n_frames
+        outs.append(ragged.decode_batches(batches))
+        shapes.append(ragged.state[1][0].cpu().numpy())
+    got = np.concatenate(outs)
+    want = gapless.decode_batches(total)
+    check(all((s == 1).all() for s in shapes[:2]), f"[leftovers] AAC: shapes kept {shapes}")
+    live, gone, t = [], [], 0
+    for n_frames, batches in LEFT_AAC_PARTS:
+        live += list(range(t, t + n_frames))
+        gone += list(range(t + n_frames, t + batches))
+        t += batches
+    check(not got[gone, 0].any(), "[leftovers] AAC: an idle batch gave samples")
+    # lane 0's decoded batches against its gapless frames, the other lanes whole
+    pairs = [(got[live, 0], want[:len(live), 0])] + [(got[:, i], want[:, i])
+                                                     for i in range(1, lanes)]
+    sig = np.array([(w.astype(np.float64) ** 2).sum() for _, w in pairs])
+    err = np.array([((g.astype(np.float64) - w) ** 2).sum() for g, w in pairs])
+    with np.errstate(divide="ignore"):
+        snr = 10 * np.log10(sig / err)
+    check(bool((sig > 0).all()), "[leftovers] AAC: a silent lane")
+    worst = float(snr.min())
+    check(worst >= 100.0, f"[leftovers] AAC: a lane at {worst:.2f} dB against its gapless decode")
+    return dict(lanes=lanes, batches=total, idle_batches=len(gone), min_lane_snr_db=worst,
+                idle_lane_snr_db=float(snr[0]),
+                idle_lane_max_abs_err=float(np.abs(pairs[0][0] - pairs[0][1]).max()),
+                bit_exact_lanes=int((err == 0).sum()))
+
+
+def leftovers_hybrid_fleet(device) -> dict:
+    """LEFT_HYBRID_STREAMS hybrid Ogg Opus streams whose OpusHeads carry a
+    312-sample pre-skip and a LEFT_HYBRID_GAIN_Q8 gain, through a
+    ``StreamFleet`` in two pushes with a collect after each: every stream's
+    length and samples those of the host ``OggOpusDecoder`` on its bytes,
+    at 90 dB and 1 LSB."""
+    import numpy as np
+
+    from soundkit_tpu_torch.codecs.opus import OggOpusDecoder
+    from soundkit_tpu_torch.models.fleet import StreamFleet
+    from soundkit_tpu_torch.tools import opus_fixtures as of
+
+    clips = of.load_clips(names=("hybrid_swb", "hybrid_fb"))
+    streams = {}
+    for j in range(LEFT_HYBRID_STREAMS):
+        clip = clips[j % 2]
+        head = clip.head[:16] + struct.pack("<h", LEFT_HYBRID_GAIN_Q8) + clip.head[18:]
+        start = (11 * j) % (len(clip.packets) - LEFT_HYBRID_PACKETS)
+        streams[f"h{j}"] = (clip, of.ogg_stream(head, clip.packets[start: start + LEFT_HYBRID_PACKETS]))
+    fleet = StreamFleet(LEFT_HYBRID_STREAMS, device=device)
+    parts = {sid: [] for sid in streams}
+    t0 = time.perf_counter()
+    for half in range(2):
+        for sid, (_, data) in streams.items():
+            fleet.push(sid, data[len(data) * half // 2: len(data) * (half + 1) // 2])
+            if half:
+                fleet.end_stream(sid)
+        for sid, pcm in fleet.collect().items():
+            parts[sid].append(pcm)
+    fleet_s = time.perf_counter() - t0
+    check(not fleet._lanes, "[leftovers] hybrid fleet: streams left")
+    worst, worst_lsb = float("inf"), 0
+    for sid, (clip, data) in streams.items():
+        got = np.concatenate(parts[sid], axis=1).T
+        if clip.channels == 1:
+            check(np.array_equal(got[:, 0], got[:, 1]), f"{sid}: a mono stream's channels differ")
+            got = got[:, :1]
+        d = OggOpusDecoder()
+        want = np.concatenate([d.decode_f32(data), d.flush()]).reshape(-1, clip.channels)
+        check(got.shape == want.shape == (LEFT_HYBRID_PACKETS * 960 - clip.pre_skip, clip.channels),
+              f"[leftovers] hybrid {sid}: {got.shape} against {want.shape}")
+        g, w = got.astype(np.float64), want.astype(np.float64)
+        worst = min(worst, 10 * np.log10((w ** 2).sum() / max(((g - w) ** 2).sum(), 1e-300)))
+        q = lambda x: np.clip(np.round(x * 32768.0), -32768, 32767)  # noqa: E731
+        worst_lsb = max(worst_lsb, int(np.abs(q(g) - q(w)).max()))
+    check(worst >= 90.0 and worst_lsb <= 1,
+          f"[leftovers] hybrid fleet: {worst:.2f} dB, {worst_lsb} LSB against the host decoder")
+    return dict(streams=LEFT_HYBRID_STREAMS, packets=LEFT_HYBRID_PACKETS,
+                gain_q8=LEFT_HYBRID_GAIN_Q8, min_snr_db=worst, max_lsb=worst_lsb,
+                fleet_s=fleet_s)
+
+
+def leftovers_flac_segs(device) -> dict:
+    """One clip's ``FlacSegsStream`` walk through K8 and K9 on ``device``:
+    the plane and the samples bit for bit their plain versions on the same
+    tensors, and the samples those of the host FLAC decoder."""
+    import numpy as np
+    import torch
+
+    from soundkit_tpu_torch.codecs.flac import FlacDecoder, FlacSegsStream
+    from soundkit_tpu_torch.ops import flac_lpc, flac_rice
+    from soundkit_tpu_torch.tools import flac_fixtures
+
+    clip = flac_fixtures.load_clips()[flac_fixtures.CLIPS.index(LEFT_FLAC_CLIP)]
+    data = clip.header + b"".join(clip.frames)
+    walk = FlacSegsStream(LEFT_FLAC_STRIDE)
+    walk.feed(data)
+    items = []
+    while (it := walk.next()) is not None:
+        items.append(it)
+    check(items and all(it[0] == "segs" for it in items), "[leftovers] FLAC: not a segment walk")
+    n, S = len(items), LEFT_FLAC_STRIDE
+    meta = np.stack([it[1] for it in items])
+    xmeta = np.stack([it[4] for it in items])
+    W = max(-(-len(it[6]) // 4) for it in items)
+    words = np.zeros((n, 4 * W), np.uint8)
+    for i, it in enumerate(items):
+        words[i, :len(it[6])] = np.frombuffer(it[6], np.uint8)
+    words = words.view(">u4").astype(np.uint32).view(np.int32)
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    rice_in = (t(words), *map(t, flac_rice.seg_wire([it[5] for it in items], S)),
+               t(np.stack([it[3] for it in items])), t(xmeta[:, [0, 2]]), t(xmeta[:, [1, 3]]))
+    plane = flac_rice.flac_rice_plane(*rice_in, S)
+    plain_plane = flac_rice.flac_rice_plane_plain(*rice_in, S)
+    check(torch.equal(plane, plain_plane), "[leftovers] FLAC: K8 differs from its plain version")
+    lpc_in = (t(np.stack([it[2] for it in items])), t(meta[:, [4, 7]]), t(meta[:, [5, 8]]),
+              t(meta[:, [6, 9]]), t(meta[:, 2]), t(meta[:, 0]),
+              torch.ones(n, dtype=torch.bool, device=device))
+    out = flac_lpc.flac_frame(plane, *lpc_in)
+    check(torch.equal(out, flac_lpc.flac_frame_plain(plane, *lpc_in)),
+          "[leftovers] FLAC: K9 differs from its plain version")
+    out = out.cpu().numpy()
+    chans = int(meta[0, 1])
+    got = np.concatenate([out[i, :chans, :meta[i, 0]] for i in range(n)], axis=1).T.reshape(-1)
+    audio = FlacDecoder().add(data)
+    want = np.frombuffer(audio.data, "<i2").astype(np.int32)
+    check(np.array_equal(got, want), "[leftovers] FLAC: samples differ from the host decoder")
+    return dict(clip=LEFT_FLAC_CLIP, frames=n, segments=int(sum(it[5].shape[0] for it in items)),
+                samples=int(got.size // chans))
+
+
+def phase_leftovers(card: str, lanes: int = B, device: str = "cuda") -> dict:
+    """The host Opus models, the FLAC segment walk and the two repairs of
+    this slice: the host ``BatchedSilkDecoder`` against the device one, the
+    per-lane ``BatchedOpusDecoder`` against the streaming decoder, an AAC
+    lane idling after a KBD frame (K1, K4, K5) against its gapless decode,
+    hybrid streams' pre-skip and gain through a ``StreamFleet`` (K11, K12),
+    and a ``FlacSegsStream`` clip through K8 and K9. Launch counters reset
+    just before; every kernel of the phase launched on the card."""
+    import torch
+
+    dev = torch.device(device)
+    wrappers = leftover_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t_phase = time.perf_counter()
+    res = {"silk": leftovers_silk(lanes, dev), "opus_batch": leftovers_opus_batch(),
+           "aac_idle": leftovers_aac_idle(lanes, dev), "hybrid_fleet": leftovers_hybrid_fleet(dev),
+           "flac_segs": leftovers_flac_segs(dev)}
+    res["launches"] = {n: w.launches for n, w in wrappers.items()}
+    if dev.type == "cuda":
+        for n, k in res["launches"].items():
+            check(k > 0, f"[leftovers] {n} was not launched")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[leftovers] {card}: {json.dumps(res)}")
+    return res
+
 
 def main() -> int:
     if not (ROOT / "soundkit_tpu_torch").is_dir() or not (ROOT / "tests" / "data" / "torch_port").is_dir():
@@ -4442,6 +4764,8 @@ def main() -> int:
         enres = phase_encode()
         phase = "frames"
         frres = phase_frames(enres.pop("_packets"))
+        phase = "leftovers"
+        lres = phase_leftovers(card)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
@@ -4547,6 +4871,11 @@ def main() -> int:
     for k in kernels:
         if k["name"] in enres["launches"]:
             k["encode_launches"] = enres["launches"][k["name"]]
+    # the [leftovers] phase's launches: the idle AAC lane (K1, K4, K5), the
+    # SILK decoders (K12), the hybrid fleet (K11, K12), the FLAC walk (K8, K9)
+    for k in kernels:
+        if k["name"] in lres["launches"]:
+            k["leftovers_launches"] = lres["launches"][k["name"]]
     # DecodePipeline only decodes; the encoders that built its telephony
     # streams are counted apart
     pipe_by_row = {"g711_decode": ("g711_decode", None),
@@ -4570,7 +4899,7 @@ def main() -> int:
                     "flac_enc": eres, "flac_enc_compare": ecres,
                     "transcode": trres, "stretch": stres,
                     "fleet": flres, "pipeline": pres, "containers": cnres,
-                    "encode": enres, "frames": frres,
+                    "encode": enres, "frames": frres, "leftovers": lres,
                     "wall_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -10,12 +10,13 @@ The spec tables are pushed from the port's copy of the RFC 6716 set
 does. Bound here: :class:`NativeCeltParser` (one stream's parse state,
 with the single-frame ``parse`` of the host decoder's CELT fast path,
 ``codecs/opus._NativeCeltStream``) and :class:`NativeCeltBatch` with
-``reset_lane`` and the serving walk ``parse_rounds``, and the encoder
-:class:`NativeCeltEncoder` (``skt_celt_enc_frame``, a verbatim copy of the
-JAX package's class) that ``codecs/opus_celt_enc.OpusCeltEncoder`` range-codes
-its frames with. The batch parses ``parse_many`` and ``parse_many_q`` and
-the hybrid continuation ``parse_many_cont`` of the JAX package are not
-bound yet.
+``reset_lane``, the serving walk ``parse_rounds`` and, verbatim copies of
+the JAX package's methods, the one-round batch parses ``parse_many`` (float64
+spectra) and ``parse_many_q`` (int16 spectra with a scale a band) and the
+hybrid continuation ``parse_many_cont`` (each lane's coder seeded from the
+SILK walk's state), and the encoder :class:`NativeCeltEncoder`
+(``skt_celt_enc_frame``, a verbatim copy of the JAX package's class) that
+``codecs/opus_celt_enc.OpusCeltEncoder`` range-codes its frames with.
 """
 from __future__ import annotations
 
@@ -125,6 +126,86 @@ class NativeCeltBatch:
     def reset_lane(self, b: int) -> None:
         self._parsers[b].reset()
 
+    def parse_many(self, frames, ends, coded, valid,
+                   frame_size: int = FRAME):
+        """frames: list of B byte strings (ignored where not valid).
+
+        Returns (freq [B, C, frame_size] f64, comb [B, 16] f64,
+        sflag [B] i32, ok [B] i32)."""
+        B, C = self.B, self.C
+        buf = b"".join(f for f, v in zip(frames, valid) if v)
+        offs = np.zeros(B, dtype=np.int64)
+        lens = np.zeros(B, dtype=np.int64)
+        pos = 0
+        for b in range(B):
+            if valid[b]:
+                offs[b] = pos
+                lens[b] = len(frames[b])
+                pos += lens[b]
+        ends_a = np.ascontiguousarray(ends, dtype=np.int32)
+        coded_a = np.ascontiguousarray(coded, dtype=np.int32)
+        valid_a = np.ascontiguousarray(valid, dtype=np.uint8)
+        freq = np.zeros((B, C, frame_size), dtype=np.float64)
+        comb = np.zeros((B, 16), dtype=np.float64)
+        sflag = np.zeros(B, dtype=np.int32)
+        ok = np.zeros(B, dtype=np.int32)
+        self._lib.skt_celt_parse_many(
+            self._handles, B, buf,
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+            lens.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+            ends_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            coded_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            valid_a.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+            frame_size, C,
+            freq.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            comb.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            sflag.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            ok.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+        return freq, comb, sflag, ok
+
+    def parse_many_q(self, frames, ends, coded, valid,
+                     frame_size: int = FRAME):
+        """Quantized-wire batch parse (skt_celt_parse_many_q): the
+        range decode is identical to :meth:`parse_many`, but spectra
+        return as int16 with one f32 scale per (lane, band) — the
+        half-width serving wire for the fleet's i16 output mode
+        (~92 dB vs the exact f32 path on the fixture corpus).
+
+        Returns (qfreq [B, C, frame_size] i16, scale [B, 21] f32,
+        comb [B, 16] f64, sflag [B] i32, ok [B] i32)."""
+        B, C = self.B, self.C
+        buf = b"".join(f for f, v in zip(frames, valid) if v)
+        offs = np.zeros(B, dtype=np.int64)
+        lens = np.zeros(B, dtype=np.int64)
+        pos = 0
+        for b in range(B):
+            if valid[b]:
+                offs[b] = pos
+                lens[b] = len(frames[b])
+                pos += lens[b]
+        ends_a = np.ascontiguousarray(ends, dtype=np.int32)
+        coded_a = np.ascontiguousarray(coded, dtype=np.int32)
+        valid_a = np.ascontiguousarray(valid, dtype=np.uint8)
+        qfreq = np.zeros((B, C, frame_size), dtype=np.int16)
+        scale = np.zeros((B, 21), dtype=np.float32)
+        comb = np.zeros((B, 16), dtype=np.float64)
+        sflag = np.zeros(B, dtype=np.int32)
+        ok = np.zeros(B, dtype=np.int32)
+        self._lib.skt_celt_parse_many_q(
+            self._handles, B, buf,
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+            lens.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+            ends_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            coded_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            valid_a.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+            frame_size, C,
+            qfreq.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+            scale.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            comb.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            sflag.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            ok.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+        return qfreq, scale, comb, sflag, ok
+
     def parse_rounds(self, buf: bytes, base, lens, ends, coded,
                      n_rounds: int, W: int, quantized: bool,
                      frame_size: int = FRAME):
@@ -161,6 +242,58 @@ class NativeCeltBatch:
         freq = np.zeros((R_alloc, B, C, W), dtype=np.float32)
         self._lib.skt_celt_parse_rounds(*common, freq, comb, sflag, ok)
         return freq, None, comb, sflag, ok
+
+    def parse_many_cont(self, frames, starts, ends, coded, valid,
+                        rc_init, frame_size: int = FRAME):
+        """Hybrid continuation: each lane's range coder is seeded from
+        the SILK stage's exported state (silk parse_many info[:, 4:13])
+        over the same frame bytes, parsing from per-lane start band.
+
+        Returns (freq [B, C, frame_size] f64, comb [B, 16] f64,
+        sflag [B] i32, ok [B] i32, red [B] i32) — lanes whose packet
+        carries hybrid mode-transition redundancy come back red=1 /
+        ok=-90 unparsed (the caller reroutes them)."""
+        lib = self._lib
+        if not hasattr(lib, "_skt_celt_cont_ready"):
+            lib.skt_celt_parse_many_cont.restype = ctypes.c_int
+            lib._skt_celt_cont_ready = True
+        B, C = self.B, self.C
+        buf = b"".join(f for f, v in zip(frames, valid) if v)
+        offs = np.zeros(B, dtype=np.int64)
+        lens = np.zeros(B, dtype=np.int64)
+        pos = 0
+        for b in range(B):
+            if valid[b]:
+                offs[b] = pos
+                lens[b] = len(frames[b])
+                pos += lens[b]
+        starts_a = np.ascontiguousarray(starts, dtype=np.int32)
+        ends_a = np.ascontiguousarray(ends, dtype=np.int32)
+        coded_a = np.ascontiguousarray(coded, dtype=np.int32)
+        valid_a = np.ascontiguousarray(valid, dtype=np.uint8)
+        rc_a = np.ascontiguousarray(rc_init, dtype=np.int64)
+        assert rc_a.shape == (B, 9)
+        freq = np.zeros((B, C, frame_size), dtype=np.float64)
+        comb = np.zeros((B, 16), dtype=np.float64)
+        sflag = np.zeros(B, dtype=np.int32)
+        ok = np.zeros(B, dtype=np.int32)
+        red = np.zeros(B, dtype=np.int32)
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.skt_celt_parse_many_cont(
+            self._handles, B, buf,
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+            lens.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+            starts_a.ctypes.data_as(ip),
+            ends_a.ctypes.data_as(ip),
+            coded_a.ctypes.data_as(ip),
+            valid_a.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+            rc_a.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+            frame_size, C,
+            freq.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            comb.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            sflag.ctypes.data_as(ip), ok.ctypes.data_as(ip),
+            red.ctypes.data_as(ip))
+        return freq, comb, sflag, ok, red
 
 
 class NativeCeltEncoder:

@@ -17,8 +17,10 @@ single-stream ``decode_superframe`` of the host decoder,
 hybrid walk ``hybrid_parse_rounds_packed``, and
 :class:`NativeSilkEncoder` (the ``skt_silk_enc_*`` frame encoders, mono
 and stereo) that ``codecs/opus_silk_enc.OpusSilkEncoder`` codes its frames
-with. The batch ``decode_many`` and the unpacked ``hybrid_parse_rounds``
-are not bound yet.
+with; and, as verbatim copies too, the batch decode ``decode_many`` (range
+decode and synthesis at the internal rate, the host ``BatchedSilkDecoder``'s
+round) and the unpacked hybrid walk ``hybrid_parse_rounds`` (float64 planes,
+the layout reference of the packed wire).
 """
 from __future__ import annotations
 
@@ -138,6 +140,112 @@ class NativeSilkBatch:
 
     def reset_lane(self, b: int) -> None:
         self._decoders[b].flush()
+
+    def decode_many(self, frames, bws, coded, durations, valid,
+                    read_redundancy: bool = False):
+        """frames: list of B byte strings (ignored where not valid).
+
+        Returns (pcm [B, max_n, C] f64 at the per-lane internal rate,
+        n [B] i64 samples per lane (-1 invalid/error), info [B, 13])."""
+        B, C = self.B, self.C
+        buf = b"".join(f for f, v in zip(frames, valid) if v)
+        offs = np.zeros(B, dtype=np.int64)
+        lens = np.zeros(B, dtype=np.int64)
+        pos = 0
+        for b in range(B):
+            if valid[b]:
+                offs[b] = pos
+                lens[b] = len(frames[b])
+                pos += lens[b]
+        bws_a = np.ascontiguousarray(bws, dtype=np.int32)
+        coded_a = np.ascontiguousarray(coded, dtype=np.int32)
+        dur_a = np.ascontiguousarray(durations, dtype=np.int32)
+        valid_a = np.ascontiguousarray(valid, dtype=np.uint8)
+        max_n = 0
+        for b in range(B):
+            if valid[b]:
+                nb = 1 + (dur_a[b] > 20) + (dur_a[b] > 40)
+                flen = 20 * (bws_a[b] + 2) * (int(dur_a[b]) // int(nb) // 5)
+                max_n = max(max_n, int(nb) * flen)
+        max_n = max(max_n, 1)
+        out = np.zeros((B, max_n, C), dtype=np.float64)
+        n_out = np.zeros(B, dtype=np.int64)
+        info = np.zeros((B, 13), dtype=np.int64)
+        self._lib.skt_silk_decode_many(
+            self._handles, B, buf,
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+            lens.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+            bws_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            coded_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            dur_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            valid_a.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+            1 if read_redundancy else 0, C, max_n,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            n_out.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+            info.ctypes.data_as(ctypes.POINTER(ctypes.c_long)))
+        return out, n_out, info
+
+    def hybrid_parse_rounds(self, celt_batch, buf, base, plens, ends,
+                            coded, frame_size: int = 960):
+        """Fused hybrid rounds walk (native/src/hybrid_glue.cpp): ONE
+        native call chains the SILK parse-export and the CELT
+        continuation for R rounds x B lanes over per-lane packed
+        packet bytes — the round-4 path paid two ctypes round-trips
+        plus fresh marshalling per round (r4 VERDICT next #4).
+
+        The serving path uses :meth:`hybrid_parse_rounds_packed`
+        (same walk, planes converted into the packed wire in native
+        code); this f64-plane export remains the layout reference and
+        the debugging entry.  NOTE the handles are stateful (SILK
+        delta-coded parameters) — never walk the same packets through
+        both entries.
+
+        ``plens``/``ends``/``coded`` are [B, R] int32 (0 length =
+        lane invalid that round); ``base`` [B] int64 byte offset of
+        each lane's first packet in ``buf``.  Returns a dict of
+        [R, B, ...] silk-export planes plus the celt continuation
+        planes (freq, comb, sflag, ok, red)."""
+        lib = self._lib
+        if not hasattr(lib, "_skt_hybrid_rounds_ready"):
+            lib.skt_hybrid_parse_rounds.restype = ctypes.c_int
+            lib._skt_hybrid_rounds_ready = True
+        B, R = plens.shape
+        C = celt_batch.C
+        r = {
+            "exc": np.zeros((R, B, 2, 320), np.float64),
+            "gains": np.zeros((R, B, 2, 4), np.float64),
+            "coef": np.zeros((R, B, 2, 2, 16), np.float64),
+            "ltp": np.zeros((R, B, 2, 4, 5), np.float64),
+            "ltpscale": np.zeros((R, B, 2), np.float64),
+            "stereo_w": np.zeros((R, B, 4), np.float64),
+            "lags": np.zeros((R, B, 2, 4), np.int32),
+            "flags": np.zeros((R, B, 12), np.int32),
+            "n": np.zeros((R, B), np.int64),
+            "freq": np.zeros((R, B, C, frame_size), np.float64),
+            "comb": np.zeros((R, B, 16), np.float64),
+            "sflag": np.zeros((R, B), np.int32),
+            "ok": np.zeros((R, B), np.int32),
+            "red": np.zeros((R, B), np.int32),
+        }
+        d = lambda a: a.ctypes.data_as(  # noqa: E731
+            ctypes.POINTER(ctypes.c_double))
+        i = lambda a: a.ctypes.data_as(  # noqa: E731
+            ctypes.POINTER(ctypes.c_int))
+        l = lambda a: a.ctypes.data_as(  # noqa: E731
+            ctypes.POINTER(ctypes.c_long))
+        base_a = np.ascontiguousarray(base, np.int64)
+        plens_a = np.ascontiguousarray(plens, np.int32)
+        ends_a = np.ascontiguousarray(ends, np.int32)
+        coded_a = np.ascontiguousarray(coded, np.int32)
+        lib.skt_hybrid_parse_rounds(
+            self._handles, celt_batch._handles, B, R, buf,
+            l(base_a), i(plens_a), i(ends_a), i(coded_a),
+            frame_size, C,
+            d(r["exc"]), d(r["gains"]), d(r["coef"]), d(r["ltp"]),
+            d(r["ltpscale"]), d(r["stereo_w"]), i(r["lags"]),
+            i(r["flags"]), l(r["n"]), d(r["freq"]), d(r["comb"]),
+            i(r["sflag"]), i(r["ok"]), i(r["red"]))
+        return r
 
     def hybrid_parse_rounds_packed(self, celt_batch, buf, base, plens,
                                    ends, coded, wire, offs, exc_f64,

@@ -68,8 +68,24 @@ second walk (SILK parameters are delta-coded across frames). A lane whose
 walk flags transition redundancy or a failed CELT continuation freezes
 (``lane_error``); a fresh lane's CELT state is zeroed once.
 
-The JAX package's host ``BatchedSilkDecoder`` (native synthesis and
-libswresample on the host) is not ported.
+Host models
+-----------
+:class:`BatchedSilkDecoder` is the JAX package's host lockstep SILK
+decoder, a verbatim copy but for its resampler: one ``skt_silk_decode_many``
+call a round (range decode and the LTP / LPC synthesis of every lane at the
+internal rate), then each lane's 48 kHz resample, pre-skip and gain on the
+host, numpy out with the valid samples at the END of each slot. Each lane
+resamples through ``utils/silk_resampler.SilkResampler``, the port's numpy
+stand-in for libswresample (a stated departure: its float64 sums lie ~141
+dB from libswresample's float32 ones, its output counts are the same).
+
+:class:`BatchedOpusDecoder` is the JAX package's generic per-lane model over
+soundkit's raw-Opus wire (an optional 19-byte OpusHead, then u16-LE
+length-prefixed packets), with its ``ready_packets`` / ``decode_ready``
+contract (valid samples at the START of each slot, the head's pre-skip
+and gain applied). Each lane decodes on the owned ``codecs/opus._OpusCore``
+where the JAX package opens libavcodec: a stated departure, as the port's
+WebM Opus.
 """
 from __future__ import annotations
 
@@ -82,6 +98,7 @@ import numpy as np
 import torch
 
 from soundkit_tpu_torch.codecs.celt_native import NativeCeltBatch
+from soundkit_tpu_torch.codecs.opus import OpusHead, _OpusCore
 from soundkit_tpu_torch.codecs.opus_celt import tables
 from soundkit_tpu_torch.codecs.silk_native import NativeSilkBatch
 from soundkit_tpu_torch.ops import celt_batch as cb
@@ -396,6 +413,109 @@ def _stage_ms(stage_times, device) -> dict:
         "h2d": 1e3 * float(np.median(h2ds)),
         "step": float(np.median(steps)),
     }
+
+
+class BatchedSilkDecoder:
+    """Lockstep multi-stream SILK-voice decoder.
+
+    One native batch call per round (silk_parse.cpp
+    skt_silk_decode_many: range decode + LTP/LPC synthesis for all B
+    lanes) followed by per-lane oracle-matched resampling to 48 kHz
+    on the host.  The LP layer is per-sample sequential IIR work that
+    belongs on the host (docs/DEVICE_KERNELS.md); batching amortizes
+    the per-packet Python overhead that dominated per-stream replay.
+
+    Serves 20 ms code-0 SILK packets at a constant per-lane bandwidth
+    (the shape of real voice streams); bandwidth switches, multi-frame
+    packets and hybrid/CELT modes are the caller's reroute cases.
+
+    Reference role: soundkit-opus/src/lib.rs per-pipeline decode.
+    """
+
+    FRAME = 960
+
+    def __init__(self, num_streams: int, channels: int = 2):
+        from soundkit_tpu_torch.codecs.silk_native import NativeSilkBatch
+
+        self.B = num_streams
+        self.C = channels
+        self.sample_rate = 48000
+        self._batch = NativeSilkBatch(num_streams, channels)
+        # per lane: queued (frame_bytes, coded_channels) + fixed bw
+        self._packets: List[List[tuple]] = [[] for _ in range(num_streams)]
+        self.bw = [None] * num_streams
+        self._resamp = [None] * num_streams
+        self._skip = [0] * num_streams
+        self._gain = [1.0] * num_streams
+
+    def configure_lane(self, b: int, pre_skip: int = 0,
+                       gain_q8: int = 0) -> None:
+        self._skip[b] = pre_skip
+        self._gain[b] = (10.0 ** (gain_q8 / (20.0 * 256.0))
+                        if gain_q8 else 1.0)
+
+    def reset_lane(self, b: int) -> None:
+        self._batch.reset_lane(b)
+        self._packets[b] = []
+        self.bw[b] = None
+        self._resamp[b] = None
+        self._skip[b] = 0
+        self._gain[b] = 1.0
+
+    def lane_ready(self, b: int) -> int:
+        return len(self._packets[b])
+
+    def push_packet(self, b: int, frame: bytes, bandwidth: int,
+                    coded: int) -> None:
+        """Queue one SILK frame payload (no TOC).  The caller
+        validates mode/duration/framing; the first packet pins the
+        lane's bandwidth."""
+        if self.bw[b] is None:
+            self.bw[b] = bandwidth
+            rate = (8000, 12000, 16000)[bandwidth]
+            from soundkit_tpu_torch.utils.silk_resampler import SilkResampler
+
+            self._resamp[b] = SilkResampler(rate, bandwidth, self.C)
+        self._packets[b].append((frame, coded))
+
+    def decode_ready(self, max_packets: Optional[int] = None):
+        """Decode lockstep rounds.  Returns (pcm [rounds, B, C, 960]
+        host f32 with valid samples at the END of each slot, lengths
+        [rounds, B] i32)."""
+        counts = [len(p) for p in self._packets]
+        n = max(counts) if counts else 0
+        if max_packets is not None:
+            n = min(n, max_packets)
+        pcm = np.zeros((n, self.B, self.C, self.FRAME), np.float32)
+        lengths = np.zeros((n, self.B), np.int32)
+        for i in range(n):
+            frames = [b""] * self.B
+            bws = np.zeros(self.B, np.int32)
+            coded = np.ones(self.B, np.int32)
+            valid = np.zeros(self.B, np.uint8)
+            for b in range(self.B):
+                if not self._packets[b]:
+                    continue
+                frames[b], coded[b] = self._packets[b].pop(0)
+                bws[b] = self.bw[b]
+                valid[b] = 1
+            out16, nsamp, _info = self._batch.decode_many(
+                frames, bws, coded, [20] * self.B, valid)
+            for b in range(self.B):
+                if not valid[b] or nsamp[b] < 0:
+                    continue
+                up = out16[b, : nsamp[b]]
+                out48 = self._resamp[b].process(up, self.FRAME)
+                if self._gain[b] != 1.0:
+                    out48 = out48 * np.float32(self._gain[b])
+                m = out48.shape[0]
+                k = min(self._skip[b], m)
+                self._skip[b] -= k
+                m -= k
+                if m > 0:
+                    pcm[i, b, :, self.FRAME - m:] = out48[k:].T
+                lengths[i, b] = m
+        return pcm, lengths
 
 
 class BatchedSilkDeviceDecoder:
@@ -902,3 +1022,94 @@ class BatchedHybridDecoder:
         (CUDA events around one chunk of ``ROUNDS_PER_CALL`` rounds on
         the device). Waits for the device."""
         return _stage_ms(self._stage_times, self.device)
+
+
+def _default_extradata(channels: int) -> bytes:
+    # minimal OpusHead: version 1, channels, preskip 0, 48k, gain 0, mapping 0
+    return (
+        b"OpusHead" + bytes([1, channels]) + struct.pack("<HIhB", 0, 48000, 0, 0)
+    )
+
+
+class BatchedOpusDecoder:
+    """The generic per-lane Opus batch model: one owned decoder a lane
+    (``codecs/opus._OpusCore``: CELT on the native fast path, SILK and
+    hybrid in the Python RFC 6716 decoder), batched at the framing level
+    only, on the host. It serves every packing, SILK and hybrid and
+    multi-frame packets among them; the JAX package's opens one libavcodec
+    decoder a lane instead (a stated departure, as the port's WebM Opus).
+    A multistream head (mapping family other than 0) raises
+    ``UnsupportedFormat`` at the lane's first decode, a packet the owned
+    decoder refuses ``DecodingFailed``."""
+
+    FRAME = 960  # 20 ms @ 48 kHz, the dominant packing
+
+    def __init__(self, num_streams: int, channels: int = 2):
+        self.B = num_streams
+        self.C = channels
+        # decoders are created lazily from each lane's OpusHead so the
+        # decoder honors the stream's preskip/gain; lanes without a
+        # head (bare packet wire) get a minimal default head
+        self._dec: List[Optional[_OpusCore]] = [None] * num_streams
+        self._extradata = [_default_extradata(channels)] * num_streams
+        self._buf = [bytearray() for _ in range(num_streams)]
+        self._packets: List[List[bytes]] = [[] for _ in range(num_streams)]
+        self._head_done = [False] * num_streams
+        self.sample_rate = 48000
+
+    def _decoder(self, b: int) -> _OpusCore:
+        if self._dec[b] is None:
+            self._dec[b] = _OpusCore(OpusHead.parse(self._extradata[b]))
+        return self._dec[b]
+
+    def push(self, stream_idx: int, data: bytes) -> None:
+        """Feed the soundkit raw-Opus wire: optional OpusHead(19B),
+        then u16-LE length-prefixed packets (soundkit-opus framing)."""
+        buf = self._buf[stream_idx]
+        buf.extend(data)
+        if not self._head_done[stream_idx]:
+            if len(buf) < 8:
+                return
+            if bytes(buf[:8]) == b"OpusHead":
+                if len(buf) < 19:
+                    return
+                self._extradata[stream_idx] = bytes(buf[:19])
+                del buf[:19]
+            self._head_done[stream_idx] = True
+        while len(buf) >= 2:
+            (n,) = struct.unpack_from("<H", buf, 0)
+            if len(buf) < 2 + n:
+                break
+            self._packets[stream_idx].append(bytes(buf[2 : 2 + n]))
+            del buf[: 2 + n]
+
+    @property
+    def ready_packets(self) -> int:
+        return min(len(p) for p in self._packets)
+
+    def decode_ready(self, max_packets: Optional[int] = None):
+        """Decode lockstep packet batches.
+
+        Returns (pcm [packets, B, C, 960] f32, lengths [packets, B]
+        i32).  ``lengths`` is the valid sample count per slot — the
+        first packet of a stream is short by the head's preskip, and
+        oversized packings are truncated to FRAME (the per-lane
+        decoder state stays correct regardless).
+        """
+        n = self.ready_packets
+        if max_packets is not None:
+            n = min(n, max_packets)
+        out = np.zeros((n, self.B, self.C, self.FRAME), dtype=np.float32)
+        lengths = np.zeros((n, self.B), dtype=np.int32)
+        for i in range(n):
+            for b in range(self.B):
+                pkt = self._packets[b].pop(0)
+                dec = self._decoder(b)
+                pcm = dec.decode_packet_f32(pkt)  # interleaved f32
+                if len(pcm) == 0:
+                    continue
+                frames = pcm.reshape(-1, dec.channels or self.C)
+                k = min(len(frames), self.FRAME)
+                out[i, b, : frames.shape[1], :k] = frames[:k].T
+                lengths[i, b] = k
+        return out, lengths

@@ -14,11 +14,12 @@ packet to one engine:
 - hybrid 20 ms lanes queue into ``BatchedHybridDecoder`` (the SILK walk's
   coder state seeds the CELT continuation; both halves on the device).
 
-The CELT and SILK engines take the pre-skip and output gain of the
-OpusHead. The hybrid engine does not: the reference never configures it
-(``soundkit_tpu/models/opus_fleet_model.py:247-253``), so a hybrid lane
-ignores its OpusHead's pre-skip and gain there, and the port, held to the
-reference collect by collect, keeps that.
+All three engines take the pre-skip and output gain of the OpusHead. This
+is a stated departure: the reference configures only the CELT and SILK
+engines (``soundkit_tpu/models/opus_fleet_model.py:247-253``), so a hybrid
+lane there keeps its first pre-skip samples and ignores its head's gain;
+here a hybrid lane gives the streaming decoder's length and, within its
+float32 synthesis, its samples (``codecs/opus.OggOpusDecoder``).
 
 All three engines give [rounds, B, C, 960] slots with the valid samples at
 the END on the device and zeros on other engines' lanes, so
@@ -239,6 +240,7 @@ class BatchedOggOpusDecoder:
                 raise self._reroute(b, "unsupported OpusHead", pkts)
             self._celt.configure_lane(b, dm.head.pre_skip, dm.head.output_gain)
             self._silk.configure_lane(b, dm.head.pre_skip, dm.head.output_gain)
+            self._hyb.configure_lane(b, dm.head.pre_skip, dm.head.output_gain)
         for i, pkt in enumerate(pkts):
             kind, toc, frame = _classify(pkt, self.C)
             if kind is None:

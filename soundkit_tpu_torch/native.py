@@ -14,7 +14,9 @@ built alone (see ``_build.py``): no FFmpeg.
 with the signatures ``models/flac_batch.py`` calls: a handle per stream
 (``skt_flac_new`` / ``free``), ``feed`` and ``drain`` at push time,
 ``queued``, ``info`` and ``error``, and ``queue_stats`` /
-``export_rounds``, which size and scatter a whole collect's wire.
+``export_rounds``, which size and scatter a whole collect's wire; and those
+of the single-stream split walks of ``codecs/flac.py`` (``max_block``,
+``next_parts``, ``next_segs``, ``export_parts_last``).
 
 :func:`mp3_library` is the port's copy of ``native_src/src/mp3_parse.cpp``
 with the signatures ``codecs/mp3_native.py`` and
@@ -29,11 +31,14 @@ the table pushes of both codecs, a handle per stream and codec
 (``skt_celt_new`` / ``free`` / ``reset``, ``skt_silk_new`` / ``free`` /
 ``reset``), the single-stream parses of the host decoder (one CELT frame,
 ``skt_celt_parse``; one SILK superframe, ``skt_silk_decode``), the CELT serving walk over a collect's rounds on the float32
-and the int16 wire (``skt_celt_parse_rounds`` / ``_q``), the SILK
-parse-export of one round (``skt_silk_parse_many``), the hybrid walk
-of a chunk of rounds into its packed wire
-(``skt_hybrid_parse_rounds_packed``) and the CELT frame encoder
-(``skt_celt_enc_frame``); the SILK frame encoders (``skt_silk_enc_*``) are
+and the int16 wire (``skt_celt_parse_rounds`` / ``_q``), the CELT batch
+parses of one round (``skt_celt_parse_many`` / ``_q``, and the hybrid
+continuation ``skt_celt_parse_many_cont``), the SILK
+parse-export of one round (``skt_silk_parse_many``), the SILK decode of one
+round with its synthesis (``skt_silk_decode_many``), the hybrid walk
+of a chunk of rounds into float64 planes (``skt_hybrid_parse_rounds``) and
+into its packed wire (``skt_hybrid_parse_rounds_packed``) and the CELT frame
+encoder (``skt_celt_enc_frame``); the SILK frame encoders (``skt_silk_enc_*``) are
 typed by ``codecs/silk_native.NativeSilkEncoder``, as in the JAX package.
 
 :func:`vorbis_library` is the port's copy of ``native_src/src/vorbis_parse.cpp``
@@ -154,6 +159,16 @@ def flac_library() -> ctypes.CDLL:
     lib.skt_flac_pull.argtypes = [vp, ctypes.POINTER(ctypes.c_int32), c_long]
     lib.skt_flac_md5.restype = None
     lib.skt_flac_md5.argtypes = [vp, ctypes.c_char_p]
+    # the single-stream split walks (``codecs/flac.FlacPartsStream`` / ``FlacSegsStream``)
+    lib.skt_flac_max_block.restype = c_long
+    lib.skt_flac_max_block.argtypes = [vp]
+    lib.skt_flac_next_parts.restype = ctypes.c_int
+    lib.skt_flac_next_parts.argtypes = [vp, i32, i32, i32, c_long]  # meta, resw, coef, stride
+    lib.skt_flac_next_segs.restype = ctypes.c_int
+    lib.skt_flac_next_segs.argtypes = [  # meta, coef, warm, xmeta, segs, frame bytes, stride,
+        vp, i32, i32, i32, i32, i32, arr(np.uint8), c_long, c_long, c_long]  # seg cap, max bytes
+    lib.skt_flac_export_parts_last.restype = ctypes.c_int
+    lib.skt_flac_export_parts_last.argtypes = [vp, i32, i32, i32, c_long]
     lib.skt_flac_queue_stats.restype = None
     lib.skt_flac_queue_stats.argtypes = [handles, ctypes.c_int, c_long, arr(np.int64)]
     lib.skt_flac_export_rounds.restype = c_long
@@ -247,10 +262,25 @@ def opus_library() -> ctypes.CDLL:
     lib.skt_celt_enc_frame.restype = c_long
     lib.skt_celt_enc_frame.argtypes = [  # handle, freq, frame size, bytes, transient, out
         vp, ctypes.POINTER(ctypes.c_double), c_int, c_int, c_int, ctypes.POINTER(ctypes.c_ubyte)]
-    # the SILK and hybrid entries take ctypes pointers (``a.ctypes.data_as``),
-    # as the JAX package's ``codecs/silk_native.py`` passes them
+    # the batch parses, the SILK and the hybrid entries take ctypes
+    # pointers (``a.ctypes.data_as``), as the JAX package's
+    # ``codecs/celt_native.py`` and ``codecs/silk_native.py`` pass them
     P = ctypes.POINTER
     dp, ip, lp = P(ctypes.c_double), P(c_int), P(c_long)
+    u8p = P(ctypes.c_ubyte)
+    many = [handles, c_int, ctypes.c_char_p, lp, lp]  # handles, B, buf, offs, lens
+    lib.skt_celt_parse_many.restype = c_int
+    lib.skt_celt_parse_many.argtypes = [
+        *many, ip, ip, u8p, c_int, c_int,  # ends, coded, valid, frame size, C
+        dp, dp, ip, ip]                    # freq, comb, sflag, ok
+    lib.skt_celt_parse_many_q.restype = c_int
+    lib.skt_celt_parse_many_q.argtypes = [
+        *many, ip, ip, u8p, c_int, c_int,
+        P(ctypes.c_int16), P(ctypes.c_float), dp, ip, ip]  # qfreq, scale, comb, sflag, ok
+    lib.skt_celt_parse_many_cont.restype = c_int
+    lib.skt_celt_parse_many_cont.argtypes = [
+        *many, ip, ip, ip, u8p, lp, c_int, c_int,  # starts, ends, coded, valid, rc, n, C
+        dp, dp, ip, ip, ip]                         # freq, comb, sflag, ok, red
     lib.skt_silk_table.restype = None
     lib.skt_silk_table.argtypes = [ctypes.c_char_p, P(ctypes.c_int64), c_long]
     lib.skt_silk_tables_done.restype = c_int
@@ -271,6 +301,18 @@ def opus_library() -> ctypes.CDLL:
         ip, ip, ip, P(ctypes.c_ubyte),            # bws, coded, duration ms, valid
         dp, dp, dp, dp, dp, dp,                   # exc, gains, coef, ltp, ltpscale, stereo_w
         ip, ip, lp, lp,                           # lags, flags, n, info
+    ]
+    lib.skt_silk_decode_many.restype = c_int
+    lib.skt_silk_decode_many.argtypes = [
+        *many, ip, ip, ip, u8p,  # bws, coded, duration ms, valid
+        c_int, c_int, c_long,    # read redundancy, C, max n
+        dp, lp, lp]              # pcm, n, info
+    lib.skt_hybrid_parse_rounds.restype = c_int
+    lib.skt_hybrid_parse_rounds.argtypes = [
+        handles, handles, c_int, c_int, ctypes.c_char_p,  # silk, celt handles, B, R, buf
+        lp, ip, ip, ip, c_int, c_int,                     # base, lens, ends, coded, n, C
+        dp, dp, dp, dp, dp, dp, ip, ip, lp,               # the SILK export
+        dp, dp, ip, ip, ip,                               # freq, comb, sflag, ok, red
     ]
     lib.skt_hybrid_parse_rounds_packed.restype = c_int
     lib.skt_hybrid_parse_rounds_packed.argtypes = [

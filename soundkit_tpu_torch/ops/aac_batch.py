@@ -13,6 +13,13 @@ regions and hands the full set of per-line tensors to
 The wire layout, the constants and the numpy functions that build the window
 banks are copies of the JAX package's (:func:`v4_wire_layout`,
 :func:`window_bank`, :func:`short_window_bank`).
+
+One stated departure: a channel that idles (``chan_valid`` 0) keeps its
+window shape for its next frame, as it keeps its overlap. The reference
+returns the wire's ``shape`` for every lane, so a lane that idles after a
+KBD frame windows its next frame's first half with the sine shape
+(``soundkit_tpu/ops/aac_batch.py:347``); here a ragged lane decodes as the
+same lane fed gaplessly. Lanes that never idle decode as the reference's.
 """
 from __future__ import annotations
 
@@ -352,7 +359,11 @@ def decode_frame(quant, scale, ms_mask, int_factor, perm, filt_id, lpc, seq,
     valid = chan_valid.bool()[..., None]
     out = torch.where(valid, saved + z[..., :N], 0.0)
     new_saved = torch.where(valid, z[..., N:], saved)
-    return out / 32768.0, new_saved, shape.to(torch.int32)
+    # an idle channel keeps its window shape, as it keeps its overlap
+    # (a departure from the reference, which takes the wire's; see the
+    # module's docstring)
+    new_shape = torch.where(chan_valid.bool(), shape.to(torch.int32), prev_shape.to(torch.int32))
+    return out / 32768.0, new_saved, new_shape
 
 
 def decode_frame_v4_packed(buf, prev_shape, saved):

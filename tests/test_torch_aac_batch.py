@@ -131,4 +131,9 @@ def test_decode_frame_matches_jax_full_wire():
     assert lane_snrs(got[0], ref[0], 0).min() >= 100
     assert lane_snrs(got[1], ref[1], 0).min() >= 100
     np.testing.assert_array_equal(got[1][B - 1, 1], saved[B - 1, 1])
-    np.testing.assert_array_equal(got[2], ref[2])
+    # window shapes: the reference's on the channels that decoded; the
+    # ragged channel keeps its own, as it keeps its state (the port's
+    # stated departure, ``ops/aac_batch.py``)
+    valid = fb.chan_valid.astype(bool)
+    np.testing.assert_array_equal(got[2][valid], np.asarray(ref[2])[valid])
+    np.testing.assert_array_equal(got[2][~valid], prev[~valid])

@@ -100,6 +100,15 @@ class Pair:
         self.port = StreamFleet(capacity, out_bits=out_bits, device="cpu")
         self.ref = JaxFleet(capacity, out_bits=out_bits)
         self.out_bits = out_bits
+        self._head = {}  # sid -> [pre-skip left, gain] of a hybrid stream
+
+    def hybrid(self, sid, clip):
+        """Hold ``sid``, a hybrid Ogg Opus stream of fixture ``clip``, to the
+        JAX fleet's output with its OpusHead's pre-skip and gain applied:
+        the port's hybrid engine takes them (its stated departure,
+        ``models/opus_fleet_model.py``), the JAX package's does not."""
+        c = opus_fixtures.load_clips(names=(clip,))[0]
+        self._head[sid] = [c.pre_skip, 10.0 ** (c.output_gain / 5120.0)]
 
     def push(self, sid, data, kind=None):
         for f in (self.port, self.ref):
@@ -124,9 +133,13 @@ class Pair:
         out = {}
         for sid in got:
             g, w = got[sid], want[sid]
+            trim = 0
+            if sid in self._head:
+                trim = min(self._head[sid][0], w.samples if device_out else np.shape(w)[-1])
+                self._head[sid][0] -= trim
             if device_out:
                 assert isinstance(g, FleetLaneOutput)
-                assert (g.kind, g.samples, g.rate, g.lane, g.frames, g.out_bits) == \
+                assert (g.kind, g.samples + trim, g.rate, g.lane, g.frames, g.out_bits) == \
                     (w.kind, w.samples, w.rate, w.lane, w.frames, w.out_bits), sid
                 # a Vorbis lane's ragged PCM and a host stream's are made on the host
                 if g.kind in ("vorbis", "host"):
@@ -136,6 +149,9 @@ class Pair:
                 g, w = g.fetch(), w.fetch()
                 assert g.shape[-1] == got[sid].samples
             w = np.asarray(w)
+            if sid in self._head:
+                assert w.dtype == np.float32  # the gain is applied to float PCM here
+                w = w[..., trim:] * np.float32(self._head[sid][1])
             assert g.dtype == w.dtype and g.shape == w.shape, (sid, g.dtype, w.dtype, g.shape, w.shape)
             if sid.startswith("y"):
                 lsb = 1 if g.dtype == np.int16 else 1.0001 / 32768
@@ -406,11 +422,14 @@ def test_silk_and_hybrid_opus_lanes_match_jax(device_out):
     pushed in two ragged rounds with a collect after each; then lanes
     recycled across kinds (a CELT lane to a SILK stream, a SILK lane to a
     hybrid one, a hybrid lane to a CELT one), collect by collect against
-    the JAX fleet."""
+    the JAX fleet. The hybrid streams (v3, v4, v6) take their OpusHead's
+    pre-skip and gain, the port's stated departure (``Pair.hybrid``)."""
     pair = Pair(8)
     first = {"v0": voice_stream("silk_nb", 0, 20), "v1": voice_stream("silk_mb", 1, 16),
              "v2": voice_stream("silk_wb_stereo", 2, 22), "v3": voice_stream("hybrid_swb", 3, 14),
              "v4": voice_stream("hybrid_fb", 0, 19), "o0": opus_stream(0, 12)}
+    for sid, clip in (("v3", "hybrid_swb"), ("v4", "hybrid_fb"), ("v6", "hybrid_fb")):
+        pair.hybrid(sid, clip)
     for rnd in range(2):
         for sid, data in first.items():
             pair.push(sid, data[len(data) * rnd // 2: len(data) * (rnd + 1) // 2],
@@ -433,7 +452,7 @@ def test_silk_and_hybrid_opus_lanes_match_jax(device_out):
     got = pair.collect(device_out)
     assert sorted(got) == sorted(second)
     assert got["v7"].shape == (2, 9 * 960 - 312 - 23)  # NB: the resampler's lead
-    assert got["v6"].shape == (2, 11 * 960)  # hybrid: the OpusHead's pre-skip is not taken
+    assert got["v6"].shape == (2, 11 * 960 - 312)  # hybrid: the OpusHead's pre-skip is taken
 
 
 def test_explicit_opus_kind_joins_the_opus_group():

@@ -147,7 +147,8 @@ for sid, name in (("v0", "silk_mb"), ("v1", "hybrid_fb")):
     fleet.push(sid, opus_fixtures.lane_streams([voice[name]], 1, 6)[0], kind="opus")
     fleet.end_stream(sid)
 out = fleet.collect()
-assert out["v0"].shape == (2, 6 * 960 - 312) and out["v1"].shape == (2, 6 * 960)
+# the hybrid stream takes its OpusHead's pre-skip too (the port's stated departure)
+assert out["v0"].shape == (2, 6 * 960 - 312) and out["v1"].shape == (2, 6 * 960 - 312)
 switch = voice["silk_nb"].packets[:3] + voice["silk_wb"].packets[3:5]
 fleet.push("s", voice["silk_nb"].header + b"".join(
     b"OggS" + bytes(22) + bytes([1, len(p)]) + p for p in switch), kind="opus")
@@ -347,6 +348,43 @@ print("containers without jax")
 """
 
 
+_NO_JAX_LEFTOVERS = _NO_JAX_DECODE.split("import numpy as np")[0] + r"""
+import numpy as np
+import soundkit_tpu_torch.models as models
+from soundkit_tpu_torch.codecs.flac import FlacPartsStream, FlacSegsStream
+from soundkit_tpu_torch.codecs.silk_native import NativeSilkBatch
+from soundkit_tpu_torch.models.opus_batch import BatchedOpusDecoder, BatchedSilkDecoder
+from soundkit_tpu_torch.tools import flac_fixtures, opus_fixtures
+from soundkit_tpu_torch.utils import quality, test_utils, waveform
+assert len(models.__all__) == 7 and models.BatchedOpusDecoder is BatchedOpusDecoder
+raw = opus_fixtures.lane_raw(opus_fixtures.load_clips(), 2, 3)
+dec = BatchedOpusDecoder(2, 2)
+for i, r in enumerate(raw):
+    dec.push(i, r)
+pcm, lengths = dec.decode_ready()
+assert pcm.shape == (3, 2, 2, 960) and lengths[0, 0] == 648 and np.abs(pcm).max() > 0
+voice = opus_fixtures.load_clips(names=("silk_wb",))
+host = BatchedSilkDecoder(1, 1)
+for frame, bw, coded in opus_fixtures.lane_frames(voice, 0, 3):
+    host.push_packet(0, frame, bw, coded)
+pcm, lengths = host.decode_ready()
+assert pcm.shape == (3, 1, 1, 960) and lengths.sum() == 3 * 960 and np.abs(pcm).max() > 0
+frames = [f for f, _, _ in opus_fixtures.lane_frames(voice, 0, 1)]
+out, n, info = NativeSilkBatch(1, 1).decode_many(frames, [2], [1], [20], [1])
+assert n[0] == 320 and np.abs(out).max() > 0
+clip = flac_fixtures.load_clips()[0]
+for walk, step in ((FlacPartsStream(4096), "next_parts"), (FlacSegsStream(4096), "next")):
+    walk.feed(clip.header + clip.frames[0] + clip.frames[1])
+    assert getattr(walk, step)() is not None
+x = np.sin(np.arange(4800) * 0.05).astype(np.float32)
+assert quality.QualityComparison.compare(x, x).passes_default_thresholds()
+assert test_utils.DecodeResult.new((x * 9000).astype(np.int16), 48000, 1).sample_count == 4800
+assert len(waveform.render_waveform(waveform.waveform_peaks(x))) == 8
+assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
+print("leftovers without jax")
+"""
+
+
 _NO_JAX_ENCODE = r"""
 import importlib.abc, sys
 class _Block(importlib.abc.MetaPathFinder):
@@ -405,6 +443,7 @@ print("encoders without jax or cryptography")
                                          (_NO_JAX_STREAMS, "streams without jax"),
                                          (_NO_JAX_HOST_CODECS, "host codecs without jax"),
                                          (_NO_JAX_CONTAINERS, "containers without jax"),
+                                         (_NO_JAX_LEFTOVERS, "leftovers without jax"),
                                          (_NO_JAX_ENCODE, "encoders without jax or cryptography")])
 def test_port_runs_on_cpu_with_jax_blocked(script, said):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,

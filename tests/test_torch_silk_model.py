@@ -228,19 +228,42 @@ def test_hybrid_stream_that_starts_on_redundancy_freezes_its_lane(voice):
 # the Ogg Opus group with its three engines
 # ---------------------------------------------------------------------------
 
+def with_head(collect, lanes, skip, gain):
+    """The JAX group's collect (slots [n, B, C, 960] with the valid samples
+    at the END, lengths [n, B]) with an OpusHead's pre-skip and gain
+    applied to ``lanes``, as the port's hybrid engine applies them: the
+    gain scales the lane's slots, the pre-skip comes off its first valid
+    samples. ``skip`` holds what is left of each lane's pre-skip and is
+    updated."""
+    pcm, lengths = np.array(collect[0]), np.array(collect[1])
+    for b in lanes:
+        pcm[:, b] *= np.float32(gain[b])
+        for i in range(lengths.shape[0]):
+            k = min(skip[b], int(lengths[i, b]))
+            skip[b] -= k
+            lengths[i, b] -= k
+    return pcm, lengths
+
+
 def test_ogg_group_serves_celt_silk_and_hybrid_lanes_like_jax(voice):
     """Eight Ogg lanes, CELT, SILK (NB, MB, WB stereo) and hybrid (SWB,
     FB), pushed in odd chunks over three collects (``device_out`` and
     host slots), a lane recycled from CELT to SILK; per collect the JAX
-    group's slots and lengths. A hybrid lane ignores its OpusHead's
-    pre-skip and gain, as the reference's does: its ``push`` configures
-    the CELT and SILK engines from the head and never the hybrid one
-    (``soundkit_tpu/models/opus_fleet_model.py:247-253``)."""
+    group's slots and lengths. A hybrid lane takes its OpusHead's pre-skip
+    and gain, where the reference's ignores them (its ``push`` configures
+    only the CELT and SILK engines from the head,
+    ``soundkit_tpu/models/opus_fleet_model.py:247-253``): the port's
+    stated departure, so the hybrid lanes are held to the JAX group's
+    slots with the head's pre-skip and gain applied to them."""
     celt = opus_fixtures.load_clips()
     clips = [celt[0], voice["silk_nb"], voice["silk_mb"], voice["silk_wb_stereo"],
              voice["hybrid_swb"], voice["hybrid_fb"], celt[3], voice["silk_wb"]]
     streams = [opus_fixtures.lane_streams(clips, b + 1, 24 - b)[b] for b in range(8)]
     port, ref = BatchedOggOpusDecoder(8, 2, device="cpu"), JaxOgg(8, 2)
+    hybrid = (4, 5)
+    skip = {b: clips[b].pre_skip for b in hybrid}
+    gain = {b: 10.0 ** (clips[b].output_gain / 5120.0) for b in hybrid}
+    totals = np.zeros((2, 8), np.int64)
     for third, device_out in ((0, True), (1, False), (2, True)):
         for m in (port, ref):
             for b, s in enumerate(streams):
@@ -259,11 +282,15 @@ def test_ogg_group_serves_celt_silk_and_hybrid_lanes_like_jax(voice):
         want = ref.decode_batches(n, device_out)
         if device_out:
             got = (got[0].numpy(), got[1])
-        assert_collects_match(got, want)
+        totals += [got[1].sum(axis=0), np.asarray(want[1]).sum(axis=0)]
+        assert_collects_match(got, with_head(want, hybrid, skip, gain))
     assert port._kind == ["silk", "silk", "silk", "silk", "hybrid", "hybrid", "celt", "silk"]
-    # the hybrid lanes: no pre-skip taken off (312 in their heads)
-    assert port._hyb._skip[4] == port._hyb._skip[5] == 0
-    assert port._silk._gain[2] != 1.0 and port._hyb._gain[4] == 1.0
+    # the hybrid lanes came out shorter than the reference's by their
+    # heads' pre-skip (312), scaled by their heads' gain; every other lane
+    # as long as the reference's
+    assert [clips[b].pre_skip for b in hybrid] == [312, 312]
+    np.testing.assert_array_equal(totals[0], totals[1] - [0, 0, 0, 0, 312, 312, 0, 0])
+    assert port._hyb._gain[4] == np.float32(gain[4]) and port._silk._gain[2] != 1.0
 
 
 def test_ogg_group_refuses_a_frozen_hybrid_lane_at_its_next_push(voice):

@@ -1124,3 +1124,32 @@ if __name__ == "__main__":
      "vorbis": generate_vorbis_fixtures,
      "host_codecs": generate_host_codec_fixtures,
      "containers": generate_container_index}[sys.argv[1]]()
+
+
+# ---------------------------------------------------------------------------
+# the AAC-LC gap to libavcodec (ROADMAP §3)
+# ---------------------------------------------------------------------------
+
+def aac_batched_libavcodec_snr() -> Dict[str, float]:
+    """SNR in dB of the port's batched AAC-LC decode (``BatchedAacLcDecoder``
+    at one lane on the CPU, the v4 wire) against the JAX package's
+    libavcodec decode of the same ADTS clip, for each in-repo clip, both
+    aligned at offset 0 over the shorter length. Not a test: it measures a
+    gap the port shares with the JAX package's owned decoders. Run it as
+    ``JAX_PLATFORMS=cpu python -c "import sys; sys.path.insert(0, 'tests');
+    import torch_port_helpers as h; print(h.aac_batched_libavcodec_snr())"``
+    from the repository's root (about ten minutes: the plain path decodes
+    the clips' 1,134 frames one batch each)."""
+    from soundkit_tpu.codecs.avdec import AvDecoder
+    from soundkit_tpu_torch.models.aac_lc_batch import BatchedAacLcDecoder
+
+    out = {}
+    for name, frames in zip(aac_fixtures.CLIPS, aac_fixtures.load_clips()):
+        model = BatchedAacLcDecoder(1, 2, device="cpu")
+        model.push(0, b"".join(frames))
+        got = model.decode_batches(len(frames))[:, 0].transpose(1, 0, 2).reshape(2, -1)
+        av = AvDecoder("aac", use_parser=True)
+        ref = np.concatenate([av.push(b"".join(frames)), av.flush()]).reshape(-1, 2).T
+        n = min(got.shape[1], ref.shape[1])
+        out[name] = snr_db(got[:, :n], ref[:, :n])
+    return out
