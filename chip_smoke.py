@@ -338,14 +338,20 @@ ff. pipeline: K3, K6 and K7 at B = 1 on 1, 127 and 313 codes and on one
    dB in float32 through ``Mp3Decoder``; six host-decoded streams of ~20 s
    (``pipeline_host_streams``: Ogg Opus CELT stereo and mono, SILK WB,
    hybrid FB, raw Opus, Ogg Vorbis) the same way, hooked on their first
-   5 s and held whole against the CPU bit for bit; eleven streams of the
+   5 s and held whole against the CPU bit for bit; fourteen streams of the
    owned host codecs (``pipeline_codec_streams``: GSM standard and WAV49,
    AIFF 16-bit, AIFF-C µ-law and A-law, 60 s each; ALAC in CAF and in
-   MP4, 20 s; AC-3 stereo 10 s; Ogg Speex NB / WB / UWB 10 / 5 / 3 s)
+   MP4, 20 s; AC-3 stereo 10 s; Ogg Speex NB / WB / UWB 10 / 5 / 3 s;
+   MPEG audio Layer II stereo 48 kHz and LSF mono 22.05 kHz, 60 s each,
+   and Layer I stereo 48 kHz, 20 s, by ``spawn_mp3``, each an
+   ``mpa_fixtures`` clip's frames repeated)
    the same way, hooked on their first 2 s (AIFF and ALAC, decoded at
    EOF, whole), held whole against the CPU bit for bit and against the
    JAX package's decode of their clip (``codec_reference_check``: exact,
-   AC-3 and Speex within 1 LSB), AIFF-C's K3 once at each file's end;
+   AC-3 and Speex within 1 LSB; the MPEG audio streams within 1 LSB of
+   the committed float32 PCM of the clip, and the clip alone through
+   ``Mp3Decoder`` at >= 100 dB in float32, ``mpa_reference_check``),
+   AIFF-C's K3 once at each file's end;
    five container streams (``pipeline_container_streams``: M4A AAC and
    LOAS/LATM AAC 60 s, by detection and ``spawn_aac_latm``; WebM Vorbis,
    Opus CELT and Opus SILK 20 s, detected; each a container case's units
@@ -1394,6 +1400,8 @@ def phase_mp3_compare():
     and FIFO within K10's bound of their largest value."""
     import numpy as np
 
+    import torch
+
     from soundkit_tpu_torch.tools import kernel_check as kc
 
     t0 = time.perf_counter()
@@ -1422,8 +1430,22 @@ def phase_mp3_compare():
     check(live > B // 2, f"mp3 compare: only {live} lanes carried sound")
     check(worst >= 100.0, f"mp3 card vs CPU: a lane at {worst:.2f} dB")
     check(state_rel <= kc.REL_BOUND["mp3_synth"], f"mp3 card vs CPU: state off by {state_rel:.2e}")
+    # K10's requantize alone: its exp2f / powf against the plain version's on
+    # the same (q, e), and the lane SNR each error leaves in the plain synthesis
+    drift = kc.mp3_requantize_drift(kc.mp3_compare_rows(B, C), B, C, torch.device("cuda", 0),
+                                    card_pcm=np.concatenate(g_pcm))
+    log("[mp3-compare] requantize on the card vs the CPU: " + "; ".join(
+        f"{k} max {drift[k]['max_ulp']:.2f} ulp, {drift[k]['differ']} of {drift[k]['pairs']} "
+        f"differ, min lane SNR {drift[k]['min_lane_snr_db']:.2f} dB" for k in ("exp2f", "powf",
+                                                                               "line"))
+        + f"; K10 against the plain synthesis of its own lines: min lane SNR "
+        f"{drift['after_requantize']['min_lane_snr_db']:.2f} dB (the whole drift "
+        f"{drift['card']['min_lane_snr_db']:.2f} dB)")
+    check(drift["card"]["min_lane_snr_db"] == worst
+          or abs(drift["card"]["min_lane_snr_db"] - worst) < 1e-6,
+          "mp3 compare: the drift's rerun of the plain path is not the CPU decoder's")
     return dict(min_pcm_snr_db=worst, lanes=live, state_rel_err=float(state_rel),
-                card_s=t1 - t0, cpu_s=t2 - t1)
+                card_s=t1 - t0, cpu_s=t2 - t1, requantize=drift)
 
 
 def mp3_wrappers():
@@ -3461,15 +3483,18 @@ PIPE_HOST_SECONDS = 20.0
 PIPE_HOST_TIMED_SECONDS = 5.0
 PIPE_HOST_FORMATS = ("ogg_opus_stereo", "ogg_opus_mono", "ogg_opus_silk_wb", "ogg_opus_hybrid_fb",
                      "opus_raw", "ogg_vorbis")
-# the owned host codecs' streams, {format: (host_codec_fixtures clip, seconds at least)}, each
-# the clip's frames, packets or sound data repeated; the timing hook on their first
-# PIPE_CODEC_TIMED_SECONDS (the EOF-buffered AIFF and ALAC whole), the CPU compare whole
+# the owned host codecs' streams, {format: (host_codec_fixtures or mpa_fixtures clip, seconds at
+# least)}, each the clip's frames, packets or sound data repeated; the timing hook on their first
+# PIPE_CODEC_TIMED_SECONDS (the EOF-buffered AIFF and ALAC whole), the CPU compare whole. The
+# MPEG audio Layer II / I streams go to spawn_mp3 (the owned host Layer I / II decoder)
 PIPE_CODEC_STREAMS = {
     "gsm": ("gsm_standard", 60.0), "gsm_wav49": ("gsm_wav49", 60.0),
     "aiff_16": ("aiff_16", 60.0), "aifc_ulaw": ("aifc_ulaw", 60.0),
     "aifc_alaw": ("aifc_alaw", 60.0), "alac_caf": ("alac_caf", 20.0),
     "alac_mp4": ("alac_mp4", 20.0), "ac3": ("ac3_stereo", 10.0),
     "speex_nb": ("speex_nb", 10.0), "speex_wb": ("speex_wb", 5.0), "speex_uwb": ("speex_uwb", 3.0),
+    "mp2_stereo48": ("l2_48_stereo_192", 60.0), "mp2_lsf_mono": ("l2_lsf22_mono_64", 60.0),
+    "mp1_stereo48": ("l1_48_stereo_384", 20.0),
 }
 PIPE_CODEC_TIMED_SECONDS = 2.0
 # the container streams, {format: (container_fixtures case, seconds at least)}, each the case's
@@ -3616,10 +3641,12 @@ def pipeline_codec_streams() -> dict:
     each made by ``host_codec_fixtures.long_stream``: GSM standard and
     WAV49 by ``spawn_gsm``, ALAC in CAF by ``spawn_alac``, the rest (AIFF
     16-bit, AIFF-C µ-law and A-law, ALAC in MP4, AC-3 stereo, Ogg Speex
-    NB / WB / UWB) detected by ``DecodePipeline.spawn``."""
+    NB / WB / UWB) detected by ``DecodePipeline.spawn``; the MPEG audio
+    Layer II / I streams (``mpa_fixtures.long_stream``) by ``spawn_mp3``."""
     from soundkit_tpu_torch.codecs.telephony import GsmVariant
     from soundkit_tpu_torch.pipeline.decode_pipeline import DecodePipeline as DP
     from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
+    from soundkit_tpu_torch.tools import mpa_fixtures
 
     spawns = {"detect": DP.spawn, "alac": DP.spawn_alac,
               "gsm_standard": lambda device: DP.spawn_gsm(GsmVariant.STANDARD, device=device),
@@ -3627,6 +3654,10 @@ def pipeline_codec_streams() -> dict:
     index = hcf.load_index()
     out = {}
     for fmt, (clip, seconds) in PIPE_CODEC_STREAMS.items():
+        if clip in mpa_fixtures.SMOKE:
+            data, audio_s = mpa_fixtures.long_stream(clip, seconds)
+            out[fmt] = (data, DP.spawn_mp3, audio_s)
+            continue
         data, audio_s = hcf.long_stream(clip, seconds)
         out[fmt] = (data, spawns[index[clip]["spawn"]], audio_s)
     return out
@@ -3683,8 +3714,11 @@ def codec_reference_check(fmt: str, pcm: bytes) -> dict:
     import numpy as np
 
     from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
+    from soundkit_tpu_torch.tools import mpa_fixtures
 
     clip = PIPE_CODEC_STREAMS[fmt][0]
+    if clip in mpa_fixtures.SMOKE:
+        return mpa_reference_check(fmt, pcm)
     e = hcf.load_index()[clip]
     head = pcm[:e["pcm_bytes"]]
     check(len(head) == e["pcm_bytes"], f"[pipeline] {fmt}: {len(pcm)} bytes, shorter than its clip")
@@ -3696,6 +3730,36 @@ def codec_reference_check(fmt: str, pcm: bytes) -> dict:
     check(hcf.sha256(head) == e["sha256"], f"[pipeline] {fmt}: differs from the JAX package's "
           f"decode of {clip}")
     return dict(vs_jax="identical")
+
+
+def mpa_reference_check(fmt: str, pcm: bytes) -> dict:
+    """An MPEG audio Layer II / I stream against the JAX package's decode
+    of its clip (libavcodec), as ``mpa_fixtures`` commits it: the stream's
+    int16 PCM over the clip's length within 1 LSB of the committed float32
+    PCM quantized the same way, and the clip decoded alone by the port's
+    ``Mp3Decoder`` to float32 at >= 100 dB from it, of the same length."""
+    import numpy as np
+
+    from soundkit_tpu_torch.codecs.avdec import f32_to_i16
+    from soundkit_tpu_torch.codecs.mp3 import Mp3Decoder
+    from soundkit_tpu_torch.tools import mpa_fixtures
+
+    clip = PIPE_CODEC_STREAMS[fmt][0]
+    ref = mpa_fixtures.reference_pcm(clip)
+    head = np.frombuffer(pcm[:2 * ref.size], "<i2").astype(np.int32)
+    check(head.size == ref.size, f"[pipeline] {fmt}: {len(pcm)} bytes, shorter than its clip")
+    lsb = int(np.abs(head - f32_to_i16(ref).astype(np.int32)).max())
+    check(lsb <= 1, f"[pipeline] {fmt}: {lsb} LSB from the JAX package's PCM of {clip}")
+    dec = Mp3Decoder(device="cuda")
+    data = mpa_fixtures.clip_bytes(clip)
+    got = np.concatenate([dec.decode_f32(data), dec.flush_f32()]).astype(np.float64)
+    check(got.shape == ref.shape, f"[pipeline] {fmt}: {got.size} float32 samples of {clip}, "
+          f"the JAX package's {ref.size}")
+    want = ref.astype(np.float64)
+    snr = 10 * np.log10(np.sum(want ** 2) / max(np.sum((got - want) ** 2), 1e-300))
+    check(snr >= 100.0, f"[pipeline] {fmt}: float32 {snr:.2f} dB from the JAX package's PCM")
+    return dict(vs_jax_max_lsb=lsb, vs_jax_samples_off=int((head != f32_to_i16(ref)).sum()),
+                vs_jax_f32_snr_db=float(snr))
 
 
 def pipeline_run(spawn, data: bytes, device: str, timed: bool = False):

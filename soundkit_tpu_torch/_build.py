@@ -228,6 +228,7 @@ def kernels() -> ctypes.CDLL:
     lib.skt_flac_rice_plane.argtypes = [p, i, i, p, p, p, p, p, i, p, p, p, p, i, p]
     lib.skt_flac_lpc.argtypes = [p, p, p, p, p, p, p, p, p, i, i, p]
     lib.skt_mp3_granule.argtypes = [p, *[i] * 7, p, p, p, p, p, p, i, i, p]
+    lib.skt_mp3_requantize_probe.argtypes = [p, p, i, p, p, p, p]
     lib.skt_celt_postfilter.argtypes = [*[p] * 11, i, i, p]
     lib.skt_silk_synth.argtypes = [*[p] * 12, i, i, p]
     lib.skt_vorbis_overlap.argtypes = [*[p] * 7, i, i, i, i, p]
@@ -243,6 +244,7 @@ def kernels() -> ctypes.CDLL:
                lib.skt_spectral_decode, lib.skt_tns_filter, lib.skt_g711_decode,
                lib.skt_g711_launch_floor, lib.skt_g726_scan, lib.skt_g722_scan,
                lib.skt_flac_rice_plane, lib.skt_flac_lpc, lib.skt_mp3_granule,
+               lib.skt_mp3_requantize_probe,
                lib.skt_celt_postfilter, lib.skt_silk_synth, lib.skt_vorbis_overlap,
                lib.skt_flac_analyze, lib.skt_flac_analyze_occupancy, lib.skt_resample,
                lib.skt_resample_occupancy, lib.skt_stretch_ola, lib.skt_stretch_ola_occupancy,

@@ -16,8 +16,12 @@ channel's state.
 
 The JAX package hands three shapes to libavcodec: MPEG Layer I and II
 streams (found by ``_sniff_layer`` before any output), ``backend="av"``
-and the ``SKT_MP3_AV`` environment variable. The port builds no FFmpeg:
-a Layer I or II stream and ``backend="av"`` raise ``UnsupportedFormat``,
+and the ``SKT_MP3_AV`` environment variable. The port builds no FFmpeg.
+Where ``_sniff_layer`` finds Layer I or II, the decoder commits to the
+owned host decoder ``codecs.mpa_layer12.MpaLayer12Decoder`` and replays
+the sniffed bytes through it, where the JAX package replays them into
+libavcodec; it emits each frame once its last byte is in, as
+libavcodec's parser does. ``backend="av"`` raises ``UnsupportedFormat``,
 and ``SKT_MP3_AV`` is not read.
 """
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from soundkit_tpu_torch.codecs.avdec import f32_to_i16
 from soundkit_tpu_torch.codecs.mp3_native import NativeMp3Parser, pop_wire_rounds
+from soundkit_tpu_torch.codecs.mpa_layer12 import MpaLayer12Decoder
 from soundkit_tpu_torch.core.audio_types import AudioData, EncodingFlag, Endianness
 from soundkit_tpu_torch.ops import mp3_batch as mb
 from soundkit_tpu_torch.ops.mp3_synth import mp3_wire_layout
@@ -72,13 +77,18 @@ class Mp3Decoder:
         self._channels = 0
         self._state = None  # (overlap [1,2,32,18], fifo [1,2,1024]) on the device
         self._sniff = b""  # bytes sniffed until granules flow
+        self._mpa: Optional[MpaLayer12Decoder] = None  # a Layer I / II stream
 
     @property
     def sample_rate(self) -> Optional[int]:
+        if self._mpa is not None:
+            return self._mpa.rate or None
         return self._rate or None
 
     @property
     def channels(self) -> Optional[int]:
+        if self._mpa is not None:
+            return self._mpa.channels or None
         return self._channels or None
 
     def _synth(self, n: int) -> np.ndarray:
@@ -105,15 +115,18 @@ class Mp3Decoder:
 
     def decode_f32(self, data: bytes) -> np.ndarray:
         """Interleaved f32."""
-        # layer sniff: the owned parser is Layer III only; a Layer I/II
-        # stream is refused before any output
+        if self._mpa is not None:
+            return self._mpa.push(data)
+        # layer sniff: the Layer III parser takes Layer III only; a Layer
+        # I/II stream goes, with its sniffed bytes replayed, to the owned
+        # Layer I / II decoder before any output
         if self._sniff is not None:
             self._sniff += bytes(data)
             layer = _sniff_layer(self._sniff)
             if layer is not None and layer != 3:
-                raise UnsupportedFormat(
-                    f"MPEG audio Layer {'I' * layer}: the ported decoder is Layer III only "
-                    "(no libavcodec)")
+                replay, self._sniff, self._parser = self._sniff, None, None
+                self._mpa = MpaLayer12Decoder()
+                return self._mpa.push(replay)
         queued = self._parser.push(data)
         if queued == 0:
             return np.zeros(0, np.float32)
@@ -124,6 +137,8 @@ class Mp3Decoder:
         return f32_to_i16(self.decode_f32(data))
 
     def flush_f32(self) -> np.ndarray:
+        if self._mpa is not None:
+            return self._mpa.flush()
         # the parser emits every completed granule eagerly; a trailing
         # partial frame has nothing decodable left
         return np.zeros(0, np.float32)

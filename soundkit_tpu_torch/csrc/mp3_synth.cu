@@ -117,11 +117,30 @@ __device__ __forceinline__ void stage_lines(int16_t* raw, const uint8_t* quant, 
         dst[v] = v < N ? reinterpret_cast<const V*>(quant)[v] : reinterpret_cast<const V*>(expq)[v - N];
 }
 
+// 2^(e / 4); 0 for the sentinel -32768
+__device__ __forceinline__ float requantize_scale(int e) {
+    return e == -32768 ? 0.f : exp2f(0.25f * (float)e);
+}
+
+// |q|^(4/3)
+__device__ __forceinline__ float requantize_pow(int q) { return powf(fabsf((float)q), 4.f / 3.f); }
+
 // sign(q) |q|^(4/3) 2^(e / 4), in the reference's order; 0 for the sentinel -32768
 __device__ __forceinline__ float requantize(int q, int e) {
-    const float scale = e == -32768 ? 0.f : exp2f(0.25f * (float)e);
     const float sq = q > 0 ? 1.f : (q < 0 ? -1.f : 0.f);
-    return (sq * powf(fabsf((float)q), 4.f / 3.f)) * scale;
+    return (sq * requantize_pow(q)) * requantize_scale(e);
+}
+
+// The requantize's parts for n (q, e) pairs, as the granule kernel computes
+// them: 2^(e / 4), |q|^(4/3) and the line (a probe of its arithmetic, not
+// on the decode path)
+__global__ void mp3_requantize_probe_kernel(const int16_t* q, const int16_t* e, int n,
+                                            float* scale, float* mag, float* line) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    scale[i] = requantize_scale(e[i]);
+    mag[i] = requantize_pow(q[i]);
+    line[i] = requantize(q[i], e[i]);
 }
 
 // Line (sb, i) of the IMDCT: z[i] (into the overlap-add) and z[18 + i]
@@ -352,5 +371,13 @@ extern "C" int skt_mp3_granule(const uint8_t* wire, int off_bt, int off_nal, int
                                                               new_overlap, new_fifo);
     else
         return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+}
+
+extern "C" int skt_mp3_requantize_probe(const int16_t* q, const int16_t* e, int n, float* scale,
+                                        float* mag, float* line, void* stream) {
+    if (n <= 0) return 0;
+    mp3_requantize_probe_kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+        q, e, n, scale, mag, line);
     return (int)cudaGetLastError();
 }

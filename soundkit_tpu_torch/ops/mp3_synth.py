@@ -115,15 +115,24 @@ def expq_scale(expq):
     return torch.where(expq == -32768, 0.0, torch.exp2(0.25 * expq.to(torch.float32)))
 
 
+def requantize_lines(quant, scale):
+    """``sign(q) |q| ** (4 / 3) * scale``, f32, of the lines ``quant``."""
+    q = quant.to(torch.float32)
+    return torch.sign(q) * q.abs() ** (4.0 / 3.0) * scale
+
+
 def granule_lines(quant, scale, ms, n_alias_sb):
     """The lines the synthesis takes, f32 [B, C, 576]: requantized, M/S
     where ``ms``, then alias-reduced over each lane's ``n_alias_sb``
     boundaries."""
-    B, C, _ = quant.shape
-    dev = quant.device
+    return stereo_alias(requantize_lines(quant, scale), ms, n_alias_sb)
 
-    q = quant.to(torch.float32)
-    xr = torch.sign(q) * q.abs() ** (4.0 / 3.0) * scale
+
+def stereo_alias(xr, ms, n_alias_sb):
+    """Requantized lines ``xr`` [B, C, 576], M/S where ``ms``, then
+    alias-reduced over each lane's ``n_alias_sb`` boundaries."""
+    B, C, _ = xr.shape
+    dev = xr.device
 
     # MS stereo (full spectrum)
     if C >= 2:
@@ -298,3 +307,24 @@ def mp3_granule_packed(buf, overlap, fifo, pcm_out=None):
 
 
 mp3_granule_packed.launches = 0
+
+
+def requantize_probe(q, e):
+    """K10's requantize arithmetic on ``q`` and ``e`` (int16, same shape):
+    (``2 ** (e / 4)``, ``|q| ** (4 / 3)``, the line), f32. On a CUDA
+    tensor a probe kernel evaluates them with the granule kernel's own
+    device functions; on the CPU the plain version's. A measurement, not
+    a decode step: K10's launch count does not move."""
+    if q.device.type == "cpu":
+        return (expq_scale(e), q.to(torch.float32).abs() ** (4.0 / 3.0),
+                requantize_lines(q, expq_scale(e)))
+    dev = check_cuda("mp3_requantize_probe", q, e)
+    if q.shape != e.shape or q.dtype != torch.int16 or e.dtype != torch.int16:
+        raise ValueError("mp3_requantize_probe: q and e int16 of one shape")
+    qc, ec = q.contiguous(), e.contiguous()
+    outs = [torch.empty(q.shape, dtype=torch.float32, device=dev) for _ in range(3)]
+    rc = _build.kernels().skt_mp3_requantize_probe(
+        qc.data_ptr(), ec.data_ptr(), qc.numel(), *(o.data_ptr() for o in outs),
+        torch.cuda.current_stream(dev).cuda_stream)
+    launch_check("mp3_requantize_probe", rc)
+    return tuple(outs)

@@ -714,6 +714,97 @@ def mp3_fixture_inputs(num_lanes: int, device, warm: int = 3, channels: int = 2)
     return [row], model._overlap, model._fifo
 
 
+def mp3_compare_rows(num_lanes: int, channels: int = 2, calls=(2, 3)) -> np.ndarray:
+    """The packed wire rows [G, stride] (uint8) that ``chip_smoke.py``'s
+    ``[mp3-compare]`` decodes: ``num_lanes`` lanes of
+    ``mp3_fixtures.lane_streams(..., 4)`` popped ``calls`` granules at a
+    time, as its ``decode_batches`` calls pop them."""
+    from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+    from soundkit_tpu_torch.tools import mp3_fixtures
+
+    model = BatchedMp3Decoder(num_lanes, channels, device="cpu")
+    for i, data in enumerate(mp3_fixtures.lane_streams(mp3_fixtures.load_clips(), num_lanes, 4)):
+        model.push(i, data)
+    return np.concatenate([model._pop_rounds(n) for n in calls])
+
+
+def _ulps(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """|got - want| in units of the float32 spacing at ``want`` (0 where
+    both are 0)."""
+    got, want = got.astype(np.float64), want.astype(np.float32)
+    return np.abs(got - want) / np.spacing(np.abs(want)).astype(np.float64)
+
+
+def mp3_requantize_drift(rows: np.ndarray, num_lanes: int, channels: int, device,
+                         card_pcm: np.ndarray = None) -> dict:
+    """K10's requantize on ``device`` against the plain version's on the
+    CPU, on every (q, e) of the packed wire rows ``rows`` ([G, stride]):
+    the largest error in ulps of ``2 ** (e / 4)`` (K10's ``exp2f``), of
+    ``|q| ** (4 / 3)`` (``powf``) and of the line, and the pairs that
+    differ; then the PCM SNR that each error leaves: the plain synthesis
+    run over the rows (chained, from zero state) with the card's scale,
+    the card's power, and the card's line in place of the CPU's, each
+    against the plain run, as the smallest SNR over the streams that
+    carry sound (``min_lane_snr_db``; inf where nothing moved). With
+    ``card_pcm`` (the card's K10 decode of the rows, [G, B, C, 576]) also
+    that decode against the plain synthesis fed the card's lines
+    (``after_requantize``: what the stages after the requantize add) and
+    against the plain run (``card``: the whole drift)."""
+    G, B, C = rows.shape[0], num_lanes, channels
+    layout = {name: (off, dt, shp) for name, off, dt, shp in mp3_synth.mp3_wire_layout(B)[0]}
+
+    def field(name):
+        off, dt, shp = layout[name]
+        n = int(np.prod(shp)) * np.dtype(dt).itemsize
+        return np.stack([row[off:off + n].view(dt).reshape(shp) for row in rows])
+
+    q = torch.from_numpy(np.ascontiguousarray(field("quant")[:, :, :C]))
+    e = torch.from_numpy(np.ascontiguousarray(field("expq")[:, :, :C]))
+    card = [t.cpu() for t in mp3_synth.requantize_probe(q.to(device), e.to(device))]
+    plain = mp3_synth.requantize_probe(q, e)
+    res = {}
+    live_e = (e != -32768).numpy()
+    for name, c, p_, mask in (("exp2f", card[0], plain[0], live_e),
+                              ("powf", card[1], plain[1], np.ones(live_e.shape, bool)),
+                              ("line", card[2], plain[2], np.ones(live_e.shape, bool))):
+        u = _ulps(c.numpy()[mask], p_.numpy()[mask])
+        res[name] = dict(max_ulp=float(u.max()) if u.size else 0.0,
+                         differ=int((c.numpy()[mask] != p_.numpy()[mask]).sum()), pairs=int(u.size))
+    sign = torch.sign(q.to(torch.float32))
+    variants = {"plain": plain[2], "exp2f": sign * plain[1] * card[0],
+                "powf": sign * card[1] * plain[0], "line": card[2]}
+    pcm = {}
+    for name, xr in variants.items():
+        ov = torch.zeros((B * C, 576), dtype=torch.float32)
+        ff = torch.zeros((B * C, 1024), dtype=torch.float32)
+        outs = []
+        for g, row in enumerate(rows):
+            f = mp3_synth.unpack_mp3_wire(torch.from_numpy(row), B)
+            lines = mp3_synth.stereo_alias(xr[g], f["ms"] != 0, f["nal"][:, :C])
+            L = B * C
+            out, ov, ff = mp3_synth.mp3_synth_plain(
+                lines.reshape(L, 576), f["bt"][:, :C].reshape(L), f["mixed"][:, :C].reshape(L),
+                f["valid"][:, :C].reshape(L), ov, ff)
+            outs.append(out.reshape(B, C, 576).numpy().astype(np.float64))
+        pcm[name] = np.stack(outs)
+
+    def min_lane_snr(got, ref):
+        sig = (ref ** 2).sum(axis=(0, 2, 3))
+        err = ((got - ref) ** 2).sum(axis=(0, 2, 3))
+        live = sig > 0
+        snr = 10 * np.log10(sig[live] / np.maximum(err[live], 1e-300))
+        return float(snr.min()) if np.any(err[live] > 0) else float("inf")
+
+    for name in ("exp2f", "powf", "line"):
+        res[name]["min_lane_snr_db"] = min_lane_snr(pcm[name], pcm["plain"])
+    if card_pcm is not None:
+        card = np.asarray(card_pcm, np.float64)
+        res["after_requantize"] = dict(min_lane_snr_db=min_lane_snr(card, pcm["line"]))
+        res["card"] = dict(min_lane_snr_db=min_lane_snr(card, pcm["plain"]))
+    res.update(granules=G, streams=B, channels=C)
+    return res
+
+
 def mp3_stream_inputs(name: str, device, warm_bytes: int = 6000):
     """K10's inputs on the streaming path: a streaming ``Mp3Decoder`` on
     ``device`` fed the first ``warm_bytes`` of fixture ``name``, then its

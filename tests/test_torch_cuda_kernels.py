@@ -201,6 +201,30 @@ def test_mp3_synth_holds_its_bound_with_tf32_on(dev):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def test_mp3_requantize_probe_on_the_card(dev):
+    """K10's requantize arithmetic on the card against the plain
+    version's on the CPU: ``exp2f`` and ``powf`` within 1 ulp, the line
+    (their product with the sign, rounded twice on each side) within 3,
+    the sentinel's scale 0, and the probe moves no K10 count
+    (``[mp3-compare]`` measured 1 / 1 / 2 ulps on its 5.9 M pairs)."""
+    from soundkit_tpu_torch.ops import mp3_synth
+
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.integers(-8206, 8207, (3, 2, 576)).astype(np.int16))
+    e = torch.from_numpy(rng.integers(-500, 100, (3, 2, 576)).astype(np.int16))
+    e[0, 0, :16] = -32768
+    before = mp3_synth.mp3_granule_packed.launches
+    card = [t.cpu() for t in mp3_synth.requantize_probe(q.to(dev), e.to(dev))]
+    assert mp3_synth.mp3_granule_packed.launches == before
+    plain = mp3_synth.requantize_probe(q, e)
+    for got, want, ulps in zip(card, plain, (1, 1, 3)):
+        got, want = got.numpy().astype(np.float64), want.numpy()
+        assert np.all(np.abs(got - want) <= ulps * np.spacing(np.abs(want)))
+    assert not card[0][0, 0, :16].any()
+    drift = kc.mp3_requantize_drift(kc.mp3_compare_rows(24), 24, 2, dev)
+    assert drift["line"]["max_ulp"] <= 3 and drift["line"]["min_lane_snr_db"] > 120
+
+
 def test_mp3_decoder_writes_the_collect_in_place(dev):
     """The decoder's granule steps on the card write their PCM into one
     collect tensor: one K10 launch a granule, and the collect equals

@@ -320,3 +320,45 @@ def test_packed_step_on_the_cpu_is_the_chain_it_replaced(C):
         for g, i, w in zip(got, into, want):
             assert torch.equal(g, w) and torch.equal(i, w)
         ov, ff = want[1], want[2]
+
+
+def test_requantize_probe_and_drift_on_the_cpu_are_the_plain_version():
+    """K10's requantize probe on CPU tensors is the plain version's
+    arithmetic (``expq_scale``, ``|q| ** (4 / 3)``, ``requantize_lines``),
+    and ``kernel_check.mp3_requantize_drift``, which ``[mp3-compare]`` runs
+    on the card, finds no ulp apart and no SNR lost when the 'card' is the
+    CPU: its plain synthesis rerun over the compare rows is the decoder's."""
+    from soundkit_tpu_torch.models.mp3_batch_model import BatchedMp3Decoder
+    from soundkit_tpu_torch.tools import mp3_fixtures
+
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.integers(-8206, 8207, (4, 2, 576)).astype(np.int16))
+    e = torch.from_numpy(rng.integers(-400, 60, (4, 2, 576)).astype(np.int16))
+    e[0, 0, :10] = -32768
+    scale, mag, line = mp3_synth.requantize_probe(q, e)
+    torch.testing.assert_close(scale, mp3_synth.expq_scale(e), rtol=0, atol=0)
+    torch.testing.assert_close(mag, q.to(torch.float32).abs() ** (4.0 / 3.0), rtol=0, atol=0)
+    torch.testing.assert_close(line, mp3_synth.requantize_lines(q, mp3_synth.expq_scale(e)),
+                               rtol=0, atol=0)
+    B = 16
+    rows = kc.mp3_compare_rows(B)
+    model = BatchedMp3Decoder(B, 2, device="cpu")
+    for i, data in enumerate(mp3_fixtures.lane_streams(mp3_fixtures.load_clips(), B, 4)):
+        model.push(i, data)
+    pcm = np.concatenate([model.decode_batches(n) for n in (2, 3)])
+    drift = kc.mp3_requantize_drift(rows, B, 2, "cpu", card_pcm=pcm)
+    for k in ("exp2f", "powf", "line"):
+        assert drift[k]["max_ulp"] == 0 and drift[k]["differ"] == 0 and drift[k]["pairs"] > 0
+        assert drift[k]["min_lane_snr_db"] == float("inf")
+    # the plain rerun over the rows is the decoder's own decode
+    assert drift["card"]["min_lane_snr_db"] == drift["after_requantize"]["min_lane_snr_db"] \
+        == float("inf")
+    pcm[1, 3, 0, 100] += 1e-6
+    moved = kc.mp3_requantize_drift(rows, B, 2, "cpu", card_pcm=pcm)
+    assert 100 < moved["card"]["min_lane_snr_db"] == moved["after_requantize"]["min_lane_snr_db"] \
+        < float("inf")
+    other = BatchedMp3Decoder(B, 2, device="cpu")
+    for i, data in enumerate(mp3_fixtures.lane_streams(mp3_fixtures.load_clips(), B, 4)):
+        other.push(i, data)
+    assert rows.shape[0] == 5 and np.array_equal(
+        np.concatenate([other._pop_rounds(n) for n in (2, 3)]), rows)

@@ -7,7 +7,8 @@ G.722 / G.726 state equal to the JAX decoders' after every chunk);
 FLAC bit-exact with its STREAMINFO MD5; MP3 at >= 100 dB, within 1 LSB
 in int16 and its overlap and FIFO within 1e-5 of their largest value;
 AAC-ADTS bit-exact. The shapes the JAX package hands to libavcodec
-raise in the port. The telephony clips are cut short: the plain scans
+raise in the port, but MPEG audio Layer I / II, which the port decodes
+with its owned host decoder (``tests/test_torch_mpa.py``). The telephony clips are cut short: the plain scans
 step one sample at a time on the CPU (about 1.3 ms a G.722 code and 2
 ms a G.726 code)."""
 from pathlib import Path
@@ -317,13 +318,23 @@ def _layer2_header(n_frames: int = 40) -> bytes:
 
 
 def test_mp3_layer2_raises_where_jax_calls_libavcodec():
+    """Where the JAX package's sniff hands a Layer II stream to libavcodec,
+    the port no longer raises (it did before it had a Layer I / II
+    decoder): it commits to the owned decoder and replays the sniffed
+    bytes. The zero-payload frames decode to the JAX package's silence,
+    length, rate and channels, whole and in 313-byte pushes."""
     data = _layer2_header()
     assert mp3._sniff_layer(data) == jax_mp3._sniff_layer(data) == 2
-    with pytest.raises(UnsupportedFormat, match="Layer II"):
-        mp3.Mp3Decoder(device="cpu").decode_f32(data)
     ref = jax_mp3.Mp3Decoder()
-    ref.decode_f32(data)
+    want = np.concatenate([ref.decode_f32(data), ref.flush_f32()])
     assert ref._av is not None  # rerouted to libavcodec
+    assert want.size > 0
+    for step in (len(data), 313):
+        port = mp3.Mp3Decoder(device="cpu")
+        got = np.concatenate([port.decode_f32(c) for c in chunks(data, step)] + [port.flush_f32()])
+        np.testing.assert_array_equal(got, want)
+        assert port._mpa is not None
+        assert (port.sample_rate, port.channels) == (ref.sample_rate, ref.channels)
 
 
 def test_mp3_av_backend_raises_and_the_env_variable_changes_nothing(monkeypatch):

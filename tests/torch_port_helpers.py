@@ -14,6 +14,7 @@ generators live here, on the test side; regenerate from the repository's root wi
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py vorbis
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py host_codecs
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py containers
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py mpa
 """
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ import numpy as np
 
 from soundkit_tpu_torch.models.telephony_batch import CODECS
 from soundkit_tpu_torch.tools import (aac_fixtures, container_fixtures, flac_fixtures,
-                                      host_codec_fixtures, mp3_fixtures, opus_fixtures,
-                                      telephony_fixtures, vorbis_fixtures)
+                                      host_codec_fixtures, mp3_fixtures, mpa_fixtures,
+                                      opus_fixtures, telephony_fixtures, vorbis_fixtures)
 
 SR_INDEX_48K = 3
 # AUs per clip that cover long, short (EIGHT_SHORT) and TNS frames
@@ -1117,13 +1118,263 @@ def generate_container_index(directory: Path = container_fixtures.FIXTURE_DIR) -
     (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
 
 
+# ---------------------------------------------------------------------------
+# MPEG audio Layer I / II (tools/mpa_fixtures.py)
+# ---------------------------------------------------------------------------
+
+_MPA_VERSION_BITS = {"1": 3, "2": 2, "2.5": 0}
+_MPA_RATES = {"1": (44100, 48000, 32000), "2": (22050, 24000, 16000), "2.5": (11025, 12000, 8000)}
+_MPA_MODES = {"stereo": 0, "joint": 1, "dual": 2, "mono": 3}
+
+
+class _BitWriter:
+    def __init__(self) -> None:
+        self.bits: List[int] = []
+
+    def put(self, value: int, width: int) -> None:
+        self.bits.extend((int(value) >> (width - 1 - k)) & 1 for k in range(width))
+
+
+def _crc16(bits: List[int]) -> int:
+    """CRC-16 (x^16 + x^15 + x^2 + 1, preset 0xFFFF) of a bit sequence,
+    as ISO/IEC 11172-3 protects a frame's header and side bits."""
+    crc = 0xFFFF
+    for b in bits:
+        top = (crc >> 15) & 1
+        crc = (crc << 1) & 0xFFFF
+        if top ^ b:
+            crc ^= 0x8005
+    return crc
+
+
+def mpa_frames(seed: int, layer: int, version: str, rate: int, mode: str, kbps: int,
+               n_frames: int, *, mode_exts=(0,), crc: bool = False, bad_crc: bool = False) -> bytes:
+    """``n_frames`` Layer I or II frames written from seeded random side
+    information and sample codes (the test side's frame writer).
+
+    Each frame draws an allocation, scfsi and scalefactors, then cuts
+    allocations until its codes fit its bytes; the rest of the frame is
+    zero (ancillary data). The padding bit follows the frame-length
+    accumulator of an encoder (set where the nominal length has a
+    fraction, at 44.1 kHz and its halves). A joint-stereo frame takes its
+    mode extension from ``mode_exts`` in turn. With ``crc`` the CRC word
+    covers the header's last 16 bits and the allocation (and Layer II's
+    scfsi) bits; ``bad_crc`` writes it inverted."""
+    rng = np.random.default_rng(seed)
+    tables = dict(np.load(Path(mpa_fixtures.__file__).resolve().parents[1] / "data"
+                          / "mpa_tables.npz"))
+    lsf = version != "1"
+    kb_row = list(tables["bitrate_tab"][int(lsf), layer - 1])
+    br_idx = kb_row.index(kbps)
+    sr_idx = _MPA_RATES[version].index(rate)
+    nch = 1 if mode == "mono" else 2
+    # Layer II: the allocation table (ISO/IEC 11172-3 Table 3-B.2 by rate
+    # and bit rate per channel; ISO/IEC 13818-3 Table B.1 for LSF)
+    if layer == 2:
+        per_ch = kbps // nch
+        if lsf:
+            tab = 4
+        elif (rate == 48000 and per_ch >= 56) or 56 <= per_ch <= 80:
+            tab = 0
+        elif rate != 48000 and per_ch >= 96:
+            tab = 1
+        elif rate != 32000 and per_ch <= 48:
+            tab = 2
+        else:
+            tab = 3
+        sblimit = int(tables["sblimit"][tab])
+        alloc_tab = tables[f"alloc_{tab}"]
+        nbal, offs = [], []
+        j = 0
+        for _ in range(sblimit):
+            nbal.append(int(alloc_tab[j]))
+            offs.append(j)
+            j += 1 << int(alloc_tab[j])
+    else:
+        sblimit = 32
+    unit = 12000 if layer == 1 else 144000
+    acc = 0
+    out = bytearray()
+    for f in range(n_frames):
+        acc += kbps * unit % rate
+        padding = 1 if acc >= rate else 0
+        acc -= rate * padding
+        size = ((kbps * unit // rate + padding) * 4) if layer == 1 else kbps * unit // rate + padding
+        mode_ext = mode_exts[f % len(mode_exts)] if mode == "joint" else 0
+        bound = min((mode_ext + 1) * 4, sblimit) if mode == "joint" else sblimit
+        entries = [(i, c) for i in range(bound) for c in range(nch)] + \
+                  [(i, 0) for i in range(bound, sblimit)]
+        if layer == 1:
+            alloc = {e: int(rng.integers(0, 15)) if rng.random() < 0.8 else 0 for e in entries}
+        else:
+            alloc = {e: int(rng.integers(0, 1 << nbal[e[0]])) if rng.random() < 0.8 else 0
+                     for e in entries}
+
+        def klass(e):  # Layer II: (code bits, steps, grouped) of an entry
+            q = int(tables[f"alloc_{tab}"][offs[e[0]] + alloc[e]])
+            bits, steps = int(tables["quant_bits"][q]), int(tables["quant_steps"][q])
+            return abs(bits), steps, bits < 0
+
+        def coded(e):  # the (subband, channel) pairs an entry codes
+            return [(e[0], c) for c in range(nch)] if e[0] >= bound else [e]
+
+        def cost():
+            side = 32 + 16 * crc
+            if layer == 1:
+                side += 4 * len(entries)
+                side += sum(6 * len(coded(e)) for e in entries if alloc[e])
+                return side + sum(12 * (alloc[e] + 1) for e in entries if alloc[e])
+            side += sum(nbal[e[0]] for e in entries)
+            side += sum(20 * len(coded(e)) for e in entries if alloc[e])  # scfsi + <= 3 sf
+            body = 0
+            for e in entries:
+                if alloc[e]:
+                    bits, _, grouped = klass(e)
+                    body += 12 * (bits if grouped else 3 * bits)
+            return side + body
+
+        while cost() > size * 8:
+            live = [e for e in entries if alloc[e]]
+            e = live[int(rng.integers(0, len(live)))]
+            alloc[e] = alloc[e] - 1 if rng.random() < 0.7 else 0
+        w = _BitWriter()
+        header = (0x7FF << 21) | (_MPA_VERSION_BITS[version] << 19) | ((4 - layer) << 17) \
+            | ((0 if crc else 1) << 16) | (br_idx << 12) | (sr_idx << 10) | (padding << 9) \
+            | (_MPA_MODES[mode] << 6) | (mode_ext << 4)
+        w.put(header, 32)
+        if crc:
+            w.put(0, 16)  # filled in below
+        protected = len(w.bits)
+        for e in entries:
+            w.put(alloc[e], 4 if layer == 1 else nbal[e[0]])
+        pairs = [p for e in entries if alloc[e] for p in coded(e)]
+        pair_alloc = {p: alloc[e] for e in entries for p in coded(e)}
+        pairs = sorted(pairs)  # subband-major, channel-minor
+        sf = {p: np.clip(rng.integers(12 + p[0] // 2, 36 + p[0] // 2, size=3), 0, 62) for p in pairs}
+        if layer == 2:
+            scfsi = {p: int(rng.integers(0, 4)) for p in pairs}
+            for p in pairs:
+                w.put(scfsi[p], 2)
+        crc_end = len(w.bits)
+        if layer == 1:
+            for p in pairs:
+                w.put(sf[p][0], 6)
+        else:
+            for p in pairs:
+                a, b, c = (int(x) for x in sf[p])
+                vals = {0: (a, b, c), 1: (a, c), 2: (a,), 3: (a, c)}[scfsi[p]]
+                for v in vals:
+                    w.put(v, 6)
+        granules = 12 if layer == 1 else 12
+        for _g in range(granules):
+            for e in entries:
+                if not alloc[e]:
+                    continue
+                if layer == 1:
+                    bits = alloc[e] + 1
+                    w.put(int(rng.integers(0, (1 << bits) - 1)), bits)
+                    continue
+                bits, steps, grouped = klass(e)
+                codes = rng.integers(0, steps, size=3)
+                if grouped:
+                    w.put(int(codes[0] + steps * codes[1] + steps * steps * codes[2]), bits)
+                else:
+                    for cde in codes:
+                        w.put(int(cde), bits)
+        assert len(w.bits) <= size * 8, (len(w.bits), size * 8, pair_alloc)
+        if crc:
+            word = _crc16(w.bits[16:32] + w.bits[protected:crc_end]) ^ (0xFFFF if bad_crc else 0)
+            w.bits[32:48] = [(word >> (15 - k)) & 1 for k in range(16)]
+        bits = w.bits + [0] * (size * 8 - len(w.bits))
+        out += np.packbits(np.array(bits, np.uint8)).tobytes()
+    return bytes(out)
+
+
+#: the encoder clips: (codec, rate, channels, bit rate, frames)
+MPA_ENCODED = {
+    "l2_48_stereo_192": ("mp2", 48000, 2, 192000, 10),
+    "l2_48_mono_48": ("mp2", 48000, 1, 48000, 8),
+    "l2_44_stereo_192": ("mp2", 44100, 2, 192000, 8),
+    "l2_44_mono_64": ("mp2", 44100, 1, 64000, 8),
+    "l2_32_stereo_64": ("mp2", 32000, 2, 64000, 6),
+    "l2_32_mono_112": ("mp2", 32000, 1, 112000, 6),
+    "l2_lsf16_mono_32": ("mp2", 16000, 1, 32000, 5),
+    "l2_lsf22_mono_64": ("mp2", 22050, 1, 64000, 8),
+    "l2_lsf24_stereo_96": ("mp2", 24000, 2, 96000, 5),
+    "l2_twolame_48_stereo_128": ("libtwolame", 48000, 2, 128000, 8),
+}
+#: the written clips: (layer, version, rate, mode, kbit/s, frames, options)
+MPA_WRITTEN = {
+    "l1_48_stereo_384": (1, "1", 48000, "stereo", 384, 24, {}),
+    "l1_44_mono_crc": (1, "1", 44100, "mono", 192, 16, dict(crc=True)),
+    "l1_lsf24_stereo_128": (1, "2", 24000, "stereo", 128, 12, {}),
+    "l1_48_joint_256": (1, "1", 48000, "joint", 256, 16, dict(mode_exts=(0, 1, 2, 3))),
+    "l2_48_joint_192": (2, "1", 48000, "joint", 192, 8, dict(mode_exts=(0, 1, 2, 3))),
+    "l2_lsf24_joint_96": (2, "2", 24000, "joint", 96, 4, dict(mode_exts=(3, 2, 1, 0))),
+    "l2_48_dual_256": (2, "1", 48000, "dual", 256, 6, {}),
+    "l2_44_stereo_crc_128": (2, "1", 44100, "stereo", 128, 8, dict(crc=True)),
+    "l2_48_stereo_badcrc_160": (2, "1", 48000, "stereo", 160, 4, dict(crc=True, bad_crc=True)),
+    "l2_44_padded_160": (2, "1", 44100, "stereo", 160, 10, {}),
+    "l2_mpeg25_12_mono_32": (2, "2.5", 12000, "mono", 32, 4, {}),
+}
+
+
+def jax_mpa_f32(data: bytes) -> tuple:
+    """(interleaved float32 PCM, rate, channels) of the JAX package's
+    ``Mp3Decoder`` (libavcodec for Layer I / II) on a whole stream."""
+    from soundkit_tpu.codecs.mp3 import Mp3Decoder
+
+    dec = Mp3Decoder()
+    pcm = np.concatenate([dec.decode_f32(data), dec.flush_f32()]).astype(np.float32)
+    return pcm, dec.sample_rate, dec.channels
+
+
+def generate_mpa_fixtures(directory: Path = mpa_fixtures.FIXTURE_DIR) -> None:
+    """Encode the Layer II clips with the JAX package's ``AvEncoder``, write
+    the others with :func:`mpa_frames`, decode each with the JAX package's
+    ``Mp3Decoder`` and write the index and the smoke clips' PCM."""
+    from soundkit_tpu.codecs.encoders import AvEncoder
+
+    directory.mkdir(parents=True, exist_ok=True)
+    index, ref = {}, {}
+    clips = {}
+    for seed, (name, (codec, rate, ch, bit_rate, n_frames)) in enumerate(MPA_ENCODED.items(),
+                                                                        start=8600):
+        enc = AvEncoder(codec, rate, ch, bit_rate)
+        pcm = host_music(rate, (n_frames + 2) * 1152 / rate, ch, seed) * 0.8
+        data = b"".join(enc.push_f32(pcm.reshape(-1).astype(np.float32)) + enc.flush())
+        frames = mpa_fixtures.split_frames(data)[:n_frames]
+        clips[name] = (b"".join(frames), dict(origin=codec, bit_rate=bit_rate))
+    for seed, (name, (layer, version, rate, mode, kbps, n, opts)) in enumerate(
+            MPA_WRITTEN.items(), start=8700):
+        clips[name] = (mpa_frames(seed, layer, version, rate, mode, kbps, n, **opts),
+                       dict(origin="writer", bit_rate=kbps * 1000, **{
+                           k: (list(v) if isinstance(v, tuple) else v) for k, v in opts.items()}))
+    for name, (data, extra) in clips.items():
+        frames = mpa_fixtures.split_frames(data)
+        h = data[:4]
+        version = {3: "1", 2: "2", 0: "2.5"}[(h[1] >> 3) & 3]
+        pcm, rate, ch = jax_mpa_f32(data)
+        (directory / f"{name}.mp{4 - ((h[1] >> 1) & 3)}").write_bytes(data)
+        index[name] = dict(file=f"{name}.mp{4 - ((h[1] >> 1) & 3)}", sha256=mpa_fixtures.sha256(data),
+                           layer=4 - ((h[1] >> 1) & 3), version=version,
+                           mode=["stereo", "joint", "dual", "mono"][h[3] >> 6], rate=rate,
+                           channels=ch, frames=len(frames), samples=int(pcm.size),
+                           pcm_sha256=mpa_fixtures.sha256(pcm.tobytes()), **extra)
+        if name in mpa_fixtures.SMOKE:
+            ref[name] = pcm
+    np.savez_compressed(directory / "reference_pcm.npz", **ref)
+    (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
+
+
 if __name__ == "__main__":
     {"aac": generate_aac_fixtures, "telephony": generate_telephony_fixtures,
      "flac": generate_flac_fixtures, "mp3": generate_mp3_fixtures,
      "opus": generate_opus_fixtures, "silk_resampler": generate_silk_resampler_table,
      "vorbis": generate_vorbis_fixtures,
      "host_codecs": generate_host_codec_fixtures,
-     "containers": generate_container_index}[sys.argv[1]]()
+     "containers": generate_container_index,
+     "mpa": generate_mpa_fixtures}[sys.argv[1]]()
 
 
 # ---------------------------------------------------------------------------
@@ -1152,4 +1403,26 @@ def aac_batched_libavcodec_snr() -> Dict[str, float]:
         ref = np.concatenate([av.push(b"".join(frames)), av.flush()]).reshape(-1, 2).T
         n = min(got.shape[1], ref.shape[1])
         out[name] = snr_db(got[:, :n], ref[:, :n])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MPEG audio Layer I / II against libavcodec
+# ---------------------------------------------------------------------------
+
+def mpa_libavcodec_snr() -> Dict[str, float]:
+    """Float32 SNR in dB of the port's ``Mp3Decoder(device="cpu")`` against
+    the JAX package's (libavcodec) on each ``tests/data/torch_port/mpa``
+    clip, whole stream then flush. Not a test (the test holds each at 100
+    dB): it records the margin. Run it as ``JAX_PLATFORMS=cpu python -c
+    "import sys; sys.path.insert(0, 'tests'); import torch_port_helpers as
+    h; print(h.mpa_libavcodec_snr())"`` from the repository's root."""
+    from soundkit_tpu_torch.codecs.mp3 import Mp3Decoder
+
+    out = {}
+    for name in sorted(mpa_fixtures.load_index()):
+        data = mpa_fixtures.clip_bytes(name)
+        dec = Mp3Decoder(device="cpu")
+        got = np.concatenate([dec.decode_f32(data), dec.flush_f32()])
+        out[name] = round(snr_db(got, jax_mpa_f32(data)[0]), 2)
     return out
