@@ -293,15 +293,17 @@ ee. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    serves streams on the host fallback (``fleet_host_streams``: four
    beyond capacity for each group, 1024 G.711 and G.726-32 fillers and
    four beyond them, four WAV and four raw-Opus streams, the single-
-   stream Ogg Opus reroutes, a 22.05 kHz mono Ogg Vorbis stream of
+   stream Ogg Opus reroutes, a 5.1 and a family-255 multistream Ogg
+   Opus stream rerouted at their heads to the owned multistream decoder,
+   a 22.05 kHz mono Ogg Vorbis stream of
    another topology), each equal to its lone decode on the card, the
    fallback's K3 / K6 / K7 / K10 launches counted inside its pushes;
    one stream of each owned host codec (GSM by its kind, AIFF-C µ-law,
    ALAC in MP4, AC-3 and Ogg Speex WB detected) and one detected stream of
    each container (``FLEET_CONTAINER_STREAMS``: M4A AAC, WebM Opus, WebM
    Vorbis), each equal to its lone decode too, their push seconds by kind
-   of stream; the multistream reroutes and AMR-NB must raise
-   ``FleetUnsupported``; the
+   of stream; the two Opus heads neither package opens and AMR-NB must
+   raise ``FleetUnsupported``; the
    waves run again without the host streams for the x realtime beside;
    then an ``out_bits=16`` collect against the quantized
    bare output (Opus CELT on the i16 spectral wire), and per group a
@@ -335,10 +337,13 @@ ff. pipeline: K3, K6 and K7 at B = 1 on 1, 127 and 313 codes and on one
    each stream's first 5 s (G.722 and G.726: 1000 codes, their plain
    scans step a code at a time on the CPU) through the same pipeline on
    the CPU, bit-exact but MP3, which is held within 1 LSB, and at >= 100
-   dB in float32 through ``Mp3Decoder``; six host-decoded streams of ~20 s
+   dB in float32 through ``Mp3Decoder``; seven host-decoded streams of ~20 s
    (``pipeline_host_streams``: Ogg Opus CELT stereo and mono, SILK WB,
-   hybrid FB, raw Opus, Ogg Vorbis) the same way, hooked on their first
-   5 s and held whole against the CPU bit for bit; fourteen streams of the
+   hybrid FB, raw Opus, Ogg Vorbis, 5.1 multistream Ogg Opus) the same
+   way, hooked on their first 5 s and held whole against the CPU bit for
+   bit, the 5.1 stream also against the JAX package's decode of its clip
+   (``multistream_reference_check``: 1 LSB, and >= 104 dB a channel in
+   float32); fourteen streams of the
    owned host codecs (``pipeline_codec_streams``: GSM standard and WAV49,
    AIFF 16-bit, AIFF-C µ-law and A-law, 60 s each; ALAC in CAF and in
    MP4, 20 s; AC-3 stereo 10 s; Ogg Speex NB / WB / UWB 10 / 5 / 3 s;
@@ -470,6 +475,9 @@ FLEET_CODEC_STREAMS = {"gsm-host-0": ("gsm_standard", "gsm", 10.0),
 FLEET_CONTAINER_STREAMS = {"m4a_aac-host-0": ("m4a_aac", 5.0),
                            "webm_opus-host-0": ("webm_opus_celt", 5.0),
                            "webm_vorbis-host-0": ("webm_vorbis", 5.0)}
+# the multistream Ogg Opus streams of [fleet] (opus_ms_fixtures clips), each pushed whole with
+# kind "opus" after round 0's pushes and rerouted at its head to the host fallback
+FLEET_MULTISTREAM = ("surround51", "voip255")
 FLAC_ENC_RATE = 44100.0
 FLAC_ENC_SECONDS = 4.0    # PCM a [flac-enc] lane carries
 FLAC_ENC_PUSHES = 4       # pushes of the [flac-enc] phase, an encode_pending after each
@@ -3149,7 +3157,14 @@ def fleet_host_streams(fs: "FleetStreams") -> dict:
       lane is taken and freed within the push; the hybrid one that starts
       on transition redundancy pushed but its last page then, its lane
       frozen by round 0's collect and freed by the rest of it before
-      round 1's pushes; the two multistream heads refused;
+      round 1's pushes; the two heads neither package opens (family 1
+      without its channel mapping table, family 0 with three channels)
+      refused;
+    - a 5.1 and a family-255 multistream Ogg Opus stream
+      (``opus_ms_fixtures``: ``surround51``, ``voip255``), each whole
+      with kind "opus" after round 0's pushes: its lane taken at the push
+      and freed at its head, the stream decoded by the host fallback's
+      owned multistream decoder;
     - a 22.05 kHz mono Ogg Vorbis stream with kind "vorbis" after round 0's
       pushes (the group's topology is 44.1 kHz stereo by then);
     - one stream of each owned host codec (FLEET_CODEC_STREAMS) after round
@@ -3165,6 +3180,7 @@ def fleet_host_streams(fs: "FleetStreams") -> dict:
     from soundkit_tpu_torch.tools import container_fixtures as cf
     from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
     from soundkit_tpu_torch.tools import opus_fixtures as of
+    from soundkit_tpu_torch.tools import opus_ms_fixtures as msf
     from soundkit_tpu_torch.tools import telephony_fixtures as tf
     from soundkit_tpu_torch.tools import vorbis_fixtures as vf
 
@@ -3190,6 +3206,8 @@ def fleet_host_streams(fs: "FleetStreams") -> dict:
         cut = len(data) - len(packets[-1]) - 28 if case == "hybrid_redundancy_start" else None
         add(f"reroute-{case}", data, "opus", (0, "after"),
             "refused" if case in ("mapping_family_1", "three_channels") else "host", cut)
+    for name in FLEET_MULTISTREAM:
+        add(f"reroute-multistream-{name}", msf.clip_bytes(name), "opus", (0, "after"), "host")
     add("vorbis-topology", vf.load_clips(names=("mono22",))[0].stream(), "vorbis", (0, "after"),
         "host")
     for sid, (clip, kind, seconds) in FLEET_CODEC_STREAMS.items():
@@ -3314,7 +3332,7 @@ def phase_fleet():
         used = fleet._groups[g]._used
         check(len(used) == B, f"fleet: group {g} used {len(used)} lanes for {B + B // 4} streams")
     check(sorted(refused) == sorted(sid for sid, h in hs.items() if h["expect"] == "refused")
-          and all("multistream OpusHead" in m for m in refused.values()),
+          and all("libavcodec cannot open it either" in m for m in refused.values()),
           f"fleet: refused {refused}")
     try:
         fleet.push("refused", b"\x00" * 64, kind="amr_nb")
@@ -3482,7 +3500,9 @@ PIPE_CONCURRENT = ("mp3", "flac16", "flac24", "g722", "g726_16", "g726_32", "g71
 PIPE_HOST_SECONDS = 20.0
 PIPE_HOST_TIMED_SECONDS = 5.0
 PIPE_HOST_FORMATS = ("ogg_opus_stereo", "ogg_opus_mono", "ogg_opus_silk_wb", "ogg_opus_hybrid_fb",
-                     "opus_raw", "ogg_vorbis")
+                     "opus_raw", "ogg_vorbis", "ogg_opus_51")
+# the 5.1 multistream Ogg Opus stream of [pipeline]: this opus_ms_fixtures clip's packets repeated
+PIPE_MULTISTREAM_CLIP = "surround51"
 # the owned host codecs' streams, {format: (host_codec_fixtures or mpa_fixtures clip, seconds at
 # least)}, each the clip's frames, packets or sound data repeated; the timing hook on their first
 # PIPE_CODEC_TIMED_SECONDS (the EOF-buffered AIFF and ALAC whole), the CPU compare whole. The
@@ -3603,7 +3623,9 @@ def pipeline_host_streams() -> dict:
     (``stereo96``) and mono (``mono64``), SILK WB (``silk_wb``) and hybrid
     FB (``hybrid_fb``), one page a packet; soundkit's raw Opus framing
     (``owned``); Ogg Vorbis (``stereo44``'s headers, then its audio
-    packets repeated, a page each). All detected by ``DecodePipeline.spawn``."""
+    packets repeated, a page each); 5.1 multistream Ogg Opus
+    (``opus_ms_fixtures``' ``surround51``, four elementary streams on the
+    owned multistream decoder). All detected by ``DecodePipeline.spawn``."""
     import numpy as np
 
     from soundkit_tpu_torch.demux.ogg import build_ogg_page
@@ -3633,7 +3655,46 @@ def pipeline_host_streams() -> dict:
              build_ogg_page(packets[1:3], 9, 1, 0)]
     pages += [build_ogg_page([p], 9, 2 + i, 0) for i, p in enumerate(audio * reps)]
     out["ogg_vorbis"] = (b"".join(pages), DP.spawn, reps * samples / 44100)
+    from soundkit_tpu_torch.tools import opus_ms_fixtures as msf
+
+    data, audio_s = msf.long_stream(PIPE_MULTISTREAM_CLIP, PIPE_HOST_SECONDS)
+    pre_skip = msf.load_index()[PIPE_MULTISTREAM_CLIP]["pre_skip"]
+    out["ogg_opus_51"] = (data, DP.spawn, audio_s - pre_skip / 48000)
     return out
+
+
+def multistream_reference_check(pcm: bytes) -> dict:
+    """The 5.1 stream against the JAX package's decode of its clip
+    (libavcodec), as ``opus_ms_fixtures`` commits it: the stream's int16
+    PCM over the clip's length within 1 LSB of the committed float32 PCM
+    quantized the same way, and the clip decoded alone by the port's
+    ``OggOpusDecoder`` to float32, of the same length, each channel at >=
+    104 dB from it (the CELT floor of tests/test_torch_opus_multistream.py)."""
+    import numpy as np
+
+    from soundkit_tpu_torch.codecs.avdec import f32_to_i16
+    from soundkit_tpu_torch.codecs.opus import OggOpusDecoder
+    from soundkit_tpu_torch.tools import opus_ms_fixtures as msf
+
+    clip = PIPE_MULTISTREAM_CLIP
+    ref = msf.reference_pcm(clip)
+    head = np.frombuffer(pcm[:2 * ref.size], "<i2").astype(np.int32)
+    check(head.size == ref.size, f"[pipeline] ogg_opus_51: {len(pcm)} bytes, shorter than {clip}")
+    lsb = int(np.abs(head - f32_to_i16(ref).astype(np.int32)).max())
+    check(lsb <= 1, f"[pipeline] ogg_opus_51: {lsb} LSB from the JAX package's PCM of {clip}")
+    dec = OggOpusDecoder()
+    data = msf.clip_bytes(clip)
+    got = np.concatenate([dec.decode_f32(data), dec.flush()]).astype(np.float64)
+    check(got.shape == ref.shape, f"[pipeline] ogg_opus_51: {got.size} float32 samples of {clip}, "
+          f"the JAX package's {ref.size}")
+    got, want = got.reshape(-1, 6), ref.astype(np.float64).reshape(-1, 6)
+    snr = [float(10 * np.log10(np.sum(want[:, k] ** 2) /
+                               max(np.sum((got[:, k] - want[:, k]) ** 2), 1e-300)))
+           for k in range(6)]
+    check(min(snr) >= 104.0, f"[pipeline] ogg_opus_51: float32 {min(snr):.2f} dB from the JAX "
+          "package's PCM")
+    return dict(vs_jax_max_lsb=lsb, vs_jax_samples_off=int((head != f32_to_i16(ref)).sum()),
+                vs_jax_f32_snr_db=snr)
 
 
 def pipeline_codec_streams() -> dict:
@@ -3936,6 +3997,8 @@ def phase_pipeline(card: str):
             res[fmt].update(codec_reference_check(fmt, card_pcm))
         if fmt in PIPE_CONTAINER_STREAMS:
             res[fmt].update(container_reference_check(fmt, card_pcm))
+        if fmt == "ogg_opus_51":
+            res[fmt].update(multistream_reference_check(card_pcm))
         res[fmt]["cpu_compare_bytes"] = len(head)
     head = _prefix("mp3", streams["mp3"][0], streams["mp3"][2])
     f32 = []

@@ -9,14 +9,16 @@ the owned ALAC decoder (``codecs/alac.py``) and, for an MP4 AAC track,
 the owned raw-AU AAC-LC decoder (``codecs/aac.AacRawDecoder``).
 ``WebmAdapter`` demuxes WebM incrementally (``demux/ebml.py``): a Vorbis
 track decodes through ``codecs/vorbis.VorbisPacketDecoder`` as in the
-JAX package, an Opus track through the owned ``codecs/opus._OpusCore``
-configured from its OpusHead (pre-skip and output gain applied).
+JAX package, an Opus track through the owned decoder its OpusHead calls
+for (``codecs/opus.open_opus_core``: ``_OpusCore``, or one a stream for a
+multistream head), pre-skip and output gain applied.
 
 Stated departures (no FFmpeg in the port): the JAX package decodes an
 MP4 AAC track and a WebM Opus track through libavcodec; the port decodes
 them with its owned decoders, which refuse with ``UnsupportedFormat``
-what they do not serve (HE-AAC, more than two channels, a multistream
-OpusHead). An MP4 track of another codec raises ``UnsupportedFormat``.
+what they do not serve (HE-AAC, AAC beyond two channels, an OpusHead
+libavcodec cannot open either). An MP4 track of another codec raises
+``UnsupportedFormat``.
 """
 from __future__ import annotations
 
@@ -153,13 +155,14 @@ class WebmAdapter:
         if tr is None or self._dec is not None:
             return
         if tr.codec_id == "A_OPUS":
-            from soundkit_tpu_torch.codecs.opus import OpusHead, _OpusCore
+            from soundkit_tpu_torch.codecs.opus import OpusHead, open_opus_core
 
             try:
                 head = OpusHead.parse(tr.codec_private)
             except ValueError as e:
                 raise DecodingFailed(f"WebM Opus track: {e}")
-            self._dec = _OpusCore(head)
+            # the CodecPrivate is the whole OpusHead, a multistream table too
+            self._dec = open_opus_core(head)
             self._rate_ch = None
         elif tr.codec_id == "A_VORBIS":
             # from-scratch Vorbis packet decode (codecs/vorbis_core.py)

@@ -16,11 +16,15 @@ the retained history replays through the Python decoder. All of it runs
 on the host.
 
 The JAX package hands two shapes to libavcodec; the port has no
-libavcodec and raises instead:
+libavcodec:
 
-- an OpusHead of mapping family other than 0, or of more than two
-  channels (a multistream stream): ``UnsupportedFormat`` when the head
-  parses;
+- a multistream OpusHead (mapping family 1, 2 or 255 with its channel
+  mapping table) decodes through ``codecs/opus_multistream._MultistreamCore``,
+  one owned ``_OpusCore`` an elementary stream (:func:`open_opus_core`).
+  A head libavcodec cannot open either (family 0 beyond two channels,
+  family 3 and up, a table that is missing or out of range, and every
+  multistream head of the raw framing, whose 19-byte head holds no
+  table) raises ``UnsupportedFormat`` when it parses;
 - a packet the owned decoder refuses (``OpusUnsupported``: a packet that
   does not parse, a stereo packet in a mono stream), where the JAX package
   replays the stream into libavcodec (``_OpusCore._fallback``):
@@ -247,9 +251,9 @@ class _OpusCore:
     (_NativeCeltStream) until a packet it cannot serve appears, at
     which point the FULL history replays through the Python decoder
     (opus_core.py: CELT mono/stereo, SILK, hybrid) so state at the
-    transition is exactly what an all-Python decode would hold;
-    packets neither owns (multistream mappings) switch the stream to
-    the libavcodec delegate with the same gapless-replay pattern."""
+    transition is exactly what an all-Python decode would hold. It
+    decodes one elementary stream; a multistream head decodes through
+    ``opus_multistream._MultistreamCore``, one ``_OpusCore`` a stream."""
 
     def __init__(self, head: OpusHead):
         self.head = head
@@ -272,9 +276,9 @@ class _OpusCore:
             )
         else:
             raise UnsupportedFormat(
-                f"Unsupported format: Opus with mapping family {head.mapping_family} and "
-                f"{head.channels} channels (multistream) decodes through libavcodec, "
-                "which the port does not have")
+                f"Unsupported format: OpusHead of mapping family {head.mapping_family} and "
+                f"{head.channels} channels: a single elementary stream has mapping family 0 "
+                "and one or two channels (open_opus_core takes the multistream heads)")
 
     def _fallback(self) -> np.ndarray:
         """The JAX package replays the history into libavcodec here; the
@@ -399,6 +403,19 @@ class _OpusCore:
         return np.zeros(0, dtype=np.float32)
 
 
+def open_opus_core(head: OpusHead):
+    """The decoder of ``head``: ``_OpusCore`` for one elementary stream
+    (mapping family 0, one or two channels), ``_MultistreamCore`` for a
+    multistream head the JAX package's libavcodec opens (families 1, 2
+    and 255 with a whole channel mapping table). Any other head raises
+    ``UnsupportedFormat``: the JAX package cannot open it either."""
+    if head.mapping_family == 0 and head.channels in (1, 2):
+        return _OpusCore(head)
+    from soundkit_tpu_torch.codecs.opus_multistream import _MultistreamCore
+
+    return _MultistreamCore(head)
+
+
 class OggOpusDemuxer:
     """Config/packet event demuxer (soundkit-ogg-opus/src/lib.rs:193)."""
 
@@ -439,7 +456,7 @@ class OggOpusDecoder:
     def decode_f32(self, data: bytes) -> np.ndarray:
         packets = self._demux.push(data)
         if self._core is None and self._demux.head is not None:
-            self._core = _OpusCore(self._demux.head)
+            self._core = open_opus_core(self._demux.head)
         if self._core is None or not packets:
             return np.zeros(0, dtype=np.float32)
         out = [self._core.decode_packet_f32(p) for p in packets]
@@ -475,7 +492,9 @@ class OpusStreamDecoder:
             if len(self._buf) < 19:
                 return np.zeros(0, dtype=np.float32)
             head = OpusHead.parse(bytes(self._buf[:19]))
-            self._core = _OpusCore(head)
+            # the 19-byte head holds no channel mapping table: a multistream
+            # head is refused here, as libavcodec refuses it in the JAX package
+            self._core = open_opus_core(head)
             del self._buf[:19]
         while len(self._buf) >= 2:
             plen = struct.unpack_from("<H", self._buf, 0)[0]

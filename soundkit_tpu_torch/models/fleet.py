@@ -38,7 +38,11 @@ These streams take it:
   (``models/opus_fleet_model.OpusLaneUnsupported``: a packet that is not a
   single 20 ms frame, a mid-stream mode or SILK bandwidth switch, a hybrid
   lane frozen by its walk), seeded from the lane's bounded packet tail
-  (``opus_fleet_model._OpusTailFallback``).
+  (``opus_fleet_model._OpusTailFallback``); and a multistream Ogg Opus
+  stream (5.1, 7.1, ambisonics: mapping family 1, 2 or 255), rerouted at
+  the push that brings its head, before any packet is decoded, to the
+  owned multistream decoder (``codecs/opus_multistream``), where the JAX
+  package's fleet opens libavcodec.
 
 A host stream reports the rate of its decoder's last output (a telephony
 overflow stream its codec's rate from the start). AIFF and M4A (AAC or
@@ -54,14 +58,16 @@ it, and the fleet forgets it:
 
 - the explicit kinds ``amr_nb`` and ``g729`` (libavcodec in the JAX
   package);
-- an Opus stream whose OpusHead is multistream (mapping family other
-  than 0, or more than two channels), which the JAX package hands to
-  libavcodec: an Ogg Opus stream at the push that brings its head, a raw
-  one at the push that completes it;
+- an Opus stream whose OpusHead neither package opens (family 0 beyond
+  two channels, family 3 and up, a channel mapping table missing or out
+  of range; the JAX package's libavcodec refuses it too): an Ogg Opus
+  stream at the push that brings its head, a raw one (whose 19-byte head
+  never holds a table, so any multistream head) at the push that
+  completes it;
 - any host stream whose decoder finds a format the port does not decode
   (``UnsupportedFormat``: an Ogg Speex header outside the owned modes, a
-  multistream OpusHead in WebM, an HE-AAC or multichannel M4A AAC track
-  at the stream's end).
+  WebM OpusHead neither package opens, an HE-AAC or multichannel M4A AAC
+  track at the stream's end).
 
 An explicit kind that is none of these names raises a plain
 ``ValueError``.
@@ -107,8 +113,8 @@ _DETECTED = {
 
 
 class FleetUnsupported(ValueError):
-    """A stream the port cannot decode (the JAX package's fleet decodes it
-    through libavcodec)."""
+    """A stream the port cannot decode: one the JAX package's fleet
+    decodes through libavcodec, or an OpusHead neither package opens."""
 
 
 @dataclass
@@ -474,15 +480,15 @@ class StreamFleet:
                 # lane's bounded packet tail and drain the current push's
                 # unprocessed packets now
                 from soundkit_tpu_torch.models.opus_fleet_model import _OpusTailFallback
+                from soundkit_tpu_torch.pipeline.output_options import UnsupportedFormat
 
-                head = replay["head"]
-                if head.mapping_family != 0 or head.channels not in (1, 2):
-                    self._refuse(stream_id, f"kind {ln.group!r}",
-                                 f"multistream OpusHead (mapping family {head.mapping_family}, "
-                                 f"{head.channels} channels): the JAX package decodes it "
-                                 "through libavcodec")
+                try:
+                    fallback = _OpusTailFallback(**replay)
+                except UnsupportedFormat as refused:
+                    # an OpusHead neither package opens
+                    self._refuse(stream_id, f"kind {ln.group!r}", str(refused))
                 self._pretopo.pop(stream_id, None)
-                self._fallback[stream_id] = _OpusTailFallback(**replay)
+                self._fallback[stream_id] = fallback
                 self._feed_fallback(stream_id, b"")
             else:
                 raw = bytes(self._pretopo.pop(stream_id, data))

@@ -103,6 +103,7 @@ from soundkit_tpu_torch.codecs.opus_celt import tables
 from soundkit_tpu_torch.codecs.silk_native import NativeSilkBatch
 from soundkit_tpu_torch.ops import celt_batch as cb
 from soundkit_tpu_torch.ops import silk_batch as sb
+from soundkit_tpu_torch.pipeline.output_options import UnsupportedFormat
 from soundkit_tpu_torch.utils.device import resolve_device
 
 
@@ -1031,6 +1032,20 @@ def _default_extradata(channels: int) -> bytes:
     )
 
 
+def _raw_wire_core(extradata: bytes) -> _OpusCore:
+    """The owned decoder of a raw-wire lane's 19-byte OpusHead. A head of
+    another mapping family than 0, or of more than two channels, raises
+    ``UnsupportedFormat``: 19 bytes hold no channel mapping table, so
+    libavcodec refuses it in the JAX package's class too."""
+    head = OpusHead.parse(extradata)
+    if head.mapping_family != 0 or head.channels not in (1, 2):
+        raise UnsupportedFormat(
+            f"Unsupported format: OpusHead of mapping family {head.mapping_family} and "
+            f"{head.channels} channels on the raw-Opus wire: its 19 head bytes hold no "
+            "channel mapping table, and the JAX package's libavcodec cannot open it either")
+    return _OpusCore(head)
+
+
 class BatchedOpusDecoder:
     """The generic per-lane Opus batch model: one owned decoder a lane
     (``codecs/opus._OpusCore``: CELT on the native fast path, SILK and
@@ -1038,9 +1053,12 @@ class BatchedOpusDecoder:
     only, on the host. It serves every packing, SILK and hybrid and
     multi-frame packets among them; the JAX package's opens one libavcodec
     decoder a lane instead (a stated departure, as the port's WebM Opus).
-    A multistream head (mapping family other than 0) raises
-    ``UnsupportedFormat`` at the lane's first decode, a packet the owned
-    decoder refuses ``DecodingFailed``."""
+    A head of mapping family other than 0 or of more than two channels
+    raises ``UnsupportedFormat`` at the lane's first decode, as the JAX
+    class fails there: it keeps 19 head bytes, which never hold a channel
+    mapping table (libavcodec refuses the head), and its output slot has
+    the lane's C channels. A packet the owned decoder refuses raises
+    ``DecodingFailed``."""
 
     FRAME = 960  # 20 ms @ 48 kHz, the dominant packing
 
@@ -1059,7 +1077,7 @@ class BatchedOpusDecoder:
 
     def _decoder(self, b: int) -> _OpusCore:
         if self._dec[b] is None:
-            self._dec[b] = _OpusCore(OpusHead.parse(self._extradata[b]))
+            self._dec[b] = _raw_wire_core(self._extradata[b])
         return self._dec[b]
 
     def push(self, stream_idx: int, data: bytes) -> None:

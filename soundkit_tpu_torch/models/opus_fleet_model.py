@@ -28,7 +28,8 @@ per-stream host decoder raises :class:`OpusLaneUnsupported` out of
 ``push``:
 
 - an OpusHead with more channels than the group or a mapping family
-  other than 0;
+  other than 0 (a multistream head, which the host decoder serves through
+  ``codecs/opus_multistream``);
 - a packet that is not a single 20 ms frame (10 ms, multi-frame);
 - a mid-stream mode switch, or a mid-stream SILK bandwidth switch;
 - a hybrid lane whose walk froze it (a stream that starts on a
@@ -85,19 +86,20 @@ class _OpusTailFallback:
     duplicate-free stream."""
 
     def __init__(self, demux, head, tail, dropped, emitted, pending):
-        from soundkit_tpu_torch.codecs.opus import _OpusCore
+        from soundkit_tpu_torch.codecs.opus import _OpusCore, open_opus_core
 
         self._demux = demux
-        core = _OpusCore(head)
-        core._fast = False  # native CELT state can't seed from a tail
-        if core._own is not None:
+        core = open_opus_core(head)
+        if isinstance(core, _OpusCore):
+            core._fast = False  # native CELT state can't seed from a tail
             core._history = list(tail)
             core._dropped = int(dropped)
             core._emitted = int(emitted)
             self._primed = False
         else:
-            # multistream head: avcodec delegate, rejected before any
-            # packet decoded (nothing emitted, no tail to converge)
+            # multistream head: rerouted at the push that brings the head,
+            # before any packet decoded (nothing emitted, no tail to
+            # converge); its streams keep their native CELT fast paths
             self._primed = True
         self._core = core
         self._queue: List[bytes] = list(pending)

@@ -203,9 +203,10 @@ def reroute_case(case: str, directory: Path = FIXTURE_DIR):
     """(OpusHead, packets, the group's reason) of an Ogg Opus stream that
     the fleet's Opus group hands to its host decoder: a SILK NB stream
     that switches to WB, a 10 ms CELT packet, a code-3 packet of two
-    frames, an OpusHead of mapping family 1 or of three channels, a switch
-    from CELT to SILK in mid-stream, and a hybrid stream that starts on a
-    transition-redundancy packet."""
+    frames, an OpusHead of mapping family 1 without its channel mapping
+    table or of three channels in family 0 (heads neither package opens:
+    the fleet refuses them), a switch from CELT to SILK in mid-stream, and
+    a hybrid stream that starts on a transition-redundancy packet."""
     clip = load_clips(directory)[0]
     celt = clip.packets[:6]
     head2 = clip.head

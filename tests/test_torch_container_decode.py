@@ -247,12 +247,37 @@ def _opus_webm(head: bytes, packets) -> bytes:
 
 @pytest.mark.parametrize("what", ["mapping_family_1", "three_channels"])
 def test_webm_multistream_opus_head_raises_unsupported_format(what):
+    """A CodecPrivate the JAX package's libavcodec cannot open either
+    (family 1 without its channel mapping table, family 0 with three
+    channels) gives ``UnsupportedFormat`` before any audio, saying so."""
     head, packets = cf.opus_units("webm_opus_celt", 5)
     head = head[:9] + (bytes([3]) if what == "three_channels" else head[9:10]) + head[10:18] + \
         (b"\x01" if what == "mapping_family_1" else b"\x00")
     outs = _drive(dp.StreamDecoder(device="cpu"), _opus_webm(head, packets), 100000)
     assert [type(o).__name__ for o in outs] == ["UnsupportedFormat"]
-    assert "multistream" in str(outs[0])
+    assert "libavcodec cannot open it either" in str(outs[0])
+    from soundkit_tpu.codecs.avdec import AvDecodeError
+
+    with pytest.raises(AvDecodeError):  # the JAX package's adapter does not catch it
+        _drive(jax_dp.StreamDecoder(), _opus_webm(head, packets), 100000)
+
+
+@pytest.mark.parametrize("chunk", [4096, 313])
+def test_webm_multistream_opus_decodes(chunk):
+    """A 5.1 WebM Opus track (its CodecPrivate the whole OpusHead, channel
+    mapping table included) decodes through the owned multistream decoder
+    by detection: six channels, the JAX package's length, within 1 LSB of
+    its libavcodec decode."""
+    from soundkit_tpu_torch.tools import opus_ms_fixtures
+
+    head, packets = opus_ms_fixtures.head_and_packets("surround51")
+    data = cf.mux_webm("A_OPUS", head, 48000, 6, packets, [20.0] * len(packets))
+    outs = _drive(dp.StreamDecoder(device="cpu"), data, chunk)
+    assert {o.channel_count for o in outs} == {6}
+    got = _i16(_pcm(outs))
+    want = _i16(_pcm(_drive(jax_dp.StreamDecoder(), data, chunk), JaxAudioData))
+    assert got.shape == want.shape == (6 * (len(packets) * 960 - 312),)
+    assert np.abs(got - want).max() <= 1
 
 
 def test_webm_unknown_codec_fails_as_in_the_jax_package():

@@ -171,9 +171,10 @@ def test_an_mp4_aac_track_raises_unsupported_format():
 @pytest.mark.parametrize("spawn", ["spawn_webm", "spawn_aac_latm"])
 def test_webm_and_latm_spawns_raise(spawn):
     """The two spawns decode now (``tests/test_torch_container_decode.py``);
-    what still raises through them is what the owned decoders refuse: a
-    multistream OpusHead in WebM and a 5.1 StreamMuxConfig in LATM, each
-    an ``UnsupportedFormat`` output before any audio."""
+    what still raises through them is what the owned decoders refuse: an
+    OpusHead in WebM that the JAX package's libavcodec cannot open either
+    (family 1 without its channel mapping table) and a 5.1 StreamMuxConfig
+    in LATM, each an ``UnsupportedFormat`` output before any audio."""
     from soundkit_tpu_torch.demux import latm
     from soundkit_tpu_torch.tools import container_fixtures as cf
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from soundkit_tpu.codecs.avdec import AvDecodeError
 from soundkit_tpu.models import telephony_batch as jax_tel
 from soundkit_tpu.models.fleet import StreamFleet as JaxFleet
 from soundkit_tpu_torch.models import fleet as fleet_mod
@@ -819,14 +820,15 @@ def test_refuses_an_opus_lane_the_reference_reroutes(case):
     moved at the push that brings the packet (the hybrid one at the push
     after the collect that froze its lane) to a host decoder seeded from
     the lane's packet tail, and decodes on as the JAX package's; its lane
-    is reset and freed. A multistream head (mapping family 1, three
-    channels) is refused at the push that brings it. A stream of less
-    than a page seats a lane at its end."""
+    is reset and freed. A head neither package opens (mapping family 1
+    without its channel mapping table, family 0 with three channels) is
+    refused at the push that brings it, where the JAX fleet fails to open
+    it. A stream of less than a page seats a lane at its end."""
     head, packets, msg = opus_reroute_case(opus_fixtures.load_clips(), case)
     data = ogg_opus(head, packets)
     sid = "ys" if case in LOSSY_REROUTES else "xs"
     pair = Pair(2)
-    fleets = (pair.port,) if case in MULTISTREAM_REROUTES else (pair.port, pair.ref)
+    fleets = (pair.port, pair.ref)
     for f in fleets:
         f.push("o0", opus_stream(2, 12))
     if case == "hybrid_redundancy_start":
@@ -844,9 +846,12 @@ def test_refuses_an_opus_lane_the_reference_reroutes(case):
         rest = data[40:]
     group = pair.port._groups["opus"]
     if case in MULTISTREAM_REROUTES:
-        with pytest.raises(FleetUnsupported, match=f"'{sid}'.*kind 'opus'.*multistream OpusHead"):
+        with pytest.raises(FleetUnsupported, match=f"'{sid}'.*kind 'opus'.*OpusHead of mapping "
+                                                   "family.*libavcodec cannot open it either"):
             pair.port.push(sid, rest)
         assert_forgotten(pair.port, sid)
+        with pytest.raises(AvDecodeError):
+            pair.ref.push(sid, rest)
     else:
         pair.push(sid, rest)
         for f in (pair.port, pair.ref):
@@ -956,15 +961,66 @@ def test_refused_streams_never_reach_the_jax_pipeline():
 
 def test_raw_opus_multistream_head_is_refused_at_the_push_that_completes_it():
     """A raw-Opus stream whose OpusHead is multistream is refused once its
-    19 head bytes are in, not handed on as an error the fleet drops."""
+    19 head bytes are in, not handed on as an error the fleet drops: the
+    raw framing's head never holds a channel mapping table, so the JAX
+    package's libavcodec cannot open it either."""
     clip = opus_fixtures.load_clips()[0]
     raw = clip.head[:18] + b"\x01" + struct.pack("<H", len(clip.packets[0])) + clip.packets[0]
     port = StreamFleet(2, device="cpu")
     port.push("r", raw[:12], kind="opus_raw")
     assert "r" in port._fallback
-    with pytest.raises(FleetUnsupported, match="'r'.*host stream.*multistream"):
+    with pytest.raises(FleetUnsupported, match="'r'.*host stream.*no whole channel mapping table"):
         port.push("r", raw[12:])
     assert_forgotten(port, "r")
+
+
+@pytest.mark.parametrize("name", ["surround51", "voip255"])
+def test_multistream_ogg_opus_streams_decode_on_the_host_fallback(name):
+    """A multistream Ogg Opus stream (5.1 by the surround encoder; family
+    255 with a silent and a copied channel), routed to the Opus group by
+    its kind, seats an Opus lane, is moved at
+    the push that brings its head, before any packet is decoded, to the
+    host fallback's owned multistream decoder, and gives over the same
+    pushes what the JAX fleet gives (libavcodec there): the same collects,
+    lengths and channels, each channel at the floors of
+    ``tests/test_torch_opus_multistream.py``, and bit for bit the port's
+    streaming decode of the stream."""
+    from soundkit_tpu_torch.codecs.opus import OggOpusDecoder
+    from soundkit_tpu_torch.codecs.opus_multistream import _MultistreamCore
+    from soundkit_tpu_torch.tools import opus_ms_fixtures
+
+    from torch_port_helpers import opus_ms_stream_kinds
+
+    floor = {"celt": 104.0, "silk": 84.0, "hybrid": 35.0}
+    data = opus_ms_fixtures.clip_bytes(name)
+    head, packets = opus_ms_fixtures.head_and_packets(name)
+    port, ref = StreamFleet(2, device="cpu"), JaxFleet(2)
+    got, want = [], []
+    cuts = [0, 300, 3000, len(data) // 2, len(data)]
+    for f in (port, ref):
+        f.push("o0", opus_stream(2, 12))
+    for i, (a, b) in enumerate(zip(cuts, cuts[1:])):
+        for f in (port, ref):
+            f.push("k", data[a:b], kind="opus" if i == 0 else None)
+            if b == len(data):
+                f.end_stream("k")
+        if i == 0:
+            assert "k" in port._fallback and "k" not in port._lanes
+            assert isinstance(port._fallback["k"]._core, _MultistreamCore)
+            assert port._groups["opus"]._model._emitted == [0, 0]
+        g, w = port.collect(), ref.collect()
+        assert sorted(g) == sorted(w)
+        if "k" in w:
+            assert g["k"].shape == w["k"].shape and g["k"].shape[0] == head[9]
+            got.append(g["k"])
+            want.append(w["k"])
+    got, want = np.concatenate(got, 1), np.concatenate(want, 1)
+    for k, kind in enumerate(opus_ms_stream_kinds(head, packets)):
+        if kind:
+            assert snr_db(got[k], want[k]) >= floor[kind], (k, kind)
+    dec = OggOpusDecoder()
+    own = np.concatenate([dec.decode_f32(data), dec.flush()]).reshape(-1, head[9]).T
+    np.testing.assert_array_equal(got, own)
 
 
 # detected (AIFF / AIFF-C, ALAC in MP4, AC-3, Ogg Speex) and explicit (gsm) host

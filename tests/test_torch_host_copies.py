@@ -812,14 +812,14 @@ STREAM_DECODER_COPIES = [
     ("codecs.opus", "_NativeCeltStream", ()),
     ("codecs.opus", "_OpusCore", ("__init__", "_fallback", "decode_packet_f32", "flush_f32")),
     ("codecs.opus", "OggOpusDemuxer", ()),
-    ("codecs.opus", "OggOpusDecoder", ()),
-    ("codecs.opus", "OpusStreamDecoder", ()),
+    ("codecs.opus", "OggOpusDecoder", ("decode_f32",)),
+    ("codecs.opus", "OpusStreamDecoder", ("decode_f32",)),
     ("codecs.vorbis", "xiph_extradata", None),
     ("codecs.vorbis", "split_xiph_extradata", None),
     ("codecs.vorbis", "VorbisPacketDecoder", ("__init__",)),
     ("codecs.vorbis", "VorbisDecoder", ("_init_decoder",)),
     ("codecs.celt_native", "NativeCeltParser", ()),
-    ("models.opus_fleet_model", "_OpusTailFallback", ()),
+    ("models.opus_fleet_model", "_OpusTailFallback", ("__init__",)),
     ("simple", "OpusDeboxer", ()),
     ("simple", "OpusDecodeResult", ()),
     ("simple", "OpusDecoder", ()),
@@ -832,7 +832,11 @@ def test_stream_decoder_pieces_are_verbatim_copies(module, name, changed):
     """The streaming decoders' classes and functions equal the JAX
     package's but for their imports and the methods named in the table:
     the libavcodec branches, which raise in the port
-    (``tests/test_torch_opus_stream.py``, ``tests/test_torch_vorbis_stream.py``)."""
+    (``tests/test_torch_opus_stream.py``, ``tests/test_torch_vorbis_stream.py``),
+    and the methods that open an Opus decoder from its head, which build
+    the owned multistream decoder through ``open_opus_core`` where the
+    JAX package's ``_OpusCore`` opens libavcodec
+    (``tests/test_torch_opus_multistream.py``)."""
     import importlib
 
     port = getattr(importlib.import_module(f"soundkit_tpu_torch.{module}"), name)
@@ -843,8 +847,10 @@ def test_stream_decoder_pieces_are_verbatim_copies(module, name, changed):
     got, want = _methods_but(port, ref, changed)
     assert got == want
     for m in changed:
-        assert "AvDecoder" in _source(getattr(ref, m)) or "_av" in _source(getattr(ref, m))
-        assert "AvDecoder" not in _source(getattr(port, m))
+        ref_m, port_m = _source(getattr(ref, m)), _source(getattr(port, m))
+        assert "AvDecoder" in ref_m or "_av" in ref_m or \
+            ("_OpusCore(" in ref_m and "open_opus_core(" in port_m)
+        assert "AvDecoder" not in port_m
 
 
 def test_opus_constants_of_the_stream_decoders():
@@ -1043,13 +1049,14 @@ def test_webm_adapter_is_a_copy_but_for_its_opus_decoder():
 
     port = inspect.getsource(port_containers.WebmAdapter)
     for got, want in (
-            ("""            from soundkit_tpu_torch.codecs.opus import OpusHead, _OpusCore
+            ("""            from soundkit_tpu_torch.codecs.opus import OpusHead, open_opus_core
 
             try:
                 head = OpusHead.parse(tr.codec_private)
             except ValueError as e:
                 raise DecodingFailed(f"WebM Opus track: {e}")
-            self._dec = _OpusCore(head)
+            # the CodecPrivate is the whole OpusHead, a multistream table too
+            self._dec = open_opus_core(head)
 """, """            self._dec = AvDecoder("opus", extradata=tr.codec_private)
 """),
             ("""        outs = [self._dec.decode_packet_f32(p) for p in packets]
@@ -1287,7 +1294,7 @@ def test_opus_batch_decoder_is_a_copy_but_for_its_owned_decoder():
             ("List[Optional[AvDecoder]]", "List[Optional[_OpusCore]]"),
             ("-> AvDecoder:", "-> _OpusCore:"),
             ('AvDecoder("opus", extradata=self._extradata[b])',
-             "_OpusCore(OpusHead.parse(self._extradata[b]))"),
+             "_raw_wire_core(self._extradata[b])"),
             ("pcm = dec.push(pkt)", "pcm = dec.decode_packet_f32(pkt)")):
         assert want.count(old) == 1, old
         want = want.replace(old, new)

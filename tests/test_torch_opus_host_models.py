@@ -31,7 +31,7 @@ from soundkit_tpu_torch.models.opus_batch import (
 from soundkit_tpu_torch.pipeline.output_options import UnsupportedFormat
 from soundkit_tpu_torch.tools import opus_fixtures
 
-from torch_port_helpers import snr_db
+from torch_port_helpers import libopus, libopus_decode, snr_db
 
 VOICE = {c.name: c for c in opus_fixtures.load_clips(names=opus_fixtures.VOICE_CLIPS)}
 CELT = {c.name: c for c in opus_fixtures.load_clips()}
@@ -244,9 +244,12 @@ def test_opus_batch_departs_from_libavcodec_within_the_webm_floors(opus_collects
     identical slot lengths, and each lane at or above its kind's floor but
     ``silk_mb``, which the owned decoder (the JAX package's and the
     port's alike) decodes apart from libavcodec on its voiced stretches
-    (20.2-34.5 dB over 16-40 packets from packets 0, 7 and 40; ROADMAP §3):
-    that lane is held to the JAX package's owned streaming decoder
-    instead, at 90 dB / 1 LSB."""
+    (20.2-34.5 dB over 16-40 packets from packets 0, 7 and 40): that lane
+    is held to the JAX package's owned streaming decoder instead, at 90 dB
+    / 1 LSB. The departure is libavcodec's: at the internal rate the owned
+    SILK core follows libopus on this clip as it does at NB and WB (56.42
+    dB at lag -8, every packet 47.42-64.11 dB;
+    :func:`test_silk_lanes_follow_libopus_at_the_internal_rate`)."""
     from soundkit_tpu.codecs import opus as jax_opus
 
     for (g, gl), (w, wl) in opus_collects:
@@ -263,6 +266,46 @@ def test_opus_batch_departs_from_libavcodec_within_the_webm_floors(opus_collects
         dec = jax_opus.OpusStreamDecoder()
         owned = np.concatenate([dec.decode_f32(raw_lane(name, 12, start)), dec.flush()])
         held_at_90_db_and_1_lsb(lane_stream(g, lengths, b, True)[:, :1], owned.reshape(-1, 1))
+
+
+# (internal rate, bandwidth, libopus's lag in samples, dB floor over the clip,
+# dB floor a packet) a SILK lane; measured 60.55 / 56.42 / 49.30 dB over the
+# clip, 49.03-66.00 / 47.42-64.11 / 44.13-59.63 dB a packet
+SILK_ORACLE = {"silk_nb": (8000, 0, -3, 58.0, 47.0), "silk_mb": (12000, 1, -8, 54.0, 45.0),
+               "silk_wb": (16000, 2, -11, 47.0, 42.0)}
+
+
+@pytest.mark.skipif(libopus() is None, reason="libopus.so.0 is not on this machine")
+@pytest.mark.parametrize("name", sorted(SILK_ORACLE))
+def test_silk_lanes_follow_libopus_at_the_internal_rate(name):
+    """The owned SILK core (the port's native SILK decode, which its
+    streaming and batch decoders run) against libopus decoding the same
+    packets at the SILK internal rate, where libopus's output is its SILK
+    core's: the best lag within 30 samples is libopus's delay, and the
+    clip and every packet read at or above their floors. libopus codes
+    SILK in 16-bit fixed point, which caps the agreement."""
+    from soundkit_tpu_torch.codecs.silk_native import NativeSilkDecoder
+
+    rate, bw, lag, clip_floor, packet_floor = SILK_ORACLE[name]
+    packets = VOICE[name].packets
+    core = NativeSilkDecoder()
+    own = np.concatenate([core.decode_superframe(p[1:], bw, 1, 20)[0] for p in packets])[:, 0]
+    ref = libopus_decode(packets, rate, 1)[:, 0]
+
+    def lagged(k):
+        a, b = own[max(0, k):], ref[max(0, -k):]
+        n = min(len(a), len(b))
+        return a[:n], b[:n]
+
+    best = max(range(-30, 31), key=lambda k: snr_db(*lagged(k)))
+    assert best == lag
+    a, b = lagged(lag)
+    assert snr_db(a, b) >= clip_floor
+    frame = rate // 50
+    for i in range(len(a) // frame):
+        seg = slice(i * frame, (i + 1) * frame)
+        if np.any(b[seg]):
+            assert snr_db(a[seg], b[seg]) >= packet_floor, i
 
 
 @pytest.mark.parametrize("name", ["stereo96", "silk_wb", "hybrid_fb"])
@@ -283,7 +326,9 @@ def test_opus_batch_on_the_webm_cases_reads_the_webm_figures(name):
 def test_opus_batch_without_a_head_and_the_multistream_departure():
     """A bare packet wire (no OpusHead) takes the default head: no pre-skip,
     the lane's channels; a multistream head raises ``UnsupportedFormat`` at
-    the lane's first decode (the JAX package's libavcodec decodes it)."""
+    the lane's first decode: the wire's 19 head bytes hold no channel
+    mapping table, and the JAX class fails there too
+    (:func:`test_opus_batch_multistream_heads_fail_in_both_packages`)."""
     assert ExportedOpus is BatchedOpusDecoder
     dec = BatchedOpusDecoder(1, 2)
     dec.push(0, raw_lane("stereo96", 3, 0, head=False))
@@ -297,5 +342,26 @@ def test_opus_batch_without_a_head_and_the_multistream_departure():
     family1 = CLIPS["stereo96"].head[:18] + b"\x01"
     dec = BatchedOpusDecoder(1, 2)
     dec.push(0, family1 + raw_lane("stereo96", 2, 0, head=False))
-    with pytest.raises(UnsupportedFormat, match="multistream"):
+    with pytest.raises(UnsupportedFormat, match="no channel mapping table.*cannot open it either"):
         dec.decode_ready()
+
+
+@pytest.mark.parametrize("what", ["mapping_family_1", "three_channels", "family_255"])
+def test_opus_batch_multistream_heads_fail_in_both_packages(what):
+    """Each raw-wire lane head that is not one elementary stream fails at
+    the lane's first decode in both packages: the JAX class keeps 19 head
+    bytes, which libavcodec will not open without their table
+    (``AvDecodeError``), and the port's raises ``UnsupportedFormat``."""
+    from soundkit_tpu.codecs.avdec import AvDecodeError
+
+    head = CLIPS["stereo96"].head
+    head = {"mapping_family_1": head[:18] + b"\x01",
+            "three_channels": head[:9] + b"\x03" + head[10:],
+            "family_255": head[:18] + b"\xff"}[what]
+    port, ref = BatchedOpusDecoder(1, 2), JaxOpus(1, 2)
+    for m in (port, ref):
+        m.push(0, head + raw_lane("stereo96", 2, 0, head=False))
+    with pytest.raises(AvDecodeError):
+        ref.decode_ready()
+    with pytest.raises(UnsupportedFormat, match="19 head bytes hold no channel mapping table"):
+        port.decode_ready()

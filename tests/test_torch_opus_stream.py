@@ -7,7 +7,8 @@ SILK and hybrid streams at 90 dB or better with identical sample counts
 (the port's resampler rounds its float64 sums where libswresample sums in
 float32). Also the fast path's replay into the Python decoder, the
 trimmed-history replay, the raw framing, ``simple.OpusDeboxer`` and
-``simple.OpusDecoder``, and the libavcodec branches, which raise here."""
+``simple.OpusDecoder``, the libavcodec branches, which raise here, and a
+multistream head, which decodes through the owned multistream decoder."""
 import struct
 
 import numpy as np
@@ -147,21 +148,46 @@ def test_simple_opus_decoder_matches_jax(name):
 
 
 def test_multistream_head_raises_unsupported_format():
-    """The JAX package decodes a multistream stream through libavcodec;
-    the port raises ``UnsupportedFormat`` when the head parses, on both
-    framings, and the pipeline reports it as data."""
+    """A head the JAX package's libavcodec cannot open either (family 1
+    without its channel mapping table, family 0 with three channels) raises
+    ``UnsupportedFormat`` when it parses, saying so, on both framings, and
+    the pipeline reports it as data; the JAX package fails on both."""
+    from soundkit_tpu.codecs.avdec import AvDecodeError
     from soundkit_tpu_torch.pipeline.decode_pipeline import StreamDecoder
 
     clip = _clip("stereo96")
     family1 = clip.head[:18] + b"\x01"
     three = clip.head[:9] + b"\x03" + clip.head[10:]
     for head in (family1, three):
-        with pytest.raises(UnsupportedFormat, match="multistream.*libavcodec"):
+        with pytest.raises(AvDecodeError):
+            jax_opus.OggOpusDecoder().decode_f32(ogg_opus(head, clip.packets[:4]))
+        with pytest.raises(UnsupportedFormat, match="libavcodec cannot open it either"):
             opus.OggOpusDecoder().decode_f32(ogg_opus(head, clip.packets[:4]))
-        with pytest.raises(UnsupportedFormat, match="multistream.*libavcodec"):
+        with pytest.raises(UnsupportedFormat, match="libavcodec cannot open it either"):
             opus.OpusStreamDecoder().decode_f32(head + struct.pack("<H", 3) + b"abc")
     outs = StreamDecoder(device="cpu").process(ogg_opus(family1, clip.packets[:4]) + bytes(9000))
     assert [type(o).__name__ for o in outs] == ["UnsupportedFormat"]
+    assert "decodes through libavcodec" not in str(outs[0])
+
+
+def test_a_multistream_head_decodes():
+    """A 5.1 head with its channel mapping table decodes through the owned
+    multistream decoder, to the JAX package's length and channel count
+    (libavcodec there) and the same PCM within the CELT floor of
+    ``tests/test_torch_opus_multistream.py``; the pipeline gives it as
+    six-channel audio."""
+    from soundkit_tpu_torch.pipeline.decode_pipeline import StreamDecoder
+    from soundkit_tpu_torch.tools import opus_ms_fixtures
+
+    head, packets = opus_ms_fixtures.head_and_packets("surround51")
+    data = ogg_opus(head, packets[:12])
+    port, ref = opus.OggOpusDecoder(), jax_opus.OggOpusDecoder()
+    got, want = _decode(port, data, 313), _decode(ref, data, 4096)
+    assert port.channels == ref.channels == 6 and got.shape == want.shape == (6 * (12 * 960 - 312),)
+    assert snr_db(got, want) >= 104.0
+    core = StreamDecoder(device="cpu")
+    outs = core.process(data) + core.process(b"")
+    assert {(type(o).__name__, o.channel_count) for o in outs} == {("AudioData", 6)}
 
 
 def test_a_packet_the_owned_decoder_refuses_ends_the_stream():

@@ -15,6 +15,7 @@ generators live here, on the test side; regenerate from the repository's root wi
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py host_codecs
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py containers
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py mpa
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py opus_ms
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ import numpy as np
 from soundkit_tpu_torch.models.telephony_batch import CODECS
 from soundkit_tpu_torch.tools import (aac_fixtures, container_fixtures, flac_fixtures,
                                       host_codec_fixtures, mp3_fixtures, mpa_fixtures,
-                                      opus_fixtures, telephony_fixtures, vorbis_fixtures)
+                                      opus_fixtures, opus_ms_fixtures, telephony_fixtures,
+                                      vorbis_fixtures)
 
 SR_INDEX_48K = 3
 # AUs per clip that cover long, short (EIGHT_SHORT) and TNS frames
@@ -541,25 +543,55 @@ def voice_clip_pcm(name: str) -> np.ndarray:
     return pcm.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def libopus():
+    """The system's libopus (``libopus.so.0``) with the prototypes of its
+    single-stream and multistream encoders and decoders, or None where it
+    is absent (the card's machine has none). The encoders make fixtures;
+    the decoders are the oracle of the multistream decode and of the SILK
+    core at its internal rate."""
+    import ctypes
+
+    try:
+        op = ctypes.CDLL("libopus.so.0")
+    except OSError:
+        return None
+    P, I, V, F, B = (ctypes.POINTER, ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
+                     ctypes.c_char_p)
+    for name, res, args in (
+            ("opus_encoder_create", V, [I, I, I, P(I)]),
+            ("opus_encoder_destroy", None, [V]),
+            ("opus_encode_float", I, [V, P(F), I, B, I]),
+            ("opus_decoder_create", V, [I, I, P(I)]),
+            ("opus_decoder_destroy", None, [V]),
+            ("opus_decode_float", I, [V, B, I, P(F), I, I]),
+            ("opus_multistream_surround_encoder_create", V, [I, I, I, P(I), P(I), B, I, P(I)]),
+            ("opus_multistream_encoder_create", V, [I, I, I, I, B, I, P(I)]),
+            ("opus_multistream_encoder_destroy", None, [V]),
+            ("opus_multistream_encode_float", I, [V, P(F), I, B, I]),
+            ("opus_multistream_decoder_create", V, [I, I, I, I, B, P(I)]),
+            ("opus_multistream_decoder_destroy", None, [V]),
+            ("opus_multistream_decode_float", I, [V, B, I, P(F), I, I])):
+        fn = getattr(op, name)
+        fn.restype = res
+        fn.argtypes = args
+    # the ctls are variadic: their arguments are given typed at each call
+    op.opus_encoder_ctl.restype = I
+    op.opus_multistream_encoder_ctl.restype = I
+    return op
+
+
 def libopus_voice_packets(pcm: np.ndarray, bit_rate: int, max_bandwidth: int, mode: int,
                           toggle_channels: bool = False):
     """(packets, lookahead) of ``pcm`` float32 [n, channels] at 48 kHz by
-    the system's libopus (``libopus.so.0``, as ``tests/test_fleet.py``
-    opens it) in its VoIP application: voice signal, ``bit_rate``,
+    the system's libopus (:func:`libopus`) in its VoIP application: voice signal, ``bit_rate``,
     ``max_bandwidth`` (OPUS_BANDWIDTH_*) as the maximum and the set
     bandwidth, and ``mode`` forced (1000 SILK, 1001 hybrid, 1002 CELT; a
     list gives a packet's mode by its index). ``toggle_channels`` forces
     mono coding every other half second."""
     import ctypes
 
-    op = ctypes.CDLL("libopus.so.0")
-    op.opus_encoder_create.restype = ctypes.c_void_p
-    op.opus_encoder_create.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    op.opus_encoder_destroy.argtypes = [ctypes.c_void_p]
-    op.opus_encode_float.restype = ctypes.c_int
-    op.opus_encode_float.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-                                     ctypes.c_char_p, ctypes.c_int]
-    op.opus_encoder_ctl.restype = ctypes.c_int
+    op = libopus()
     ch = pcm.shape[1]
     err = ctypes.c_int(0)
     enc = ctypes.c_void_p(op.opus_encoder_create(48000, ch, 2048, ctypes.byref(err)))
@@ -674,8 +706,9 @@ def opus_reroute_case(clips, case: str):
     """(OpusHead, packets, the refusal's message) of an Ogg Opus lane that
     the JAX package's group reroutes to its host decoder: a SILK NB lane
     that switches to WB, a 10 ms CELT packet, a code-3 packet of two
-    frames, an OpusHead of mapping family 1 or of three channels, a
-    switch from CELT to SILK in mid-stream, and a hybrid stream that
+    frames, an OpusHead of mapping family 1 without its channel mapping
+    table or of three channels in family 0 (neither package opens them),
+    a switch from CELT to SILK in mid-stream, and a hybrid stream that
     starts on a transition-redundancy packet (its lane is frozen by the
     decode, and refused at its next push)."""
     clip = clips[0]
@@ -1367,6 +1400,301 @@ def generate_mpa_fixtures(directory: Path = mpa_fixtures.FIXTURE_DIR) -> None:
     (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
 
 
+# ---------------------------------------------------------------------------
+# the libopus oracle, and the multistream Opus fixtures
+# ---------------------------------------------------------------------------
+
+def libopus_decode(packets, rate: int, channels: int) -> np.ndarray:
+    """libopus's float decode of single-stream ``packets`` at ``rate``
+    (8000, 12000, 16000, 24000 or 48000 Hz): [n, channels] float32, no
+    pre-skip taken off. At a SILK stream's internal rate this is the SILK
+    core's own output."""
+    import ctypes
+
+    op = libopus()
+    err = ctypes.c_int(0)
+    dec = ctypes.c_void_p(op.opus_decoder_create(rate, channels, ctypes.byref(err)))
+    assert err.value == 0 and dec.value
+    try:
+        buf = np.zeros(5760 * channels, np.float32)
+        out = []
+        for p in packets:
+            n = op.opus_decode_float(dec, p, len(p), buf.ctypes.data_as(
+                ctypes.POINTER(ctypes.c_float)), 5760 * rate // 48000, 0)
+            assert n > 0, n
+            out.append(buf[:n * channels].reshape(n, channels).copy())
+    finally:
+        op.opus_decoder_destroy(dec)
+    return np.concatenate(out)
+
+
+def libopus_ms_decode(head: bytes, packets) -> np.ndarray:
+    """libopus's ``opus_multistream_decode_float`` of a multistream
+    stream: [n, channels] float32 in the head's (Vorbis) channel order,
+    neither pre-skip nor output gain applied."""
+    import ctypes
+
+    op = libopus()
+    ch, n_streams, coupled = head[9], head[19], head[20]
+    err = ctypes.c_int(0)
+    dec = ctypes.c_void_p(op.opus_multistream_decoder_create(
+        48000, ch, n_streams, coupled, bytes(head[21:21 + ch]), ctypes.byref(err)))
+    assert err.value == 0 and dec.value, err.value
+    try:
+        buf = np.zeros(5760 * ch, np.float32)
+        out = []
+        for p in packets:
+            n = op.opus_multistream_decode_float(dec, p, len(p), buf.ctypes.data_as(
+                ctypes.POINTER(ctypes.c_float)), 5760, 0)
+            assert n > 0, n
+            out.append(buf[:n * ch].reshape(n, ch).copy())
+    finally:
+        op.opus_multistream_decoder_destroy(dec)
+    return np.concatenate(out)
+
+
+#: multistream clip: (channels, family, (streams, coupled, table) or None
+#: for the surround encoder's, application, total bit rate, seconds,
+#: packet frame sizes (cycled), VBR a packet (cycled), pre-skip (None: the
+#: encoder's lookahead), output gain, per-stream (mode, bandwidth) or None)
+OPUS_MS_CLIPS = {
+    "surround51": (6, 1, None, 2049, 256000, 0.6, (960,), (1,), None, 0, None),
+    "surround71": (8, 1, None, 2049, 384000, 0.6, (960,), (1,), None, 0, None),
+    "three_40ms": (3, 1, None, 2049, 160000, 1.0, (1920, 1920, 2880, 960, 1920, 2880),
+                   (1, 0, 1, 1, 0, 0, 1), None, 0, None),
+    "ambisonic_foa": (4, 2, (4, 0, (0, 1, 2, 3)), 2049, 192000, 0.6, (960,), (1,), None, 0,
+                      None),
+    "voip255": (5, 255, (2, 1, (255, 0, 1, 2, 2)), 2048, 64000, 1.0, (960,), (1,), None, 0,
+                ((1001, 1105), (1000, 1103))),
+    "surround51_gain": (6, 1, None, 2049, 192000, 0.6, (960,), (1,), 1500, -1536, None),
+}
+def opus_ms_clip_pcm(name: str) -> np.ndarray:
+    """Float32 [n, channels] at 48 kHz: a tone a channel (the LFE of 5.1
+    and 7.1 a 60 Hz one) under seeded noise bursts, or for the VoIP clip a
+    synthetic voice a channel, each of its own pitch."""
+    ch, family, _layout, app, _rate, seconds = OPUS_MS_CLIPS[name][:6]
+    seed = 9100 + list(OPUS_MS_CLIPS).index(name)
+    rng = np.random.default_rng(seed)
+    n = int(48000 * seconds) + 2880
+    t = np.arange(n) / 48000
+    if app == 2048:
+        chans = []
+        for c in range(ch):
+            f0 = (120 + 35 * c) * (1 + 0.12 * np.sin(2 * np.pi * (0.6 + 0.2 * c) * t))
+            ph = 2 * np.pi * np.cumsum(f0) / 48000
+            x = sum(np.sin(h * ph) / h ** 0.8 for h in range(1, 30)) * 0.07
+            env = (np.sin(2 * np.pi * (2.0 + 0.3 * c) * t + c) > -0.4).astype(float)
+            chans.append(x * env + 0.01 * rng.standard_normal(n))
+        return np.stack(chans, 1).astype(np.float32)
+    lfe = {6: 5, 8: 7}.get(ch) if family == 1 else None
+    env = np.zeros(n)
+    for o in rng.uniform(0, seconds, int(6 * seconds) + 1):
+        m = t >= o
+        env[m] += np.exp(-(t[m] - o) / 0.04)
+    chans = []
+    for c in range(ch):
+        if c == lfe:
+            chans.append(0.3 * np.sin(2 * np.pi * opus_ms_fixtures.LFE_TONE * t))
+            continue
+        tone = 0.2 * np.sin(2 * np.pi * opus_ms_fixtures.TONES[c] * t + c)
+        chans.append(tone + 0.05 * rng.standard_normal(n) * env + 0.004 * rng.standard_normal(n))
+    return np.stack(chans, 1).astype(np.float32)
+
+
+def libopus_ms_packets(name: str):
+    """(packets, (streams, coupled, table), lookahead) of clip ``name`` by
+    libopus's multistream encoder: the surround encoder where the clip
+    names no layout, the generic one otherwise, each stream's mode and
+    bandwidth forced where the clip names them."""
+    import ctypes
+
+    ch, family, layout, app, bit_rate, seconds, sizes, vbr, _pre, _gain, modes = \
+        OPUS_MS_CLIPS[name]
+    op = libopus()
+    err = ctypes.c_int(0)
+    if layout is None:
+        n_streams, coupled = ctypes.c_int(0), ctypes.c_int(0)
+        table = ctypes.create_string_buffer(ch)
+        enc = op.opus_multistream_surround_encoder_create(
+            48000, ch, family, ctypes.byref(n_streams), ctypes.byref(coupled), table, app,
+            ctypes.byref(err))
+        layout = (n_streams.value, coupled.value, tuple(table.raw[:ch]))
+    else:
+        enc = op.opus_multistream_encoder_create(48000, ch, layout[0], layout[1],
+                                                 bytes(layout[2]), app, ctypes.byref(err))
+    assert err.value == 0 and enc, (name, err.value)
+    enc = ctypes.c_void_p(enc)
+
+    def ctl(req, v):
+        assert op.opus_multistream_encoder_ctl(enc, ctypes.c_int(req), ctypes.c_int(v)) == 0, \
+            (name, req, v)
+
+    try:
+        ctl(4002, bit_rate)
+        for s, (mode, bw) in enumerate(modes or ()):
+            sub = ctypes.c_void_p(0)
+            assert op.opus_multistream_encoder_ctl(enc, ctypes.c_int(5120), ctypes.c_int(s),
+                                                   ctypes.byref(sub)) == 0
+            for req, v in ((4024, 3001), (11002, mode), (4004, bw), (4008, bw)):
+                assert op.opus_encoder_ctl(sub, ctypes.c_int(req), ctypes.c_int(v)) == 0
+        lookahead = ctypes.c_int(0)
+        assert op.opus_multistream_encoder_ctl(enc, ctypes.c_int(4027),
+                                               ctypes.byref(lookahead)) == 0
+        pcm = opus_ms_clip_pcm(name)
+        total = int(48000 * seconds)
+        packets, pos, k = [], 0, 0
+        while pos < total:
+            size = sizes[k % len(sizes)]
+            ctl(4006, vbr[k % len(vbr)])
+            buf = ctypes.create_string_buffer(16000)
+            r = op.opus_multistream_encode_float(
+                enc, np.ascontiguousarray(pcm[pos:pos + size]).ctypes.data_as(
+                    ctypes.POINTER(ctypes.c_float)), size, buf, 16000)
+            assert r > 0, (name, r)
+            packets.append(buf.raw[:r])
+            pos += size
+            k += 1
+    finally:
+        op.opus_multistream_encoder_destroy(enc)
+    return packets, layout, lookahead.value
+
+
+def opus_ms_head(channels: int, family: int, pre_skip: int, gain: int, layout) -> bytes:
+    n_streams, coupled, table = layout
+    return (b"OpusHead" + bytes([1, channels]) + struct.pack("<HIhB", pre_skip, 48000, gain, family)
+            + bytes([n_streams, coupled]) + bytes(table))
+
+
+def jax_ogg_opus_f32(data: bytes) -> tuple:
+    """(float32 PCM, channels) of the JAX package's ``OggOpusDecoder`` over
+    a whole Ogg Opus stream, flush included (libavcodec for a multistream
+    head)."""
+    from soundkit_tpu.codecs.opus import OggOpusDecoder
+
+    dec = OggOpusDecoder()
+    pcm = np.concatenate([dec.decode_f32(data), dec.flush()]).astype(np.float32)
+    return pcm, dec.channels
+
+
+def _ms_stream_codes(packets, n_streams: int) -> list:
+    """The TOC codes (0-3) each stream's packets use, and whether a code-3
+    packet of a stream is padded."""
+    from soundkit_tpu_torch.codecs.opus_multistream import split_multistream_packet
+
+    seen = [set() for _ in range(n_streams)]
+    for p in packets:
+        for s, part in enumerate(split_multistream_packet(p, n_streams)):
+            code = part[0] & 3
+            seen[s].add(code)
+            if code == 3 and part[1] & 0x40:
+                seen[s].add("padded")
+    return [sorted(x, key=str) for x in seen]
+
+
+def generate_opus_ms_fixtures(directory: Path = opus_ms_fixtures.FIXTURE_DIR) -> None:
+    """Encode every clip of ``opus_ms_fixtures.CLIPS`` with libopus
+    (:func:`libopus_ms_packets`), mux it in Ogg (one packet a page), decode
+    it with the JAX package (libavcodec) and write the streams, the index
+    and ``reference_pcm.npz``: the smoke clip's whole decode, and the first
+    ``opus_ms_fixtures.REFERENCE_FRAMES`` frames of every other clip's."""
+    directory.mkdir(parents=True, exist_ok=True)
+    index, ref = {}, {}
+    for name in opus_ms_fixtures.CLIPS:
+        ch, family, _l, app, bit_rate, seconds, sizes, vbr, pre, gain, modes = OPUS_MS_CLIPS[name]
+        packets, layout, lookahead = libopus_ms_packets(name)
+        pre_skip = lookahead if pre is None else pre
+        head = opus_ms_head(ch, family, pre_skip, gain, layout)
+        data = opus_ms_fixtures.ogg_stream(head, packets)
+        pcm, channels = jax_ogg_opus_f32(data)
+        assert channels == ch and pcm.size % ch == 0, name
+        codes = _ms_stream_codes(packets, layout[0])
+        (directory / f"{name}.opus").write_bytes(data)
+        index[name] = dict(
+            file=f"{name}.opus", sha256=opus_ms_fixtures.sha256(data), channels=ch, family=family,
+            streams=layout[0], coupled=layout[1], table=list(layout[2]), pre_skip=pre_skip,
+            output_gain=gain, application={2048: "voip", 2049: "audio"}[app], bit_rate=bit_rate,
+            frame_sizes=list(sizes), modes=[list(m) for m in modes] if modes else None,
+            packets=[len(p) for p in packets], stream_codes=codes,
+            frames=pcm.size // ch, pcm_sha256=opus_ms_fixtures.sha256(pcm.tobytes()))
+        keep = None if name == opus_ms_fixtures.SMOKE else opus_ms_fixtures.REFERENCE_FRAMES * ch
+        ref[name] = pcm[:keep]
+    np.savez_compressed(directory / "reference_pcm.npz", **ref)
+    (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
+
+
+#: family-1 output channel k carries Vorbis-order input channel ORDER[ch][k]
+#: (measured on the JAX package's libavcodec decode of tones a channel)
+LIBAVCODEC_ORDER = {1: [0], 2: [0, 1], 3: [0, 2, 1], 4: [0, 1, 2, 3], 5: [0, 2, 1, 3, 4],
+                    6: [0, 2, 1, 5, 3, 4], 7: [0, 2, 1, 6, 5, 3, 4], 8: [0, 2, 1, 7, 5, 6, 3, 4]}
+
+
+def opus_ms_sources(head: bytes) -> list:
+    """(stream, channel) a multistream head's output channel takes, in
+    libavcodec's order, (-1, 0) for silence."""
+    ch, family, coupled = head[9], head[18], head[20]
+    table = head[21:21 + ch]
+    order = LIBAVCODEC_ORDER[ch] if family == 1 else list(range(ch))
+    out = []
+    for k in range(ch):
+        idx = table[order[k]]
+        out.append((-1, 0) if idx == 255 else (idx // 2, idx % 2) if idx < 2 * coupled
+                   else (idx - coupled, 0))
+    return out
+
+
+def opus_ms_stream_kinds(head: bytes, packets) -> list:
+    """'celt', 'silk' or 'hybrid' (any other mix) of each output channel,
+    by the TOCs of its stream's packets; None for a silent channel."""
+    from soundkit_tpu_torch.codecs.opus_core import TOC_ATTRS
+    from soundkit_tpu_torch.codecs.opus_multistream import split_multistream_packet
+
+    modes = [set() for _ in range(head[19])]
+    for p in packets:
+        for s, part in enumerate(split_multistream_packet(p, head[19])):
+            modes[s].add(TOC_ATTRS[part[0]][0])
+    kinds = [m.pop() if len(m) == 1 and m != {"hybrid"} else "hybrid" for m in map(set, modes)]
+    return [None if s < 0 else kinds[s] for s, _c in opus_ms_sources(head)]
+
+
+def libopus_ms_reference(head: bytes, packets) -> np.ndarray:
+    """libopus's multistream decode of ``packets`` in libavcodec's channel
+    order, pre-skip taken off and the output gain applied in float32, as
+    the decoders under test apply them: [n, channels] float32."""
+    ch, family = head[9], head[18]
+    pre_skip, gain = struct.unpack_from("<Hxxxxh", head, 10)
+    pcm = libopus_ms_decode(head, packets)
+    if family == 1:
+        pcm = pcm[:, LIBAVCODEC_ORDER[ch]]
+    if gain:
+        pcm = pcm * np.float32(10.0 ** (gain / (20.0 * 256.0)))
+    return np.ascontiguousarray(pcm[pre_skip:], np.float32)
+
+
+def opus_ms_readings() -> Dict[str, list]:
+    """Per clip of ``tests/data/torch_port/opus_ms``, per output channel:
+    (kind, dB against the JAX package's libavcodec decode, dB against
+    libopus), the port's ``OggOpusDecoder`` on the CPU, whole stream and
+    flush. Not a test: it gives the readings the floors of
+    ``tests/test_torch_opus_multistream.py`` are set from. Run it as
+    ``JAX_PLATFORMS=cpu python -c "import sys; sys.path.insert(0, 'tests');
+    import torch_port_helpers as h; print(h.opus_ms_readings())"`` from the
+    repository's root."""
+    from soundkit_tpu_torch.codecs.opus import OggOpusDecoder
+
+    out = {}
+    for name in opus_ms_fixtures.CLIPS:
+        data = opus_ms_fixtures.clip_bytes(name)
+        head, packets = opus_ms_fixtures.head_and_packets(name)
+        dec = OggOpusDecoder()
+        got = np.concatenate([dec.decode_f32(data), dec.flush()]).reshape(-1, head[9])
+        want = jax_ogg_opus_f32(data)[0].reshape(-1, head[9])
+        lo = libopus_ms_reference(head, packets)[:len(got)]
+        out[name] = [(kind, round(snr_db(got[:, k], want[:, k]), 2),
+                      round(snr_db(got[:len(lo), k], lo[:, k]), 2))
+                     for k, kind in enumerate(opus_ms_stream_kinds(head, packets)) if kind]
+    return out
+
+
 if __name__ == "__main__":
     {"aac": generate_aac_fixtures, "telephony": generate_telephony_fixtures,
      "flac": generate_flac_fixtures, "mp3": generate_mp3_fixtures,
@@ -1374,7 +1702,7 @@ if __name__ == "__main__":
      "vorbis": generate_vorbis_fixtures,
      "host_codecs": generate_host_codec_fixtures,
      "containers": generate_container_index,
-     "mpa": generate_mpa_fixtures}[sys.argv[1]]()
+     "mpa": generate_mpa_fixtures, "opus_ms": generate_opus_ms_fixtures}[sys.argv[1]]()
 
 
 # ---------------------------------------------------------------------------
