@@ -302,7 +302,10 @@ ee. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    ALAC in MP4, AC-3 and Ogg Speex WB detected) and one detected stream of
    each container (``FLEET_CONTAINER_STREAMS``: M4A AAC, WebM Opus, WebM
    Vorbis), each equal to its lone decode too, their push seconds by kind
-   of stream; the two Opus heads neither package opens and AMR-NB must
+   of stream; a detected 5.1 ADTS stream and a 5.1 M4A stream of ~2 s
+   (``FLEET_AAC_MC_STREAMS``) on the host fallback, each equal to its
+   lone decode on the card and on the CPU, six channels; the two Opus
+   heads neither package opens and AMR-NB must
    raise ``FleetUnsupported``; the
    waves run again without the host streams for the x realtime beside;
    then an ``out_bits=16`` collect against the quantized
@@ -339,11 +342,14 @@ ff. pipeline: K3, K6 and K7 at B = 1 on 1, 127 and 313 codes and on one
    the CPU, bit-exact but MP3, which is held within 1 LSB, and at >= 100
    dB in float32 through ``Mp3Decoder``; seven host-decoded streams of ~20 s
    (``pipeline_host_streams``: Ogg Opus CELT stereo and mono, SILK WB,
-   hybrid FB, raw Opus, Ogg Vorbis, 5.1 multistream Ogg Opus) the same
-   way, hooked on their first 5 s and held whole against the CPU bit for
-   bit, the 5.1 stream also against the JAX package's decode of its clip
-   (``multistream_reference_check``: 1 LSB, and >= 104 dB a channel in
-   float32); fourteen streams of the
+   hybrid FB, raw Opus, Ogg Vorbis, 5.1 multistream Ogg Opus, 5.1 ADTS
+   AAC-LC ``adts_51``) the same way, hooked on their first 5 s and held
+   whole against the CPU bit for bit, the 5.1 Opus stream also against
+   the JAX package's decode of its clip (``multistream_reference_check``:
+   1 LSB, and >= 104 dB a channel in float32) and the 5.1 AAC streams
+   (``adts_51`` and the M4A ``m4a_51``) against the JAX package's own
+   decoder and libavcodec (``aac_mc_reference_check``: 1 LSB, and the
+   PNS-free SNR); fourteen streams of the
    owned host codecs (``pipeline_codec_streams``: GSM standard and WAV49,
    AIFF 16-bit, AIFF-C µ-law and A-law, 60 s each; ALAC in CAF and in
    MP4, 20 s; AC-3 stereo 10 s; Ogg Speex NB / WB / UWB 10 / 5 / 3 s;
@@ -357,14 +363,16 @@ ff. pipeline: K3, K6 and K7 at B = 1 on 1, 127 and 313 codes and on one
    the committed float32 PCM of the clip, and the clip alone through
    ``Mp3Decoder`` at >= 100 dB in float32, ``mpa_reference_check``),
    AIFF-C's K3 once at each file's end;
-   five container streams (``pipeline_container_streams``: M4A AAC and
+   six container streams (``pipeline_container_streams``: M4A AAC and
    LOAS/LATM AAC 60 s, by detection and ``spawn_aac_latm``; WebM Vorbis,
    Opus CELT and Opus SILK 20 s, detected; each a container case's units
-   repeated, ``container_fixtures.long_stream``) the same way, hooked on
-   their first 5 s (the M4A, decoded at EOF, whole), held whole against
-   the CPU bit for bit and against the JAX package's owned decode of the
-   case (``container_reference_check``: exact, the SILK stream within 1
-   LSB of the committed PCM of its first second); eight mixed pipelines
+   repeated, ``container_fixtures.long_stream``; the 5.1 M4A ``m4a_51``,
+   ``adts_51``'s units, 20 s) the same way, hooked on their first 5 s
+   (the M4A streams, decoded at EOF, whole), held whole against the CPU
+   bit for bit (``m4a_51`` against ``adts_51``'s CPU decode: the same
+   units) and against the JAX package's owned decode of the case
+   (``container_reference_check``: exact, the SILK stream within 1 LSB
+   of the committed PCM of its first second); eight mixed pipelines
    at once, each equal to its lone run; one ``[pipeline]`` line a format
    and a summary line;
 gg. containers: ``simple.AudioTrackDemuxer`` over the MP4, WebM and
@@ -475,6 +483,10 @@ FLEET_CODEC_STREAMS = {"gsm-host-0": ("gsm_standard", "gsm", 10.0),
 FLEET_CONTAINER_STREAMS = {"m4a_aac-host-0": ("m4a_aac", 5.0),
                            "webm_opus-host-0": ("webm_opus_celt", 5.0),
                            "webm_vorbis-host-0": ("webm_vorbis", 5.0)}
+# the 5.1 AAC-LC streams of [fleet] (aac_mc_fixtures clip or case, seconds at least), each detected
+# and pushed whole after round 0's pushes: the ADTS one leaves its AAC lane at the push (channel
+# configuration 6), the M4A one decodes at its end; both on the host fallback
+FLEET_AAC_MC_STREAMS = {"adts_51-host-0": ("cfg6", 2.0), "m4a_51-host-0": ("m4a_51", 2.0)}
 # the multistream Ogg Opus streams of [fleet] (opus_ms_fixtures clips), each pushed whole with
 # kind "opus" after round 0's pushes and rerouted at its head to the host fallback
 FLEET_MULTISTREAM = ("surround51", "voip255")
@@ -3172,11 +3184,15 @@ def fleet_host_streams(fs: "FleetStreams") -> dict:
       MP4, AC-3 and Ogg Speex WB detected;
     - one detected stream of each container (FLEET_CONTAINER_STREAMS) after
       round 0's pushes: M4A AAC (decoded at its end), WebM Opus CELT and
-      WebM Vorbis."""
+      WebM Vorbis;
+    - a 5.1 ADTS and a 5.1 M4A AAC-LC stream (FLEET_AAC_MC_STREAMS), each
+      detected after round 0's pushes, decoded by the host fallback's
+      owned AAC-LC decoder."""
     import numpy as np
 
     from soundkit_tpu_torch.core.audio_types import PcmData
     from soundkit_tpu_torch.core.wav import generate_wav_buffer
+    from soundkit_tpu_torch.tools import aac_mc_fixtures as amf
     from soundkit_tpu_torch.tools import container_fixtures as cf
     from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
     from soundkit_tpu_torch.tools import opus_fixtures as of
@@ -3214,6 +3230,8 @@ def fleet_host_streams(fs: "FleetStreams") -> dict:
         add(sid, hcf.long_stream(clip, seconds)[0], kind, (0, "after"), "host")
     for sid, (case, seconds) in FLEET_CONTAINER_STREAMS.items():
         add(sid, cf.long_stream(case, seconds)[0], None, (0, "after"), "host")
+    for sid, (case, seconds) in FLEET_AAC_MC_STREAMS.items():
+        add(sid, amf.long_stream(case, seconds)[0], None, (0, "after"), "host")
     for kind in FLEET_FILLERS:
         streams = [s[:FLEET_FILLER_BYTES] for s in tf.lane_streams(kind, B + FLEET_OVERFLOW)]
         for j, data in enumerate(streams):
@@ -3361,6 +3379,13 @@ def phase_fleet():
                                    if isinstance(o, AudioData)], axis=1)
         check(pcm.shape == want.shape and np.array_equal(pcm, want) and np.any(want),
               f"{sid}: the fleet's host PCM {pcm.shape} differs from its lone decode {want.shape}")
+        if sid in FLEET_AAC_MC_STREAMS:
+            cpu_dec = fleet_mod._host_decoder("cpu")
+            outs = cpu_dec.process(h["data"]) + cpu_dec.process(b"")
+            cpu = np.concatenate([np.stack(audio_to_f32_channels(o)) for o in outs
+                                  if isinstance(o, AudioData)], axis=1)
+            check(pcm.shape[0] == 6 and np.array_equal(pcm, cpu),
+                  f"{sid}: the fleet's host PCM {pcm.shape} differs from the CPU decode")
         host_audio_s += pcm.shape[1] / rate_of[sid]
     filler_audio_s = sum(np.concatenate(got[sid], axis=1).shape[1] / rate_of[sid]
                          for sid, h in hs.items() if h["expect"] == "lane")
@@ -3500,7 +3525,7 @@ PIPE_CONCURRENT = ("mp3", "flac16", "flac24", "g722", "g726_16", "g726_32", "g71
 PIPE_HOST_SECONDS = 20.0
 PIPE_HOST_TIMED_SECONDS = 5.0
 PIPE_HOST_FORMATS = ("ogg_opus_stereo", "ogg_opus_mono", "ogg_opus_silk_wb", "ogg_opus_hybrid_fb",
-                     "opus_raw", "ogg_vorbis", "ogg_opus_51")
+                     "opus_raw", "ogg_vorbis", "ogg_opus_51", "adts_51")
 # the 5.1 multistream Ogg Opus stream of [pipeline]: this opus_ms_fixtures clip's packets repeated
 PIPE_MULTISTREAM_CLIP = "surround51"
 # the owned host codecs' streams, {format: (host_codec_fixtures or mpa_fixtures clip, seconds at
@@ -3523,8 +3548,15 @@ PIPE_CODEC_TIMED_SECONDS = 2.0
 PIPE_CONTAINER_STREAMS = {
     "m4a_aac": ("m4a_aac", 60.0), "latm": ("latm_8", 60.0), "webm_vorbis": ("webm_vorbis", 20.0),
     "webm_opus_celt": ("webm_opus_celt", 20.0), "webm_opus_silk": ("webm_opus_silk", 20.0),
+    "m4a_51": ("m4a_51", PIPE_HOST_SECONDS),
 }
-PIPE_EOF_FORMATS = ("aiff_16", "aifc_ulaw", "aifc_alaw", "alac_caf", "alac_mp4", "m4a_aac")
+PIPE_EOF_FORMATS = ("aiff_16", "aifc_ulaw", "aifc_alaw", "alac_caf", "alac_mp4", "m4a_aac",
+                    "m4a_51")
+# the 5.1 AAC-LC streams of [pipeline] (aac_mc_fixtures): adts_51 is this clip's units repeated,
+# m4a_51 the same units in an MP4; each held to the clip's reference_pcm.npz entries, and m4a_51
+# to adts_51's CPU decode (the same units, so the same PCM)
+PIPE_AAC_MC_CLIP = "cfg6"
+PIPE_CPU_SHARED = {"m4a_51": "adts_51"}
 
 
 def pipeline_wrappers():
@@ -3625,7 +3657,9 @@ def pipeline_host_streams() -> dict:
     (``owned``); Ogg Vorbis (``stereo44``'s headers, then its audio
     packets repeated, a page each); 5.1 multistream Ogg Opus
     (``opus_ms_fixtures``' ``surround51``, four elementary streams on the
-    owned multistream decoder). All detected by ``DecodePipeline.spawn``."""
+    owned multistream decoder); 5.1 ADTS AAC-LC (``aac_mc_fixtures``'
+    ``cfg6``, the owned AAC-LC decoder). All detected by
+    ``DecodePipeline.spawn``."""
     import numpy as np
 
     from soundkit_tpu_torch.demux.ogg import build_ogg_page
@@ -3660,7 +3694,46 @@ def pipeline_host_streams() -> dict:
     data, audio_s = msf.long_stream(PIPE_MULTISTREAM_CLIP, PIPE_HOST_SECONDS)
     pre_skip = msf.load_index()[PIPE_MULTISTREAM_CLIP]["pre_skip"]
     out["ogg_opus_51"] = (data, DP.spawn, audio_s - pre_skip / 48000)
+    from soundkit_tpu_torch.tools import aac_mc_fixtures as amf
+
+    data, audio_s = amf.long_stream(PIPE_AAC_MC_CLIP, PIPE_HOST_SECONDS)
+    out["adts_51"] = (data, DP.spawn, audio_s)
     return out
+
+
+def aac_mc_reference_check(fmt: str, pcm: bytes) -> dict:
+    """A 5.1 AAC-LC stream against its clip, as ``aac_mc_fixtures``
+    commits it: the stream's int16 PCM over the clip's length within 1
+    LSB of the JAX package's own decoder (``pcm_<clip>``), and the clip
+    decoded alone by the port's ``AacDecoder`` to float32 against the JAX
+    package's libavcodec decode (``libavcodec_<clip>``): the same length,
+    each channel's PNS-free SNR >= 125 dB and no PNS-free channel-frame
+    under the clip's measured worst less 10 dB (the bars of
+    tests/test_torch_aac_multichannel.py)."""
+    import numpy as np
+
+    from soundkit_tpu_torch.codecs.aac import AacDecoder
+    from soundkit_tpu_torch.tools import aac_mc_fixtures as amf
+
+    clip = PIPE_AAC_MC_CLIP
+    ref = amf.reference(clip, "pcm").astype(np.int32)
+    head = np.frombuffer(pcm[:2 * ref.size], "<i2").astype(np.int32)
+    check(head.size == ref.size, f"[pipeline] {fmt}: {len(pcm)} bytes, shorter than {clip}")
+    lsb = int(np.abs(head - ref).max())
+    check(lsb <= 1, f"[pipeline] {fmt}: {lsb} LSB from the JAX package's own decode of {clip}")
+    got = AacDecoder().decode_f32(amf.clip_bytes(clip)).astype(np.float64)
+    av = amf.reference(clip, "libavcodec").astype(np.float64)
+    check(got.shape == av.shape, f"[pipeline] {fmt}: {got.size} float32 samples of {clip}, "
+          f"libavcodec's {av.size}")
+    r = amf.pns_free_snr(got.reshape(-1, 6).T, av.reshape(-1, 6).T,
+                         amf.reference(clip, "pns"))
+    worst = amf.load_index()[clip]["pns_free"]["worst_db"]
+    check(min(r["snr_db"]) >= 125.0 and r["worst_db"] >= worst - 10.0,
+          f"[pipeline] {fmt}: PNS-free {r} against libavcodec")
+    return dict(vs_jax_max_lsb=lsb, vs_jax_samples_off=int((head != ref).sum()),
+                vs_libavcodec_pns_free_snr_db=r["snr_db"],
+                vs_libavcodec_pns_free_worst_db=r["worst_db"],
+                pns_free_channel_frames=r["channel_frames"])
 
 
 def multistream_reference_check(pcm: bytes) -> dict:
@@ -3731,9 +3804,11 @@ def pipeline_container_streams() -> dict:
     from soundkit_tpu_torch.pipeline.decode_pipeline import DecodePipeline as DP
     from soundkit_tpu_torch.tools import container_fixtures as cf
 
+    from soundkit_tpu_torch.tools import aac_mc_fixtures as amf
+
     out = {}
     for fmt, (case, seconds) in PIPE_CONTAINER_STREAMS.items():
-        data, audio_s = cf.long_stream(case, seconds)
+        data, audio_s = (amf if case in amf.CONTAINERS else cf).long_stream(case, seconds)
         if case.startswith("webm_opus"):
             audio_s -= 312 / 48000  # the clips' OpusHead pre-skip
         out[fmt] = (data, DP.spawn_aac_latm if case in cf.LATM else DP.spawn, audio_s)
@@ -3752,6 +3827,8 @@ def container_reference_check(fmt: str, pcm: bytes) -> dict:
     from soundkit_tpu_torch.tools import container_fixtures as cf
 
     case = PIPE_CONTAINER_STREAMS[fmt][0]
+    if fmt == "m4a_51":
+        return aac_mc_reference_check(fmt, pcm)
     e = cf.load_index()[case]
     head = pcm[:e["pcm_bytes"]]
     check(len(head) == e["pcm_bytes"], f"[pipeline] {fmt}: {len(pcm)} bytes, shorter than its case")
@@ -3977,10 +4054,14 @@ def phase_pipeline(card: str):
     # the CPU path on each stream's prefix (the Opus and Vorbis streams whole, the
     # same host code): bit-exact, MP3 within 1 LSB
     t0 = time.perf_counter()
+    cpu_pcm = {}
     for fmt, (data, spawn, seconds) in streams.items():
         head = data if fmt in PIPE_HOST_FORMATS or fmt in PIPE_CODEC_STREAMS or \
             fmt in PIPE_CONTAINER_STREAMS else _prefix(fmt, data, seconds)
-        host = _pcm_bytes(pipeline_run(spawn, head, "cpu")[0])
+        host = cpu_pcm.get(PIPE_CPU_SHARED.get(fmt)) or \
+            _pcm_bytes(pipeline_run(spawn, head, "cpu")[0])
+        if fmt in PIPE_CPU_SHARED.values():
+            cpu_pcm[fmt] = host
         card_pcm = _pcm_bytes(lone[fmt])[:len(host)]
         check(len(host) > 0 and len(card_pcm) == len(host),
               f"[pipeline] {fmt}: {len(host)} CPU bytes, {len(card_pcm)} card bytes")
@@ -3999,6 +4080,8 @@ def phase_pipeline(card: str):
             res[fmt].update(container_reference_check(fmt, card_pcm))
         if fmt == "ogg_opus_51":
             res[fmt].update(multistream_reference_check(card_pcm))
+        if fmt == "adts_51":
+            res[fmt].update(aac_mc_reference_check(fmt, card_pcm))
         res[fmt]["cpu_compare_bytes"] = len(head)
     head = _prefix("mp3", streams["mp3"][0], streams["mp3"][2])
     f32 = []

@@ -5,8 +5,12 @@ LOAS/LATM (counterpart of ``soundkit_tpu/codecs/aac.py``).
 unit with the JAX package's own pure-Python ``AacLcDecoder`` and
 synthesizes it with the numpy ``AacLcSynth`` (``ops/aac_dsp.py``), both
 copied verbatim: the same code, so the same samples. The first access
-unit gates the stream (``_prime``): AAC-LC, one or two channels, no SBR.
-The batched AAC path on the card is ``models/aac_lc_batch.py``.
+unit gates the stream (``_prime``): AAC-LC at channel configuration 1-7,
+no SBR. Every access unit must carry its configuration's elements
+(``codecs/aac_layout.py``), and the channels come out in libavcodec's
+order (``aac_layout.LIBAVCODEC_ORDER``: L R C LFE and the rest), where
+the synthesis gives them in bitstream order. The batched AAC path on the
+card is ``models/aac_lc_batch.py`` (mono and stereo).
 
 ``AacRawDecoder`` decodes raw access units configured from an
 AudioSpecificConfig (an M4A's ``esds``, a LATM StreamMuxConfig) with
@@ -15,17 +19,23 @@ does, behind the same first-AU gate. ``AacLatmAdapter`` demuxes a LOAS
 stream (``demux/latm.py``) into it, its decoder built once from the
 first in-band config.
 
-The JAX package hands to libavcodec what this gate refuses (HE-AAC /
-SBR, more than two channels, a program config element, a first access
+The JAX package hands to libavcodec what its owned path refuses (HE-AAC
+/ SBR, more than two channels, a program config element, a first access
 unit that does not parse) and continues a stream on a raw-AU libavcodec
 decoder after a later access unit fails; its ``AacRawDecoder`` (M4A,
-LATM) is libavcodec throughout. The port builds no FFmpeg: a refused
-stream raises ``UnsupportedFormat`` before any output, a first access
-unit that does not parse or a later failure raises ``DecodingFailed``,
-once, after which the decoder gives nothing more. An M4A or LATM stream
-that passes the gate decodes through the owned decoder where the JAX
-package's libavcodec decodes it: a stated departure (the two lie
-20-40 dB apart on the in-repo clips).
+LATM) is libavcodec throughout. The port builds no FFmpeg. It decodes
+configurations 3-7 with the owned decoder in libavcodec's order (a
+stated departure: the two agree on the channels, the length and every
+frame without perceptual noise substitution). A refused stream raises
+``UnsupportedFormat`` before any output: HE-AAC, another object type, a
+program config element (configuration 0), or a first access unit whose
+elements are not its configuration's (the last also refused by the JAX
+package's libavcodec). A first access unit that does not parse (a
+coupling channel element among them) or a later failure, a unit with
+another element list included, raises ``DecodingFailed``, once, after
+which the decoder gives nothing more. An M4A or LATM stream that passes
+the gate decodes through the owned decoder where the JAX package's
+libavcodec decodes it: a stated departure.
 """
 from __future__ import annotations
 
@@ -33,12 +43,58 @@ from typing import List, Optional
 
 import numpy as np
 
+from soundkit_tpu_torch.codecs import aac_layout
 from soundkit_tpu_torch.codecs.aac_lc import SAMPLE_RATES, AacLcDecoder, AdtsStream
 from soundkit_tpu_torch.codecs.avdec import f32_to_i16
 from soundkit_tpu_torch.core.audio_types import AudioData, EncodingFlag, Endianness
 from soundkit_tpu_torch.ops.aac_dsp import AacLcSynth
 from soundkit_tpu_torch.pipeline.output_options import (DecodeError, DecodingFailed,
                                                        UnsupportedFormat)
+
+
+def _refuse_config(what: str, config: int) -> UnsupportedFormat:
+    return UnsupportedFormat(f"{what} with {aac_layout.config_name(config)}: the ported AAC "
+                             "decoder serves AAC-LC at channel configurations 1-7 only "
+                             "(no libavcodec)")
+
+
+def _open_lc(sr_index: int, config: int, first_au: bytes, what: str, unit: str):
+    """(parser, synthesis, rate, channels) of an AAC-LC stream of channel
+    configuration ``config`` whose first access unit is ``first_au``;
+    raises ``UnsupportedFormat`` for a configuration beyond 1-7, SBR or
+    a first unit of other elements than its configuration's, and
+    ``DecodingFailed`` for a first unit that does not parse."""
+    if config not in aac_layout.CONFIG_ELEMENTS:
+        raise _refuse_config(what, config)
+    try:
+        dec = AacLcDecoder(sr_index)
+        frame = dec.decode_au(first_au)
+    except Exception as e:
+        raise DecodingFailed(f"{unit} does not parse as AAC-LC: {e}")
+    if dec.sbr_seen:
+        raise UnsupportedFormat("HE-AAC (SBR): the ported AAC decoder serves AAC-LC only "
+                                "(no libavcodec)")
+    try:
+        aac_layout.check_elements(frame, config)
+    except ValueError as e:
+        raise UnsupportedFormat(f"{what}: {e}")
+    return (AacLcDecoder(sr_index), AacLcSynth(sr_index), SAMPLE_RATES[sr_index],
+            aac_layout.CHANNELS[config])
+
+
+def _decode_unit(dec: AacLcDecoder, synth: AacLcSynth, config: int, au: bytes) -> np.ndarray:
+    """One access unit as interleaved float32 in libavcodec's channel
+    order; ``DecodingFailed`` for a unit that does not parse, carries
+    SBR or other elements than configuration ``config``'s."""
+    try:
+        frame = dec.decode_au(au)
+        if dec.sbr_seen:
+            raise ValueError("HE-AAC SBR extension")
+        aac_layout.check_elements(frame, config)
+        pcm = synth.process_frame(frame)
+    except Exception as e:
+        raise DecodingFailed(f"AAC access unit failed mid-stream: {e}")
+    return aac_layout.to_output_order(pcm, config).T.reshape(-1).astype(np.float32)
 
 
 class AacDecoder:
@@ -51,6 +107,7 @@ class AacDecoder:
         self._failed = False
         self._rate: Optional[int] = None
         self._chans: Optional[int] = None
+        self._config = 0
 
     @property
     def sample_rate(self) -> Optional[int]:
@@ -61,27 +118,14 @@ class AacDecoder:
         return self._chans
 
     def _prime(self, first_au: bytes) -> None:
-        """First-AU gate: LC only, <= 2 channels, no SBR extension;
-        raises ``UnsupportedFormat`` for what it refuses and
-        ``DecodingFailed`` for an access unit that does not parse."""
+        """First-AU gate: LC only, channel configuration 1-7 with its
+        elements, no SBR extension; raises ``UnsupportedFormat`` for what
+        it refuses and ``DecodingFailed`` for an access unit that does
+        not parse."""
         st = self._adts
-        if st.channel_config not in (1, 2):
-            what = ("a program config element (channel configuration 0)"
-                    if st.channel_config == 0 else f"{st.channel_config} channel configuration")
-            raise UnsupportedFormat(f"ADTS stream with {what}: the ported AAC decoder serves "
-                                    "mono and stereo AAC-LC only (no libavcodec)")
-        try:
-            dec = AacLcDecoder(st.sr_index)
-            dec.decode_au(first_au)
-        except Exception as e:
-            raise DecodingFailed(f"first ADTS access unit does not parse as AAC-LC: {e}")
-        if dec.sbr_seen:
-            raise UnsupportedFormat("HE-AAC (SBR): the ported AAC decoder serves AAC-LC only "
-                                    "(no libavcodec)")
-        self._dec = AacLcDecoder(st.sr_index)
-        self._synth = AacLcSynth(st.sr_index)
-        self._rate = SAMPLE_RATES[st.sr_index]
-        self._chans = st.channel_config
+        self._dec, self._synth, self._rate, self._chans = _open_lc(
+            st.sr_index, st.channel_config, first_au, "ADTS stream", "first ADTS access unit")
+        self._config = st.channel_config
 
     def decode_f32(self, data: bytes) -> np.ndarray:
         if self._failed:
@@ -93,26 +137,14 @@ class AacDecoder:
             raise DecodingFailed(f"ADTS framing failed: {e}")
         if not aus:
             return np.zeros(0, dtype=np.float32)
-        if self._dec is None:
-            try:
+        try:
+            if self._dec is None:
                 self._prime(aus[0])
-            except DecodeError:
-                self._failed = True
-                raise
-        outs = []
-        for au in aus:
-            try:
-                frame = self._dec.decode_au(au)
-                if self._dec.sbr_seen:
-                    raise ValueError("HE-AAC SBR extension")
-                pcm = self._synth.process_frame(frame)
-                if pcm.shape[0] != self._chans:
-                    raise ValueError("channel layout change")
-            except Exception as e:
-                self._failed = True
-                raise DecodingFailed(f"AAC access unit failed mid-stream: {e}")
-            outs.append(pcm.T.reshape(-1).astype(np.float32))
-        return np.concatenate(outs).astype(np.float32)
+            outs = [_decode_unit(self._dec, self._synth, self._config, au) for au in aus]
+        except DecodeError:
+            self._failed = True
+            raise
+        return np.concatenate(outs)
 
     def decode_i16(self, data: bytes) -> np.ndarray:
         return f32_to_i16(self.decode_f32(data))
@@ -149,10 +181,10 @@ class AacAdtsAdapter:
 
 
 def _lc_config(asc: bytes):
-    """(sampling frequency index, channels) of an AAC-LC
+    """(sampling frequency index, channel configuration) of an AAC-LC
     AudioSpecificConfig the owned decoder serves; raises
     ``UnsupportedFormat`` for what it refuses (another object type, SBR or
-    PS signalled explicitly, a PCE or more than two channels, 960-sample
+    PS signalled explicitly, a PCE or a configuration beyond 7, 960-sample
     frames, an explicit sampling rate)."""
     if len(asc) < 2:
         raise DecodingFailed("AudioSpecificConfig too short")
@@ -167,11 +199,8 @@ def _lc_config(asc: bytes):
                                 "AAC-LC only (no libavcodec)")
     if sr_index >= len(SAMPLE_RATES):
         raise UnsupportedFormat(f"AudioSpecificConfig with sampling frequency index {sr_index}")
-    if channel_config not in (1, 2):
-        what = ("a program config element (channel configuration 0)"
-                if channel_config == 0 else f"{channel_config} channel configuration")
-        raise UnsupportedFormat(f"AudioSpecificConfig with {what}: the ported AAC decoder serves "
-                                "mono and stereo AAC-LC only (no libavcodec)")
+    if channel_config not in aac_layout.CONFIG_ELEMENTS:
+        raise _refuse_config("AudioSpecificConfig", channel_config)
     if asc[1] & 0x4:
         raise UnsupportedFormat("AAC-LC with 960-sample frames (frameLengthFlag)")
     if len(asc) >= 5:  # a backward-compatible SBR signal after the GASpecificConfig
@@ -193,6 +222,7 @@ class AacRawDecoder:
         self._failed = False
         self._rate: Optional[int] = None
         self._chans: Optional[int] = None
+        self._config = 0
 
     @property
     def sample_rate(self) -> Optional[int]:
@@ -205,40 +235,20 @@ class AacRawDecoder:
     def _prime(self, first_au: bytes) -> None:
         """The ADTS path's first-AU gate on the config and the first
         access unit."""
-        sr_index, chans = _lc_config(self._asc)
-        try:
-            dec = AacLcDecoder(sr_index)
-            dec.decode_au(first_au)
-        except Exception as e:
-            raise DecodingFailed(f"first access unit does not parse as AAC-LC: {e}")
-        if dec.sbr_seen:
-            raise UnsupportedFormat("HE-AAC (SBR): the ported AAC decoder serves AAC-LC only "
-                                    "(no libavcodec)")
-        self._dec = AacLcDecoder(sr_index)
-        self._synth = AacLcSynth(sr_index)
-        self._rate = SAMPLE_RATES[sr_index]
-        self._chans = chans
+        sr_index, self._config = _lc_config(self._asc)
+        self._dec, self._synth, self._rate, self._chans = _open_lc(
+            sr_index, self._config, first_au, "AudioSpecificConfig", "first access unit")
 
     def decode_access_unit_f32(self, au: bytes) -> np.ndarray:
         if self._failed:
             return np.zeros(0, dtype=np.float32)
-        if self._dec is None:
-            try:
-                self._prime(au)
-            except DecodeError:
-                self._failed = True
-                raise
         try:
-            frame = self._dec.decode_au(au)
-            if self._dec.sbr_seen:
-                raise ValueError("HE-AAC SBR extension")
-            pcm = self._synth.process_frame(frame)
-            if pcm.shape[0] != self._chans:
-                raise ValueError("channel layout change")
-        except Exception as e:
+            if self._dec is None:
+                self._prime(au)
+            return _decode_unit(self._dec, self._synth, self._config, au)
+        except DecodeError:
             self._failed = True
-            raise DecodingFailed(f"AAC access unit failed mid-stream: {e}")
-        return pcm.T.reshape(-1).astype(np.float32)
+            raise
 
     def flush_f32(self) -> np.ndarray:
         return np.zeros(0, dtype=np.float32)

@@ -10,6 +10,15 @@ cannot carry (pulses, more than 16 PNS bands or 128 band runs, AUs
 over 1024 bytes), goes through the full wire instead and is counted
 in ``full_wire_batches``.
 
+A lane serves channel configurations 1 and 2. The push that completes
+a lane's first ADTS frame (its header read in Python by
+``aac_lc.AdtsStream``) raises :class:`TopologyMismatch` when the
+stream's configuration is another, and queues nothing; the lane stays
+unconfigured (``lane_configured``) until then, so that ``StreamFleet``
+keeps the stream's bytes and moves it to a host decoder. The JAX model
+seats such a stream and decodes its first element alone (the centre of
+a 5.1 stream): a stated departure.
+
 A decoder made with ``timed=True`` (CUDA only) times the stages of
 each v4 batch: the host parse and the host-to-device copy on the host
 clock, the device step with CUDA events; :meth:`stage_ms` reads them.
@@ -24,6 +33,7 @@ import torch
 
 from soundkit_tpu_torch.codecs.aac_lc import SAMPLE_RATES, AdtsStream
 from soundkit_tpu_torch.codecs.aac_lc_native import prepare_frame_batch_grouped
+from soundkit_tpu_torch.models.vorbis_batch import TopologyMismatch
 from soundkit_tpu_torch.native import AacHostParser, parser_library
 from soundkit_tpu_torch.ops import aac_batch as ab
 from soundkit_tpu_torch.utils.device import resolve_device
@@ -61,7 +71,18 @@ class BatchedAacLcDecoder:
         self.full_wire_batches = 0
 
     def push(self, stream_idx: int, data: bytes) -> None:
-        self._queues[stream_idx].extend(self._streams[stream_idx].push(data))
+        st = self._streams[stream_idx]
+        aus = st.push(data)
+        if st.channel_config not in (None, 1, 2):
+            raise TopologyMismatch(f"lane {stream_idx}: ADTS channel configuration "
+                                   f"{st.channel_config}; a lane serves 1 and 2")
+        self._queues[stream_idx].extend(aus)
+
+    def lane_configured(self, b: int) -> bool:
+        """True once lane ``b``'s first ADTS header has parsed with a
+        configuration the lane serves (past the point where
+        TopologyMismatch can raise)."""
+        return self._streams[b].channel_config in (1, 2)
 
     @property
     def ready_frames(self) -> int:

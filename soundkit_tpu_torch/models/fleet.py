@@ -34,6 +34,14 @@ These streams take it:
   group (``models/vorbis_batch.TopologyMismatch``), replayed from its
   bytes so far (the fleet keeps a Vorbis stream's bytes only until its
   headers parse);
+- an ADTS stream of channel configuration 3-7 (5.1, 7.1 and the like),
+  detected or of the explicit kind ``aac``: the AAC model raises
+  ``TopologyMismatch`` at the push that completes its first frame, and
+  the stream is replayed from its bytes so far into the owned host
+  decoder (``codecs/aac.AacDecoder``, all its channels in libavcodec's
+  order). The JAX fleet seats it in a stereo lane, which decodes its
+  first element alone (the centre of a 5.1 stream, the second channel
+  silent): a stated departure;
 - an Ogg Opus stream that its group reroutes
   (``models/opus_fleet_model.OpusLaneUnsupported``: a packet that is not a
   single 20 ms frame, a mid-stream mode or SILK bandwidth switch, a hybrid
@@ -66,8 +74,9 @@ it, and the fleet forgets it:
   completes it;
 - any host stream whose decoder finds a format the port does not decode
   (``UnsupportedFormat``: an Ogg Speex header outside the owned modes, a
-  WebM OpusHead neither package opens, an HE-AAC or multichannel M4A AAC
-  track at the stream's end).
+  WebM OpusHead neither package opens, an HE-AAC M4A AAC track or one of
+  a program config element at the stream's end, an ADTS stream of
+  channel configuration 0 or beyond 7).
 
 An explicit kind that is none of these names raises a plain
 ``ValueError``.
@@ -317,8 +326,9 @@ class _BatchedGroup:
         return self._ensure().lane_ready(lane)
 
     def lane_configured(self, lane: int) -> bool:
-        """True once the lane can no longer reject the stream (only the
-        Vorbis model has a per-group topology constraint)."""
+        """True once the lane can no longer reject the stream (the Vorbis
+        model's per-group topology, the AAC model's channel
+        configuration)."""
         m = self._ensure()
         fn = getattr(m, "lane_configured", None)
         return True if fn is None else fn(lane)
@@ -450,11 +460,11 @@ class StreamFleet:
         if lane_idx is None:
             return False
         self._lanes[stream_id] = _Lane(kind, lane_idx)
-        if kind == "vorbis":
+        if kind in ("vorbis", "aac"):
             # raw bytes retained only while the group can still reject
-            # the stream (until its headers parse); opus lanes reroute
-            # from their own bounded packet tail, so the fleet retains
-            # nothing for them
+            # the stream (until its headers parse, or an AAC stream's
+            # first ADTS header); opus lanes reroute from their own
+            # bounded packet tail, so the fleet retains nothing for them
             self._pretopo[stream_id] = bytearray()
         if buf:
             self._push_lane(stream_id, buf)
@@ -462,8 +472,8 @@ class StreamFleet:
 
     def _push_lane(self, stream_id: str, data: bytes) -> None:
         """Feed a seated stream; if its group rejects it (a Vorbis topology
-        mismatch, an Opus reroute), reset and free the lane and move the
-        stream to a host fallback."""
+        mismatch, an ADTS stream beyond stereo, an Opus reroute), reset and
+        free the lane and move the stream to a host fallback."""
         ln = self._lanes[stream_id]
         group = self._groups[ln.group]
         pre = self._pretopo.get(stream_id)

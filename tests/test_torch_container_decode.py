@@ -151,7 +151,10 @@ def _asc(object_type: int, sr_index: int = 3, channels: int = 2, tail: bytes = b
 
 
 # AudioSpecificConfigs the owned decoder refuses: explicit SBR (5) and PS (29),
-# AAC Main, 5.1 and 7.1, a PCE (0), LC with a backward-compatible SBR signal
+# AAC Main, 5.1 and 7.1 over the stereo units of m4a_aac (the element lists
+# differ; the JAX package's libavcodec gives no samples for them either,
+# tests/test_torch_aac_multichannel.py), a PCE (0), LC with a
+# backward-compatible SBR signal
 REFUSED_ASC = {"sbr": _asc(5), "ps": _asc(29), "main": _asc(1), "ch6": _asc(2, channels=6),
                "ch7": _asc(2, channels=7), "pce": _asc(2, channels=0),
                "sync_sbr": _asc(2) + bytes([0x56, 0xE5, 0x80])}
@@ -164,7 +167,7 @@ def test_refused_configs_raise_unsupported_format(what):
     asc = REFUSED_ASC[what]
     _, units = cf.units("m4a_aac")
     dec = aac.AacRawDecoder(asc)
-    with pytest.raises(UnsupportedFormat):
+    with pytest.raises(UnsupportedFormat, match="elements CPE" if what in ("ch6", "ch7") else None):
         dec.decode_access_unit_f32(units[0])
     assert dec.decode_access_unit_f32(units[1]).size == 0
     m4a = mux_mp4("aac", asc, units[:4], 48000, 2, 1024)

@@ -948,11 +948,14 @@ def test_refused_streams_never_reach_the_jax_pipeline():
     for sid, kind in (("s2", "amr_nb"), ("s3", "g729")):
         with pytest.raises(FleetUnsupported):
             port.push(sid, b"\x00" * 40, kind=kind)
-    # an M4A whose AAC track the owned decoder refuses (5.1), at its end
+    # an M4A whose AAC track the owned decoder refuses, at its end: stereo
+    # units under a 5.1 config (libavcodec gives no samples for it either)
     _asc, aus = container_fixtures.aac_units("chords", 4)
     port.push("s4", host_codec_fixtures.mux_mp4("aac", bytes([0x11, 0xB0]), aus, 48000, 6, 1024))
     assert "s4" in port._detect
-    with pytest.raises(FleetUnsupported, match="'s4'.*host stream.*6 channel configuration"):
+    with pytest.raises(FleetUnsupported,
+                       match="'s4'.*host stream.*elements CPE in an access unit of channel "
+                             "configuration 6"):
         port.end_stream("s4")
     assert sorted(port._fallback) == ["g", "o", "r", "s1", "w"]
     src = open(fleet_mod.__file__).read()

@@ -385,6 +385,30 @@ print("leftovers without jax")
 """
 
 
+_NO_JAX_AAC_MC = _NO_JAX_DECODE.split("import numpy as np")[0] + r"""
+import numpy as np
+from soundkit_tpu_torch.codecs.aac import AacDecoder
+from soundkit_tpu_torch.models.fleet import StreamFleet
+from soundkit_tpu_torch.pipeline.decode_pipeline import DecodePipeline
+from soundkit_tpu_torch.tools import aac_mc_fixtures as amf
+for name in amf.CLIPS:
+    dec = AacDecoder()
+    pcm = dec.decode_i16(amf.clip_bytes(name))
+    assert np.array_equal(pcm, amf.reference(name, "pcm")), name
+h = DecodePipeline.spawn(device="cpu")
+h.send_blocking(amf.build("m4a_51"))
+h.send_blocking(b"")
+outs = h.recv_all()
+assert np.array_equal(np.frombuffer(b"".join(o.data for o in outs), "<i2"), amf.reference("cfg6", "pcm"))
+fleet = StreamFleet(1, device="cpu")
+fleet.push("a", amf.clip_bytes("cfg6"), kind="aac")
+fleet.end_stream("a")
+assert fleet.collect()["a"].shape == (6, 48 * 1024)
+assert not any(k in ("jax", "soundkit_tpu") or k.startswith(("jax.", "soundkit_tpu.")) for k in sys.modules)
+print("multichannel aac without jax")
+"""
+
+
 _NO_JAX_ENCODE = r"""
 import importlib.abc, sys
 class _Block(importlib.abc.MetaPathFinder):
@@ -443,6 +467,7 @@ print("encoders without jax or cryptography")
                                          (_NO_JAX_STREAMS, "streams without jax"),
                                          (_NO_JAX_HOST_CODECS, "host codecs without jax"),
                                          (_NO_JAX_CONTAINERS, "containers without jax"),
+                                         (_NO_JAX_AAC_MC, "multichannel aac without jax"),
                                          (_NO_JAX_LEFTOVERS, "leftovers without jax"),
                                          (_NO_JAX_ENCODE, "encoders without jax or cryptography")])
 def test_port_runs_on_cpu_with_jax_blocked(script, said):

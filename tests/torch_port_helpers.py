@@ -16,6 +16,7 @@ generators live here, on the test side; regenerate from the repository's root wi
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py containers
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py mpa
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py opus_ms
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_port_helpers.py aac_mc
 """
 from __future__ import annotations
 
@@ -29,10 +30,10 @@ from typing import Dict, List
 import numpy as np
 
 from soundkit_tpu_torch.models.telephony_batch import CODECS
-from soundkit_tpu_torch.tools import (aac_fixtures, container_fixtures, flac_fixtures,
-                                      host_codec_fixtures, mp3_fixtures, mpa_fixtures,
-                                      opus_fixtures, opus_ms_fixtures, telephony_fixtures,
-                                      vorbis_fixtures)
+from soundkit_tpu_torch.tools import (aac_fixtures, aac_mc_fixtures, container_fixtures,
+                                      flac_fixtures, host_codec_fixtures, mp3_fixtures,
+                                      mpa_fixtures, opus_fixtures, opus_ms_fixtures,
+                                      telephony_fixtures, vorbis_fixtures)
 
 SR_INDEX_48K = 3
 # AUs per clip that cover long, short (EIGHT_SHORT) and TNS frames
@@ -1695,6 +1696,153 @@ def opus_ms_readings() -> Dict[str, list]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# multichannel AAC-LC fixtures (channel configurations 3-7)
+# ---------------------------------------------------------------------------
+
+AAC_MC_TONES = (330, 550, 770, 990, 1210, 1430, 1650, 1870)
+AAC_MC_LFE_TONE = 60
+#: the encoder's LFE input channel by channel count (libavcodec's default
+#: layouts 2.1, 5.1, 6.1 and 7.1)
+AAC_MC_LFE_INPUT = {3: 2, 6: 3, 7: 3, 8: 3}
+AAC_MC_BIT_RATE = 128000  # a channel
+
+
+def aac_mc_pcm(channels: int, seconds: float = 1.0) -> np.ndarray:
+    """Interleaved int16 input of ``channels`` channels: a tone a channel
+    (:data:`AAC_MC_TONES`, the LFE :data:`AAC_MC_LFE_TONE`) under seeded
+    noise bursts of its own in the first two fifths of the clip."""
+    rate = aac_mc_fixtures.RATE
+    n = int(rate * seconds)
+    t = np.arange(n) / rate
+    rng = np.random.default_rng(4000 + channels)
+    x = np.zeros((channels, n))
+    for c in range(channels):
+        lfe = AAC_MC_LFE_INPUT.get(channels) == c
+        x[c] = 0.3 * np.sin(2 * np.pi * (AAC_MC_LFE_TONE if lfe else AAC_MC_TONES[c]) * t)
+        if lfe:
+            continue
+        for _ in range(2):
+            at = int(rng.integers(0, 3 * n // 10))
+            x[c, at:at + rate // 10] += 0.15 * rng.standard_normal(rate // 10)
+    return (np.clip(x, -1, 1).T.reshape(-1) * 32767).astype(np.int16)
+
+
+def jax_owned_aac_planar(aus: List[bytes], sr_index: int = SR_INDEX_48K) -> np.ndarray:
+    """[channels in bitstream order, samples] float64 of the JAX package's
+    own ``AacLcDecoder`` + ``AacLcSynth`` on ``aus``."""
+    from soundkit_tpu.codecs.aac_lc import AacLcDecoder
+    from soundkit_tpu.ops.aac_dsp import AacLcSynth
+
+    dec, synth = AacLcDecoder(sr_index), AacLcSynth(sr_index)
+    return np.concatenate([synth.process_frame(dec.decode_au(au)) for au in aus], axis=1)
+
+
+def jax_libavcodec_aac(data: bytes = None, config: bytes = None, aus=None) -> np.ndarray:
+    """Interleaved float32 of the JAX package's libavcodec AAC decode: of
+    ADTS ``data`` (``codecs.aac.AacDecoder``, which sends every stream
+    beyond stereo to libavcodec), else of raw ``aus`` under ``config``
+    (``AacRawDecoder``, libavcodec for every stream)."""
+    from soundkit_tpu.codecs.aac import AacDecoder, AacRawDecoder
+
+    if data is not None:
+        dec = AacDecoder()
+        return np.concatenate([dec.decode_f32(data), dec.flush_f32()]).astype(np.float32)
+    dec = AacRawDecoder(config)
+    return np.concatenate([dec.decode_access_unit_f32(au) for au in aus]
+                          + [dec.flush_f32()]).astype(np.float32)
+
+
+def measured_order(owned: np.ndarray, ref: np.ndarray) -> List[int]:
+    """For each channel of ``ref`` [C, n], the channel of ``owned`` [C, n]
+    that correlates best with it."""
+    a = owned / np.maximum(np.linalg.norm(owned, axis=1, keepdims=True), 1e-30)
+    b = ref / np.maximum(np.linalg.norm(ref, axis=1, keepdims=True), 1e-30)
+    return [int(np.argmax(np.abs(a @ b[i]))) for i in range(b.shape[0])]
+
+
+def aac_mc_readings(owned: np.ndarray, ref: np.ndarray, aus: List[bytes], config: int) -> dict:
+    """The PNS-aware figures of ``owned`` against ``ref`` (both [C, n]
+    float64 in libavcodec's order): the PNS-free SNR and the PNS band
+    energies (``aac_mc_fixtures.pns_free_snr`` / ``pns_band_energies``)."""
+    frames = aac_mc_fixtures.frame_channels(aus, config)
+    pns = aac_mc_fixtures.pns_flags(frames)
+    return dict(pns_free=aac_mc_fixtures.pns_free_snr(owned, ref, pns),
+                pns_channel_frames=int(pns.sum()),
+                pns_energy=aac_mc_fixtures.pns_energy_summary(
+                    aac_mc_fixtures.pns_band_energies(owned, ref, frames)))
+
+
+def generate_aac_mc_fixtures(directory: Path = aac_mc_fixtures.FIXTURE_DIR) -> None:
+    """Encode :func:`aac_mc_pcm` at 3-8 channels with the JAX package's
+    ``AacEncoder``, splice ``cfg3`` and ``cfg7`` (``aac_mc_fixtures``),
+    decode every clip with the JAX package's libavcodec and its own
+    decoder, check libavcodec's channel order against
+    ``codecs/aac_layout.LIBAVCODEC_ORDER``, and write the clips, the
+    refused streams, the index and ``reference_pcm.npz``."""
+    from soundkit_tpu.codecs.avdec import f32_to_i16
+    from soundkit_tpu.codecs.encoders import AacEncoder
+    from soundkit_tpu_torch.codecs.aac_layout import CHANNELS, LIBAVCODEC_ORDER
+    from soundkit_tpu_torch.codecs.aac_lc import AdtsStream
+
+    amf = aac_mc_fixtures
+    directory.mkdir(parents=True, exist_ok=True)
+    streams = {}
+    for ch in (3, 4, 5, 6, 7, 8):
+        enc = AacEncoder(amf.RATE, ch, AAC_MC_BIT_RATE * ch)
+        streams[ch] = enc.encode_i16(aac_mc_pcm(ch)) + enc.flush()
+    aus = {ch: AdtsStream().push(data) for ch, data in streams.items()}
+    clips = {"cfg3": (amf.adts([amf.splice(au, [0, 1]) for au in aus[4]], 3),
+                      "the 4.0 stream's SCE and CPE"),
+             "cfg4": (streams[4], "the encoder's 4.0 stream"),
+             "cfg5": (streams[5], "the encoder's 5.0 stream"),
+             "cfg6": (streams[6], "the encoder's 5.1 stream"),
+             "cfg7": (amf.adts(aus[8][1:], 7), "the 7.1 stream without its PCE unit"),
+             "enc_21": (streams[3], "the encoder's 2.1 stream"),
+             "enc_61": (streams[7], "the encoder's 6.1 stream"),
+             "enc_71_pce": (streams[8], "the encoder's 7.1 stream")}
+    index, ref = {}, {}
+    for name, (data, source) in clips.items():
+        (directory / f"{name}.aac").write_bytes(data)
+        st = AdtsStream()
+        units = st.push(data)
+        pcm = jax_libavcodec_aac(data)
+        e = dict(file=f"{name}.aac", sha256=amf.sha256(data), config=st.channel_config,
+                 source=source, frames=len(units),
+                 elements=[k for k, _, _ in amf.element_spans(units[1])],
+                 libavcodec_samples=int(pcm.size),
+                 libavcodec_sha256=amf.sha256(pcm.tobytes()))
+        index[name] = e
+        if name in amf.REFUSED:
+            assert pcm.size == 0, name
+            continue
+        config = st.channel_config
+        assert config == amf.CLIPS[name] and pcm.size == len(units) * 1024 * CHANNELS[config], name
+        av = pcm.reshape(-1, CHANNELS[config]).T.astype(np.float64)
+        planar = jax_owned_aac_planar(units)
+        order = measured_order(planar, av)
+        assert order == list(LIBAVCODEC_ORDER[config]), (name, order)
+        owned = planar[order]
+        ref[f"pcm_{name}"] = f32_to_i16(owned.T.reshape(-1).astype(np.float32))
+        ref[f"pns_{name}"] = amf.pns_flags(amf.frame_channels(units, config))
+        if name == amf.SMOKE:
+            ref[f"libavcodec_{name}"] = pcm
+        e.update(order=order, **aac_mc_readings(owned, av, units, config))
+    (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
+    config, units = amf.units(amf.SMOKE, directory)
+    planar = jax_owned_aac_planar(units)[list(LIBAVCODEC_ORDER[6])]
+    for name in amf.CONTAINERS:
+        data = amf.build(name)
+        pcm = jax_libavcodec_aac(config=config, aus=units)
+        av = pcm.reshape(-1, 6).T.astype(np.float64)
+        index[name] = dict(sha256_bytes=amf.sha256(data), clip=amf.SMOKE,
+                           libavcodec_samples=int(pcm.size),
+                           libavcodec_sha256=amf.sha256(pcm.tobytes()),
+                           **aac_mc_readings(planar, av, units, 6))
+    np.savez_compressed(directory / "reference_pcm.npz", **ref)
+    (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
+
+
 if __name__ == "__main__":
     {"aac": generate_aac_fixtures, "telephony": generate_telephony_fixtures,
      "flac": generate_flac_fixtures, "mp3": generate_mp3_fixtures,
@@ -1702,35 +1850,66 @@ if __name__ == "__main__":
      "vorbis": generate_vorbis_fixtures,
      "host_codecs": generate_host_codec_fixtures,
      "containers": generate_container_index,
-     "mpa": generate_mpa_fixtures, "opus_ms": generate_opus_ms_fixtures}[sys.argv[1]]()
+     "mpa": generate_mpa_fixtures, "opus_ms": generate_opus_ms_fixtures,
+     "aac_mc": generate_aac_mc_fixtures}[sys.argv[1]]()
 
 
 # ---------------------------------------------------------------------------
 # the AAC-LC gap to libavcodec (ROADMAP §3)
 # ---------------------------------------------------------------------------
 
-def aac_batched_libavcodec_snr() -> Dict[str, float]:
-    """SNR in dB of the port's batched AAC-LC decode (``BatchedAacLcDecoder``
-    at one lane on the CPU, the v4 wire) against the JAX package's
-    libavcodec decode of the same ADTS clip, for each in-repo clip, both
-    aligned at offset 0 over the shorter length. Not a test: it measures a
-    gap the port shares with the JAX package's owned decoders. Run it as
-    ``JAX_PLATFORMS=cpu python -c "import sys; sys.path.insert(0, 'tests');
-    import torch_port_helpers as h; print(h.aac_batched_libavcodec_snr())"``
-    from the repository's root (about ten minutes: the plain path decodes
-    the clips' 1,134 frames one batch each)."""
-    from soundkit_tpu.codecs.avdec import AvDecoder
-    from soundkit_tpu_torch.models.aac_lc_batch import BatchedAacLcDecoder
+def port_owned_aac_planar(aus: List[bytes], sr_index: int = SR_INDEX_48K) -> np.ndarray:
+    """[channels in bitstream order, samples] float64 of the port's copies
+    of ``AacLcDecoder`` + ``AacLcSynth`` on ``aus`` (the synthesis before
+    the float32 cast of ``codecs/aac``'s decoders)."""
+    from soundkit_tpu_torch.codecs.aac_lc import AacLcDecoder
+    from soundkit_tpu_torch.ops.aac_dsp import AacLcSynth
 
+    dec, synth = AacLcDecoder(sr_index), AacLcSynth(sr_index)
+    return np.concatenate([synth.process_frame(dec.decode_au(au)) for au in aus], axis=1)
+
+
+def aac_batched_libavcodec_snr(path: str = "batched") -> Dict[str, dict]:
+    """The PNS-aware comparison (``aac_mc_readings``) of the port's AAC-LC
+    decode against the JAX package's libavcodec decode of the same
+    stream, both aligned at sample 0: for each in-repo stereo clip, and
+    for the ``m4a_aac`` and ``latm_8`` container cases (their access units
+    under their config, libavcodec's ``AacRawDecoder``). A waveform SNR
+    over whole clips cannot tell a decoder fault from perceptual noise
+    substitution, whose noise two decoders draw differently; this one
+    reads the PNS-free channel-frames' SNR and each PNS band's energy.
+    ``path`` "batched" decodes the clips with ``BatchedAacLcDecoder`` at
+    six lanes on the CPU (the v4 wire in float32, ~70 s here) and the
+    container cases with the port's float64 synthesis; "host" decodes
+    everything with the port's ``AacLcDecoder`` + ``AacLcSynth`` in
+    float64 (~10 s). Not a test: ``tests/test_torch_aac_multichannel.py``
+    holds the host path's figures. Run it as ``JAX_PLATFORMS=cpu python -c
+    "import sys; sys.path.insert(0, 'tests'); import torch_port_helpers as
+    h; print(h.aac_batched_libavcodec_snr())"`` from the repository's root."""
+    from soundkit_tpu.codecs.avdec import AvDecoder
+
+    clips = aac_fixtures.load_clips()
+    aus = aac_fixtures.clip_aus(clips)
+    if path == "batched":
+        from soundkit_tpu_torch.models.aac_lc_batch import BatchedAacLcDecoder
+
+        model = BatchedAacLcDecoder(len(clips), 2, device="cpu")
+        for lane, frames in enumerate(clips):
+            model.push(lane, b"".join(frames))
+        pcm = model.decode_batches(max(len(f) for f in clips))
+        got = [pcm[:len(f), lane].transpose(1, 0, 2).reshape(2, -1).astype(np.float64)
+               for lane, f in enumerate(clips)]
+    else:
+        got = [port_owned_aac_planar(u) for u in aus]
     out = {}
-    for name, frames in zip(aac_fixtures.CLIPS, aac_fixtures.load_clips()):
-        model = BatchedAacLcDecoder(1, 2, device="cpu")
-        model.push(0, b"".join(frames))
-        got = model.decode_batches(len(frames))[:, 0].transpose(1, 0, 2).reshape(2, -1)
+    for name, frames, units, mine in zip(aac_fixtures.CLIPS, clips, aus, got):
         av = AvDecoder("aac", use_parser=True)
         ref = np.concatenate([av.push(b"".join(frames)), av.flush()]).reshape(-1, 2).T
-        n = min(got.shape[1], ref.shape[1])
-        out[name] = snr_db(got[:, :n], ref[:, :n])
+        out[name] = aac_mc_readings(mine, ref.astype(np.float64), units, 2)
+    for case in ("m4a_aac", "latm_8"):
+        config, units = container_fixtures.units(case)
+        ref = jax_libavcodec_aac(config=config, aus=units).reshape(-1, 2).T
+        out[case] = aac_mc_readings(port_owned_aac_planar(units), ref.astype(np.float64), units, 2)
     return out
 
 
