@@ -47,7 +47,7 @@ decoded by a ``StreamFleet`` on the card, and soundkit's v2 frame stream
 a. build the CUDA kernels (one ``nvcc`` a source, all started together),
    the host parser, the FLAC walk, the MP3 parser, the Opus parse (CELT,
    SILK, hybrid glue), the Vorbis packet parse, the FLAC frame packer
-   and the GSM and ALAC decoders from the checkout;
+   and the GSM, ALAC, G.729 and AMR-NB decoders from the checkout;
 b. print the card (``nvidia-smi`` name and power limit), the kernels'
    launch shapes (K4's lanes a block and a warp, K6's threads a lane,
    K7's threads a band and steps a tile, K3's codes a thread and threads
@@ -298,15 +298,15 @@ ee. fleet: one ``StreamFleet(capacity_per_group=1024)`` serving 1024 AAC
    a 22.05 kHz mono Ogg Vorbis stream of
    another topology), each equal to its lone decode on the card, the
    fallback's K3 / K6 / K7 / K10 launches counted inside its pushes;
-   one stream of each owned host codec (GSM by its kind, AIFF-C µ-law,
-   ALAC in MP4, AC-3 and Ogg Speex WB detected) and one detected stream of
+   one stream of each owned host codec (GSM, G.729 and AMR-NB by their
+   kinds, AIFF-C µ-law, ALAC in MP4, AC-3 and Ogg Speex WB detected) and
+   one detected stream of
    each container (``FLEET_CONTAINER_STREAMS``: M4A AAC, WebM Opus, WebM
    Vorbis), each equal to its lone decode too, their push seconds by kind
    of stream; a detected 5.1 ADTS stream and a 5.1 M4A stream of ~2 s
    (``FLEET_AAC_MC_STREAMS``) on the host fallback, each equal to its
    lone decode on the card and on the CPU, six channels; the two Opus
-   heads neither package opens and AMR-NB must
-   raise ``FleetUnsupported``; the
+   heads neither package opens must raise ``FleetUnsupported``; the
    waves run again without the host streams for the x realtime beside;
    then an ``out_bits=16`` collect against the quantized
    bare output (Opus CELT on the i16 spectral wire), and per group a
@@ -340,37 +340,45 @@ ff. pipeline: K3, K6 and K7 at B = 1 on 1, 127 and 313 codes and on one
    each stream's first 5 s (G.722 and G.726: 1000 codes, their plain
    scans step a code at a time on the CPU) through the same pipeline on
    the CPU, bit-exact but MP3, which is held within 1 LSB, and at >= 100
-   dB in float32 through ``Mp3Decoder``; seven host-decoded streams of ~20 s
+   dB in float32 through ``Mp3Decoder``; eight host-decoded streams of ~10 s
    (``pipeline_host_streams``: Ogg Opus CELT stereo and mono, SILK WB,
    hybrid FB, raw Opus, Ogg Vorbis, 5.1 multistream Ogg Opus, 5.1 ADTS
-   AAC-LC ``adts_51``) the same way, hooked on their first 5 s and held
-   whole against the CPU bit for bit, the 5.1 Opus stream also against
+   AAC-LC ``adts_51``) the same way, hooked on their first 2.5 s and held
+   on their first 2.5 s against the CPU bit for bit (the host code is the
+   same on both), the whole stream also against the JAX package's
+   references: the 5.1 Opus stream against
    the JAX package's decode of its clip (``multistream_reference_check``:
    1 LSB, and >= 104 dB a channel in float32) and the 5.1 AAC streams
    (``adts_51`` and the M4A ``m4a_51``) against the JAX package's own
    decoder and libavcodec (``aac_mc_reference_check``: 1 LSB, and the
-   PNS-free SNR); fourteen streams of the
+   PNS-free SNR); sixteen streams of the
    owned host codecs (``pipeline_codec_streams``: GSM standard and WAV49,
    AIFF 16-bit, AIFF-C µ-law and A-law, 60 s each; ALAC in CAF and in
-   MP4, 20 s; AC-3 stereo 10 s; Ogg Speex NB / WB / UWB 10 / 5 / 3 s;
+   MP4, 20 s; AC-3 stereo 5 s; Ogg Speex NB / WB / UWB 5 / 3 / 2 s;
    MPEG audio Layer II stereo 48 kHz and LSF mono 22.05 kHz, 60 s each,
    and Layer I stereo 48 kHz, 20 s, by ``spawn_mp3``, each an
-   ``mpa_fixtures`` clip's frames repeated)
+   ``mpa_fixtures`` clip's frames repeated; G.729 and AMR-NB, 60 s each,
+   by ``spawn_g729`` / ``spawn_amr_nb``, ``celp_fixtures`` clips' frames
+   repeated)
    the same way, hooked on their first 2 s (AIFF and ALAC, decoded at
-   EOF, whole), held whole against the CPU bit for bit and against the
-   JAX package's decode of their clip (``codec_reference_check``: exact,
-   AC-3 and Speex within 1 LSB; the MPEG audio streams within 1 LSB of
-   the committed float32 PCM of the clip, and the clip alone through
-   ``Mp3Decoder`` at >= 100 dB in float32, ``mpa_reference_check``),
+   EOF, whole), held against the CPU bit for bit, whole (GSM, MPEG
+   audio, G.729, AMR-NB, AIFF and ALAC) or on their first 2.5 s (AC-3
+   and Speex), and against the JAX package's decode of their
+   clip (``codec_reference_check``: exact, AC-3 and Speex within 1 LSB;
+   the MPEG audio streams within 1 LSB of the committed float32 PCM of
+   the clip, and the clip alone through ``Mp3Decoder`` at >= 100 dB in
+   float32, ``mpa_reference_check``; G.729 exact and AMR-NB at >= 90 dB
+   against the clip's committed int16 PCM, ``celp_reference_check``),
    AIFF-C's K3 once at each file's end;
    six container streams (``pipeline_container_streams``: M4A AAC and
-   LOAS/LATM AAC 60 s, by detection and ``spawn_aac_latm``; WebM Vorbis,
-   Opus CELT and Opus SILK 20 s, detected; each a container case's units
-   repeated, ``container_fixtures.long_stream``; the 5.1 M4A ``m4a_51``,
-   ``adts_51``'s units, 20 s) the same way, hooked on their first 5 s
-   (the M4A streams, decoded at EOF, whole), held whole against the CPU
-   bit for bit (``m4a_51`` against ``adts_51``'s CPU decode: the same
-   units) and against the JAX package's owned decode of the case
+   LOAS/LATM AAC 30 s, by detection and ``spawn_aac_latm``; WebM Vorbis
+   and Opus CELT 10 s, Opus SILK 20 s, detected; each a container case's
+   units repeated, ``container_fixtures.long_stream``; the 5.1 M4A
+   ``m4a_51``, ``adts_51``'s units, 10 s) the same way, hooked on their
+   first 2.5 s (the M4A streams, decoded at EOF, whole), held on their
+   first 2.5 s (the M4A streams whole) against the CPU bit for bit
+   (``m4a_51`` against ``adts_51``'s CPU decode: the same units) and
+   against the JAX package's owned decode of the case
    (``container_reference_check``: exact, the SILK stream within 1 LSB
    of the committed PCM of its first second); eight mixed pipelines
    at once, each equal to its lone run; one ``[pipeline]`` line a format
@@ -472,12 +480,15 @@ FLEET_FILLERS = ("g711_mulaw", "g726_32")
 FLEET_FILLER_BYTES = 400
 FLEET_HOST_WAV_SECONDS = 1.0
 # one host stream of each owned host codec in [fleet], {sid: (host_codec_fixtures clip, explicit
-# kind or None for detection, seconds at least)}; pushed whole after round 0's pushes
+# kind or None for detection, seconds at least)}, made by host_codec_fixtures.long_stream; pushed
+# whole after round 0's pushes
 FLEET_CODEC_STREAMS = {"gsm-host-0": ("gsm_standard", "gsm", 10.0),
                        "aifc_ulaw-host-0": ("aifc_ulaw", None, 10.0),
                        "alac_mp4-host-0": ("alac_mp4", None, 5.0),
                        "ac3-host-0": ("ac3_stereo", None, 2.0),
-                       "speex_wb-host-0": ("speex_wb", None, 2.0)}
+                       "speex_wb-host-0": ("speex_wb", None, 2.0),
+                       "g729-host-0": ("g729_speech", "g729", 10.0),
+                       "amr_nb-host-0": ("amrnb_switch", "amr_nb", 10.0)}
 # one detected host stream of each container in [fleet], {sid: (container_fixtures case, seconds
 # at least)}; pushed whole after round 0's pushes (the M4A decodes at its end)
 FLEET_CONTAINER_STREAMS = {"m4a_aac-host-0": ("m4a_aac", 5.0),
@@ -647,6 +658,10 @@ def phase_build():
     t8 = time.perf_counter()
     apath = _build.alac_library_path()
     t9 = time.perf_counter()
+    g729path = _build.g729_library_path()
+    t10 = time.perf_counter()
+    amrpath = _build.amrnb_library_path()
+    t11 = time.perf_counter()
     _build.kernels()
     first_build.join()
     if "error" in first:
@@ -662,7 +677,9 @@ def phase_build():
         f"Vorbis parse {vpath.relative_to(ROOT)} in {t6 - t5:.3f} s; "
         f"FLAC packer {epath.relative_to(ROOT)} in {t7 - t6:.3f} s; "
         f"GSM decoder {gpath.relative_to(ROOT)} in {t8 - t7:.3f} s; "
-        f"ALAC decoder {apath.relative_to(ROOT)} in {t9 - t8:.3f} s")
+        f"ALAC decoder {apath.relative_to(ROOT)} in {t9 - t8:.3f} s; "
+        f"G.729 decoder {g729path.relative_to(ROOT)} in {t10 - t9:.3f} s; "
+        f"AMR-NB decoder {amrpath.relative_to(ROOT)} in {t11 - t10:.3f} s")
     blog = kpath.with_suffix(".log")
     if blog.exists():
         for line in blog.read_text().splitlines():
@@ -3180,8 +3197,8 @@ def fleet_host_streams(fs: "FleetStreams") -> dict:
     - a 22.05 kHz mono Ogg Vorbis stream with kind "vorbis" after round 0's
       pushes (the group's topology is 44.1 kHz stereo by then);
     - one stream of each owned host codec (FLEET_CODEC_STREAMS) after round
-      0's pushes: GSM by its kind, AIFF-C µ-law (K3 at its end), ALAC in
-      MP4, AC-3 and Ogg Speex WB detected;
+      0's pushes: GSM, G.729 and AMR-NB by their kinds, AIFF-C µ-law (K3 at
+      its end), ALAC in MP4, AC-3 and Ogg Speex WB detected;
     - one detected stream of each container (FLEET_CONTAINER_STREAMS) after
       round 0's pushes: M4A AAC (decoded at its end), WebM Opus CELT and
       WebM Vorbis;
@@ -3352,13 +3369,6 @@ def phase_fleet():
     check(sorted(refused) == sorted(sid for sid, h in hs.items() if h["expect"] == "refused")
           and all("libavcodec cannot open it either" in m for m in refused.values()),
           f"fleet: refused {refused}")
-    try:
-        fleet.push("refused", b"\x00" * 64, kind="amr_nb")
-        check(False, "fleet: an AMR-NB stream was not refused")
-    except FleetUnsupported:
-        pass
-    check(not fleet._detect and not fleet._ended and not fleet._fallback,
-          "fleet: the refused stream was not forgotten")
     # each host stream against its lone decode on the card: the same pipeline fed the
     # same bytes; a rerouted Ogg Opus stream (its lane emitted nothing) against the
     # whole stream through the host decoder, whose float output it replays
@@ -3520,34 +3530,43 @@ PIPE_COMPARE_SECONDS = 5.0  # the prefix each stream also decodes on the CPU
 PIPE_SCAN_COMPARE_CODES = 1000
 PIPE_TIMED_SECONDS = 15.0  # the prefix the per-chunk timing hook runs on
 PIPE_CONCURRENT = ("mp3", "flac16", "flac24", "g722", "g726_16", "g726_32", "g711_mulaw", "wav")
-# the host-decoded Opus and Vorbis streams: ~PIPE_HOST_SECONDS each, the timing hook on
-# their first PIPE_HOST_TIMED_SECONDS, the CPU compare on the whole stream
-PIPE_HOST_SECONDS = 20.0
-PIPE_HOST_TIMED_SECONDS = 5.0
+# the host-decoded Opus and Vorbis streams: ~PIPE_HOST_SECONDS each, the timing hook and the
+# CPU compare on their first PIPE_HOST_TIMED_SECONDS (the host code is the same on both)
+PIPE_HOST_SECONDS = 10.0
+PIPE_HOST_TIMED_SECONDS = 2.5
+# the end of a host stream's CPU prefix left out of its compare: the frame the cut splits decodes
+# with zero bits past the cut (as a truncated stream's last frame does: MPEG audio Layer I / II)
+PIPE_PREFIX_GUARD_SECONDS = 0.25
 PIPE_HOST_FORMATS = ("ogg_opus_stereo", "ogg_opus_mono", "ogg_opus_silk_wb", "ogg_opus_hybrid_fb",
                      "opus_raw", "ogg_vorbis", "ogg_opus_51", "adts_51")
 # the 5.1 multistream Ogg Opus stream of [pipeline]: this opus_ms_fixtures clip's packets repeated
 PIPE_MULTISTREAM_CLIP = "surround51"
 # the owned host codecs' streams, {format: (host_codec_fixtures or mpa_fixtures clip, seconds at
 # least)}, each the clip's frames, packets or sound data repeated; the timing hook on their first
-# PIPE_CODEC_TIMED_SECONDS (the EOF-buffered AIFF and ALAC whole), the CPU compare whole. The
-# MPEG audio Layer II / I streams go to spawn_mp3 (the owned host Layer I / II decoder)
+# PIPE_CODEC_TIMED_SECONDS and the CPU compare whole (PIPE_CODEC_WHOLE_COMPARE and the
+# EOF-buffered AIFF and ALAC) or on their first PIPE_HOST_TIMED_SECONDS. The MPEG audio Layer II
+# / I streams go to spawn_mp3 (the owned host Layer I / II decoder), G.729 and AMR-NB to
+# spawn_g729 / spawn_amr_nb (the owned decoders)
 PIPE_CODEC_STREAMS = {
     "gsm": ("gsm_standard", 60.0), "gsm_wav49": ("gsm_wav49", 60.0),
     "aiff_16": ("aiff_16", 60.0), "aifc_ulaw": ("aifc_ulaw", 60.0),
     "aifc_alaw": ("aifc_alaw", 60.0), "alac_caf": ("alac_caf", 20.0),
-    "alac_mp4": ("alac_mp4", 20.0), "ac3": ("ac3_stereo", 10.0),
-    "speex_nb": ("speex_nb", 10.0), "speex_wb": ("speex_wb", 5.0), "speex_uwb": ("speex_uwb", 3.0),
+    "alac_mp4": ("alac_mp4", 20.0), "ac3": ("ac3_stereo", 5.0),
+    "speex_nb": ("speex_nb", 5.0), "speex_wb": ("speex_wb", 3.0), "speex_uwb": ("speex_uwb", 2.0),
     "mp2_stereo48": ("l2_48_stereo_192", 60.0), "mp2_lsf_mono": ("l2_lsf22_mono_64", 60.0),
     "mp1_stereo48": ("l1_48_stereo_384", 20.0),
+    "g729": ("g729_speech", 60.0), "amr_nb": ("amrnb_switch", 60.0),
 }
 PIPE_CODEC_TIMED_SECONDS = 2.0
+# the codec streams the CPU compare takes whole: the host decodes each in a few seconds or less
+PIPE_CODEC_WHOLE_COMPARE = ("gsm", "gsm_wav49", "mp2_stereo48", "mp2_lsf_mono", "mp1_stereo48",
+                            "g729", "amr_nb")
 # the container streams, {format: (container_fixtures case, seconds at least)}, each the case's
-# units repeated in its container; the timing hook on their first PIPE_HOST_TIMED_SECONDS (the
-# EOF-buffered M4A whole), the CPU compare whole
+# units repeated in its container; the timing hook and the CPU compare on their first
+# PIPE_HOST_TIMED_SECONDS (the EOF-buffered M4A whole)
 PIPE_CONTAINER_STREAMS = {
-    "m4a_aac": ("m4a_aac", 60.0), "latm": ("latm_8", 60.0), "webm_vorbis": ("webm_vorbis", 20.0),
-    "webm_opus_celt": ("webm_opus_celt", 20.0), "webm_opus_silk": ("webm_opus_silk", 20.0),
+    "m4a_aac": ("m4a_aac", 30.0), "latm": ("latm_8", 30.0), "webm_vorbis": ("webm_vorbis", 10.0),
+    "webm_opus_celt": ("webm_opus_celt", 10.0), "webm_opus_silk": ("webm_opus_silk", 20.0),
     "m4a_51": ("m4a_51", PIPE_HOST_SECONDS),
 }
 PIPE_EOF_FORMATS = ("aiff_16", "aifc_ulaw", "aifc_alaw", "alac_caf", "alac_mp4", "m4a_aac",
@@ -3776,7 +3795,8 @@ def pipeline_codec_streams() -> dict:
     WAV49 by ``spawn_gsm``, ALAC in CAF by ``spawn_alac``, the rest (AIFF
     16-bit, AIFF-C µ-law and A-law, ALAC in MP4, AC-3 stereo, Ogg Speex
     NB / WB / UWB) detected by ``DecodePipeline.spawn``; the MPEG audio
-    Layer II / I streams (``mpa_fixtures.long_stream``) by ``spawn_mp3``."""
+    Layer II / I streams (``mpa_fixtures.long_stream``) by ``spawn_mp3``;
+    G.729 and AMR-NB by ``spawn_g729`` / ``spawn_amr_nb``."""
     from soundkit_tpu_torch.codecs.telephony import GsmVariant
     from soundkit_tpu_torch.pipeline.decode_pipeline import DecodePipeline as DP
     from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
@@ -3784,7 +3804,8 @@ def pipeline_codec_streams() -> dict:
 
     spawns = {"detect": DP.spawn, "alac": DP.spawn_alac,
               "gsm_standard": lambda device: DP.spawn_gsm(GsmVariant.STANDARD, device=device),
-              "gsm_microsoft": lambda device: DP.spawn_gsm(GsmVariant.MICROSOFT, device=device)}
+              "gsm_microsoft": lambda device: DP.spawn_gsm(GsmVariant.MICROSOFT, device=device),
+              "g729": DP.spawn_g729, "amr_nb": DP.spawn_amr_nb}
     index = hcf.load_index()
     out = {}
     for fmt, (clip, seconds) in PIPE_CODEC_STREAMS.items():
@@ -3851,12 +3872,15 @@ def codec_reference_check(fmt: str, pcm: bytes) -> dict:
     the committed int16 PCM."""
     import numpy as np
 
+    from soundkit_tpu_torch.tools import celp_fixtures
     from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
     from soundkit_tpu_torch.tools import mpa_fixtures
 
     clip = PIPE_CODEC_STREAMS[fmt][0]
     if clip in mpa_fixtures.SMOKE:
         return mpa_reference_check(fmt, pcm)
+    if clip in celp_fixtures.CLIPS:
+        return celp_reference_check(fmt, pcm)
     e = hcf.load_index()[clip]
     head = pcm[:e["pcm_bytes"]]
     check(len(head) == e["pcm_bytes"], f"[pipeline] {fmt}: {len(pcm)} bytes, shorter than its clip")
@@ -3868,6 +3892,33 @@ def codec_reference_check(fmt: str, pcm: bytes) -> dict:
     check(hcf.sha256(head) == e["sha256"], f"[pipeline] {fmt}: differs from the JAX package's "
           f"decode of {clip}")
     return dict(vs_jax="identical")
+
+
+def celp_reference_check(fmt: str, pcm: bytes) -> dict:
+    """A G.729 or AMR-NB stream against the JAX package's decode of its
+    clip (libavcodec on the CPU), as ``host_codec_fixtures`` commits it: the
+    stream's int16 PCM over the clip's length (its decode begins with the
+    clip's) equal for G.729 (an integer decoder: 0 LSB), at >= 90 dB for
+    AMR-NB (a float decoder: the CPU tests' bar), its worst LSB reported."""
+    import numpy as np
+
+    from soundkit_tpu_torch.tools import celp_fixtures
+    from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
+
+    clip = PIPE_CODEC_STREAMS[fmt][0]
+    ref = hcf.reference_pcm(clip).astype(np.int64)
+    head = np.frombuffer(pcm[:2 * ref.size], "<i2").astype(np.int64)
+    check(head.size == ref.size, f"[pipeline] {fmt}: {len(pcm)} bytes, shorter than its clip")
+    lsb = int(np.abs(head - ref).max())
+    err = float(np.sum((head - ref).astype(np.float64) ** 2))
+    snr = float("inf") if err == 0 else \
+        10 * np.log10(float(np.sum(ref.astype(np.float64) ** 2)) / err)
+    if celp_fixtures.kind(clip) == "g729":
+        check(lsb == 0, f"[pipeline] {fmt}: {lsb} LSB from the JAX package's PCM of {clip}")
+    else:
+        check(snr >= 90.0, f"[pipeline] {fmt}: {snr:.2f} dB from the JAX package's PCM of {clip}")
+    return dict(vs_jax_max_lsb=lsb, vs_jax_samples_off=int((head != ref).sum()),
+                vs_jax_i16_snr_db=float(snr))
 
 
 def mpa_reference_check(fmt: str, pcm: bytes) -> dict:
@@ -3950,14 +4001,15 @@ def _audio_seconds(outs) -> float:
                for o in outs if isinstance(o, AudioData))
 
 
-def _prefix(fmt: str, data: bytes, seconds: float) -> bytes:
-    """The first part of a stream the CPU also decodes: PIPE_COMPARE_SECONDS
-    s of it, or PIPE_SCAN_COMPARE_CODES codes of G.722 / G.726."""
+def _prefix(fmt: str, data: bytes, seconds: float,
+            compare_s: float = PIPE_COMPARE_SECONDS) -> bytes:
+    """The first part of a stream the CPU also decodes: ``compare_s`` s of
+    it, or PIPE_SCAN_COMPARE_CODES codes of G.722 / G.726."""
     if fmt == "g722":
         return data[:PIPE_SCAN_COMPARE_CODES]
     if fmt.startswith("g726"):  # 1000 codes: whole packing groups at every rate
         return data[:PIPE_SCAN_COMPARE_CODES * (int(fmt[5:]) // 8) // 8]
-    cut = int(len(data) * PIPE_COMPARE_SECONDS / seconds)
+    cut = int(len(data) * compare_s / seconds)
     return data[:max(cut, 9000)]
 
 
@@ -4051,20 +4103,32 @@ def phase_pipeline(card: str):
                         device_ms_median=float(np.median(dev_ms)),
                         timed_xrealtime=_audio_seconds(outs) / wall)
 
-    # the CPU path on each stream's prefix (the Opus and Vorbis streams whole, the
-    # same host code): bit-exact, MP3 within 1 LSB
+    # the CPU path on each stream's prefix (the host-decoded streams' first
+    # PIPE_HOST_TIMED_SECONDS: the same host code; the EOF-buffered ones and
+    # PIPE_CODEC_WHOLE_COMPARE whole):
+    # bit-exact, MP3 within 1 LSB; the reference checks on the card's whole stream
     t0 = time.perf_counter()
-    cpu_pcm = {}
+    cpu_pcm = {}  # {format: (its CPU PCM, decoded from a prefix cut by bytes)}
     for fmt, (data, spawn, seconds) in streams.items():
-        head = data if fmt in PIPE_HOST_FORMATS or fmt in PIPE_CODEC_STREAMS or \
-            fmt in PIPE_CONTAINER_STREAMS else _prefix(fmt, data, seconds)
-        host = cpu_pcm.get(PIPE_CPU_SHARED.get(fmt)) or \
-            _pcm_bytes(pipeline_run(spawn, head, "cpu")[0])
+        host_stream = fmt in PIPE_HOST_FORMATS or fmt in PIPE_CODEC_STREAMS or \
+            fmt in PIPE_CONTAINER_STREAMS
+        head = data if fmt in PIPE_EOF_FORMATS or fmt in PIPE_CODEC_WHOLE_COMPARE else \
+            _prefix(fmt, data, seconds, PIPE_HOST_TIMED_SECONDS) if host_stream else \
+            _prefix(fmt, data, seconds)
+        host, cut = cpu_pcm.get(PIPE_CPU_SHARED.get(fmt)) or \
+            (_pcm_bytes(pipeline_run(spawn, head, "cpu")[0]), len(head) < len(data))
         if fmt in PIPE_CPU_SHARED.values():
-            cpu_pcm[fmt] = host
-        card_pcm = _pcm_bytes(lone[fmt])[:len(host)]
+            cpu_pcm[fmt] = (host, cut)
+        whole_pcm = _pcm_bytes(lone[fmt])
+        card_pcm = whole_pcm[:len(host)]
         check(len(host) > 0 and len(card_pcm) == len(host),
               f"[pipeline] {fmt}: {len(host)} CPU bytes, {len(card_pcm)} card bytes")
+        if cut and host_stream:
+            r = res[fmt]
+            keep = len(host) - int(PIPE_PREFIX_GUARD_SECONDS * r["rate"]) * r["channels"] * \
+                (r["bits"] // 8)
+            check(keep > 0, f"[pipeline] {fmt}: a CPU prefix of {len(host)} bytes")
+            host, card_pcm = host[:keep], card_pcm[:keep]
         if fmt == "mp3":
             a = np.frombuffer(card_pcm, "<i2").astype(np.int32)
             b = np.frombuffer(host, "<i2").astype(np.int32)
@@ -4075,13 +4139,13 @@ def phase_pipeline(card: str):
         else:
             check(card_pcm == host, f"[pipeline] {fmt}: card and CPU outputs differ")
         if fmt in PIPE_CODEC_STREAMS:
-            res[fmt].update(codec_reference_check(fmt, card_pcm))
+            res[fmt].update(codec_reference_check(fmt, whole_pcm))
         if fmt in PIPE_CONTAINER_STREAMS:
-            res[fmt].update(container_reference_check(fmt, card_pcm))
+            res[fmt].update(container_reference_check(fmt, whole_pcm))
         if fmt == "ogg_opus_51":
-            res[fmt].update(multistream_reference_check(card_pcm))
+            res[fmt].update(multistream_reference_check(whole_pcm))
         if fmt == "adts_51":
-            res[fmt].update(aac_mc_reference_check(fmt, card_pcm))
+            res[fmt].update(aac_mc_reference_check(fmt, whole_pcm))
         res[fmt]["cpu_compare_bytes"] = len(head)
     head = _prefix("mp3", streams["mp3"][0], streams["mp3"][2])
     f32 = []
@@ -4883,10 +4947,20 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     t_start = time.perf_counter()
+    phase_s = {}  # the wall seconds of each phase, in order
+    marks = [("build", t_start)]
+
+    def enter(name: str) -> str:
+        now = time.perf_counter()
+        last, since = marks[-1]
+        phase_s[last] = phase_s.get(last, 0.0) + now - since
+        marks.append((name, now))
+        return name
+
     phase = "build"
     try:
         phase_build()
-        phase = "card"
+        phase = enter("card")
         card = phase_card()
 
         from soundkit_tpu_torch.native import AacHostParser
@@ -4901,81 +4975,82 @@ def main() -> int:
             check(not overflow, f"v4 overflow on smoke batch {t}")
             wires.append(buf)
 
-        phase = "kernels"
+        phase = enter("kernels")
         kres = phase_kernels(wires[0])
-        phase = "compare"
+        phase = enter("compare")
         cres = phase_compare(wires)
-        phase = "slice"
+        phase = enter("slice")
         sres = phase_slice(clips)
-        phase = "tel-kernels"
+        phase = enter("tel-kernels")
         tkres = phase_tel_kernels()
-        phase = "tel-compare"
+        phase = enter("tel-compare")
         tcres = phase_tel_compare()
-        phase = "telephony"
+        phase = enter("telephony")
         tres, tlaunches = phase_telephony()
-        phase = "flac-kernels"
+        phase = enter("flac-kernels")
         fkres = phase_flac_kernels()
-        phase = "flac-compare"
+        phase = enter("flac-compare")
         fcres = phase_flac_compare()
-        phase = "flac"
+        phase = enter("flac")
         fres = phase_flac(fkres["flac_frame"]["rounds"])
-        phase = "mp3-kernels"
+        phase = enter("mp3-kernels")
         mkres = phase_mp3_kernels()
-        phase = "mp3-compare"
+        phase = enter("mp3-compare")
         mcres = phase_mp3_compare()
-        phase = "mp3"
+        phase = enter("mp3")
         mres = phase_mp3()
-        phase = "celt-kernels"
+        phase = enter("celt-kernels")
         ckres = phase_celt_kernels()
-        phase = "celt-compare"
+        phase = enter("celt-compare")
         ccres = phase_celt_compare()
-        phase = "celt"
+        phase = enter("celt")
         celtres = phase_celt()
-        phase = "silk-kernels"
+        phase = enter("silk-kernels")
         skres = phase_silk_kernels()
-        phase = "silk-compare"
+        phase = enter("silk-compare")
         scres = phase_voice_compare("silk")
-        phase = "hybrid-compare"
+        phase = enter("hybrid-compare")
         hcres = phase_voice_compare("hybrid")
-        phase = "silk"
+        phase = enter("silk")
         silkres = phase_voice("silk")
-        phase = "hybrid"
+        phase = enter("hybrid")
         hybres = phase_voice("hybrid")
-        phase = "vorbis-kernels"
+        phase = enter("vorbis-kernels")
         vkres = phase_vorbis_kernels()
-        phase = "vorbis-compare"
+        phase = enter("vorbis-compare")
         vcres = phase_vorbis_compare()
-        phase = "vorbis"
+        phase = enter("vorbis")
         vres = phase_vorbis()
-        phase = "flac-enc-kernels"
+        phase = enter("flac-enc-kernels")
         enc_lanes = flac_enc_lanes()
         ekres = phase_flac_enc_kernels(enc_lanes)
-        phase = "flac-enc-compare"
+        phase = enter("flac-enc-compare")
         ecres = phase_flac_enc_compare()
-        phase = "flac-enc"
+        phase = enter("flac-enc")
         eres = phase_flac_enc(enc_lanes)
-        phase = "resample-kernels"
+        phase = enter("resample-kernels")
         rkres = phase_resample_kernels()
-        phase = "transcode"
+        phase = enter("transcode")
         trres = phase_transcode()
-        phase = "stretch-kernels"
+        phase = enter("stretch-kernels")
         st_lanes = stretch_lanes()
         stkres = phase_stretch_kernels(st_lanes)
-        phase = "stretch"
+        phase = enter("stretch")
         stres = phase_stretch(st_lanes)
         del st_lanes
-        phase = "fleet"
+        phase = enter("fleet")
         flres = phase_fleet()
-        phase = "pipeline"
+        phase = enter("pipeline")
         pres = phase_pipeline(card)
-        phase = "containers"
+        phase = enter("containers")
         cnres = phase_containers()
-        phase = "encode"
+        phase = enter("encode")
         enres = phase_encode()
-        phase = "frames"
+        phase = enter("frames")
         frres = phase_frames(enres.pop("_packets"))
-        phase = "leftovers"
+        phase = enter("leftovers")
         lres = phase_leftovers(card)
+        enter("report")
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
@@ -5110,7 +5185,7 @@ def main() -> int:
                     "transcode": trres, "stretch": stres,
                     "fleet": flres, "pipeline": pres, "containers": cnres,
                     "encode": enres, "frames": frres, "leftovers": lres,
-                    "wall_s": time.perf_counter() - t_start}))
+                    "phase_wall_s": phase_s, "wall_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Build and load the port's native code at first use.
 
-Nine shared libraries, each built into ``soundkit_tpu_torch/_build/``
+Eleven shared libraries, each built into ``soundkit_tpu_torch/_build/``
 under a name keyed by a hash of its sources and flags, so a checkout
 builds once and a source edit rebuilds. Each is built the same way: one
 compiler process a source, all started together, then one link:
@@ -43,7 +43,13 @@ compiler process a source, all started together, then one link:
   compiled alone by ``g++`` with the same flags;
 - the ALAC packet decoder, ``native_src/src/alac.cpp`` (a verbatim copy;
   the magic cookie, the adaptive Golomb residuals, the LPC restore and
-  the channel unmix), compiled alone by ``g++`` with the same flags.
+  the channel unmix), compiled alone by ``g++`` with the same flags;
+- the owned G.729 and AMR-NB decoders, ``native_src/src/g729.cpp`` and
+  ``amrnb.cpp`` with their table headers ``native_src/generated/g729_tables.h``
+  / ``amrnb_tables.h`` (written by ``tools/extract_celp_tables.py``), each
+  compiled alone by ``g++`` with the same flags and ``-ffp-contract=off``,
+  so that no multiply-add is fused where libavcodec's float code rounds
+  twice.
 
 A failed build raises :class:`BuildError` with the compiler's output.
 Nothing here runs at import time.
@@ -76,12 +82,17 @@ VORBIS_SOURCES = (NATIVE_DIR / "src" / "vorbis_parse.cpp",)
 FLAC_PACK_SOURCES = (NATIVE_DIR / "src" / "flac_pack.cpp",)
 GSM_SOURCES = (NATIVE_DIR / "src" / "gsm.cpp",)
 ALAC_SOURCES = (NATIVE_DIR / "src" / "alac.cpp",)
+G729_SOURCES = (NATIVE_DIR / "src" / "g729.cpp",)
+G729_HEADERS = (NATIVE_DIR / "generated" / "g729_tables.h",)
+AMRNB_SOURCES = (NATIVE_DIR / "src" / "amrnb.cpp",)
+AMRNB_HEADERS = (NATIVE_DIR / "generated" / "amrnb_tables.h",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-pthread", "-shared")
+CELP_FLAGS = (*GXX_FLAGS, "-ffp-contract=off")
 
 
 class BuildError(RuntimeError):
@@ -263,3 +274,15 @@ def gsm_library_path() -> Path:
 def alac_library_path() -> Path:
     gxx = _compiler("g++", "/usr/bin/g++")
     return _build("alac", gxx, GXX_FLAGS, ALAC_SOURCES, ())
+
+
+@functools.lru_cache(maxsize=1)
+def g729_library_path() -> Path:
+    gxx = _compiler("g++", "/usr/bin/g++")
+    return _build("g729", gxx, CELP_FLAGS, G729_SOURCES, G729_HEADERS)
+
+
+@functools.lru_cache(maxsize=1)
+def amrnb_library_path() -> Path:
+    gxx = _compiler("g++", "/usr/bin/g++")
+    return _build("amrnb", gxx, CELP_FLAGS, AMRNB_SOURCES, AMRNB_HEADERS)

@@ -1,19 +1,26 @@
-"""GSM 06.10 and AC-3 host decoders, and the AMR-NB / G.729 entry
-points (counterpart of ``soundkit_tpu/codecs/telephony.py``).
+"""GSM 06.10, AMR-NB, G.729 and AC-3 host decoders (counterpart of
+``soundkit_tpu/codecs/telephony.py``).
 
 - ``GsmDecoder``: ``GsmVariant.STANDARD`` 33-byte frames / 160 samples
   @8k, ``GsmVariant.MICROSOFT`` (WAV49) 65-byte frames / 320 samples,
   over the port's build of ``native_src/src/gsm.cpp``
   (``native.gsm_library``).
+- ``AmrNbDecoder``: ``#!AMR\\n`` magic strip, per-frame length from the
+  CMR/FT header byte, 160-sample frames, over the owned AMR-NB decoder
+  ``native_src/src/amrnb.cpp`` (``native.amrnb_library``; libavcodec's
+  float decoder, all eight modes).
+- ``G729Decoder``: 8 kbit/s, 10-byte frames, frame-buffered decode, over
+  the owned G.729 decoder ``native_src/src/g729.cpp``
+  (``native.g729_library``; libavcodec's integer decoder, bit for bit).
 - ``Ac3Decoder``: raw 0x0B77 syncframe streams through the owned A/52
   core (``codecs/ac3_core.py``).
-- ``amr_nb_frame_len``: the AMR-NB frame length of a TOC byte.
 
-The JAX package decodes AMR-NB and G.729 only through libavcodec, which
-the port does not build: ``AmrNbDecoder``, ``G729Decoder``,
-``make_amr_adapter`` and ``make_g729_adapter`` raise
-``UnsupportedFormat``. The rest keeps the JAX package's code but for
-the library ``GsmDecoder`` loads.
+The JAX package decodes AMR-NB and G.729 through libavcodec
+(``AvDecoder("amrnb")`` / ``AvDecoder("g729")``); the port keeps its
+framing verbatim and hands each frame to the owned decoder where it
+called ``AvDecoder.push``. Neither decoder delays a sample, so ``flush``
+returns nothing, as libavcodec's does for them. The rest keeps the JAX
+package's code but for the library ``GsmDecoder`` loads.
 """
 from __future__ import annotations
 
@@ -24,7 +31,6 @@ import numpy as np
 
 from soundkit_tpu_torch.codecs.avdec import f32_to_i16
 from soundkit_tpu_torch.core.audio_types import AudioData, EncodingFlag, Endianness
-from soundkit_tpu_torch.pipeline.output_options import UnsupportedFormat
 
 AMR_MAGIC = b"#!AMR\n"
 # AMR-NB frame payload bytes per FT (frame type) 0..7, plus SID etc.
@@ -46,9 +52,87 @@ class GsmVariant(enum.Enum):
     MICROSOFT = "microsoft"  # WAV49: 65-byte frame / 320 samples
 
 
-def _libavcodec(name: str) -> UnsupportedFormat:
-    return UnsupportedFormat(f"Unsupported format: {name} decodes only through libavcodec, "
-                             "which the port does not build")
+class _OwnedCore:
+    """The owned decoder of one stream where the JAX package opens
+    ``AvDecoder``: ``push`` decodes one frame to float32 as libavcodec's
+    sample format gives it to ``AvDecoder``, ``flush`` gives what
+    libavcodec's does at the end of these streams: nothing."""
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._free(self._h)
+            self._h = None
+
+    def flush(self) -> np.ndarray:
+        return np.zeros(0, dtype=np.float32)
+
+
+class _G729Core(_OwnedCore):
+    """``native_src/src/g729.cpp``: int16 out, over 32768 as libavcodec's."""
+
+    def __init__(self):
+        from soundkit_tpu_torch.native import g729_library
+
+        self._lib = g729_library()
+        self._free = self._lib.skt_g729_free
+        self._h = self._lib.skt_g729_new()
+
+    def push(self, frame: bytes) -> np.ndarray:
+        out = np.zeros(len(frame) // 10 * 80, dtype=np.int16)
+        n = self._lib.skt_g729_decode(self._h, frame, len(frame), out)
+        return out[:n].astype(np.float32) / 32768.0
+
+
+class _AmrNbCore(_OwnedCore):
+    """``native_src/src/amrnb.cpp``: float32 out, as libavcodec's."""
+
+    def __init__(self):
+        from soundkit_tpu_torch.native import amrnb_library
+
+        self._lib = amrnb_library()
+        self._free = self._lib.skt_amrnb_free
+        self._h = self._lib.skt_amrnb_new()
+
+    def push(self, frame: bytes) -> np.ndarray:
+        out = np.zeros(160, dtype=np.float32)
+        n = self._lib.skt_amrnb_decode_frame(self._h, frame, len(frame), out)
+        return out[:n]
+
+
+#: the owned core where the JAX package's ``_FrameBufferedDecoder`` opens
+#: ``AvDecoder(codec_name, ...)``
+_OWNED_CORES = {"g729": _G729Core}
+
+
+class _FrameBufferedDecoder:
+    """Base: buffer to fixed frame size, decode whole frames."""
+
+    frame_bytes: int
+    sample_rate: int
+    channels = 1
+
+    def __init__(self, codec_name: str, rate: int, frame_bytes: int):
+        self._av = _OWNED_CORES[codec_name]()
+        self.sample_rate = rate
+        self.frame_bytes = frame_bytes
+        self._pending = bytearray()
+
+    def decode_f32(self, data: bytes) -> np.ndarray:
+        self._pending.extend(data)
+        out = []
+        while len(self._pending) >= self.frame_bytes:
+            frame = bytes(self._pending[: self.frame_bytes])
+            del self._pending[: self.frame_bytes]
+            out.append(self._av.push(frame))
+        if not out:
+            return np.zeros(0, dtype=np.float32)
+        return np.concatenate(out)
+
+    def decode_i16(self, data: bytes) -> np.ndarray:
+        return f32_to_i16(self.decode_f32(data))
+
+    def flush(self) -> np.ndarray:
+        return self._av.flush()
 
 
 class GsmDecoder:
@@ -98,19 +182,52 @@ class GsmDecoder:
         return np.zeros(0, dtype=np.float32)
 
 
-class G729Decoder:
-    """G.729 (8 kbit/s, 10-byte frames): libavcodec in the JAX package."""
-
+class G729Decoder(_FrameBufferedDecoder):
     def __init__(self) -> None:
-        raise _libavcodec("G.729")
+        super().__init__("g729", 8000, 10)
 
 
 class AmrNbDecoder:
-    """AMR-NB (``#!AMR\\n`` magic, TOC-sized frames): libavcodec in the JAX
-    package."""
+    """Streaming AMR-NB: strips magic, walks per-frame TOC lengths."""
+
+    sample_rate = 8000
+    channels = 1
 
     def __init__(self) -> None:
-        raise _libavcodec("AMR-NB")
+        self._av = _AmrNbCore()
+        self._pending = bytearray()
+        self._magic_checked = False
+
+    def decode_f32(self, data: bytes) -> np.ndarray:
+        self._pending.extend(data)
+        if not self._magic_checked:
+            if len(self._pending) < len(AMR_MAGIC):
+                return np.zeros(0, dtype=np.float32)
+            if bytes(self._pending[: len(AMR_MAGIC)]) == AMR_MAGIC:
+                del self._pending[: len(AMR_MAGIC)]
+            self._magic_checked = True
+        out = []
+        while self._pending:
+            toc = self._pending[0]
+            payload = amr_nb_frame_len(toc)
+            if payload is None:
+                del self._pending[0]  # resync on bad TOC
+                continue
+            total = 1 + payload
+            if len(self._pending) < total:
+                break
+            frame = bytes(self._pending[:total])
+            del self._pending[:total]
+            out.append(self._av.push(frame))
+        if not out:
+            return np.zeros(0, dtype=np.float32)
+        return np.concatenate(out)
+
+    def decode_i16(self, data: bytes) -> np.ndarray:
+        return f32_to_i16(self.decode_f32(data))
+
+    def flush(self) -> np.ndarray:
+        return self._av.flush()
 
 
 class Ac3Decoder:

@@ -27,8 +27,9 @@ These streams take it:
   with an AAC or ALAC track, WebM with an Opus or Vorbis track, AC-3, Ogg
   Speex), and bytes that detection cannot name (which decode to nothing,
   as in the JAX package);
-- the explicit kinds ``opus_raw`` (soundkit's raw Opus framing) and
-  ``gsm`` (GSM 06.10, standard framing);
+- the explicit kinds ``opus_raw`` (soundkit's raw Opus framing), ``gsm``
+  (GSM 06.10, standard framing), ``amr_nb`` and ``g729`` (the owned AMR-NB
+  and G.729 decoders, where the JAX package's fleet opens libavcodec);
 - any stream whose group is full, detected or of an explicit kind;
 - an Ogg Vorbis stream whose headers disagree with the topology of the
   group (``models/vorbis_batch.TopologyMismatch``), replayed from its
@@ -64,8 +65,6 @@ Streams this fleet refuses: what the port cannot decode at all raises
 :class:`FleetUnsupported` at the ``push`` or ``end_stream`` that routes
 it, and the fleet forgets it:
 
-- the explicit kinds ``amr_nb`` and ``g729`` (libavcodec in the JAX
-  package);
 - an Opus stream whose OpusHead neither package opens (family 0 beyond
   two channels, family 3 and up, a channel mapping table missing or out
   of range; the JAX package's libavcodec refuses it too): an Ogg Opus
@@ -106,8 +105,6 @@ TELEPHONY_KINDS = (
 #: headerless kinds served by per-stream host pipelines through the same
 #: explicit-kind ingest
 HOST_KINDS = ("gsm", "amr_nb", "g729", "opus_raw")
-#: the host kinds the port cannot decode (libavcodec in the JAX package)
-REFUSED_HOST_KINDS = ("amr_nb", "g729")
 
 #: groups with a batched model in the port, beside the telephony kinds
 BATCHED_KINDS = ("aac", "mp3", "flac", "vorbis", "opus")
@@ -141,15 +138,24 @@ def _host_decoder(device):
 
 
 def _explicit_host_decoder(kind: str, device):
-    """Per-stream host decoder for an explicit kind: ``gsm``, ``opus_raw``,
-    or a telephony/batched kind whose group is full (overflow streams keep
-    decoding, just without batching), its kernels on ``device``."""
+    """Per-stream host decoder for an explicit kind: ``gsm``, ``amr_nb``,
+    ``g729``, ``opus_raw``, or a telephony/batched kind whose group is
+    full (overflow streams keep decoding, just without batching), its
+    kernels on ``device``."""
     from soundkit_tpu_torch.pipeline.decode_pipeline import DecodeOptions, StreamDecoder
 
     if kind == "gsm":
         from soundkit_tpu_torch.codecs.telephony import GsmVariant, make_gsm_adapter
 
         return StreamDecoder(DecodeOptions(), make_gsm_adapter(GsmVariant.STANDARD), device)
+    if kind == "amr_nb":
+        from soundkit_tpu_torch.codecs.telephony import make_amr_adapter
+
+        return StreamDecoder(DecodeOptions(), make_amr_adapter(), device)
+    if kind == "g729":
+        from soundkit_tpu_torch.codecs.telephony import make_g729_adapter
+
+        return StreamDecoder(DecodeOptions(), make_g729_adapter(), device)
     if kind == "opus_raw":
         from soundkit_tpu_torch.codecs.containers import make_opus_stream_adapter
 
@@ -524,8 +530,6 @@ class StreamFleet:
         """Route a stream into a named group, bypassing detection.
         Telephony groups build lazily (most fleets serve none); a full
         group overflows to the matching per-stream host decoder."""
-        if kind in REFUSED_HOST_KINDS:
-            self._refuse(stream_id, f"kind {kind!r}", "the port has no decoder for it")
         if kind not in HOST_KINDS and kind not in TELEPHONY_KINDS and kind not in BATCHED_KINDS:
             self._ended.pop(stream_id, None)
             raise ValueError(f"unknown explicit kind {kind!r}")

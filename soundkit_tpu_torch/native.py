@@ -60,6 +60,14 @@ GSM 06.10 decoder (``skt_gsm_new`` / ``decode`` / ``free`` / ``reset``),
 and :func:`alac_library` that of ``native_src/src/alac.cpp``, the ALAC
 packet decoder (``skt_alac_new`` / ``decode`` / ``free`` / ``error`` and
 the cookie's channels, sample size, rate and frame length).
+
+:func:`g729_library` is the owned G.729 decoder ``native_src/src/g729.cpp``
+(``skt_g729_new`` / ``decode`` / ``free`` / ``reset``: whole 10-byte frames
+to int16) and :func:`amrnb_library` the owned AMR-NB decoder
+``native_src/src/amrnb.cpp`` (``skt_amrnb_new`` / ``decode_frame`` /
+``free`` / ``reset``: one TOC-led frame to 160 floats, or none), the
+decoders ``codecs/telephony.G729Decoder`` / ``AmrNbDecoder`` drive in
+place of libavcodec.
 """
 from __future__ import annotations
 
@@ -452,3 +460,41 @@ class AacHostParser:
         if getattr(self, "_h", None):
             self._lib.skt_aac_free(self._h)
             self._h = None
+
+
+@functools.lru_cache(maxsize=1)
+def g729_library() -> ctypes.CDLL:
+    """The owned G.729 decoder with the signatures ``codecs/telephony.G729Decoder``
+    calls."""
+    from numpy.ctypeslib import ndpointer
+
+    lib = ctypes.CDLL(str(_build.g729_library_path()))
+    lib.skt_g729_new.restype = ctypes.c_void_p
+    lib.skt_g729_new.argtypes = []
+    lib.skt_g729_free.restype = None
+    lib.skt_g729_free.argtypes = [ctypes.c_void_p]
+    lib.skt_g729_reset.restype = None
+    lib.skt_g729_reset.argtypes = [ctypes.c_void_p]
+    lib.skt_g729_decode.restype = ctypes.c_long
+    lib.skt_g729_decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long,
+                                    ndpointer(np.int16, flags="C_CONTIGUOUS")]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def amrnb_library() -> ctypes.CDLL:
+    """The owned AMR-NB decoder with the signatures ``codecs/telephony.AmrNbDecoder``
+    calls."""
+    from numpy.ctypeslib import ndpointer
+
+    lib = ctypes.CDLL(str(_build.amrnb_library_path()))
+    lib.skt_amrnb_new.restype = ctypes.c_void_p
+    lib.skt_amrnb_new.argtypes = []
+    lib.skt_amrnb_free.restype = None
+    lib.skt_amrnb_free.argtypes = [ctypes.c_void_p]
+    lib.skt_amrnb_reset.restype = None
+    lib.skt_amrnb_reset.argtypes = [ctypes.c_void_p]
+    lib.skt_amrnb_decode_frame.restype = ctypes.c_int
+    lib.skt_amrnb_decode_frame.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long,
+                                           ndpointer(np.float32, flags="C_CONTIGUOUS")]
+    return lib

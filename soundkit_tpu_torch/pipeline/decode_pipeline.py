@@ -16,15 +16,18 @@ The synchronous core (``StreamDecoder``) is reusable without threads.
 The port's formats are WAV, raw PCM, G.711, G.722, G.726, FLAC, MP3,
 AAC-ADTS, M4A (AAC or ALAC), LOAS/LATM AAC, Ogg Opus, soundkit's raw
 Opus framing, Ogg Vorbis, WebM (Opus or Vorbis), GSM 06.10 (standard and
-WAV49), AC-3, Ogg Speex, ALAC (in MP4 or CAF) and AIFF / AIFF-C. The
+WAV49), AMR-NB, G.729, AC-3, Ogg Speex, ALAC (in MP4 or CAF) and AIFF /
+AIFF-C. The
 telephony codecs and MP3 launch their kernels (K3, K6, K7, K10) on
 ``device``, the card unless the caller names the CPU, and so does an
 AIFF-C file's µ-law / A-law (K3 at EOF); the rest decode on the host.
 M4A AAC, LATM AAC and WebM Opus decode through the owned AAC-LC and Opus
-decoders where the JAX package opens libavcodec (a stated departure).
-AMR-NB and G.729 raise ``UnsupportedFormat`` at their ``spawn_*``, as
-does a stream the owned decoders refuse (HE-AAC, more than two AAC
-channels, a multistream Opus head) when it reaches them.
+decoders where the JAX package opens libavcodec (a stated departure);
+AMR-NB and G.729 (``spawn_amr_nb`` / ``spawn_g729``) decode through the
+owned decoders where it opens libavcodec, with its framing and its
+output. A stream the owned decoders refuse (HE-AAC, an AAC channel
+configuration of 0 or beyond 7, a multistream head in the raw Opus
+framing) raises ``UnsupportedFormat`` when it reaches them.
 
 A decoder's exception becomes a ``DecodingFailed`` output, as in the
 JAX package, but for a fault of the device (a failed kernel launch,
@@ -610,8 +613,8 @@ class DecodePipeline:
 
         return cls._spawn(StreamDecoder(options, WebmAdapter(), device))
 
-    # formats the JAX package decodes only through libavcodec: each spawn
-    # raises UnsupportedFormat naming its format
+    # formats the JAX package decodes through libavcodec: the owned
+    # decoders take its place
 
     @classmethod
     def spawn_amr_nb(cls, options: DecodeOptions = DecodeOptions(), device="cuda"):

@@ -30,7 +30,9 @@ rate, channels and bits, the length and SHA-256 of the PCM bytes that
 the JAX package's ``StreamDecoder`` gives for it, and what it takes to
 lengthen it. ``reference_pcm.npz`` keeps that PCM (int16) for the AC-3
 and Speex clips that ``chip_smoke.py`` lengthens (:data:`REFERENCE_PCM`),
-whose float decoders may round otherwise on another machine. This module reads them, writes AIFF and MP4 files
+whose float decoders may round otherwise on another machine, and for the
+synthesized G.729 and AMR-NB clips beside them (``tools/celp_fixtures.py``).
+This module reads them, writes AIFF and MP4 files
 (:func:`build_aiff`, :func:`mux_mp4`), and makes long streams of a clip
 by repeating its frames or packets (:func:`long_stream`): AC-3
 syncframes, GSM frames, Speex and ALAC packets each decode as well
@@ -75,7 +77,8 @@ def clip_bytes(name: str, directory: Path = FIXTURE_DIR) -> bytes:
 
 
 def reference_pcm(name: str, directory: Path = FIXTURE_DIR) -> np.ndarray:
-    """The JAX package's int16 PCM of an AC-3 or Speex clip, interleaved."""
+    """The JAX package's int16 PCM of an AC-3, Speex, G.729 or AMR-NB clip,
+    interleaved."""
     with np.load(directory / "reference_pcm.npz") as z:
         return z[name]
 
@@ -206,7 +209,12 @@ def _ogg_speex(header: bytes, comment: bytes, packets: List[bytes], serial: int 
 
 def long_stream(name: str, seconds: float, directory: Path = FIXTURE_DIR):
     """(bytes, seconds of audio): clip ``name`` made at least ``seconds``
-    long, its frames, packets or sound data repeated in its own container."""
+    long, its frames, packets or sound data repeated in its own container
+    (a G.729 or AMR-NB clip by ``celp_fixtures.long_stream``)."""
+    from soundkit_tpu_torch.tools import celp_fixtures
+
+    if name in celp_fixtures.CLIPS:
+        return celp_fixtures.long_stream(name, seconds)
     e = load_index(directory)[name]
     data = clip_bytes(name, directory)
     reps = max(1, math.ceil(seconds / e["seconds"]))

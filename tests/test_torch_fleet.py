@@ -732,29 +732,25 @@ def test_refuses_a_detected_format_without_a_group_at_the_routing_push(name):
 
 @pytest.mark.parametrize("kind", HOST_KINDS)
 def test_refuses_an_explicit_kind_without_a_group(kind):
-    """``opus_raw`` and ``gsm`` decode on the host, joined to the bytes
-    buffered before their kind came (the name is the earlier slices':
-    only amr_nb and g729, libavcodec in the JAX package, are refused)."""
-    if kind == "gsm":
-        data = host_codec_fixtures.clip_bytes("gsm_standard")
+    """Every explicit host kind decodes on the host, joined to the bytes
+    buffered before its kind came, equal to the JAX fleet's collects (the
+    name is the earlier slices': amr_nb and g729 were refused before the
+    owned decoders took libavcodec's place)."""
+    if kind in ("gsm", "amr_nb", "g729"):
+        clip = {"gsm": "gsm_standard", "amr_nb": "amrnb_switch", "g729": "g729_speech"}[kind]
+        data = host_codec_fixtures.clip_bytes(clip)
         pair = Pair()
         pair.push("xs", data[:33])
-        pair.push("xs", data[33:1000], kind="gsm")
+        pair.push("xs", data[33:1000], kind=kind)
         assert "xs" in pair.port._fallback
         first = pair.collect()["xs"]
         pair.push("xs", data[1000:])
         pair.end("xs")
         second = pair.collect()["xs"]
-        assert first.shape[0] == 1 and first.shape[1] + second.shape[1] == 16000
+        total = host_codec_fixtures.load_index()[clip]["pcm_bytes"] // 2
+        assert first.shape[0] == 1 and first.shape[1] + second.shape[1] == total
         assert pair.rates("xs") == [8000]
         assert_retired(pair, "xs")
-        return
-    if kind != "opus_raw":
-        port = StreamFleet(2, device="cpu")
-        port.push("s", b"early bytes")
-        with pytest.raises(FleetUnsupported, match=f"kind '{kind}'.*no decoder"):
-            port.push("s", b"\x00" * 33, kind=kind)
-        assert_forgotten(port, "s")
         return
     raw = opus_fixtures.lane_raw(opus_fixtures.load_clips(), 1, 30)[0]
     pair = Pair()
@@ -945,9 +941,11 @@ def test_refused_streams_never_reach_the_jax_pipeline():
     port.push("s1", host_codec_fixtures.clip_bytes("gsm_standard")[:330], kind="gsm")
     assert isinstance(port._fallback["s1"], StreamDecoder)
     assert port._fallback["s1"].device == torch.device("cpu")
+    # amr_nb and g729 streams too (refused before the owned decoders came)
     for sid, kind in (("s2", "amr_nb"), ("s3", "g729")):
-        with pytest.raises(FleetUnsupported):
-            port.push(sid, b"\x00" * 40, kind=kind)
+        port.push(sid, b"\x00" * 40, kind=kind)
+        assert isinstance(port._fallback[sid], StreamDecoder)
+        assert port._fallback[sid].device == torch.device("cpu")
     # an M4A whose AAC track the owned decoder refuses, at its end: stereo
     # units under a 5.1 config (libavcodec gives no samples for it either)
     _asc, aus = container_fixtures.aac_units("chords", 4)
@@ -957,7 +955,7 @@ def test_refused_streams_never_reach_the_jax_pipeline():
                        match="'s4'.*host stream.*elements CPE in an access unit of channel "
                              "configuration 6"):
         port.end_stream("s4")
-    assert sorted(port._fallback) == ["g", "o", "r", "s1", "w"]
+    assert sorted(port._fallback) == ["g", "o", "r", "s1", "s2", "s3", "w"]
     src = open(fleet_mod.__file__).read()
     assert "from soundkit_tpu." not in src and "import soundkit_tpu." not in src
 
@@ -1032,7 +1030,8 @@ HOST_CODEC_STREAMS = {"x-gsm": ("gsm_standard", "gsm"), "x-ac3": ("ac3_stereo", 
                       "x-ac3-51": ("ac3_51", None), "x-speex": ("speex_wb", None),
                       "x-speex-stereo": ("speex_nb_stereo", None), "x-alac": ("alac_mp4", None),
                       "x-aifc-ulaw": ("aifc_ulaw", None), "x-aiff-24": ("aiff_24", None),
-                      "x-aifc-fl64": ("aifc_fl64", None)}
+                      "x-aifc-fl64": ("aifc_fl64", None), "x-g729": ("g729_speech", "g729"),
+                      "x-amr": ("amrnb_switch", "amr_nb")}
 
 
 def _lone_decode(data: bytes) -> np.ndarray:

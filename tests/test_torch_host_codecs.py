@@ -5,9 +5,10 @@ AIFF-C against the JAX package, bit for bit, on the committed clips of
 the decoders alone, whole and chunked, then ``DecodePipeline`` by
 detection and by explicit spawn in chunks of 4096 and 313 bytes, and
 ``simple.MusicDecoder``. An AIFF-C file's µ-law / A-law decodes through
-the port's G.711 (K3's plain version on the CPU). The stated departures
-raise: a Speex header outside the owned modes, AMR-NB, G.729 (all
-libavcodec in the JAX package)."""
+the port's G.711 (K3's plain version on the CPU). AMR-NB and G.729
+decode through the owned decoders where the JAX package opens libavcodec
+(``tests/test_torch_celp.py``). The stated departure raises: a Speex
+header outside the owned modes (libavcodec in the JAX package)."""
 import struct
 
 import numpy as np
@@ -186,11 +187,22 @@ def test_aiff_c_g711_decodes_through_k3(name, monkeypatch):
 @pytest.mark.parametrize("factory", ["make_amr_adapter", "make_g729_adapter", "AmrNbDecoder",
                                      "G729Decoder"])
 def test_amr_nb_and_g729_raise(factory):
-    """A stated departure: AMR-NB and G.729 decode only through
-    libavcodec in the JAX package."""
-    assert hasattr(jax_tel, factory)
-    with pytest.raises(UnsupportedFormat, match="libavcodec"):
-        getattr(telephony, factory)()
+    """AMR-NB and G.729 (refused by the earlier slices; the name is
+    theirs) decode through the owned decoders where the JAX package opens
+    libavcodec: each factory's decode of a clip, in 313-byte pushes, equals
+    the JAX package's (``tests/test_torch_celp.py`` holds every clip)."""
+    clip = "g729_edges" if "729" in factory else "amrnb_edges"
+    data = hcf.clip_bytes(clip)
+    port, ref = getattr(telephony, factory)(), getattr(jax_tel, factory)()
+    if factory.startswith("make_"):
+        got = [o for c in _chunks(data, 313) for o in port.process(c)] + port.flush()
+        want = [o for c in _chunks(data, 313) for o in ref.process(c)] + ref.flush()
+        assert _fields(got) == _fields(want) and got
+        assert hcf.sha256(b"".join(o.data for o in got)) == INDEX[clip]["sha256"]
+        return
+    got = np.concatenate([port.decode_i16(c) for c in _chunks(data, 313)])
+    np.testing.assert_array_equal(got, ref.decode_i16(data))
+    assert len(port.flush()) == len(ref.flush()) == 0
 
 
 def test_amr_nb_frame_lengths_equal_the_jax_package():
@@ -276,7 +288,9 @@ def test_host_codec_fixtures_equal_a_regeneration(tmp_path):
     """The generator (on the test side, with the JAX package's
     libavcodec-backed encoders and decoders) makes the committed clips and
     their index byte for byte, and the same reference PCM (the ``.npz``
-    archive's member timestamps aside)."""
+    archive's member timestamps aside): the float-decoded clips the smoke
+    lengthens and, since they were added, every G.729 / AMR-NB clip."""
+    from soundkit_tpu_torch.tools import celp_fixtures
     from torch_port_helpers import generate_host_codec_fixtures
 
     generate_host_codec_fixtures(tmp_path)
@@ -285,7 +299,8 @@ def test_host_codec_fixtures_equal_a_regeneration(tmp_path):
     for name in names:
         if name.endswith(".npz"):
             with np.load(tmp_path / name) as got, np.load(hcf.FIXTURE_DIR / name) as want:
-                assert sorted(got.files) == sorted(want.files) == sorted(hcf.REFERENCE_PCM)
+                assert sorted(got.files) == sorted(want.files) == \
+                    sorted(hcf.REFERENCE_PCM + celp_fixtures.CLIPS)
                 for k in want.files:
                     np.testing.assert_array_equal(got[k], want[k])
             continue

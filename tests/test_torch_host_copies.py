@@ -1024,14 +1024,30 @@ def test_host_codec_pieces_are_verbatim_copies(module, name, changed):
 
 
 def test_amr_and_g729_decoders_raise_where_the_jax_package_opens_libavcodec():
+    """The AMR-NB and G.729 decoders are copies but for their decoder (the
+    name is the earlier slices', whose copies raised): where the JAX
+    package opens ``AvDecoder("amrnb")`` / ``AvDecoder(codec_name, ...)``,
+    the port opens the owned ``_G729Core`` / ``_AmrNbCore``; the framing (the 10-byte
+    buffering, the magic strip, the TOC walk and its resync), the
+    conversion and ``flush`` are the JAX package's code."""
     from soundkit_tpu.codecs import telephony as jax_tel
     from soundkit_tpu_torch.codecs import telephony
 
-    assert "AvDecoder" in _source(jax_tel.AmrNbDecoder.__init__)
-    assert "AvDecoder" in _source(jax_tel._FrameBufferedDecoder.__init__)
     assert issubclass(jax_tel.G729Decoder, jax_tel._FrameBufferedDecoder)
-    for name in ("AmrNbDecoder", "G729Decoder"):
-        assert "raise _libavcodec" in _source(getattr(telephony, name).__init__)
+    assert issubclass(telephony.G729Decoder, telephony._FrameBufferedDecoder)
+    swaps = {"_FrameBufferedDecoder": ('AvDecoder(codec_name, sample_rate=rate, channels=1)',
+                                       '_OWNED_CORES[codec_name]()'),
+             "AmrNbDecoder": ('AvDecoder("amrnb", sample_rate=8000, channels=1)',
+                              '_AmrNbCore()'),
+             "G729Decoder": None}
+    for name, swap in swaps.items():
+        want = _as_port(_source(getattr(jax_tel, name)))
+        if swap:
+            assert swap[0] in want
+            want = want.replace(*swap)
+        assert _source(getattr(telephony, name)) == want, name
+    for core in (telephony._OwnedCore, telephony._G729Core, telephony._AmrNbCore):
+        assert "AvDecoder(" not in _source(core)
     assert telephony.AMR_MAGIC == jax_tel.AMR_MAGIC
     assert telephony._AMR_NB_FRAME_BYTES == jax_tel._AMR_NB_FRAME_BYTES
 

@@ -77,11 +77,15 @@ fleet.push("v", vorbis_fixtures.lane_streams(vorbis_fixtures.load_clips(), 1, 2)
 fleet.end_stream("v")
 pcm = fleet.collect()["v"]
 assert pcm.shape[0] == 2 and pcm.shape[1] > 4096 and np.isfinite(pcm).all() and np.abs(pcm).max() > 0.01
-try:
-    fleet.push("g", b"\x00" * 64, kind="amr_nb")
-    raise SystemExit("an amr_nb stream was not refused")
-except FleetUnsupported:
-    pass
+from soundkit_tpu_torch.tools import celp_fixtures
+from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
+for sid, clip in (("amr", "amrnb_switch"), ("g729", "g729_speech")):
+    fleet.push(sid, hcf.clip_bytes(clip), kind=celp_fixtures.kind(clip))
+    fleet.end_stream(sid)
+    got = fleet.collect()[sid]
+    ref = hcf.reference_pcm(clip)
+    assert got.shape == (1, len(ref)), (sid, got.shape)
+    assert np.array_equal(np.round(got[0] * 32768).astype(np.int64), ref.astype(np.int64)), sid
 from soundkit_tpu_torch.tools import host_codec_fixtures
 fleet.push("gsm", host_codec_fixtures.clip_bytes("gsm_standard"), kind="gsm")
 fleet.end_stream("gsm")

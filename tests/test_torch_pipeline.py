@@ -199,19 +199,32 @@ M4A = bytes(4) + b"ftypM4A " + bytes(20)
 
 
 def test_unported_formats_raise_unsupported_format():
-    """What the port still refuses: AMR-NB and G.729 (libavcodec in the
-    JAX package) raise at their spawns. A detected M4A and WebM, and the
-    LOAS/LATM and WebM spawns, decode since the containers were ported
-    (``tests/test_torch_container_decode.py``): a bare M4A header now meets
-    the MP4 walk's error, as in the JAX package, and detection and
-    ``new_with_format`` build the M4A and WebM adapters."""
+    """The formats the earlier slices refused decode now (the name is
+    theirs): ``spawn_amr_nb`` and ``spawn_g729`` give the JAX package's
+    events (its libavcodec decode; the port's owned decoders), and a
+    detected M4A and WebM, and the LOAS/LATM and WebM spawns, decode since
+    the containers were ported (``tests/test_torch_container_decode.py``):
+    a bare M4A header now meets the MP4 walk's error, as in the JAX
+    package, and detection and ``new_with_format`` build the M4A and WebM
+    adapters."""
     got = _drive(dp.StreamDecoder(device="cpu"), M4A, 4096)
     want = _drive(jax_dp.StreamDecoder(), M4A, 4096)
     assert _summary(got) == _summary(want) == [("error", "DecodingFailed")]
-    for name in ["spawn_amr_nb", "spawn_g729"]:
-        assert hasattr(jax_dp.DecodePipeline, name)
-        with pytest.raises(UnsupportedFormat):
-            getattr(dp.DecodePipeline, name)(device="cpu")
+    from soundkit_tpu_torch.tools import host_codec_fixtures as hcf
+
+    for name, clip in [("spawn_amr_nb", "amrnb_edges"), ("spawn_g729", "g729_edges")]:
+        data = hcf.clip_bytes(clip)
+        h, jh = getattr(dp.DecodePipeline, name)(device="cpu"), getattr(jax_dp.DecodePipeline, name)()
+        outs = []
+        for handle, sink in ((h, outs), (jh, [])):
+            for i in range(0, len(data), 313):
+                handle.send_blocking(data[i:i + 313], sink)
+            handle.send_blocking(b"", sink)
+            sink.extend(handle.recv_all(timeout=60))
+            if handle is jh:
+                want = sink
+        assert _summary(outs) == _summary(want) and _summary(outs)[0][:3] == ("audio", 8000, 1)
+        assert b"".join(o.data for o in outs) == b"".join(o.data for o in want), name
     from soundkit_tpu_torch.codecs.aac import AacLatmAdapter
     from soundkit_tpu_torch.codecs.containers import M4aAdapter, WebmAdapter
     from soundkit_tpu_torch.demux.detect import AudioType

@@ -29,11 +29,13 @@ from typing import Dict, List
 
 import numpy as np
 
+from soundkit_tpu_torch.codecs.telephony import AMR_MAGIC, amr_nb_frame_len
 from soundkit_tpu_torch.models.telephony_batch import CODECS
-from soundkit_tpu_torch.tools import (aac_fixtures, aac_mc_fixtures, container_fixtures,
-                                      flac_fixtures, host_codec_fixtures, mp3_fixtures,
-                                      mpa_fixtures, opus_fixtures, opus_ms_fixtures,
-                                      telephony_fixtures, vorbis_fixtures)
+from soundkit_tpu_torch.tools import (aac_fixtures, aac_mc_fixtures, celp_fixtures,
+                                      container_fixtures, extract_celp_tables, flac_fixtures,
+                                      host_codec_fixtures, mp3_fixtures, mpa_fixtures,
+                                      opus_fixtures, opus_ms_fixtures, telephony_fixtures,
+                                      vorbis_fixtures)
 
 SR_INDEX_48K = 3
 # AUs per clip that cover long, short (EIGHT_SHORT) and TNS frames
@@ -1069,6 +1071,261 @@ def generate_host_codec_fixtures(directory: Path = host_codec_fixtures.FIXTURE_D
             ref_pcm[name] = np.frombuffer(pcm_bytes, "<i2")
     np.savez_compressed(directory / "reference_pcm.npz", **ref_pcm)
     (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
+    generate_celp_fixtures(directory)  # the synthesized G.729 / AMR-NB clips beside them
+
+
+# ---------------------------------------------------------------------------
+# G.729 and AMR-NB (owned decoders; the JAX package's libavcodec is the
+# reference)
+# ---------------------------------------------------------------------------
+
+G729_FIELDS = (1, 7, 5, 5, 8, 1, 13, 4, 3, 4, 5, 13, 4, 3, 4)  # L0..L3, P1, P0, C1, ..., GB2
+
+
+def _pack_msb(values, widths) -> bytes:
+    acc, n = 0, 0
+    for v, w in zip(values, widths):
+        acc = (acc << w) | (int(v) & ((1 << w) - 1))
+        n += w
+    return acc.to_bytes(n // 8, "big")
+
+
+def _g729_lag_index(lag: float) -> int:
+    """The 8-bit first-subframe index of a pitch lag (1/3 resolution below 85)."""
+    if lag < 85:
+        return int(np.clip(round(3 * lag) - 58, 0, 196))
+    return int(np.clip(round(lag) + 112, 197, 255))
+
+
+def g729_speech_frames(n: int, rng, bad_parity=()) -> List[bytes]:
+    """``n`` G.729 frames packed from slow trajectories: the lag drifting over
+    40-140 samples, mid-range gains, LSF indices held 4-8 frames; the frames
+    in ``bad_parity`` carry the wrong parity bit."""
+    frames, lsf, hold = [], None, 0
+    phase = rng.uniform(0, 2 * np.pi)
+    for i in range(n):
+        if hold == 0:
+            lsf = tuple(rng.integers(0, 1 << w) for w in G729_FIELDS[:4])
+            hold = int(rng.integers(4, 9))
+        hold -= 1
+        lag = 90 + 50 * np.sin(2 * np.pi * i / 170 + phase)
+        p1 = _g729_lag_index(lag)
+        p0 = (bin(p1 >> 2).count("1") & 1) ^ 1 ^ (1 if i in bad_parity else 0)
+        sub = [(rng.integers(0, 1 << 13), rng.integers(0, 16), rng.integers(2, 6),
+                rng.integers(5, 11)) for _ in range(2)]
+        p2 = int(np.clip(15 + rng.integers(-2, 3), 0, 31))
+        frames.append(_pack_msb((*lsf, p1, p0, *sub[0], p2, *sub[1]), G729_FIELDS))
+    return frames
+
+
+def _amr_order(mode: int):
+    """(size, byte offset, bits) of each field of an AMR-NB mode's bit order,
+    from the port's extracted tables."""
+    t = extract_celp_tables.load("amrnb")[f"order_MODE_{celp_fixtures.AMR_MODES[mode]}"]
+    out, i = [], 0
+    while t[i]:
+        size, off = int(t[i]), int(t[i + 1])
+        out.append((size, off, [int(b) for b in t[i + 2:i + 2 + size]]))
+        i += 2 + size
+    return out
+
+
+def amr_pack(mode: int, fields: dict, quality: int = 1) -> bytes:
+    """An AMR-NB frame (TOC and payload) of ``mode`` with the field values
+    ``fields`` ({byte offset: value}; the rest zero), packed through the
+    mode's bit order."""
+    payload = bytearray(amr_nb_frame_len(mode << 3))
+    for size, off, bits in _amr_order(mode):
+        v = fields.get(off, 0)
+        for k, bit in enumerate(bits):
+            if (v >> (size - 1 - k)) & 1:
+                payload[bit >> 3] |= 1 << (bit & 7)
+    return bytes([(mode << 3) | (quality << 2)]) + bytes(payload)
+
+
+def amr_speech_frames(modes, rng) -> List[bytes]:
+    """One frame a mode of ``modes``, its fields from slow trajectories: the
+    absolute lags drifting over 40-140 samples, the relative ones near the
+    last lag, mid-range gain indices, LSF indices held 4-8 frames, random
+    pulses."""
+    frames, lsf, hold = [], {}, 0
+    phase = rng.uniform(0, 2 * np.pi)
+    for i, mode in enumerate(modes):
+        order = _amr_order(mode)
+        width = {off: size for size, off, _ in order}
+        if hold == 0:
+            lsf = {off: int(rng.integers(0, 1 << width.get(off, 0))) for off in range(0, 10, 2)}
+            hold = int(rng.integers(4, 9))
+        hold -= 1
+        lag = 90 + 50 * np.sin(2 * np.pi * i / 170 + phase)
+        fields = {off: v for off, v in lsf.items() if off in width}
+        for s in range(4):
+            base = 10 + 26 * s
+            w = width.get(base, 0)
+            if mode == 7 and s in (0, 2):  # 9 bits, 1/6 resolution
+                fields[base] = (int(round(6 * lag)) - 105 if lag < 94 else int(round(lag)) + 368)
+            elif s == 0 or (s == 2 and mode > 1):  # 8 bits, 1/3 resolution
+                fields[base] = _g729_lag_index(lag)
+            else:  # relative to the last lag: the middle of its range
+                fields[base] = (1 << w) // 2 - 1 + int(rng.integers(-1, 2))
+            wg = width.get(base + 2, 0)
+            if wg:
+                fields[base + 2] = int(rng.integers((1 << wg) // 4, 3 * (1 << wg) // 4))
+            if width.get(base + 4):
+                fields[base + 4] = int(rng.integers(10, 22))
+            for k in range(10):
+                wp = width.get(base + 6 + 2 * k, 0)
+                if wp:
+                    fields[base + 6 + 2 * k] = int(rng.integers(0, 1 << wp))
+        frames.append(amr_pack(mode, fields))
+    return frames
+
+
+def amr_random_frames(modes, rng) -> List[bytes]:
+    return [bytes([(m << 3) | 4]) +
+            rng.integers(0, 256, amr_nb_frame_len(m << 3), dtype=np.uint8).tobytes()
+            for m in modes]
+
+
+def celp_clip_bytes() -> Dict[str, bytes]:
+    """The G.729 and AMR-NB clips, from numpy seeds."""
+    clips = {}
+    rng = np.random.default_rng(8900)
+    data = rng.integers(0, 256, 10 * 300, dtype=np.uint8)
+    for f in rng.integers(0, 300, 12):
+        data[10 * f:10 * f + 10] = 0
+    clips["g729_random"] = data.tobytes()
+    clips["g729_speech"] = b"".join(g729_speech_frames(400, np.random.default_rng(8901)))
+    rng = np.random.default_rng(8902)
+    frames = g729_speech_frames(250, rng, bad_parity={20, 21, 77, 140, 141, 142, 200})
+    for start, run in ((30, 1), (60, 3), (100, 10), (180, 2), (248, 2)):
+        for f in range(start, start + run):
+            frames[f] = bytes(10)
+    clips["g729_edges"] = b"".join(frames) + rng.integers(0, 256, 7, dtype=np.uint8).tobytes()
+
+    rng = np.random.default_rng(8910)
+    clips["amrnb_random"] = AMR_MAGIC + b"".join(
+        amr_random_frames(rng.integers(0, 8, 150), rng))
+    for m, mode in enumerate(celp_fixtures.AMR_MODES):
+        clips[f"amrnb_{mode}"] = AMR_MAGIC + b"".join(
+            amr_speech_frames([m] * 100, np.random.default_rng(8920 + m)))
+    rng = np.random.default_rng(8930)
+    clips["amrnb_switch"] = AMR_MAGIC + b"".join(
+        amr_speech_frames(rng.integers(0, 8, 150), rng))
+
+    rng = np.random.default_rng(8940)
+    parts = []
+    for i, m in enumerate(rng.integers(0, 8, 110)):
+        frame = amr_speech_frames([int(m)], rng)[0]
+        kind = i % 11
+        if kind == 1:
+            frame = bytes([(8 << 3) | 4]) + rng.integers(0, 256, 5, dtype=np.uint8).tobytes()  # SID
+        elif kind == 3:
+            frame = bytes([(15 << 3) | 4])  # NO_DATA
+        elif kind == 5:
+            frame = bytes([frame[0] & ~4]) + frame[1:]  # quality bit 0
+        elif kind == 7:
+            frame = bytes([frame[0] | 0x80]) + frame[1:]  # bit 7 set
+        elif kind == 9:
+            frame = bytes([(int(rng.integers(9, 15)) << 3) | 4]) + frame  # a byte to resync past
+        parts.append(frame)
+    tail = amr_speech_frames([7], rng)[0][:20]
+    clips["amrnb_edges"] = AMR_MAGIC + b"".join(parts) + tail
+    rng = np.random.default_rng(8950)
+    clips["amrnb_nomagic"] = b"".join(amr_speech_frames(rng.integers(0, 8, 100), rng)) + \
+        amr_speech_frames([4], rng)[0][:9]
+    return clips
+
+
+def jax_celp_decode(name: str, data: bytes) -> list:
+    """The JAX package's ``StreamDecoder`` outputs for a G.729 or AMR-NB
+    stream (libavcodec's decoders behind its framing)."""
+    from soundkit_tpu.codecs.telephony import make_amr_adapter, make_g729_adapter
+    from soundkit_tpu.pipeline.decode_pipeline import StreamDecoder
+    from soundkit_tpu.pipeline.output_options import DecodeOptions
+
+    adapter = make_g729_adapter() if name.startswith("g729") else make_amr_adapter()
+    dec = StreamDecoder(DecodeOptions(), adapter)
+    return dec.process(data) + dec.process(b"")
+
+
+def generate_celp_fixtures(directory: Path = host_codec_fixtures.FIXTURE_DIR) -> None:
+    """Write the G.729 and AMR-NB clips, decode each through the JAX
+    package and merge their entries into the host codecs' index and
+    reference PCM (the other clips' entries are kept)."""
+    from soundkit_tpu.core.audio_types import AudioData
+
+    hcf = host_codec_fixtures
+    index = json.loads((directory / "index.json").read_text())
+    with np.load(directory / "reference_pcm.npz") as z:
+        ref_pcm = {k: z[k] for k in z.files}
+    for name, data in celp_clip_bytes().items():
+        outs = jax_celp_decode(name, data)
+        audio = [o for o in outs if isinstance(o, AudioData)]
+        assert audio and len(audio) == len(outs), (name, outs)
+        pcm_bytes = b"".join(o.data for o in audio)
+        a0 = audio[0]
+        ext = "g729" if name.startswith("g729") else "amr"
+        (directory / f"{name}.{ext}").write_bytes(data)
+        index[name] = dict(file=f"{name}.{ext}", spawn=celp_fixtures.kind(name),
+                           rate=a0.sampling_rate, channels=a0.channel_count,
+                           bits=a0.bits_per_sample, format=a0.audio_format.value,
+                           seconds=len(pcm_bytes) // 2 / a0.sampling_rate,
+                           pcm_bytes=len(pcm_bytes), sha256=hcf.sha256(pcm_bytes))
+        ref_pcm[name] = np.frombuffer(pcm_bytes, "<i2")
+    np.savez_compressed(directory / "reference_pcm.npz", **ref_pcm)
+    (directory / "index.json").write_text(json.dumps(index, indent=1) + "\n")
+
+
+def celp_jax_f32(name: str, data: bytes = None) -> np.ndarray:
+    """The JAX package's float32 decode of a G.729 or AMR-NB clip
+    (``decode_f32`` of its decoder, then ``flush``)."""
+    from soundkit_tpu.codecs.telephony import AmrNbDecoder, G729Decoder
+
+    data = host_codec_fixtures.clip_bytes(name) if data is None else data
+    dec = G729Decoder() if name.startswith("g729") else AmrNbDecoder()
+    return np.concatenate([dec.decode_f32(data), dec.flush()])
+
+
+def celp_random_streams(codec: str, streams: int, seed: int) -> List[bytes]:
+    """``streams`` seeded random G.729 or AMR-NB streams of 50 frames each:
+    G.729 uniform random 10-byte frames, one in ten erased; AMR-NB the
+    magic and random payloads of random modes behind valid TOC bytes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(streams):
+        if codec == "g729":
+            data = rng.integers(0, 256, (50, 10), dtype=np.uint8)
+            data[rng.random(50) < 0.1] = 0
+            out.append(data.tobytes())
+        else:
+            out.append(AMR_MAGIC + b"".join(amr_random_frames(rng.integers(0, 8, 50), rng)))
+    return out
+
+
+def celp_random_sweep(codec: str, streams: int = 140, seed: int = 8960) -> Dict[str, float]:
+    """The port's ``G729Decoder`` / ``AmrNbDecoder`` against the JAX
+    package's (libavcodec) on :func:`celp_random_streams`, whole stream then
+    flush: the streams, the worst float32 SNR in dB, the worst int16
+    difference and the streams not equal in float32. ``tests/test_torch_celp.py``
+    holds it; run it alone as ``JAX_PLATFORMS=cpu python -c "import sys;
+    sys.path.insert(0, 'tests'); import torch_port_helpers as h;
+    print(h.celp_random_sweep('amrnb'))"`` from the repository's root."""
+    from soundkit_tpu.codecs import telephony as jax_tel
+    from soundkit_tpu_torch.codecs import telephony
+
+    worst_snr, worst_lsb, unequal = float("inf"), 0, 0
+    for data in celp_random_streams(codec, streams, seed):
+        decs = (telephony.G729Decoder(), jax_tel.G729Decoder()) if codec == "g729" else \
+            (telephony.AmrNbDecoder(), jax_tel.AmrNbDecoder())
+        got, want = (np.concatenate([d.decode_f32(data), d.flush()]) for d in decs)
+        assert got.shape == want.shape, (got.shape, want.shape)
+        if not np.array_equal(got, want):
+            unequal += 1
+            worst_snr = min(worst_snr, snr_db(got, want))
+        worst_lsb = max(worst_lsb, int(np.abs(telephony.f32_to_i16(got).astype(np.int32)
+                                              - jax_tel.f32_to_i16(want).astype(np.int32)).max()))
+    return dict(streams=streams, worst_snr_db=worst_snr, worst_lsb=worst_lsb, unequal=unequal)
 
 
 def jax_owned_aac_i16(asc: bytes, aus: List[bytes]) -> bytes:
@@ -1848,7 +2105,7 @@ if __name__ == "__main__":
      "flac": generate_flac_fixtures, "mp3": generate_mp3_fixtures,
      "opus": generate_opus_fixtures, "silk_resampler": generate_silk_resampler_table,
      "vorbis": generate_vorbis_fixtures,
-     "host_codecs": generate_host_codec_fixtures,
+     "host_codecs": generate_host_codec_fixtures, "celp": generate_celp_fixtures,
      "containers": generate_container_index,
      "mpa": generate_mpa_fixtures, "opus_ms": generate_opus_ms_fixtures,
      "aac_mc": generate_aac_mc_fixtures}[sys.argv[1]]()
